@@ -1,0 +1,102 @@
+"""Model registry and construction.
+
+``create_model(name, device=None, seed=0)`` builds a model on the card
+(``device=None`` means ``cuda``; it raises when CUDA is absent, and a CPU
+model is had only by asking for ``device="cpu"``). Parameters are made
+directly on the device (the module tree is built on the meta device, then
+materialized) and drawn from a ``torch.Generator`` seeded with ``seed``,
+with the JAX package's initializers: truncated-normal fan-in scaling for
+conv kernels, truncated normal (0.02) for dense layers and the
+relative-position tables, zero biases, the GDN and bottleneck inits.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..nn.layers import WindowAttention
+from .base import CodecTables, CompressionModel
+from .cnn import WACNN
+from .codec import CharmCodec, build_codec_tables, cuda_numerics, enc_round
+
+models = {
+    "cnn": (WACNN, {}),
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """None -> cuda. Raises if a CUDA device is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "icm_tpu_torch runs on a CUDA device and none is available; "
+                "pass device='cpu' to run the plain PyTorch path on the CPU"
+            )
+    return dev
+
+
+def _trunc_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
+    """Normal(0, std) truncated at +-2 std (redrawn), on the CPU."""
+    x = torch.randn(shape, generator=generator)
+    bad = x.abs() > 2
+    while bad.any():
+        x[bad] = torch.randn(int(bad.sum()), generator=generator)
+        bad = x.abs() > 2
+    return x * std
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter of ``model`` from ``generator``."""
+    # std of a unit normal truncated at +-2, as flax's variance scaling uses
+    trunc_std = 0.87962566103423978
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = mod.weight
+            k = w.shape[2] * w.shape[3]
+            # fan_in of the flax kernel (kH, kW, I, O): torch's Conv2d keeps
+            # I at dim 1, ConvTranspose2d at dim 0
+            fan_in = k * (w.shape[1] if isinstance(mod, nn.Conv2d) else w.shape[0])
+            std = math.sqrt(1.0 / fan_in) / trunc_std
+            w.copy_(_trunc_normal(w.shape, std, generator))
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Linear):
+            mod.weight.copy_(_trunc_normal(mod.weight.shape, 0.02, generator))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, WindowAttention):
+            t = mod.relative_position_bias_table
+            t.copy_(_trunc_normal(t.shape, 0.02, generator))
+        elif hasattr(mod, "reset_parameters") and mod is not model:
+            mod.reset_parameters(generator)
+
+
+def create_model(name: str, device=None, seed: int = 0, **overrides) -> CompressionModel:
+    """Build ``name`` on ``device`` (default: the CUDA card) in eval mode,
+    with weights drawn from a generator seeded with ``seed``."""
+    dev = resolve_device(device)
+    cls, kwargs = models[name]
+    with torch.device("meta"):
+        model = cls(**{**kwargs, **overrides})
+    model = model.to_empty(device=dev)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.eval()
+
+
+__all__ = [
+    "CompressionModel",
+    "CodecTables",
+    "WACNN",
+    "CharmCodec",
+    "build_codec_tables",
+    "create_model",
+    "cuda_numerics",
+    "enc_round",
+    "init_parameters",
+    "models",
+    "resolve_device",
+]

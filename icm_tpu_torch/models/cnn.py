@@ -1,0 +1,156 @@
+"""WACNN: window-attention CNN codec with ChARM context (registry "cnn").
+
+Port of ``icm_tpu/models/cnn.py`` (eval forward and the protocol the
+coder calls): conv + GDN + window-attention analysis and synthesis, a conv
+hyper-encoder, mean and scale hyper-decoders, and a channel-autoregressive
+context over ``num_slices`` slices with first-``max_support_slices``
+support and latent-residual prediction (LRP, 0.5 * tanh). Submodule names
+follow the flax tree (``g_a.Conv_0``, ``cc_mean_3.Conv_4`` ...).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..entropy import EntropyBottleneck, GaussianConditional
+from ..nn import (
+    GDN,
+    SubpelConv,
+    Win_noShift_Attention,
+    conv,
+    conv3x3,
+    deconv,
+    named_sequential,
+)
+from .base import CompressionModel, prefix_support
+
+
+class _Gelu(nn.Module):
+    def forward(self, x):
+        return F.gelu(x)
+
+
+def _analysis(N: int, M: int) -> nn.Sequential:
+    return named_sequential(
+        conv(3, N, 5, 2), GDN(N),
+        conv(N, N, 5, 2), GDN(N),
+        Win_noShift_Attention(N, num_heads=8, window_size=8, shift_size=4),
+        conv(N, N, 5, 2), GDN(N),
+        conv(N, M, 5, 2),
+        Win_noShift_Attention(M, num_heads=8, window_size=4, shift_size=2),
+    )
+
+
+def _synthesis(N: int, M: int, out_ch: int = 3) -> nn.Sequential:
+    return named_sequential(
+        Win_noShift_Attention(M, num_heads=8, window_size=4, shift_size=2),
+        deconv(M, N, 5, 2), GDN(N, inverse=True),
+        deconv(N, N, 5, 2), GDN(N, inverse=True),
+        Win_noShift_Attention(N, num_heads=8, window_size=8, shift_size=4),
+        deconv(N, N, 5, 2), GDN(N, inverse=True),
+        deconv(N, out_ch, 5, 2),
+    )
+
+
+def _hyper_encoder(in_ch: int, widths: tuple) -> nn.Sequential:
+    """3x3 convs with strides 1, 1, 2, 1, 2 and GELU between."""
+    layers, c = [], in_ch
+    for i, (w, s) in enumerate(zip(widths, (1, 1, 2, 1, 2))):
+        if i > 0:
+            layers.append(_Gelu())
+        layers.append(conv3x3(c, w, stride=s))
+        c = w
+    return named_sequential(*layers)
+
+
+def _hyper_decoder(in_ch: int, widths: tuple) -> nn.Sequential:
+    """conv + sub-pixel 2x upsample stack (h_mean_s / h_scale_s)."""
+    w = widths
+    return named_sequential(
+        conv3x3(in_ch, w[0]), _Gelu(),
+        SubpelConv(w[0], w[1], r=2), _Gelu(),
+        conv3x3(w[1], w[2]), _Gelu(),
+        SubpelConv(w[2], w[3], r=2), _Gelu(),
+        conv3x3(w[3], w[4]),
+    )
+
+
+def _cc_transform(in_ch: int, out_ch: int, widths: tuple) -> nn.Sequential:
+    """Per-slice context stack: 3x3 convs with GELU between."""
+    layers, c = [], in_ch
+    for w in widths:
+        layers += [conv(c, w, kernel_size=3, stride=1), _Gelu()]
+        c = w
+    layers.append(conv(c, out_ch, kernel_size=3, stride=1))
+    return named_sequential(*layers)
+
+
+class WACNN(CompressionModel):
+    def __init__(
+        self,
+        N: int = 192,
+        M: int = 320,
+        num_slices: int = 10,
+        max_support_slices: int = 5,
+        hyper_enc_widths: tuple = (320, 288, 256, 224, 192),
+        hyper_dec_widths: tuple = (192, 224, 256, 288, 320),
+        cc_widths: tuple = (224, 176, 128, 64),
+    ):
+        super().__init__()
+        if M % num_slices:
+            raise ValueError(f"M={M} does not split into {num_slices} slices")
+        self.N, self.M = N, M
+        self.num_slices = num_slices
+        self.max_support_slices = max_support_slices
+        self.g_a = _analysis(N, M)
+        self.g_s = _synthesis(N, M)
+        self.h_a = _hyper_encoder(M, hyper_enc_widths)
+        z_ch = hyper_enc_widths[-1]
+        self.h_mean_s = _hyper_decoder(z_ch, hyper_dec_widths)
+        self.h_scale_s = _hyper_decoder(z_ch, hyper_dec_widths)
+        sc = M // num_slices
+        cond = hyper_dec_widths[-1]
+        for i in range(num_slices):
+            sup = sc * (i if max_support_slices < 0 else min(i, max_support_slices))
+            self.add_module(f"cc_mean_{i}", _cc_transform(cond + sup, sc, cc_widths))
+            self.add_module(f"cc_scale_{i}", _cc_transform(cond + sup, sc, cc_widths))
+            self.add_module(f"lrp_{i}", _cc_transform(cond + sup + sc, sc, cc_widths))
+        self.entropy_bottleneck = EntropyBottleneck(z_ch)
+        self.gaussian_conditional = GaussianConditional()
+
+    # --- ChARM protocol (see base.CompressionModel) --------------------------
+    def analyze(self, x):
+        y = self.g_a(x)
+        return y, self.h_a(y)
+
+    def synthesize(self, y_hat):
+        return self.g_s(y_hat)
+
+    def ctx_prepare(self, z_hat):
+        return {"means": self.h_mean_s(z_hat), "scales": self.h_scale_s(z_hat)}
+
+    def latent_slices(self, y):
+        return list(torch.chunk(y, self.num_slices, dim=1))
+
+    @property
+    def ctx_slices(self) -> int:
+        return self.num_slices
+
+    def ctx_support(self, i: int, decoded: list) -> list:
+        return prefix_support(self.max_support_slices)(i, decoded)
+
+    def slice_context(self, i, state, support):
+        mean_support = torch.cat([state["means"]] + support, dim=1)
+        mu = getattr(self, f"cc_mean_{i}")(mean_support)
+        scale_support = torch.cat([state["scales"]] + support, dim=1)
+        scale = getattr(self, f"cc_scale_{i}")(scale_support)
+        return mu, scale, mean_support
+
+    def slice_lrp(self, i, mean_support, y_hat_slice):
+        lrp_support = torch.cat([mean_support, y_hat_slice], dim=1)
+        return 0.5 * torch.tanh(getattr(self, f"lrp_{i}")(lrp_support))
+
+    def ctx_assemble(self, y_hat_slices):
+        return torch.cat(y_hat_slices, dim=1)

@@ -1,0 +1,46 @@
+"""Generalized Divisive Normalization: ``y = x / sqrt(beta + gamma x^2)``
+(inverse: times the sqrt), beta and gamma kept positive by the
+non-negative reparametrization.
+
+Port of ``icm_tpu/nn/gdn.py``, forward only. The normalizer is a plain
+1x1 product over channels (a 1x1 conv in NCHW), as the JAX package's
+default forward is an einsum and not a kernel. ``gamma`` is stored as
+(C_out, C_in), the conv-weight orientation; the JAX package stores its
+transpose (``convert.from_jax_params`` transposes).
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import NonNegativeParametrizer
+
+
+class GDN(nn.Module):
+    def __init__(self, channels: int, inverse: bool = False,
+                 beta_min: float = 1e-6, gamma_init: float = 0.1):
+        super().__init__()
+        self.channels = channels
+        self.inverse = inverse
+        self.gamma_init = gamma_init
+        self.beta_reparam = NonNegativeParametrizer(minimum=beta_min)
+        self.gamma_reparam = NonNegativeParametrizer()
+        self.beta = nn.Parameter(torch.empty(channels))
+        self.gamma = nn.Parameter(torch.empty(channels, channels))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        C = self.channels
+        dev = self.beta.device
+        self.beta.copy_(self.beta_reparam.init(torch.ones(C, device=dev)))
+        self.gamma.copy_(self.gamma_reparam.init(
+            self.gamma_init * torch.eye(C, device=dev)))
+
+    def forward(self, x):
+        beta = self.beta_reparam(self.beta)
+        gamma = self.gamma_reparam(self.gamma)
+        C = self.channels
+        norm = F.conv2d(x * x, gamma.to(x.dtype).reshape(C, C, 1, 1),
+                        beta.to(x.dtype))
+        norm = torch.sqrt(norm) if self.inverse else torch.rsqrt(norm)
+        return x * norm
