@@ -1,4 +1,4 @@
-"""Smoke run of icm_tpu_torch on one NVIDIA card: build, check, serve.
+"""Smoke run of icm_tpu_torch on one NVIDIA card: build, check, serve, train.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,20 +7,32 @@ and exits non-zero (printing no result) without a card or without the
 package beside it. Phases, each printed with its elapsed seconds:
 
 1. environment: the card's name and power limit (nvidia-smi), versions;
-2. build: the window-attention kernel (nvcc, sm_90a) and the host rANS
-   coder (g++), from the sources in the checkout, both at once;
-3. the kernel against its plain PyTorch version on the card, at the
-   shapes of the full-width WACNN codec's path, in f32 and bf16, timed
+2. build: the window-attention and GDN kernels (nvcc, sm_90a) and the
+   host rANS coder (g++), from the sources in the checkout, all at once;
+3. window attention against its plain PyTorch version on the card, at
+   the shapes of the full-width WACNN's path, in f32 and bf16, timed
    beside the plain version and F.scaled_dot_product_attention (a
    yardstick the port never calls);
-4. the full-width WACNN (N=192, M=320, 10 slices) on the card with
+4. the fused GDN forward and backward kernels against their plain
+   versions at the training step's shapes (8 x 192 x 128^2, 64^2, 32^2,
+   GDN and IGDN) and one ragged shape, timed beside the plain versions;
+   two backward launches must give the same bits;
+5. the full-width WACNN (N=192, M=320, 10 slices) on the card with
    weights drawn from ``--seed``: compress -> decompress of 2 images of
    512x512 made from ``--seed``. The kernel launch counts are zeroed
    right before and read right after each side. Asserts a bit-exact
    y_hat, the decoder's x_hat equal to the encoder's, a finite bpp, and
-   kernel launches on both sides;
-5. the same weights' eval forward on the card against the plain CPU path
-   on a small input.
+   window-attention and GDN-forward launches on both sides;
+6. the same weights' eval forward on the card against the plain CPU path
+   on a small input;
+7. full-width WACNN training through ``train.run_training``: one epoch
+   of 6 steps on seeded batches of 8 x 256 x 256, an eval batch, a
+   checkpoint, and a resume for 2 more steps. Every step's loss, bpp and
+   aux loss must be finite, the parameters must move, and each step must
+   launch the three kernels (counts zeroed before it and read after it);
+8. one training step of the trained weights on the card against the
+   plain CPU path on a small input, with the same noise: the loss terms
+   and every parameter's gradient.
 
 It then prints the kernels line (JSON), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -34,6 +46,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -52,6 +65,17 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # on the other side of a rounding boundary moves the output by one ulp
 # (2**-7 relative, outputs up to ~2)
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
+
+# the GDN kernels against their plain versions: y and dx absolutely (sums
+# of 192 products in another order, values O(1)); dgamma and dbeta
+# relative to each tensor's max, since each is a sum over up to 131072
+# rows, taken here in two fixed stages and by cuBLAS in its own order
+GDN_TOLERANCE = {"y": 1e-5, "dx": 1e-5, "dgamma": 1e-4, "dbeta": 1e-4}
+# one training step, card against CPU, each loss term and each gradient
+# relative to its max: f32 on both, ~70 layers forward and back with sums
+# in other orders (cuDNN and the kernels against oneDNN and the plain
+# versions), through the log-likelihoods
+TRAIN_TOLERANCE = 1e-3
 
 
 def log(msg: str) -> None:
@@ -174,6 +198,224 @@ def check_kernel(twa):
     return rows
 
 
+def gdn_bound_ms(B, C, P, backward: bool):
+    """Least time for the fused GDN work in f32: x (and g) read once, y
+    (dx) written once, gamma and beta read (and their gradients written)
+    once; against one C x C product per pixel (three in the backward)
+    plus the elementwise work (4 operations per element forward: square,
+    add beta, rsqrt, multiply; 14 backward). -> (ms, "bytes" | "operations")."""
+    elems = B * C * P
+    if backward:
+        nbytes = 4 * (3 * elems + 2 * (C * C + C))
+        ops = 6 * C * C * B * P + 14 * elems
+    else:
+        nbytes = 4 * (2 * elems + C * C + C)
+        ops = 2 * C * C * B * P + 4 * elems
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_gdn(tgdn):
+    """Phase 4: the GDN kernels vs their plain versions. -> rows."""
+    import torch
+
+    # (path, B, C, H, W): the GDN layers of the training step (8 x 256 px)
+    # and of compress/decompress (2 x 512 px), then a ragged row count
+    cases = [("train", 8, 192, s, s) for s in (128, 64, 32)]
+    cases += [("serve", 2, 192, s, s) for s in (256, 128, 64)]
+    cases.append(("ragged", 3, 192, 13, 21))  # 273 pixels, 9 tiles of 32
+    rows = []
+    for path, B, C, H, W in cases:
+        rng = np.random.default_rng([B, H, W])
+        dev = torch.device("cuda")
+        x, g = (torch.from_numpy(rng.standard_normal((B, C, H, W)).astype(np.float32)).to(dev)
+                for _ in range(2))
+        gamma = torch.from_numpy(  # (C_out, C_in), not symmetric
+            (0.1 * np.eye(C) + 0.01 * rng.random((C, C))).astype(np.float32)).to(dev)
+        beta = torch.from_numpy((1.0 + 0.1 * rng.random(C)).astype(np.float32)).to(dev)
+        for inverse in (False, True):
+            y = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
+            dx, dgamma, dbeta = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
+            again = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
+            torch.cuda.synchronize()
+            y_ref = tgdn.gdn_forward_reference(x, gamma, beta, inverse)
+            dx_ref, dgamma_ref, dbeta_ref = tgdn.gdn_backward_reference(g, x, gamma, beta, inverse)
+            err = {
+                "y": (y - y_ref).abs().max().item(),
+                "dx": (dx - dx_ref).abs().max().item(),
+                "dgamma": ((dgamma - dgamma_ref).abs().max() / dgamma_ref.abs().max()).item(),
+                "dbeta": ((dbeta - dbeta_ref).abs().max() / dbeta_ref.abs().max()).item(),
+            }
+            deterministic = all(torch.equal(a, b) for a, b in zip(again, (dx, dgamma, dbeta)))
+            row = dict(path=path, B=B, C=C, H=H, W=W, inverse=inverse, err=err,
+                       deterministic=deterministic)
+            P = H * W
+            for name, kernel, plain, backward in (
+                ("forward", lambda: tgdn.gdn_forward_cuda(x, gamma, beta, inverse),
+                 lambda: tgdn.gdn_forward_reference(x, gamma, beta, inverse), False),
+                ("backward", lambda: tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse),
+                 lambda: tgdn.gdn_backward_reference(g, x, gamma, beta, inverse), True),
+            ):
+                bound, by = gdn_bound_ms(B, C, P, backward)
+                row[name] = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                                 bound_ms=bound, bound_by=by)
+            rows.append(row)
+            f, b = row["forward"], row["backward"]
+            log(f"  gdn {path} {B}x{C}x{H}x{W} inverse={inverse}: err "
+                f"{ {k: f'{v:.2e}' for k, v in err.items()} } deterministic {deterministic}; "
+                f"forward ms {f['ms']:.4f} plain {f['plain_ms']:.4f} bound {f['bound_ms']:.4f} "
+                f"({f['bound_by']}); backward ms {b['ms']:.4f} plain {b['plain_ms']:.4f} "
+                f"bound {b['bound_ms']:.4f} ({b['bound_by']})")
+            finite = all(bool(torch.isfinite(t).all()) for t in (y, dx, dgamma, dbeta))
+            if not finite or not deterministic or any(
+                    err[k] > GDN_TOLERANCE[k] for k in err):
+                raise AssertionError(f"GDN kernels disagree with their plain versions "
+                                     f"(tolerances {GDN_TOLERANCE}): {row}")
+    return rows
+
+
+def instrumented(make_step, records):
+    """``make_step`` whose steps are timed (host clock around a step that
+    ends in ``torch.cuda.synchronize()``) and whose kernel launches are
+    counted: every count is set to 0 just before the step and read just
+    after it. One record per step, with its metrics."""
+    import torch
+
+    from icm_tpu_torch.nn import gdn_fused as tgdn
+    from icm_tpu_torch.nn import window_attention as twa
+
+    def make(model, criterion):
+        inner = make_step(model, criterion)
+
+        def step(state, batch, generator):
+            torch.cuda.synchronize()
+            twa.LAUNCHES = tgdn.FWD_LAUNCHES = tgdn.BWD_LAUNCHES = 0
+            t = time.time()
+            metrics = inner(state, batch, generator)
+            torch.cuda.synchronize()
+            seconds = time.time() - t
+            records.append(dict(
+                seconds=seconds, step=state.step,
+                launches={"window_attention": twa.LAUNCHES,
+                          "gdn_forward": tgdn.FWD_LAUNCHES,
+                          "gdn_backward": tgdn.BWD_LAUNCHES},
+                **{k: float(v) for k, v in metrics.items()}))
+            return metrics
+
+        return step
+
+    return make
+
+
+# launches of each kernel in one training step of WACNN: 3 GDN + 3 IGDN
+# forward and backward; the 4 window blocks forward (their backward is
+# autograd of the plain version, as in the JAX package)
+TRAIN_STEP_LAUNCHES = {"window_attention": 4, "gdn_forward": 6, "gdn_backward": 6}
+
+
+def train_phase(model, seed: int, card: str):
+    """Phase 7: ``run_training`` on the card, then a resume. -> results."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.train import RateDistortionLoss, make_train_step, run_training
+
+    B, size, steps, resumed_steps = 8, 256, 6, 2
+    batches = [make_images(seed + 100 + i, B, size) for i in range(steps + resumed_steps)]
+    eval_batch = make_images(seed + 99, B, size)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "best.pt")
+        common = dict(
+            model=model, criterion=RateDistortionLoss(0.01),
+            make_step=instrumented(make_train_step, records),
+            eval_batches=lambda: iter([eval_batch]), learning_rate=1e-4,
+            aux_learning_rate=1e-3, clip_max_norm=1.0, seed=seed, save_path=ckpt,
+            log_every=steps)
+        state, history = run_training(
+            train_batches=lambda epoch: iter(batches[:steps]), epochs=1, **common)
+        torch.cuda.synchronize()
+        if not os.path.exists(ckpt) or state.step != steps:
+            raise AssertionError(f"no checkpoint after epoch 0 (step {state.step})")
+        moved = sum(not torch.equal(before[n], p) for n, p in model.named_parameters())
+        resumed, history2 = run_training(
+            train_batches=lambda epoch: iter(batches[steps:]), epochs=2,
+            checkpoint=ckpt, **common)
+        torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if resumed.step != steps + resumed_steps or len(records) != steps + resumed_steps:
+        raise AssertionError(f"resume: step {resumed.step}, {len(records)} steps run")
+    if moved != len(before):
+        raise AssertionError(f"{len(before) - moved} of {len(before)} parameters did not move")
+    for r in records:
+        if not all(np.isfinite(r[k]) for k in ("loss", "bpp_loss", "mse_loss", "aux_loss")):
+            raise AssertionError(f"non-finite training metrics: {r}")
+        if r["launches"] != TRAIN_STEP_LAUNCHES:
+            raise AssertionError(f"step {r['step']}: launches {r['launches']}, "
+                                 f"expected {TRAIN_STEP_LAUNCHES}")
+    if not all(np.isfinite(history + history2)):
+        raise AssertionError(f"eval losses {history} {history2}")
+    timed = [r["seconds"] for r in records[1:steps]]  # after the first (warm-up) step
+    result = dict(
+        batch=B, size=size, steps=steps, resumed_steps=resumed_steps,
+        train_img_per_s=B / float(np.median(timed)),
+        step_seconds=[r["seconds"] for r in records],
+        loss=[r["loss"] for r in records], bpp=[r["bpp_loss"] for r in records],
+        aux_loss=[r["aux_loss"] for r in records], eval_loss=history + history2,
+        peak_mem_gb=peak_gb, launches_per_step=records[-1]["launches"])
+    for r in records:
+        log(f"  step {r['step']}: {r['seconds'] * 1e3:.1f} ms loss {r['loss']:.4f} "
+            f"bpp {r['bpp_loss']:.4f} aux {r['aux_loss']:.2f} launches {r['launches']}")
+    log(f"  train {result['train_img_per_s']:.2f} img/s (median of {len(timed)} steps "
+        f"after warm-up, batch {B} x {size}^2), peak {peak_gb:.2f} GB, eval losses "
+        f"{history + history2}, resumed at step {steps} ({card})")
+    return result
+
+
+def train_vs_cpu_phase(model, seed: int):
+    """Phase 8: one training step's loss terms and gradients, card vs CPU,
+    same weights, same noise (one seeded CPU generator for each side: the
+    noise is drawn on the generator's device)."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.models import create_model
+    from icm_tpu_torch.train import RateDistortionLoss
+
+    criterion = RateDistortionLoss(0.01)
+    cpu_model = create_model("cnn", device="cpu", seed=seed)
+    cpu_model.load_state_dict(model.state_dict())
+    xs = torch.from_numpy(make_images(seed + 2, 1, 64))
+
+    def step_grads(m, x):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        out = m(x, generator=torch.Generator().manual_seed(seed))
+        rd = criterion(out, x)
+        aux = m.aux_loss()
+        (rd["loss"] + aux).backward()
+        terms = {k: float(v.detach()) for k, v in {**rd, "aux_loss": aux}.items()}
+        return terms, {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+
+    got_terms, got = step_grads(model, xs.cuda())
+    ref_terms, ref = step_grads(cpu_model, xs)
+    model.zero_grad(set_to_none=True)
+    worst = {k: abs(got_terms[k] - v) / max(abs(v), 1e-30) for k, v in ref_terms.items()}
+    grad_err = {n: ((got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)).item()
+                for n in ref}
+    name, err = max(grad_err.items(), key=lambda kv: kv[1])
+    log(f"  loss terms card {got_terms} cpu {ref_terms}; relative errors {worst}")
+    log(f"  largest gradient error relative to its max: {err:.3e} ({name}); "
+        f"tolerance {TRAIN_TOLERANCE}")
+    if max(worst.values()) > TRAIN_TOLERANCE or err > TRAIN_TOLERANCE:
+        raise AssertionError("training step: card and CPU disagree")
+    return dict(loss_terms_rel_err=worst, max_grad_rel_err=err, worst_grad=name,
+                tolerance=TRAIN_TOLERANCE)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -188,6 +430,7 @@ def main() -> int:
     from icm_tpu_torch import _native
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import CharmCodec, create_model
+    from icm_tpu_torch.nn import gdn_fused as tgdn
     from icm_tpu_torch.nn import window_attention as twa
 
     with Phase("environment"):
@@ -210,7 +453,7 @@ def main() -> int:
             except BaseException as e:  # re-raised below, in the main thread
                 results[name] = e
 
-        for name, fn in (("kernels", _native.build_kernels), ("rans", _native.build_rans)):
+        for name, fn in _native.BUILDERS.items():
             threads.append(threading.Thread(target=build, args=(name, fn)))
             threads[-1].start()
         for t in threads:
@@ -219,16 +462,27 @@ def main() -> int:
             if isinstance(res, BaseException):
                 raise res
             log(f"  built {name}: {os.path.relpath(res[0], REPO)} in {res[1]:.1f}s")
-        for line in _native.BUILD_LOG.get("libwindow_attention", "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        for lib in ("libwindow_attention", "libgdn"):
+            for line in _native.BUILD_LOG.get(lib, "").splitlines():
+                if "registers" in line or "spill" in line or "Compiling" in line:
+                    log(f"  ptxas ({lib}): {line.strip()}")
 
     # the codec's numerics (full f32, deterministic cuDNN) for every phase
     from icm_tpu_torch.models import cuda_numerics
     cuda_numerics()
 
-    with Phase("kernel vs plain"):
+    with Phase("window attention vs plain"):
         rows = check_kernel(twa)
+
+    with Phase("GDN kernels vs plain"):
+        gdn_rows = check_gdn(tgdn)
+
+    def zero_counts():
+        twa.LAUNCHES = tgdn.FWD_LAUNCHES = tgdn.BWD_LAUNCHES = 0
+
+    def read_counts():
+        return {"window_attention": twa.LAUNCHES, "gdn_forward": tgdn.FWD_LAUNCHES,
+                "gdn_backward": tgdn.BWD_LAUNCHES}
 
     with Phase("full-width WACNN compress/decompress"):
         B, size = 2, 512
@@ -241,16 +495,15 @@ def main() -> int:
             f"{time.time() - t:.1f}s")
         x = torch.from_numpy(make_images(args.seed, B, size)).cuda()
 
-        twa.LAUNCHES = 0
+        zero_counts()
         enc = codec.compress(x, return_debug=True)
         torch.cuda.synchronize()
-        enc_launches = twa.LAUNCHES
-        twa.LAUNCHES = 0
+        enc_launches = read_counts()
+        zero_counts()
         dec = codec.decompress(enc["strings"], enc["shape"])
         torch.cuda.synchronize()
-        dec_launches = twa.LAUNCHES
-        log(f"  window_attention launches: compress {enc_launches}, "
-            f"decompress {dec_launches}")
+        dec_launches = read_counts()
+        log(f"  launches: compress {enc_launches}, decompress {dec_launches}")
 
         if not torch.equal(dec["y_hat"], enc["y_hat"]):
             diff = (dec["y_hat"] - enc["y_hat"]).abs()
@@ -264,10 +517,9 @@ def main() -> int:
         bpp = [8 * n / (size * size) for n in n_bytes]
         if not all(np.isfinite(bpp)) or min(bpp) <= 0:
             raise AssertionError(f"bpp {bpp}")
-        if enc_launches < 1 or dec_launches < 1:
-            raise AssertionError(
-                f"kernel not on the main path: compress {enc_launches}, "
-                f"decompress {dec_launches} launches")
+        for side, counts in (("compress", enc_launches), ("decompress", dec_launches)):
+            if counts["window_attention"] < 1 or counts["gdn_forward"] < 1:
+                raise AssertionError(f"kernels not on the {side} path: {counts}")
         mse = torch.mean((dec["x_hat"] - x) ** 2, dim=(1, 2, 3))
         psnr = (10 * torch.log10(1.0 / mse)).tolist()
 
@@ -312,14 +564,33 @@ def main() -> int:
         if not worst["x_hat"] <= 1e-3 or not worst["y likelihoods"] <= 1e-3:
             raise AssertionError(f"card and CPU disagree: {worst}")
 
+    with Phase("full-width WACNN training"):
+        slice_result["train"] = train_phase(model, args.seed, card)
+        train_launches = slice_result["train"]["launches_per_step"]
+
+    with Phase("training step, card vs CPU"):
+        slice_result["train"]["card_vs_cpu"] = train_vs_cpu_phase(model, args.seed)
+
+    def launch_keys(name):
+        per_path = {"launches_compress": enc_launches[name],
+                    "launches_decompress": dec_launches[name],
+                    "launches_train_step": train_launches[name]}
+        return {"launches": sum(per_path.values()), **per_path}
+
     main_f32 = [r for r in rows if r["dtype"] == "float32" and r["n_cls"] == 4
                 and r["W"] in (256 * B, 64 * B)]
+    # the GDN layers of one training step: 8 x 192 at 128^2, 64^2, 32^2, GDN
+    # and IGDN, one launch each; times summed. The serving and ragged rows
+    # are in "cases", and every row's errors are under the tolerances
+    gdn_main = [r for r in gdn_rows if r["path"] == "train"]
+    no_library = ("no single PyTorch call computes the fused GDN function; "
+                  "the plain version takes several")
     kernels = [{
         "name": "window_attention",
         "route": "cuda",
         "source": "icm_tpu_torch/csrc/window_attention.cu",
         "replaces": "icm_tpu/nn/pallas_kernels.py:33",
-        "launches": enc_launches + dec_launches,
+        **launch_keys("window_attention"),
         # the main path's rows (f32): one launch at each of its two shapes,
         # times summed; every row, bf16 too, is under "cases"
         "max_abs_err": max(r["max_abs_err"] for r in main_f32),
@@ -328,11 +599,30 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in main_f32),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main_f32) else "operations",
         "library_ms": sum(r["library_ms"] for r in main_f32),
-        "launches_compress": enc_launches,
-        "launches_decompress": dec_launches,
         "tolerance": TOLERANCE,
         "cases": rows,
     }]
+    for name, part, err_key, line in (("gdn_forward", "forward", "y", 50),
+                                      ("gdn_backward", "backward", "dx", 64)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "icm_tpu_torch/csrc/gdn.cu",
+            "replaces": f"icm_tpu/nn/gdn_pallas.py:{line}",
+            **launch_keys(name),
+            "max_abs_err": max(r["err"][err_key] for r in gdn_rows
+                               if r["path"] in ("train", "serve")),
+            "ms": sum(r[part]["ms"] for r in gdn_main),
+            "plain_ms": sum(r[part]["plain_ms"] for r in gdn_main),
+            "bound_ms": sum(r[part]["bound_ms"] for r in gdn_main),
+            "bound_by": ("operations" if all(r[part]["bound_by"] == "operations"
+                                             for r in gdn_main) else "bytes"),
+            "library_ms": None,
+            "library_note": no_library,
+            "tolerance": GDN_TOLERANCE,
+            "cases": [{k: v for k, v in r.items()
+                       if k not in ("forward", "backward")} | r[part] for r in gdn_rows],
+        })
     print(json.dumps({"kernels": kernels, "slice": slice_result}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Build the port's native libraries from the sources in ``csrc/``.
 
-Two libraries, both with a plain C interface loaded through ``ctypes``:
+Three libraries, each with a plain C interface loaded through ``ctypes``:
 
 - ``librans``: the host rANS coder, ``g++ -O3 -std=c++17 -shared -fPIC
   -pthread`` over ``csrc/rans.cpp``;
 - ``libwindow_attention``: the window-attention kernel, ``nvcc`` for
-  ``sm_90a`` over ``csrc/window_attention.cu``.
+  ``sm_90a`` over ``csrc/window_attention.cu``;
+- ``libgdn``: the fused GDN forward and backward kernels, ``nvcc`` for
+  ``sm_90a`` over ``csrc/gdn.cu``.
 
 Each builds at first use into ``_build/`` beside this file (listed in
 ``.gitignore``), under a name that carries a hash of its source and flags,
@@ -30,6 +32,7 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 
 RANS_SRC = os.path.join(CSRC, "rans.cpp")
 KERNEL_SRC = os.path.join(CSRC, "window_attention.cu")
+GDN_SRC = os.path.join(CSRC, "gdn.cu")
 
 RANS_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 NVCC_FLAGS = [
@@ -53,8 +56,8 @@ def _nvcc() -> str:
     if os.path.exists(candidate):
         return candidate
     raise RuntimeError(
-        "nvcc not found on PATH or under CUDA_HOME: the window-attention "
-        "kernel builds only where the CUDA toolkit is installed"
+        "nvcc not found on PATH or under CUDA_HOME: the CUDA kernels "
+        "build only where the CUDA toolkit is installed"
     )
 
 
@@ -87,13 +90,21 @@ def build_kernels() -> str:
     return _build("libwindow_attention", KERNEL_SRC, [_nvcc()], NVCC_FLAGS)
 
 
+def build_gdn() -> str:
+    """Compile ``csrc/gdn.cu`` with nvcc (once per source)."""
+    return _build("libgdn", GDN_SRC, [_nvcc()], NVCC_FLAGS)
+
+
+BUILDERS = {"rans": build_rans, "kernels": build_kernels, "gdn": build_gdn}
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``"rans"`` or ``"kernels"``, once per
-    process."""
+    """Build (if needed) and load ``"rans"``, ``"kernels"`` (window
+    attention) or ``"gdn"``, once per process."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path = {"rans": build_rans, "kernels": build_kernels}[name]()
+            path = BUILDERS[name]()
             lib = ctypes.CDLL(path)
             _loaded[name] = lib
         return lib

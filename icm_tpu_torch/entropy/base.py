@@ -1,12 +1,11 @@
 """Shared entropy-model utilities.
 
-Port of ``icm_tpu/entropy/base.py`` for coding: quantization by rounding
-(to the mean, or to integer symbols; the training mode with additive
-noise comes with the training step) and the quantized CDF tables that
-feed the host rANS coder. Table building is numpy on the host;
-``pmf_to_cdf_rows`` goes through the native builder in ``csrc/rans.cpp``,
-and :func:`pmf_to_quantized_cdf_np` is the same algorithm in numpy (the
-two agree byte for byte).
+Port of ``icm_tpu/entropy/base.py``: quantization (uniform noise for
+training, rounding to the mean or to integer symbols for coding) and the
+quantized CDF tables that feed the host rANS coder. Table building is
+numpy on the host; ``pmf_to_cdf_rows`` goes through the native builder
+in ``csrc/rans.cpp``, and :func:`pmf_to_quantized_cdf_np` is the same
+algorithm in numpy (the two agree byte for byte).
 """
 
 from __future__ import annotations
@@ -52,9 +51,23 @@ class EntropyTables:
 
 
 def quantize(
-    inputs: torch.Tensor, mode: str, means: Optional[torch.Tensor] = None
+    inputs: torch.Tensor,
+    mode: str,
+    means: Optional[torch.Tensor] = None,
+    *,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Quantize latents. ``mode`` in {"dequantize", "symbols"}."""
+    """Quantize latents. ``mode`` in {"noise", "dequantize", "symbols"}.
+
+    "noise" adds uniform noise in [-0.5, 0.5) drawn from ``generator`` on
+    the generator's own device (then moved to the inputs'), so one seeded
+    CPU generator gives the same noise to a CPU and a CUDA run."""
+    if mode == "noise":
+        if generator is None:
+            raise ValueError("noise mode needs a torch.Generator")
+        noise = torch.rand(inputs.shape, generator=generator,
+                           device=generator.device, dtype=inputs.dtype)
+        return inputs + (noise.to(inputs.device) - 0.5)
     outputs = inputs if means is None else inputs - means
     outputs = torch.round(outputs)
     if mode == "dequantize":

@@ -1,10 +1,10 @@
 """Fully-factorized entropy bottleneck (the hyperprior's z channel).
 
-Port of ``icm_tpu/entropy/bottleneck.py`` (the training forward and the
-quantile aux loss come with the training step): a per-channel monotone
-MLP density ``_logits_cumulative``, learned quantiles, the round-to-median
-eval forward, and the table build (``pmf_meta`` -> ``pmf_rows`` ->
-:func:`eb_tables_from_pmf_data`). Parameter names and shapes are the JAX
+Port of ``icm_tpu/entropy/bottleneck.py``: a per-channel monotone MLP
+density ``_logits_cumulative``, learned quantiles with the aux loss that
+pulls them to the tail-mass targets, the noise forward (training) and the
+round-to-median forward (eval), and the table build (``pmf_meta`` ->
+``pmf_rows`` -> :func:`eb_tables_from_pmf_data`). Parameter names and shapes are the JAX
 package's (``matrix{i}`` (C, out, in), ``bias{i}``, ``factor{i}``,
 ``quantiles`` (C, 1, 3)). Inputs are NCHW.
 """
@@ -26,12 +26,14 @@ class EntropyBottleneck(nn.Module):
     def __init__(
         self,
         channels: int,
+        tail_mass: float = 1e-9,
         init_scale: float = 10.0,
         filters: Tuple[int, ...] = (3, 3, 3, 3),
         likelihood_bound: float = 1e-9,
     ):
         super().__init__()
         self.channels = channels
+        self.tail_mass = tail_mass
         self.init_scale = init_scale
         self.filters = tuple(filters)
         self.likelihood_bound = likelihood_bound
@@ -92,15 +94,19 @@ class EntropyBottleneck(nn.Module):
     def medians(self) -> torch.Tensor:
         return self.quantiles[:, :, 1:2]
 
-    def forward(self, x: torch.Tensor):
-        """Eval forward. x: (B, C, H, W) -> (x rounded around the medians,
-        likelihoods), both of x's shape."""
+    def forward(self, x: torch.Tensor, generator=None):
+        """x: (B, C, H, W) -> (outputs, likelihoods), both of x's shape.
+        With ``generator`` (training): x plus uniform noise drawn from it;
+        without (eval): x rounded around the medians."""
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         B, C, H, W = x.shape
         if C != self.channels:
             raise ValueError(f"{C} channels, bottleneck has {self.channels}")
         values = x.permute(1, 0, 2, 3).reshape(C, 1, -1)
-        outputs = quantize(values, "dequantize", self.medians())
+        if generator is not None:
+            outputs = quantize(values, "noise", generator=generator)
+        else:
+            outputs = quantize(values, "dequantize", self.medians())
         likelihood = self._likelihood(outputs)
         if self.likelihood_bound > 0:
             likelihood = lower_bound(likelihood, self.likelihood_bound)
@@ -109,6 +115,16 @@ class EntropyBottleneck(nn.Module):
             return t.reshape(C, B, H, W).permute(1, 0, 2, 3)
 
         return back(outputs), back(likelihood)
+
+    def aux_loss(self) -> torch.Tensor:
+        """Quantile loss: the density's cumulative logits at the quantiles
+        against (-t, 0, t), t = log(2 / tail_mass - 1), with the density
+        parameters held fixed, so only the quantiles learn from it."""
+        logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
+        t = float(np.log(2.0 / self.tail_mass - 1.0))
+        target = torch.tensor([-t, 0.0, t], dtype=logits.dtype,
+                              device=logits.device)
+        return torch.abs(logits - target).sum()
 
     # --- table building ------------------------------------------------------
     @torch.no_grad()

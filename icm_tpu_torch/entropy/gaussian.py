@@ -52,13 +52,18 @@ class GaussianConditional(nn.Module):
         lower = _standardized_cumulative((-0.5 - values) / scales)
         return upper - lower
 
-    def forward(self, inputs, scales, means=None):
-        """Eval forward: (inputs rounded around ``means``, likelihoods)."""
+    def forward(self, inputs, scales, means=None, generator=None):
+        """(outputs, likelihoods). With ``generator`` (training): inputs
+        plus uniform noise drawn from it; without (eval): inputs rounded
+        around ``means``."""
         dt = torch.promote_types(inputs.dtype, torch.float32)
         inputs, scales = inputs.to(dt), scales.to(dt)
         if means is not None:
             means = means.to(dt)
-        outputs = quantize(inputs, "dequantize", means)
+        if generator is not None:
+            outputs = quantize(inputs, "noise", generator=generator)
+        else:
+            outputs = quantize(inputs, "dequantize", means)
         likelihood = self._likelihood(outputs, scales, means)
         if self.likelihood_bound > 0:
             likelihood = lower_bound(likelihood, self.likelihood_bound)

@@ -9,10 +9,10 @@ Port of ``icm_tpu/models/base.py``. The autoregressive loop
         code y_i, then refine it with slice_lrp
     x_hat = synthesize(ctx_assemble(decoded))
 
-is written once: :meth:`CompressionModel.forward` for the eval forward
-and ``codec.CharmCodec`` for the real bitstream. Models supply the
-protocol methods. Tensors inside are NCHW; ``forward`` takes and returns
-the JAX package's NHWC layout.
+is written once: :meth:`CompressionModel.forward` for the training and
+eval forwards and ``codec.CharmCodec`` for the real bitstream. Models
+supply the protocol methods. Tensors inside are NCHW; ``forward`` takes
+and returns the JAX package's NHWC layout.
 """
 
 from __future__ import annotations
@@ -58,11 +58,16 @@ class CompressionModel(nn.Module):
     plus ``entropy_bottleneck`` / ``gaussian_conditional`` submodules.
     """
 
-    def forward(self, x: torch.Tensor) -> dict:
-        """Eval forward. x: (B, H, W, 3) -> {"x_hat": (B, H, W, 3),
-        "likelihoods": {"y": (B, h, w, M), "z": (B, h', w', C)}}."""
+    def forward(self, x: torch.Tensor, generator=None) -> dict:
+        """x: (B, H, W, 3) -> {"x_hat": (B, H, W, 3), "likelihoods":
+        {"y": (B, h, w, M), "z": (B, h', w', C)}}.
+
+        With ``generator`` (the training forward) the likelihoods are those
+        of the latents plus uniform noise drawn from it; without (the eval
+        forward), of the latents rounded. z_hat and the y_hat slices are
+        STE-rounded in both."""
         y, z = self.analyze(nhwc_to_nchw(x))
-        _, z_likelihoods = self.entropy_bottleneck(z)
+        _, z_likelihoods = self.entropy_bottleneck(z, generator)
         z_offset = self.eb_medians().reshape(1, -1, 1, 1)
         z_hat = ste_round(z - z_offset) + z_offset
 
@@ -73,7 +78,7 @@ class CompressionModel(nn.Module):
         for i in range(self.ctx_slices):
             support = self.ctx_support(i, y_hat_slices)
             mu, scale, mean_support = self.slice_context(i, state, support)
-            _, lik = self.gaussian_conditional(y_slices[i], scale, mu)
+            _, lik = self.gaussian_conditional(y_slices[i], scale, mu, generator)
             y_likelihood.append(lik)
             y_hat_slice = ste_round(y_slices[i] - mu) + mu
             y_hat_slice = y_hat_slice + self.slice_lrp(i, mean_support, y_hat_slice)
@@ -88,6 +93,9 @@ class CompressionModel(nn.Module):
                 "z": nchw_to_nhwc(z_likelihoods),
             },
         }
+
+    def aux_loss(self) -> torch.Tensor:
+        return self.entropy_bottleneck.aux_loss()
 
     def eb_medians(self) -> torch.Tensor:
         return self.entropy_bottleneck.medians()[:, 0, 0]

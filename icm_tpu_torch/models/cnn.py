@@ -1,11 +1,13 @@
 """WACNN: window-attention CNN codec with ChARM context (registry "cnn").
 
-Port of ``icm_tpu/models/cnn.py`` (eval forward and the protocol the
-coder calls): conv + GDN + window-attention analysis and synthesis, a conv
-hyper-encoder, mean and scale hyper-decoders, and a channel-autoregressive
-context over ``num_slices`` slices with first-``max_support_slices``
-support and latent-residual prediction (LRP, 0.5 * tanh). Submodule names
-follow the flax tree (``g_a.Conv_0``, ``cc_mean_3.Conv_4`` ...).
+Port of ``icm_tpu/models/cnn.py`` (training and eval forwards and the
+protocol the coder calls; the JAX ``scan_charm`` variant, a
+single-compile workaround with the same numerics, is not ported): conv +
+GDN + window-attention analysis and synthesis, a conv hyper-encoder, mean
+and scale hyper-decoders, and a channel-autoregressive context over
+``num_slices`` slices with first-``max_support_slices`` support and
+latent-residual prediction (LRP, 0.5 * tanh). Submodule names follow the
+flax tree (``g_a.Conv_0``, ``cc_mean_3.Conv_4`` ...).
 """
 
 from __future__ import annotations

@@ -2,18 +2,21 @@
 (inverse: times the sqrt), beta and gamma kept positive by the
 non-negative reparametrization.
 
-Port of ``icm_tpu/nn/gdn.py``, forward only. The normalizer is a plain
-1x1 product over channels (a 1x1 conv in NCHW), as the JAX package's
-default forward is an einsum and not a kernel. ``gamma`` is stored as
-(C_out, C_in), the conv-weight orientation; the JAX package stores its
-transpose (``convert.from_jax_params`` transposes).
+Port of ``icm_tpu/nn/gdn.py``. The reparametrization (with the lower
+bound's gradient) stays in autograd; the normalization itself goes
+through :func:`gdn_fused.gdn` on every device, in serving and in
+training: the fused CUDA kernels for a CUDA tensor, their plain versions
+for a CPU tensor, as the JAX module goes through ``gdn_fused`` on every
+TPU run. ``gamma`` is stored as (C_out, C_in), the conv-weight
+orientation; the JAX package stores its transpose
+(``convert.from_jax_params`` transposes).
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops import NonNegativeParametrizer
+from .gdn_fused import gdn
 
 
 class GDN(nn.Module):
@@ -39,8 +42,4 @@ class GDN(nn.Module):
     def forward(self, x):
         beta = self.beta_reparam(self.beta)
         gamma = self.gamma_reparam(self.gamma)
-        C = self.channels
-        norm = F.conv2d(x * x, gamma.to(x.dtype).reshape(C, C, 1, 1),
-                        beta.to(x.dtype))
-        norm = torch.sqrt(norm) if self.inverse else torch.rsqrt(norm)
-        return x * norm
+        return gdn(x, gamma.to(x.dtype), beta.to(x.dtype), self.inverse)

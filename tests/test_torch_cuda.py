@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from icm_tpu_torch.nn import gdn_fused as tgdn
 from icm_tpu_torch.nn import window_attention as twa
 
 pytestmark = pytest.mark.cuda
@@ -72,3 +73,90 @@ def test_window_attention_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="head width"):
         twa.window_attention_cuda(q[..., :20].contiguous(), k[..., :20].contiguous(),
                                   v[..., :20].contiguous(), bias, cls)
+
+
+# GDN: y and dx absolutely (sums of C products in another order, values
+# O(1)); dgamma and dbeta relative to their max (sums over every pixel)
+GDN_TOL = {"y": 1e-5, "dx": 1e-5, "dgamma": 1e-4, "dbeta": 1e-4}
+
+
+@pytest.fixture
+def f32_reference():
+    """The plain GDN version's 1x1 convolutions in full f32: cuDNN's default
+    for f32 convolutions is TF32 (about 3 decimal digits)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _gdn_inputs(B, C, H, W, seed):
+    rng = np.random.default_rng(seed)
+    x, g = (torch.from_numpy(rng.standard_normal((B, C, H, W)).astype(np.float32)).cuda()
+            for _ in range(2))
+    gamma = torch.from_numpy(  # (C_out, C_in), not symmetric
+        (0.1 * np.eye(C) + 0.01 * rng.random((C, C))).astype(np.float32)).cuda()
+    beta = torch.from_numpy((1.0 + 0.1 * rng.random(C)).astype(np.float32)).cuda()
+    return x, g, gamma, beta
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+# the training step's GDN layers (8 x 192 at 128^2, 64^2, 32^2), a ragged
+# pixel count (13 x 21 = 273: 9 tiles, the last partial), a small C, and
+# more images than the backward's partial slots
+@pytest.mark.parametrize("B,C,H,W", [(8, 192, 128, 128), (8, 192, 64, 64),
+                                     (8, 192, 32, 32), (3, 192, 13, 21),
+                                     (2, 12, 5, 7), (300, 16, 4, 8)])
+def test_gdn_kernels_match_plain(B, C, H, W, inverse, f32_reference):
+    _needs_card()
+    x, g, gamma, beta = _gdn_inputs(B, C, H, W, seed=B + C + H)
+    before = (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES)
+    y = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
+    dx, dgamma, dbeta = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    assert (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    y_ref = tgdn.gdn_forward_reference(x, gamma, beta, inverse)
+    dx_ref, dgamma_ref, dbeta_ref = tgdn.gdn_backward_reference(g, x, gamma, beta, inverse)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=GDN_TOL["y"])
+    torch.testing.assert_close(dx, dx_ref, rtol=0, atol=GDN_TOL["dx"])
+    for got, ref, key in ((dgamma, dgamma_ref, "dgamma"), (dbeta, dbeta_ref, "dbeta")):
+        scale = ref.abs().max()
+        torch.testing.assert_close(got / scale, ref / scale, rtol=0, atol=GDN_TOL[key])
+
+
+def test_gdn_backward_is_deterministic():
+    """A fixed partition of rows and a fixed order of sums, no atomics: two
+    launches give the same bits."""
+    _needs_card()
+    x, g, gamma, beta = _gdn_inputs(8, 192, 64, 64, seed=1)
+    first = tgdn.gdn_backward_cuda(g, x, gamma, beta, False)
+    second = tgdn.gdn_backward_cuda(g, x, gamma, beta, False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gdn_module_launches_both_kernels_in_training():
+    _needs_card()
+    from icm_tpu_torch.nn import GDN
+
+    m = GDN(192, inverse=True).cuda()
+    m.reset_parameters()
+    x = torch.randn(2, 192, 7, 9, device="cuda", requires_grad=True)  # 63 pixels
+    before = (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES)
+    m(x).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t).all() for t in (x.grad, m.gamma.grad, m.beta.grad))
+
+
+def test_gdn_wrappers_reject_what_the_kernels_do_not_take():
+    _needs_card()
+    x, g, gamma, beta = _gdn_inputs(1, 8, 3, 3, seed=0)
+    with pytest.raises(ValueError, match="float32"):
+        tgdn.gdn_forward_cuda(x.double(), gamma, beta, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgdn.gdn_forward_cuda(x.transpose(2, 3), gamma, beta, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tgdn.gdn_backward_cuda(g, x, gamma.cpu(), beta, False)
+    with pytest.raises(ValueError, match="gamma must be"):
+        tgdn.gdn_forward_cuda(x, gamma[:4], beta, False)

@@ -1,4 +1,5 @@
-"""Where the time goes in icm_tpu_torch's full-width WACNN codec, on the card.
+"""Where the time goes in icm_tpu_torch's full-width WACNN codec and
+training step, on the card.
 
     python3 tools/torch_profile_codec.py [--seed 0] [--out profile.json]
 
@@ -6,10 +7,13 @@ Builds the full-width ``cnn`` codec (N=192, M=320, 10 slices) on the CUDA
 card with weights drawn from ``--seed``, warms it up on 2 images of
 512x512 (``icm_tpu_torch.data.make_images``, as chip_smoke.py makes
 them), then traces one compress and one decompress with
-``torch.profiler``. For each side it reports the host wall time, the device busy time (union of kernel, copy and memset
+``torch.profiler``; then warms up the RD training step
+(``train.make_train_step``, lambda 0.01, batch 8 of 256x256, as
+chip_smoke.py trains) and traces one step. For each it reports the host
+wall time, the device busy time (union of kernel, copy and memset
 intervals in the trace), the device idle share against the traced and
 an untraced run (median of 3; tracing slows the host), the device time by
-kernel, and the window-attention kernel's share. Prints a summary, and
+kernel, and the port's own kernels' shares. Prints a summary, and
 writes the whole result as JSON to ``--out`` when it is given. Needs a
 CUDA card; exits non-zero without one.
 """
@@ -44,6 +48,14 @@ def _busy_us(events) -> float:
     return total
 
 
+# the port's kernels by the names of their CUDA functions in the trace
+PORT_KERNELS = {
+    "window_attention": ("window_attention_kernel",),
+    "gdn_forward": ("gdn_fwd_kernel",),
+    "gdn_backward": ("gdn_bwd_kernel", "gdn_reduce_kernel"),
+}
+
+
 def _trace_summary(prof, wall_s: float) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -60,14 +72,16 @@ def _trace_summary(prof, wall_s: float) -> dict:
     busy = _busy_us(dev)
     total = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    attn = sum(v[0] for k, v in by_name.items() if "window_attention_kernel" in k)
+    port = {}
+    for name, patterns in PORT_KERNELS.items():
+        us = sum(v[0] for k, v in by_name.items() if any(p in k for p in patterns))
+        port[name] = {"ms": us / 1e3, "share_of_device": us / total if total else 0.0}
     return {
         "wall_ms": wall_s * 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy / 1e3 / (wall_s * 1e3)),
         "device_kernel_ms": total / 1e3,
-        "window_attention_ms": attn / 1e3,
-        "window_attention_share_of_device": attn / total if total else 0.0,
+        "port_kernels": port,
         "n_device_events": len(dev),
         "top": [{"name": k[:120], "ms": v[0] / 1e3, "count": v[1],
                  "share": v[0] / total if total else 0.0} for k, v in top],
@@ -89,6 +103,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import CharmCodec, create_model
+    from icm_tpu_torch.train import (
+        RateDistortionLoss, TrainState, make_optimizer, make_train_step)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,30 +117,38 @@ def main() -> int:
         codec.decompress(enc["strings"], enc["shape"])
     torch.cuda.synchronize()
 
-    # host wall time without the profiler (its tracing slows the host)
-    plain_wall = {"compress": [], "decompress": []}
-    for _ in range(3):
-        t = time.time()
-        enc = codec.compress(x)
-        torch.cuda.synchronize()
-        plain_wall["compress"].append(time.time() - t)
-        t = time.time()
-        codec.decompress(enc["strings"], enc["shape"])
-        torch.cuda.synchronize()
-        plain_wall["decompress"].append(time.time() - t)
-
-    result = {"card": card, "images": 2, "size": 512, "narrow": 0.2}
-    for side in ("compress", "decompress"):
+    model = codec.model
+    state = TrainState(model, make_optimizer(model))
+    train_step = make_train_step(model, RateDistortionLoss(0.01))
+    noise = torch.Generator(device="cuda").manual_seed(args.seed)
+    batch = torch.from_numpy(make_images(args.seed + 100, 8, 256)).cuda()
+    # the codec's sides first: training moves the weights its tables came from
+    runs = {
+        "compress": lambda: codec.compress(x),
+        "decompress": lambda: codec.decompress(enc["strings"], enc["shape"]),
+        "train_step": lambda: train_step(state, batch, noise),
+    }
+    result = {"card": card, "images": 2, "size": 512, "narrow": 0.2,
+              "train_batch": 8, "train_size": 256}
+    for side, run in runs.items():
+        if side == "train_step":
+            for _ in range(2):  # warm-up: cuDNN's backward handles, Adam state
+                run()
+        # host wall time without the profiler (its tracing slows the host)
+        plain_wall = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.time()
+            run()
+            torch.cuda.synchronize()
+            plain_wall.append(time.time() - t)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.time()
-            if side == "compress":
-                enc = codec.compress(x)
-            else:
-                codec.decompress(enc["strings"], enc["shape"])
+            run()
             torch.cuda.synchronize()
             wall = time.time() - t
         r = result[side] = _trace_summary(prof, wall)
-        unprofiled = sorted(plain_wall[side])[1]
+        unprofiled = sorted(plain_wall)[1]
         r["wall_ms_unprofiled"] = unprofiled * 1e3
         r["device_idle_share_unprofiled"] = max(
             0.0, 1.0 - r["device_busy_ms"] / (unprofiled * 1e3))
@@ -133,14 +157,14 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    for side in ("compress", "decompress"):
+    for side in runs:
         r = result[side]
+        kernels = ", ".join(f"{k} {v['ms']:.3f} ms ({v['share_of_device']:.3%})"
+                            for k, v in r["port_kernels"].items())
         print(f"{side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
               f"untraced; device busy {r['device_busy_ms']:.2f} ms (idle share "
               f"{r['device_idle_share']:.3f} traced, {r['device_idle_share_unprofiled']:.3f} "
-              f"untraced), window attention "
-              f"{r['window_attention_ms']:.3f} ms ({r['window_attention_share_of_device']:.3%} "
-              f"of device time) [{card}]")
+              f"untraced); {kernels} [{card}]")
         for row in r["top"][:8]:
             print(f"   {row['ms']:8.3f} ms {row['share']:6.1%} x{row['count']:<4d} "
                   f"{row['name'][:90]}")
