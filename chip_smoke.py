@@ -36,7 +36,11 @@ package beside it. Phases, each printed with its elapsed seconds:
 
 It then prints the kernels line (JSON), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
-exits non-zero and prints no result.
+exits non-zero and prints no result. Each kernel's ``bound_ms`` counts its
+operations on the unit it runs them on (the f32 products of window
+attention and of the GDN backward as three TF32 products each on the
+tensor cores; the GDN forward on the f32 FMA units), against its bytes;
+``f32_fma_bound_ms`` counts every operation at the f32 FMA rate.
 """
 
 from __future__ import annotations
@@ -55,9 +59,13 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 T0 = time.time()
 
-# the card's published peaks (H100 SXM data sheet), for each kernel's bound
+# the card's published peaks (H100 SXM data sheet), for each kernel's bound:
+# f32 on the FMA units, bf16 and TF32 on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
+# the f32 products of window attention and of the GDN backward run on the
+# tensor cores in 3xTF32: three TF32 products for each f32 product
+TF32_PASSES = 3
 
 # stated tolerances of the kernel against its plain version on the card:
 # f32 sums of the same terms in another order (outputs O(1)); in bf16 the
@@ -119,16 +127,29 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return float(np.median(times))
 
 
+def bound(t_bytes: float, t_ops: float):
+    """The larger of the two least times -> (ms, "bytes" | "operations")."""
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def attention_bound_ms(W, H, N, D, n_cls, dtype: str):
     """Least time for the work: each input read once, the output written
-    once, against the operations (two products and the softmax) at the
-    card's peak for the inputs' type. -> (ms, "bytes" | "operations")."""
+    once, against the operations on the unit the kernel runs them on: the
+    two products on the tensor cores (bf16; f32 as three TF32 products) and
+    the softmax on the f32 units. -> (ms, "bytes" | "operations", and the
+    f32-FMA bound: every operation at the f32 rate, (ms, by))."""
     elt = 4 if dtype == "float32" else 2
     nbytes = 4 * W * H * N * D * elt + n_cls * H * N * N * 4 + W * 4
-    ops = W * H * (4 * N * N * D + 5 * N * N)
+    products = W * H * 4 * N * N * D
+    softmax = W * H * 5 * N * N
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if dtype == "float32":
+        t_mma = TF32_PASSES * products / PEAK_OPS_PER_S["tf32"] * 1e3
+    else:
+        t_mma = products / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    t_ops = t_mma + softmax / PEAK_OPS_PER_S["float32"] * 1e3
+    fma = bound(t_bytes, (products + softmax) / PEAK_OPS_PER_S["float32"] * 1e3)
+    return (*bound(t_bytes, t_ops), fma)
 
 
 def attention_inputs(W, N, D, n_cls, dtype, seed):
@@ -186,7 +207,9 @@ def check_kernel(twa):
                 library_ms=cuda_ms(
                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
             )
-            row["bound_ms"], row["bound_by"] = attention_bound_ms(W, 8, N, D, n_cls, dtype)
+            (row["bound_ms"], row["bound_by"],
+             (row["f32_fma_bound_ms"], row["f32_fma_bound_by"])) = attention_bound_ms(
+                W, 8, N, D, n_cls, dtype)
             rows.append(row)
             log(f"  window_attention W={W} N={N} D={D} n_cls={n_cls} {dtype}: "
                 f"max_abs_err {err:.3e} (tolerance {tol:g}) ms {row['ms']:.4f} "
@@ -203,17 +226,24 @@ def gdn_bound_ms(B, C, P, backward: bool):
     (dx) written once, gamma and beta read (and their gradients written)
     once; against one C x C product per pixel (three in the backward)
     plus the elementwise work (4 operations per element forward: square,
-    add beta, rsqrt, multiply; 14 backward). -> (ms, "bytes" | "operations")."""
+    add beta, rsqrt, multiply; 14 backward), on the units the kernel runs
+    them on: the forward all on the f32 FMA units, the backward's products
+    on the tensor cores as three TF32 products each. -> (ms, "bytes" |
+    "operations", and the f32-FMA bound (ms, by))."""
     elems = B * C * P
     if backward:
         nbytes = 4 * (3 * elems + 2 * (C * C + C))
-        ops = 6 * C * C * B * P + 14 * elems
+        products, elementwise = 6 * C * C * B * P, 14 * elems
     else:
         nbytes = 4 * (2 * elems + C * C + C)
-        ops = 2 * C * C * B * P + 4 * elems
+        products, elementwise = 2 * C * C * B * P, 4 * elems
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["float32"] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    fma = bound(t_bytes, (products + elementwise) / PEAK_OPS_PER_S["float32"] * 1e3)
+    if not backward:
+        return (*fma, fma)
+    t_ops = (TF32_PASSES * products / PEAK_OPS_PER_S["tf32"]
+             + elementwise / PEAK_OPS_PER_S["float32"]) * 1e3
+    return (*bound(t_bytes, t_ops), fma)
 
 
 def check_gdn(tgdn):
@@ -257,9 +287,10 @@ def check_gdn(tgdn):
                 ("backward", lambda: tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse),
                  lambda: tgdn.gdn_backward_reference(g, x, gamma, beta, inverse), True),
             ):
-                bound, by = gdn_bound_ms(B, C, P, backward)
+                bound_ms, by, (fma_ms, fma_by) = gdn_bound_ms(B, C, P, backward)
                 row[name] = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                                 bound_ms=bound, bound_by=by)
+                                 bound_ms=bound_ms, bound_by=by,
+                                 f32_fma_bound_ms=fma_ms, f32_fma_bound_by=fma_by)
             rows.append(row)
             f, b = row["forward"], row["backward"]
             log(f"  gdn {path} {B}x{C}x{H}x{W} inverse={inverse}: err "
@@ -598,12 +629,16 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in main_f32),
         "bound_ms": sum(r["bound_ms"] for r in main_f32),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main_f32) else "operations",
+        "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67",
+        "f32_fma_bound_ms": sum(r["f32_fma_bound_ms"] for r in main_f32),
         "library_ms": sum(r["library_ms"] for r in main_f32),
         "tolerance": TOLERANCE,
         "cases": rows,
     }]
-    for name, part, err_key, line in (("gdn_forward", "forward", "y", 50),
-                                      ("gdn_backward", "backward", "dx", 64)):
+    for name, part, err_key, line, unit in (
+            ("gdn_forward", "forward", "y", 50, "f32 FMA units (67 TFLOP/s)"),
+            ("gdn_backward", "backward", "dx", 64,
+             "3xTF32 on the tensor cores (495 TFLOP/s dense), elementwise at 67")):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -617,6 +652,8 @@ def main() -> int:
             "bound_ms": sum(r[part]["bound_ms"] for r in gdn_main),
             "bound_by": ("operations" if all(r[part]["bound_by"] == "operations"
                                              for r in gdn_main) else "bytes"),
+            "bound_unit": unit,
+            "f32_fma_bound_ms": sum(r[part]["f32_fma_bound_ms"] for r in gdn_main),
             "library_ms": None,
             "library_note": no_library,
             "tolerance": GDN_TOLERANCE,

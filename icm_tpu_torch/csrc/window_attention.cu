@@ -13,27 +13,58 @@
 // which accumulates in f32; the output is rounded to the input type.
 //
 // What bounds it on an H100: bytes. A window-head does 4*N*N*D operations
-// (two products) on 4*N*D values moved (q, k, v in, out back). In f32
-// that is 16 operations per byte at N=64, D=24 and 4 at N=16, D=40, under
-// the 20 operations per byte at which the card's f32 rate (67 TFLOP/s)
-// meets its memory rate (3.35 TB/s). At W=256 windows per 512-px image
-// (N=64, D=24, 8 heads, f32) q, k, v and out are 4 x 12.6 MB per image,
-// so the floor is about 15 us per image.
+// (two products) on 4*N*D values moved (q, k, v in, out back): in f32, 16
+// operations per byte at N=64, D=24 and 4 at N=16, D=40. On the tensor
+// cores even three TF32 products per product (below) stay under the
+// ~50 operations per byte at which their rate meets the memory's, so the
+// floor is the bytes: about 15 us per 512-px image at N=64, D=24, f32.
 //
-// What the design does about it: each of q, k, v is read from device
-// memory once and out written once; the N x N scores never leave the SM.
-// One block per (window, head), one thread per query row. The block
-// stages k and v of its window-head in shared memory in f32 (read by every
-// thread as 16-byte broadcasts, four multiply-adds per read), the thread
-// keeps its scaled q row and its output row in registers, and
-// writes its row of scores to a padded shared-memory row (N+1 stride, no
-// bank conflicts) so that the exact softmax (max, sum, divide) runs in f32
-// without a second pass over k. The bias row is read from the
-// (n_cls, H, N, N) class table, which stays in L2 (512 KB at N=64).
-// No atomics: every output element has one writer, so the result is
-// deterministic, which the autoregressive coder needs. Any W is taken:
-// the grid is (W, H) and needs no padding. A window whose class is out of
-// range gets NaN output rather than a silent wrong answer.
+// What the design does about it:
+// - The products run on the tensor cores with mma.sync, several query rows
+//   per warp, flash-attention style: a warp owns 16 query rows of one
+//   window-head and keeps their scores (16 x N) in registers as mma
+//   accumulator fragments. The softmax runs in registers: a row lives in
+//   the four lanes of a quad, so its max and sum take two shuffles each.
+//   The probabilities go from the score accumulators into the PV product's
+//   A operand without a trip through shared memory.
+// - f32 inputs use 3xTF32: each operand x is split into hi = tf32(x) and
+//   lo = tf32(x - hi), and the product accumulates lo*hi + hi*lo + hi*hi
+//   (lo*lo, about 2^-22 of the product, is dropped). The m16n8k8 TF32 shape
+//   takes the head width (24, 40) as it is. In the PV product the keys of
+//   each 8-key step are taken in the order 0, 2, 4, 6, 1, 3, 5, 7, so the
+//   score fragment (columns 2t, 2t+1 in lane t of a quad) is the A fragment
+//   as it stands (columns t, t+4); v's rows are read in the same order.
+//   The tensor cores' own additions do not round to nearest, so each key
+//   step's PV share is summed from zero and added to the output in f32, and
+//   the bias is added to the scores after q k^T: the result stays within
+//   about 2e-6 of the plain version (tolerance 1e-5).
+// - bf16 inputs use m16n8k16 bf16 with f32 accumulation. q * scale and the
+//   probabilities are rounded to bf16 before their products, as in the
+//   Pallas kernel. The head width is padded to 32 or 48 with zeros in
+//   shared memory.
+// - A block of four warps takes one item: one window-head at N > 32 (a
+//   warp per 16 query rows), two at N <= 32, four at N <= 16 (a warp each).
+//   Its q, k, v and bias slabs are staged in shared memory by 16-byte
+//   cp.async, coalesced (a window-head's N x D block and a class's N x N
+//   slab are contiguous); rows past N load as zeros. Several blocks are
+//   resident on an SM (five at N = 64, D = 24, f32), so one block's loads
+//   are in flight while the others compute. On an H100 this was faster
+//   than fewer blocks that each walk many window-heads through a
+//   double-buffered stage, whose larger shared memory left fewer blocks
+//   per SM.
+// - Row strides are padded (D + 4 floats, the padded width + 8 bf16 values,
+//   N + 8 floats for the bias) so that the fragment reads of a warp hit
+//   distinct banks.
+// - A score more than 87 below its row's max (a masked key) takes
+//   probability 0 rather than a subnormal exp, and the row is normalised by
+//   one reciprocal: expf and division of subnormals take slow paths, which
+//   about doubled the time at the shifted windows' -100 mask.
+//
+// Contract: any W with no padding by the caller; N from 1 to 128 (partial
+// tiles masked: keys past N score -inf, rows past N are not written); D 24
+// and 40; NaN output for a window whose class is out of range; no atomics,
+// every output element has one writer, so the bits are the same run to run
+// (the decoder's x_hat must equal the encoder's).
 //
 // Plain C interface for ctypes (no PyTorch headers, so nvcc builds it in
 // seconds); the wrapper is icm_tpu_torch/nn/window_attention.py.
@@ -45,129 +76,424 @@
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: cvt.rna.tf32.f32 for finite x, as integer operations on the bit
+// pattern (cvt.rna compiles to four instructions with its checks for inf
+// and NaN, this to two)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// round an f32 value to T's precision and back
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
+// x = hi + lo to about 2^-22 relative, both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
 }
 
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 p;
+  p.x = lo;
+  p.y = hi;
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Shapes of the shared-memory stage for element type T and head width D.
 template <typename T, int D>
-__global__ void window_attention_kernel(const T* __restrict__ q,
-                                        const T* __restrict__ k,
-                                        const T* __restrict__ v,
-                                        const float* __restrict__ bias,
-                                        const int32_t* __restrict__ cls,
-                                        T* __restrict__ out, int H, int N,
-                                        int n_cls, float scale) {
-  static_assert(D % 4 == 0, "rows are read as float4");
+struct Layout;
+template <int D>
+struct Layout<float, D> {
+  static constexpr int DP = D;      // contraction width of q k^T
+  static constexpr int LD = D + 4;  // row stride in elements
+};
+template <int D>
+struct Layout<__nv_bfloat16, D> {
+  static constexpr int DP = (D + 15) / 16 * 16;  // zero-padded to the k16 step
+  static constexpr int LD = DP + 8;
+};
+
+// NTM: most 8-key tiles a row can have (the padded N / 8), a power of two.
+template <typename T, int D, int NTM>
+__global__ void __launch_bounds__(THREADS)
+window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const float* __restrict__ bias,
+                        const int32_t* __restrict__ cls, T* __restrict__ out, int W,
+                        int H, int N, int n_cls, float scale, int whs) {
+  using L = Layout<T, D>;
+  constexpr int LD = L::LD;
+  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  static_assert(D * sizeof(T) % 16 == 0, "rows are copied in 16-byte chunks");
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // (N, D), 16-byte rows
-  float* vs = ks + N * D;                       // (N, D)
-  float* sc = vs + N * D;                       // (N, N + 1) score rows
 
-  const int w = blockIdx.x;
-  const int h = blockIdx.y;
-  const size_t base = ((size_t)w * H + h) * (size_t)N * D;
+  const int NP = (N + 15) / 16 * 16;  // rows staged per window-head
+  const int RT = NP / 16;             // row tiles of 16 per window-head
+  const int NT = NP / 8;              // key tiles of 8 (even)
+  const int LDB = NP + 8;             // row stride of a staged bias slab (floats)
+  const int rows = whs * NP;          // rows of each of q, k, v in the block
+  // shared memory: q, k, v (rows x LD of T each), then the bias slabs
+  // (rows x LDB floats)
+  const size_t qkv_bytes = (size_t)3 * rows * LD * sizeof(T);
+  const long long total_wh = (long long)W * H;
+  const long long wh0 = (long long)blockIdx.x * whs;  // the block's first window-head
+  char* buf = reinterpret_cast<char*>(smem4);
 
-  for (int t = threadIdx.x; t < N * D; t += blockDim.x) {
-    ks[t] = to_f32<T>(k[base + t]);
-    vs[t] = to_f32<T>(v[base + t]);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;  // row within an 8-row half of the tile
+  const int t = lane % 4;  // lane within the quad
+
+  // bf16: the padded columns of q and k enter q k^T, so they must be zero
+  if constexpr (L::DP > D) {
+    for (int r = tid; r < 2 * rows; r += THREADS) {
+      T* row = reinterpret_cast<T*>(buf) + (size_t)r * LD;
+      for (int c = D; c < L::DP; ++c) row[c] = __float2bfloat16(0.f);
+    }
   }
+
+  // stage q, k, v and the bias slab of each window-head; rows past N and
+  // window-heads past the end load as zeros
+  for (int wl = 0; wl < whs; ++wl) {
+    const long long wh = wh0 + wl;
+    const bool live = wh < total_wh;
+    for (int which = 0; which < 3; ++which) {
+      const T* src = which == 0 ? q : (which == 1 ? k : v);
+      T* dst = reinterpret_cast<T*>(buf) + ((size_t)which * rows + wl * NP) * LD;
+      for (int c = tid; c < NP * CPR; c += THREADS) {
+        const int i = c / CPR;
+        const int ch = c - i * CPR;
+        const bool ok = live && i < N;
+        const char* gp = reinterpret_cast<const char*>(src);
+        if (ok) gp += (((size_t)wh * N + i) * D) * sizeof(T) + ch * 16;
+        cp_async16(reinterpret_cast<char*>(dst + (size_t)i * LD) + ch * 16, gp,
+                   ok ? 16 : 0);  // 0 source bytes: zero fill
+      }
+    }
+    if (!live) continue;
+    // the slab of the window's class (0 when out of range: that window's
+    // output is NaN) and of the head
+    const int w = (int)(wh / H);
+    const int cw = cls[w];
+    const int cc = cw >= 0 && cw < n_cls ? cw : 0;
+    const float* slab = bias + ((size_t)cc * H + (int)(wh - (long long)w * H)) * (size_t)N * N;
+    float* bdst = reinterpret_cast<float*>(buf + qkv_bytes) + (size_t)wl * NP * LDB;
+    for (int c = tid; c < NP * (NP / 4); c += THREADS) {
+      const int i = c / (NP / 4);
+      const int j = (c - i * (NP / 4)) * 4;
+      float* d = bdst + (size_t)i * LDB + j;
+      if (N % 4 == 0) {  // rows of 16-byte chunks
+        const bool ok = i < N && j < N;
+        cp_async16(d, ok ? slab + (size_t)i * N + j : slab, ok ? 16 : 0);
+      } else {
+        for (int e = 0; e < 4; ++e) {
+          if (i < N && j + e < N) {
+            cp_async4(d + e, slab + (size_t)i * N + j + e);
+          } else {
+            d[e] = 0.f;
+          }
+        }
+      }
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
 
-  const int c = cls[w];
-  const bool valid = c >= 0 && c < n_cls;
-  const float* bias_h = bias + ((size_t)(valid ? c : 0) * H + h) * (size_t)N * N;
+  const T* qs = reinterpret_cast<const T*>(buf);
+  const T* ks = qs + (size_t)rows * LD;
+  const T* vs = ks + (size_t)rows * LD;
+  const float* bs = reinterpret_cast<const float*>(buf + qkv_bytes);
+  for (int task = warp; task < whs * RT; task += WARPS) {
+    const int wl = task / RT;
+    const int rt = task - wl * RT;
+    const long long wh = wh0 + wl;
+    if (wh >= total_wh) break;
+    const int c = cls[wh / H];
+    const bool valid = c >= 0 && c < n_cls;
+    const int r0 = rt * 16 + g;  // this lane's rows: r0 and r0 + 8
+    const int r1 = r0 + 8;
+    const T* qa = qs + (size_t)(wl * NP) * LD;
+    const T* ka = ks + (size_t)(wl * NP) * LD;
+    const T* va = vs + (size_t)(wl * NP) * LD;
 
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    float qr[D];
+    float s[NTM][4] = {};  // scores, from zero; the bias is added after q k^T
+    if constexpr (sizeof(T) == 4) {
+      // q * scale as the A fragments of the D / 8 k-steps, split for 3xTF32
+      constexpr int KS = D / 8;
+      uint32_t qh[KS][4], ql[KS][4];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qr[d] = round_to<T>(to_f32<T>(q[base + (size_t)i * D + d]) * scale);
+      for (int kk = 0; kk < KS; ++kk) {
+        const int c0 = kk * 8 + t;
+        split_tf32(qa[r0 * LD + c0] * scale, qh[kk][0], ql[kk][0]);
+        split_tf32(qa[r1 * LD + c0] * scale, qh[kk][1], ql[kk][1]);
+        split_tf32(qa[r0 * LD + c0 + 4] * scale, qh[kk][2], ql[kk][2]);
+        split_tf32(qa[r1 * LD + c0 + 4] * scale, qh[kk][3], ql[kk][3]);
+      }
+      // key tiles in groups of four, each k-step as three passes over the
+      // group, so that every mma has independent neighbours
+      constexpr int NG = NTM < 4 ? NTM : 4;
+#pragma unroll
+      for (int n0 = 0; n0 < NTM; n0 += NG) {
+        if (n0 < NT) {
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+            for (int u = 0; u < NG; ++u) {
+              const T* krow = ka + (size_t)((n0 + u) * 8 + g) * LD + kk * 8 + t;
+              split_tf32(krow[0], bh[u][0], bl[u][0]);
+              split_tf32(krow[4], bh[u][1], bl[u][1]);
+            }
+#pragma unroll
+            for (int u = 0; u < NG; ++u) mma_tf32(s[n0 + u], ql[kk], bh[u]);
+#pragma unroll
+            for (int u = 0; u < NG; ++u) mma_tf32(s[n0 + u], qh[kk], bl[u]);
+#pragma unroll
+            for (int u = 0; u < NG; ++u) mma_tf32(s[n0 + u], qh[kk], bh[u]);
+          }
+        }
+      }
+    } else {
+      // bf16: q * scale rounded to bf16, k16 steps over the padded width
+      constexpr int KS = L::DP / 16;
+      const __nv_bfloat16 sc = __float2bfloat16(scale);
+      auto qpair = [&](int r, int col) {
+        const __nv_bfloat16* p = qa + (size_t)r * LD + col;
+        return pack_bf16(__hmul(p[0], sc), __hmul(p[1], sc));
+      };
+      uint32_t qf[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int c0 = kk * 16 + 2 * t;
+        qf[kk][0] = qpair(r0, c0);
+        qf[kk][1] = qpair(r1, c0);
+        qf[kk][2] = qpair(r0, c0 + 8);
+        qf[kk][3] = qpair(r1, c0 + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTM; ++nt) {
+        if (nt < NT) {
+          const T* krow = ka + (size_t)(nt * 8 + g) * LD;
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t b[2];
+            b[0] = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 2 * t);
+            b[1] = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 2 * t + 8);
+            mma_bf16(s[nt], qf[kk], b);
+          }
+        }
+      }
     }
-    const float* brow = bias_h + (size_t)i * N;
-    float* srow = sc + i * (N + 1);
 
-    float m = -INFINITY;
-    for (int j = 0; j < N; ++j) {
-      const float4* kj = reinterpret_cast<const float4*>(ks + j * D);
-      float s = 0.f;
+    // + bias, keys past N masked
+    const float* brow = bs + (size_t)(wl * NP) * LDB + 2 * t;
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kk = kj[d4];  // one 16-byte broadcast read, 4 FMAs
-        s = fmaf(qr[4 * d4 + 0], kk.x, s);
-        s = fmaf(qr[4 * d4 + 1], kk.y, s);
-        s = fmaf(qr[4 * d4 + 2], kk.z, s);
-        s = fmaf(qr[4 * d4 + 3], kk.w, s);
-      }
-      s += brow[j];
-      srow[j] = s;
-      m = fmaxf(m, s);
-    }
-    float l = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float p = expf(srow[j] - m);
-      srow[j] = p;
-      l += p;
-    }
-    float acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float a = round_to<T>(srow[j] / l);
-      const float4* vj = reinterpret_cast<const float4*>(vs + j * D);
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 vv = vj[d4];
-        acc[4 * d4 + 0] = fmaf(a, vv.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(a, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(a, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(a, vv.w, acc[4 * d4 + 3]);
+    for (int nt = 0; nt < NTM; ++nt) {
+      if (nt < NT) {
+        const float2 b0 = *reinterpret_cast<const float2*>(brow + (size_t)r0 * LDB + nt * 8);
+        const float2 b1 = *reinterpret_cast<const float2*>(brow + (size_t)r1 * LDB + nt * 8);
+        s[nt][0] += b0.x;
+        s[nt][1] += b0.y;
+        s[nt][2] += b1.x;
+        s[nt][3] += b1.y;
       }
     }
-    T* orow = out + base + (size_t)i * D;
+    // softmax over the row's N keys: a row lives in one quad
+    float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-    for (int d = 0; d < D; ++d) orow[d] = from_f32<T>(valid ? acc[d] : NAN);
+    for (int nt = 0; nt < NTM; ++nt) {
+      const int j = nt * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (nt >= NT || j + (e & 1) >= N) s[nt][e] = -INFINITY;
+      }
+      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NTM; ++nt) {
+      // exp of a score more than 87 below the row's max is under f32's
+      // normal range (a masked key, -100): take it as 0 and keep expf
+      // and the products below off their slow paths for subnormals
+      s[nt][0] = s[nt][0] - m0 > -87.f ? expf(s[nt][0] - m0) : 0.f;
+      s[nt][1] = s[nt][1] - m0 > -87.f ? expf(s[nt][1] - m0) : 0.f;
+      s[nt][2] = s[nt][2] - m1 > -87.f ? expf(s[nt][2] - m1) : 0.f;
+      s[nt][3] = s[nt][3] - m1 > -87.f ? expf(s[nt][3] - m1) : 0.f;
+      l0 += s[nt][0] + s[nt][1];
+      l1 += s[nt][2] + s[nt][3];
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+    }
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;  // l >= 1: the max's own term
+#pragma unroll
+    for (int nt = 0; nt < NTM; ++nt) {
+      s[nt][0] *= inv0;
+      s[nt][1] *= inv0;
+      s[nt][2] *= inv1;
+      s[nt][3] *= inv1;
+    }
+
+    // out = P v, D / 8 output tiles
+    constexpr int DT = D / 8;
+    float o[DT][4];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int kk = 0; kk < NTM; ++kk) {
+        if (kk < NT) {
+          // keys kk*8 + 2t (A column t) and kk*8 + 2t + 1 (A column t + 4)
+          uint32_t ah[4], al[4];
+          split_tf32(s[kk][0], ah[0], al[0]);
+          split_tf32(s[kk][2], ah[1], al[1]);
+          split_tf32(s[kk][1], ah[2], al[2]);
+          split_tf32(s[kk][3], ah[3], al[3]);
+          const T* v0 = va + (size_t)(kk * 8 + 2 * t) * LD + g;
+          uint32_t bh[DT][2], bl[DT][2];
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt) {
+            split_tf32(v0[dt * 8], bh[dt][0], bl[dt][0]);
+            split_tf32(v0[LD + dt * 8], bh[dt][1], bl[dt][1]);
+          }
+          // this key tile's share from zero, added to o in f32: the
+          // tensor cores' own additions do not round to nearest
+          float part[DT][4] = {};
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt) mma_tf32(part[dt], al, bh[dt]);
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt) mma_tf32(part[dt], ah, bl[dt]);
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt) mma_tf32(part[dt], ah, bh[dt]);
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[dt][e] += part[dt][e];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NTM / 2; ++kk) {
+        if (2 * kk < NT) {
+          uint32_t a[4];
+          a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+          a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+          a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          const T* v0 = va + (size_t)(kk * 16 + 2 * t) * LD + g;
+#pragma unroll
+          for (int dt = 0; dt < DT; ++dt) {
+            uint32_t b[2];
+            b[0] = pack_bf16(v0[dt * 8], v0[LD + dt * 8]);
+            b[1] = pack_bf16(v0[8 * LD + dt * 8], v0[9 * LD + dt * 8]);
+            mma_bf16(o[dt], a, b);
+          }
+        }
+      }
+    }
+
+    T* obase = out + (size_t)wh * N * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const int col = dt * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        if (r < N) {
+          const float a = valid ? o[dt][2 * half] : NAN;
+          const float b = valid ? o[dt][2 * half + 1] : NAN;
+          if constexpr (sizeof(T) == 4) {
+            *reinterpret_cast<float2*>(obase + (size_t)r * D + col) = make_float2(a, b);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)r * D + col) =
+                __floats2bfloat162_rn(a, b);
+          }
+        }
+      }
+    }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int NTM>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* cls, void* out, int W, int H, int N, int n_cls,
            float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)N * D + (size_t)N * (N + 1));
-  auto kernel = window_attention_kernel<T, D>;
+  using L = Layout<T, D>;
+  const int NP = (N + 15) / 16 * 16;
+  const int RT = NP / 16;
+  const int whs = RT >= WARPS ? 1 : (RT == 3 ? 1 : WARPS / RT);
+  // q, k, v and the bias slabs of the block's window-heads
+  const size_t smem = (size_t)whs * NP * (3 * L::LD * sizeof(T) + (NP + 8) * sizeof(float));
+  auto kernel = window_attention_kernel<T, D, NTM>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int threads = N < 32 ? N : ((N + 31) / 32) * 32;
-  dim3 grid(W, H);
-  kernel<<<grid, threads > 1024 ? 1024 : threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const int32_t*>(cls), static_cast<T*>(out), H, N, n_cls,
-      scale);
+  const long long grid = ((long long)W * H + whs - 1) / whs;
+  if (grid > 0x7fffffff) return -5;
+  kernel<<<(unsigned)grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<const int32_t*>(cls),
+      static_cast<T*>(out), W, H, N, n_cls, scale, whs);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int dispatch_n(const void* q, const void* k, const void* v, const void* bias,
+               const void* cls, void* out, int W, int H, int N, int n_cls,
+               float scale, cudaStream_t stream) {
+  if (N <= 16) return launch<T, D, 2>(q, k, v, bias, cls, out, W, H, N, n_cls, scale, stream);
+  if (N <= 32) return launch<T, D, 4>(q, k, v, bias, cls, out, W, H, N, n_cls, scale, stream);
+  if (N <= 64) return launch<T, D, 8>(q, k, v, bias, cls, out, W, H, N, n_cls, scale, stream);
+  return launch<T, D, 16>(q, k, v, bias, cls, out, W, H, N, n_cls, scale, stream);
 }
 
 template <typename T>
@@ -177,7 +503,7 @@ int dispatch(int D, const void* q, const void* k, const void* v,
   switch (D) {
 #define CASE(DD) \
   case DD:       \
-    return launch<T, DD>(q, k, v, bias, cls, out, W, H, N, n_cls, scale, stream);
+    return dispatch_n<T, DD>(q, k, v, bias, cls, out, W, H, N, n_cls, scale, stream);
     CASE(24) CASE(40)  // the head widths of WACNN's window blocks
 #undef CASE
     default:
@@ -190,12 +516,13 @@ int dispatch(int D, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns 0, -1 for an unsupported head
-// width, or the cudaError_t of the launch.
+// width, -4 for N outside 1..128, or the cudaError_t of the launch.
 int window_attention_fwd(const void* q, const void* k, const void* v,
                          const void* bias, const void* cls, void* out, int W,
                          int H, int N, int D, int n_cls, float scale,
                          int dtype, void* stream) {
-  if (W == 0) return 0;
+  if (W == 0 || H == 0) return 0;
+  if (N < 1 || N > 128) return -4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch<float>(D, q, k, v, bias, cls, out, W, H, N, n_cls, scale, s);

@@ -18,8 +18,8 @@ and beta as the Pallas backward does (``gdn_pallas.py:150-153``).
   ``csrc/gdn.cu`` on the current stream (built with nvcc at first use and
   loaded with ctypes). They take contiguous float32 CUDA tensors only and
   raise on anything else; ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count
-  their calls (the backward's call is its row pass and its fixed-order
-  reduce of the partial sums).
+  their calls (the backward's call launches three kernels: dx and dn, the
+  partial sums of dgamma and dbeta, and their fixed-order reduce).
 - :func:`gdn` is what ``GDN.forward`` calls, on every device: an autograd
   function whose forward and backward are the kernels for a CUDA tensor
   and the plain versions for a CPU tensor.
@@ -45,9 +45,9 @@ from .. import _native
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-# channels the kernels take: the backward's three (C x 33) float tiles and
-# its staged (16 x 193) chunk of gamma fit a block's 227 KB of shared
-# memory up to C = 555
+# channels the kernels take: above 192 channels the backward streams gamma,
+# and its two (C x 24) float tiles and two gamma chunks fit a block's 227 KB
+# of shared memory up to C = 896 (the forward's beyond C = 1,600)
 MAX_CHANNELS = 512
 
 _fns = None
@@ -65,10 +65,10 @@ def _kernel_fns():
             bwd = lib.gdn_backward
             bwd.restype = ctypes.c_int
             bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            partials = lib.gdn_backward_partials
-            partials.restype = ctypes.c_int
-            partials.argtypes = [ctypes.c_int, ctypes.c_int]
-            _fns = (fwd, bwd, partials)
+            workspace = lib.gdn_backward_workspace
+            workspace.restype = ctypes.c_longlong
+            workspace.argtypes = [ctypes.c_int] * 3
+            _fns = (fwd, bwd, workspace)
         return _fns
 
 
@@ -148,19 +148,20 @@ def gdn_forward_cuda(x, gamma, beta, inverse: bool):
 
 
 def gdn_backward_cuda(g, x, gamma, beta, inverse: bool):
-    """Launch the fused backward (its row pass, then the fixed-order reduce
-    of the per-block partial sums). g, x: (B, C, H, W); gamma (C, C) as
-    (C_out, C_in); beta (C,); contiguous float32 CUDA tensors on one
-    device. Returns (dx, dgamma (C_out, C_in), dbeta)."""
+    """Launch the fused backward (dx and dn, then dgamma and dbeta as
+    partial sums over fixed pixel ranges, then their fixed-order reduce).
+    g, x: (B, C, H, W); gamma (C, C) as (C_out, C_in); beta (C,);
+    contiguous float32 CUDA tensors on one device. Returns (dx, dgamma
+    (C_out, C_in), dbeta)."""
     global BWD_LAUNCHES
     _check(x, gamma, beta, g)
     B, C, H, W = x.shape
-    _, bwd, partials = _kernel_fns()
+    _, bwd, workspace_floats = _kernel_fns()
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
     dbeta = torch.empty_like(beta)
-    n_partials = partials(B, H * W)
-    workspace = torch.empty((max(n_partials, 1), C, C + 1), dtype=torch.float32,
+    # dn (B x C x H x W) and the partial sums of dgamma and dbeta
+    workspace = torch.empty(max(workspace_floats(B, C, H * W), 1), dtype=torch.float32,
                             device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

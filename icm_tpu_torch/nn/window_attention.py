@@ -39,7 +39,7 @@ LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_HEAD_DIMS = (24, 40)  # built in the kernel's dispatch; WACNN's widths
-MAX_TOKENS = 128  # N: tokens per window (the shared-memory stage holds N x N)
+MAX_TOKENS = 128  # N: tokens per window (a row's N scores live in a quad's registers)
 
 _fn = None
 _fn_lock = threading.Lock()
@@ -89,6 +89,9 @@ def window_attention_cuda(q, k, v, bias, cls_idx):
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+        if t.data_ptr() % 16:  # the kernel stages rows with 16-byte copies
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (W, H, N, D) shape: "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

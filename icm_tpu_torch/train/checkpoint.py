@@ -35,7 +35,9 @@ def save_checkpoint(path: str, state: TrainState, metadata: Optional[dict] = Non
 
 def load_checkpoint(path: str, state: TrainState):
     """Load the model, optimizer and step of the file ``path`` into
-    ``state`` (tensors onto the model's device). -> (state, metadata)."""
+    ``state`` (tensors onto the model's device). The optimizer keeps the
+    rates it was built with (``DualOptimizer.load_state_dict``), so a
+    resumed run steps at its own arguments. -> (state, metadata)."""
     device = next(state.model.parameters()).device
     payload = torch.load(os.path.abspath(path), map_location=device, weights_only=True)
     state.model.load_state_dict(payload["model"])

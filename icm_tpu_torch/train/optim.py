@@ -100,9 +100,16 @@ class DualOptimizer:
         return {k: opt.state_dict() for k, opt in self.groups.items() if opt is not None}
 
     def load_state_dict(self, state: dict) -> None:
+        """Adam's moments and step counts from ``state``; each group keeps
+        the rate it has now. ``torch.optim.Adam.load_state_dict`` would
+        bring back the saved rates, a decayed one included, whereas the
+        JAX package rebuilds ``tx`` from its arguments on a resume."""
         for k, opt in self.groups.items():
             if opt is not None:
+                rates = [group["lr"] for group in opt.param_groups]
                 opt.load_state_dict(state[k])
+                for group, lr in zip(opt.param_groups, rates):
+                    group["lr"] = lr
 
 
 def make_optimizer(model: nn.Module, learning_rate: float = 1e-4,

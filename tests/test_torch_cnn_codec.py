@@ -118,14 +118,19 @@ def test_port_roundtrip_bitexact(twins, port_codec):
     assert np.isfinite(bits / (2 * 64 * 64))
 
 
-def test_symbols_against_jax_codec(twins, port_codec):
+@pytest.fixture(scope="module")
+def jax_codec(twins):
+    jm, variables, _, x = twins
+    jc = JaxCharmCodec(jm, variables)
+    return jc, jc.compress(jnp.asarray(x), return_debug=True)
+
+
+def test_symbols_against_jax_codec(port_codec, jax_codec):
     """Same weights, same input: the share of y symbols that differ from
     the JAX codec's. Cross-framework byte identity is not required (float
     order can flip a rounding boundary), so the share is bounded."""
-    jm, variables, _, x = twins
     codec, enc = port_codec
-    jc = JaxCharmCodec(jm, variables)
-    jenc = jc.compress(jnp.asarray(x), return_debug=True)
+    _, jenc = jax_codec
     # y_hat = sym + mu + lrp: a flipped symbol shows as a jump of ~1
     port_y = enc["y_hat"].permute(0, 2, 3, 1).numpy()
     jax_y = np.asarray(jenc["y_hat"])
@@ -137,6 +142,59 @@ def test_symbols_against_jax_codec(twins, port_codec):
     assert share <= 1e-3
     np.testing.assert_allclose(port_y[~flipped], jax_y[~flipped], atol=1e-3)
     assert enc["strings"][1] == jenc["strings"][1]  # z: symbols before any context
+
+
+# Cross decoding: a decoder recomputes each slice's mean and scale index
+# in its own framework, so its y_hat = symbol + mean is the encoder's to
+# float order (f32 sums in another order, a few ulps of O(1) values),
+# while a wrong symbol or a lost stream shows as a jump of 1 or more.
+CROSS_TOL = 1e-4
+
+
+def test_port_decodes_the_jax_codec_strings(twins, port_codec, jax_codec):
+    _, _, _, x = twins
+    codec, _ = port_codec
+    _, jenc = jax_codec
+    dec = codec.decompress(jenc["strings"], jenc["shape"])
+    jax_y = np.asarray(jenc["y_hat"])
+    np.testing.assert_allclose(dec["y_hat"].permute(0, 2, 3, 1).numpy(), jax_y,
+                               rtol=0, atol=CROSS_TOL)
+    assert dec["x_hat"].shape == x.shape
+
+
+def test_jax_codec_decodes_the_port_strings(twins, port_codec, jax_codec):
+    _, _, _, x = twins
+    _, enc = port_codec
+    jc, _ = jax_codec
+    dec = jc.decompress(enc["strings"], enc["shape"])
+    np.testing.assert_allclose(np.asarray(dec["y_hat"]),
+                               enc["y_hat"].permute(0, 2, 3, 1).numpy(),
+                               rtol=0, atol=CROSS_TOL)
+    # the synthesis of the same y_hat, held as the eval forward is above
+    np.testing.assert_allclose(np.asarray(dec["x_hat"]), enc["x_hat"].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert np.asarray(dec["x_hat"]).shape == x.shape
+
+
+def test_full_width_eval_forward_matches_jax():
+    """The full-width WACNN (N=192, M=320, 10 slices: the JAX package's
+    defaults) against its JAX twin on one 64 x 64 image, as the narrow
+    twins are held above."""
+    x = np.random.default_rng(3).random((1, 64, 64, 3)).astype(np.float32)
+    jm = JaxWACNN()
+    variables = _params_from_numpy(jm, x, seed=4)
+    tm = tmodels.create_model("cnn", device="cpu")
+    tm.load_state_dict(from_jax_params(variables["params"]), strict=True)
+    ref = jm.apply(variables, jnp.asarray(x), training=False)
+    with torch.no_grad():
+        out = tm.eval()(torch.from_numpy(x))
+    # f32 through ~70 layers, sums of up to 320 x 25 terms in another order
+    np.testing.assert_allclose(out["x_hat"].numpy(), np.asarray(ref["x_hat"]),
+                               atol=1e-4, rtol=1e-4)
+    for k in ("y", "z"):
+        np.testing.assert_allclose(out["likelihoods"][k].numpy(),
+                                   np.asarray(ref["likelihoods"][k]),
+                                   atol=1e-5, rtol=1e-4)
 
 
 def test_narrow_setting_round_trips(twins):

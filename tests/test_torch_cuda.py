@@ -30,10 +30,10 @@ def _needs_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
-def _inputs(W, N, D, n_cls, dtype, seed):
+def _inputs(W, N, D, n_cls, dtype, seed, heads=HEADS):
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.standard_normal((W, HEADS, N, D)).astype(np.float32) for _ in range(3))
-    bias = rng.standard_normal((n_cls, HEADS, N, N)).astype(np.float32)
+    q, k, v = (rng.standard_normal((W, heads, N, D)).astype(np.float32) for _ in range(3))
+    bias = rng.standard_normal((n_cls, heads, N, N)).astype(np.float32)
     if n_cls > 1:
         bias[1:] += np.where(rng.random((n_cls - 1, 1, N, N)) < 0.3, -100.0, 0.0)
     cls = (np.arange(W) % n_cls).astype(np.int32)
@@ -63,6 +63,46 @@ def test_window_attention_kernel_matches_plain(N, D, W, n_cls, dtype):
     assert torch.equal(twa.window_attention_cuda(*ins), out)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# 3 heads: W x 3 window-heads is not a multiple of the window-heads a block
+# takes at once (4 at N <= 16, 2 at N <= 32), so the last item is partial;
+# N = 4, 12, 25, 49 and 100 leave partial row and key tiles; N = 128 is
+# the largest the kernel takes (16 key tiles per row)
+@pytest.mark.parametrize("N,D", [(4, 40), (12, 24), (25, 40), (49, 24), (100, 40), (128, 24)])
+@pytest.mark.parametrize("W", [1, 5, 333])
+def test_window_attention_kernel_partial_items_and_tiles(N, D, W, dtype):
+    _needs_card()
+    ins = _inputs(W, N, D, 4 if W > 1 else 1, dtype, seed=W * N, heads=3)
+    out = twa.window_attention_cuda(*ins)
+    torch.cuda.synchronize()
+    ref = twa.window_attention_reference(*ins)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=TOL[dtype])
+    assert torch.equal(twa.window_attention_cuda(*ins), out)
+
+
+def test_window_attention_kernel_bits_repeat_at_the_codec_shape():
+    """Two launches at the codec's largest shape (more items than blocks, so
+    each block walks several) give the same bits."""
+    _needs_card()
+    ins = _inputs(512, 64, 24, 4, "float32", seed=3)
+    first = twa.window_attention_cuda(*ins)
+    second = twa.window_attention_cuda(*ins)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_window_attention_kernel_out_of_range_class_gives_nan():
+    _needs_card()
+    q, k, v, bias, cls = _inputs(6, 16, 40, 2, "float32", seed=5)
+    cls[2] = 2
+    cls[4] = -1
+    out = twa.window_attention_cuda(q, k, v, bias, cls)
+    torch.cuda.synchronize()
+    bad = torch.zeros(6, dtype=torch.bool, device="cuda")
+    bad[[2, 4]] = True
+    assert torch.isnan(out[bad]).all() and torch.isfinite(out[~bad]).all()
+
+
 def test_window_attention_wrapper_rejects_what_the_kernel_does_not_take():
     _needs_card()
     q, k, v, bias, cls = _inputs(8, 16, 40, 1, "float32", seed=0)
@@ -73,6 +113,17 @@ def test_window_attention_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="head width"):
         twa.window_attention_cuda(q[..., :20].contiguous(), k[..., :20].contiguous(),
                                   v[..., :20].contiguous(), bias, cls)
+
+
+def test_window_attention_wrapper_rejects_unaligned_rows():
+    """The kernel stages rows with 16-byte copies: a contiguous view that
+    starts off a 16-byte boundary is refused, not read wrongly."""
+    _needs_card()
+    q, k, v, bias, cls = _inputs(8, 16, 40, 1, "float32", seed=0)
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        twa.window_attention_cuda(shifted, k, v, bias, cls)
 
 
 # GDN: y and dx absolutely (sums of C products in another order, values
@@ -132,6 +183,30 @@ def test_gdn_backward_is_deterministic():
     first = tgdn.gdn_backward_cuda(g, x, gamma, beta, False)
     second = tgdn.gdn_backward_cuda(g, x, gamma, beta, False)
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+# the backward's edges: C = 12, 13 and 200 are not multiples of the 16-row
+# mma tile (13 also leaves gamma's rows off 16-byte boundaries, and 200 is
+# past 192 channels, so gamma streams beside 16-pixel tiles); ragged pixel
+# counts (1155 = 36 tiles of 32 and 3 pixels; 63 and 99, not multiples of
+# 4); C = 512, the most the wrapper takes; 70 x 64 pixels, 140 chunks of
+# 32 pixels for 64 partial slots
+@pytest.mark.parametrize("B,C,H,W", [(4, 200, 16, 16), (2, 12, 33, 35), (5, 13, 7, 9),
+                                     (1, 512, 9, 11), (70, 192, 8, 8)])
+def test_gdn_backward_edges_match_plain_and_repeat(B, C, H, W, inverse, f32_reference):
+    _needs_card()
+    x, g, gamma, beta = _gdn_inputs(B, C, H, W, seed=B * C + H)
+    dx, dgamma, dbeta = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
+    again = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    dx_ref, dgamma_ref, dbeta_ref = tgdn.gdn_backward_reference(g, x, gamma, beta, inverse)
+    torch.testing.assert_close(dx, dx_ref, rtol=0, atol=GDN_TOL["dx"])
+    for got, ref, key in ((dgamma, dgamma_ref, "dgamma"), (dbeta, dbeta_ref, "dbeta")):
+        scale = ref.abs().max()
+        torch.testing.assert_close(got / scale, ref / scale, rtol=0, atol=GDN_TOL[key])
+    for a, b in zip(again, (dx, dgamma, dbeta)):
         assert torch.equal(a, b)
 
 

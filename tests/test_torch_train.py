@@ -39,6 +39,7 @@ from icm_tpu_torch import models as tmodels
 from icm_tpu_torch import train as ttrain
 from icm_tpu_torch.convert import from_jax_params
 from icm_tpu_torch.entropy import EntropyBottleneck, GaussianConditional
+from icm_tpu_torch.train import engine
 
 torch.set_num_threads(2)
 
@@ -425,3 +426,48 @@ def test_run_training_with_recovery_resumes_after_a_failure(narrow, tmp_path):
     # resumed from the checkpoint and finished
     assert calls == [0, 1, 2, 2, 3] and state.step == 4 and len(history) == 1
     assert os.path.exists(tmp_path / "ckpt" / "best.pt")
+
+
+def test_resume_steps_at_the_argument_rates(narrow, tmp_path, monkeypatch):
+    """A checkpoint saved after the plateau lowered the main rate resumes at
+    the rates ``run_training`` is given, as the JAX package rebuilds ``tx``
+    from its arguments: both groups step at them, and the plateau scheduler,
+    which restarts at ``learning_rate``, agrees with the optimizer."""
+    _, params, x, _ = narrow
+    tm = _port_model(params)
+    state = ttrain.TrainState(tm, ttrain.make_optimizer(tm, 1e-4, 1e-3))
+    ttrain.make_train_step(tm, ttrain.RateDistortionLoss(0.01))(
+        state, torch.from_numpy(x[:1]), torch.Generator().manual_seed(0))
+    state.optimizer.set_learning_rate(5e-5)  # a plateau decay before the save
+    ckpt = str(tmp_path / "decayed.pt")
+    ttrain.save_checkpoint(ckpt, state, {"epoch": 0, "best_loss": 1e9})
+    saved = state.optimizer.state_dict()
+
+    scheds, rates = [], []
+
+    class RecordedPlateau(ttrain.ReduceLROnPlateau):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            scheds.append(self)
+
+    def recording_make_step(model, criterion):
+        inner = ttrain.make_train_step(model, criterion)
+
+        def step(st, batch, generator):
+            rates.append({k: [g["lr"] for g in opt.param_groups]
+                          for k, opt in st.optimizer.groups.items()})
+            return inner(st, batch, generator)
+
+        return step
+
+    monkeypatch.setattr(engine, "ReduceLROnPlateau", RecordedPlateau)
+    resumed, _ = ttrain.run_training(**_engine_kwargs(
+        tmp_path, x[:1], model=_port_model(params), make_step=recording_make_step,
+        epochs=2, learning_rate=1e-4, aux_learning_rate=1e-3, checkpoint=ckpt))
+    assert resumed.step == 3 and len(rates) == 2
+    assert rates == [{"main": [1e-4], "aux": [1e-3]}] * 2
+    assert len(scheds) == 1 and scheds[0].lr == 1e-4
+    # the moments and step counts came back from the checkpoint
+    loaded = resumed.optimizer.groups["main"].state
+    assert all(int(s["step"]) == 3 for s in loaded.values())
+    assert all(int(s["step"]) == 1 for s in saved["main"]["state"].values())
