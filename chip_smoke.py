@@ -15,8 +15,8 @@ package beside it. Phases, each printed with its elapsed seconds:
    yardstick the port never calls);
 4. the fused GDN forward and backward kernels against their plain
    versions at the training step's shapes (8 x 192 x 128^2, 64^2, 32^2,
-   GDN and IGDN) and one ragged shape, timed beside the plain versions;
-   two backward launches must give the same bits;
+   GDN and IGDN), the serving path's and one ragged shape, timed beside
+   the plain versions; two launches of each must give the same bits;
 5. the full-width WACNN (N=192, M=320, 10 slices) on the card with
    weights drawn from ``--seed``: compress -> decompress of 2 images of
    512x512 made from ``--seed``. The kernel launch counts are zeroed
@@ -38,8 +38,8 @@ It then prints the kernels line (JSON), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero and prints no result. Each kernel's ``bound_ms`` counts its
 operations on the unit it runs them on (the f32 products of window
-attention and of the GDN backward as three TF32 products each on the
-tensor cores; the GDN forward on the f32 FMA units), against its bytes;
+attention and of both GDN kernels as three TF32 products each on the
+tensor cores, the rest on the f32 units), against its bytes;
 ``f32_fma_bound_ms`` counts every operation at the f32 FMA rate.
 """
 
@@ -63,7 +63,7 @@ T0 = time.time()
 # f32 on the FMA units, bf16 and TF32 on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
-# the f32 products of window attention and of the GDN backward run on the
+# the f32 products of window attention and of both GDN kernels run on the
 # tensor cores in 3xTF32: three TF32 products for each f32 product
 TF32_PASSES = 3
 
@@ -226,10 +226,10 @@ def gdn_bound_ms(B, C, P, backward: bool):
     (dx) written once, gamma and beta read (and their gradients written)
     once; against one C x C product per pixel (three in the backward)
     plus the elementwise work (4 operations per element forward: square,
-    add beta, rsqrt, multiply; 14 backward), on the units the kernel runs
-    them on: the forward all on the f32 FMA units, the backward's products
-    on the tensor cores as three TF32 products each. -> (ms, "bytes" |
-    "operations", and the f32-FMA bound (ms, by))."""
+    add beta, rsqrt, multiply; 14 backward), on the units the kernels run
+    them on at C <= 192: the products on the tensor cores as three TF32
+    products each, the elementwise work on the f32 units. -> (ms, "bytes"
+    | "operations", and the f32-FMA bound (ms, by))."""
     elems = B * C * P
     if backward:
         nbytes = 4 * (3 * elems + 2 * (C * C + C))
@@ -239,8 +239,6 @@ def gdn_bound_ms(B, C, P, backward: bool):
         products, elementwise = 2 * C * C * B * P, 4 * elems
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     fma = bound(t_bytes, (products + elementwise) / PEAK_OPS_PER_S["float32"] * 1e3)
-    if not backward:
-        return (*fma, fma)
     t_ops = (TF32_PASSES * products / PEAK_OPS_PER_S["tf32"]
              + elementwise / PEAK_OPS_PER_S["float32"]) * 1e3
     return (*bound(t_bytes, t_ops), fma)
@@ -266,6 +264,7 @@ def check_gdn(tgdn):
         beta = torch.from_numpy((1.0 + 0.1 * rng.random(C)).astype(np.float32)).to(dev)
         for inverse in (False, True):
             y = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
+            y_again = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
             dx, dgamma, dbeta = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
             again = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
             torch.cuda.synchronize()
@@ -277,7 +276,8 @@ def check_gdn(tgdn):
                 "dgamma": ((dgamma - dgamma_ref).abs().max() / dgamma_ref.abs().max()).item(),
                 "dbeta": ((dbeta - dbeta_ref).abs().max() / dbeta_ref.abs().max()).item(),
             }
-            deterministic = all(torch.equal(a, b) for a, b in zip(again, (dx, dgamma, dbeta)))
+            deterministic = torch.equal(y_again, y) and all(
+                torch.equal(a, b) for a, b in zip(again, (dx, dgamma, dbeta)))
             row = dict(path=path, B=B, C=C, H=H, W=W, inverse=inverse, err=err,
                        deterministic=deterministic)
             P = H * W
@@ -635,10 +635,8 @@ def main() -> int:
         "tolerance": TOLERANCE,
         "cases": rows,
     }]
-    for name, part, err_key, line, unit in (
-            ("gdn_forward", "forward", "y", 50, "f32 FMA units (67 TFLOP/s)"),
-            ("gdn_backward", "backward", "dx", 64,
-             "3xTF32 on the tensor cores (495 TFLOP/s dense), elementwise at 67")):
+    for name, part, err_key, line in (("gdn_forward", "forward", "y", 50),
+                                      ("gdn_backward", "backward", "dx", 64)):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -652,7 +650,7 @@ def main() -> int:
             "bound_ms": sum(r[part]["bound_ms"] for r in gdn_main),
             "bound_by": ("operations" if all(r[part]["bound_by"] == "operations"
                                              for r in gdn_main) else "bytes"),
-            "bound_unit": unit,
+            "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), elementwise at 67",
             "f32_fma_bound_ms": sum(r[part]["f32_fma_bound_ms"] for r in gdn_main),
             "library_ms": None,
             "library_note": no_library,

@@ -13,29 +13,43 @@
 // contiguous; no transposed copy is made. gamma is (C_out, C_in), row-major
 // (the port's orientation), and dGamma comes out in the same orientation.
 //
-// What bounds it on an H100: operations. Per pixel the forward does one
-// C x C product (2 C^2 operations) on 2 C values moved (x in, y out), 96
-// operations per byte at C = 192; the backward does three (6 C^2) on 3 C
-// values (x, g in, dx out), 192 per byte. On the f32 FMA units (67 TFLOP/s)
-// both are far above the 20 operations per byte at which that rate meets
-// the memory's (3.35 TB/s). The backward's products run on the tensor cores
-// in 3xTF32: three TF32 products (495 TFLOP/s dense) for each f32 product,
-// 165 TFLOP/s of f32 products, which meets the memory's rate at ~50
-// operations per byte, still under the backward's 192.
+// What bounds it on an H100: on the f32 FMA units, operations. Per pixel
+// the forward does one C x C product (2 C^2 operations) on 2 C values moved
+// (x in, y out), 96 operations per byte at C = 192; the backward does three
+// (6 C^2) on 3 C values (x, g in, dx out), 192 per byte. On the f32 FMA
+// units (67 TFLOP/s) both are far above the 20 operations per byte at which
+// that rate meets the memory's (3.35 TB/s). So both run their products on
+// the tensor cores in 3xTF32: three TF32 products (495 TFLOP/s dense) for
+// each f32 product, 165 TFLOP/s of f32 products, which meets the memory's
+// rate at ~50 operations per byte. The forward's 96 is near that line: its
+// bytes and its tensor-core operations bound it about equally (0.060 ms
+// each at 8 x 192 x 128^2). In practice mma.sync reaches about two thirds
+// of the dense TF32 rate, and a tile's product and its memory traffic
+// each take a large share of the time, so what the forward's design does
+// is keep both going at once.
 //
-// The forward, kept simple (f32 FMA units): a block owns a tile of TP = 32
-// pixels of one image and all C channels. x of the tile is read from device
-// memory once, many loads in flight, into shared memory, and the product
-// and epilogue run out of shared memory, x squared where it is read. gamma
-// is staged through shared memory in chunks of BK input channels by TO =
-// 192 output channels, and each thread keeps a 6 x 4 register tile (6
-// channels, 4 pixels: 10 conflict-free shared-memory reads per 24
-// multiply-adds).
+// The forward:
+// - gdn_fwd_kernel_resident (C <= 192, every GDN of every model): one
+//   persistent block per SM loads gamma (150 KB at C = 192) and beta into
+//   shared memory once, so per tile no gamma moves (read per tile, gamma
+//   would be three times the launch's own bytes at 8 x 192 x 128^2). Its
+//   two warpgroups each walk their own tiles of 32 pixels with their own x
+//   buffer; a warp holds 48 channels by 32 pixels of the product, so each
+//   split operand feeds 3 or 4 mma tiles, and the product runs without a
+//   barrier. A warpgroup loads its next tile and stores y
+//   while the other runs its product; the second starts one product late,
+//   so the two (and the SMs) do not fall into step.
+// - gdn_fwd_kernel_fma (C > 192, no model): a block owns a tile of TP =
+//   32 pixels of one image and all C channels, on the f32 FMA units. x of
+//   the tile is read once into shared memory, gamma is staged through
+//   shared memory in chunks of BK input channels by TO = 192 output
+//   channels, and each thread keeps a 6 x 4 register tile.
 //
 // The backward:
 // - All three products run on the tensor cores with mma.sync m16n8k8 in
-//   3xTF32: each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
-//   (integer rounding of the bit pattern) and the product accumulates
+//   3xTF32, as the forward's: each operand x is split into hi = tf32(x)
+//   and lo = tf32(x - hi) (integer rounding of the bit pattern) and the
+//   product accumulates
 //   lo*hi + hi*lo + hi*hi, dropping lo*lo (about 2^-22 of the product). The
 //   tensor cores' own additions do not round to nearest, so sums over 32
 //   channels or pixels start from zero and are added up in f32: dx stays
@@ -94,12 +108,10 @@ constexpr size_t MAX_SMEM = 227 * 1024;
 static_assert(THREADS == (TO / RM) * (TP / RN), "thread tile covers the chunk");
 static_assert(BK * TO % THREADS == 0, "staging is even over the threads");
 
-// acc[j][q] += sum_k A[c0 + ty*RM + j][k] * B[k][tx*RN + q], k < C.
-// A is gamma read as gamma[c][k] (TRANS = false: rows are output channels,
-// for n = Gamma x^2) or as gamma[k][c] (TRANS = true: for Gamma^T dn).
-// B is the (C x LD) tile Bs in shared memory, squared when SQUARE. Ends with
-// a barrier, so As can be restaged by the next call.
-template <bool TRANS, bool SQUARE>
+// acc[j][q] += sum_k gamma[c0 + ty*RM + j][k] * Bs[k][tx*RN + q]^2, k < C:
+// n = Gamma x^2 with gamma staged through As chunk by chunk. Bs is the
+// (C x LD) x tile in shared memory. Ends with a barrier, so As can be
+// restaged by the next call.
 __device__ __forceinline__ void chunk_product(const float* __restrict__ gamma,
                                               int C, int c0,
                                               const float* Bs, float* As,
@@ -113,21 +125,14 @@ __device__ __forceinline__ void chunk_product(const float* __restrict__ gamma,
     for (int r = 0; r < STAGE; ++r) {
       // the index running fastest over threads follows gamma's contiguous axis
       const int t = tid + r * THREADS;
-      const int kk = TRANS ? t / TO : t % BK;
-      const int cc = TRANS ? t % TO : t / BK;
-      const int c = c0 + cc;
-      const int k = k0 + kk;
-      v[r] = 0.f;
-      if (c < C && k < C) {
-        v[r] = TRANS ? gamma[(size_t)k * C + c] : gamma[(size_t)c * C + k];
-      }
+      const int c = c0 + t / BK;
+      const int k = k0 + t % BK;
+      v[r] = c < C && k < C ? gamma[(size_t)c * C + k] : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < STAGE; ++r) {
       const int t = tid + r * THREADS;
-      const int kk = TRANS ? t / TO : t % BK;
-      const int cc = TRANS ? t % TO : t / BK;
-      As[kk * ALD + cc] = v[r];
+      As[(t % BK) * ALD + t / BK] = v[r];
     }
     __syncthreads();
     const int kmax = min(BK, C - k0);
@@ -136,10 +141,7 @@ __device__ __forceinline__ void chunk_product(const float* __restrict__ gamma,
       const float* brow = Bs + (size_t)(k0 + kk) * LD + tx * RN;
       float b[RN];
 #pragma unroll
-      for (int q = 0; q < RN; ++q) {
-        b[q] = brow[q];
-        if (SQUARE) b[q] *= b[q];
-      }
+      for (int q = 0; q < RN; ++q) b[q] = brow[q] * brow[q];
 #pragma unroll
       for (int j = 0; j < RM; ++j) {
         const float a = arow[j];
@@ -172,8 +174,11 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src, int C,
   }
 }
 
+// The forward for C > 192 (no model of either package has so many
+// channels): one block per tile of TP pixels, f32 FMA units, gamma staged
+// through shared memory in chunks of BK input channels.
 __global__ void __launch_bounds__(THREADS)
-gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+gdn_fwd_kernel_fma(const float* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, float* __restrict__ y, int C,
                int P, int tiles_per_image, int inverse) {
   extern __shared__ float smem[];
@@ -189,7 +194,7 @@ gdn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   __syncthreads();
   for (int c0 = 0; c0 < C; c0 += TO) {
     float acc[RM][RN] = {};
-    chunk_product<false, true>(gamma, C, c0, xs, As, acc);
+    chunk_product(gamma, C, c0, xs, As, acc);
 #pragma unroll
     for (int j = 0; j < RM; ++j) {
       const int o = c0 + ty * RM + j;
@@ -291,6 +296,184 @@ __device__ __forceinline__ void mma_3xtf32_grid(float (&c)[I][J][4], const uint3
   for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int j = 0; j < J; ++j) mma_tf32(c[i][j], ah[i], bh[j]);
+}
+
+// ---------------------------------------------------------------------------
+// Forward with gamma resident, for C <= fwd::MAX_C: every GDN and IGDN of
+// every model. A persistent block (one per SM) loads gamma and beta into
+// shared memory once; its two warpgroups walk tiles of RP pixels, each with
+// its own x buffer, so one warpgroup's load and epilogue run beside the
+// other's product. Each warp holds 3 m-tiles (48 channels) by 4 n-tiles
+// (all 32 pixels) of its tile's product in 3xTF32 on mma.sync, so each
+// split gamma fragment feeds 4 mma tiles and each split x^2 fragment 3.
+namespace fwd {
+constexpr int MAX_C = 192;
+constexpr int RP = 32;           // pixels per tile
+constexpr int NT = RP / 8;       // n-tiles of a warp: all the tile's pixels
+constexpr int GROUP = 128;       // a warpgroup: warp w holds m-tiles w, w + 4, w + 8
+constexpr int THREADS = 2 * GROUP;
+constexpr int KC = 32;           // channels per sum added in f32
+constexpr int LDT = RP + 4;      // x tile rows: the B fragments' reads hit 32 banks
+constexpr int PAD_G = 8;         // gamma rows: CK + 8, the A fragments' 8-byte reads hit 32 banks
+}  // namespace fwd
+
+// Each tile: acc = Gamma x^2 over all CK input channels with no barrier, in
+// sums of 32 channels that start from zero and are added in f32 (the tensor
+// cores' own additions do not round to nearest); then y = x n^(-1/2)
+// (IGDN: x n^(+1/2)), n = beta + acc, stored from registers, 8 bytes a
+// thread where the row allows.
+//
+// The k index of every 8-channel step is permuted alike in A and B: the
+// mma's k = tq reads channel 2 tq and k = tq + 4 channel 2 tq + 1, so a
+// thread's two gamma values of a row are neighbours (one 8-byte read).
+//
+// Warpgroup g takes tiles blockIdx.x + (2 i + g) gridDim.x, i = 0, 1, ...;
+// every tile is computed alone, in one fixed order, and each y has one
+// writer: neither the grid nor the card changes a bit of y.
+__global__ void __launch_bounds__(fwd::THREADS, 1)
+gdn_fwd_kernel_resident(const float* __restrict__ x, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, float* __restrict__ y, int C, int P,
+                        int tiles_per_image, int n_tiles, int inverse, int x_aligned,
+                        int gamma_aligned, int y_aligned) {
+  constexpr int RP = fwd::RP, NT = fwd::NT, LDT = fwd::LDT, GROUP = fwd::GROUP;
+  constexpr int THREADS = fwd::THREADS, KC = fwd::KC, MAX_C = fwd::MAX_C;
+  extern __shared__ float4 smem4[];
+  // input channels padded to the f32 sum, output channels to MAX_C: the
+  // product runs the same instructions at every C
+  const int CK = (C + KC - 1) / KC * KC;
+  const int LDG = CK + fwd::PAD_G;
+  float* gs = reinterpret_cast<float*>(smem4);  // gamma (MAX_C x LDG), zero past C
+  float* betas = gs + MAX_C * LDG;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  const int group = warp / 4;
+  const int wq = warp % 4;      // m-tiles wq, wq + 4, wq + 8
+  const int gt = tid % GROUP;   // thread within the warpgroup
+  float* xs = betas + MAX_C + group * CK * LDT;  // the warpgroup's x tile (CK x LDT)
+  // the warpgroup's barrier: named barrier 1 + group, its 128 threads
+  auto group_sync = [&]() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(GROUP) : "memory");
+  };
+
+  for (int e = tid; e < MAX_C * (CK / 4); e += THREADS) {
+    const int o = e / (CK / 4);
+    const int i = (e % (CK / 4)) * 4;
+    copy4(gs + o * LDG + i, gamma + (size_t)o * C + i, o < C ? C - i : 0, gamma_aligned);
+  }
+  for (int c = tid; c < C; c += THREADS) betas[c] = beta[c];
+  // tile t's x into the warpgroup's buffer, zero past C channels and past
+  // the image
+  auto load_tile = [&](int tile) {
+    const int p0 = (tile % tiles_per_image) * RP;
+    const float* s0 = x + (size_t)(tile / tiles_per_image) * C * P + p0;
+    for (int e = gt; e < CK * (RP / 4); e += GROUP) {
+      const int c = e / (RP / 4);
+      const int p = (e % (RP / 4)) * 4;
+      copy4(xs + c * LDT + p, s0 + (size_t)c * P + p, c < C ? P - p0 - p : 0, x_aligned);
+    }
+  };
+  const int step = 2 * gridDim.x;
+  const int first = blockIdx.x + group * gridDim.x;
+  if (first < n_tiles) load_tile(first);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // gamma, beta and the first tiles are in
+  // warpgroup 1 starts when warpgroup 0 has run its first product (named
+  // barrier 3): started together, the two would keep the same phase, and
+  // their loads and stores would meet in bursts (with those of every other
+  // SM) instead of running beside the other's product
+  if (group == 1) {
+    asm volatile("bar.sync 3, %0;\n" ::"n"(THREADS) : "memory");
+  } else if (first >= n_tiles) {
+    asm volatile("bar.arrive 3, %0;\n" ::"n"(THREADS) : "memory");
+  }
+
+  for (int tile = first; tile < n_tiles; tile += step) {
+    float acc[3][NT][4] = {};
+    for (int k0 = 0; k0 < CK; k0 += KC) {
+      float part[3][NT][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks) {
+        const int k = k0 + ks * 8;
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {  // B[k][n] = x[channel][pixel]^2
+          const float* br = xs + (k + 2 * tq) * LDT + j * 8 + gq;
+          const float v0 = br[0], v1 = br[LDT];
+          split_tf32(v0 * v0, bh[j][0], bl[j][0]);
+          split_tf32(v1 * v1, bh[j][1], bl[j][1]);
+        }
+        uint32_t ah[3][4], al[3][4];
+#pragma unroll
+        for (int mi = 0; mi < 3; ++mi) {  // A[m][k] = gamma[out][in]
+          const int m0 = (wq + 4 * mi) * 16;
+          const float2 r0 = *reinterpret_cast<const float2*>(gs + (m0 + gq) * LDG + k + 2 * tq);
+          const float2 r8 = *reinterpret_cast<const float2*>(gs + (m0 + gq + 8) * LDG + k + 2 * tq);
+          split_tf32(r0.x, ah[mi][0], al[mi][0]);
+          split_tf32(r8.x, ah[mi][1], al[mi][1]);
+          split_tf32(r0.y, ah[mi][2], al[mi][2]);
+          split_tf32(r8.y, ah[mi][3], al[mi][3]);
+        }
+        mma_3xtf32_grid(part, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[mi][j][e];
+    }
+    if (group == 0 && tile == first) asm volatile("bar.arrive 3, %0;\n" ::"n"(THREADS) : "memory");
+
+    // accumulator e of tile (mi, j): channel m0 + gq (+8 for e >= 2),
+    // pixels j * 8 + 2 tq and + 1 (e even and odd); x there into registers,
+    // and the buffer takes the next tile while the epilogue runs
+    float2 xr[3][2][NT];
+#pragma unroll
+    for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = (wq + 4 * mi) * 16 + gq + 8 * h;
+          xr[mi][h][j] = c < C ? *reinterpret_cast<const float2*>(xs + c * LDT + j * 8 + 2 * tq)
+                               : make_float2(0.f, 0.f);
+        }
+    group_sync();
+    if (tile + step < n_tiles) load_tile(tile + step);
+    cp_async_commit();
+
+    const int p0 = (tile % tiles_per_image) * RP;
+    float* yt = y + (size_t)(tile / tiles_per_image) * C * P + p0;
+#pragma unroll
+    for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = (wq + 4 * mi) * 16 + gq + 8 * h;
+        if (c >= C) continue;
+        const float bc = betas[c];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int pl = j * 8 + 2 * tq;
+          const float n0 = acc[mi][j][2 * h] + bc, n1 = acc[mi][j][2 * h + 1] + bc;
+          const float2 v = make_float2(xr[mi][h][j].x * (inverse ? sqrtf(n0) : rsqrtf(n0)),
+                                       xr[mi][h][j].y * (inverse ? sqrtf(n1) : rsqrtf(n1)));
+          float* dst = yt + (size_t)c * P + pl;
+          if (y_aligned && p0 + pl + 1 < P) {
+            *reinterpret_cast<float2*>(dst) = v;
+          } else {
+            if (p0 + pl < P) dst[0] = v.x;
+            if (p0 + pl + 1 < P) dst[1] = v.y;
+          }
+        }
+      }
+    cp_async_wait<0>();  // the next tile has landed
+    group_sync();        // for every thread of the warpgroup
+  }
 }
 
 // n = beta + Gamma x^2 -> the direct term of dx and dn, for GDN (IGDN with
@@ -889,6 +1072,37 @@ int launch_dx_resident(const float* g, const float* x, const float* gamma, const
   return (int)cudaGetLastError();
 }
 
+int launch_fwd_fma(const float* x, const float* gamma, const float* beta, float* y, int B,
+                   int C, int P, int inverse, cudaStream_t s) {
+  const size_t smem = sizeof(float) * ((size_t)C * LD + BK * ALD);
+  int rc = set_smem((const void*)gdn_fwd_kernel_fma, smem);
+  if (rc != 0) return rc;
+  const int tpi = tiles_per_image(P);
+  gdn_fwd_kernel_fma<<<B * tpi, THREADS, smem, s>>>(x, gamma, beta, y, C, P, tpi, inverse);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_resident(const float* x, const float* gamma, const float* beta, float* y, int B,
+                        int C, int P, int inverse, cudaStream_t s) {
+  const int CK = (C + fwd::KC - 1) / fwd::KC * fwd::KC;
+  const size_t smem = sizeof(float) * ((size_t)fwd::MAX_C * (CK + fwd::PAD_G) + fwd::MAX_C +
+                                       2 * (size_t)CK * fwd::LDT);
+  int rc = set_smem((const void*)gdn_fwd_kernel_resident, smem);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  if ((rc = (int)cudaGetDevice(&dev)) != 0) return rc;
+  if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0) return rc;
+  const int tpi = (P + fwd::RP - 1) / fwd::RP;
+  const int n_tiles = B * tpi;
+  const int x_aligned = P % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
+  const int y_aligned = P % 2 == 0 && (uintptr_t)y % 8 == 0;
+  // one block per SM (gamma fills most of its shared memory)
+  gdn_fwd_kernel_resident<<<n_tiles < sms ? n_tiles : sms, fwd::THREADS, smem, s>>>(
+      x, gamma, beta, y, C, P, tpi, n_tiles, inverse, x_aligned, gamma_aligned, y_aligned);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -912,15 +1126,15 @@ long long gdn_backward_workspace(int B, int C, int P) {
 int gdn_forward(const void* x, const void* gamma, const void* beta, void* y,
                 int B, int C, int P, int inverse, void* stream) {
   if (B == 0 || P == 0 || C == 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)C * LD + BK * ALD);
-  int rc = set_smem((const void*)gdn_fwd_kernel, smem);
-  if (rc != 0) return rc;
-  const int tpi = tiles_per_image(P);
-  gdn_fwd_kernel<<<B * tpi, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<float*>(y), C, P, tpi,
-      inverse);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* gammaf = static_cast<const float*>(gamma);
+  const float* betaf = static_cast<const float*>(beta);
+  float* yf = static_cast<float*>(y);
+  // gamma resident in shared memory on the tensor cores up to MAX_C
+  // channels; above, gamma staged in chunks on the FMA units
+  return C <= fwd::MAX_C ? launch_fwd_resident(xf, gammaf, betaf, yf, B, C, P, inverse, s)
+                         : launch_fwd_fma(xf, gammaf, betaf, yf, B, C, P, inverse, s);
 }
 
 // g, x, dx: (B, C, P) float32 contiguous; gamma, dgamma (C, C); beta, dbeta

@@ -45,9 +45,12 @@ from .. import _native
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-# channels the kernels take: above 192 channels the backward streams gamma,
-# and its two (C x 24) float tiles and two gamma chunks fit a block's 227 KB
-# of shared memory up to C = 896 (the forward's beyond C = 1,600)
+# channels the kernels take. Up to 192 (every GDN of every model) both keep
+# gamma resident in shared memory and run their products on the tensor
+# cores. Above, the backward streams gamma, its two (C x 24) float tiles
+# and two gamma chunks fitting a block's 227 KB of shared memory up to
+# C = 896, and the forward stages gamma in chunks on the f32 FMA units
+# (beyond C = 1,600)
 MAX_CHANNELS = 512
 
 _fns = None

@@ -175,33 +175,46 @@ def test_gdn_kernels_match_plain(B, C, H, W, inverse, f32_reference):
         torch.testing.assert_close(got / scale, ref / scale, rtol=0, atol=GDN_TOL[key])
 
 
-def test_gdn_backward_is_deterministic():
+@pytest.mark.parametrize("kernel", ["forward", "backward"])
+def test_gdn_kernels_are_deterministic(kernel):
     """A fixed partition of rows and a fixed order of sums, no atomics: two
     launches give the same bits."""
     _needs_card()
     x, g, gamma, beta = _gdn_inputs(8, 192, 64, 64, seed=1)
-    first = tgdn.gdn_backward_cuda(g, x, gamma, beta, False)
-    second = tgdn.gdn_backward_cuda(g, x, gamma, beta, False)
+    if kernel == "forward":
+        first = (tgdn.gdn_forward_cuda(x, gamma, beta, False),)
+        second = (tgdn.gdn_forward_cuda(x, gamma, beta, False),)
+    else:
+        first = tgdn.gdn_backward_cuda(g, x, gamma, beta, False)
+        second = tgdn.gdn_backward_cuda(g, x, gamma, beta, False)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-# the backward's edges: C = 12, 13 and 200 are not multiples of the 16-row
+# the kernels' edges: C = 12, 13 and 200 are not multiples of the 16-row
 # mma tile (13 also leaves gamma's rows off 16-byte boundaries, and 200 is
-# past 192 channels, so gamma streams beside 16-pixel tiles); ragged pixel
-# counts (1155 = 36 tiles of 32 and 3 pixels; 63 and 99, not multiples of
-# 4); C = 512, the most the wrapper takes; 70 x 64 pixels, 140 chunks of
-# 32 pixels for 64 partial slots
+# past 192 channels, so the backward streams gamma beside 16-pixel tiles
+# and the forward runs on the FMA units); ragged pixel counts (1155 = 36
+# tiles of 32 and 3 pixels; 63, 99 and 35, not multiples of 4); C = 512,
+# the most the wrapper takes; 70 x 64 pixels, 140 tiles of 32 for at most
+# one block per SM, and 140 chunks of 32 pixels for 64 partial slots;
+# 1 x 35 pixels, fewer tiles than SMs; the serving path's 2 x 192 x 64^2
 @pytest.mark.parametrize("B,C,H,W", [(4, 200, 16, 16), (2, 12, 33, 35), (5, 13, 7, 9),
-                                     (1, 512, 9, 11), (70, 192, 8, 8)])
-def test_gdn_backward_edges_match_plain_and_repeat(B, C, H, W, inverse, f32_reference):
+                                     (1, 512, 9, 11), (70, 192, 8, 8), (1, 192, 5, 7),
+                                     (2, 192, 64, 64)])
+def test_gdn_kernels_edges_match_plain_and_repeat(B, C, H, W, inverse, f32_reference):
     _needs_card()
     x, g, gamma, beta = _gdn_inputs(B, C, H, W, seed=B * C + H)
+    y = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
+    y_again = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
     dx, dgamma, dbeta = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
     again = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
     torch.cuda.synchronize()
+    y_ref = tgdn.gdn_forward_reference(x, gamma, beta, inverse)
     dx_ref, dgamma_ref, dbeta_ref = tgdn.gdn_backward_reference(g, x, gamma, beta, inverse)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=GDN_TOL["y"])
+    assert torch.equal(y_again, y)
     torch.testing.assert_close(dx, dx_ref, rtol=0, atol=GDN_TOL["dx"])
     for got, ref, key in ((dgamma, dgamma_ref, "dgamma"), (dbeta, dbeta_ref, "dbeta")):
         scale = ref.abs().max()
