@@ -7,8 +7,9 @@ and exits non-zero (printing no result) without a card or without the
 package beside it. Phases, each printed with its elapsed seconds:
 
 1. environment: the card's name and power limit (nvidia-smi), versions;
-2. build: the window-attention and GDN kernels (nvcc, sm_90a) and the
-   host rANS coder (g++), from the sources in the checkout, all at once;
+2. build: the window-attention, GDN and lane-rANS kernels (nvcc, sm_90a)
+   and the host rANS coder (g++), from the sources in the checkout, all
+   at once;
 3. window attention against its plain PyTorch version on the card, at
    the shapes of the full-width WACNN's path, in f32 and bf16, timed
    beside the plain version and F.scaled_dot_product_attention (a
@@ -23,16 +24,32 @@ package beside it. Phases, each printed with its elapsed seconds:
    right before and read right after each side. Asserts a bit-exact
    y_hat, the decoder's x_hat equal to the encoder's, a finite bpp, and
    window-attention and GDN-forward launches on both sides;
-6. the same weights' eval forward on the card against the plain CPU path
+6. the device wire's rANS kernels against their plain versions, byte for
+   byte, at the path's shapes: encode y (2048 lanes x 320 steps, the 64
+   Gaussian rows) and z (1024 lanes x 24 steps, the 192 bottleneck
+   rows); decode y as 10 continued launches of 32 steps and z as one.
+   Payloads drawn from ``--seed`` and each row's distribution, about 1%
+   escapes with int32 extremes among them; two launches must give the
+   same bytes; timed beside the plain versions;
+7. the same weights and images on the device wire
+   (``DeviceWireCodec``, 1024 lanes an image): compress -> decompress with
+   the counts zeroed right before and read right after each side. Asserts
+   a bit-exact y_hat and x_hat, y_hat equal to phase 5's host wire, the
+   device wire's bytes within the host wire's x 1.02 plus each lane's
+   flush and header, 2 encode launches per compress and 11 decode
+   launches per decompress, window attention and the GDN forward on both
+   sides, and that decompress made no host round trip
+   (``torch.cuda.set_sync_debug_mode``);
+8. the same weights' eval forward on the card against the plain CPU path
    on a small input;
-7. full-width WACNN training through ``train.run_training``: one epoch
+9. full-width WACNN training through ``train.run_training``: one epoch
    of 6 steps on seeded batches of 8 x 256 x 256, an eval batch, a
    checkpoint, and a resume for 2 more steps. Every step's loss, bpp and
    aux loss must be finite, the parameters must move, and each step must
    launch the three kernels (counts zeroed before it and read after it);
-8. one training step of the trained weights on the card against the
+10. one training step of the trained weights on the card against the
    plain CPU path on a small input, with the same noise: the loss terms
-   and every parameter's gradient.
+    and every parameter's gradient.
 
 It then prints the kernels line (JSON), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -40,7 +57,10 @@ exits non-zero and prints no result. Each kernel's ``bound_ms`` counts its
 operations on the unit it runs them on (the f32 products of window
 attention and of both GDN kernels as three TF32 products each on the
 tensor cores, the rest on the f32 units), against its bytes;
-``f32_fma_bound_ms`` counts every operation at the f32 FMA rate.
+``f32_fma_bound_ms`` counts every operation at the f32 FMA rate. The
+rANS kernels' bound counts the bytes this run's data needs (each distinct
+table entry once) against their integer operations; beside it stands the
+dependent-chain estimate: their steps times an assumed load latency.
 """
 
 from __future__ import annotations
@@ -84,6 +104,11 @@ GDN_TOLERANCE = {"y": 1e-5, "dx": 1e-5, "dgamma": 1e-4, "dbeta": 1e-4}
 # in other orders (cuDNN and the kernels against oneDNN and the plain
 # versions), through the log-likelihoods
 TRAIN_TOLERANCE = 1e-3
+
+# the rANS kernels: 32-bit integer operations on the CUDA cores, 64 of an
+# SM's 128 lanes a clock (half the f32 rate)
+INT32_OPS_PER_S = PEAK_OPS_PER_S["float32"] / 2
+INT32_EXTREMES = np.array([2 ** 31 - 1, -(2 ** 31), 2 ** 20, -12345678], np.int64)
 
 
 def log(msg: str) -> None:
@@ -306,6 +331,225 @@ def check_gdn(tgdn):
     return rows
 
 
+def rans_payload(host, rows: np.ndarray, rng, esc_share: float = 0.01) -> np.ndarray:
+    """Values for ``rows`` drawn from each row's own distribution, then
+    about ``esc_share`` of them replaced by escapes (values past the row's
+    support, half of them int32 extremes)."""
+    peek = rng.integers(0, 1 << 16, size=rows.shape)
+    sym = np.empty(rows.shape, np.int64)
+    for r in np.unique(rows):
+        at = rows == r
+        L = int(host.cdf_length[r])
+        sym[at] = np.clip(np.searchsorted(host.quantized_cdf[r, :L], peek[at], "right") - 1,
+                          0, L - 3)
+    offs = host.offset[rows].astype(np.int64)
+    wild = np.where(rng.random(rows.shape) < 0.5, rng.choice(INT32_EXTREMES, rows.shape),
+                    offs + host.cdf_length[rows] + rng.integers(0, 1000, rows.shape))
+    values = np.where(rng.random(rows.shape) < esc_share, wild, sym + offs)
+    return values.astype(np.int32)
+
+
+def rans_bounds(host, values, rows, n_words: int, decode: bool):
+    """Least time of the encode or the decode chain on this data: the
+    bytes it must move (each input once, each output once; of the tables,
+    each distinct entry this data needs: a lut2 pair or an fc entry per
+    distinct (row, symbol), an eo pair per distinct row) at 3.35 TB/s,
+    against its integer operations (~12 a symbol decoding, ~40 encoding
+    with the 32-bit division) at INT32_OPS_PER_S. -> (ms, by)."""
+    T, lanes = values.shape
+    u = values.astype(np.int64) - host.offset[rows]
+    es = host.cdf_length[rows].astype(np.int64) - 2
+    sym = np.where((u < 0) | (u >= es), es, u)
+    pairs = np.unique(rows.astype(np.int64) * 65536 + sym).size
+    n = T * lanes
+    if decode:
+        nbytes = 2 * n_words + 4 * lanes + 4 * n + 8 * pairs + 4 * n + 8 * lanes
+        ops = 12 * n
+    else:
+        nbytes = 8 * n + 4 * pairs + 8 * np.unique(rows).size + 2 * lanes * (T + 2) + 4 * lanes + n
+        ops = 40 * n
+    return bound(nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3)
+
+
+def check_rans(kit, tables, seed: int, B: int, size: int):
+    """Phase 6: the lane-rANS kernels vs their plain versions at the device
+    wire's shapes for B images of size^2 -> rows (y, z). Besides the
+    launches' time, each part is timed on the first lane alone
+    (``one_lane_ms``): the dependent chain of T steps with nothing beside
+    it."""
+    import torch
+
+    from icm_tpu_torch.coding import device_rans as tdr
+
+    def same(got, want, what) -> int:
+        """-> the largest |kernel - plain| over the outputs; raises
+        unless every output has the same dtype, shape and values."""
+        err = 0
+        for a, b in zip(got, want, strict=True):
+            if isinstance(a, torch.Tensor):
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    raise AssertionError(f"{what}: {a.dtype}{tuple(a.shape)} against "
+                                         f"{b.dtype}{tuple(b.shape)}")
+                if a.numel():
+                    err = max(err, int((a.long() - b.long()).abs().max()))
+            else:
+                err = max(err, abs(a - b))
+        if err:
+            raise AssertionError(f"{what}: kernel and plain version differ by up to {err}")
+        return err
+
+    rng = np.random.default_rng(seed + 7)
+    h = w = size // 16  # y latent
+    n_l = kit.n_lanes(h, w)
+    S, M = 10, 320
+    rows_y = rng.integers(0, kit.gauss_dev.num_rows, size=((h * w // n_l) * M, B * n_l))
+    zh = zw = size // 64
+    eb = kit.eb_dev["entropy_bottleneck"]
+    C = eb.num_rows
+    rows_z = kit.z_rows(C, kit.z_groups(C), B * zh * zw).cpu().numpy()
+    out = []
+    for name, host, tab, rows_np, n_launches in (
+            ("y", tables.gaussian, kit.gauss_dev, rows_y, S),
+            ("z", tables.bottlenecks["entropy_bottleneck"], eb, rows_z, 1)):
+        values_np = rans_payload(host, rows_np, rng)
+        values = torch.from_numpy(values_np).cuda()
+        rows = torch.from_numpy(rows_np.astype(np.int32)).cuda()
+        T, lanes = values.shape
+        enc = tdr.encode_lanes_cuda(values, rows, tab)
+        err = same(tdr.encode_lanes_cuda(values, rows, tab), enc, f"{name} encode, two launches")
+        err = max(err, same(tdr.encode_lanes_reference(values, rows, tab), enc, f"{name} encode"))
+        buf, lengths, dest, raw, n_esc = enc
+        len_h = lengths.cpu().numpy()
+        words = torch.from_numpy(tdr.assemble_streams(buf.cpu().numpy().view(np.uint16), len_h)
+                                 .view(np.int16)).cuda()
+        off = torch.from_numpy(tdr.lane_offsets(len_h)).cuda()
+        seg = T // n_launches
+
+        def chain(fn, off=off, rows=rows):
+            """The n_launches continued decode launches -> (each launch's
+            values, state, ptr); nothing but the launches runs."""
+            state = ptr = None
+            parts = []
+            for i in range(n_launches):
+                vals, state, ptr = fn(words, off, rows[i * seg:(i + 1) * seg], tab, state, ptr)
+                parts.append(vals)
+            return parts, state, ptr
+
+        def flat(dec):
+            return [*dec[0], dec[1], dec[2]]
+
+        dec = chain(tdr.decode_lanes_cuda)
+        err = max(err, same(flat(chain(tdr.decode_lanes_cuda)), flat(dec),
+                            f"{name} decode, two runs"))
+        err = max(err, same(flat(chain(tdr.decode_lanes_reference)), flat(dec), f"{name} decode"))
+        if not torch.equal(tdr.fix_escapes(torch.cat(dec[0]), dest, raw), values):
+            raise AssertionError(f"{name}: decoded values differ from the encoded ones")
+        if not torch.equal(dec[2], lengths):
+            raise AssertionError(f"{name}: decode did not read every word")
+        row = dict(stream=name, T=T, lanes=lanes, launches_decode=n_launches,
+                   table_rows=tab.num_rows, n_escapes=n_esc, words=int(words.numel()),
+                   max_abs_err=err)
+        v1, r1, o1 = values[:, :1].contiguous(), rows[:, :1].contiguous(), off[:1]
+        for part, run, one_lane, plain, decode in (
+                ("encode", lambda: tdr.encode_lanes_kernel(values, rows, tab),
+                 lambda: tdr.encode_lanes_kernel(v1, r1, tab),
+                 lambda: tdr.encode_lanes_reference(values, rows, tab), False),
+                ("decode", lambda: chain(tdr.decode_lanes_cuda),
+                 lambda: chain(tdr.decode_lanes_cuda, o1, r1),
+                 lambda: chain(tdr.decode_lanes_reference), True)):
+            ms, by = rans_bounds(host, values_np, rows_np, int(words.numel()), decode)
+            row[part] = dict(ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=3), bound_ms=ms,
+                             bound_by=by, one_lane_ms=cuda_ms(one_lane))
+        out.append(row)
+        e, d = row["encode"], row["decode"]
+        log(f"  rans {name}: {lanes} lanes x T={T} ({n_launches} decode launches of "
+            f"{seg}), {n_esc} escapes, {row['words']} words: same bytes as the plain versions "
+            f"and launch to launch (max |kernel - plain| {err}); encode ms {e['ms']:.4f} "
+            f"(one lane alone {e['one_lane_ms']:.4f}) plain {e['plain_ms']:.2f} bound "
+            f"{e['bound_ms']:.5f} ({e['bound_by']}); decode ms {d['ms']:.4f} (one lane alone "
+            f"{d['one_lane_ms']:.4f}) plain {d['plain_ms']:.2f} bound {d['bound_ms']:.5f} "
+            f"({d['bound_by']})")
+    return out
+
+
+def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts):
+    """Phase 7: compress -> decompress on the device wire; -> results."""
+    import warnings
+
+    import torch
+
+    B, size = x.shape[0], x.shape[1]
+    zero_counts()
+    enc = codec.compress(x, return_debug=True)
+    torch.cuda.synchronize()
+    enc_launches = read_counts()
+    zero_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            dec = codec.decompress(enc["strings"], enc["shape"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message).splitlines()[0] for c in caught
+             if "synchroniz" in str(c.message)]
+    torch.cuda.synchronize()
+    dec_launches = read_counts()
+    log(f"  launches: compress {enc_launches}, decompress {dec_launches}; host round "
+        f"trips in decompress: {len(syncs)}")
+    if syncs:
+        raise AssertionError(f"decompress waited for the card: {syncs[:3]}")
+    if not torch.equal(dec["y_hat"], enc["y_hat"]) or not torch.equal(dec["x_hat"], enc["x_hat"]):
+        raise AssertionError("device wire: decoder's y_hat or x_hat differs from the encoder's")
+    if not torch.equal(enc["y_hat"], host_enc["y_hat"]):
+        raise AssertionError("device wire: y_hat differs from the host wire's")
+    if dec["x_hat"].shape != x.shape or not bool(torch.isfinite(dec["x_hat"]).all()):
+        raise AssertionError(f"bad x_hat {tuple(dec['x_hat'].shape)}")
+    expect = {"compress": (enc_launches, 2, 0), "decompress": (dec_launches, 0, 11)}
+    for side, (counts, n_enc, n_dec) in expect.items():
+        if (counts["rans_encode"], counts["rans_decode"]) != (n_enc, n_dec) or \
+                counts["window_attention"] < 1 or counts["gdn_forward"] < 1:
+            raise AssertionError(f"device wire {side}: launches {counts}")
+    # rate: the host wire's bytes x 1.02, plus per image and stream each
+    # lane's 4-byte flush and 2-byte length and the header
+    lanes = {"y": codec.kit.n_lanes(size // 16, size // 16),
+             "z": (size // 64) ** 2 * codec.kit.z_groups(codec.kit.eb_dev["entropy_bottleneck"].num_rows)}
+    stream_bytes = {}
+    for k, name in enumerate("yz"):
+        dev_b = sum(len(s) for s in enc["strings"][k])
+        host_b = sum(len(s) for s in host_enc["strings"][k])
+        limit = host_b * 1.02 + B * (lanes[name] * 8 + 16)
+        stream_bytes[name] = dict(device=dev_b, host=host_b, limit=limit)
+        if dev_b > limit:
+            raise AssertionError(f"device wire {name}: {dev_b} bytes over {limit}")
+    n_bytes = [len(y) + len(z) for y, z in zip(*enc["strings"])]
+    bpp = [8 * n / (size * size) for n in n_bytes]
+    mse = torch.mean((dec["x_hat"] - x) ** 2, dim=(1, 2, 3))
+    psnr = (10 * torch.log10(1.0 / mse)).tolist()
+    enc_s, dec_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.time()
+        e = codec.compress(x)
+        torch.cuda.synchronize()
+        enc_s.append(time.time() - t)
+        t = time.time()
+        d = codec.decompress(e["strings"], e["shape"])
+        torch.cuda.synchronize()
+        dec_s.append(time.time() - t)
+        if not torch.equal(d["x_hat"], dec["x_hat"]):
+            raise AssertionError("repeated device-wire decode differs from the first")
+    result = dict(
+        images=B, size=size, lanes_per_image=codec.kit.lanes_per_image, bpp=bpp, psnr_db=psnr,
+        stream_bytes=stream_bytes, encode_img_per_s=B / float(np.median(enc_s)),
+        decode_img_per_s=B / float(np.median(dec_s)), host_round_trips_in_decompress=0,
+        launches_compress=enc_launches, launches_decompress=dec_launches)
+    log(f"  bytes {stream_bytes}; bpp {[round(b, 4) for b in bpp]}, PSNR "
+        f"{[round(p, 2) for p in psnr]} dB, encode {result['encode_img_per_s']:.2f} img/s, "
+        f"decode {result['decode_img_per_s']:.2f} img/s (median of 3, batch {B}, {card})")
+    return result, enc_launches, dec_launches
+
+
 def instrumented(make_step, records):
     """``make_step`` whose steps are timed (host clock around a step that
     ends in ``torch.cuda.synchronize()``) and whose kernel launches are
@@ -313,6 +557,7 @@ def instrumented(make_step, records):
     after it. One record per step, with its metrics."""
     import torch
 
+    from icm_tpu_torch.coding import device_rans as tdr
     from icm_tpu_torch.nn import gdn_fused as tgdn
     from icm_tpu_torch.nn import window_attention as twa
 
@@ -322,6 +567,7 @@ def instrumented(make_step, records):
         def step(state, batch, generator):
             torch.cuda.synchronize()
             twa.LAUNCHES = tgdn.FWD_LAUNCHES = tgdn.BWD_LAUNCHES = 0
+            tdr.ENCODE_LAUNCHES = tdr.DECODE_LAUNCHES = 0
             t = time.time()
             metrics = inner(state, batch, generator)
             torch.cuda.synchronize()
@@ -330,7 +576,9 @@ def instrumented(make_step, records):
                 seconds=seconds, step=state.step,
                 launches={"window_attention": twa.LAUNCHES,
                           "gdn_forward": tgdn.FWD_LAUNCHES,
-                          "gdn_backward": tgdn.BWD_LAUNCHES},
+                          "gdn_backward": tgdn.BWD_LAUNCHES,
+                          "rans_encode": tdr.ENCODE_LAUNCHES,
+                          "rans_decode": tdr.DECODE_LAUNCHES},
                 **{k: float(v) for k, v in metrics.items()}))
             return metrics
 
@@ -341,8 +589,9 @@ def instrumented(make_step, records):
 
 # launches of each kernel in one training step of WACNN: 3 GDN + 3 IGDN
 # forward and backward; the 4 window blocks forward (their backward is
-# autograd of the plain version, as in the JAX package)
-TRAIN_STEP_LAUNCHES = {"window_attention": 4, "gdn_forward": 6, "gdn_backward": 6}
+# autograd of the plain version, as in the JAX package); no coding
+TRAIN_STEP_LAUNCHES = {"window_attention": 4, "gdn_forward": 6, "gdn_backward": 6,
+                       "rans_encode": 0, "rans_decode": 0}
 
 
 def train_phase(model, seed: int, card: str):
@@ -460,7 +709,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from icm_tpu_torch import _native
     from icm_tpu_torch.data import make_images
-    from icm_tpu_torch.models import CharmCodec, create_model
+    from icm_tpu_torch.coding import device_rans as tdr
+    from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
     from icm_tpu_torch.nn import gdn_fused as tgdn
     from icm_tpu_torch.nn import window_attention as twa
 
@@ -493,7 +743,7 @@ def main() -> int:
             if isinstance(res, BaseException):
                 raise res
             log(f"  built {name}: {os.path.relpath(res[0], REPO)} in {res[1]:.1f}s")
-        for lib in ("libwindow_attention", "libgdn"):
+        for lib in ("libwindow_attention", "libgdn", "librans_lanes"):
             for line in _native.BUILD_LOG.get(lib, "").splitlines():
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     log(f"  ptxas ({lib}): {line.strip()}")
@@ -510,10 +760,12 @@ def main() -> int:
 
     def zero_counts():
         twa.LAUNCHES = tgdn.FWD_LAUNCHES = tgdn.BWD_LAUNCHES = 0
+        tdr.ENCODE_LAUNCHES = tdr.DECODE_LAUNCHES = 0
 
     def read_counts():
         return {"window_attention": twa.LAUNCHES, "gdn_forward": tgdn.FWD_LAUNCHES,
-                "gdn_backward": tgdn.BWD_LAUNCHES}
+                "gdn_backward": tgdn.BWD_LAUNCHES, "rans_encode": tdr.ENCODE_LAUNCHES,
+                "rans_decode": tdr.DECODE_LAUNCHES}
 
     with Phase("full-width WACNN compress/decompress"):
         B, size = 2, 512
@@ -551,6 +803,8 @@ def main() -> int:
         for side, counts in (("compress", enc_launches), ("decompress", dec_launches)):
             if counts["window_attention"] < 1 or counts["gdn_forward"] < 1:
                 raise AssertionError(f"kernels not on the {side} path: {counts}")
+            if counts["rans_encode"] or counts["rans_decode"]:
+                raise AssertionError(f"lane rANS on the host wire's {side}: {counts}")
         mse = torch.mean((dec["x_hat"] - x) ** 2, dim=(1, 2, 3))
         psnr = (10 * torch.log10(1.0 / mse)).tolist()
 
@@ -577,6 +831,17 @@ def main() -> int:
             f"encode {slice_result['encode_img_per_s']:.2f} img/s, decode "
             f"{slice_result['decode_img_per_s']:.2f} img/s "
             f"(median of 3, batch {B}, {card})")
+
+    with Phase("device-wire rANS kernels vs plain"):
+        t = time.time()
+        dev_codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
+        torch.cuda.synchronize()
+        log(f"  device-wire codec and its coder tables in {time.time() - t:.1f}s")
+        rans_rows = check_rans(dev_codec.kit, dev_codec.tables, args.seed, B, size)
+
+    with Phase("full-width WACNN on the device wire"):
+        (slice_result["device_wire"], dev_enc_launches,
+         dev_dec_launches) = device_wire_phase(dev_codec, enc, x, card, zero_counts, read_counts)
 
     with Phase("card vs CPU reference, small input"):
         xs = torch.from_numpy(make_images(args.seed + 1, 1, 64))
@@ -605,6 +870,8 @@ def main() -> int:
     def launch_keys(name):
         per_path = {"launches_compress": enc_launches[name],
                     "launches_decompress": dec_launches[name],
+                    "launches_device_wire_compress": dev_enc_launches[name],
+                    "launches_device_wire_decompress": dev_dec_launches[name],
                     "launches_train_step": train_launches[name]}
         return {"launches": sum(per_path.values()), **per_path}
 
@@ -657,6 +924,30 @@ def main() -> int:
             "tolerance": GDN_TOLERANCE,
             "cases": [{k: v for k, v in r.items()
                        if k not in ("forward", "backward")} | r[part] for r in gdn_rows],
+        })
+    # the device wire's coder: integer kernels, held byte for byte (the
+    # phase fails on any nonzero max_abs_err); y and z of one compress /
+    # decompress, times summed
+    for name, part, line in (("rans_decode", "decode", 178), ("rans_encode", "encode", 231)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "icm_tpu_torch/csrc/rans_lanes.cu",
+            "replaces": f"icm_tpu/coding/device_rans.py:{line}",
+            "replaces_note": "not Pallas in JAX: integer jnp under lax.scan",
+            **launch_keys(name),
+            "max_abs_err": max(r["max_abs_err"] for r in rans_rows),
+            "ms": sum(r[part]["ms"] for r in rans_rows),
+            "plain_ms": sum(r[part]["plain_ms"] for r in rans_rows),
+            "bound_ms": sum(r[part]["bound_ms"] for r in rans_rows),
+            "bound_by": ("bytes" if all(r[part]["bound_by"] == "bytes" for r in rans_rows)
+                         else "operations"),
+            "bound_unit": "bytes at 3.35 TB/s; 32-bit integer operations at 33.5 TOP/s",
+            "library_ms": None,
+            "library_note": "none: no one PyTorch call computes it",
+            "tolerance": "byte for byte",
+            "cases": [{k: v for k, v in r.items() if k not in ("encode", "decode")} | r[part]
+                      for r in rans_rows],
         })
     print(json.dumps({"kernels": kernels, "slice": slice_result}), flush=True)
     print(card, flush=True)

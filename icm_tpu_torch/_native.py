@@ -1,13 +1,15 @@
 """Build the port's native libraries from the sources in ``csrc/``.
 
-Three libraries, each with a plain C interface loaded through ``ctypes``:
+Four libraries, each with a plain C interface loaded through ``ctypes``:
 
 - ``librans``: the host rANS coder, ``g++ -O3 -std=c++17 -shared -fPIC
   -pthread`` over ``csrc/rans.cpp``;
 - ``libwindow_attention``: the window-attention kernel, ``nvcc`` for
   ``sm_90a`` over ``csrc/window_attention.cu``;
 - ``libgdn``: the fused GDN forward and backward kernels, ``nvcc`` for
-  ``sm_90a`` over ``csrc/gdn.cu``.
+  ``sm_90a`` over ``csrc/gdn.cu``;
+- ``librans_lanes``: the device wire's lane-parallel rANS encode and
+  decode kernels, ``nvcc`` for ``sm_90a`` over ``csrc/rans_lanes.cu``.
 
 Each builds at first use into ``_build/`` beside this file (listed in
 ``.gitignore``), under a name that carries a hash of its source and flags,
@@ -33,6 +35,7 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 RANS_SRC = os.path.join(CSRC, "rans.cpp")
 KERNEL_SRC = os.path.join(CSRC, "window_attention.cu")
 GDN_SRC = os.path.join(CSRC, "gdn.cu")
+RANS_LANES_SRC = os.path.join(CSRC, "rans_lanes.cu")
 
 RANS_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 NVCC_FLAGS = [
@@ -95,12 +98,18 @@ def build_gdn() -> str:
     return _build("libgdn", GDN_SRC, [_nvcc()], NVCC_FLAGS)
 
 
-BUILDERS = {"rans": build_rans, "kernels": build_kernels, "gdn": build_gdn}
+def build_rans_lanes() -> str:
+    """Compile ``csrc/rans_lanes.cu`` with nvcc (once per source)."""
+    return _build("librans_lanes", RANS_LANES_SRC, [_nvcc()], NVCC_FLAGS)
+
+
+BUILDERS = {"rans": build_rans, "kernels": build_kernels, "gdn": build_gdn,
+            "rans_lanes": build_rans_lanes}
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``"rans"``, ``"kernels"`` (window
-    attention) or ``"gdn"``, once per process."""
+    attention), ``"gdn"`` or ``"rans_lanes"``, once per process."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -5,7 +5,8 @@ The subset of ``icm_tpu/coding/__init__.py`` that the host wire needs:
 ``BatchRansDecoder.decode_stream`` (the AR slice loop's decoder, with the
 bucket symbol LUT) and ``pmf_to_quantized_cdf_rows`` (the CDF builder).
 The library is built from source at first use (``_native.build_rans``);
-there is no pure-Python fallback.
+there is no pure-Python fallback. The device wire's lane-parallel coder
+is the submodule ``device_rans``.
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
-"""Wire-format tags: the host decoder's guard against tagged streams.
+"""Wire-format tags: which decoder a stream belongs to.
 
-Copy of the tag check in ``icm_tpu/coding/wire.py``. The host wire is
-untagged rANS bytes. The JAX package's device and scan wires lead with
-``WIRE_MAGIC + format byte``; such a stream fed to the host decoder would
-decode to garbage, so the decoder recognises one (magic, format and an
-exact payload-length equation) and raises :class:`WireFormatError`.
+Copy of ``icm_tpu/coding/wire.py``. The host wire is untagged rANS
+bytes. The device wire (``models/device_codec.py``) and the JAX package's
+scan wire lead with ``WIRE_MAGIC + format byte``. A stream fed to the
+wrong decoder would decode to garbage, so each decoder checks:
+:func:`wire_offset` demands the device tag, and the host decoder
+recognises a tagged stream (magic, format and an exact payload-length
+equation) with :func:`reject_framework_wire`. Both raise
+:class:`WireFormatError`.
 """
 
 from __future__ import annotations
@@ -22,6 +25,26 @@ WIRE_NAMES = {
 
 class WireFormatError(ValueError):
     """A bitstream was fed to a decoder of a different wire format."""
+
+
+def wire_offset(blob, expect: int) -> int:
+    """Check the 4-byte tag; -> offset of the first payload byte."""
+    head = bytes(blob[:4])
+    if head[:3] != WIRE_MAGIC:
+        raise WireFormatError(
+            f"not a framework {WIRE_NAMES[expect]} stream (no wire magic; "
+            f"leading bytes {head!r}). Host/reference rANS streams are "
+            "untagged: decode those with the host-wire codec."
+        )
+    if head[3] != expect:
+        found = WIRE_NAMES.get(head[3], f"unknown 0x{head[3]:02x}")
+        raise WireFormatError(
+            f"wire format mismatch: stream is {found}, decoder expects "
+            f"{WIRE_NAMES[expect]}. Scan-wire and unrolled-protocol streams "
+            "reduce the AR context in different float orders and are not "
+            "interchangeable."
+        )
+    return 4
 
 
 def looks_like_framework_wire(blob):

@@ -21,6 +21,7 @@ from ..nn.layers import WindowAttention
 from .base import CodecTables, CompressionModel
 from .cnn import WACNN
 from .codec import CharmCodec, build_codec_tables, cuda_numerics, enc_round
+from .device_codec import DeviceWireCodec, DeviceWireKit
 
 models = {
     "cnn": (WACNN, {}),
@@ -92,6 +93,8 @@ __all__ = [
     "CodecTables",
     "WACNN",
     "CharmCodec",
+    "DeviceWireCodec",
+    "DeviceWireKit",
     "build_codec_tables",
     "create_model",
     "cuda_numerics",

@@ -18,6 +18,11 @@ also stray from the float32 reference), deterministic cuDNN algorithms
 and no autotuning (a different algorithm can round differently); the
 window-attention kernel uses no atomics.
 
+The float side of both directions (:meth:`CharmCodec._encode_symbols`
+and the decoder's slice loop in :meth:`CharmCodec.decompress`) is shared
+with the device wire (``device_codec.py``), which supplies only its own
+coder.
+
 Left out on purpose: the JAX codec's 2-bit/6-bit device-to-host packing,
 its threaded batch groups (``pipelining.run_groups``) and its data
 sharding. They worked around a remote TPU link; the card needs none.
@@ -104,7 +109,13 @@ def _unflat(a: np.ndarray, c: int, h: int, w: int) -> np.ndarray:
 
 class CharmCodec:
     """compress()/decompress() over the ChARM protocol
-    (see ``base.CompressionModel``) on the host wire."""
+    (see ``base.CompressionModel``) on the host wire.
+
+    The float side of both directions is written once here; a wire
+    supplies ``_encode_strings`` (symbols and indexes -> strings),
+    ``_decode_z`` (z strings -> symbols) and ``_y_decoder`` (an object
+    whose ``decode_slice(index)`` gives a slice's symbols, continuing the
+    streams). ``device_codec.DeviceWireCodec`` is the other wire."""
 
     def __init__(self, model, narrow: float = 1.0):
         self.model = model.eval()
@@ -140,21 +151,21 @@ class CharmCodec:
         y_hat = self.model.ctx_assemble(y_hat_slices)
         return y_hat, torch.clamp(self.model.synthesize(y_hat), 0.0, 1.0)
 
-    # --- public API ------------------------------------------------------------
-    @torch.no_grad()
-    def compress(self, x, return_debug: bool = False) -> Dict[str, Any]:
-        """x: (B, H, W, 3) in [0, 1] (tensor or numpy). Returns
-        {"strings": [y_strings, z_strings], "shape": (zh, zw)}; with
-        ``return_debug`` also the encoder's "y_hat", "z_hat" (NCHW) and
-        "x_hat" (NHWC)."""
+    def _z_hat(self, z_sym: torch.Tensor) -> torch.Tensor:
+        """z_hat from z's int32 symbols (standard strides)."""
+        return z_sym.to(torch.float32) + self._z_offset()
+
+    def _encode_symbols(self, x) -> Dict[str, Any]:
+        """The encoder's float side, which every wire shares: analysis, z's
+        symbols and the decoder's z_hat, then slice by slice the context,
+        the int32 symbols and the reconstruction. -> {"z_sym", "z_hat",
+        "syms", "idxs" (int32 scale indexes), "decoded" (y_hat slices),
+        "shape" (zh, zw)}, NCHW tensors on the codec's device."""
         mdl = self.model
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         y, z = mdl.analyze(nhwc_to_nchw(x))
-        zh, zw = z.shape[2], z.shape[3]
-        med = self._z_offset()
-        z_sym = _canonical(enc_round(z - med, self.narrow).to(torch.int32))
-        z_hat = z_sym.to(torch.float32) + med  # the decoder's z_hat
-
+        z_sym = _canonical(enc_round(z - self._z_offset(), self.narrow).to(torch.int32))
+        z_hat = self._z_hat(z_sym)  # the decoder's z_hat
         state = mdl.ctx_prepare(z_hat)
         y_slices = mdl.latent_slices(y)
         decoded: List[torch.Tensor] = []
@@ -165,27 +176,21 @@ class CharmCodec:
             syms.append(sym)
             idxs.append(index)
             decoded.append(self._reconstruct(i, sym, mu, mean_support))
+        return dict(z_sym=z_sym, z_hat=z_hat, syms=syms, idxs=idxs, decoded=decoded,
+                    shape=(z.shape[2], z.shape[3]))
 
-        # one device->host copy of every symbol and index
-        host = [t.cpu().numpy() for t in (z_sym, torch.cat(syms, 1), torch.cat(idxs, 1))]
-        z_sym_h, sym_h, idx_h = host
-        bounds = np.cumsum([0] + [s.shape[1] for s in syms])
-        symbols = np.concatenate(
-            [_flat(sym_h[:, a:b]) for a, b in zip(bounds[:-1], bounds[1:])], 1)
-        indexes = np.concatenate(
-            [_flat(idx_h[:, a:b]) for a, b in zip(bounds[:-1], bounds[1:])], 1)
-
-        gt = self.tables.gaussian
-        y_strings = coding.encode_batch(
-            symbols, indexes, gt.quantized_cdf, gt.cdf_length, gt.offset
-        )
-        out: Dict[str, Any] = {
-            "strings": [y_strings, self._encode_z(z_sym_h)],
-            "shape": (zh, zw),
-        }
+    # --- public API ------------------------------------------------------------
+    @torch.no_grad()
+    def compress(self, x, return_debug: bool = False) -> Dict[str, Any]:
+        """x: (B, H, W, 3) in [0, 1] (tensor or numpy). Returns
+        {"strings": [y_strings, z_strings], "shape": (zh, zw)}; with
+        ``return_debug`` also the encoder's "y_hat", "z_hat" (NCHW) and
+        "x_hat" (NHWC)."""
+        enc = self._encode_symbols(x)
+        out: Dict[str, Any] = {"strings": self._encode_strings(enc), "shape": enc["shape"]}
         if return_debug:
-            y_hat, x_hat = self._finish(decoded)
-            out.update(y_hat=y_hat, z_hat=z_hat,
+            y_hat, x_hat = self._finish(enc["decoded"])
+            out.update(y_hat=y_hat, z_hat=enc["z_hat"],
                        x_hat=x_hat.permute(0, 2, 3, 1).contiguous())
         return out
 
@@ -194,26 +199,40 @@ class CharmCodec:
         """-> {"x_hat": (B, H, W, 3) in [0, 1], "y_hat": (B, M, h, w)}."""
         mdl = self.model
         y_strings, z_strings = strings
-        z_hat = self._decode_z(z_strings, shape)
-        state = mdl.ctx_prepare(z_hat)
-
-        gt = self.tables.gaussian
-        lut = gt.symbol_lut()
-        decoder = coding.BatchRansDecoder(y_strings)
-        decoded: List[torch.Tensor] = []
-        for i in range(mdl.ctx_slices):
-            mu, index, mean_support = self._context(i, state, decoded)
-            idx_np = index.cpu().numpy()
-            _, c, h, w = idx_np.shape
-            sym = decoder.decode_stream(
-                _flat(idx_np), gt.quantized_cdf, gt.cdf_length, gt.offset,
-                lut=lut,
-            )
-            sym = _canonical(torch.from_numpy(_unflat(sym, c, h, w)).to(self.device))
-            decoded.append(self._reconstruct(i, sym, mu, mean_support))
-        decoder.close()
+        ydec = self._y_decoder(y_strings)
+        try:
+            state = mdl.ctx_prepare(self._z_hat(_canonical(self._decode_z(z_strings, shape))))
+            decoded: List[torch.Tensor] = []
+            for i in range(mdl.ctx_slices):
+                mu, index, mean_support = self._context(i, state, decoded)
+                sym = _canonical(ydec.decode_slice(index))
+                decoded.append(self._reconstruct(i, sym, mu, mean_support))
+        finally:
+            ydec.close()
         y_hat, x_hat = self._finish(decoded)
         return {"x_hat": x_hat.permute(0, 2, 3, 1).contiguous(), "y_hat": y_hat}
+
+    # --- the host wire -----------------------------------------------------------
+    def _encode_strings(self, enc) -> List[List[bytes]]:
+        """One device->host copy of every symbol and index, then one rANS
+        stream per image for y and for z."""
+        syms = enc["syms"]
+        host = [t.cpu().numpy() for t in (enc["z_sym"], torch.cat(syms, 1),
+                                          torch.cat(enc["idxs"], 1))]
+        z_sym_h, sym_h, idx_h = host
+        bounds = np.cumsum([0] + [s.shape[1] for s in syms])
+        symbols = np.concatenate(
+            [_flat(sym_h[:, a:b]) for a, b in zip(bounds[:-1], bounds[1:])], 1)
+        indexes = np.concatenate(
+            [_flat(idx_h[:, a:b]) for a, b in zip(bounds[:-1], bounds[1:])], 1)
+        gt = self.tables.gaussian
+        y_strings = coding.encode_batch(
+            symbols, indexes, gt.quantized_cdf, gt.cdf_length, gt.offset
+        )
+        return [y_strings, self._encode_z(z_sym_h)]
+
+    def _y_decoder(self, y_strings: List[bytes]) -> "_HostYDecoder":
+        return _HostYDecoder(y_strings, self.tables.gaussian, self.device)
 
     # --- z (factorized bottleneck) ---------------------------------------------
     def _z_tables(self) -> EntropyTables:
@@ -228,6 +247,7 @@ class CharmCodec:
         )
 
     def _decode_z(self, strings: List[bytes], shape_hw) -> torch.Tensor:
+        """-> z's int32 symbols (B, C, zh, zw) on the codec's device."""
         h, w = shape_hw
         t = self._z_tables()
         C = t.num_distributions
@@ -236,5 +256,27 @@ class CharmCodec:
         sym = dec.decode_stream(idx, t.quantized_cdf, t.cdf_length, t.offset,
                                 lut=t.symbol_lut())
         dec.close()
-        sym = _canonical(torch.from_numpy(_unflat(sym, C, h, w)).to(self.device))
-        return sym.to(torch.float32) + self._z_offset()
+        return torch.from_numpy(_unflat(sym, C, h, w)).to(self.device)
+
+
+class _HostYDecoder:
+    """The host wire's y decoder: per slice, the scale index to the host,
+    rANS there (continuing each image's stream), the symbols back."""
+
+    def __init__(self, strings: List[bytes], tables: EntropyTables, device):
+        self._dec = coding.BatchRansDecoder(strings)
+        self._tables = tables
+        self._lut = tables.symbol_lut()
+        self._device = device
+
+    def decode_slice(self, index: torch.Tensor) -> torch.Tensor:
+        """(B, c, h, w) scale indexes -> int32 symbols of that shape."""
+        idx_np = index.cpu().numpy()
+        _, c, h, w = idx_np.shape
+        t = self._tables
+        sym = self._dec.decode_stream(_flat(idx_np), t.quantized_cdf, t.cdf_length,
+                                      t.offset, lut=self._lut)
+        return torch.from_numpy(_unflat(sym, c, h, w)).to(self._device)
+
+    def close(self):
+        self._dec.close()

@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from icm_tpu_torch.coding import device_rans as tdr
+from icm_tpu_torch.entropy import EntropyTables
+from icm_tpu_torch.entropy.base import pmf_to_quantized_cdf_np
 from icm_tpu_torch.nn import gdn_fused as tgdn
 from icm_tpu_torch.nn import window_attention as twa
 
@@ -248,3 +251,144 @@ def test_gdn_wrappers_reject_what_the_kernels_do_not_take():
         tgdn.gdn_backward_cuda(g, x, gamma.cpu(), beta, False)
     with pytest.raises(ValueError, match="gamma must be"):
         tgdn.gdn_forward_cuda(x, gamma[:4], beta, False)
+
+
+# --- the device wire's rANS kernels: integer code, so byte for byte -----------
+INT32_EXTREMES = np.array([2 ** 31 - 1, -(2 ** 31), 2 ** 20, -12345678], np.int64)
+
+
+@pytest.fixture(scope="module")
+def rans_tables():
+    """Nine random CDF rows on the card; rows 0 and 1 have one coded
+    symbol (length 3), the rest 2 to 40."""
+    _needs_card()
+    rng = np.random.default_rng(0)
+    supports = [1, 1] + [int(s) for s in rng.integers(2, 41, size=7)]
+    cdf = np.zeros((len(supports), max(supports) + 2), np.int32)
+    for r, n in enumerate(supports):
+        pmf = rng.random(n).astype(np.float32) + 1e-3
+        pmf = pmf / pmf.sum() * (1.0 - 2 ** -8)
+        row = pmf_to_quantized_cdf_np(np.concatenate([pmf, [1.0 - pmf.sum()]]).astype(np.float32))
+        cdf[r, : row.shape[0]] = row
+    host = EntropyTables(cdf, np.array(supports, np.int32) + 2,
+                         rng.integers(-9, 3, size=len(supports)).astype(np.int32))
+    assert host.cdf_length[0] == 3
+    return host, tdr.build_device_tables(host, "cuda")
+
+
+def _rans_payload(host, T, lanes, esc, seed):
+    """(values, rows) int32 (T, lanes) on the card: values drawn from each
+    row's own distribution, then about 1% escapes, none, or all of them
+    int32 extremes."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, host.num_distributions, size=(T, lanes))
+    peek = rng.integers(0, 1 << 16, size=(T, lanes))
+    sym = np.empty((T, lanes), np.int64)
+    for r in range(host.num_distributions):
+        at = rows == r
+        L = int(host.cdf_length[r])
+        sym[at] = np.clip(np.searchsorted(host.quantized_cdf[r, :L], peek[at], "right") - 1,
+                          0, L - 3)
+    values = sym + host.offset[rows]
+    if esc == "some":
+        values = np.where(rng.random((T, lanes)) < 0.01, rng.choice(INT32_EXTREMES, (T, lanes)),
+                          values)
+    elif esc == "all":
+        values = rng.choice(INT32_EXTREMES, (T, lanes))
+    return (torch.from_numpy(values.astype(np.int32)).cuda(),
+            torch.from_numpy(rows.astype(np.int32)).cuda())
+
+
+def _assert_same(got, want):
+    for a, b in zip(got, want):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert a == b
+
+
+@pytest.mark.parametrize("esc", ["none", "some", "all"])
+# 1 lane; 65 and 2047 lanes, not multiples of the 64-thread block; 2048,
+# the y path's lanes at 2 x 512^2; T = 1, 37 and 320 (y's steps)
+@pytest.mark.parametrize("T,lanes", [(1, 1), (37, 1), (1, 65), (37, 65), (37, 2047),
+                                     (320, 2048)])
+def test_rans_kernels_match_plain(rans_tables, T, lanes, esc):
+    host, tables = rans_tables
+    values, rows = _rans_payload(host, T, lanes, esc, seed=T * lanes + len(esc))
+    before = (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES)
+    enc = tdr.encode_lanes_cuda(values, rows, tables)
+    _assert_same(enc, tdr.encode_lanes_reference(values, rows, tables))
+    _assert_same(tdr.encode_lanes_cuda(values, rows, tables), enc)  # two launches
+    buf, lengths, dest, raw, n_esc = enc
+    if esc == "all":
+        assert n_esc == T * lanes
+    len_h = lengths.cpu().numpy()
+    words = torch.from_numpy(
+        tdr.assemble_streams(buf.cpu().numpy().view(np.uint16), len_h).view(np.int16)).cuda()
+    off = torch.from_numpy(tdr.lane_offsets(len_h)).cuda()
+    dec = tdr.decode_lanes_cuda(words, off, rows, tables)
+    _assert_same(dec, tdr.decode_lanes_reference(words, off, rows, tables))
+    _assert_same(tdr.decode_lanes_cuda(words, off, rows, tables), dec)
+    assert torch.equal(dec[2], lengths)  # every word read
+    assert torch.equal(tdr.fix_escapes(dec[0], dest, raw), values)
+    torch.cuda.synchronize()
+    assert (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES) == (before[0] + 2, before[1] + 2)
+
+
+def test_rans_decode_continues_over_three_calls(rans_tables):
+    host, tables = rans_tables
+    values, rows = _rans_payload(host, 30, 130, "some", seed=3)
+    buf, lengths, dest, raw, _ = tdr.encode_lanes_cuda(values, rows, tables)
+    len_h = lengths.cpu().numpy()
+    words = torch.from_numpy(
+        tdr.assemble_streams(buf.cpu().numpy().view(np.uint16), len_h).view(np.int16)).cuda()
+    off = torch.from_numpy(tdr.lane_offsets(len_h)).cuda()
+    state = ptr = None
+    parts = []
+    for lo, hi in ((0, 7), (7, 8), (8, 30)):  # T = 7, 1 and 22
+        got = tdr.decode_lanes_cuda(words, off, rows[lo:hi].contiguous(), tables, state, ptr)
+        want = tdr.decode_lanes_reference(words, off, rows[lo:hi].contiguous(), tables,
+                                          state, ptr)
+        _assert_same(got, want)
+        parts.append(got[0])
+        _, state, ptr = got
+    assert torch.equal(ptr, lengths)
+    assert torch.equal(tdr.fix_escapes(torch.cat(parts), dest, raw), values)
+
+
+def test_rans_wrappers_reject_what_the_kernels_do_not_take(rans_tables):
+    host, tables = rans_tables
+    values, rows = _rans_payload(host, 4, 8, "none", seed=0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tdr.encode_lanes_cuda(values.cpu(), rows, tables)
+    with pytest.raises(ValueError, match="int32"):
+        tdr.encode_lanes_cuda(values.long(), rows, tables)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdr.encode_lanes_cuda(values.t().contiguous().t(), rows, tables)
+    buf, lengths, _, _, _ = tdr.encode_lanes_cuda(values, rows, tables)
+    words = buf.reshape(-1)
+    off = torch.arange(8, dtype=torch.int32, device="cuda") * buf.shape[1]
+    with pytest.raises(ValueError, match="int16"):
+        tdr.decode_lanes_cuda(words.int(), off, rows, tables)
+    with pytest.raises(ValueError, match="shape"):
+        tdr.decode_lanes_cuda(words, off[:4], rows, tables)
+    with pytest.raises(ValueError, match="both"):
+        tdr.decode_lanes_cuda(words, off, rows, tables, state=off)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tdr.decode_lanes_cuda(words, off.cpu(), rows, tables)
+
+
+def test_rans_wrappers_count_no_launch_for_no_lanes(rans_tables):
+    """The C entries launch nothing for zero lanes, so the wrappers count
+    nothing."""
+    _, tables = rans_tables
+    empty = torch.zeros((5, 0), dtype=torch.int32, device="cuda")
+    before = (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES)
+    buf, lengths, esc = tdr.encode_lanes_kernel(empty, empty, tables)
+    vals, state, ptr = tdr.decode_lanes_cuda(
+        torch.zeros(0, dtype=torch.int16, device="cuda"),
+        torch.zeros(0, dtype=torch.int32, device="cuda"), empty, tables)
+    torch.cuda.synchronize()
+    assert buf.shape == (0, 7) and lengths.shape == (0,) and esc.shape == (5, 0)
+    assert vals.shape == (5, 0) and state.shape == ptr.shape == (0,)
+    assert (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES) == before

@@ -1,10 +1,12 @@
 """Where the time goes in icm_tpu_torch's full-width WACNN codec and
 training step, on the card.
 
-    python3 tools/torch_profile_codec.py [--seed 0] [--out profile.json]
+    python3 tools/torch_profile_codec.py [--wire host|device] [--seed 0] [--out profile.json]
 
 Builds the full-width ``cnn`` codec (N=192, M=320, 10 slices) on the CUDA
-card with weights drawn from ``--seed``, warms it up on 2 images of
+card with weights drawn from ``--seed``, on the host wire (``CharmCodec``,
+the default) or the device wire (``DeviceWireCodec``, 1024 lanes an
+image, its rANS on the card), warms it up on 2 images of
 512x512 (``icm_tpu_torch.data.make_images``, as chip_smoke.py makes
 them), then traces one compress and one decompress with
 ``torch.profiler``; then warms up the RD training step
@@ -53,6 +55,8 @@ PORT_KERNELS = {
     "window_attention": ("window_attention_kernel",),
     "gdn_forward": ("gdn_fwd_kernel",),
     "gdn_backward": ("gdn_bwd_kernel", "gdn_reduce_kernel"),
+    "rans_encode": ("rans_encode_lanes_kernel",),
+    "rans_decode": ("rans_decode_lanes_kernel",),
 }
 
 
@@ -90,6 +94,7 @@ def _trace_summary(prof, wall_s: float) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--wire", choices=("host", "device"), default="host")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="write the whole result here as JSON")
     args = ap.parse_args()
@@ -102,7 +107,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from icm_tpu_torch.data import make_images
-    from icm_tpu_torch.models import CharmCodec, create_model
+    from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
     from icm_tpu_torch.train import (
         RateDistortionLoss, TrainState, make_optimizer, make_train_step)
 
@@ -110,7 +115,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0].strip()
-    codec = CharmCodec(create_model("cnn", seed=args.seed), narrow=0.2)
+    model = create_model("cnn", seed=args.seed)
+    if args.wire == "device":
+        codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
+    else:
+        codec = CharmCodec(model, narrow=0.2)
     x = torch.from_numpy(make_images(args.seed, 2, 512)).cuda()
     for _ in range(2):  # warm-up: cuDNN handles, allocator, kernel library
         enc = codec.compress(x)
@@ -128,7 +137,7 @@ def main() -> int:
         "decompress": lambda: codec.decompress(enc["strings"], enc["shape"]),
         "train_step": lambda: train_step(state, batch, noise),
     }
-    result = {"card": card, "images": 2, "size": 512, "narrow": 0.2,
+    result = {"card": card, "wire": args.wire, "images": 2, "size": 512, "narrow": 0.2,
               "train_batch": 8, "train_size": 256}
     for side, run in runs.items():
         if side == "train_step":
@@ -161,7 +170,7 @@ def main() -> int:
         r = result[side]
         kernels = ", ".join(f"{k} {v['ms']:.3f} ms ({v['share_of_device']:.3%})"
                             for k, v in r["port_kernels"].items())
-        print(f"{side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
+        print(f"{args.wire} wire, {side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
               f"untraced; device busy {r['device_busy_ms']:.2f} ms (idle share "
               f"{r['device_idle_share']:.3f} traced, {r['device_idle_share_unprofiled']:.3f} "
               f"untraced); {kernels} [{card}]")
