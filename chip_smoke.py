@@ -28,9 +28,11 @@ package beside it. Phases, each printed with its elapsed seconds:
    byte, at the path's shapes: encode y (2048 lanes x 320 steps, the 64
    Gaussian rows) and z (1024 lanes x 24 steps, the 192 bottleneck
    rows); decode y as 10 continued launches of 32 steps and z as one.
-   Payloads drawn from ``--seed`` and each row's distribution, about 1%
-   escapes with int32 extremes among them; two launches must give the
-   same bytes; timed beside the plain versions;
+   Then the same at bench.py's batch of 32 images of 512x512 (y 32768
+   lanes, z 16384). Payloads drawn from ``--seed`` and each row's
+   distribution, about 1% escapes with int32 extremes among them; two
+   launches must give the same bytes; timed beside the plain versions,
+   with the kernels' compact tables' bytes beside lut2's;
 7. the same weights and images on the device wire
    (``DeviceWireCodec``, 1024 lanes an image): compress -> decompress with
    the counts zeroed right before and read right after each side. Asserts
@@ -39,7 +41,8 @@ package beside it. Phases, each printed with its elapsed seconds:
    flush and header, 2 encode launches per compress and 11 decode
    launches per decompress, window attention and the GDN forward on both
    sides, and that decompress made no host round trip
-   (``torch.cuda.set_sync_debug_mode``);
+   (``torch.cuda.set_sync_debug_mode``); it logs the sha256 of the y and
+   z blobs;
 8. the same weights' eval forward on the card against the plain CPU path
    on a small input;
 9. full-width WACNN training through ``train.run_training``: one epoch
@@ -66,6 +69,7 @@ dependent-chain estimate: their steps times an assumed load latency.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -109,6 +113,8 @@ TRAIN_TOLERANCE = 1e-3
 # SM's 128 lanes a clock (half the f32 rate)
 INT32_OPS_PER_S = PEAK_OPS_PER_S["float32"] / 2
 INT32_EXTREMES = np.array([2 ** 31 - 1, -(2 ** 31), 2 ** 20, -12345678], np.int64)
+# phase 6's second case: bench.py's default batch (bench.py:270)
+RANS_BENCH_IMAGES = 32
 
 
 def log(msg: str) -> None:
@@ -373,7 +379,8 @@ def rans_bounds(host, values, rows, n_words: int, decode: bool):
 
 def check_rans(kit, tables, seed: int, B: int, size: int):
     """Phase 6: the lane-rANS kernels vs their plain versions at the device
-    wire's shapes for B images of size^2 -> rows (y, z). Besides the
+    wire's shapes for B images of size^2 -> rows (y, z), each with its
+    image count. Besides the
     launches' time, each part is timed on the first lane alone
     (``one_lane_ms``): the dependent chain of T steps with nothing beside
     it."""
@@ -446,7 +453,7 @@ def check_rans(kit, tables, seed: int, B: int, size: int):
             raise AssertionError(f"{name}: decoded values differ from the encoded ones")
         if not torch.equal(dec[2], lengths):
             raise AssertionError(f"{name}: decode did not read every word")
-        row = dict(stream=name, T=T, lanes=lanes, launches_decode=n_launches,
+        row = dict(images=B, stream=name, T=T, lanes=lanes, launches_decode=n_launches,
                    table_rows=tab.num_rows, n_escapes=n_esc, words=int(words.numel()),
                    max_abs_err=err)
         v1, r1, o1 = values[:, :1].contiguous(), rows[:, :1].contiguous(), off[:1]
@@ -462,7 +469,7 @@ def check_rans(kit, tables, seed: int, B: int, size: int):
                              bound_by=by, one_lane_ms=cuda_ms(one_lane))
         out.append(row)
         e, d = row["encode"], row["decode"]
-        log(f"  rans {name}: {lanes} lanes x T={T} ({n_launches} decode launches of "
+        log(f"  rans {name}, {B} images: {lanes} lanes x T={T} ({n_launches} decode launches of "
             f"{seg}), {n_esc} escapes, {row['words']} words: same bytes as the plain versions "
             f"and launch to launch (max |kernel - plain| {err}); encode ms {e['ms']:.4f} "
             f"(one lane alone {e['one_lane_ms']:.4f}) plain {e['plain_ms']:.2f} bound "
@@ -495,8 +502,10 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts):
              if "synchroniz" in str(c.message)]
     torch.cuda.synchronize()
     dec_launches = read_counts()
+    blob_sha256 = {name: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
+                   for k, name in enumerate("yz")}
     log(f"  launches: compress {enc_launches}, decompress {dec_launches}; host round "
-        f"trips in decompress: {len(syncs)}")
+        f"trips in decompress: {len(syncs)}; blobs' sha256 {blob_sha256}")
     if syncs:
         raise AssertionError(f"decompress waited for the card: {syncs[:3]}")
     if not torch.equal(dec["y_hat"], enc["y_hat"]) or not torch.equal(dec["x_hat"], enc["x_hat"]):
@@ -543,7 +552,8 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts):
         images=B, size=size, lanes_per_image=codec.kit.lanes_per_image, bpp=bpp, psnr_db=psnr,
         stream_bytes=stream_bytes, encode_img_per_s=B / float(np.median(enc_s)),
         decode_img_per_s=B / float(np.median(dec_s)), host_round_trips_in_decompress=0,
-        launches_compress=enc_launches, launches_decompress=dec_launches)
+        launches_compress=enc_launches, launches_decompress=dec_launches,
+        blob_sha256=blob_sha256)
     log(f"  bytes {stream_bytes}; bpp {[round(b, 4) for b in bpp]}, PSNR "
         f"{[round(p, 2) for p in psnr]} dB, encode {result['encode_img_per_s']:.2f} img/s, "
         f"decode {result['decode_img_per_s']:.2f} img/s (median of 3, batch {B}, {card})")
@@ -837,7 +847,12 @@ def main() -> int:
         dev_codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
         torch.cuda.synchronize()
         log(f"  device-wire codec and its coder tables in {time.time() - t:.1f}s")
-        rans_rows = check_rans(dev_codec.kit, dev_codec.tables, args.seed, B, size)
+        table_bytes = {name: {"compact": 4 * tab.ctab.numel(), "lut2": 8 * tab.num_rows << 16}
+                       for name, tab in (("y", dev_codec.kit.gauss_dev),
+                                         ("z", dev_codec.kit.eb_dev["entropy_bottleneck"]))}
+        log(f"  the decode kernel's compact tables against lut2, bytes: {table_bytes}")
+        rans_rows = [row for images in (B, RANS_BENCH_IMAGES) for row in
+                     check_rans(dev_codec.kit, dev_codec.tables, args.seed, images, size)]
 
     with Phase("full-width WACNN on the device wire"):
         (slice_result["device_wire"], dev_enc_launches,
@@ -927,7 +942,9 @@ def main() -> int:
         })
     # the device wire's coder: integer kernels, held byte for byte (the
     # phase fails on any nonzero max_abs_err); y and z of one compress /
-    # decompress, times summed
+    # decompress of the main path's B images, times summed; the rows at
+    # bench.py's batch are under "cases"
+    rans_main = [r for r in rans_rows if r["images"] == B]
     for name, part, line in (("rans_decode", "decode", 178), ("rans_encode", "encode", 231)):
         kernels.append({
             "name": name,
@@ -937,15 +954,16 @@ def main() -> int:
             "replaces_note": "not Pallas in JAX: integer jnp under lax.scan",
             **launch_keys(name),
             "max_abs_err": max(r["max_abs_err"] for r in rans_rows),
-            "ms": sum(r[part]["ms"] for r in rans_rows),
-            "plain_ms": sum(r[part]["plain_ms"] for r in rans_rows),
-            "bound_ms": sum(r[part]["bound_ms"] for r in rans_rows),
-            "bound_by": ("bytes" if all(r[part]["bound_by"] == "bytes" for r in rans_rows)
+            "ms": sum(r[part]["ms"] for r in rans_main),
+            "plain_ms": sum(r[part]["plain_ms"] for r in rans_main),
+            "bound_ms": sum(r[part]["bound_ms"] for r in rans_main),
+            "bound_by": ("bytes" if all(r[part]["bound_by"] == "bytes" for r in rans_main)
                          else "operations"),
             "bound_unit": "bytes at 3.35 TB/s; 32-bit integer operations at 33.5 TOP/s",
             "library_ms": None,
             "library_note": "none: no one PyTorch call computes it",
             "tolerance": "byte for byte",
+            "table_bytes": table_bytes,
             "cases": [{k: v for k, v in r.items() if k not in ("encode", "decode")} | r[part]
                       for r in rans_rows],
         })

@@ -9,10 +9,16 @@ coded as the row's bypass symbol (``cdf_length - 2``) and their raw
 32-bit values travel beside the stream as ``(dest, raw)`` pairs: ``dest``
 is the step-major position ``t * lanes + lane``.
 
-- :func:`build_device_tables` builds the packed pair table ``lut2``, the
-  encoder's ``fc`` and the ``(escape symbol, offset)`` pairs ``eo`` in
-  numpy, as the JAX package does, and puts them on a device. 32-bit
-  unsigned entries are held as int32 tensors of the same bits.
+- :func:`build_device_tables` builds what the kernels read and puts it on
+  a device: ``ctab``, the rows' CDFs as 16-bit words with a coarse index
+  per row (:func:`compact_tables`; the decode kernel searches it for the
+  symbol), ``fcr``, each symbol's ``freq << 16 | low`` with the
+  multiply-high reciprocal of its frequency beside it
+  (:func:`reciprocals`; the encode kernel divides with it), and the
+  ``(escape symbol, offset)`` pairs ``eo``. The plain versions read the
+  JAX package's tables, the packed pair table ``lut2`` and the encoder's
+  ``fc``; those are made at their first use. 32-bit unsigned entries are
+  held as int32 tensors of the same bits.
 - :func:`decode_lanes` and :func:`encode_lanes` launch the CUDA kernels
   of ``csrc/rans_lanes.cu`` for CUDA tensors (:func:`decode_lanes_cuda`,
   :func:`encode_lanes_cuda` through :func:`encode_lanes_kernel`;
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 
 import numpy as np
@@ -57,29 +64,64 @@ ESC_VAL = 0x7FFF
 DECODE_LAUNCHES = 0
 ENCODE_LAUNCHES = 0
 
+# encode lanes a block: the fastest at both 2 and 32 images of the device
+# wire (tools/torch_sweep_rans.py; PERF.md section 6)
+ENCODE_THREADS = 16
+
 
 # --------------------------------------------------------------------------
 # Tables
 # --------------------------------------------------------------------------
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class DeviceCoderTables:
     """Coding tables on a device, built from host ``EntropyTables``.
 
-    ``lut2[r * 65536 + peek] = (value & 0xFFFF, freq << 16 | (peek - low))``
-    for the symbol whose CDF interval holds ``peek``; ``value`` is the
-    offset value (``sym + offset[r]``) or :data:`ESC_VAL` for the bypass
-    symbol. ``fc[r, s] = freq << 16 | low`` drives the encoder.
+    The kernels read ``ctab`` (:func:`compact_tables`), ``fcr`` and
+    ``eo``. The plain versions read ``lut2[r * 65536 + peek] = (value &
+    0xFFFF, freq << 16 | (peek - low))`` for the symbol whose CDF interval
+    holds ``peek`` (``value`` is the offset value ``sym + offset[r]``, or
+    :data:`ESC_VAL` for the bypass symbol) and ``fc[r, s] = freq << 16 |
+    low``; both are made on the tables' device at their first use.
     """
 
-    lut2: torch.Tensor  # int32 bits of uint32 (n * 65536, 2)
-    fc: torch.Tensor  # int32 bits of uint32 (n, max_sym + 1)
+    cdf: np.ndarray  # int64 (n, max_length) host CDF rows
+    cdf_length: np.ndarray  # int64 (n,)
     esc_sym: torch.Tensor  # int32 (n,) = cdf_length - 2 (bypass symbol)
     offset: torch.Tensor  # int32 (n,)
     eo: torch.Tensor  # int32 (n, 2) = (esc_sym, offset)
+    ctab: torch.Tensor  # int32 words of the compact decode tables (compact_tables)
+    fcr: torch.Tensor  # int32 bits of uint32 (n, max_sym, 2): (fc, reciprocal of its freq)
 
     @property
     def num_rows(self) -> int:
-        return int(self.fc.shape[0])
+        return int(self.fcr.shape[0])
+
+    @functools.cached_property
+    def lut2(self) -> torch.Tensor:
+        """int32 bits of uint32 (n * 65536, 2)."""
+        n = self.num_rows
+        offs = self.offset.cpu().numpy().astype(np.int64)
+        lut2 = np.zeros((n, 1 << PRECISION, 2), np.uint32)
+        peeks = np.arange(1 << PRECISION, dtype=np.int64)
+        for r in range(n):
+            L = int(self.cdf_length[r])
+            row = self.cdf[r, :L]
+            freq = row[1:] - row[:-1]
+            s = np.clip(np.searchsorted(row, peeks, side="right") - 1, 0, L - 2)
+            val = np.where(s == L - 2, ESC_VAL, s + offs[r])
+            lut2[r, :, 0] = (val & 0xFFFF).astype(np.uint32)
+            lut2[r, :, 1] = (freq[s].astype(np.uint32) << 16) | (peeks - row[s]).astype(np.uint32)
+        return _put(lut2.reshape(-1, 2), self.ctab.device)
+
+    @functools.cached_property
+    def fc(self) -> torch.Tensor:
+        """int32 bits of uint32 (n, max_sym)."""
+        return self.fcr[..., 0].contiguous()
+
+
+def _put(a: np.ndarray, device) -> torch.Tensor:
+    """uint32 or int32 numpy -> int32 tensor of the same bits on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
 
 
 def build_device_tables(t, device="cuda") -> DeviceCoderTables:
@@ -91,33 +133,91 @@ def build_device_tables(t, device="cuda") -> DeviceCoderTables:
     n = cdf.shape[0]
     max_sym = int(lens.max()) - 1  # coded symbols 0 .. cdf_length-2
     fc = np.zeros((n, max_sym), np.uint32)
-    lut2 = np.zeros((n, 1 << PRECISION, 2), np.uint32)
-    peeks = np.arange(1 << PRECISION, dtype=np.int64)
     for r in range(n):
         L = int(lens[r])
         row = cdf[r, :L]
-        freq = (row[1:] - row[:-1]).astype(np.int64)
-        fc[r, : L - 1] = (freq.astype(np.uint32) << 16) | row[:-1].astype(np.uint32)
-        s = np.clip(np.searchsorted(row, peeks, side="right") - 1, 0, L - 2)
-        val = s + offs[r]
-        legit = val[s < L - 2]
-        if legit.size and int(np.abs(legit).max()) >= ESC_VAL:
-            raise ValueError(
-                f"row {r}: |value| {int(np.abs(legit).max())} >= escape sentinel")
-        val = np.where(s == L - 2, ESC_VAL, val)
-        start = peeks - row[s]
-        lut2[r, :, 0] = (val & 0xFFFF).astype(np.uint32)
-        lut2[r, :, 1] = (freq[s].astype(np.uint32) << 16) | start.astype(np.uint32)
+        # decoded values sym + offset, sym < L - 2, stay clear of the sentinel
+        top = max(abs(int(offs[r])), abs(int(offs[r]) + L - 3)) if L > 2 else 0
+        if top >= ESC_VAL:
+            raise ValueError(f"row {r}: |value| {top} >= escape sentinel")
+        fc[r, : L - 1] = ((row[1:] - row[:-1]).astype(np.uint32) << 16) | row[:-1].astype(np.uint32)
     eo = np.stack([(lens - 2).astype(np.int32), offs.astype(np.int32)], axis=1)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
-
     return DeviceCoderTables(
-        lut2=put(lut2.reshape(-1, 2)), fc=put(fc),
-        esc_sym=put((lens - 2).astype(np.int32)), offset=put(offs.astype(np.int32)),
-        eo=put(eo),
+        cdf=cdf, cdf_length=lens,
+        esc_sym=_put((lens - 2).astype(np.int32), device),
+        offset=_put(offs.astype(np.int32), device), eo=_put(eo, device),
+        ctab=_put(compact_tables(cdf, lens, offs), device),
+        fcr=_put(np.stack([fc, reciprocals(fc >> 16)], axis=-1), device),
     )
+
+
+def index_bits(length: int) -> int:
+    """Bits of the coarse index of a CDF row of ``length`` entries:
+    ceil(log2 length), at least 1 and at most 12."""
+    return min(max(int(length - 1).bit_length(), 1), 12)
+
+
+def compact_tables(cdf: np.ndarray, lens: np.ndarray, offs: np.ndarray) -> np.ndarray:
+    """The decode kernel's tables, one flat little-endian block (uint8,
+    a multiple of 16 bytes) of three parts:
+
+      meta  int32 (n, 4) per row: (CDF start, index start, in 16-bit
+            words from the block's start; esc | k << 16 with esc = L - 2
+            and k the index bits; offset);
+      index uint16, per row 2 ** k + 1 entries: entry b is the symbol
+            ``lut2`` gives for peek ``b << (16 - k)`` (entry 2 ** k: for
+            65536, i.e. esc);
+      cdf   uint16, per row its L CDF entries, 65536 stored as 0.
+
+    ``lut2[r, peek]``'s symbol is the rightmost s in [index[b], index[b+1]]
+    (b = peek >> (16 - k)) with cdf[s] <= peek; its freq is
+    (cdf[s+1] - cdf[s]) mod 65536 and its start peek - cdf[s]. That holds
+    for rows with cdf[0] = 0, entries non-decreasing, cdf[L-2] < 65536 and
+    cdf[L-1] = 65536, which :func:`pmf_to_quantized_cdf_np` gives; other
+    rows raise."""
+    n = cdf.shape[0]
+    head = 8 * n  # meta, in 16-bit words
+    index, rows, meta = [], [], np.zeros((n, 4), np.int32)
+    at_index = head
+    for r in range(n):
+        L = int(lens[r])
+        row = cdf[r, :L].astype(np.int64)
+        if L < 3 or row[0] != 0 or row[-1] != 1 << PRECISION or row[-2] >= 1 << PRECISION \
+                or np.any(np.diff(row) < 0):
+            raise ValueError(f"row {r}: not a quantized CDF the decode kernel can search")
+        k = index_bits(L)
+        starts = np.append(np.arange(1 << k, dtype=np.int64) << (PRECISION - k), 1 << PRECISION)
+        index.append(np.clip(np.searchsorted(row, starts, side="right") - 1, 0, L - 2))
+        meta[r, 1] = at_index
+        meta[r, 2] = (L - 2) | (k << 16)
+        meta[r, 3] = offs[r]
+        at_index += (1 << k) + 1
+        rows.append(row & _MASK16)
+    at_cdf = at_index
+    for r in range(n):
+        meta[r, 0] = at_cdf
+        at_cdf += int(lens[r])
+    words = np.concatenate([meta.view(np.uint16).reshape(-1), *index, *rows]).astype(np.uint16)
+    out = np.zeros(-(-2 * words.size // 16) * 16, np.uint8)
+    out[: 2 * words.size] = words.astype("<u2").view(np.uint8)
+    return out
+
+
+def reciprocals(f: np.ndarray) -> np.ndarray:
+    """Multiply-high constants for exact division by ``f`` (1 .. 65535):
+    -> uint32 m = ceil(2 ** (32 + s) / f) - 2 ** 32 with s = ceil(log2 f),
+    so that for every 32-bit x
+
+        x // f == (((x * m) >> 32) + x) >> s
+
+    (Granlund and Montgomery's round-up method: m's 33rd bit is the ``+
+    x``; the kernel takes s as 32 - clz(f - 1)). Entries where f is 0
+    (padding) get 0."""
+    f = np.asarray(f, np.uint64)
+    g = np.maximum(f, 1)
+    s = np.array([int(v - 1).bit_length() for v in g.ravel()], np.uint64).reshape(g.shape)
+    m = ((np.uint64(1) << (32 + s)) + g - 1) // g - (1 << 32)
+    return np.where(f == 0, 0, m).astype(np.uint32)
 
 
 # --------------------------------------------------------------------------
@@ -223,6 +323,9 @@ _fns_lock = threading.Lock()
 
 
 def _kernel_fns():
+    """-> (decode, encode, decode_smem_bytes, encode_smem_bytes,
+    smem_limit): the C entries of ``csrc/rans_lanes.cu``, which alone
+    knows the kernels' shared-memory layout."""
     global _fns
     with _fns_lock:
         if _fns is None:
@@ -230,12 +333,31 @@ def _kernel_fns():
             p, i = ctypes.c_void_p, ctypes.c_int
             dec = lib.rans_decode_lanes
             dec.restype = i
-            dec.argtypes = [p, ctypes.c_longlong] + [p] * 8 + [i, i, p]
+            dec.argtypes = [p, ctypes.c_longlong] + [p] * 3 + [i] + [p] * 5 + [i] * 4 + [p]
             enc = lib.rans_encode_lanes
             enc.restype = i
-            enc.argtypes = [p] * 4 + [i] + [p] * 3 + [i, i, p]
-            _fns = (dec, enc)
+            enc.argtypes = [p] * 4 + [i, i] + [p] * 3 + [i] * 4 + [p]
+            dec_bytes = lib.rans_decode_smem_bytes
+            dec_bytes.restype = i
+            dec_bytes.argtypes = [i] * 3
+            enc_bytes = lib.rans_encode_smem_bytes
+            enc_bytes.restype = i
+            enc_bytes.argtypes = [i] * 4
+            limit = lib.rans_smem_limit
+            limit.restype = i
+            limit.argtypes = []
+            _fns = (dec, enc, dec_bytes, enc_bytes, limit)
         return _fns
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(device) -> int:
+    """Shared memory a block of these kernels may take on ``device``."""
+    with torch.cuda.device(device):
+        limit = _kernel_fns()[4]()
+    if limit <= 0:
+        raise RuntimeError(f"cannot read the shared-memory limit of {device}")
+    return limit
 
 
 def _check(device, **tensors):
@@ -253,11 +375,30 @@ def _check(device, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _table_args(tables: DeviceCoderTables):
-    n = tables.num_rows
-    return dict(lut2=(tables.lut2, torch.int32, (n << PRECISION, 2)),
-                fc=(tables.fc, torch.int32, (n, None)),
-                eo=(tables.eo, torch.int32, (n, 2)))
+def decode_launch_config(tables: DeviceCoderTables, lanes: int, device):
+    """-> (threads a block, True to stage ctab in shared memory). Chosen
+    before the launch from sizes alone: the tables go to shared memory
+    when they fit beside 32 lanes, and the lanes are cut into at most one
+    block an SM of ``device`` while the block fits (each block stages the
+    tables once)."""
+    smem_bytes, limit = _kernel_fns()[2], _smem_limit(device)
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    nbytes = 4 * tables.ctab.numel()
+    smem = smem_bytes(nbytes, 32, 1) <= limit
+    threads = 32
+    while (threads < 1024 and threads * sm_count < lanes
+           and smem_bytes(nbytes, 2 * threads, int(smem)) <= limit):
+        threads *= 2
+    return threads, smem
+
+
+def encode_launch_config(T: int, n_rows: int, device):
+    """-> (threads a block, True to keep the emissions in shared memory):
+    ``ENCODE_THREADS`` lanes a block, each lane's T + 2 words in shared
+    memory of ``device`` while that many rows fit beside the codes' ring,
+    else written straight to the output rows."""
+    fits = _kernel_fns()[3](T, n_rows, ENCODE_THREADS, 1) <= _smem_limit(device)
+    return ENCODE_THREADS, fits
 
 
 def decode_lanes_cuda(words, off, rows_T, tables: DeviceCoderTables,
@@ -265,8 +406,14 @@ def decode_lanes_cuda(words, off, rows_T, tables: DeviceCoderTables,
     """Launch the decode kernel: words int16 (W,), off int32 (lanes,),
     rows_T int32 (T, lanes) with every row in [0, num_rows), state/ptr
     int32 (lanes,) or both None (start from the flushed states); all
-    contiguous CUDA tensors on one device. -> new (values int32 (T, lanes),
-    state, ptr)."""
+    contiguous CUDA tensors on one device. -> new (values int32 (T,
+    lanes), state, ptr)."""
+    return _decode_launch(words, off, rows_T, tables, state, ptr)
+
+
+def _decode_launch(words, off, rows_T, tables, state, ptr, config=None):
+    """:func:`decode_lanes_cuda`, launched with ``config`` (threads, smem)
+    when given, else with :func:`decode_launch_config`'s."""
     global DECODE_LAUNCHES
     if rows_T.dim() != 2:
         raise ValueError(f"rows_T must be (T, lanes), got {tuple(rows_T.shape)}")
@@ -275,22 +422,28 @@ def decode_lanes_cuda(words, off, rows_T, tables: DeviceCoderTables,
         raise ValueError("no words to decode")
     dev = words.device
     args = dict(words=(words, torch.int16, (None,)), off=(off, torch.int32, (lanes,)),
-                rows_T=(rows_T, torch.int32, (T, lanes)), **_table_args(tables))
+                rows_T=(rows_T, torch.int32, (T, lanes)),
+                ctab=(tables.ctab, torch.int32, (None,)))
     if (state is None) != (ptr is None):
         raise ValueError("pass both state and ptr, or neither")
     if state is not None:
         args.update(state=(state, torch.int32, (lanes,)), ptr=(ptr, torch.int32, (lanes,)))
     _check(dev, **args)
+    dec, _, smem_bytes, _, _ = _kernel_fns()
+    threads, smem = config or decode_launch_config(tables, lanes, dev)
+    if smem_bytes(4 * tables.ctab.numel(), threads, int(smem)) > _smem_limit(dev):
+        raise ValueError(f"{threads} lanes with these tables do not fit in shared memory")
     values = torch.empty((T, lanes), dtype=torch.int32, device=dev)
     state_out = torch.empty(lanes, dtype=torch.int32, device=dev)
     ptr_out = torch.empty(lanes, dtype=torch.int32, device=dev)
-    dec, _ = _kernel_fns()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = dec(words.data_ptr(), words.numel(), off.data_ptr(), rows_T.data_ptr(),
-                 tables.lut2.data_ptr(), 0 if state is None else state.data_ptr(),
+                 tables.ctab.data_ptr(), 4 * tables.ctab.numel(),
+                 0 if state is None else state.data_ptr(),
                  0 if ptr is None else ptr.data_ptr(), values.data_ptr(),
-                 state_out.data_ptr(), ptr_out.data_ptr(), T, lanes, stream)
+                 state_out.data_ptr(), ptr_out.data_ptr(), T, lanes, threads, int(smem),
+                 stream)
     if rc != 0:
         raise RuntimeError(f"rans decode kernel launch failed (code {rc})")
     if lanes:  # the C entry launches nothing for no lanes
@@ -303,22 +456,35 @@ def encode_lanes_kernel(values_T, rows_T, tables: DeviceCoderTables):
     every row in [0, num_rows); contiguous CUDA tensors on one device.
     -> (buf int16 (lanes, T + 2), lengths int32 (lanes,), escape marks
     bool (T, lanes)); :func:`encode_lanes_cuda` compacts the marks."""
+    return _encode_launch(values_T, rows_T, tables)
+
+
+def _encode_launch(values_T, rows_T, tables, config=None):
+    """:func:`encode_lanes_kernel`, launched with ``config`` (threads,
+    smem) when given, else with :func:`encode_launch_config`'s."""
     global ENCODE_LAUNCHES
     if values_T.dim() != 2:
         raise ValueError(f"values_T must be (T, lanes), got {tuple(values_T.shape)}")
     T, lanes = values_T.shape
     dev = values_T.device
+    n, n_sym = tables.num_rows, tables.fcr.shape[1]
     _check(dev, values_T=(values_T, torch.int32, (T, lanes)),
-           rows_T=(rows_T, torch.int32, (T, lanes)), **_table_args(tables))
+           rows_T=(rows_T, torch.int32, (T, lanes)),
+           fcr=(tables.fcr, torch.int32, (n, n_sym, 2)),
+           eo=(tables.eo, torch.int32, (n, 2)))
+    _, enc, _, smem_bytes, _ = _kernel_fns()
+    threads, smem = config or encode_launch_config(T, n, dev)
+    if smem_bytes(T, n, threads, int(smem)) > _smem_limit(dev):
+        raise ValueError(f"{threads} lanes of {T} steps do not fit in shared memory")
     buf = torch.empty((lanes, T + 2), dtype=torch.int16, device=dev)
     lengths = torch.empty(lanes, dtype=torch.int32, device=dev)
     esc = torch.empty((T, lanes), dtype=torch.bool, device=dev)
-    _, enc = _kernel_fns()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = enc(values_T.data_ptr(), rows_T.data_ptr(), tables.fc.data_ptr(),
-                 tables.eo.data_ptr(), tables.fc.shape[1], buf.data_ptr(),
-                 lengths.data_ptr(), esc.data_ptr(), T, lanes, stream)
+        rc = enc(values_T.data_ptr(), rows_T.data_ptr(), tables.fcr.data_ptr(),
+                 tables.eo.data_ptr(), n, n_sym,
+                 buf.data_ptr(), lengths.data_ptr(), esc.data_ptr(), T, lanes, threads,
+                 int(smem), stream)
     if rc != 0:
         raise RuntimeError(f"rans encode kernel launch failed (code {rc})")
     if lanes:

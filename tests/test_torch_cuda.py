@@ -392,3 +392,222 @@ def test_rans_wrappers_count_no_launch_for_no_lanes(rans_tables):
     assert buf.shape == (0, 7) and lengths.shape == (0,) and esc.shape == (5, 0)
     assert vals.shape == (5, 0) and state.shape == ptr.shape == (0,)
     assert (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES) == before
+
+
+# --- the kernels' Hopper design: compact tables, reciprocals, the launch
+# variants (tables in shared memory or read through L1; emissions kept in
+# shared memory or written to the output rows) ------------------------------
+DECODE_VARIANTS = {"smem": (256, True), "l1": (64, False)}
+ENCODE_VARIANTS = {"smem": (16, True), "rows": (64, False)}
+
+
+@pytest.fixture(scope="module")
+def real_tables():
+    """The seeded full-width model's coding tables: the 64 Gaussian rows
+    (lengths 5 to 3133) and the bottleneck's 192 rows."""
+    _needs_card()
+    from icm_tpu_torch.models import build_codec_tables, create_model
+
+    tables = build_codec_tables(create_model("cnn", device="cuda", seed=0))
+    host = {"gaussian": tables.gaussian, "bottleneck": tables.bottlenecks["entropy_bottleneck"]}
+    return {k: (h, tdr.build_device_tables(h, "cuda")) for k, h in host.items()}
+
+
+def _tables(which, real_tables, rans_tables):
+    return rans_tables if which == "fixture" else real_tables[which]
+
+
+@pytest.mark.parametrize("variant", sorted(DECODE_VARIANTS))
+@pytest.mark.parametrize("which", ["gaussian", "bottleneck", "fixture"])
+def test_rans_decode_step_every_row_and_peek(real_tables, rans_tables, which, variant):
+    """One lane for every (row, peek), one step, against the plain version:
+    state (1 << 16) | peek, whose step reads a word unless the symbol's
+    frequency is over 2^15, then a random upper half, whose step mostly
+    reads none; word positions past the stream's end read its last word."""
+    host, tables = _tables(which, real_tables, rans_tables)
+    n = host.num_distributions
+    rng = np.random.default_rng(n)
+    lanes = n << 16
+    rows = torch.arange(n, dtype=torch.int32, device="cuda").repeat_interleave(1 << 16)[None]
+    peek = torch.arange(1 << 16, dtype=torch.int64, device="cuda").repeat(n)
+    words = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, 4099).astype(np.int16)).cuda()
+    off = torch.from_numpy(rng.integers(0, 4099, lanes).astype(np.int32)).cuda()
+    ptr = torch.from_numpy(rng.integers(0, 8, lanes).astype(np.int32)).cuda()
+    for upper in ("one", "random"):
+        hi = (torch.ones_like(peek) if upper == "one"
+              else torch.from_numpy(rng.integers(1, 1 << 16, lanes)).cuda())
+        state = tdr._i32((hi << 16) | peek)
+        got = tdr._decode_launch(words, off, rows, tables, state, ptr, DECODE_VARIANTS[variant])
+        _assert_same(got, tdr.decode_lanes_reference(words, off, rows, tables, state, ptr))
+        read = (got[2] - ptr).float().mean().item()
+        assert (read > 0.5) if upper == "one" else (0 < read < 0.5)
+
+
+def _every_symbol_payload(host, T, seed):
+    """One lane for every (row, coded symbol) and every row's escape: the
+    pair sits at a seeded step, the other steps are values drawn from
+    random rows, and half the lanes code a run of the widest row's least
+    likely symbol just before the pair, which drives the state towards
+    2^32. -> (values, rows) int32 (T, lanes) on the card."""
+    rng = np.random.default_rng(seed)
+    n, L = host.num_distributions, host.cdf_length.astype(np.int64)
+    pair_row = np.repeat(np.arange(n), L - 1)
+    pair_sym = np.concatenate([np.arange(l - 1) for l in L])  # sym L-2: the escape
+    lanes = pair_row.size
+    rows = rng.integers(0, n, size=(T, lanes))
+    peek = rng.integers(0, 1 << 16, size=(T, lanes))
+    sym = np.empty((T, lanes), np.int64)
+    for r in range(n):
+        at = rows == r
+        sym[at] = np.clip(np.searchsorted(host.quantized_cdf[r, :L[r]], peek[at], "right") - 1,
+                          0, L[r] - 3)
+    wide = int(np.argmax(L))
+    freq = np.diff(host.quantized_cdf[wide, :L[wide]].astype(np.int64))[: L[wide] - 2]
+    rare = int(np.argmin(freq))
+    at = np.where(rng.random(lanes) < 1 / 3, 0, rng.integers(0, T - 9, lanes))
+    run = rng.random(lanes) < 0.5
+    for d in range(1, 9):  # coded (in reverse) just before the pair
+        rows[at + d, np.arange(lanes)] = np.where(run, wide, rows[at + d, np.arange(lanes)])
+        sym[at + d, np.arange(lanes)] = np.where(run, rare, sym[at + d, np.arange(lanes)])
+    rows[at, np.arange(lanes)] = pair_row
+    sym[at, np.arange(lanes)] = pair_sym
+    values = sym + host.offset[rows]
+    escape = sym == L[rows] - 2
+    values = np.where(escape, rng.choice(INT32_EXTREMES, (T, lanes)), values)
+    return (torch.from_numpy(values.astype(np.int32)).cuda(),
+            torch.from_numpy(rows.astype(np.int32)).cuda())
+
+
+@pytest.mark.parametrize("variant", sorted(ENCODE_VARIANTS))
+@pytest.mark.parametrize("which", ["gaussian", "bottleneck", "fixture"])
+def test_rans_encode_every_row_and_symbol(real_tables, rans_tables, which, variant):
+    """Every (row, symbol) and every escape, at states across the coder's
+    range, byte for byte with the plain version; the kernel's decode reads
+    the values back."""
+    host, tables = _tables(which, real_tables, rans_tables)
+    values, rows = _every_symbol_payload(host, 48, seed=host.num_distributions)
+    buf, lengths, esc = tdr._encode_launch(values, rows, tables, ENCODE_VARIANTS[variant])
+    dest = esc.reshape(-1).nonzero()[:, 0]
+    got = (buf, lengths, dest.to(torch.int32), values.reshape(-1)[dest], int(dest.numel()))
+    _assert_same(got, tdr.encode_lanes_reference(values, rows, tables))
+    # states past 2^31 were coded (the flushed hi word of the final state)
+    assert int((buf[:, 0].long() & 0xFFFF).max()) >= 0x8000
+    len_h = lengths.cpu().numpy()
+    words = torch.from_numpy(
+        tdr.assemble_streams(buf.cpu().numpy().view(np.uint16), len_h).view(np.int16)).cuda()
+    off = torch.from_numpy(tdr.lane_offsets(len_h)).cuda()
+    vals, _, ptr = tdr.decode_lanes_cuda(words, off, rows, tables)
+    assert torch.equal(tdr.fix_escapes(vals, got[2], got[3]), values)
+    assert torch.equal(ptr, lengths)
+
+
+@pytest.mark.parametrize("stream", ["y", "z"])
+def test_rans_kernels_at_bench_batch(real_tables, stream):
+    """bench.py's batch, 32 images of 512^2: y 32768 lanes x 320 steps
+    decoded in 10 continued launches, z 16384 x 24 in one; byte for byte
+    with the plain versions, and two launches give the same bits."""
+    which, T, lanes, n_launches = {"y": ("gaussian", 320, 32768, 10),
+                                   "z": ("bottleneck", 24, 16384, 1)}[stream]
+    host, tables = real_tables[which]
+    values, rows = _rans_payload(host, T, lanes, "some", seed=lanes)
+    enc = tdr.encode_lanes_cuda(values, rows, tables)
+    _assert_same(enc, tdr.encode_lanes_reference(values, rows, tables))
+    _assert_same(tdr.encode_lanes_cuda(values, rows, tables), enc)
+    buf, lengths, dest, raw, _ = enc
+    len_h = lengths.cpu().numpy()
+    words = torch.from_numpy(
+        tdr.assemble_streams(buf.cpu().numpy().view(np.uint16), len_h).view(np.int16)).cuda()
+    off = torch.from_numpy(tdr.lane_offsets(len_h)).cuda()
+    seg = T // n_launches
+
+    def chain(fn):
+        state = ptr = None
+        out = []
+        for i in range(n_launches):
+            vals, state, ptr = fn(words, off, rows[i * seg:(i + 1) * seg], tables, state, ptr)
+            out.append(vals)
+        return [*out, state, ptr]
+
+    dec = chain(tdr.decode_lanes_cuda)
+    _assert_same(dec, chain(tdr.decode_lanes_reference))
+    _assert_same(chain(tdr.decode_lanes_cuda), dec)
+    assert torch.equal(dec[-1], lengths)
+    assert torch.equal(tdr.fix_escapes(torch.cat(dec[:-2]), dest, raw), values)
+
+
+def test_rans_encode_rows_past_shared_memory(rans_tables):
+    """T = 8000: a block's rows do not fit in shared memory, so the launch
+    writes the emissions to the output rows; byte for byte with the plain
+    version, and a launch asked to keep them in shared memory raises."""
+    host, tables = rans_tables
+    T, lanes = 8000, 70
+    assert tdr.encode_launch_config(T, host.num_distributions, tables.eo.device)[1] is False
+    values, rows = _rans_payload(host, T, lanes, "some", seed=T)
+    enc = tdr.encode_lanes_cuda(values, rows, tables)
+    _assert_same(enc, tdr.encode_lanes_reference(values, rows, tables))
+    with pytest.raises(ValueError, match="shared memory"):
+        tdr._encode_launch(values, rows, tables, (32, True))
+    buf, lengths, dest, raw, _ = enc
+    len_h = lengths.cpu().numpy()
+    words = torch.from_numpy(
+        tdr.assemble_streams(buf.cpu().numpy().view(np.uint16), len_h).view(np.int16)).cuda()
+    off = torch.from_numpy(tdr.lane_offsets(len_h)).cuda()
+    vals, _, ptr = tdr.decode_lanes_cuda(words, off, rows, tables)
+    assert torch.equal(tdr.fix_escapes(vals, dest, raw), values)
+    assert torch.equal(ptr, lengths)
+
+
+@pytest.mark.parametrize("shift", range(8))
+def test_rans_decode_words_at_any_address(rans_tables, shift):
+    """Words that are a slice of a larger buffer, starting ``shift`` words
+    past a 16-byte boundary, decode as the plain version decodes them, and
+    so do the same words cut short; nothing outside the slice is read
+    (the buffer around it holds other words)."""
+    host, tables = rans_tables
+    values, rows = _rans_payload(host, 37, 65, "some", seed=shift)
+    buf, lengths, dest, raw, _ = tdr.encode_lanes_cuda(values, rows, tables)
+    len_h = lengths.cpu().numpy()
+    flat = torch.from_numpy(
+        tdr.assemble_streams(buf.cpu().numpy().view(np.uint16), len_h).view(np.int16)).cuda()
+    off = torch.from_numpy(tdr.lane_offsets(len_h)).cuda()
+    big = torch.full((flat.numel() + 16,), -1, dtype=torch.int16, device="cuda")
+    words = big[shift:shift + flat.numel()]
+    words.copy_(flat)
+    assert words.data_ptr() % 16 == 2 * shift
+    got = tdr.decode_lanes_cuda(words, off, rows, tables)
+    _assert_same(got, tdr.decode_lanes_reference(words, off, rows, tables))
+    assert torch.equal(tdr.fix_escapes(got[0], dest, raw), values)
+    short = words[: flat.numel() - 5]
+    _assert_same(tdr.decode_lanes_cuda(short, off, rows, tables),
+                 tdr.decode_lanes_reference(short, off, rows, tables))
+
+
+# the launch configurations, from the kernels' own shared-memory layout
+# (the C entries) and the card's limit
+@pytest.mark.parametrize("T", [1, 24, 320, 3000, 8000])
+def test_encode_launch_config_fits_shared_memory(T):
+    """The emissions stay in shared memory while a block's rows fit, and
+    go straight to the output rows past that; never more than fits."""
+    _needs_card()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    smem_bytes, limit = tdr._kernel_fns()[3], tdr._smem_limit(dev)
+    threads, smem = tdr.encode_launch_config(T, 64, dev)
+    assert smem == (T <= 3000)
+    assert smem == (smem_bytes(T, 64, threads, 1) <= limit)
+    assert smem_bytes(T, 64, threads, int(smem)) <= limit
+
+
+def test_decode_launch_config_fits_shared_memory(real_tables):
+    """The Gaussian compact tables are staged in shared memory, and each
+    launch's blocks fit beside them; no more blocks than SMs while a block
+    can grow."""
+    _, tables = real_tables["gaussian"]
+    dev = tables.ctab.device
+    smem_bytes, limit = tdr._kernel_fns()[2], tdr._smem_limit(dev)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    nbytes = 4 * tables.ctab.numel()
+    for lanes in (1, 2048, 32768, 1 << 22):
+        threads, smem = tdr.decode_launch_config(tables, lanes, dev)
+        assert smem and smem_bytes(nbytes, threads, 1) <= limit
+        assert (threads * sm_count >= lanes or smem_bytes(nbytes, 2 * threads, 1) > limit
+                or threads == 1024)

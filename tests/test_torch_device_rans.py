@@ -192,3 +192,124 @@ def test_cuda_wrappers_refuse_cpu_tensors(tables):
     with pytest.raises(ValueError, match="CUDA"):
         tdr.decode_lanes_cuda(torch.zeros(8, dtype=torch.int16),
                               torch.zeros(3, dtype=torch.int32), rows, tdev)
+
+
+# --- the kernels' own tables: compact CDFs for the decode, reciprocals for
+# the encode. The CUDA kernels run only on the card; here a numpy replay of
+# the decode kernel's lookup and of the encode kernel's division is held
+# against lut2 and integer division.
+def _length3_tables():
+    """The card fixture's kind of rows: two of one coded symbol (length 3),
+    the rest 2 to 40."""
+    rng = np.random.default_rng(0)
+    supports = [1, 1] + [int(s) for s in rng.integers(2, 41, size=7)]
+    cdf = np.zeros((len(supports), max(supports) + 2), np.int32)
+    for r, n in enumerate(supports):
+        pmf = rng.random(n).astype(np.float32) + 1e-3
+        pmf = pmf / pmf.sum() * (1.0 - 2 ** -8)
+        row = pmf_to_quantized_cdf_np(np.concatenate([pmf, [1.0 - pmf.sum()]]).astype(np.float32))
+        cdf[r, : row.shape[0]] = row
+    return EntropyTables(cdf, np.array(supports, np.int32) + 2,
+                         rng.integers(-9, 3, size=len(supports)).astype(np.int32))
+
+
+def _gaussian_tables():
+    from icm_tpu_torch.entropy import gc_build_tables, get_scale_table
+
+    return gc_build_tables(get_scale_table())
+
+
+def _replay_compact_lookup(ctab: np.ndarray, r: int, peek: np.ndarray):
+    """The decode kernel's lookup, in numpy: row record, index bucket,
+    then the binary search in it -> (value, freq, start) for every peek."""
+    words = ctab.view("<u2").astype(np.int64)
+    meta = ctab[: 16 * (r + 1)].view("<i4").reshape(-1, 4)[r]
+    cdf0, idx0, esc, k, offset = (int(meta[0]), int(meta[1]), int(meta[2]) & 0xFFFF,
+                                  int(meta[2]) >> 16, int(meta[3]))
+    b = peek >> (16 - k)
+    lo, hi = words[idx0 + b], words[idx0 + b + 1]
+    while np.any(lo < hi):
+        go = lo < hi
+        mid = (lo + hi + 1) >> 1
+        le = words[cdf0 + np.where(go, mid, lo)] <= peek
+        lo = np.where(go & le, mid, lo)
+        hi = np.where(go & ~le, mid - 1, hi)
+    c0, c1 = words[cdf0 + lo], words[cdf0 + lo + 1]
+    value = np.where(lo == esc, tdr.ESC_VAL, lo + offset)
+    return value, (c1 - c0) & 0xFFFF, peek - c0
+
+
+@pytest.mark.parametrize("which", ["gaussian", "random", "length3"])
+def test_compact_tables_give_lut2_answer_for_every_peek(which, tables):
+    """For every (row, peek), index then search give lut2's (value, freq,
+    start): the real Gaussian table (64 rows, lengths 5 to 3133), the
+    module's random tables and rows of one coded symbol."""
+    host = {"gaussian": _gaussian_tables, "random": lambda: tables[2],
+            "length3": _length3_tables}[which]()
+    dev = tdr.build_device_tables(host, "cpu")
+    ctab = dev.ctab.numpy().view(np.uint8)
+    assert ctab.size % 16 == 0
+    lut2 = dev.lut2.numpy().view(np.uint32).reshape(host.num_distributions, 1 << 16, 2)
+    peek = np.arange(1 << 16, dtype=np.int64)
+    for r in range(host.num_distributions):
+        value, freq, start = _replay_compact_lookup(ctab, r, peek)
+        want = lut2[r].astype(np.int64)
+        np.testing.assert_array_equal(value, (want[:, 0] ^ 0x8000) - 0x8000, err_msg=f"row {r}")
+        np.testing.assert_array_equal(freq, want[:, 1] >> 16, err_msg=f"row {r}")
+        np.testing.assert_array_equal(start, want[:, 1] & 0xFFFF, err_msg=f"row {r}")
+
+
+def test_compact_tables_are_small():
+    """The Gaussian table's compact form is a few hundred times smaller
+    than its lut2 (33.6 MB) and fits a block's shared memory (an H100
+    block may take 227 KB; 1 KB of it is left for the lanes)."""
+    dev = tdr.build_device_tables(_gaussian_tables(), "cpu")
+    nbytes = 4 * dev.ctab.numel()
+    assert nbytes <= 232448 - 1024 and nbytes * 200 < 4 * dev.lut2.numel()
+
+
+def test_compact_tables_refuse_a_row_they_cannot_search():
+    host = _length3_tables()
+    bad = host.quantized_cdf.copy()
+    bad[2, host.cdf_length[2] - 1] = (1 << 16) - 1  # the row does not end at 2^16
+    with pytest.raises(ValueError, match="row 2"):
+        tdr.build_device_tables(EntropyTables(bad, host.cdf_length, host.offset), "cpu")
+
+
+def test_reciprocals_divide_exactly():
+    """x // f == (((x * m) >> 32) + x) >> shift for every f in 1 .. 65535,
+    at the states f << 16 - 1, f - 1, f, 2^16 and 0, and at 64 seeded
+    random states below f << 16 (the encoder divides only after its
+    renormalisation has brought the state under f << 16)."""
+    f = np.arange(1, 1 << 16, dtype=np.uint64)
+    m = tdr.reciprocals(f)
+    assert m.dtype == np.uint32
+    # ceil(log2 f), as the kernel takes it: 32 - clz(f - 1)
+    shift = np.array([int(v - 1).bit_length() for v in f], np.uint64)
+    rng = np.random.default_rng(0)
+    edges = np.stack([(f << np.uint64(16)) - np.uint64(1), f - np.uint64(1), f,
+                      np.full_like(f, 1 << 16), np.zeros_like(f)], axis=1)
+    rand = (rng.random((f.size, 64)) * (f << np.uint64(16))[:, None].astype(np.float64))
+    x = np.concatenate([edges, rand.astype(np.uint64)], axis=1)
+    assert int(x.max()) < 1 << 32
+    m64, s64 = m.astype(np.uint64)[:, None], shift.astype(np.uint64)[:, None]
+    q = (((x * m64) >> np.uint64(32)) + x) >> s64
+    np.testing.assert_array_equal(q, x // f[:, None])
+
+
+def test_device_tables_make_lut2_and_fc_at_first_use(tables):
+    """A build puts on the device only what the kernels read; the plain
+    versions' lut2 and fc are made at their first use, fc from fcr."""
+    _, _, thost, _ = tables
+    dev = tdr.build_device_tables(thost, "cpu")
+    assert "lut2" not in vars(dev) and "fc" not in vars(dev)
+    values, rows = _payload(np.random.default_rng(5), 6, 4, thost, "some")
+    buf, lengths, _, _, _ = tdr.encode_lanes(torch.from_numpy(values), torch.from_numpy(rows),
+                                             dev)
+    assert "fc" in vars(dev) and "lut2" not in vars(dev)
+    assert torch.equal(dev.fc, dev.fcr[..., 0])
+    words = torch.from_numpy(tdr.assemble_streams(buf.numpy().view(np.uint16),
+                                                  lengths.numpy()).view(np.int16))
+    tdr.decode_lanes(words, torch.from_numpy(tdr.lane_offsets(lengths.numpy())),
+                     torch.from_numpy(rows), dev)
+    assert "lut2" in vars(dev) and dev.lut2 is dev.lut2

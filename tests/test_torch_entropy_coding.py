@@ -193,7 +193,8 @@ def _imports(path):
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(REPO).as_posix() for p in (REPO / "icm_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py", "tools/torch_profile_codec.py"]))
+    + ["chip_smoke.py", "tools/torch_profile_codec.py", "tools/torch_ab_rans.py",
+       "tools/torch_sweep_rans.py"]))
 def test_port_imports_nothing_of_jax_or_icm_tpu(path):
     for name in _imports(REPO / path):
         top = name.split(".")[0]
