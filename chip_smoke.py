@@ -11,9 +11,12 @@ package beside it. Phases, each printed with its elapsed seconds:
    and the host rANS coder (g++), from the sources in the checkout, all
    at once;
 3. window attention against its plain PyTorch version on the card, at
-   the shapes of the full-width WACNN's path, in f32 and bf16, timed
-   beside the plain version and F.scaled_dot_product_attention (a
-   yardstick the port never calls);
+   the shapes of the full-width WACNN's path (head widths 24 and 40) and
+   of the full-width stf's (head width 16, windows of 16 tokens: 3, 6, 12
+   and 24 heads over 8192, 2048, 512 and 128 windows), then a ragged
+   window count of each, in f32 and bf16; two launches must give the
+   same bits; timed beside the plain version and
+   F.scaled_dot_product_attention (a yardstick the port never calls);
 4. the fused GDN forward and backward kernels against their plain
    versions at the training step's shapes (8 x 192 x 128^2, 64^2, 32^2,
    GDN and IGDN), the serving path's and one ragged shape, timed beside
@@ -38,9 +41,10 @@ package beside it. Phases, each printed with its elapsed seconds:
    the counts zeroed right before and read right after each side. Asserts
    a bit-exact y_hat and x_hat, y_hat equal to phase 5's host wire, the
    device wire's bytes within the host wire's x 1.02 plus each lane's
-   flush and header, 2 encode launches per compress and 11 decode
-   launches per decompress, window attention and the GDN forward on both
-   sides, and that decompress made no host round trip
+   flush and header, 2 encode launches per compress and one decode
+   launch a slice and one for z (11) per decompress, window attention
+   and the GDN forward on both sides, and that decompress made no host
+   round trip
    (``torch.cuda.set_sync_debug_mode``); it logs the sha256 of the y and
    z blobs;
 8. the same weights' eval forward on the card against the plain CPU path
@@ -51,8 +55,26 @@ package beside it. Phases, each printed with its elapsed seconds:
    aux loss must be finite, the parameters must move, and each step must
    launch the three kernels (counts zeroed before it and read after it);
 10. one training step of the trained weights on the card against the
-   plain CPU path on a small input, with the same noise: the loss terms
-    and every parameter's gradient.
+    plain CPU path on a small input, with the same noise: the loss terms
+    and every parameter's gradient;
+11. the full-width Swin codec stf (embed 48, depths 2/2/6/2, heads
+    3/6/12/24, window 4, M=384, 12 slices) with weights drawn from
+    ``--seed``, on the same images: compress -> decompress on the host
+    wire, held as in phase 5, with one window-attention launch a Swin
+    block (24 on compress with its debug reconstruction, 12 on
+    decompress) and no GDN or lane-rANS launch;
+12. the lane-rANS kernels as in phase 6 at stf's shapes (y 2048 lanes x
+    384 steps decoded in 12 launches of 32, z 1024 x 24);
+13. stf on the device wire, held as in phase 7: 2 encode launches and 13
+    decode launches (12 slices and z), 24 / 12 window-attention launches,
+    no host round trip in decompress;
+14. stf's eval forward on the card against the plain CPU path on a
+    small input;
+15. full-width stf training through ``train.run_training``: 4 steps of
+    8 x 256 x 256 with stochastic depth, an eval batch; every step's
+    loss, bpp and aux loss finite, the parameters moved, 24
+    window-attention launches a step and no other kernel's; the peak
+    device memory logged.
 
 It then prints the kernels line (JSON), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
@@ -62,8 +84,8 @@ attention and of both GDN kernels as three TF32 products each on the
 tensor cores, the rest on the f32 units), against its bytes;
 ``f32_fma_bound_ms`` counts every operation at the f32 FMA rate. The
 rANS kernels' bound counts the bytes this run's data needs (each distinct
-table entry once) against their integer operations; beside it stands the
-dependent-chain estimate: their steps times an assumed load latency.
+table entry once) against their integer operations; beside their time
+stands the first lane's alone (``one_lane_ms``).
 """
 
 from __future__ import annotations
@@ -183,11 +205,10 @@ def attention_bound_ms(W, H, N, D, n_cls, dtype: str):
     return (*bound(t_bytes, t_ops), fma)
 
 
-def attention_inputs(W, N, D, n_cls, dtype, seed):
+def attention_inputs(W, N, D, n_cls, dtype, seed, heads=8):
     import torch
 
     rng = np.random.default_rng(seed)
-    heads = 8
     q, k, v = (torch.from_numpy(rng.standard_normal((W, heads, N, D)).astype(np.float32))
                for _ in range(3))
     bias = rng.standard_normal((n_cls, heads, N, N)).astype(np.float32)
@@ -201,38 +222,51 @@ def attention_inputs(W, N, D, n_cls, dtype, seed):
             torch.from_numpy(bias).to(dev), torch.from_numpy(cls).to(dev))
 
 
+# stf's window-attention launches at 2 x 512 px, by shape (W, heads): its
+# 4x4 windows give N = 16 and D = 16 at every stage; g_a's stages (depths
+# 2, 2, 6, 2) and g_s's (2, 6, 2, 2, the other way round) launch each shape
+# the same number of times a side
+STF_SIDE_LAUNCHES = {(8192, 3): 2, (2048, 6): 2, (512, 12): 6, (128, 24): 2}
+
+
 def check_kernel(twa):
-    """Phase 3: kernel vs plain version at the codec's shapes."""
+    """Phase 3: kernel vs plain version at the codecs' shapes. -> rows,
+    each tagged with the model whose path gives the shape."""
     import torch
     import torch.nn.functional as F
 
-    B = 2  # images per compress call in phase 4
+    B = 2  # images per compress call in phases 5 and 11
     cases = [
-        # (W, N, D, n_cls): the two shapes the 512-px WACNN gives the kernel
-        # (g_a block 1 / g_s block 2: 128x128x192, window 8, shift 4;
-        # g_a block 2 / g_s block 1: 32x32x320, window 4, shift 2), then one
-        # window class and a ragged window count
-        (256 * B, 64, 24, 4),
-        (64 * B, 16, 40, 4),
-        (256 * B, 64, 24, 1),
-        (100, 64, 24, 4),
-        (100, 16, 40, 4),
+        # (model, W, heads, N, D, n_cls): the two shapes the 512-px WACNN
+        # gives the kernel (g_a block 1 / g_s block 2: 128x128x192, window 8,
+        # shift 4; g_a block 2 / g_s block 1: 32x32x320, window 4, shift 2),
+        # then one window class and a ragged window count
+        ("cnn", 256 * B, 8, 64, 24, 4),
+        ("cnn", 64 * B, 8, 16, 40, 4),
+        ("cnn", 256 * B, 8, 64, 24, 1),
+        ("cnn", 100, 8, 64, 24, 4),
+        ("cnn", 100, 8, 16, 40, 4),
     ]
+    # stf's four shapes (the shifted blocks' four classes), then one window
+    # class and a ragged window count
+    cases += [("stf", W, H, 16, 16, 4) for W, H in STF_SIDE_LAUNCHES]
+    cases += [("stf", 512, 12, 16, 16, 1), ("stf", 8191, 3, 16, 16, 4)]
     rows = []
     for dtype in ("float32", "bfloat16"):
-        for W, N, D, n_cls in cases:
-            ins = attention_inputs(W, N, D, n_cls, dtype, seed=W + N + D + n_cls)
+        for model, W, heads, N, D, n_cls in cases:
+            ins = attention_inputs(W, N, D, n_cls, dtype, seed=W + N + D + n_cls, heads=heads)
             out = twa.window_attention_cuda(*ins)
             torch.cuda.synchronize()
             ref = twa.window_attention_reference(*ins)
             err = (out.float() - ref.float()).abs().max().item()
             tol = TOLERANCE[dtype]
             ok = bool(torch.isfinite(out).all()) and err <= tol
+            same_bits = torch.equal(twa.window_attention_cuda(*ins), out)
             q, k, v, bias, cls = ins
             mask = bias[cls.long()].to(q.dtype)
             row = dict(
-                W=W, N=N, D=D, n_cls=n_cls, dtype=dtype, max_abs_err=err,
-                tolerance=tol,
+                model=model, W=W, heads=heads, N=N, D=D, n_cls=n_cls, dtype=dtype,
+                max_abs_err=err, tolerance=tol, same_bits_twice=same_bits,
                 ms=cuda_ms(lambda: twa.window_attention_cuda(*ins)),
                 plain_ms=cuda_ms(lambda: twa.window_attention_reference(*ins)),
                 library_ms=cuda_ms(
@@ -240,15 +274,15 @@ def check_kernel(twa):
             )
             (row["bound_ms"], row["bound_by"],
              (row["f32_fma_bound_ms"], row["f32_fma_bound_by"])) = attention_bound_ms(
-                W, 8, N, D, n_cls, dtype)
+                W, heads, N, D, n_cls, dtype)
             rows.append(row)
-            log(f"  window_attention W={W} N={N} D={D} n_cls={n_cls} {dtype}: "
-                f"max_abs_err {err:.3e} (tolerance {tol:g}) ms {row['ms']:.4f} "
+            log(f"  window_attention ({model}) W={W} H={heads} N={N} D={D} n_cls={n_cls} "
+                f"{dtype}: max_abs_err {err:.3e} (tolerance {tol:g}) ms {row['ms']:.4f} "
                 f"plain {row['plain_ms']:.4f} sdpa {row['library_ms']:.4f} "
                 f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
-            if not ok:
+            if not ok or not same_bits:
                 raise AssertionError(
-                    f"kernel disagrees with its plain version: {row}")
+                    f"kernel disagrees with its plain version or with itself: {row}")
     return rows
 
 
@@ -377,10 +411,12 @@ def rans_bounds(host, values, rows, n_words: int, decode: bool):
     return bound(nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3)
 
 
-def check_rans(kit, tables, seed: int, B: int, size: int):
-    """Phase 6: the lane-rANS kernels vs their plain versions at the device
-    wire's shapes for B images of size^2 -> rows (y, z), each with its
-    image count. Besides the
+def check_rans(kit, tables, seed: int, B: int, size: int, model, model_name: str):
+    """Phases 6 and 12: the lane-rANS kernels vs their plain versions at
+    the device wire's shapes for ``model``'s latent (``model.M`` channels
+    in ``model.ctx_slices`` decode launches) and B images of size^2 ->
+    rows (y, z), each with ``model_name`` and its image count.
+    Besides the
     launches' time, each part is timed on the first lane alone
     (``one_lane_ms``): the dependent chain of T steps with nothing beside
     it."""
@@ -408,7 +444,7 @@ def check_rans(kit, tables, seed: int, B: int, size: int):
     rng = np.random.default_rng(seed + 7)
     h = w = size // 16  # y latent
     n_l = kit.n_lanes(h, w)
-    S, M = 10, 320
+    S, M = model.ctx_slices, model.M
     rows_y = rng.integers(0, kit.gauss_dev.num_rows, size=((h * w // n_l) * M, B * n_l))
     zh = zw = size // 64
     eb = kit.eb_dev["entropy_bottleneck"]
@@ -453,7 +489,8 @@ def check_rans(kit, tables, seed: int, B: int, size: int):
             raise AssertionError(f"{name}: decoded values differ from the encoded ones")
         if not torch.equal(dec[2], lengths):
             raise AssertionError(f"{name}: decode did not read every word")
-        row = dict(images=B, stream=name, T=T, lanes=lanes, launches_decode=n_launches,
+        row = dict(model=model_name, images=B, stream=name, T=T, lanes=lanes,
+                   launches_decode=n_launches,
                    table_rows=tab.num_rows, n_escapes=n_esc, words=int(words.numel()),
                    max_abs_err=err)
         v1, r1, o1 = values[:, :1].contiguous(), rows[:, :1].contiguous(), off[:1]
@@ -469,7 +506,8 @@ def check_rans(kit, tables, seed: int, B: int, size: int):
                              bound_by=by, one_lane_ms=cuda_ms(one_lane))
         out.append(row)
         e, d = row["encode"], row["decode"]
-        log(f"  rans {name}, {B} images: {lanes} lanes x T={T} ({n_launches} decode launches of "
+        log(f"  rans {name} ({model_name}), {B} images: {lanes} lanes x T={T} "
+            f"({n_launches} decode launches of "
             f"{seg}), {n_esc} escapes, {row['words']} words: same bytes as the plain versions "
             f"and launch to launch (max |kernel - plain| {err}); encode ms {e['ms']:.4f} "
             f"(one lane alone {e['one_lane_ms']:.4f}) plain {e['plain_ms']:.2f} bound "
@@ -479,8 +517,80 @@ def check_rans(kit, tables, seed: int, B: int, size: int):
     return out
 
 
-def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts):
-    """Phase 7: compress -> decompress on the device wire; -> results."""
+def check_launches(what: str, counts: dict, expect: dict) -> None:
+    """``expect``: kernel -> its exact count, or ``(least, None)``."""
+    for name, want in expect.items():
+        got = counts[name]
+        if not (got >= want[0] if isinstance(want, tuple) else got == want):
+            raise AssertionError(f"{what}: launches {counts}, expected {expect}")
+
+
+def host_wire_phase(codec, x, card: str, zero_counts, read_counts, expect: dict):
+    """Phases 5 and 11: compress -> decompress on the host wire, the
+    launch counts zeroed right before and read right after each side and
+    held to ``expect[side]``. -> (results, the encoder's output, the
+    compress and decompress counts)."""
+    import torch
+
+    B, size = x.shape[0], x.shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    enc = codec.compress(x, return_debug=True)
+    torch.cuda.synchronize()
+    enc_launches = read_counts()
+    zero_counts()
+    dec = codec.decompress(enc["strings"], enc["shape"])
+    torch.cuda.synchronize()
+    dec_launches = read_counts()
+    log(f"  launches: compress {enc_launches}, decompress {dec_launches}")
+
+    if not torch.equal(dec["y_hat"], enc["y_hat"]):
+        diff = (dec["y_hat"] - enc["y_hat"]).abs()
+        raise AssertionError(f"y_hat not bit-exact: {int((diff > 0).sum())} "
+                             f"differ, max {diff.max().item():.3e}")
+    if not torch.equal(dec["x_hat"], enc["x_hat"]):
+        raise AssertionError("decoder x_hat differs from the encoder's")
+    if dec["x_hat"].shape != x.shape or not bool(torch.isfinite(dec["x_hat"]).all()):
+        raise AssertionError(f"bad x_hat {tuple(dec['x_hat'].shape)}")
+    n_bytes = [len(y) + len(z) for y, z in zip(*enc["strings"])]
+    bpp = [8 * n / (size * size) for n in n_bytes]
+    if not all(np.isfinite(bpp)) or min(bpp) <= 0:
+        raise AssertionError(f"bpp {bpp}")
+    check_launches("host wire, compress", enc_launches, expect["compress"])
+    check_launches("host wire, decompress", dec_launches, expect["decompress"])
+    mse = torch.mean((dec["x_hat"] - x) ** 2, dim=(1, 2, 3))
+    psnr = (10 * torch.log10(1.0 / mse)).tolist()
+
+    enc_s, dec_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.time()
+        e = codec.compress(x)
+        torch.cuda.synchronize()
+        enc_s.append(time.time() - t)
+        t = time.time()
+        d = codec.decompress(e["strings"], e["shape"])
+        torch.cuda.synchronize()
+        dec_s.append(time.time() - t)
+        if not torch.equal(d["x_hat"], dec["x_hat"]):
+            raise AssertionError("repeated decode differs from the first")
+    result = dict(
+        images=B, size=size, bpp=bpp, psnr_db=psnr,
+        encode_img_per_s=B / float(np.median(enc_s)),
+        decode_img_per_s=B / float(np.median(dec_s)),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches_compress=enc_launches, launches_decompress=dec_launches,
+    )
+    log(f"  bpp {[round(b, 4) for b in bpp]}, PSNR {[round(p, 2) for p in psnr]} dB, "
+        f"encode {result['encode_img_per_s']:.2f} img/s, decode "
+        f"{result['decode_img_per_s']:.2f} img/s (median of 3, batch {B}, {card})")
+    return result, enc, enc_launches, dec_launches
+
+
+def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
+                      expect: dict):
+    """Phases 7 and 13: compress -> decompress on the device wire, the
+    launch counts held to ``expect[side]``; -> results."""
     import warnings
 
     import torch
@@ -514,11 +624,8 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts):
         raise AssertionError("device wire: y_hat differs from the host wire's")
     if dec["x_hat"].shape != x.shape or not bool(torch.isfinite(dec["x_hat"]).all()):
         raise AssertionError(f"bad x_hat {tuple(dec['x_hat'].shape)}")
-    expect = {"compress": (enc_launches, 2, 0), "decompress": (dec_launches, 0, 11)}
-    for side, (counts, n_enc, n_dec) in expect.items():
-        if (counts["rans_encode"], counts["rans_decode"]) != (n_enc, n_dec) or \
-                counts["window_attention"] < 1 or counts["gdn_forward"] < 1:
-            raise AssertionError(f"device wire {side}: launches {counts}")
+    check_launches("device wire, compress", enc_launches, expect["compress"])
+    check_launches("device wire, decompress", dec_launches, expect["decompress"])
     # rate: the host wire's bytes x 1.02, plus per image and stream each
     # lane's 4-byte flush and 2-byte length and the header
     lanes = {"y": codec.kit.n_lanes(size // 16, size // 16),
@@ -604,14 +711,17 @@ TRAIN_STEP_LAUNCHES = {"window_attention": 4, "gdn_forward": 6, "gdn_backward": 
                        "rans_encode": 0, "rans_decode": 0}
 
 
-def train_phase(model, seed: int, card: str):
-    """Phase 7: ``run_training`` on the card, then a resume. -> results."""
+def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
+                resumed_steps: int = 2):
+    """Phases 9 and 15: ``run_training`` on the card, each step's launches
+    exactly ``expect``, then (``resumed_steps`` > 0) a resume from the
+    checkpoint. -> results."""
     import torch
 
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.train import RateDistortionLoss, make_train_step, run_training
 
-    B, size, steps, resumed_steps = 8, 256, 6, 2
+    B, size = 8, 256
     batches = [make_images(seed + 100 + i, B, size) for i in range(steps + resumed_steps)]
     eval_batch = make_images(seed + 99, B, size)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -631,21 +741,25 @@ def train_phase(model, seed: int, card: str):
         if not os.path.exists(ckpt) or state.step != steps:
             raise AssertionError(f"no checkpoint after epoch 0 (step {state.step})")
         moved = sum(not torch.equal(before[n], p) for n, p in model.named_parameters())
-        resumed, history2 = run_training(
-            train_batches=lambda epoch: iter(batches[steps:]), epochs=2,
-            checkpoint=ckpt, **common)
-        torch.cuda.synchronize()
+        history2 = []
+        if resumed_steps:
+            resumed, history2 = run_training(
+                train_batches=lambda epoch: iter(batches[steps:]), epochs=2,
+                checkpoint=ckpt, **common)
+            torch.cuda.synchronize()
+            if resumed.step != steps + resumed_steps:
+                raise AssertionError(f"resume: at step {resumed.step}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if resumed.step != steps + resumed_steps or len(records) != steps + resumed_steps:
-        raise AssertionError(f"resume: step {resumed.step}, {len(records)} steps run")
+    if len(records) != steps + resumed_steps:
+        raise AssertionError(f"{len(records)} steps run, not {steps + resumed_steps}")
     if moved != len(before):
         raise AssertionError(f"{len(before) - moved} of {len(before)} parameters did not move")
     for r in records:
         if not all(np.isfinite(r[k]) for k in ("loss", "bpp_loss", "mse_loss", "aux_loss")):
             raise AssertionError(f"non-finite training metrics: {r}")
-        if r["launches"] != TRAIN_STEP_LAUNCHES:
+        if r["launches"] != expect:
             raise AssertionError(f"step {r['step']}: launches {r['launches']}, "
-                                 f"expected {TRAIN_STEP_LAUNCHES}")
+                                 f"expected {expect}")
     if not all(np.isfinite(history + history2)):
         raise AssertionError(f"eval losses {history} {history2}")
     timed = [r["seconds"] for r in records[1:steps]]  # after the first (warm-up) step
@@ -661,7 +775,7 @@ def train_phase(model, seed: int, card: str):
             f"bpp {r['bpp_loss']:.4f} aux {r['aux_loss']:.2f} launches {r['launches']}")
     log(f"  train {result['train_img_per_s']:.2f} img/s (median of {len(timed)} steps "
         f"after warm-up, batch {B} x {size}^2), peak {peak_gb:.2f} GB, eval losses "
-        f"{history + history2}, resumed at step {steps} ({card})")
+        f"{history + history2}{f', resumed at step {steps}' if resumed_steps else ''} ({card})")
     return result
 
 
@@ -706,6 +820,32 @@ def train_vs_cpu_phase(model, seed: int):
                 tolerance=TRAIN_TOLERANCE)
 
 
+def eval_vs_cpu_phase(name: str, model, seed: int):
+    """Phases 8 and 14: the same weights' eval forward on the card against
+    the plain CPU path on a small input. -> the largest differences."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.models import create_model
+
+    xs = torch.from_numpy(make_images(seed + 1, 1, 64))
+    cpu_model = create_model(name, device="cpu", seed=seed)
+    cpu_model.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        ref = cpu_model(xs)
+        got = model(xs.cuda())
+    worst = {}
+    for key, a, b in (("x_hat", got["x_hat"], ref["x_hat"]),
+                      ("y likelihoods", got["likelihoods"]["y"], ref["likelihoods"]["y"]),
+                      ("z likelihoods", got["likelihoods"]["z"], ref["likelihoods"]["z"])):
+        worst[key] = (a.cpu() - b).abs().max().item()
+    log(f"  max |card - cpu| ({name}): {worst}")
+    # f32 on both, through 70-80 layers with sums in other orders
+    if not worst["x_hat"] <= 1e-3 or not worst["y likelihoods"] <= 1e-3:
+        raise AssertionError(f"card and CPU disagree: {worst}")
+    return worst
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -723,6 +863,7 @@ def main() -> int:
     from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
     from icm_tpu_torch.nn import gdn_fused as tgdn
     from icm_tpu_torch.nn import window_attention as twa
+    from icm_tpu_torch.nn.swin import SwinBlock
 
     with Phase("environment"):
         card = subprocess.run(
@@ -777,8 +918,11 @@ def main() -> int:
                 "gdn_backward": tgdn.BWD_LAUNCHES, "rans_encode": tdr.ENCODE_LAUNCHES,
                 "rans_decode": tdr.DECODE_LAUNCHES}
 
+    B, size = 2, 512
+    x = torch.from_numpy(make_images(args.seed, B, size)).cuda()
+    at_least_one = (1, None)
+
     with Phase("full-width WACNN compress/decompress"):
-        B, size = 2, 512
         t = time.time()
         model = create_model("cnn", seed=args.seed)  # N=192, M=320, 10 slices, on cuda
         n_params = sum(p.numel() for p in model.parameters())
@@ -786,61 +930,11 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"  model {n_params / 1e6:.1f} M parameters and codec tables in "
             f"{time.time() - t:.1f}s")
-        x = torch.from_numpy(make_images(args.seed, B, size)).cuda()
-
-        zero_counts()
-        enc = codec.compress(x, return_debug=True)
-        torch.cuda.synchronize()
-        enc_launches = read_counts()
-        zero_counts()
-        dec = codec.decompress(enc["strings"], enc["shape"])
-        torch.cuda.synchronize()
-        dec_launches = read_counts()
-        log(f"  launches: compress {enc_launches}, decompress {dec_launches}")
-
-        if not torch.equal(dec["y_hat"], enc["y_hat"]):
-            diff = (dec["y_hat"] - enc["y_hat"]).abs()
-            raise AssertionError(f"y_hat not bit-exact: {int((diff > 0).sum())} "
-                                 f"differ, max {diff.max().item():.3e}")
-        if not torch.equal(dec["x_hat"], enc["x_hat"]):
-            raise AssertionError("decoder x_hat differs from the encoder's")
-        if dec["x_hat"].shape != x.shape or not bool(torch.isfinite(dec["x_hat"]).all()):
-            raise AssertionError(f"bad x_hat {tuple(dec['x_hat'].shape)}")
-        n_bytes = [len(y) + len(z) for y, z in zip(*enc["strings"])]
-        bpp = [8 * n / (size * size) for n in n_bytes]
-        if not all(np.isfinite(bpp)) or min(bpp) <= 0:
-            raise AssertionError(f"bpp {bpp}")
-        for side, counts in (("compress", enc_launches), ("decompress", dec_launches)):
-            if counts["window_attention"] < 1 or counts["gdn_forward"] < 1:
-                raise AssertionError(f"kernels not on the {side} path: {counts}")
-            if counts["rans_encode"] or counts["rans_decode"]:
-                raise AssertionError(f"lane rANS on the host wire's {side}: {counts}")
-        mse = torch.mean((dec["x_hat"] - x) ** 2, dim=(1, 2, 3))
-        psnr = (10 * torch.log10(1.0 / mse)).tolist()
-
-        enc_s, dec_s = [], []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.time()
-            e = codec.compress(x)
-            torch.cuda.synchronize()
-            enc_s.append(time.time() - t)
-            t = time.time()
-            d = codec.decompress(e["strings"], e["shape"])
-            torch.cuda.synchronize()
-            dec_s.append(time.time() - t)
-            if not torch.equal(d["x_hat"], dec["x_hat"]):
-                raise AssertionError("repeated decode differs from the first")
-        slice_result = dict(
-            images=B, size=size, bpp=bpp, psnr_db=psnr,
-            encode_img_per_s=B / float(np.median(enc_s)),
-            decode_img_per_s=B / float(np.median(dec_s)),
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        )
-        log(f"  bpp {[round(b, 4) for b in bpp]}, PSNR {[round(p, 2) for p in psnr]} dB, "
-            f"encode {slice_result['encode_img_per_s']:.2f} img/s, decode "
-            f"{slice_result['decode_img_per_s']:.2f} img/s "
-            f"(median of 3, batch {B}, {card})")
+        on_path = {"window_attention": at_least_one, "gdn_forward": at_least_one,
+                   "rans_encode": 0, "rans_decode": 0}
+        slice_result, enc, enc_launches, dec_launches = host_wire_phase(
+            codec, x, card, zero_counts, read_counts,
+            {"compress": on_path, "decompress": on_path})
 
     with Phase("device-wire rANS kernels vs plain"):
         t = time.time()
@@ -852,46 +946,93 @@ def main() -> int:
                                          ("z", dev_codec.kit.eb_dev["entropy_bottleneck"]))}
         log(f"  the decode kernel's compact tables against lut2, bytes: {table_bytes}")
         rans_rows = [row for images in (B, RANS_BENCH_IMAGES) for row in
-                     check_rans(dev_codec.kit, dev_codec.tables, args.seed, images, size)]
+                     check_rans(dev_codec.kit, dev_codec.tables, args.seed, images, size,
+                                model, "cnn")]
 
     with Phase("full-width WACNN on the device wire"):
         (slice_result["device_wire"], dev_enc_launches,
-         dev_dec_launches) = device_wire_phase(dev_codec, enc, x, card, zero_counts, read_counts)
+         dev_dec_launches) = device_wire_phase(
+            dev_codec, enc, x, card, zero_counts, read_counts,
+            {"compress": {**on_path, "rans_encode": 2},
+             "decompress": {**on_path, "rans_decode": model.ctx_slices + 1}})
 
     with Phase("card vs CPU reference, small input"):
-        xs = torch.from_numpy(make_images(args.seed + 1, 1, 64))
-        cpu_model = create_model("cnn", device="cpu", seed=args.seed)
-        cpu_model.load_state_dict(model.state_dict())
-        with torch.no_grad():
-            ref = cpu_model(xs)
-            got = model(xs.cuda())
-        worst = {}
-        for name, a, b in (("x_hat", got["x_hat"], ref["x_hat"]),
-                           ("y likelihoods", got["likelihoods"]["y"], ref["likelihoods"]["y"]),
-                           ("z likelihoods", got["likelihoods"]["z"], ref["likelihoods"]["z"])):
-            worst[name] = (a.cpu() - b).abs().max().item()
-        log(f"  max |card - cpu|: {worst}")
-        # f32 on both, through ~70 layers with sums in other orders
-        if not worst["x_hat"] <= 1e-3 or not worst["y likelihoods"] <= 1e-3:
-            raise AssertionError(f"card and CPU disagree: {worst}")
+        eval_vs_cpu_phase("cnn", model, args.seed)
 
     with Phase("full-width WACNN training"):
-        slice_result["train"] = train_phase(model, args.seed, card)
+        slice_result["train"] = train_phase(model, args.seed, card, TRAIN_STEP_LAUNCHES)
         train_launches = slice_result["train"]["launches_per_step"]
 
     with Phase("training step, card vs CPU"):
         slice_result["train"]["card_vs_cpu"] = train_vs_cpu_phase(model, args.seed)
 
-    def launch_keys(name):
-        per_path = {"launches_compress": enc_launches[name],
-                    "launches_decompress": dec_launches[name],
-                    "launches_device_wire_compress": dev_enc_launches[name],
-                    "launches_device_wire_decompress": dev_dec_launches[name],
-                    "launches_train_step": train_launches[name]}
+    paths = {"cnn": {"launches_compress": enc_launches,
+                     "launches_decompress": dec_launches,
+                     "launches_device_wire_compress": dev_enc_launches,
+                     "launches_device_wire_decompress": dev_dec_launches,
+                     "launches_train_step": train_launches}}
+    del model, codec, dev_codec
+    torch.cuda.empty_cache()
+
+    with Phase("full-width stf compress/decompress"):
+        t = time.time()
+        stf = create_model("stf", seed=args.seed)  # embed 48, M=384, 12 slices, on cuda
+        n_params = sum(p.numel() for p in stf.parameters())
+        codec = CharmCodec(stf, narrow=0.2)
+        torch.cuda.synchronize()
+        log(f"  model {n_params / 1e6:.1f} M parameters and codec tables in "
+            f"{time.time() - t:.1f}s")
+        # one launch a Swin block: g_a's and g_s's on compress (the debug
+        # reconstruction runs g_s), g_s's on decompress
+        g_a_blocks, g_s_blocks = (sum(isinstance(m, SwinBlock) for m in g.modules())
+                                  for g in (stf.g_a, stf.g_s))
+        none = {"gdn_forward": 0, "gdn_backward": 0, "rans_encode": 0, "rans_decode": 0}
+        stf_expect = {"compress": {**none, "window_attention": g_a_blocks + g_s_blocks},
+                      "decompress": {**none, "window_attention": g_s_blocks}}
+        log(f"  Swin blocks: g_a {g_a_blocks}, g_s {g_s_blocks}")
+        stf_result, stf_enc, stf_enc_launches, stf_dec_launches = host_wire_phase(
+            codec, x, card, zero_counts, read_counts, stf_expect)
+
+    with Phase("device-wire rANS kernels vs plain at stf's shapes"):
+        dev_codec = DeviceWireCodec(stf, lanes_per_image=1024, narrow=0.2)
+        rans_rows += check_rans(dev_codec.kit, dev_codec.tables, args.seed, B, size, stf, "stf")
+
+    with Phase("full-width stf on the device wire"):
+        (stf_result["device_wire"], stf_dev_enc_launches,
+         stf_dev_dec_launches) = device_wire_phase(
+            dev_codec, stf_enc, x, card, zero_counts, read_counts,
+            {"compress": {**stf_expect["compress"], "rans_encode": 2},
+             "decompress": {**stf_expect["decompress"], "rans_decode": stf.ctx_slices + 1}})
+
+    with Phase("stf card vs CPU reference, small input"):
+        stf_result["card_vs_cpu"] = eval_vs_cpu_phase("stf", stf, args.seed)
+
+    with Phase("full-width stf training"):
+        # one window-attention launch a Swin block forward; no GDN, no coding
+        stf_result["train"] = train_phase(
+            stf, args.seed, card, {**none, "window_attention": g_a_blocks + g_s_blocks},
+            steps=4, resumed_steps=0)
+    slice_result["stf"] = stf_result
+    paths["stf"] = {"launches_compress": stf_enc_launches,
+                    "launches_decompress": stf_dec_launches,
+                    "launches_device_wire_compress": stf_dev_enc_launches,
+                    "launches_device_wire_decompress": stf_dev_dec_launches,
+                    "launches_train_step": stf_result["train"]["launches_per_step"]}
+
+    def launch_keys(name, models=("cnn", "stf")):
+        """The kernel's launches on each path of ``models``' main-path runs
+        and their sum."""
+        per_path = {(key if m == "cnn" else f"{key}_{m}"): counts[name]
+                    for m in models for key, counts in paths[m].items()}
         return {"launches": sum(per_path.values()), **per_path}
 
-    main_f32 = [r for r in rows if r["dtype"] == "float32" and r["n_cls"] == 4
-                and r["W"] in (256 * B, 64 * B)]
+    main_f32 = [r for r in rows if r["model"] == "cnn" and r["dtype"] == "float32"
+                and r["n_cls"] == 4 and r["W"] in (256 * B, 64 * B)]
+    # stf's path: one g_a or g_s pass of 2 x 512^2, twelve launches at its
+    # four shapes (f32, four classes), times weighted by the launches
+    stf_main = [(r, STF_SIDE_LAUNCHES[r["W"], r["heads"]]) for r in rows
+                if r["model"] == "stf" and r["dtype"] == "float32" and r["n_cls"] == 4
+                and (r["W"], r["heads"]) in STF_SIDE_LAUNCHES]
     # the GDN layers of one training step: 8 x 192 at 128^2, 64^2, 32^2, GDN
     # and IGDN, one launch each; times summed. The serving and ragged rows
     # are in "cases", and every row's errors are under the tolerances
@@ -903,9 +1044,9 @@ def main() -> int:
         "route": "cuda",
         "source": "icm_tpu_torch/csrc/window_attention.cu",
         "replaces": "icm_tpu/nn/pallas_kernels.py:33",
-        **launch_keys("window_attention"),
-        # the main path's rows (f32): one launch at each of its two shapes,
-        # times summed; every row, bf16 too, is under "cases"
+        **launch_keys("window_attention", ("cnn",)),
+        # WACNN's path (head widths 24 and 40), f32: one launch at each of its
+        # two shapes, times summed; every row, bf16 too, is under "cases"
         "max_abs_err": max(r["max_abs_err"] for r in main_f32),
         "ms": sum(r["ms"] for r in main_f32),
         "plain_ms": sum(r["plain_ms"] for r in main_f32),
@@ -915,7 +1056,24 @@ def main() -> int:
         "f32_fma_bound_ms": sum(r["f32_fma_bound_ms"] for r in main_f32),
         "library_ms": sum(r["library_ms"] for r in main_f32),
         "tolerance": TOLERANCE,
-        "cases": rows,
+        "cases": [r for r in rows if r["model"] == "cnn"],
+    }, {
+        # the same kernel's head-width-16 build on stf's path
+        "name": "window_attention_d16",
+        "route": "cuda",
+        "source": "icm_tpu_torch/csrc/window_attention.cu",
+        "replaces": "icm_tpu/nn/pallas_kernels.py:33",
+        **launch_keys("window_attention", ("stf",)),
+        "per": "one g_a or g_s pass of 2 x 512^2: " + ", ".join(
+            f"{n} launches at W={w}, H={h}" for (w, h), n in STF_SIDE_LAUNCHES.items()),
+        "max_abs_err": max(r["max_abs_err"] for r, _ in stf_main),
+        **{key: sum(n * r[key] for r, n in stf_main)
+           for key in ("ms", "plain_ms", "bound_ms", "f32_fma_bound_ms", "library_ms")},
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r, _ in stf_main)
+                     else "operations"),
+        "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67",
+        "tolerance": TOLERANCE,
+        "cases": [r for r in rows if r["model"] == "stf"],
     }]
     for name, part, err_key, line in (("gdn_forward", "forward", "y", 50),
                                       ("gdn_backward", "backward", "dx", 64)):
@@ -942,9 +1100,9 @@ def main() -> int:
         })
     # the device wire's coder: integer kernels, held byte for byte (the
     # phase fails on any nonzero max_abs_err); y and z of one compress /
-    # decompress of the main path's B images, times summed; the rows at
-    # bench.py's batch are under "cases"
-    rans_main = [r for r in rans_rows if r["images"] == B]
+    # decompress of WACNN's B images, times summed; the rows at bench.py's
+    # batch and at stf's shapes are under "cases"
+    rans_main = [r for r in rans_rows if r["images"] == B and r["model"] == "cnn"]
     for name, part, line in (("rans_decode", "decode", 178), ("rans_encode", "encode", 231)):
         kernels.append({
             "name": name,

@@ -14,6 +14,7 @@ carries the flax names, so a path ``a/b/kernel`` becomes the key
 - dense ``(I, O)`` -> ``(O, I)``;
 - GDN ``gamma`` (C_in, C_out) -> (C_out, C_in), still in the
   reparametrized form, and ``beta`` as it is;
+- LayerNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
 - everything else (bottleneck, relative-position tables) as it is.
 
 Nothing here imports the JAX package.
@@ -47,6 +48,8 @@ def _convert(path, value: np.ndarray):
         raise ValueError(f"kernel of rank {value.ndim} at {'/'.join(path)}")
     if leaf == "gamma" and parent.startswith("GDN"):
         return leaf, np.transpose(value, (1, 0))
+    if leaf == "scale" and parent.startswith("LayerNorm"):
+        return "weight", value
     return leaf, value
 
 

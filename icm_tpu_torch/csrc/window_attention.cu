@@ -13,11 +13,15 @@
 // which accumulates in f32; the output is rounded to the input type.
 //
 // What bounds it on an H100: bytes. A window-head does 4*N*N*D operations
-// (two products) on 4*N*D values moved (q, k, v in, out back): in f32, 16
-// operations per byte at N=64, D=24 and 4 at N=16, D=40. On the tensor
+// (two products) on 4*N*D values moved (q, k, v in, out back): in f32, N/4
+// operations per byte whatever D, so 16 at N=64 (WACNN's 8x8 windows, D=24)
+// and 4 at N=16 (4x4 windows: WACNN's D=40 and stf's D=16). On the tensor
 // cores even three TF32 products per product (below) stay under the
 // ~50 operations per byte at which their rate meets the memory's, so the
-// floor is the bytes: about 15 us per 512-px image at N=64, D=24, f32.
+// floor is the bytes: about 15 us per 512-px image at N=64, D=24, f32; for
+// stf's twelve launches a side at 2 x 512 px (W x H of 8192 x 3, 2048 x 6,
+// 512 x 12 and 128 x 24 window-heads of 16 x 16), 30.0, 15.0, 7.5 and
+// 3.8 us a launch, 0.1425 ms a side.
 //
 // What the design does about it:
 // - The products run on the tensor cores with mma.sync, several query rows
@@ -30,7 +34,8 @@
 // - f32 inputs use 3xTF32: each operand x is split into hi = tf32(x) and
 //   lo = tf32(x - hi), and the product accumulates lo*hi + hi*lo + hi*hi
 //   (lo*lo, about 2^-22 of the product, is dropped). The m16n8k8 TF32 shape
-//   takes the head width (24, 40) as it is. In the PV product the keys of
+//   takes the head width (16, 24, 40) as it is: D/8 k-steps in q k^T, D/8
+//   output tiles in the PV product. In the PV product the keys of
 //   each 8-key step are taken in the order 0, 2, 4, 6, 1, 3, 5, 7, so the
 //   score fragment (columns 2t, 2t+1 in lane t of a quad) is the A fragment
 //   as it stands (columns t, t+4); v's rows are read in the same order.
@@ -40,8 +45,8 @@
 //   about 2e-6 of the plain version (tolerance 1e-5).
 // - bf16 inputs use m16n8k16 bf16 with f32 accumulation. q * scale and the
 //   probabilities are rounded to bf16 before their products, as in the
-//   Pallas kernel. The head width is padded to 32 or 48 with zeros in
-//   shared memory.
+//   Pallas kernel. The head width is padded to the k16 step with zeros in
+//   shared memory (24 -> 32, 40 -> 48; 16 needs none).
 // - A block of four warps takes one item: one window-head at N > 32 (a
 //   warp per 16 query rows), two at N <= 32, four at N <= 16 (a warp each).
 //   Its q, k, v and bias slabs are staged in shared memory by 16-byte
@@ -54,15 +59,22 @@
 //   per SM.
 // - Row strides are padded (D + 4 floats, the padded width + 8 bf16 values,
 //   N + 8 floats for the bias) so that the fragment reads of a warp hit
-//   distinct banks.
+//   distinct banks. f32: lane (g, t) reads word g*LD + t of q or k, and
+//   LD = 20, 28, 44 (D = 16, 24, 40) is 4 times an odd number, so g*LD mod
+//   32 takes the eight multiples of 4 and t fills the gaps; it reads v at
+//   word 2t*LD + g, and 2*LD mod 32 = 8, 24, 24 puts the four t eight
+//   banks apart. bf16: a q or k pair is word g*LD/2 + t, LD/2 = 12, 20, 28
+//   (4 times an odd number again); v's values are words t*LD + g/2, two
+//   lanes to a word, and t*LD mod 32 (LD = 24, 40, 56) takes four distinct
+//   multiples of 8, so the quads' four words each land eight banks apart.
 // - A score more than 87 below its row's max (a masked key) takes
 //   probability 0 rather than a subnormal exp, and the row is normalised by
 //   one reciprocal: expf and division of subnormals take slow paths, which
 //   about doubled the time at the shifted windows' -100 mask.
 //
 // Contract: any W with no padding by the caller; N from 1 to 128 (partial
-// tiles masked: keys past N score -inf, rows past N are not written); D 24
-// and 40; NaN output for a window whose class is out of range; no atomics,
+// tiles masked: keys past N score -inf, rows past N are not written); D 16
+// (stf), 24 and 40 (WACNN); NaN output for a window whose class is out of range; no atomics,
 // every output element has one writer, so the bits are the same run to run
 // (the decoder's x_hat must equal the encoder's).
 //
@@ -504,7 +516,7 @@ int dispatch(int D, const void* q, const void* k, const void* v,
 #define CASE(DD) \
   case DD:       \
     return dispatch_n<T, DD>(q, k, v, bias, cls, out, W, H, N, n_cls, scale, stream);
-    CASE(24) CASE(40)  // the head widths of WACNN's window blocks
+    CASE(16) CASE(24) CASE(40)  // the head widths of stf's and WACNN's window blocks
 #undef CASE
     default:
       return -1;

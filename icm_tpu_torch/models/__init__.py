@@ -7,7 +7,8 @@ directly on the device (the module tree is built on the meta device, then
 materialized) and drawn from a ``torch.Generator`` seeded with ``seed``,
 with the JAX package's initializers: truncated-normal fan-in scaling for
 conv kernels, truncated normal (0.02) for dense layers and the
-relative-position tables, zero biases, the GDN and bottleneck inits.
+relative-position tables, zero biases, LayerNorm scales of one, the GDN
+and bottleneck inits.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ from .base import CodecTables, CompressionModel
 from .cnn import WACNN
 from .codec import CharmCodec, build_codec_tables, cuda_numerics, enc_round
 from .device_codec import DeviceWireCodec, DeviceWireKit
+from .stf import SymmetricalTransFormer
 
 models = {
     "cnn": (WACNN, {}),
+    "stf": (SymmetricalTransFormer, {}),
 }
 
 
@@ -69,6 +72,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             mod.weight.copy_(_trunc_normal(mod.weight.shape, 0.02, generator))
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
         elif isinstance(mod, WindowAttention):
             t = mod.relative_position_bias_table
             t.copy_(_trunc_normal(t.shape, 0.02, generator))
@@ -92,6 +98,7 @@ __all__ = [
     "CompressionModel",
     "CodecTables",
     "WACNN",
+    "SymmetricalTransFormer",
     "CharmCodec",
     "DeviceWireCodec",
     "DeviceWireKit",

@@ -66,7 +66,7 @@ class CompressionModel(nn.Module):
         of the latents plus uniform noise drawn from it; without (the eval
         forward), of the latents rounded. z_hat and the y_hat slices are
         STE-rounded in both."""
-        y, z = self.analyze(nhwc_to_nchw(x))
+        y, z = self.forward_analyze(nhwc_to_nchw(x), generator)
         _, z_likelihoods = self.entropy_bottleneck(z, generator)
         z_offset = self.eb_medians().reshape(1, -1, 1, 1)
         z_hat = ste_round(z - z_offset) + z_offset
@@ -85,7 +85,7 @@ class CompressionModel(nn.Module):
             y_hat_slices.append(y_hat_slice)
 
         y_hat = self.ctx_assemble(y_hat_slices)
-        x_hat = self.synthesize(y_hat)
+        x_hat = self.forward_synthesize(y_hat, generator)
         return {
             "x_hat": nchw_to_nhwc(x_hat),
             "likelihoods": {
@@ -93,6 +93,17 @@ class CompressionModel(nn.Module):
                 "z": nchw_to_nhwc(z_likelihoods),
             },
         }
+
+    def forward_analyze(self, x: torch.Tensor, generator=None):
+        """``analyze`` as :meth:`forward` runs it. A model with stochastic
+        layers (stf's stochastic depth) overrides it to draw them from
+        ``generator``; the coders call ``analyze`` itself."""
+        return self.analyze(x)
+
+    def forward_synthesize(self, y_hat: torch.Tensor, generator=None):
+        """``synthesize`` as :meth:`forward` runs it (see
+        :meth:`forward_analyze`)."""
+        return self.synthesize(y_hat)
 
     def aux_loss(self) -> torch.Tensor:
         return self.entropy_bottleneck.aux_loss()

@@ -7,7 +7,8 @@ GDN + window-attention analysis and synthesis, a conv hyper-encoder, mean
 and scale hyper-decoders, and a channel-autoregressive context over
 ``num_slices`` slices with first-``max_support_slices`` support and
 latent-residual prediction (LRP, 0.5 * tanh). Submodule names follow the
-flax tree (``g_a.Conv_0``, ``cc_mean_3.Conv_4`` ...).
+flax tree (``g_a.Conv_0``, ``cc_mean_3.Conv_4`` ...). The hyper and
+context part (:class:`ChannelCharm`) is stf's too.
 """
 
 from __future__ import annotations
@@ -89,25 +90,23 @@ def _cc_transform(in_ch: int, out_ch: int, widths: tuple) -> nn.Sequential:
     return named_sequential(*layers)
 
 
-class WACNN(CompressionModel):
-    def __init__(
-        self,
-        N: int = 192,
-        M: int = 320,
-        num_slices: int = 10,
-        max_support_slices: int = 5,
-        hyper_enc_widths: tuple = (320, 288, 256, 224, 192),
-        hyper_dec_widths: tuple = (192, 224, 256, 288, 320),
-        cc_widths: tuple = (224, 176, 128, 64),
-    ):
-        super().__init__()
+class ChannelCharm(CompressionModel):
+    """The part of the ChARM protocol that WACNN and stf share: a conv
+    hyper-encoder ``h_a``, mean and scale hyper-decoders, and per slice a
+    mean, a scale and an LRP context stack over the hyper-decoders' output
+    and the first ``max_support_slices`` decoded slices. A subclass builds
+    ``g_a`` and ``g_s`` first (parameters are drawn in module order), then
+    calls :meth:`_build_context`, and supplies ``analyze`` (through ``h_a``)
+    and ``synthesize``."""
+
+    def _build_context(self, M: int, num_slices: int, max_support_slices: int,
+                       hyper_enc_widths: tuple, hyper_dec_widths: tuple,
+                       cc_widths: tuple) -> None:
         if M % num_slices:
             raise ValueError(f"M={M} does not split into {num_slices} slices")
-        self.N, self.M = N, M
+        self.M = M
         self.num_slices = num_slices
         self.max_support_slices = max_support_slices
-        self.g_a = _analysis(N, M)
-        self.g_s = _synthesis(N, M)
         self.h_a = _hyper_encoder(M, hyper_enc_widths)
         z_ch = hyper_enc_widths[-1]
         self.h_mean_s = _hyper_decoder(z_ch, hyper_dec_widths)
@@ -123,13 +122,6 @@ class WACNN(CompressionModel):
         self.gaussian_conditional = GaussianConditional()
 
     # --- ChARM protocol (see base.CompressionModel) --------------------------
-    def analyze(self, x):
-        y = self.g_a(x)
-        return y, self.h_a(y)
-
-    def synthesize(self, y_hat):
-        return self.g_s(y_hat)
-
     def ctx_prepare(self, z_hat):
         return {"means": self.h_mean_s(z_hat), "scales": self.h_scale_s(z_hat)}
 
@@ -156,3 +148,29 @@ class WACNN(CompressionModel):
 
     def ctx_assemble(self, y_hat_slices):
         return torch.cat(y_hat_slices, dim=1)
+
+
+class WACNN(ChannelCharm):
+    def __init__(
+        self,
+        N: int = 192,
+        M: int = 320,
+        num_slices: int = 10,
+        max_support_slices: int = 5,
+        hyper_enc_widths: tuple = (320, 288, 256, 224, 192),
+        hyper_dec_widths: tuple = (192, 224, 256, 288, 320),
+        cc_widths: tuple = (224, 176, 128, 64),
+    ):
+        super().__init__()
+        self.N = N
+        self.g_a = _analysis(N, M)
+        self.g_s = _synthesis(N, M)
+        self._build_context(M, num_slices, max_support_slices, hyper_enc_widths,
+                            hyper_dec_widths, cc_widths)
+
+    def analyze(self, x):
+        y = self.g_a(x)
+        return y, self.h_a(y)
+
+    def synthesize(self, y_hat):
+        return self.g_s(y_hat)

@@ -1,4 +1,5 @@
-"""Conv helpers and the window-attention blocks of WACNN.
+"""Conv helpers, the window attention of WACNN's and stf's blocks, and
+WACNN's window-attention blocks.
 
 Port of ``icm_tpu/nn/layers.py``. Modules take NCHW tensors (cuDNN's
 layout); the window blocks move to channel-last inside, where the window
@@ -43,11 +44,13 @@ def deconv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2) -> nn
 
 
 class SubpelConv(nn.Module):
-    """3x3 conv + depth-to-space (CRD order, which is PixelShuffle)."""
+    """k x k conv (3x3 by default) + depth-to-space (CRD order, which is
+    PixelShuffle)."""
 
-    def __init__(self, in_ch: int, out_ch: int, r: int = 1):
+    def __init__(self, in_ch: int, out_ch: int, r: int = 1, kernel_size: int = 3):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, out_ch * r * r, 3, padding=1)
+        self.Conv_0 = nn.Conv2d(in_ch, out_ch * r * r, kernel_size,
+                                padding=kernel_size // 2)
         self.r = r
 
     def forward(self, x):
@@ -152,17 +155,16 @@ class WindowAttention(nn.Module):
         return self.proj(out)
 
 
-class WinBasedAttention(nn.Module):
-    """Residual (shifted-)window attention block (no MLP)."""
+class ShiftedWindows(nn.Module):
+    """Base of the (shifted-)window attention blocks: the window geometry
+    and its class tables."""
 
-    def __init__(self, dim: int, num_heads: int = 8, window_size: int = 8,
-                 shift_size: int = 0):
+    def __init__(self, window_size: int, shift_size: int):
         super().__init__()
         if not 0 <= shift_size < window_size:
             raise ValueError(f"shift {shift_size} outside [0, {window_size})")
         self.window_size = window_size
         self.shift_size = shift_size
-        self.attn = WindowAttention(dim, (window_size, window_size), num_heads)
         self._cls_cache: Dict[tuple, tuple] = {}
 
     def _classes(self, H: int, W: int, B: int, device):
@@ -177,6 +179,15 @@ class WinBasedAttention(nn.Module):
             cls_idx = torch.from_numpy(np.tile(cls, B)).to(device)
             hit = self._cls_cache[key] = (masks, cls_idx)
         return hit
+
+
+class WinBasedAttention(ShiftedWindows):
+    """Residual (shifted-)window attention block (no MLP)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, window_size: int = 8,
+                 shift_size: int = 0):
+        super().__init__(window_size, shift_size)
+        self.attn = WindowAttention(dim, (window_size, window_size), num_heads)
 
     def forward(self, x):
         B, C, H, W = x.shape

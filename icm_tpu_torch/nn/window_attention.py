@@ -38,7 +38,7 @@ from .. import _native
 LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_HEAD_DIMS = (24, 40)  # built in the kernel's dispatch; WACNN's widths
+SUPPORTED_HEAD_DIMS = (16, 24, 40)  # built in the kernel's dispatch: stf's, WACNN's
 MAX_TOKENS = 128  # N: tokens per window (a row's N scores live in a quad's registers)
 
 _fn = None
@@ -70,11 +70,15 @@ def window_attention_reference(q, k, v, bias, cls_idx):
     input dtype, scores and softmax in f32, probabilities rounded to v's
     dtype, PV accumulated in f32, output in the input dtype. In f32 this is
     ``icm_tpu.nn.pallas_kernels.window_attention_reference``."""
+    return _attend(q, k, v, bias.float()[cls_idx.long()])
+
+
+def _attend(q, k, v, window_bias):
+    """The plain version with each window's bias (W, H, N, N) f32."""
     D = q.shape[-1]
     qs = q * torch.tensor(_scale(D, q.dtype), dtype=q.dtype, device=q.device)
     attn = torch.matmul(qs.float(), k.float().transpose(-1, -2))
-    attn = attn + bias.float()[cls_idx.long()]
-    attn = torch.softmax(attn, dim=-1)
+    attn = torch.softmax(attn + window_bias, dim=-1)
     out = torch.matmul(attn.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
 
@@ -133,7 +137,10 @@ def _forward(q, k, v, bias, cls_idx):
 
 class _WindowAttentionFn(torch.autograd.Function):
     """Forward: kernel (or plain version on the CPU). Backward: autograd of
-    the plain version, recomputed from the saved inputs."""
+    the plain version, recomputed from the saved inputs, except for the
+    bias: its gradient per window is summed by class in one product with
+    the windows' one-hot classes. (Autograd of the gather ``bias[cls]``
+    sums a class's thousands of windows one after another on the card.)"""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, cls_idx):
@@ -144,11 +151,18 @@ class _WindowAttentionFn(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, cls_idx = ctx.saved_tensors
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_(True) for t in (q, k, v, bias)]
-            out = window_attention_reference(*ins, cls_idx)
-            grads = torch.autograd.grad(out, ins, g.to(out.dtype),
-                                        allow_unused=True)
-        return (*grads, None)
+            ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            window_bias = bias.detach().float()[cls_idx.long()]
+            if ctx.needs_input_grad[3]:
+                ins.append(window_bias.requires_grad_(True))
+            grads = torch.autograd.grad(_attend(*ins[:3], window_bias), ins,
+                                        g.to(q.dtype))
+        d_bias = None
+        if ctx.needs_input_grad[3]:
+            one_hot = torch.nn.functional.one_hot(cls_idx.long(), bias.shape[0])
+            d_bias = one_hot.t().float() @ grads[3].reshape(cls_idx.shape[0], -1)
+            d_bias = d_bias.reshape(bias.shape).to(bias.dtype)
+        return grads[0], grads[1], grads[2], d_bias, None
 
 
 def window_attention(q, k, v, bias, cls_idx):

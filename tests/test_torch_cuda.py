@@ -49,9 +49,10 @@ def _inputs(W, N, D, n_cls, dtype, seed, heads=HEADS):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("W,n_cls", [(512, 4), (100, 4), (7, 1)])
-# the WACNN shapes, then a window of 7x7 (more threads than rows) and 2x2
-# (fewer rows than a warp), at the head widths the kernel is built for
-@pytest.mark.parametrize("N,D", SHAPES + [(49, 24), (4, 40)])
+# the WACNN shapes, stf's (4x4 windows, head width 16), then a window of
+# 7x7 (more threads than rows) and 2x2 (fewer rows than a warp), at the
+# head widths the kernel is built for
+@pytest.mark.parametrize("N,D", SHAPES + [(49, 24), (4, 40), (16, 16), (4, 16)])
 def test_window_attention_kernel_matches_plain(N, D, W, n_cls, dtype):
     _needs_card()
     ins = _inputs(W, N, D, n_cls, dtype, seed=W + N)
@@ -71,7 +72,8 @@ def test_window_attention_kernel_matches_plain(N, D, W, n_cls, dtype):
 # takes at once (4 at N <= 16, 2 at N <= 32), so the last item is partial;
 # N = 4, 12, 25, 49 and 100 leave partial row and key tiles; N = 128 is
 # the largest the kernel takes (16 key tiles per row)
-@pytest.mark.parametrize("N,D", [(4, 40), (12, 24), (25, 40), (49, 24), (100, 40), (128, 24)])
+@pytest.mark.parametrize("N,D", [(4, 40), (12, 24), (25, 40), (49, 24), (100, 40), (128, 24),
+                                 (12, 16), (49, 16), (128, 16)])
 @pytest.mark.parametrize("W", [1, 5, 333])
 def test_window_attention_kernel_partial_items_and_tiles(N, D, W, dtype):
     _needs_card()
@@ -92,6 +94,21 @@ def test_window_attention_kernel_bits_repeat_at_the_codec_shape():
     second = twa.window_attention_cuda(*ins)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# stf's four shapes at 2 x 512 px (4x4 windows, head width 16: 3, 6, 12
+# and 24 heads), and a ragged window count with the shifted-window classes
+@pytest.mark.parametrize("W,heads,n_cls", [(8192, 3, 4), (2048, 6, 4), (512, 12, 1),
+                                           (128, 24, 4), (8191, 3, 4)])
+def test_window_attention_kernel_at_stf_shapes(W, heads, n_cls, dtype):
+    _needs_card()
+    ins = _inputs(W, 16, 16, n_cls, dtype, seed=W + heads, heads=heads)
+    out = twa.window_attention_cuda(*ins)
+    torch.cuda.synchronize()
+    ref = twa.window_attention_reference(*ins)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=TOL[dtype])
+    assert torch.equal(twa.window_attention_cuda(*ins), out)
 
 
 def test_window_attention_kernel_out_of_range_class_gives_nan():

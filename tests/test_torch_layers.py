@@ -108,6 +108,19 @@ def test_subpel_conv(r):
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
 
 
+def test_subpel_conv_kernel_size():
+    """The 5x5 sub-pixel convolution of stf's synthesis head (``g_s.up``)."""
+    x = _x((1, 6, 6, 10), 12)
+    m = jnn.SubpelConv(features=8, r=2, kernel_size=5)
+    params = _perturb(m.init(jax.random.PRNGKey(5), x)["params"], 13)
+    ref = _run_jax(m, params, x)
+    port = _load(tnn.SubpelConv(10, 8, r=2, kernel_size=5), params)
+    with torch.no_grad():
+        out = _nhwc(port(_nchw(x)))
+    assert out.shape == (1, 12, 12, 8)
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
+
+
 # (dim, window, shift, H): the WACNN blocks at a small width and size
 BLOCKS = [(16, 8, 4, 16), (24, 4, 2, 8), (16, 4, 0, 8)]
 

@@ -3,8 +3,9 @@
 The port's plain version (the CPU path, and what the CUDA kernel is held
 against on the card) is compared with ``window_attention_fused`` run in
 Pallas interpret mode and with ``window_attention_reference``, at the two
-WACNN shapes (N=64, D=24 and N=16, D=40; 8 heads), with 1 and 4 window
-classes and a window count that is not a multiple of the Pallas tile.
+WACNN shapes (N=64, D=24 and N=16, D=40; 8 heads) and stf's (N=16,
+D=16), with 1 and 4 window classes and a window count that is not a
+multiple of the Pallas tile.
 """
 
 import jax
@@ -19,7 +20,8 @@ from icm_tpu_torch.nn import window_attention as twa
 torch.set_num_threads(2)
 
 HEADS = 8
-SHAPES = [(64, 24), (16, 40)]  # (N, D): g_a block 1 / g_s block 2; the 32x32x320 blocks
+# (N, D): g_a block 1 / g_s block 2; the 32x32x320 blocks; stf's blocks
+SHAPES = [(64, 24), (16, 40), (16, 16)]
 
 # f32: both sides compute the same f32 sums in another order; scores are
 # O(10), softmax rows sum to 1, so 1e-5 absolute is a few ulps of the output.
@@ -111,6 +113,29 @@ def test_gradients_match_jax():
     grads = jax.grad(loss, argnums=(0, 1, 2, 3))(q, k, v, b)
     for t, g in zip(leaves, grads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-5)
+
+
+@pytest.mark.parametrize("bias_grad", [True, False])
+def test_backward_sums_the_bias_gradient_by_class(bias_grad):
+    """The training backward takes the bias gradient as one product of the
+    windows' one-hot classes with the per-window gradient: it equals
+    autograd of the plain version's gather (f32 sums of 9 windows in
+    another order, 1e-5 as above); without a bias gradient it computes
+    none."""
+    ins = _torch(*_inputs(9, 16, 16, 4, seed=12), torch.float32)
+    g = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (9, HEADS, 16, 16)).astype(np.float32))
+    grads = {}
+    for name, fn in (("port", twa.window_attention), ("plain", twa.window_attention_reference)):
+        leaves = [t.clone().requires_grad_(True) for t in ins[:3]]
+        bias = ins[3].clone().requires_grad_(bias_grad)
+        fn(*leaves, bias, ins[4]).backward(g)
+        grads[name] = [t.grad for t in leaves] + [bias.grad]
+    for a, b in zip(grads["port"], grads["plain"]):
+        if bias_grad or b is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        else:
+            assert a is None
 
 
 @pytest.mark.parametrize("H,W,ws,ss", [(32, 32, 8, 4), (8, 8, 4, 2), (16, 16, 4, 0)])

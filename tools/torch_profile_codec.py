@@ -1,14 +1,16 @@
-"""Where the time goes in icm_tpu_torch's full-width WACNN codec and
+"""Where the time goes in icm_tpu_torch's full-width codecs and their
 training step, on the card.
 
-    python3 tools/torch_profile_codec.py [--wire host|device] [--seed 0] [--out profile.json]
+    python3 tools/torch_profile_codec.py [--model cnn|stf] [--wire host|device]
+        [--seed 0] [--out profile.json]
 
-Builds the full-width ``cnn`` codec (N=192, M=320, 10 slices) on the CUDA
-card with weights drawn from ``--seed``, on the host wire (``CharmCodec``,
-the default) or the device wire (``DeviceWireCodec``, 1024 lanes an
-image, its rANS on the card), warms it up on 2 images of
-512x512 (``icm_tpu_torch.data.make_images``, as chip_smoke.py makes
-them), then traces one compress and one decompress with
+Builds the full-width codec of ``--model`` (``cnn``, the default: WACNN,
+N=192, M=320, 10 slices; ``stf``: the Swin codec, embed 48, M=384, 12
+slices) on the CUDA card with weights drawn from ``--seed``, on the host
+wire (``CharmCodec``, the default) or the device wire
+(``DeviceWireCodec``, 1024 lanes an image, its rANS on the card), warms
+it up on 2 images of 512x512 (``icm_tpu_torch.data.make_images``, as
+chip_smoke.py makes them), then traces one compress and one decompress with
 ``torch.profiler``; then warms up the RD training step
 (``train.make_train_step``, lambda 0.01, batch 8 of 256x256, as
 chip_smoke.py trains) and traces one step. For each it reports the host
@@ -94,6 +96,7 @@ def _trace_summary(prof, wall_s: float) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("cnn", "stf"), default="cnn")
     ap.add_argument("--wire", choices=("host", "device"), default="host")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="write the whole result here as JSON")
@@ -115,7 +118,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0].strip()
-    model = create_model("cnn", seed=args.seed)
+    model = create_model(args.model, seed=args.seed)
     if args.wire == "device":
         codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
     else:
@@ -137,7 +140,8 @@ def main() -> int:
         "decompress": lambda: codec.decompress(enc["strings"], enc["shape"]),
         "train_step": lambda: train_step(state, batch, noise),
     }
-    result = {"card": card, "wire": args.wire, "images": 2, "size": 512, "narrow": 0.2,
+    result = {"card": card, "model": args.model, "wire": args.wire, "images": 2,
+              "size": 512, "narrow": 0.2,
               "train_batch": 8, "train_size": 256}
     for side, run in runs.items():
         if side == "train_step":
@@ -170,7 +174,7 @@ def main() -> int:
         r = result[side]
         kernels = ", ".join(f"{k} {v['ms']:.3f} ms ({v['share_of_device']:.3%})"
                             for k, v in r["port_kernels"].items())
-        print(f"{args.wire} wire, {side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
+        print(f"{args.model}, {args.wire} wire, {side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
               f"untraced; device busy {r['device_busy_ms']:.2f} ms (idle share "
               f"{r['device_idle_share']:.3f} traced, {r['device_idle_share_unprofiled']:.3f} "
               f"untraced); {kernels} [{card}]")
