@@ -20,7 +20,9 @@ package beside it. Phases, each printed with its elapsed seconds:
 4. the fused GDN forward and backward kernels against their plain
    versions at the training step's shapes (8 x 192 x 128^2, 64^2, 32^2,
    GDN and IGDN), the serving path's and one ragged shape, timed beside
-   the plain versions; two launches of each must give the same bits;
+   the plain versions; two launches of each must give the same bits; in
+   float32 and then the bfloat16 builds (x, g, y, dx bfloat16, gamma
+   rounded to it, beta float32);
 5. the full-width WACNN (N=192, M=320, 10 slices) on the card with
    weights drawn from ``--seed``: compress -> decompress of 2 images of
    512x512 made from ``--seed``. The kernel launch counts are zeroed
@@ -47,8 +49,18 @@ package beside it. Phases, each printed with its elapsed seconds:
    round trip
    (``torch.cuda.set_sync_debug_mode``); it logs the sha256 of the y and
    z blobs;
+7b. the same weights and images under the bfloat16 activation policy
+   (``nn.set_activation_dtype(torch.bfloat16)``) on the host wire and the
+   device wire, held as in phases 5 and 7 (y_hat bit-exact and x_hat
+   equal on each wire, the device wire's y_hat equal to the host wire's)
+   with the float32 phases' launch counts, all of them the bfloat16
+   builds'; bpp within 5% and mean |x_hat - x_hat_f32| under 0.01 of the
+   float32 runs (``tests/test_bf16.py``'s bars);
 8. the same weights' eval forward on the card against the plain CPU path
-   on a small input;
+   on a small input, in float32 and then under the bfloat16 policy on both
+   sides (held to bars set from this comparison's readings on the card),
+   with a control that must fail those bars: the card under the policy
+   against the CPU in float32;
 9. full-width WACNN training through ``train.run_training``: one epoch
    of 6 steps on seeded batches of 8 x 256 x 256, an eval batch, a
    checkpoint, and a resume for 2 more steps. Every step's loss, bpp and
@@ -57,6 +69,11 @@ package beside it. Phases, each printed with its elapsed seconds:
 10. one training step of the trained weights on the card against the
     plain CPU path on a small input, with the same noise: the loss terms
     and every parameter's gradient;
+10b. 3 training steps under the bfloat16 policy from the weights phase 9
+    started from, on its batches and noise: every loss, bpp and aux loss
+    finite, the parameters moved, the gradients float32, each step
+    launching the bfloat16 GDN forward and backward 6 times (and window
+    attention 4), the first step's bpp within 5% of phase 9's;
 11. the full-width Swin codec stf (embed 48, depths 2/2/6/2, heads
     3/6/12/24, window 4, M=384, 12 slices) with weights drawn from
     ``--seed``, on the same images: compress -> decompress on the host
@@ -69,23 +86,38 @@ package beside it. Phases, each printed with its elapsed seconds:
     decode launches (12 slices and z), 24 / 12 window-attention launches,
     no host round trip in decompress;
 14. stf's eval forward on the card against the plain CPU path on a
-    small input;
+    small input, as phase 8;
 15. full-width stf training through ``train.run_training``: 4 steps of
     8 x 256 x 256 with stochastic depth, an eval batch; every step's
     loss, bpp and aux loss finite, the parameters moved, 24
     window-attention launches a step and no other kernel's; the peak
-    device memory logged.
+    device memory logged;
+16. one stf training step on the card against the plain CPU path, as
+    phase 10, with stochastic depth 0;
+17. stf under the bfloat16 policy: serving as phase 7b (after phase 13)
+    and training as phase 10b (24 bfloat16 window-attention launches a
+    step).
 
-It then prints the kernels line (JSON), the card line, and last
+Each serving phase also logs its sides' device idle share: one traced
+compress and decompress (the union of the trace's kernel, copy and memset
+intervals) against the median untraced wall time.
+
+The wrappers of window attention and GDN count their launches by dtype;
+a float32 phase fails on a launch of a bfloat16 build and a bfloat16
+phase on one of a float32 build. The kernels line lists the bfloat16
+builds beside the float32 ones, with the bfloat16 phases' launches. It
+then prints the kernels line (JSON), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
-exits non-zero and prints no result. Each kernel's ``bound_ms`` counts its
-operations on the unit it runs them on (the f32 products of window
-attention and of both GDN kernels as three TF32 products each on the
-tensor cores, the rest on the f32 units), against its bytes;
-``f32_fma_bound_ms`` counts every operation at the f32 FMA rate. The
-rANS kernels' bound counts the bytes this run's data needs (each distinct
-table entry once) against their integer operations; beside their time
-stands the first lane's alone (``one_lane_ms``).
+exits non-zero and prints no result. Each kernel's ``bound_ms`` counts
+the operations the function needs at the tensor cores' rate, against its
+bytes: the f32 products of window attention and of the float32 GDN
+builds as three TF32 products each, the bfloat16 GDN builds' products as
+the fewest bfloat16 products that give the float32 sums
+(``GDN_BF16_PASSES``), the rest on the f32 units; ``f32_fma_bound_ms``
+counts every operation at the f32 FMA rate. The rANS kernels' bound
+counts the bytes this run's data needs (each distinct table entry once)
+against their integer operations; beside their time stands the first
+lane's alone (``one_lane_ms``).
 """
 
 from __future__ import annotations
@@ -112,6 +144,15 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # the f32 products of window attention and of both GDN kernels run on the
 # tensor cores in 3xTF32: three TF32 products for each f32 product
 TF32_PASSES = 3
+# the bfloat16 GDN builds' products in bfloat16 passes (989 TFLOP/s), the
+# fewest that give the float32 sums: gamma is bfloat16 (one piece), x^2 of
+# a bfloat16 x has at most 16 significant bits (two pieces, exactly) and
+# dn is float32 (three pieces). The forward's gamma . x^2: 1 x 2 = 2. The
+# backward: gamma . x^2 again (2), Gamma^T dn (1 x 3 = 3) and dn (x^2)^T
+# (3 x 2 pieces less the one below 2^-24 of the sum, as 3xTF32 drops
+# lo*lo: 5). The kernels run these products in TF32 (gamma exact, so two
+# passes where gamma is an operand, and three for dn (x^2)^T)
+GDN_BF16_PASSES = {"forward": 2, "backward": 2 + 3 + 5}
 
 # stated tolerances of the kernel against its plain version on the card:
 # f32 sums of the same terms in another order (outputs O(1)); in bf16 the
@@ -125,6 +166,36 @@ TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
 # relative to each tensor's max, since each is a sum over up to 131072
 # rows, taken here in two fixed stages and by cuBLAS in its own order
 GDN_TOLERANCE = {"y": 1e-5, "dx": 1e-5, "dgamma": 1e-4, "dbeta": 1e-4}
+# their bfloat16 builds: y and dx rounded once from float32 values that
+# differ from the plain version's in float order, so a value across a
+# rounding boundary moves by one ulp (2**-8 to 2**-7 of it): window
+# attention's bfloat16 bar, 2e-2, below 1 and relative above (IGDN values
+# reach ~13), err = max |kernel - plain| / max(1, |plain|); dgamma
+# (rounded to bfloat16) and dbeta relative to their max
+GDN_BF16_TOLERANCE = {"y": 2e-2, "dx": 2e-2, "dgamma": 1e-2, "dbeta": 1e-2}
+# the bfloat16 policy's serving and training against float32 on the same
+# weights and images: tests/test_bf16.py's bars
+BF16_XHAT_MEAN_TOL = 0.01
+BF16_BPP_RTOL = 0.05
+# the eval forward under the bfloat16 policy on both sides, card against
+# CPU (phases 8 and 14), end to end: mean |x_hat difference| and the share
+# of y likelihoods that differ by more than 1e-3 (a symbol rounded the
+# other way: with untrained weights most likelihoods sit near 1, and a
+# flipped symbol moves one to ~1e-9). A float32 sum in another order that
+# lands across a bfloat16 rounding boundary moves an output by an ulp, and
+# the next layers carry that on, so two bfloat16 runs differ end to end
+# almost as much as bfloat16 from float32 (read on the card: x_hat 1.6e-3
+# and 8.5e-3 of mean difference for cnn and stf, 2.6e-3 and 9.5e-3 against
+# the CPU in float32): these bars, twice the larger readings, catch a
+# broken path, not a policy ignored on one side
+BF16_EVAL_TOL = {"x_hat_mean": 0.02, "y_likelihood_share": 0.01, "z_likelihood_max": 1e-3}
+# so each policy layer, GDN and window attention of the card's bfloat16
+# forward is also replayed on the CPU twin's module from the same inputs:
+# the share of its outputs that differ at all, and the largest difference
+# relative to its largest output. Set from the card's readings; the
+# control (the CPU module in float32 on the same inputs) differs almost
+# everywhere and must exceed the share bar at every call
+BF16_LAYER_TOL = {"share": 0.05, "relative": 0.02}
 # one training step, card against CPU, each loss term and each gradient
 # relative to its max: f32 on both, ~70 layers forward and back with sums
 # in other orders (cuDNN and the kernels against oneDNN and the plain
@@ -163,15 +234,23 @@ def cuda_ms(fn, iters: int = 20) -> float:
     median of ``iters`` calls. Before each call the stream is held busy
     (``torch.cuda._sleep``) while the host enqueues the start event, the
     call and the end event, so the interval holds the device's work and
-    not the host's launch overhead."""
+    not the host's launch overhead: for at least 1 ms, and for four times
+    the host's time to enqueue one call (a plain version of many small
+    launches can take the host longer than its work takes the card)."""
     import torch
 
     fn()  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    spin = int(max(1e-3, 4 * host_s) * 2e9)  # cycles; at most 1.98 GHz on an H100
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)  # ~1 ms of spinning at H100 clocks
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -286,31 +365,51 @@ def check_kernel(twa):
     return rows
 
 
-def gdn_bound_ms(B, C, P, backward: bool):
-    """Least time for the fused GDN work in f32: x (and g) read once, y
-    (dx) written once, gamma and beta read (and their gradients written)
-    once; against one C x C product per pixel (three in the backward)
-    plus the elementwise work (4 operations per element forward: square,
-    add beta, rsqrt, multiply; 14 backward), on the units the kernels run
-    them on at C <= 192: the products on the tensor cores as three TF32
-    products each, the elementwise work on the f32 units. -> (ms, "bytes"
-    | "operations", and the f32-FMA bound (ms, by))."""
+def gdn_bound_ms(B, C, P, backward: bool, dtype: str = "float32"):
+    """Least time for the fused GDN work: x (and g) read once, y (dx)
+    written once, in ``dtype`` (4 or 2 bytes a value); gamma and beta read
+    (and their gradients written) once, in float32; against one C x C
+    product per pixel (three in the backward) plus the elementwise work (4
+    operations per element forward: square, add beta, rsqrt, multiply; 14
+    backward) on the f32 units. The products on the tensor cores: float32
+    as three TF32 products each, bfloat16 as ``GDN_BF16_PASSES`` bfloat16
+    products. -> (ms, "bytes" | "operations", and the f32-FMA bound (ms,
+    by))."""
     elems = B * C * P
+    elt = 4 if dtype == "float32" else 2
     if backward:
-        nbytes = 4 * (3 * elems + 2 * (C * C + C))
+        nbytes = elt * 3 * elems + 4 * 2 * (C * C + C)
         products, elementwise = 6 * C * C * B * P, 14 * elems
     else:
-        nbytes = 4 * (2 * elems + C * C + C)
+        nbytes = elt * 2 * elems + 4 * (C * C + C)
         products, elementwise = 2 * C * C * B * P, 4 * elems
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     fma = bound(t_bytes, (products + elementwise) / PEAK_OPS_PER_S["float32"] * 1e3)
-    t_ops = (TF32_PASSES * products / PEAK_OPS_PER_S["tf32"]
-             + elementwise / PEAK_OPS_PER_S["float32"]) * 1e3
+    if dtype == "float32":
+        t_mma = TF32_PASSES * products / PEAK_OPS_PER_S["tf32"]
+    else:
+        passes = GDN_BF16_PASSES["backward" if backward else "forward"]
+        t_mma = passes * 2 * C * C * B * P / PEAK_OPS_PER_S["bfloat16"]
+    t_ops = (t_mma + elementwise / PEAK_OPS_PER_S["float32"]) * 1e3
     return (*bound(t_bytes, t_ops), fma)
 
 
+def gdn_errors(got, ref, dtype: str) -> dict:
+    """y / dx absolutely (bfloat16: relative above 1, see
+    GDN_BF16_TOLERANCE), dgamma and dbeta relative to their max."""
+    out = {}
+    for key, a, b in zip(("y", "dx", "dgamma", "dbeta"), got, ref):
+        d = (a.float() - b.float()).abs()
+        if key in ("y", "dx"):
+            out[key] = (d / b.float().abs().clamp_min(1.0) if dtype == "bfloat16" else d).max().item()
+        else:
+            out[key] = (d.max() / b.float().abs().max()).item()
+    return out
+
+
 def check_gdn(tgdn):
-    """Phase 4: the GDN kernels vs their plain versions. -> rows."""
+    """Phase 4: the GDN kernels vs their plain versions, float32 and then
+    bfloat16. -> rows."""
     import torch
 
     # (path, B, C, H, W): the GDN layers of the training step (8 x 256 px)
@@ -319,7 +418,7 @@ def check_gdn(tgdn):
     cases += [("serve", 2, 192, s, s) for s in (256, 128, 64)]
     cases.append(("ragged", 3, 192, 13, 21))  # 273 pixels, 9 tiles of 32
     rows = []
-    for path, B, C, H, W in cases:
+    for dtype, (path, B, C, H, W) in ((d, c) for d in ("float32", "bfloat16") for c in cases):
         rng = np.random.default_rng([B, H, W])
         dev = torch.device("cuda")
         x, g = (torch.from_numpy(rng.standard_normal((B, C, H, W)).astype(np.float32)).to(dev)
@@ -327,6 +426,9 @@ def check_gdn(tgdn):
         gamma = torch.from_numpy(  # (C_out, C_in), not symmetric
             (0.1 * np.eye(C) + 0.01 * rng.random((C, C))).astype(np.float32)).to(dev)
         beta = torch.from_numpy((1.0 + 0.1 * rng.random(C)).astype(np.float32)).to(dev)
+        # bfloat16: x, g and gamma (in x's dtype, as the module gives it) rounded
+        x, g, gamma = (t.to(getattr(torch, dtype)) for t in (x, g, gamma))
+        tolerance = GDN_TOLERANCE if dtype == "float32" else GDN_BF16_TOLERANCE
         for inverse in (False, True):
             y = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
             y_again = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
@@ -334,17 +436,14 @@ def check_gdn(tgdn):
             again = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
             torch.cuda.synchronize()
             y_ref = tgdn.gdn_forward_reference(x, gamma, beta, inverse)
-            dx_ref, dgamma_ref, dbeta_ref = tgdn.gdn_backward_reference(g, x, gamma, beta, inverse)
-            err = {
-                "y": (y - y_ref).abs().max().item(),
-                "dx": (dx - dx_ref).abs().max().item(),
-                "dgamma": ((dgamma - dgamma_ref).abs().max() / dgamma_ref.abs().max()).item(),
-                "dbeta": ((dbeta - dbeta_ref).abs().max() / dbeta_ref.abs().max()).item(),
-            }
+            refs = (y_ref, *tgdn.gdn_backward_reference(g, x, gamma, beta, inverse))
+            err = gdn_errors((y, dx, dgamma, dbeta), refs, dtype)
             deterministic = torch.equal(y_again, y) and all(
                 torch.equal(a, b) for a, b in zip(again, (dx, dgamma, dbeta)))
-            row = dict(path=path, B=B, C=C, H=H, W=W, inverse=inverse, err=err,
-                       deterministic=deterministic)
+            row = dict(path=path, B=B, C=C, H=H, W=W, inverse=inverse, dtype=dtype, err=err,
+                       max_abs_err={k: (a.float() - b.float()).abs().max().item() for k, a, b in
+                                    (("y", y, y_ref), ("dx", dx, refs[1]))},
+                       deterministic=deterministic, tolerance=tolerance)
             P = H * W
             for name, kernel, plain, backward in (
                 ("forward", lambda: tgdn.gdn_forward_cuda(x, gamma, beta, inverse),
@@ -352,22 +451,24 @@ def check_gdn(tgdn):
                 ("backward", lambda: tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse),
                  lambda: tgdn.gdn_backward_reference(g, x, gamma, beta, inverse), True),
             ):
-                bound_ms, by, (fma_ms, fma_by) = gdn_bound_ms(B, C, P, backward)
+                bound_ms, by, (fma_ms, fma_by) = gdn_bound_ms(B, C, P, backward, dtype)
                 row[name] = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                                  bound_ms=bound_ms, bound_by=by,
                                  f32_fma_bound_ms=fma_ms, f32_fma_bound_by=fma_by)
             rows.append(row)
             f, b = row["forward"], row["backward"]
-            log(f"  gdn {path} {B}x{C}x{H}x{W} inverse={inverse}: err "
+            log(f"  gdn {dtype} {path} {B}x{C}x{H}x{W} inverse={inverse}: err "
                 f"{ {k: f'{v:.2e}' for k, v in err.items()} } deterministic {deterministic}; "
                 f"forward ms {f['ms']:.4f} plain {f['plain_ms']:.4f} bound {f['bound_ms']:.4f} "
                 f"({f['bound_by']}); backward ms {b['ms']:.4f} plain {b['plain_ms']:.4f} "
                 f"bound {b['bound_ms']:.4f} ({b['bound_by']})")
             finite = all(bool(torch.isfinite(t).all()) for t in (y, dx, dgamma, dbeta))
-            if not finite or not deterministic or any(
-                    err[k] > GDN_TOLERANCE[k] for k in err):
+            types = (y.dtype, dx.dtype, dgamma.dtype, dbeta.dtype) == (
+                x.dtype, x.dtype, gamma.dtype, torch.float32)
+            if not finite or not types or not deterministic or any(
+                    err[k] > tolerance[k] for k in err):
                 raise AssertionError(f"GDN kernels disagree with their plain versions "
-                                     f"(tolerances {GDN_TOLERANCE}): {row}")
+                                     f"(tolerances {tolerance}): {row}")
     return rows
 
 
@@ -517,6 +618,74 @@ def check_rans(kit, tables, seed: int, B: int, size: int, model, model_name: str
     return out
 
 
+def device_busy_ms(fn) -> float:
+    """Device busy time of one traced call of ``fn``: the length of the
+    union of its kernel, copy and memset intervals in the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy_us / 1e3
+
+
+def idle_shares(codec, x, enc_s, dec_s) -> dict:
+    """Each side's device busy ms (one traced call) and idle share against
+    the median untraced wall time ``enc_s`` / ``dec_s``."""
+    enc = codec.compress(x)
+    out = {}
+    for side, fn, walls in (("compress", lambda: codec.compress(x), enc_s),
+                            ("decompress", lambda: codec.decompress(enc["strings"], enc["shape"]),
+                             dec_s)):
+        busy = device_busy_ms(fn)
+        out[side] = dict(device_busy_ms=busy,
+                         device_idle_share=max(0.0, 1.0 - busy / (1e3 * float(np.median(walls)))))
+    return out
+
+
+def launch_counts(dtype: str):
+    """-> (zero, read) for a run under ``dtype``'s policy: ``zero()`` sets
+    every launch count to 0; ``read()`` gives each kernel's launches since
+    then, window attention's and GDN's those of their ``dtype`` build, and
+    raises if either launched its build of another dtype."""
+    import torch
+
+    from icm_tpu_torch.coding import device_rans as tdr
+    from icm_tpu_torch.nn import gdn_fused as tgdn
+    from icm_tpu_torch.nn import window_attention as twa
+
+    by_dtype = {"window_attention": twa.LAUNCHES, "gdn_forward": tgdn.FWD_LAUNCHES,
+                "gdn_backward": tgdn.BWD_LAUNCHES}
+    want = getattr(torch, dtype)
+
+    def zero():
+        for counter in by_dtype.values():
+            counter.clear()
+        tdr.ENCODE_LAUNCHES = tdr.DECODE_LAUNCHES = 0
+
+    def read() -> dict:
+        other = {f"{name} {dt}": n for name, counter in by_dtype.items()
+                 for dt, n in counter.items() if dt != want and n}
+        if other:
+            raise AssertionError(f"a {dtype} run launched other builds: {other}")
+        return {**{name: counter[want] for name, counter in by_dtype.items()},
+                "rans_encode": tdr.ENCODE_LAUNCHES, "rans_decode": tdr.DECODE_LAUNCHES}
+
+    return zero, read
+
+
 def check_launches(what: str, counts: dict, expect: dict) -> None:
     """``expect``: kernel -> its exact count, or ``(least, None)``."""
     for name, want in expect.items():
@@ -580,10 +749,12 @@ def host_wire_phase(codec, x, card: str, zero_counts, read_counts, expect: dict)
         decode_img_per_s=B / float(np.median(dec_s)),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches_compress=enc_launches, launches_decompress=dec_launches,
+        device=idle_shares(codec, x, enc_s, dec_s),
     )
     log(f"  bpp {[round(b, 4) for b in bpp]}, PSNR {[round(p, 2) for p in psnr]} dB, "
         f"encode {result['encode_img_per_s']:.2f} img/s, decode "
-        f"{result['decode_img_per_s']:.2f} img/s (median of 3, batch {B}, {card})")
+        f"{result['decode_img_per_s']:.2f} img/s (median of 3, batch {B}, {card}); device "
+        f"{result['device']}")
     return result, enc, enc_launches, dec_launches
 
 
@@ -660,42 +831,79 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
         stream_bytes=stream_bytes, encode_img_per_s=B / float(np.median(enc_s)),
         decode_img_per_s=B / float(np.median(dec_s)), host_round_trips_in_decompress=0,
         launches_compress=enc_launches, launches_decompress=dec_launches,
-        blob_sha256=blob_sha256)
+        blob_sha256=blob_sha256, device=idle_shares(codec, x, enc_s, dec_s))
     log(f"  bytes {stream_bytes}; bpp {[round(b, 4) for b in bpp]}, PSNR "
         f"{[round(p, 2) for p in psnr]} dB, encode {result['encode_img_per_s']:.2f} img/s, "
-        f"decode {result['decode_img_per_s']:.2f} img/s (median of 3, batch {B}, {card})")
+        f"decode {result['decode_img_per_s']:.2f} img/s (median of 3, batch {B}, {card}); "
+        f"device {result['device']}")
     return result, enc_launches, dec_launches
 
 
-def instrumented(make_step, records):
-    """``make_step`` whose steps are timed (host clock around a step that
-    ends in ``torch.cuda.synchronize()``) and whose kernel launches are
-    counted: every count is set to 0 just before the step and read just
-    after it. One record per step, with its metrics."""
+def bf16_serving_phase(codec, dev_codec, x, card, f32: dict):
+    """Phases 7b and 17: compress -> decompress under the bfloat16 policy on
+    the host wire and the device wire, held as the float32 phases are and
+    to their launch counts, every launch the bfloat16 build's (``f32``: the
+    float32 phases' results, encoder output and counts), then to
+    tests/test_bf16.py's bars against them. -> (results, the launch counts
+    of each side)."""
     import torch
 
-    from icm_tpu_torch.coding import device_rans as tdr
-    from icm_tpu_torch.nn import gdn_fused as tgdn
-    from icm_tpu_torch.nn import window_attention as twa
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    counts = f32["counts"]
+    zero_counts, read_counts = launch_counts("bfloat16")
+    set_activation_dtype(torch.bfloat16)  # read at forward time; both sides
+    try:
+        result, enc, enc_l, dec_l = host_wire_phase(
+            codec, x, card, zero_counts, read_counts,
+            {"compress": counts["compress"], "decompress": counts["decompress"]})
+        result["device_wire"], dev_enc_l, dev_dec_l = device_wire_phase(
+            dev_codec, enc, x, card, zero_counts, read_counts,
+            {"compress": counts["device_compress"], "decompress": counts["device_decompress"]})
+    finally:
+        set_activation_dtype(None)
+    bpp_rel = [b16 / b32 - 1 for r16, r32 in ((result, f32["result"]),
+                                                (result["device_wire"], f32["result"]["device_wire"]))
+               for b16, b32 in zip(r16["bpp"], r32["bpp"])]
+    x_hat_mean = (enc["x_hat"].float() - f32["enc"]["x_hat"].float()).abs().mean().item()
+    result["against_f32"] = dict(bpp_rel=bpp_rel, x_hat_mean_abs=x_hat_mean,
+                                 bpp_rtol=BF16_BPP_RTOL, x_hat_mean_tol=BF16_XHAT_MEAN_TOL)
+    log(f"  bf16 against f32: bpp {[f'{r:+.2e}' for r in bpp_rel]} (bar {BF16_BPP_RTOL}), mean "
+        f"|x_hat - x_hat_f32| {x_hat_mean:.3e} (bar {BF16_XHAT_MEAN_TOL}); encode / decode img/s "
+        f"host wire {result['encode_img_per_s']:.2f} / {result['decode_img_per_s']:.2f} "
+        f"(f32 {f32['result']['encode_img_per_s']:.2f} / {f32['result']['decode_img_per_s']:.2f}), "
+        f"device wire {result['device_wire']['encode_img_per_s']:.2f} / "
+        f"{result['device_wire']['decode_img_per_s']:.2f} (f32 "
+        f"{f32['result']['device_wire']['encode_img_per_s']:.2f} / "
+        f"{f32['result']['device_wire']['decode_img_per_s']:.2f}) ({card})")
+    if max(abs(r) for r in bpp_rel) > BF16_BPP_RTOL or not x_hat_mean < BF16_XHAT_MEAN_TOL:
+        raise AssertionError(f"bf16 serving strays from f32: {result['against_f32']}")
+    return result, {"compress": enc_l, "decompress": dec_l, "device_compress": dev_enc_l,
+                    "device_decompress": dev_dec_l}
+
+
+def instrumented(make_step, records, dtype: str):
+    """``make_step`` whose steps are timed (host clock around a step that
+    ends in ``torch.cuda.synchronize()``) and whose kernel launches are
+    counted (``launch_counts(dtype)``): every count is set to 0 just before
+    the step and read just after it. One record per step, with its
+    metrics."""
+    import torch
+
+    zero_counts, read_counts = launch_counts(dtype)
 
     def make(model, criterion):
         inner = make_step(model, criterion)
 
         def step(state, batch, generator):
             torch.cuda.synchronize()
-            twa.LAUNCHES = tgdn.FWD_LAUNCHES = tgdn.BWD_LAUNCHES = 0
-            tdr.ENCODE_LAUNCHES = tdr.DECODE_LAUNCHES = 0
+            zero_counts()
             t = time.time()
             metrics = inner(state, batch, generator)
             torch.cuda.synchronize()
             seconds = time.time() - t
             records.append(dict(
-                seconds=seconds, step=state.step,
-                launches={"window_attention": twa.LAUNCHES,
-                          "gdn_forward": tgdn.FWD_LAUNCHES,
-                          "gdn_backward": tgdn.BWD_LAUNCHES,
-                          "rans_encode": tdr.ENCODE_LAUNCHES,
-                          "rans_decode": tdr.DECODE_LAUNCHES},
+                seconds=seconds, step=state.step, launches=read_counts(),
                 **{k: float(v) for k, v in metrics.items()}))
             return metrics
 
@@ -712,10 +920,10 @@ TRAIN_STEP_LAUNCHES = {"window_attention": 4, "gdn_forward": 6, "gdn_backward": 
 
 
 def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
-                resumed_steps: int = 2):
+                resumed_steps: int = 2, dtype: str = "float32"):
     """Phases 9 and 15: ``run_training`` on the card, each step's launches
-    exactly ``expect``, then (``resumed_steps`` > 0) a resume from the
-    checkpoint. -> results."""
+    exactly ``expect`` (in ``dtype``'s builds), then (``resumed_steps`` > 0)
+    a resume from the checkpoint. -> results."""
     import torch
 
     from icm_tpu_torch.data import make_images
@@ -731,7 +939,7 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
         ckpt = os.path.join(tmp, "best.pt")
         common = dict(
             model=model, criterion=RateDistortionLoss(0.01),
-            make_step=instrumented(make_train_step, records),
+            make_step=instrumented(make_train_step, records, dtype),
             eval_batches=lambda: iter([eval_batch]), learning_rate=1e-4,
             aux_learning_rate=1e-3, clip_max_norm=1.0, seed=seed, save_path=ckpt,
             log_every=steps)
@@ -779,20 +987,62 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
     return result
 
 
-def train_vs_cpu_phase(model, seed: int):
-    """Phase 8: one training step's loss terms and gradients, card vs CPU,
-    same weights, same noise (one seeded CPU generator for each side: the
-    noise is drawn on the generator's device)."""
+def bf16_train_phase(model, init_state: dict, seed: int, card: str, expect: dict,
+                     f32_train: dict, steps: int = 3):
+    """Phases 10b and 17: ``train_phase`` under the bfloat16 policy from the
+    weights ``init_state`` the float32 phase started from, on its batches
+    and noise: each step's launches exactly ``expect``, all of them the
+    bfloat16 builds'; the gradients
+    float32 on the float32 masters; the first step's bpp within
+    BF16_BPP_RTOL of the float32 phase's first. -> results."""
+    import torch
+
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    model.load_state_dict(init_state)
+    set_activation_dtype(torch.bfloat16)
+    try:
+        result = train_phase(model, seed, card, expect, steps=steps, resumed_steps=0,
+                             dtype="bfloat16")
+    finally:
+        set_activation_dtype(None)
+    grad_types = {p.grad.dtype for p in model.parameters() if p.grad is not None}
+    param_types = {p.dtype for p in model.parameters()}
+    bpp_rel = result["bpp"][0] / f32_train["bpp"][0] - 1
+    result["against_f32"] = dict(first_step_bpp_rel=bpp_rel, bpp_rtol=BF16_BPP_RTOL,
+                                 f32_train_img_per_s=f32_train["train_img_per_s"],
+                                 grad_dtypes=sorted(map(str, grad_types)))
+    log(f"  bf16 training: first step's bpp {result['bpp'][0]:.5f} against f32 "
+        f"{f32_train['bpp'][0]:.5f} ({bpp_rel:+.2e}, bar {BF16_BPP_RTOL}); gradients "
+        f"{sorted(map(str, grad_types))}; {result['train_img_per_s']:.2f} img/s (f32 "
+        f"{f32_train['train_img_per_s']:.2f}), peak {result['peak_mem_gb']:.2f} GB (f32 "
+        f"{f32_train['peak_mem_gb']:.2f}) ({card})")
+    if grad_types != {torch.float32} or param_types != {torch.float32}:
+        raise AssertionError(f"bf16 training: gradients {grad_types}, parameters {param_types}")
+    if abs(bpp_rel) > BF16_BPP_RTOL:
+        raise AssertionError(f"bf16 training: first step's bpp strays from f32 ({bpp_rel:+.3e})")
+    return result
+
+
+def train_vs_cpu_phase(name: str, model, seed: int):
+    """Phases 10 and 16: one training step's loss terms and gradients, card
+    vs CPU, same weights, same noise (one seeded CPU generator for each
+    side: the noise is drawn on the generator's device), float32, no
+    stochastic depth (its rates set to 0 on the card for the step)."""
     import torch
 
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import create_model
+    from icm_tpu_torch.nn.swin import DropPath
     from icm_tpu_torch.train import RateDistortionLoss
 
     criterion = RateDistortionLoss(0.01)
-    cpu_model = create_model("cnn", device="cpu", seed=seed)
+    cpu_model = create_model(name, device="cpu", seed=seed,
+                             **({"drop_path_rate": 0.0} if name == "stf" else {}))
     cpu_model.load_state_dict(model.state_dict())
     xs = torch.from_numpy(make_images(seed + 2, 1, 64))
+    drop_paths = [m for m in model.modules() if isinstance(m, DropPath)]
+    rates = [m.rate for m in drop_paths]
 
     def step_grads(m, x):
         m.train()
@@ -804,29 +1054,107 @@ def train_vs_cpu_phase(model, seed: int):
         terms = {k: float(v.detach()) for k, v in {**rd, "aux_loss": aux}.items()}
         return terms, {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
 
-    got_terms, got = step_grads(model, xs.cuda())
+    for m in drop_paths:
+        m.rate = 0.0
+    try:
+        got_terms, got = step_grads(model, xs.cuda())
+    finally:
+        for m, rate in zip(drop_paths, rates):
+            m.rate = rate
     ref_terms, ref = step_grads(cpu_model, xs)
     model.zero_grad(set_to_none=True)
     worst = {k: abs(got_terms[k] - v) / max(abs(v), 1e-30) for k, v in ref_terms.items()}
     grad_err = {n: ((got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)).item()
                 for n in ref}
-    name, err = max(grad_err.items(), key=lambda kv: kv[1])
-    log(f"  loss terms card {got_terms} cpu {ref_terms}; relative errors {worst}")
-    log(f"  largest gradient error relative to its max: {err:.3e} ({name}); "
+    worst_grad, err = max(grad_err.items(), key=lambda kv: kv[1])
+    log(f"  {name}: loss terms card {got_terms} cpu {ref_terms}; relative errors {worst}")
+    log(f"  largest gradient error relative to its max: {err:.3e} ({worst_grad}); "
         f"tolerance {TRAIN_TOLERANCE}")
     if max(worst.values()) > TRAIN_TOLERANCE or err > TRAIN_TOLERANCE:
         raise AssertionError("training step: card and CPU disagree")
-    return dict(loss_terms_rel_err=worst, max_grad_rel_err=err, worst_grad=name,
+    return dict(loss_terms_rel_err=worst, max_grad_rel_err=err, worst_grad=worst_grad,
                 tolerance=TRAIN_TOLERANCE)
+
+
+def bf16_layer_replay(model, cpu_model, x) -> dict:
+    """Under the bfloat16 policy: the card's eval forward of ``x`` with every
+    policy layer, GDN and window attention recorded (its inputs and output),
+    then each call replayed on the CPU twin's module of the same name from
+    the same inputs, under the policy and, for the control, in float32.
+    -> per module kind: calls, and the largest share of differing outputs
+    and relative difference over its calls; and the control's smallest
+    share over the calls with a nonzero output (with untrained weights z_hat
+    is 0, and the hyper decoders' layers output exact zeros)."""
+    import torch
+
+    from icm_tpu_torch.nn import GDN, set_activation_dtype
+    from icm_tpu_torch.nn.layers import Conv2d, ConvTranspose2d, Linear, WindowAttention
+
+    kinds = (Conv2d, ConvTranspose2d, Linear, GDN, WindowAttention)
+    calls = []
+
+    def record(name, module, args, out):
+        calls.append((name, type(module).__name__, [a.detach().cpu() for a in args],
+                      out.detach().cpu()))
+
+    hooks = [m.register_forward_hook(lambda mod, a, o, n=n: record(n, mod, a, o))
+             for n, m in model.named_modules() if isinstance(m, kinds)]
+    cpu_modules = dict(cpu_model.named_modules())
+    out = {}
+    try:
+        with torch.no_grad():
+            set_activation_dtype(torch.bfloat16)
+            model(x.cuda())
+            for name, kind, args, got in calls:
+                ref = cpu_modules[name](*args)
+                d = (got.float() - ref.float()).abs()
+                set_activation_dtype(None)
+                control = cpu_modules[name](*(a.float() if a.is_floating_point() else a
+                                              for a in args))
+                set_activation_dtype(torch.bfloat16)
+                row = out.setdefault(kind, {"calls": 0, "zero_calls": 0, "share": 0.0,
+                                            "relative": 0.0, "control_share": 1.0})
+                row["calls"] += 1
+                row["share"] = max(row["share"], (d > 0).float().mean().item())
+                row["relative"] = max(row["relative"], (d.max() / ref.float().abs().max()
+                                                        .clamp_min(1e-30)).item())
+                if not control.any():
+                    row["zero_calls"] += 1
+                    continue
+                row["control_share"] = min(row["control_share"],
+                                           (got.float() != control.float()).float().mean().item())
+                if got.dtype != ref.dtype:
+                    raise AssertionError(f"{name}: card {got.dtype}, cpu {ref.dtype}")
+    finally:
+        set_activation_dtype(None)
+        for h in hooks:
+            h.remove()
+    return out
+
+
+def bf16_spread(got: dict, ref: dict) -> dict:
+    """Two eval forwards' outputs -> BF16_EVAL_TOL's measures of their
+    difference."""
+    def diff(a, b):
+        return (a.detach().float().cpu() - b.detach().float().cpu()).abs()
+
+    return {"x_hat_mean": diff(got["x_hat"], ref["x_hat"]).mean().item(),
+            "y_likelihood_share": (diff(got["likelihoods"]["y"], ref["likelihoods"]["y"])
+                                   > 1e-3).float().mean().item(),
+            "z_likelihood_max": diff(got["likelihoods"]["z"], ref["likelihoods"]["z"]).max().item()}
 
 
 def eval_vs_cpu_phase(name: str, model, seed: int):
     """Phases 8 and 14: the same weights' eval forward on the card against
-    the plain CPU path on a small input. -> the largest differences."""
+    the plain CPU path on a small input, in float32, then under the
+    bfloat16 policy on both sides end to end (BF16_EVAL_TOL; beside it the
+    card's bfloat16 against the CPU's float32) and layer by layer
+    (BF16_LAYER_TOL, with its control). -> the differences."""
     import torch
 
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import create_model
+    from icm_tpu_torch.nn import set_activation_dtype
 
     xs = torch.from_numpy(make_images(seed + 1, 1, 64))
     cpu_model = create_model(name, device="cpu", seed=seed)
@@ -834,6 +1162,12 @@ def eval_vs_cpu_phase(name: str, model, seed: int):
     with torch.no_grad():
         ref = cpu_model(xs)
         got = model(xs.cuda())
+        set_activation_dtype(torch.bfloat16)
+        try:
+            ref16 = cpu_model(xs)
+            got16 = model(xs.cuda())
+        finally:
+            set_activation_dtype(None)
     worst = {}
     for key, a, b in (("x_hat", got["x_hat"], ref["x_hat"]),
                       ("y likelihoods", got["likelihoods"]["y"], ref["likelihoods"]["y"]),
@@ -843,7 +1177,22 @@ def eval_vs_cpu_phase(name: str, model, seed: int):
     # f32 on both, through 70-80 layers with sums in other orders
     if not worst["x_hat"] <= 1e-3 or not worst["y likelihoods"] <= 1e-3:
         raise AssertionError(f"card and CPU disagree: {worst}")
-    return worst
+    bf16, against_f32 = bf16_spread(got16, ref16), bf16_spread(got16, ref)
+    log(f"  bf16 on both ({name}): {bf16}; bf16 card against f32 cpu: {against_f32}; "
+        f"bars {BF16_EVAL_TOL}")
+    if got16["x_hat"].dtype != ref16["x_hat"].dtype or any(
+            bf16[k] > tol for k, tol in BF16_EVAL_TOL.items()):
+        raise AssertionError(f"card and CPU disagree under the bf16 policy: {bf16}")
+    layers = bf16_layer_replay(model, cpu_model, xs)
+    log(f"  bf16 layer by layer ({name}): {layers}; bars {BF16_LAYER_TOL}")
+    for kind, row in layers.items():
+        if row["share"] > BF16_LAYER_TOL["share"] or row["relative"] > BF16_LAYER_TOL["relative"]:
+            raise AssertionError(f"{kind}: card and CPU disagree under the bf16 policy: {row}")
+        if not row["control_share"] > BF16_LAYER_TOL["share"]:
+            raise AssertionError(f"{kind}: the bar cannot tell bf16 from f32: {row}")
+    return {"f32_max_abs": worst, "bf16": bf16, "bf16_card_against_f32_cpu": against_f32,
+            "bf16_tolerance": BF16_EVAL_TOL, "bf16_layers": layers,
+            "bf16_layer_tolerance": BF16_LAYER_TOL}
 
 
 def main() -> int:
@@ -859,7 +1208,6 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from icm_tpu_torch import _native
     from icm_tpu_torch.data import make_images
-    from icm_tpu_torch.coding import device_rans as tdr
     from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
     from icm_tpu_torch.nn import gdn_fused as tgdn
     from icm_tpu_torch.nn import window_attention as twa
@@ -909,15 +1257,7 @@ def main() -> int:
     with Phase("GDN kernels vs plain"):
         gdn_rows = check_gdn(tgdn)
 
-    def zero_counts():
-        twa.LAUNCHES = tgdn.FWD_LAUNCHES = tgdn.BWD_LAUNCHES = 0
-        tdr.ENCODE_LAUNCHES = tdr.DECODE_LAUNCHES = 0
-
-    def read_counts():
-        return {"window_attention": twa.LAUNCHES, "gdn_forward": tgdn.FWD_LAUNCHES,
-                "gdn_backward": tgdn.BWD_LAUNCHES, "rans_encode": tdr.ENCODE_LAUNCHES,
-                "rans_decode": tdr.DECODE_LAUNCHES}
-
+    zero_counts, read_counts = launch_counts("float32")
     B, size = 2, 512
     x = torch.from_numpy(make_images(args.seed, B, size)).cuda()
     at_least_one = (1, None)
@@ -955,23 +1295,41 @@ def main() -> int:
             dev_codec, enc, x, card, zero_counts, read_counts,
             {"compress": {**on_path, "rans_encode": 2},
              "decompress": {**on_path, "rans_decode": model.ctx_slices + 1}})
+    f32_counts = {"compress": enc_launches, "decompress": dec_launches,
+                  "device_compress": dev_enc_launches, "device_decompress": dev_dec_launches}
+
+    with Phase("full-width WACNN under the bf16 policy, both wires"):
+        slice_result["bf16"], bf16_counts = bf16_serving_phase(
+            codec, dev_codec, x, card, {"result": slice_result, "enc": enc, "counts": f32_counts})
 
     with Phase("card vs CPU reference, small input"):
-        eval_vs_cpu_phase("cnn", model, args.seed)
+        slice_result["card_vs_cpu"] = eval_vs_cpu_phase("cnn", model, args.seed)
 
+    init_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     with Phase("full-width WACNN training"):
         slice_result["train"] = train_phase(model, args.seed, card, TRAIN_STEP_LAUNCHES)
         train_launches = slice_result["train"]["launches_per_step"]
 
     with Phase("training step, card vs CPU"):
-        slice_result["train"]["card_vs_cpu"] = train_vs_cpu_phase(model, args.seed)
+        slice_result["train"]["card_vs_cpu"] = train_vs_cpu_phase("cnn", model, args.seed)
 
-    paths = {"cnn": {"launches_compress": enc_launches,
-                     "launches_decompress": dec_launches,
-                     "launches_device_wire_compress": dev_enc_launches,
-                     "launches_device_wire_decompress": dev_dec_launches,
-                     "launches_train_step": train_launches}}
-    del model, codec, dev_codec
+    with Phase("full-width WACNN training under the bf16 policy"):
+        slice_result["bf16"]["train"] = bf16_train_phase(
+            model, init_state, args.seed, card, TRAIN_STEP_LAUNCHES, slice_result["train"])
+
+    # each kernel's launches on each path of the main-path runs, by dtype
+    paths = {"float32": {"cnn": {"launches_compress": enc_launches,
+                                 "launches_decompress": dec_launches,
+                                 "launches_device_wire_compress": dev_enc_launches,
+                                 "launches_device_wire_decompress": dev_dec_launches,
+                                 "launches_train_step": train_launches}},
+             "bfloat16": {"cnn": {
+                 "launches_compress": bf16_counts["compress"],
+                 "launches_decompress": bf16_counts["decompress"],
+                 "launches_device_wire_compress": bf16_counts["device_compress"],
+                 "launches_device_wire_decompress": bf16_counts["device_decompress"],
+                 "launches_train_step": slice_result["bf16"]["train"]["launches_per_step"]}}}
+    del model, codec, dev_codec, init_state
     torch.cuda.empty_cache()
 
     with Phase("full-width stf compress/decompress"):
@@ -1004,100 +1362,141 @@ def main() -> int:
             {"compress": {**stf_expect["compress"], "rans_encode": 2},
              "decompress": {**stf_expect["decompress"], "rans_decode": stf.ctx_slices + 1}})
 
+    with Phase("full-width stf under the bf16 policy, both wires"):
+        stf_result["bf16"], stf_bf16_counts = bf16_serving_phase(
+            codec, dev_codec, x, card,
+            {"result": stf_result, "enc": stf_enc,
+             "counts": {"compress": stf_enc_launches, "decompress": stf_dec_launches,
+                        "device_compress": stf_dev_enc_launches,
+                        "device_decompress": stf_dev_dec_launches}})
+
     with Phase("stf card vs CPU reference, small input"):
         stf_result["card_vs_cpu"] = eval_vs_cpu_phase("stf", stf, args.seed)
 
+    stf_init = {k: v.detach().clone() for k, v in stf.state_dict().items()}
+    stf_step = {**none, "window_attention": g_a_blocks + g_s_blocks}
     with Phase("full-width stf training"):
         # one window-attention launch a Swin block forward; no GDN, no coding
-        stf_result["train"] = train_phase(
-            stf, args.seed, card, {**none, "window_attention": g_a_blocks + g_s_blocks},
-            steps=4, resumed_steps=0)
-    slice_result["stf"] = stf_result
-    paths["stf"] = {"launches_compress": stf_enc_launches,
-                    "launches_decompress": stf_dec_launches,
-                    "launches_device_wire_compress": stf_dev_enc_launches,
-                    "launches_device_wire_decompress": stf_dev_dec_launches,
-                    "launches_train_step": stf_result["train"]["launches_per_step"]}
+        stf_result["train"] = train_phase(stf, args.seed, card, stf_step, steps=4,
+                                          resumed_steps=0)
 
-    def launch_keys(name, models=("cnn", "stf")):
+    with Phase("stf training step, card vs CPU"):
+        stf_result["train"]["card_vs_cpu"] = train_vs_cpu_phase("stf", stf, args.seed)
+
+    with Phase("full-width stf training under the bf16 policy"):
+        stf_result["bf16"]["train"] = bf16_train_phase(
+            stf, stf_init, args.seed, card, stf_step, stf_result["train"])
+    slice_result["stf"] = stf_result
+    paths["float32"]["stf"] = {"launches_compress": stf_enc_launches,
+                               "launches_decompress": stf_dec_launches,
+                               "launches_device_wire_compress": stf_dev_enc_launches,
+                               "launches_device_wire_decompress": stf_dev_dec_launches,
+                               "launches_train_step": stf_result["train"]["launches_per_step"]}
+    paths["bfloat16"]["stf"] = {
+        "launches_compress": stf_bf16_counts["compress"],
+        "launches_decompress": stf_bf16_counts["decompress"],
+        "launches_device_wire_compress": stf_bf16_counts["device_compress"],
+        "launches_device_wire_decompress": stf_bf16_counts["device_decompress"],
+        "launches_train_step": stf_result["bf16"]["train"]["launches_per_step"]}
+
+    def launch_keys(name, models=("cnn", "stf"), dtype="float32"):
         """The kernel's launches on each path of ``models``' main-path runs
-        and their sum."""
+        in ``dtype`` (its build of that dtype) and their sum."""
         per_path = {(key if m == "cnn" else f"{key}_{m}"): counts[name]
-                    for m in models for key, counts in paths[m].items()}
+                    for m in models for key, counts in paths[dtype][m].items()}
         return {"launches": sum(per_path.values()), **per_path}
 
-    main_f32 = [r for r in rows if r["model"] == "cnn" and r["dtype"] == "float32"
+    def attention_entries(dtype: str, suffix: str):
+        """Window attention's entries for ``dtype``: WACNN's path (head
+        widths 24 and 40: one launch at each of its two shapes, times
+        summed) and stf's D 16 build (one g_a or g_s pass, its twelve
+        launches at its four shapes, times weighted by the launches);
+        every row is under "cases"."""
+        main = [r for r in rows if r["model"] == "cnn" and r["dtype"] == dtype
                 and r["n_cls"] == 4 and r["W"] in (256 * B, 64 * B)]
-    # stf's path: one g_a or g_s pass of 2 x 512^2, twelve launches at its
-    # four shapes (f32, four classes), times weighted by the launches
-    stf_main = [(r, STF_SIDE_LAUNCHES[r["W"], r["heads"]]) for r in rows
-                if r["model"] == "stf" and r["dtype"] == "float32" and r["n_cls"] == 4
-                and (r["W"], r["heads"]) in STF_SIDE_LAUNCHES]
+        stf_main = [(r, STF_SIDE_LAUNCHES[r["W"], r["heads"]]) for r in rows
+                    if r["model"] == "stf" and r["dtype"] == dtype and r["n_cls"] == 4
+                    and (r["W"], r["heads"]) in STF_SIDE_LAUNCHES]
+        unit = ("3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67"
+                if dtype == "float32" else
+                "bf16 on the tensor cores (989 TFLOP/s dense), softmax at 67")
+        return [{
+            "name": "window_attention" + suffix,
+            "route": "cuda",
+            "source": "icm_tpu_torch/csrc/window_attention.cu",
+            "replaces": "icm_tpu/nn/pallas_kernels.py:33",
+            "dtype": dtype,
+            **launch_keys("window_attention", ("cnn",), dtype),
+            "max_abs_err": max(r["max_abs_err"] for r in main),
+            "ms": sum(r["ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
+            "bound_ms": sum(r["bound_ms"] for r in main),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main) else "operations",
+            "bound_unit": unit,
+            "f32_fma_bound_ms": sum(r["f32_fma_bound_ms"] for r in main),
+            "library_ms": sum(r["library_ms"] for r in main),
+            "tolerance": TOLERANCE[dtype],
+            "cases": [r for r in rows if r["model"] == "cnn" and r["dtype"] == dtype],
+        }, {
+            # the same kernel's head-width-16 build on stf's path
+            "name": "window_attention_d16" + suffix,
+            "route": "cuda",
+            "source": "icm_tpu_torch/csrc/window_attention.cu",
+            "replaces": "icm_tpu/nn/pallas_kernels.py:33",
+            "dtype": dtype,
+            **launch_keys("window_attention", ("stf",), dtype),
+            "per": "one g_a or g_s pass of 2 x 512^2: " + ", ".join(
+                f"{n} launches at W={w}, H={h}" for (w, h), n in STF_SIDE_LAUNCHES.items()),
+            "max_abs_err": max(r["max_abs_err"] for r, _ in stf_main),
+            **{key: sum(n * r[key] for r, n in stf_main)
+               for key in ("ms", "plain_ms", "bound_ms", "f32_fma_bound_ms", "library_ms")},
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r, _ in stf_main)
+                         else "operations"),
+            "bound_unit": unit,
+            "tolerance": TOLERANCE[dtype],
+            "cases": [r for r in rows if r["model"] == "stf" and r["dtype"] == dtype],
+        }]
+
+    kernels = attention_entries("float32", "")
     # the GDN layers of one training step: 8 x 192 at 128^2, 64^2, 32^2, GDN
     # and IGDN, one launch each; times summed. The serving and ragged rows
     # are in "cases", and every row's errors are under the tolerances
-    gdn_main = [r for r in gdn_rows if r["path"] == "train"]
     no_library = ("no single PyTorch call computes the fused GDN function; "
                   "the plain version takes several")
-    kernels = [{
-        "name": "window_attention",
-        "route": "cuda",
-        "source": "icm_tpu_torch/csrc/window_attention.cu",
-        "replaces": "icm_tpu/nn/pallas_kernels.py:33",
-        **launch_keys("window_attention", ("cnn",)),
-        # WACNN's path (head widths 24 and 40), f32: one launch at each of its
-        # two shapes, times summed; every row, bf16 too, is under "cases"
-        "max_abs_err": max(r["max_abs_err"] for r in main_f32),
-        "ms": sum(r["ms"] for r in main_f32),
-        "plain_ms": sum(r["plain_ms"] for r in main_f32),
-        "bound_ms": sum(r["bound_ms"] for r in main_f32),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main_f32) else "operations",
-        "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67",
-        "f32_fma_bound_ms": sum(r["f32_fma_bound_ms"] for r in main_f32),
-        "library_ms": sum(r["library_ms"] for r in main_f32),
-        "tolerance": TOLERANCE,
-        "cases": [r for r in rows if r["model"] == "cnn"],
-    }, {
-        # the same kernel's head-width-16 build on stf's path
-        "name": "window_attention_d16",
-        "route": "cuda",
-        "source": "icm_tpu_torch/csrc/window_attention.cu",
-        "replaces": "icm_tpu/nn/pallas_kernels.py:33",
-        **launch_keys("window_attention", ("stf",)),
-        "per": "one g_a or g_s pass of 2 x 512^2: " + ", ".join(
-            f"{n} launches at W={w}, H={h}" for (w, h), n in STF_SIDE_LAUNCHES.items()),
-        "max_abs_err": max(r["max_abs_err"] for r, _ in stf_main),
-        **{key: sum(n * r[key] for r, n in stf_main)
-           for key in ("ms", "plain_ms", "bound_ms", "f32_fma_bound_ms", "library_ms")},
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r, _ in stf_main)
-                     else "operations"),
-        "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67",
-        "tolerance": TOLERANCE,
-        "cases": [r for r in rows if r["model"] == "stf"],
-    }]
-    for name, part, err_key, line in (("gdn_forward", "forward", "y", 50),
-                                      ("gdn_backward", "backward", "dx", 64)):
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "icm_tpu_torch/csrc/gdn.cu",
-            "replaces": f"icm_tpu/nn/gdn_pallas.py:{line}",
-            **launch_keys(name),
-            "max_abs_err": max(r["err"][err_key] for r in gdn_rows
+    for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+        gdn_rows_d = [r for r in gdn_rows if r["dtype"] == dtype]
+        gdn_main = [r for r in gdn_rows_d if r["path"] == "train"]
+        for name, part, err_key, line in (("gdn_forward", "forward", "y", 50),
+                                          ("gdn_backward", "backward", "dx", 64)):
+            kernels.append({
+                "name": name + suffix,
+                "route": "cuda",
+                "source": "icm_tpu_torch/csrc/gdn.cu",
+                "replaces": f"icm_tpu/nn/gdn_pallas.py:{line}",
+                "dtype": dtype,
+                **launch_keys(name, dtype=dtype),
+                "max_abs_err": max(r["max_abs_err"][err_key] for r in gdn_rows_d
+                                   if r["path"] in ("train", "serve")),
+                "max_err": max(r["err"][err_key] for r in gdn_rows_d
                                if r["path"] in ("train", "serve")),
-            "ms": sum(r[part]["ms"] for r in gdn_main),
-            "plain_ms": sum(r[part]["plain_ms"] for r in gdn_main),
-            "bound_ms": sum(r[part]["bound_ms"] for r in gdn_main),
-            "bound_by": ("operations" if all(r[part]["bound_by"] == "operations"
-                                             for r in gdn_main) else "bytes"),
-            "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), elementwise at 67",
-            "f32_fma_bound_ms": sum(r[part]["f32_fma_bound_ms"] for r in gdn_main),
-            "library_ms": None,
-            "library_note": no_library,
-            "tolerance": GDN_TOLERANCE,
-            "cases": [{k: v for k, v in r.items()
-                       if k not in ("forward", "backward")} | r[part] for r in gdn_rows],
-        })
+                "ms": sum(r[part]["ms"] for r in gdn_main),
+                "plain_ms": sum(r[part]["plain_ms"] for r in gdn_main),
+                "bound_ms": sum(r[part]["bound_ms"] for r in gdn_main),
+                "bound_by": ("operations" if all(r[part]["bound_by"] == "operations"
+                                                 for r in gdn_main) else "bytes"),
+                "bound_unit": (
+                    "3xTF32 on the tensor cores (495 TFLOP/s dense), elementwise at 67; "
+                    "4-byte activations" if dtype == "float32" else
+                    f"{GDN_BF16_PASSES[part]} bfloat16 passes of its products on the tensor "
+                    "cores (989 TFLOP/s dense), elementwise at 67; 2-byte activations"),
+                "f32_fma_bound_ms": sum(r[part]["f32_fma_bound_ms"] for r in gdn_main),
+                "library_ms": None,
+                "library_note": no_library,
+                "tolerance": GDN_TOLERANCE if dtype == "float32" else GDN_BF16_TOLERANCE,
+                "cases": [{k: v for k, v in r.items()
+                           if k not in ("forward", "backward")} | r[part] for r in gdn_rows_d],
+            })
+    kernels += attention_entries("bfloat16", "_bf16")
     # the device wire's coder: integer kernels, held byte for byte (the
     # phase fails on any nonzero max_abs_err); y and z of one compress /
     # decompress of WACNN's B images, times summed; the rows at bench.py's

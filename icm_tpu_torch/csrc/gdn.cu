@@ -1,4 +1,5 @@
-// Fused GDN / IGDN, forward and backward, for Hopper (sm_90a), float32.
+// Fused GDN / IGDN, forward and backward, for Hopper (sm_90a), with float32
+// or bfloat16 activations.
 //
 // Replaces two TPU Pallas kernels of icm_tpu/nn/gdn_pallas.py:
 //   _fwd_kernel  (forward)   y = x * (beta + Gamma x^2)^(-1/2)   (IGDN: ^(+1/2))
@@ -12,6 +13,23 @@
 // per image the normalizer is a (C x C) . (C x P) product with the pixels
 // contiguous; no transposed copy is made. gamma is (C_out, C_in), row-major
 // (the port's orientation), and dGamma comes out in the same orientation.
+//
+// Element types, as the Pallas kernels take them (gdn_pallas.py:50-99): x,
+// g, y and dx are float32 or bfloat16 (the template parameter T of every
+// kernel that touches them, one build of each for each type, chosen by the
+// C entries' dtype code); gamma, beta, dn, dGamma and dbeta are float32
+// (the wrapper hands the kernels gamma's bfloat16 values as float32, and
+// rounds dGamma to gamma's dtype). In bfloat16 x and g are converted to
+// float32 on their way into shared memory (8-byte loads of 4 values where
+// the row allows), so the tiles, their strides, their bank padding and
+// every product are the float32 build's; y and dx are rounded to bfloat16
+// once, at the store. The float32 build stages x with cp.async; the
+// bfloat16 build loads synchronously (a conversion needs registers), so
+// its next tile's load no longer overlaps the product. gamma's bfloat16
+// values are TF32 values, so in the products with gamma (n's, and
+// Gamma^T dn in dx) gamma's low part is zero and that pass is left out:
+// two TF32 passes instead of three, the same sums. A simple build: a
+// bfloat16 `mma` on x^2 is for later.
 //
 // What bounds it on an H100: on the f32 FMA units, operations. Per pixel
 // the forward does one C x C product (2 C^2 operations) on 2 C values moved
@@ -39,7 +57,9 @@
 //   barrier. A warpgroup loads its next tile and stores y
 //   while the other runs its product; the second starts one product late,
 //   so the two (and the SMs) do not fall into step.
-// - gdn_fwd_kernel_fma (C > 192, no model): a block owns a tile of TP =
+// - gdn_fwd_kernel_fma (C > 192: MainCNNDecoder's IGDN at 256 channels,
+//   icm_tpu/nn/factories.py:52,64-65, on the path of stf9, stf11-stf14,
+//   oj_ICM and seg_oj_ICM; not redesigned yet): a block owns a tile of TP =
 //   32 pixels of one image and all C channels, on the f32 FMA units. x of
 //   the tile is read once into shared memory, gamma is staged through
 //   shared memory in chunks of BK input channels by TO = 192 output
@@ -85,6 +105,7 @@
 // Plain C interface for ctypes (no PyTorch headers); the wrapper is
 // icm_tpu_torch/nn/gdn_fused.py.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -107,6 +128,21 @@ constexpr size_t MAX_SMEM = 227 * 1024;
 
 static_assert(THREADS == (TO / RM) * (TP / RN), "thread tile covers the chunk");
 static_assert(BK * TO % THREADS == 0, "staging is even over the threads");
+
+using bf16 = __nv_bfloat16;
+
+// one activation value to float32 and back (bfloat16: round to nearest even)
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+// two neighbouring values, p aligned to two elements
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 // acc[j][q] += sum_k gamma[c0 + ty*RM + j][k] * Bs[k][tx*RN + q]^2, k < C:
 // n = Gamma x^2 with gamma staged through As chunk by chunk. Bs is the
@@ -153,9 +189,10 @@ __device__ __forceinline__ void chunk_product(const float* __restrict__ gamma,
   }
 }
 
-// dst[c][p] = src[c][p0 + p], zero past the end of the image; LOADS loads
-// in flight per thread.
-__device__ __forceinline__ void load_tile(const float* __restrict__ src, int C,
+// dst[c][p] = src[c][p0 + p] as float32, zero past the end of the image;
+// LOADS loads in flight per thread.
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int C,
                                           int P, int p0, float* dst) {
   for (int t0 = threadIdx.x; t0 < C * TP; t0 += LOADS * THREADS) {
     float v[LOADS];
@@ -164,7 +201,7 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src, int C,
       const int t = t0 + u * THREADS;
       const int c = t / TP;
       const int p = t % TP;
-      v[u] = (t < C * TP && p0 + p < P) ? src[(size_t)c * P + p0 + p] : 0.f;
+      v[u] = (t < C * TP && p0 + p < P) ? load1(src + (size_t)c * P + p0 + p) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < LOADS; ++u) {
@@ -174,12 +211,14 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src, int C,
   }
 }
 
-// The forward for C > 192 (no model of either package has so many
-// channels): one block per tile of TP pixels, f32 FMA units, gamma staged
-// through shared memory in chunks of BK input channels.
+// The forward for C > 192 (MainCNNDecoder's IGDN at 256 channels, on five
+// families' path; see the head note): one block per tile of TP pixels, f32
+// FMA units, gamma staged through shared memory in chunks of BK input
+// channels.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-gdn_fwd_kernel_fma(const float* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, float* __restrict__ y, int C,
+gdn_fwd_kernel_fma(const T* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, T* __restrict__ y, int C,
                int P, int tiles_per_image, int inverse) {
   extern __shared__ float smem[];
   float* xs = smem;             // (C, LD): x of the tile
@@ -204,7 +243,7 @@ gdn_fwd_kernel_fma(const float* __restrict__ x, const float* __restrict__ gamma,
         if (o < C && p0 + pl < P) {
           const float n = acc[j][q] + beta[o];
           const float r = inverse ? sqrtf(n) : rsqrtf(n);
-          y[base + (size_t)o * P + p0 + pl] = xs[o * LD + pl] * r;
+          store1(y + base + (size_t)o * P + p0 + pl, xs[o * LD + pl] * r);
         }
       }
     }
@@ -254,6 +293,21 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, int valid,
   }
 }
 
+// The same from bfloat16: dst[0..4) = float32 of src[0..4), one 8-byte load
+// where the source is aligned and whole (dst is then 16-byte aligned, as
+// the float32 copy needs it), else one value at a time.
+__device__ __forceinline__ void copy4(float* dst, const bf16* src, int valid, bool aligned) {
+  if (aligned && valid >= 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[e] = e < valid ? __bfloat162float(src[e]) : 0.f;
+  }
+}
+
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
 // zero: cvt.rna.tf32.f32 for finite x, as integer operations on the bit
 // pattern (cvt.rna compiles to four instructions with its checks for inf
@@ -278,16 +332,20 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const 
 
 // c[i][j] += a[i] b[j] in 3xTF32 over a grid of I x J tiles, as three
 // passes (lo*hi, hi*lo, hi*hi) so that every mma has independent
-// neighbours to overlap with.
-template <int I, int J>
+// neighbours to overlap with. A_EXACT: every a is a TF32 value (gamma's
+// bfloat16 values in the bfloat16 builds), so a's low part is zero and its
+// pass, which would add zeros, is left out: the same sums in two passes.
+template <bool A_EXACT, int I, int J>
 __device__ __forceinline__ void mma_3xtf32_grid(float (&c)[I][J][4], const uint32_t (&ah)[I][4],
                                                 const uint32_t (&al)[I][4],
                                                 const uint32_t (&bh)[J][2],
                                                 const uint32_t (&bl)[J][2]) {
+  if constexpr (!A_EXACT) {
 #pragma unroll
-  for (int i = 0; i < I; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-    for (int j = 0; j < J; ++j) mma_tf32(c[i][j], al[i], bh[j]);
+      for (int j = 0; j < J; ++j) mma_tf32(c[i][j], al[i], bh[j]);
+  }
 #pragma unroll
   for (int i = 0; i < I; ++i)
 #pragma unroll
@@ -330,9 +388,10 @@ constexpr int PAD_G = 8;         // gamma rows: CK + 8, the A fragments' 8-byte 
 // Warpgroup g takes tiles blockIdx.x + (2 i + g) gridDim.x, i = 0, 1, ...;
 // every tile is computed alone, in one fixed order, and each y has one
 // writer: neither the grid nor the card changes a bit of y.
+template <typename T>
 __global__ void __launch_bounds__(fwd::THREADS, 1)
-gdn_fwd_kernel_resident(const float* __restrict__ x, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, float* __restrict__ y, int C, int P,
+gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, T* __restrict__ y, int C, int P,
                         int tiles_per_image, int n_tiles, int inverse, int x_aligned,
                         int gamma_aligned, int y_aligned) {
   constexpr int RP = fwd::RP, NT = fwd::NT, LDT = fwd::LDT, GROUP = fwd::GROUP;
@@ -369,7 +428,7 @@ gdn_fwd_kernel_resident(const float* __restrict__ x, const float* __restrict__ g
   // the image
   auto load_tile = [&](int tile) {
     const int p0 = (tile % tiles_per_image) * RP;
-    const float* s0 = x + (size_t)(tile / tiles_per_image) * C * P + p0;
+    const T* s0 = x + (size_t)(tile / tiles_per_image) * C * P + p0;
     for (int e = gt; e < CK * (RP / 4); e += GROUP) {
       const int c = e / (RP / 4);
       const int p = (e % (RP / 4)) * 4;
@@ -418,7 +477,7 @@ gdn_fwd_kernel_resident(const float* __restrict__ x, const float* __restrict__ g
           split_tf32(r0.y, ah[mi][2], al[mi][2]);
           split_tf32(r8.y, ah[mi][3], al[mi][3]);
         }
-        mma_3xtf32_grid(part, ah, al, bh, bl);
+        mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
       }
 #pragma unroll
       for (int mi = 0; mi < 3; ++mi)
@@ -448,7 +507,7 @@ gdn_fwd_kernel_resident(const float* __restrict__ x, const float* __restrict__ g
     cp_async_commit();
 
     const int p0 = (tile % tiles_per_image) * RP;
-    float* yt = y + (size_t)(tile / tiles_per_image) * C * P + p0;
+    T* yt = y + (size_t)(tile / tiles_per_image) * C * P + p0;
 #pragma unroll
     for (int mi = 0; mi < 3; ++mi)
 #pragma unroll
@@ -462,12 +521,12 @@ gdn_fwd_kernel_resident(const float* __restrict__ x, const float* __restrict__ g
           const float n0 = acc[mi][j][2 * h] + bc, n1 = acc[mi][j][2 * h + 1] + bc;
           const float2 v = make_float2(xr[mi][h][j].x * (inverse ? sqrtf(n0) : rsqrtf(n0)),
                                        xr[mi][h][j].y * (inverse ? sqrtf(n1) : rsqrtf(n1)));
-          float* dst = yt + (size_t)c * P + pl;
+          T* dst = yt + (size_t)c * P + pl;
           if (y_aligned && p0 + pl + 1 < P) {
-            *reinterpret_cast<float2*>(dst) = v;
+            store2(dst, v.x, v.y);
           } else {
-            if (p0 + pl < P) dst[0] = v.x;
-            if (p0 + pl + 1 < P) dst[1] = v.y;
+            if (p0 + pl < P) store1(dst, v.x);
+            if (p0 + pl + 1 < P) store1(dst + 1, v.y);
           }
         }
       }
@@ -515,11 +574,14 @@ constexpr int MAX_PARTIALS = 64;
 // pass runs the k-chunks of gamma through the ring, 8 warps each holding
 // 3 m-tiles by SP / 16 n-tiles of accumulators. Chunk q + NS - 1 is in
 // flight while chunk q computes; the ring runs on from the first product
-// into the second. The direct term of dx waits in dx between the two.
+// into the second. The direct term of dx waits in `direct` between the two:
+// dx itself in float32, a float32 workspace in bfloat16 (dx is rounded
+// once).
+template <typename T>
 __global__ void __launch_bounds__(bwd::THREADS)
-gdn_bwd_kernel_dx_streamed(const float* __restrict__ g, const float* __restrict__ x,
+gdn_bwd_kernel_dx_streamed(const T* __restrict__ g, const T* __restrict__ x,
                            const float* __restrict__ gamma, const float* __restrict__ beta,
-                           float* __restrict__ dx, float* __restrict__ dn_out, int C, int P,
+                           T* dx, float* direct_out, float* __restrict__ dn_out, int C, int P,
                            int tiles_per_image, int inverse, int x_aligned,
                            int gamma_aligned) {
   // this kernel's shapes (named here: the forward's BK and THREADS differ)
@@ -659,7 +721,7 @@ gdn_bwd_kernel_dx_streamed(const float* __restrict__ g, const float* __restrict_
       }
       // m-tiles past the pass's channels multiply zeros (the chunk's rows
       // past C load as 0) and are not stored
-      mma_3xtf32_grid(part, ah, al, bh, bl);
+      mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
     }
 #pragma unroll
     for (int mi = 0; mi < 3; ++mi)
@@ -695,7 +757,7 @@ gdn_bwd_kernel_dx_streamed(const float* __restrict__ g, const float* __restrict_
               if (p0 + pl < P) {
                 const size_t gi = base + (size_t)c * P + p0 + pl;
                 dn_out[gi] = dnv;
-                dx[gi] = direct;
+                direct_out[gi] = direct;
               }
             }
       } else {
@@ -710,7 +772,7 @@ gdn_bwd_kernel_dx_streamed(const float* __restrict__ g, const float* __restrict_
             for (int e = 0; e < 4; ++e) {
               int c, pl;
               direct[mi][j][e] = at_of(mi, j, e, c, pl) && p0 + pl < P
-                                     ? dx[base + (size_t)c * P + p0 + pl] : 0.f;
+                                     ? direct_out[base + (size_t)c * P + p0 + pl] : 0.f;
             }
 #pragma unroll
         for (int mi = 0; mi < 3; ++mi)
@@ -720,8 +782,8 @@ gdn_bwd_kernel_dx_streamed(const float* __restrict__ g, const float* __restrict_
             for (int e = 0; e < 4; ++e) {
               int c, pl;
               if (!at_of(mi, j, e, c, pl) || p0 + pl >= P) continue;
-              dx[base + (size_t)c * P + p0 + pl] =
-                  direct[mi][j][e] + 2.f * xs[c * LDT + pl] * acc[mi][j][e];
+              store1(dx + base + (size_t)c * P + p0 + pl,
+                     direct[mi][j][e] + 2.f * xs[c * LDT + pl] * acc[mi][j][e]);
             }
       }
     }
@@ -736,10 +798,11 @@ gdn_bwd_kernel_dx_streamed(const float* __restrict__ g, const float* __restrict_
 // dx and x in registers (the second product's accumulators sit at the same
 // channels and pixels), and while Gamma^T dn runs the next tile's x is
 // already loading into the x tile.
+template <typename T>
 __global__ void __launch_bounds__(bwd::THREADS)
-gdn_bwd_kernel_dx_resident(const float* __restrict__ g, const float* __restrict__ x,
+gdn_bwd_kernel_dx_resident(const T* __restrict__ g, const T* __restrict__ x,
                            const float* __restrict__ gamma, const float* __restrict__ beta,
-                           float* __restrict__ dx, float* __restrict__ dn_out, int C, int P,
+                           T* __restrict__ dx, float* __restrict__ dn_out, int C, int P,
                            int tiles_per_image, int n_tiles, int inverse, int x_aligned,
                            int gamma_aligned) {
   constexpr int THREADS = bwd::THREADS, RP = bwd::RP;
@@ -768,10 +831,10 @@ gdn_bwd_kernel_dx_resident(const float* __restrict__ g, const float* __restrict_
   }
   for (int c = tid; c < CP; c += THREADS) betas[c] = c < C ? beta[c] : 0.f;
   // tile t's x or g into dst, zero past C channels and past the image
-  auto load_tile = [&](const float* src, int tile, float* dst) {
+  auto load_tile = [&](const T* src, int tile, float* dst) {
     const int b = tile / tiles_per_image;
     const int p0 = (tile % tiles_per_image) * RP;
-    const float* s0 = src + (size_t)b * C * P + p0;
+    const T* s0 = src + (size_t)b * C * P + p0;
     for (int e = tid; e < CP * (RP / 4); e += THREADS) {
       const int c = e / (RP / 4);
       const int p = (e % (RP / 4)) * 4;
@@ -826,7 +889,7 @@ gdn_bwd_kernel_dx_resident(const float* __restrict__ g, const float* __restrict_
           split_tf32(ar[d2], ah[mi][2], al[mi][2]);
           split_tf32(ar[d1 + d2], ah[mi][3], al[mi][3]);
         }
-        mma_3xtf32_grid(part, ah, al, bh, bl);
+        mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
       }
 #pragma unroll
       for (int mi = 0; mi < 3; ++mi)
@@ -879,7 +942,8 @@ gdn_bwd_kernel_dx_resident(const float* __restrict__ g, const float* __restrict_
         for (int e = 0; e < 4; ++e) {
           const int c = chan(mi, e), pl = pix(j, e);
           if (c < C && p0 + pl < P) {
-            dx[base + (size_t)c * P + pl] = direct[mi][j][e] + 2.f * xr[mi][j][e] * acc[mi][j][e];
+            store1(dx + base + (size_t)c * P + pl,
+                   direct[mi][j][e] + 2.f * xr[mi][j][e] * acc[mi][j][e]);
           }
         }
     __syncthreads();  // the next tile's g overwrites dn
@@ -894,8 +958,9 @@ gdn_bwd_kernel_dx_resident(const float* __restrict__ g, const float* __restrict_
 // tile's sums in registers across the whole range, and the slot is written
 // once. The blocks of the first column of tiles also sum dn for dbeta in a
 // fixed order.
+template <typename T>
 __global__ void __launch_bounds__(bwd::THREADS)
-gdn_bwd_kernel_dgamma(const float* __restrict__ dn, const float* __restrict__ x,
+gdn_bwd_kernel_dgamma(const float* __restrict__ dn, const T* __restrict__ x,
                       float* __restrict__ partials, int C, int P,
                       int chunks_per_image, int n_chunks, int aligned) {
   constexpr int THREADS = bwd::THREADS, GT = bwd::GT, KB = bwd::KB;
@@ -930,8 +995,14 @@ gdn_bwd_kernel_dgamma(const float* __restrict__ dn, const float* __restrict__ x,
       const int r = rem / (KB / 4);
       const int p = (rem % (KB / 4)) * 4;
       const int c = (which ? i0 : o0) + r;
-      const float* src = (which ? x : dn) + base + (size_t)c * P + pp + p;
-      copy4(st + (which * GT + r) * LDK + p, src, c < C ? P - pp - p : 0, aligned);
+      const size_t at = base + (size_t)c * P + pp + p;
+      float* dst = st + (which * GT + r) * LDK + p;
+      const int valid = c < C ? P - pp - p : 0;
+      if (which) {
+        copy4(dst, x + at, valid, aligned);
+      } else {
+        copy4(dst, dn + at, valid, aligned);
+      }
     }
   };
 
@@ -969,7 +1040,7 @@ gdn_bwd_kernel_dgamma(const float* __restrict__ dn, const float* __restrict__ x,
         split_tf32(ar[4], ah[mi][2], al[mi][2]);
         split_tf32(ar[8 * LDK + 4], ah[mi][3], al[mi][3]);
       }
-      mma_3xtf32_grid(part, ah, al, bh, bl);
+      mma_3xtf32_grid<false>(part, ah, al, bh, bl);
     }
 #pragma unroll
     for (int mi = 0; mi < 3; ++mi)
@@ -1037,69 +1108,145 @@ int set_smem(const void* kernel, size_t bytes) {
   return 0;
 }
 
-int launch_dx_streamed(const float* g, const float* x, const float* gamma, const float* beta,
-                       float* dx, float* dn, int B, int C, int P, int inverse, cudaStream_t s) {
+// x-like pointers of element type T aligned for 4-value loads (16 bytes in
+// float32, 8 in bfloat16) along rows of P pixels
+template <typename T>
+bool rows_aligned4(int P, const void* a, const void* b = nullptr) {
+  return P % 4 == 0 && ((uintptr_t)a | (uintptr_t)b) % (4 * sizeof(T)) == 0;
+}
+
+template <typename T>
+int launch_dx_streamed(const T* g, const T* x, const float* gamma, const float* beta, T* dx,
+                       float* direct, float* dn, int B, int C, int P, int inverse,
+                       cudaStream_t s) {
   const int CK = (C + bwd::BK - 1) / bwd::BK * bwd::BK;
   const size_t smem =
       sizeof(float) * (2 * (size_t)CK * (bwd::SP + 8) + (size_t)bwd::NS * bwd::SLOT + CK);
-  int rc = set_smem((const void*)gdn_bwd_kernel_dx_streamed, smem);
+  int rc = set_smem((const void*)gdn_bwd_kernel_dx_streamed<T>, smem);
   if (rc != 0) return rc;
   const int tpi = (P + bwd::SP - 1) / bwd::SP;
-  const int x_aligned = P % 4 == 0 && ((uintptr_t)x | (uintptr_t)g) % 16 == 0;
+  const int x_aligned = rows_aligned4<T>(P, x, g);
   const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
-  gdn_bwd_kernel_dx_streamed<<<B * tpi, bwd::THREADS, smem, s>>>(
-      g, x, gamma, beta, dx, dn, C, P, tpi, inverse, x_aligned, gamma_aligned);
+  gdn_bwd_kernel_dx_streamed<T><<<B * tpi, bwd::THREADS, smem, s>>>(
+      g, x, gamma, beta, dx, direct, dn, C, P, tpi, inverse, x_aligned, gamma_aligned);
   return (int)cudaGetLastError();
 }
 
-int launch_dx_resident(const float* g, const float* x, const float* gamma, const float* beta,
-                       float* dx, float* dn, int B, int C, int P, int inverse, cudaStream_t s) {
+template <typename T>
+int launch_dx_resident(const T* g, const T* x, const float* gamma, const float* beta, T* dx,
+                       float* dn, int B, int C, int P, int inverse, cudaStream_t s) {
   const int CP = (C + 15) / 16 * 16;
   const size_t smem = sizeof(float) * ((size_t)CP * (CP + 4) + 2 * (size_t)CP * (bwd::RP + 8) + CP);
-  int rc = set_smem((const void*)gdn_bwd_kernel_dx_resident, smem);
+  int rc = set_smem((const void*)gdn_bwd_kernel_dx_resident<T>, smem);
   if (rc != 0) return rc;
   int dev = 0, sms = 0;
   if ((rc = (int)cudaGetDevice(&dev)) != 0) return rc;
   if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0) return rc;
   const int tpi = (P + bwd::RP - 1) / bwd::RP;
   const int n_tiles = B * tpi;
-  const int x_aligned = P % 4 == 0 && ((uintptr_t)x | (uintptr_t)g) % 16 == 0;
+  const int x_aligned = rows_aligned4<T>(P, x, g);
   const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
   // one block per SM (gamma fills most of its shared memory); every tile is
   // computed alone, so the grid size changes no result
-  gdn_bwd_kernel_dx_resident<<<n_tiles < sms ? n_tiles : sms, bwd::THREADS, smem, s>>>(
+  gdn_bwd_kernel_dx_resident<T><<<n_tiles < sms ? n_tiles : sms, bwd::THREADS, smem, s>>>(
       g, x, gamma, beta, dx, dn, C, P, tpi, n_tiles, inverse, x_aligned, gamma_aligned);
   return (int)cudaGetLastError();
 }
 
-int launch_fwd_fma(const float* x, const float* gamma, const float* beta, float* y, int B,
-                   int C, int P, int inverse, cudaStream_t s) {
+template <typename T>
+int launch_fwd_fma(const T* x, const float* gamma, const float* beta, T* y, int B, int C, int P,
+                   int inverse, cudaStream_t s) {
   const size_t smem = sizeof(float) * ((size_t)C * LD + BK * ALD);
-  int rc = set_smem((const void*)gdn_fwd_kernel_fma, smem);
+  int rc = set_smem((const void*)gdn_fwd_kernel_fma<T>, smem);
   if (rc != 0) return rc;
   const int tpi = tiles_per_image(P);
-  gdn_fwd_kernel_fma<<<B * tpi, THREADS, smem, s>>>(x, gamma, beta, y, C, P, tpi, inverse);
+  gdn_fwd_kernel_fma<T><<<B * tpi, THREADS, smem, s>>>(x, gamma, beta, y, C, P, tpi, inverse);
   return (int)cudaGetLastError();
 }
 
-int launch_fwd_resident(const float* x, const float* gamma, const float* beta, float* y, int B,
-                        int C, int P, int inverse, cudaStream_t s) {
+template <typename T>
+int launch_fwd_resident(const T* x, const float* gamma, const float* beta, T* y, int B, int C,
+                        int P, int inverse, cudaStream_t s) {
   const int CK = (C + fwd::KC - 1) / fwd::KC * fwd::KC;
   const size_t smem = sizeof(float) * ((size_t)fwd::MAX_C * (CK + fwd::PAD_G) + fwd::MAX_C +
                                        2 * (size_t)CK * fwd::LDT);
-  int rc = set_smem((const void*)gdn_fwd_kernel_resident, smem);
+  int rc = set_smem((const void*)gdn_fwd_kernel_resident<T>, smem);
   if (rc != 0) return rc;
   int dev = 0, sms = 0;
   if ((rc = (int)cudaGetDevice(&dev)) != 0) return rc;
   if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0) return rc;
   const int tpi = (P + fwd::RP - 1) / fwd::RP;
   const int n_tiles = B * tpi;
-  const int x_aligned = P % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const int x_aligned = rows_aligned4<T>(P, x);
   const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
-  const int y_aligned = P % 2 == 0 && (uintptr_t)y % 8 == 0;
+  const int y_aligned = P % 2 == 0 && (uintptr_t)y % (2 * sizeof(T)) == 0;
   // one block per SM (gamma fills most of its shared memory)
-  gdn_fwd_kernel_resident<<<n_tiles < sms ? n_tiles : sms, fwd::THREADS, smem, s>>>(
+  gdn_fwd_kernel_resident<T><<<n_tiles < sms ? n_tiles : sms, fwd::THREADS, smem, s>>>(
       x, gamma, beta, y, C, P, tpi, n_tiles, inverse, x_aligned, gamma_aligned, y_aligned);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int forward(const void* x, const void* gamma, const void* beta, void* y, int B, int C, int P,
+            int inverse, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const float* gammaf = static_cast<const float*>(gamma);
+  const float* betaf = static_cast<const float*>(beta);
+  T* yt = static_cast<T*>(y);
+  // gamma resident in shared memory on the tensor cores up to MAX_C
+  // channels; above, gamma staged in chunks on the FMA units
+  return C <= fwd::MAX_C ? launch_fwd_resident<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s)
+                         : launch_fwd_fma<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s);
+}
+
+// Partial slots of the backward's dGamma/dbeta sums for B images of P
+// pixels: a function of the shapes alone, not of the card.
+int backward_partials(int B, int P) {
+  const long long chunks = (long long)B * ((P + bwd::KB - 1) / bwd::KB);
+  return (int)(chunks < bwd::MAX_PARTIALS ? chunks : bwd::MAX_PARTIALS);
+}
+
+// dx's float32 direct term between the streamed kernel's two products has
+// a workspace of its own only in bfloat16 (in float32 it waits in dx)
+bool direct_in_workspace(int C, int dtype) { return dtype != 0 && C > bwd::MO; }
+
+template <typename T>
+int backward(const void* g, const void* x, const void* gamma, const void* beta, void* dx,
+             void* dgamma, void* dbeta, void* workspace, int B, int C, int P, int inverse,
+             int n_partials, cudaStream_t s) {
+  const T* gt = static_cast<const T*>(g);
+  const T* xt = static_cast<const T*>(x);
+  const float* gammaf = static_cast<const float*>(gamma);
+  const float* betaf = static_cast<const float*>(beta);
+  T* dxt = static_cast<T*>(dx);
+  float* dn = static_cast<float*>(workspace);
+  float* partials = dn + (size_t)B * C * P;
+  // gamma resident in shared memory up to MO channels; above, gamma
+  // streams through the ring beside tiles of 16 pixels
+  int rc;
+  if (C <= bwd::MO) {
+    rc = launch_dx_resident<T>(gt, xt, gammaf, betaf, dxt, dn, B, C, P, inverse, s);
+  } else {
+    float* direct = sizeof(T) == sizeof(float)
+                        ? reinterpret_cast<float*>(dxt)
+                        : partials + (size_t)n_partials * C * (C + 1);
+    rc = launch_dx_streamed<T>(gt, xt, gammaf, betaf, dxt, direct, dn, B, C, P, inverse, s);
+  }
+  if (rc != 0) return rc;
+
+  const size_t smem = sizeof(float) * (size_t)bwd::GNS * 2 * bwd::GT * bwd::LDK;
+  rc = set_smem((const void*)gdn_bwd_kernel_dgamma<T>, smem);
+  if (rc != 0) return rc;
+  const int cpi = (P + bwd::KB - 1) / bwd::KB;
+  const int tiles = (C + bwd::GT - 1) / bwd::GT;
+  const int aligned = rows_aligned4<T>(P, x) && rows_aligned4<float>(P, dn);
+  gdn_bwd_kernel_dgamma<T><<<dim3(tiles * tiles, n_partials), bwd::THREADS, smem, s>>>(
+      dn, xt, partials, C, P, cpi, B * cpi, aligned);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const int n = C * (C + 1);
+  gdn_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+      partials, n_partials, C, static_cast<float*>(dgamma), static_cast<float*>(dbeta));
   return (int)cudaGetLastError();
 }
 
@@ -1107,79 +1254,49 @@ int launch_fwd_resident(const float* x, const float* gamma, const float* beta, f
 
 extern "C" {
 
-// Partial slots of the backward's dGamma/dbeta sums for B images of P
-// pixels: a function of the shapes alone, not of the card.
-int gdn_backward_partials(int B, int P) {
-  const long long chunks = (long long)B * ((P + bwd::KB - 1) / bwd::KB);
-  return (int)(chunks < bwd::MAX_PARTIALS ? chunks : bwd::MAX_PARTIALS);
+// Floats of workspace the backward needs for B images of C channels and P
+// pixels, x of dtype code `dtype` (0 float32, 1 bfloat16): dn (B x C x P),
+// the partial slots of dGamma and dbeta (backward_partials(B, P) x C x
+// (C + 1)), and in bfloat16 above 192 channels dx's direct term (B x C x P).
+long long gdn_backward_workspace(int B, int C, int P, int dtype) {
+  const long long elems = (long long)B * C * P;
+  return elems + (long long)backward_partials(B, P) * C * (C + 1) +
+         (direct_in_workspace(C, dtype) ? elems : 0);
 }
 
-// Floats of workspace the backward needs: dn (B x C x P) and the partial
-// slots (gdn_backward_partials(B, P) x C x (C + 1)).
-long long gdn_backward_workspace(int B, int C, int P) {
-  return (long long)B * C * P + (long long)gdn_backward_partials(B, P) * C * (C + 1);
-}
-
-// x, y: (B, C, P) float32 contiguous; gamma (C, C); beta (C,).
-// Returns 0, -3 when C needs more shared memory than a block has, or the
+// x, y: (B, C, P) contiguous, float32 (dtype 0) or bfloat16 (dtype 1);
+// gamma (C, C) and beta (C,) float32. Returns 0, -3 when C needs more
+// shared memory than a block has, -4 for an unknown dtype, or the
 // cudaError_t of the launch.
 int gdn_forward(const void* x, const void* gamma, const void* beta, void* y,
-                int B, int C, int P, int inverse, void* stream) {
+                int B, int C, int P, int inverse, int dtype, void* stream) {
   if (B == 0 || P == 0 || C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* gammaf = static_cast<const float*>(gamma);
-  const float* betaf = static_cast<const float*>(beta);
-  float* yf = static_cast<float*>(y);
-  // gamma resident in shared memory on the tensor cores up to MAX_C
-  // channels; above, gamma staged in chunks on the FMA units
-  return C <= fwd::MAX_C ? launch_fwd_resident(xf, gammaf, betaf, yf, B, C, P, inverse, s)
-                         : launch_fwd_fma(xf, gammaf, betaf, yf, B, C, P, inverse, s);
+  if (dtype == 0) return forward<float>(x, gamma, beta, y, B, C, P, inverse, s);
+  if (dtype == 1) return forward<bf16>(x, gamma, beta, y, B, C, P, inverse, s);
+  return -4;
 }
 
-// g, x, dx: (B, C, P) float32 contiguous; gamma, dgamma (C, C); beta, dbeta
-// (C,); workspace: gdn_backward_workspace(B, C, P) floats, 16-byte aligned.
+// g, x, dx: (B, C, P) contiguous, float32 (dtype 0) or bfloat16 (dtype 1);
+// gamma, dgamma (C, C) and beta, dbeta (C,) float32; workspace:
+// gdn_backward_workspace(B, C, P, dtype) floats, 16-byte aligned.
 int gdn_backward(const void* g, const void* x, const void* gamma,
                  const void* beta, void* dx, void* dgamma, void* dbeta,
-                 void* workspace, int B, int C, int P, int inverse,
+                 void* workspace, int B, int C, int P, int inverse, int dtype,
                  void* stream) {
   if (C == 0) return 0;
+  if (dtype != 0 && dtype != 1) return -4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_partials = gdn_backward_partials(B, P);
+  const int n_partials = backward_partials(B, P);
   if (n_partials == 0) {  // no pixels: the sums are zero
     cudaMemsetAsync(dgamma, 0, sizeof(float) * (size_t)C * C, s);
     cudaMemsetAsync(dbeta, 0, sizeof(float) * (size_t)C, s);
     return (int)cudaGetLastError();
   }
-  const float* gf = static_cast<const float*>(g);
-  const float* xf = static_cast<const float*>(x);
-  const float* gammaf = static_cast<const float*>(gamma);
-  const float* betaf = static_cast<const float*>(beta);
-  float* dxf = static_cast<float*>(dx);
-  float* dn = static_cast<float*>(workspace);
-  float* partials = dn + (size_t)B * C * P;
-  // gamma resident in shared memory up to MO channels; above, gamma
-  // streams through the ring beside tiles of 16 pixels
-  int rc = C <= bwd::MO
-               ? launch_dx_resident(gf, xf, gammaf, betaf, dxf, dn, B, C, P, inverse, s)
-               : launch_dx_streamed(gf, xf, gammaf, betaf, dxf, dn, B, C, P, inverse, s);
-  if (rc != 0) return rc;
-
-  const size_t smem = sizeof(float) * (size_t)bwd::GNS * 2 * bwd::GT * bwd::LDK;
-  rc = set_smem((const void*)gdn_bwd_kernel_dgamma, smem);
-  if (rc != 0) return rc;
-  const int cpi = (P + bwd::KB - 1) / bwd::KB;
-  const int tiles = (C + bwd::GT - 1) / bwd::GT;
-  const int aligned = P % 4 == 0 && ((uintptr_t)x | (uintptr_t)dn) % 16 == 0;
-  gdn_bwd_kernel_dgamma<<<dim3(tiles * tiles, n_partials), bwd::THREADS, smem, s>>>(
-      dn, xf, partials, C, P, cpi, B * cpi, aligned);
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const int n = C * (C + 1);
-  gdn_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(
-      partials, n_partials, C, static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta));
-  return (int)cudaGetLastError();
+  return dtype == 0 ? backward<float>(g, x, gamma, beta, dx, dgamma, dbeta, workspace, B, C, P,
+                                      inverse, n_partials, s)
+                    : backward<bf16>(g, x, gamma, beta, dx, dgamma, dbeta, workspace, B, C, P,
+                                     inverse, n_partials, s);
 }
 
 }  // extern "C"

@@ -74,7 +74,8 @@ def build_indexes(scales: torch.Tensor, scale_table: torch.Tensor,
                   scale_bound: float = SCALES_MIN) -> torch.Tensor:
     """Index = number of table entries (all but the last) strictly below
     the bounded scale (the reference's per-level loop, vectorized)."""
-    scales = torch.clamp_min(scales, scale_bound)
+    # compared in the table's float32 (a bfloat16 scale converts exactly)
+    scales = torch.clamp_min(scales, scale_bound).to(scale_table.dtype)
     return torch.searchsorted(
         scale_table[:-1].contiguous(), scales.contiguous(), right=False
     ).to(torch.int32)

@@ -14,9 +14,17 @@ run the same functions (:meth:`CharmCodec._context` and
 :meth:`CharmCodec._reconstruct`) at the same shapes, and on the card the
 codec fixes the numerics those functions depend on
 (:func:`cuda_numerics`): no TF32 in convolutions or products (it would
-also stray from the float32 reference), deterministic cuDNN algorithms
-and no autotuning (a different algorithm can round differently); the
-window-attention kernel uses no atomics.
+also stray from the float32 reference), no reduced-precision sums in
+bfloat16 products, deterministic cuDNN algorithms and no autotuning (a
+different algorithm can round differently); the window-attention kernel
+uses no atomics.
+
+Under the bfloat16 activation policy (``nn.set_activation_dtype``) the
+transforms and context stacks run in bfloat16 and the likelihoods and
+indexes in float32, as in the JAX codec; y_hat takes mu's dtype
+(``sym + mu``, ``icm_tpu/models/codec.py:238``). The wire does not
+record the policy, as the JAX codec's does not: encoder and decoder must
+run under the same one.
 
 The float side of both directions (:meth:`CharmCodec._encode_symbols`
 and the decoder's slice loop in :meth:`CharmCodec.decompress`) is shared
@@ -48,9 +56,12 @@ from .base import CodecTables, nhwc_to_nchw
 
 def cuda_numerics() -> None:
     """Full-f32, deterministic numerics for cuDNN and cuBLAS (see the
-    module docstring). These are process-wide PyTorch switches."""
+    module docstring): bfloat16 products summed in float32, as XLA's
+    ``preferred_element_type`` does. These are process-wide PyTorch
+    switches."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
 
@@ -60,9 +71,11 @@ def enc_round(diff: torch.Tensor, narrow: float = 1.0) -> torch.Tensor:
     rounding so untrained weights give symbols concentrated in {-1, 0, 1}
     like a trained model's, instead of escape-heavy streams. The round
     trip stays exact, since both sides rebuild ``y_hat = sym + mu`` from
-    the coded symbols; only the rate and distortion measured change."""
+    the coded symbols; only the rate and distortion measured change.
+    As JAX's ``diff * jnp.float32(narrow)``, a bfloat16 residual is scaled
+    (and rounded) in float32."""
     if narrow != 1.0:
-        diff = diff * narrow
+        diff = diff.to(torch.promote_types(diff.dtype, torch.float32)) * narrow
     return torch.round(diff)
 
 

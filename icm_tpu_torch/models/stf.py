@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn import SubpelConv, conv3x3
+from ..nn import SubpelConv
 from ..nn.swin import BasicLayer, PatchEmbed
 from .base import nchw_to_nhwc, nhwc_to_nchw
 from .cnn import ChannelCharm
@@ -73,13 +73,16 @@ class _SwinSynthesis(nn.Module):
                 embed_dim * 2 ** (self.n - 1 - i), num_heads[i], window_size, rates,
                 downsample="split" if i < self.n - 1 else None))
         self.up = SubpelConv(embed_dim, embed_dim, r=patch_size, kernel_size=5)
-        self.to_rgb = conv3x3(embed_dim, 3)
+        # flax's nn.Conv without a dtype (icm_tpu/models/stf.py:86): float32
+        # under every activation policy, its input promoted
+        self.to_rgb = nn.Conv2d(embed_dim, 3, 3, padding=1)
 
     def forward(self, y, generator: Optional[torch.Generator] = None):
         x = nchw_to_nhwc(y)
         for i in range(self.n):
             x = getattr(self, f"layer{i}")(x, generator)
-        return self.to_rgb(self.up(nhwc_to_nchw(x)))
+        x = self.up(nhwc_to_nchw(x))
+        return self.to_rgb(x.to(torch.promote_types(x.dtype, torch.float32)))
 
 
 class SymmetricalTransFormer(ChannelCharm):

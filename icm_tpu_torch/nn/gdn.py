@@ -9,7 +9,9 @@ training: the fused CUDA kernels for a CUDA tensor, their plain versions
 for a CPU tensor, as the JAX module goes through ``gdn_fused`` on every
 TPU run. ``gamma`` is stored as (C_out, C_in), the conv-weight
 orientation; the JAX package stores its transpose
-(``convert.from_jax_params`` transposes).
+(``convert.from_jax_params`` transposes). As the JAX module does
+(``icm_tpu/nn/gdn.py:57``, ``gdn_pallas.py:205``), gamma is rounded to
+x's dtype (bfloat16 under the activation policy) and beta stays float32.
 """
 
 import torch
@@ -42,4 +44,4 @@ class GDN(nn.Module):
     def forward(self, x):
         beta = self.beta_reparam(self.beta)
         gamma = self.gamma_reparam(self.gamma)
-        return gdn(x, gamma.to(x.dtype), beta.to(x.dtype), self.inverse)
+        return gdn(x, gamma.to(x.dtype), beta, self.inverse)

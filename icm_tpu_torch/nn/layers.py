@@ -6,13 +6,29 @@ layout); the window blocks move to channel-last inside, where the window
 partition is a reshape. Submodules carry the JAX package's parameter
 names (``Conv_0``, ``attn.qkv``, ``trunk0`` ...), so a flax parameter
 path maps to a state-dict key one to one (``convert.from_jax_params``).
+
+The activation-dtype policy (:func:`set_activation_dtype`, the JAX
+package's ``icm_tpu/nn/layers.py:168-186``) lives here: every
+:class:`Conv2d`, :class:`ConvTranspose2d` and :class:`Linear` of the
+transforms casts its input, weight and bias to the policy dtype and
+returns that dtype, as flax's ``dtype=activation_dtype()`` does, and adds
+the bias after the product is rounded, as flax does; the parameters stay
+float32 masters. It is done with these explicit casts
+and not with ``torch.autocast``, whose op lists differ from flax's
+promotion: flax's LayerNorm (no ``dtype``) returns float32 for a bfloat16
+input (:class:`LayerNorm` here does the same), GDN keeps beta in float32,
+and a float32 residual plus a bfloat16 branch stays float32. Without
+autograd (serving, evaluation) each layer keeps its parameters' bfloat16
+casts between calls and casts again only when a parameter changes
+(:func:`_param_as`).
 """
 
 from __future__ import annotations
 
 import functools
+import weakref
 from collections import OrderedDict
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,26 +37,130 @@ from torch import nn
 
 from .window_attention import class_masks, window_attention, window_class_map
 
+_ACT_DTYPE: Optional[torch.dtype] = None  # None: float32 throughout
+# the layers holding parameter casts (:func:`_param_as`); a policy change
+# drops them all
+_CAST_HOLDERS: "weakref.WeakSet[nn.Module]" = weakref.WeakSet()
 
-def conv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                     padding=kernel_size // 2)
+
+def set_activation_dtype(value: Optional[torch.dtype]) -> None:
+    """Mixed-precision policy for the transform stacks: ``torch.bfloat16``
+    runs the convolutions, transposed convolutions and dense layers
+    (attention projections included) in bfloat16, their parameters cast
+    from the float32 masters; ``None`` restores float32 bit for
+    bit. LayerNorm, softmax, GDN's sums and the entropy models' math stay
+    float32. Read at forward time (the counterpart of JAX's trace time),
+    so set it before a forward, and set the same policy on both sides of
+    a coder: the wire does not record it. Every parameter cast the layers
+    keep is dropped here."""
+    global _ACT_DTYPE
+    if value is not None and not (isinstance(value, torch.dtype) and value.is_floating_point):
+        raise ValueError(f"activation dtype must be None or a floating torch.dtype, got {value!r}")
+    _ACT_DTYPE = value
+    for module in list(_CAST_HOLDERS):
+        module.__dict__.pop("_param_casts", None)
+    _CAST_HOLDERS.clear()
 
 
-def conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
+def activation_dtype() -> Optional[torch.dtype]:
+    return _ACT_DTYPE
+
+
+def _param_as(module: nn.Module, name: str, dtype) -> Optional[torch.Tensor]:
+    """``module``'s parameter ``name`` in ``dtype``. Under autograd a cast
+    made per call (it is part of the graph); without it one cast kept per
+    parameter and made again when the parameter changes: its version (any
+    in-place update: an optimizer step, ``load_state_dict``) or its storage
+    (a move to another device), and dropped at a policy change. The same
+    bits either way."""
+    p = getattr(module, name)
+    if p is None:
+        return None
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype)
+    key = (p._version, p.data_ptr(), p.device, dtype)
+    casts = module.__dict__.get("_param_casts")
+    if casts is None:
+        casts = module.__dict__["_param_casts"] = {}
+        _CAST_HOLDERS.add(module)
+    hit = casts.get(name)
+    if hit is None or hit[0] != key:
+        hit = casts[name] = (key, p.detach().to(dtype))
+    return hit[1]
+
+
+def _add_bias(y: torch.Tensor, module: nn.Module, dtype, channel_dim: int) -> torch.Tensor:
+    """``y + bias`` in ``dtype``, after the product was rounded to it, as
+    flax adds it (``y += bias``): PyTorch fuses a bias into some products
+    and not others (oneDNN on the CPU and cuBLAS do; cuDNN does not), which
+    in bfloat16 rounds once or twice."""
+    bias = _param_as(module, "bias", dtype)
+    if bias is None:
+        return y
+    return y + bias.reshape((-1,) + (1,) * (y.dim() - 1 - channel_dim))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` under the activation-dtype policy."""
+
+    def forward(self, x):
+        dt = _ACT_DTYPE
+        if dt is None:
+            return super().forward(x)
+        return _add_bias(self._conv_forward(x.to(dt), _param_as(self, "weight", dt), None),
+                         self, dt, 1)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` under the activation-dtype policy (no
+    ``output_size``: the geometry is fixed by ``output_padding``)."""
+
+    def forward(self, x):
+        dt = _ACT_DTYPE
+        if dt is None:
+            return super().forward(x)
+        y = F.conv_transpose2d(x.to(dt), _param_as(self, "weight", dt), None, self.stride,
+                               self.padding, self.output_padding, self.groups, self.dilation)
+        return _add_bias(y, self, dt, 1)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` under the activation-dtype policy."""
+
+    def forward(self, x):
+        dt = _ACT_DTYPE
+        if dt is None:
+            return super().forward(x)
+        y = F.linear(x.to(dt), _param_as(self, "weight", dt))
+        return _add_bias(y, self, dt, y.dim() - 1)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm`` without a ``dtype``: a bfloat16 input is
+    promoted to its float32 scale's dtype, so it computes and returns
+    float32 (torch's own returns the input's dtype)."""
+
+    def forward(self, x):
+        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+
+
+def conv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2) -> Conv2d:
+    return Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=kernel_size // 2)
+
+
+def conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> Conv2d:
     return conv(in_ch, out_ch, kernel_size=3, stride=stride)
 
 
-def conv1x1(in_ch: int, out_ch: int) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, 1)
+def conv1x1(in_ch: int, out_ch: int) -> Conv2d:
+    return Conv2d(in_ch, out_ch, 1)
 
 
-def deconv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2) -> nn.ConvTranspose2d:
+def deconv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2) -> ConvTranspose2d:
     """Learned upsampling, out = in * stride, with the reference's tap
     geometry: ConvTranspose2d(k, s, padding=k//2, output_padding=s-1)."""
-    return nn.ConvTranspose2d(in_ch, out_ch, kernel_size, stride=stride,
-                              padding=kernel_size // 2,
-                              output_padding=stride - 1)
+    return ConvTranspose2d(in_ch, out_ch, kernel_size, stride=stride,
+                           padding=kernel_size // 2, output_padding=stride - 1)
 
 
 class SubpelConv(nn.Module):
@@ -49,8 +169,8 @@ class SubpelConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, r: int = 1, kernel_size: int = 3):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_ch, out_ch * r * r, kernel_size,
-                                padding=kernel_size // 2)
+        self.Conv_0 = Conv2d(in_ch, out_ch * r * r, kernel_size,
+                             padding=kernel_size // 2)
         self.r = r
 
     def forward(self, x):
@@ -123,8 +243,8 @@ class WindowAttention(nn.Module):
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
         wh, ww = self.window_size
-        self.qkv = nn.Linear(dim, dim * 3)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3)
+        self.proj = Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * wh - 1) * (2 * ww - 1), num_heads)
         )
@@ -255,7 +375,7 @@ def named_sequential(*layers) -> nn.Sequential:
     named = []
     for layer in layers:
         kind = {
-            nn.Conv2d: "Conv", nn.ConvTranspose2d: "ConvTranspose",
+            Conv2d: "Conv", ConvTranspose2d: "ConvTranspose",
         }.get(type(layer), type(layer).__name__)
         if not any(True for _ in layer.parameters()):
             kind = f"{kind}_act"

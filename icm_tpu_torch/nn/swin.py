@@ -14,6 +14,12 @@ the card). Submodules carry the flax names (``LayerNorm_0``, ``attn``,
 Stochastic depth draws from the ``generator`` the forward is given (the
 training forward), never from ``self.training``: without one every
 block is deterministic, as the JAX package's ``deterministic=True``.
+
+Under the bfloat16 activation policy (``layers.set_activation_dtype``)
+the dense layers and the patch embedding's convolution return bfloat16
+and every LayerNorm float32, as in the JAX package: a stage's residual
+stream stays float32 after the patch embedding (float32 shortcut plus
+bfloat16 branch) and bfloat16 after a patch merge or split.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ShiftedWindows, WindowAttention, window_partition, window_reverse
+from .layers import (Conv2d, LayerNorm, Linear, ShiftedWindows, WindowAttention,
+                     window_partition, window_reverse)
 
 LN_EPS = 1e-5  # flax LayerNorm(epsilon=1e-5), as the JAX package builds it
 MLP_RATIO = 4  # hidden width of a block's MLP over its width
@@ -35,8 +42,8 @@ class Mlp(nn.Module):
 
     def __init__(self, dim: int, hidden: int, out: int):
         super().__init__()
-        self.Dense_0 = nn.Linear(dim, hidden)
-        self.Dense_1 = nn.Linear(hidden, out)
+        self.Dense_0 = Linear(dim, hidden)
+        self.Dense_1 = Linear(hidden, out)
 
     def forward(self, x):
         return self.Dense_1(F.gelu(self.Dense_0(x)))
@@ -70,9 +77,9 @@ class SwinBlock(ShiftedWindows):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int = 0,
                  drop_path: float = 0.0):
         super().__init__(window_size, shift_size)
-        self.LayerNorm_0 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, (window_size, window_size), num_heads)
-        self.LayerNorm_1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.LayerNorm_1 = LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, MLP_RATIO * dim, dim)
         self.drop_path = DropPath(drop_path)
 
@@ -105,8 +112,8 @@ class PatchMerging(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.LayerNorm_0 = nn.LayerNorm(4 * dim, eps=LN_EPS)
-        self.Dense_0 = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.LayerNorm_0 = LayerNorm(4 * dim, eps=LN_EPS)
+        self.Dense_0 = Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x):
         H, W = x.shape[1], x.shape[2]
@@ -123,8 +130,8 @@ class PatchSplit(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.LayerNorm_0 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.Dense_0 = nn.Linear(dim, 2 * dim, bias=False)
+        self.LayerNorm_0 = LayerNorm(dim, eps=LN_EPS)
+        self.Dense_0 = Linear(dim, 2 * dim, bias=False)
 
     def forward(self, x):
         B, H, W, C = x.shape
@@ -167,8 +174,8 @@ class PatchEmbed(nn.Module):
     def __init__(self, in_ch: int, patch_size: int, embed_dim: int):
         super().__init__()
         self.patch_size = patch_size
-        self.Conv_0 = nn.Conv2d(in_ch, embed_dim, patch_size, stride=patch_size)
-        self.LayerNorm_0 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.Conv_0 = Conv2d(in_ch, embed_dim, patch_size, stride=patch_size)
+        self.LayerNorm_0 = LayerNorm(embed_dim, eps=LN_EPS)
 
     def forward(self, x):
         p = self.patch_size

@@ -11,7 +11,7 @@ per window, it computes ``softmax(q*D^-1/2 @ k^T + bias[cls[w]]) @ v``.
 - :func:`window_attention_cuda` launches ``csrc/window_attention.cu`` on
   the current stream (built with nvcc at first use and loaded with
   ctypes). It takes CUDA tensors only and raises on anything it does not
-  take; ``LAUNCHES`` counts its launches.
+  take; ``LAUNCHES`` counts its launches by q's dtype.
 - :func:`window_attention` is what the model calls: the kernel for a CUDA
   tensor, the plain version for a CPU tensor, and, for training, an
   autograd function whose backward differentiates the plain version (as
@@ -27,15 +27,17 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from collections import Counter
 
 import numpy as np
 import torch
 
 from .. import _native
 
-# launches of the CUDA kernel in this process; chip_smoke.py zeroes it
-# before driving the codec and reads it after
-LAUNCHES = 0
+# launches of the CUDA kernel in this process, by q's dtype (the build
+# launched); chip_smoke.py clears them before driving the codec and reads
+# them after
+LAUNCHES: Counter = Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_HEAD_DIMS = (16, 24, 40)  # built in the kernel's dispatch: stf's, WACNN's
@@ -87,7 +89,6 @@ def window_attention_cuda(q, k, v, bias, cls_idx):
     """Launch the CUDA kernel. q, k, v: (W, H, N, D) contiguous CUDA
     tensors of one dtype (f32 or bf16); bias: (n_cls, H, N, N) f32;
     cls_idx: (W,) int32, all on q's device. Returns a new (W, H, N, D)."""
-    global LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), ("cls", cls_idx)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
@@ -123,7 +124,7 @@ def window_attention_cuda(q, k, v, bias, cls_idx):
         )
     if rc != 0:
         raise RuntimeError(f"window_attention kernel launch failed (code {rc})")
-    LAUNCHES += 1
+    LAUNCHES[q.dtype] += 1
     return out
 
 

@@ -9,6 +9,8 @@ without it:
 (``--noconftest``: the suite's conftest configures JAX).
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -56,10 +58,10 @@ def _inputs(W, N, D, n_cls, dtype, seed, heads=HEADS):
 def test_window_attention_kernel_matches_plain(N, D, W, n_cls, dtype):
     _needs_card()
     ins = _inputs(W, N, D, n_cls, dtype, seed=W + N)
-    before = twa.LAUNCHES
+    before = twa.LAUNCHES.copy()
     out = twa.window_attention_cuda(*ins)
     torch.cuda.synchronize()
-    assert twa.LAUNCHES == before + 1
+    assert twa.LAUNCHES - before == Counter({ins[0].dtype: 1})
     ref = twa.window_attention_reference(*ins)
     assert out.dtype == ins[0].dtype and out.shape == ins[0].shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=TOL[dtype])
@@ -109,6 +111,26 @@ def test_window_attention_kernel_at_stf_shapes(W, heads, n_cls, dtype):
     ref = twa.window_attention_reference(*ins)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=TOL[dtype])
     assert torch.equal(twa.window_attention_cuda(*ins), out)
+
+
+@pytest.mark.parametrize("N,D,heads", [(64, 24, 8), (16, 16, 3)])
+def test_window_attention_bf16_backward_types(N, D, heads):
+    """The model path's bfloat16 q, k and v with a float32 bias, through the
+    kernel's forward and the autograd of its plain version: dq, dk and dv
+    come back in bfloat16 and the bias gradient in float32, as JAX's
+    ``_fused_bwd`` gives them; the bfloat16 launch is counted."""
+    _needs_card()
+    q, k, v, bias, cls = _inputs(40, N, D, 4, "bfloat16", seed=N + D, heads=heads)
+    q, k, v, bias = (t.requires_grad_(True) for t in (q, k, v, bias))
+    before = twa.LAUNCHES.copy()
+    out = twa.window_attention(q, k, v, bias, cls)
+    assert twa.LAUNCHES - before == Counter({torch.bfloat16: 1})
+    assert out.dtype == torch.bfloat16
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert q.grad.dtype == k.grad.dtype == v.grad.dtype == torch.bfloat16
+    assert bias.grad.dtype == torch.float32 and bias.grad.shape == bias.shape
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v, bias))
 
 
 def test_window_attention_kernel_out_of_range_class_gives_nan():
@@ -181,11 +203,12 @@ def _gdn_inputs(B, C, H, W, seed):
 def test_gdn_kernels_match_plain(B, C, H, W, inverse, f32_reference):
     _needs_card()
     x, g, gamma, beta = _gdn_inputs(B, C, H, W, seed=B + C + H)
-    before = (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES)
+    before = (tgdn.FWD_LAUNCHES.copy(), tgdn.BWD_LAUNCHES.copy())
     y = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
     dx, dgamma, dbeta = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
     torch.cuda.synchronize()
-    assert (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (tgdn.FWD_LAUNCHES - before[0], tgdn.BWD_LAUNCHES - before[1]) == (
+        Counter({torch.float32: 1}), Counter({torch.float32: 1}))
     y_ref = tgdn.gdn_forward_reference(x, gamma, beta, inverse)
     dx_ref, dgamma_ref, dbeta_ref = tgdn.gdn_backward_reference(g, x, gamma, beta, inverse)
     torch.testing.assert_close(y, y_ref, rtol=0, atol=GDN_TOL["y"])
@@ -222,7 +245,9 @@ def test_gdn_kernels_are_deterministic(kernel):
 # 1 x 35 pixels, fewer tiles than SMs; the serving path's 2 x 192 x 64^2
 @pytest.mark.parametrize("B,C,H,W", [(4, 200, 16, 16), (2, 12, 33, 35), (5, 13, 7, 9),
                                      (1, 512, 9, 11), (70, 192, 8, 8), (1, 192, 5, 7),
-                                     (2, 192, 64, 64)])
+                                     (2, 192, 64, 64), (2, 256, 128, 128), (3, 256, 13, 21)])
+# C = 256: MainCNNDecoder's IGDN (icm_tpu/nn/factories.py:52,64-65) at its
+# path's shape, 2 x 512 px, and at a ragged pixel count
 def test_gdn_kernels_edges_match_plain_and_repeat(B, C, H, W, inverse, f32_reference):
     _needs_card()
     x, g, gamma, beta = _gdn_inputs(B, C, H, W, seed=B * C + H)
@@ -250,11 +275,104 @@ def test_gdn_module_launches_both_kernels_in_training():
     m = GDN(192, inverse=True).cuda()
     m.reset_parameters()
     x = torch.randn(2, 192, 7, 9, device="cuda", requires_grad=True)  # 63 pixels
-    before = (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES)
+    before = (tgdn.FWD_LAUNCHES.copy(), tgdn.BWD_LAUNCHES.copy())
     m(x).square().sum().backward()
     torch.cuda.synchronize()
-    assert (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (tgdn.FWD_LAUNCHES - before[0], tgdn.BWD_LAUNCHES - before[1]) == (
+        Counter({torch.float32: 1}), Counter({torch.float32: 1}))
     assert all(torch.isfinite(t).all() for t in (x.grad, m.gamma.grad, m.beta.grad))
+
+
+# bfloat16 y and dx against the plain version (float32 inside, rounded once
+# at the end): a value on the other side of a rounding boundary moves by one
+# ulp, 2**-8 to 2**-7 of it, so the bar is 2e-2 below 1 and 2e-2 relative
+# above (IGDN outputs reach ~13); dgamma (rounded to bfloat16) and dbeta
+# (float32) relative to their max
+GDN_BF16_TOL = {"y": 2e-2, "dx": 2e-2, "dgamma": 1e-2, "dbeta": 1e-2}
+
+
+def gdn_bf16_err(got, ref):
+    """max |got - ref| / max(1, |ref|), elementwise, in float32."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+# the training step's 192 channels and its smallest map; C = 12 and 13
+# (not multiples of the 16-row tile; 13 leaves gamma's rows unaligned), 200
+# and 512 (gamma streamed, the forward on the FMA units), 256 (the CRC
+# decoder's IGDN); ragged pixel counts (273 = 13 x 21, 35, 63 and 99: not
+# multiples of 4, so the loads take one value at a time)
+@pytest.mark.parametrize("B,C,H,W", [(8, 192, 32, 32), (3, 192, 13, 21), (2, 12, 33, 35),
+                                     (5, 13, 7, 9), (4, 200, 16, 16), (2, 256, 64, 64),
+                                     (3, 256, 13, 21), (1, 512, 9, 11)])
+def test_gdn_bf16_kernels_match_plain_and_repeat(B, C, H, W, inverse, f32_reference):
+    _needs_card()
+    x, g, gamma, beta = _gdn_inputs(B, C, H, W, seed=B + C + W)
+    x, g, gamma = x.bfloat16(), g.bfloat16(), gamma.bfloat16()
+    before = (tgdn.FWD_LAUNCHES.copy(), tgdn.BWD_LAUNCHES.copy())
+    y = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)
+    grads = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    assert (tgdn.FWD_LAUNCHES - before[0], tgdn.BWD_LAUNCHES - before[1]) == (
+        Counter({torch.bfloat16: 1}), Counter({torch.bfloat16: 1}))
+    assert y.dtype == grads[0].dtype == grads[1].dtype == torch.bfloat16
+    assert grads[2].dtype == torch.float32
+    y_ref = tgdn.gdn_forward_reference(x, gamma, beta, inverse)
+    refs = tgdn.gdn_backward_reference(g, x, gamma, beta, inverse)
+    assert gdn_bf16_err(y, y_ref) <= GDN_BF16_TOL["y"]
+    assert gdn_bf16_err(grads[0], refs[0]) <= GDN_BF16_TOL["dx"]
+    for got, ref, key in zip(grads[1:], refs[1:], ("dgamma", "dbeta")):
+        got, ref = got.float(), ref.float()
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= GDN_BF16_TOL[key], key
+    assert torch.equal(tgdn.gdn_forward_cuda(x, gamma, beta, inverse), y)
+    for a, b in zip(tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse), grads):
+        assert torch.equal(a, b)
+
+
+def test_gdn_module_bf16_launches_the_bf16_kernels():
+    """Under the bfloat16 policy's types (x bfloat16, gamma rounded to it,
+    beta float32) the module launches both bfloat16 builds; the gradients
+    reach the float32 parameters in float32."""
+    _needs_card()
+    from icm_tpu_torch.nn import GDN
+
+    m = GDN(192).cuda()
+    m.reset_parameters()
+    x = torch.randn(2, 192, 7, 9, device="cuda").bfloat16().requires_grad_(True)
+    before = (tgdn.FWD_LAUNCHES.copy(), tgdn.BWD_LAUNCHES.copy())
+    y = m(x)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tgdn.FWD_LAUNCHES - before[0], tgdn.BWD_LAUNCHES - before[1]) == (
+        Counter({torch.bfloat16: 1}), Counter({torch.bfloat16: 1}))
+    assert y.dtype == x.grad.dtype == torch.bfloat16
+    assert m.gamma.grad.dtype == m.beta.grad.dtype == torch.float32
+    assert all(torch.isfinite(t).all() for t in (x.grad.float(), m.gamma.grad, m.beta.grad))
+
+
+def test_policy_parameter_casts_follow_an_adam_step_on_the_card():
+    """The bfloat16 casts a layer keeps between no-grad calls are made again
+    after torch.optim.Adam's step on the card (its foreach update moves the
+    parameters' versions), and match a cast made per call."""
+    _needs_card()
+    from icm_tpu_torch import nn as tnn
+
+    torch.manual_seed(0)
+    dense = tnn.Linear(64, 32).cuda()
+    h = torch.randn(8, 64, device="cuda")
+    tnn.set_activation_dtype(torch.bfloat16)
+    try:
+        with torch.no_grad():
+            served = dense(h)
+        dense(h).float().square().sum().backward()
+        torch.optim.Adam(dense.parameters(), lr=0.1).step()
+        with torch.no_grad():
+            got = dense(h)
+    finally:
+        tnn.set_activation_dtype(None)
+    want = torch.nn.functional.linear(h.bfloat16(), dense.weight.bfloat16()) + dense.bias.bfloat16()
+    assert not torch.equal(got, served) and torch.equal(got, want)
 
 
 def test_gdn_wrappers_reject_what_the_kernels_do_not_take():
@@ -262,6 +380,12 @@ def test_gdn_wrappers_reject_what_the_kernels_do_not_take():
     x, g, gamma, beta = _gdn_inputs(1, 8, 3, 3, seed=0)
     with pytest.raises(ValueError, match="float32"):
         tgdn.gdn_forward_cuda(x.double(), gamma, beta, False)
+    with pytest.raises(ValueError, match="gamma must be"):
+        tgdn.gdn_forward_cuda(x.bfloat16(), gamma, beta, False)
+    with pytest.raises(ValueError, match="beta must be"):
+        tgdn.gdn_forward_cuda(x.bfloat16(), gamma.bfloat16(), beta.bfloat16(), False)
+    with pytest.raises(ValueError, match="g must be"):
+        tgdn.gdn_backward_cuda(g, x.bfloat16(), gamma.bfloat16(), beta, False)
     with pytest.raises(ValueError, match="contiguous"):
         tgdn.gdn_forward_cuda(x.transpose(2, 3), gamma, beta, False)
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -151,7 +151,7 @@ def test_cuda_wrappers_take_cuda_tensors_only():
         tgdn.gdn_forward_cuda(tx, tgamma, tb, False)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tgdn.gdn_backward_cuda(tg, tx, tgamma, tb, False)
-    before = (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES)
+    before = (tgdn.FWD_LAUNCHES.copy(), tgdn.BWD_LAUNCHES.copy())
     tx.requires_grad_(True)
     tgdn.gdn(tx, tgamma, tb, True).sum().backward()
     assert (tgdn.FWD_LAUNCHES, tgdn.BWD_LAUNCHES) == before

@@ -89,7 +89,7 @@ def test_plain_matches_jax_reference(N, D, dtype, seed):
 
 def test_model_entry_on_cpu_is_the_plain_version():
     ins = _torch(*_inputs(9, 16, 40, 4, seed=3), torch.float32)
-    launches = twa.LAUNCHES
+    launches = twa.LAUNCHES.copy()
     out = twa.window_attention(*ins)
     torch.testing.assert_close(out, twa.window_attention_reference(*ins),
                                rtol=0, atol=0)

@@ -2,7 +2,7 @@
 training step, on the card.
 
     python3 tools/torch_profile_codec.py [--model cnn|stf] [--wire host|device]
-        [--seed 0] [--out profile.json]
+        [--act-dtype f32|bf16] [--seed 0] [--out profile.json]
 
 Builds the full-width codec of ``--model`` (``cnn``, the default: WACNN,
 N=192, M=320, 10 slices; ``stf``: the Swin codec, embed 48, M=384, 12
@@ -13,11 +13,14 @@ it up on 2 images of 512x512 (``icm_tpu_torch.data.make_images``, as
 chip_smoke.py makes them), then traces one compress and one decompress with
 ``torch.profiler``; then warms up the RD training step
 (``train.make_train_step``, lambda 0.01, batch 8 of 256x256, as
-chip_smoke.py trains) and traces one step. For each it reports the host
+chip_smoke.py trains) and traces one step. ``--act-dtype bf16`` runs all
+of it under the bfloat16 activation policy (``nn.set_activation_dtype``,
+the counterpart of ``bench.py``'s flag). For each it reports the host
 wall time, the device busy time (union of kernel, copy and memset
 intervals in the trace), the device idle share against the traced and
 an untraced run (median of 3; tracing slows the host), the device time by
-kernel, and the port's own kernels' shares. Prints a summary, and
+kernel, the port's own kernels' shares, and the host's operators by self
+CPU time. Prints a summary, and
 writes the whole result as JSON to ``--out`` when it is given. Needs a
 CUDA card; exits non-zero without one.
 """
@@ -94,10 +97,26 @@ def _trace_summary(prof, wall_s: float) -> dict:
     }
 
 
+def _host_summary(prof, n: int = 12) -> dict:
+    """The host's side of the traced call: the operators by self CPU time
+    (the host's own time in each, its launches included) and the count of
+    ATen operator calls."""
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {
+        "host_self_cpu_ms": sum(e.self_cpu_time_total for e in ops) / 1e3,
+        "n_aten_calls": sum(e.count for e in ops if e.key.startswith("aten::")),
+        "host_top": [{"name": e.key[:80], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                      "count": e.count} for e in ops[:n]],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("cnn", "stf"), default="cnn")
     ap.add_argument("--wire", choices=("host", "device"), default="host")
+    ap.add_argument("--act-dtype", choices=("f32", "bf16"), default="f32",
+                    help="activation dtype of the transforms and context stacks (both "
+                    "coder sides and the training step); the entropy math stays f32")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="write the whole result here as JSON")
     args = ap.parse_args()
@@ -111,6 +130,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
+    from icm_tpu_torch.nn import set_activation_dtype
     from icm_tpu_torch.train import (
         RateDistortionLoss, TrainState, make_optimizer, make_train_step)
 
@@ -118,6 +138,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0].strip()
+    if args.act_dtype == "bf16":
+        set_activation_dtype(torch.bfloat16)
     model = create_model(args.model, seed=args.seed)
     if args.wire == "device":
         codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
@@ -140,7 +162,8 @@ def main() -> int:
         "decompress": lambda: codec.decompress(enc["strings"], enc["shape"]),
         "train_step": lambda: train_step(state, batch, noise),
     }
-    result = {"card": card, "model": args.model, "wire": args.wire, "images": 2,
+    result = {"card": card, "model": args.model, "wire": args.wire,
+              "act_dtype": args.act_dtype, "images": 2,
               "size": 512, "narrow": 0.2,
               "train_batch": 8, "train_size": 256}
     for side, run in runs.items():
@@ -160,7 +183,7 @@ def main() -> int:
             run()
             torch.cuda.synchronize()
             wall = time.time() - t
-        r = result[side] = _trace_summary(prof, wall)
+        r = result[side] = {**_trace_summary(prof, wall), **_host_summary(prof)}
         unprofiled = sorted(plain_wall)[1]
         r["wall_ms_unprofiled"] = unprofiled * 1e3
         r["device_idle_share_unprofiled"] = max(
@@ -174,13 +197,17 @@ def main() -> int:
         r = result[side]
         kernels = ", ".join(f"{k} {v['ms']:.3f} ms ({v['share_of_device']:.3%})"
                             for k, v in r["port_kernels"].items())
-        print(f"{args.model}, {args.wire} wire, {side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
+        print(f"{args.model}, {args.wire} wire, {args.act_dtype}, {side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
               f"untraced; device busy {r['device_busy_ms']:.2f} ms (idle share "
               f"{r['device_idle_share']:.3f} traced, {r['device_idle_share_unprofiled']:.3f} "
               f"untraced); {kernels} [{card}]")
         for row in r["top"][:8]:
             print(f"   {row['ms']:8.3f} ms {row['share']:6.1%} x{row['count']:<4d} "
                   f"{row['name'][:90]}")
+        print(f"   host: {r['host_self_cpu_ms']:.2f} ms self CPU time traced, "
+              f"{r['n_aten_calls']} ATen calls; by self CPU time:")
+        for row in r["host_top"][:8]:
+            print(f"   {row['self_cpu_ms']:8.3f} ms x{row['count']:<5d} {row['name']}")
     return 0
 
 
