@@ -49,6 +49,21 @@ package beside it. Phases, each printed with its elapsed seconds:
    round trip
    (``torch.cuda.set_sync_debug_mode``); it logs the sha256 of the y and
    z blobs;
+7a. the same weights and images on the scan wire
+   (``DeviceWireCodec(scan_wire=True)``, float32), its four programs (the
+   encode front, the conditioning, the chain one graph each way, assembly
+   and synthesis) captured as CUDA graphs by a first compress and
+   decompress (their seconds and the graphs' pool bytes logged), then
+   held with the counts zeroed as in phase 7: y_hat and x_hat bit-exact,
+   the device wire's launch counts (2 encode launches, 11 decode: 10 in
+   the decode graph, z outside), no host round trip in decompress, each
+   graph's launches a replay equal to the port's kernels in a traced
+   replay (up to three traces: the trace has dropped a record), the blobs and y_hat / x_hat bits equal to the same functions
+   launch by launch (``cuda_graphs=False``), y_hat against the device
+   wire's within JAX's bar (under 0.5% of elements more than 1e-2 apart,
+   median under 1e-4) and its y bytes within that share plus a tier byte
+   a blob; encode and decode img/s graphed, launch by launch and on the
+   device wire, with each side's device idle share;
 7b. the same weights and images under the bfloat16 activation policy
    (``nn.set_activation_dtype(torch.bfloat16)``) on the host wire and the
    device wire, held as in phases 5 and 7 (y_hat bit-exact and x_hat
@@ -85,6 +100,7 @@ package beside it. Phases, each printed with its elapsed seconds:
 13. stf on the device wire, held as in phase 7: 2 encode launches and 13
     decode launches (12 slices and z), 24 / 12 window-attention launches,
     no host round trip in decompress;
+13a. stf on the scan wire, held as in phase 7a (13 decode launches);
 14. stf's eval forward on the card against the plain CPU path on a
     small input, as phase 8;
 15. full-width stf training through ``train.run_training``: 4 steps of
@@ -196,6 +212,19 @@ BF16_EVAL_TOL = {"x_hat_mean": 0.02, "y_likelihood_share": 0.01, "z_likelihood_m
 # control (the CPU module in float32 on the same inputs) differs almost
 # everywhere and must exceed the share bar at every call
 BF16_LAYER_TOL = {"share": 0.05, "relative": 0.02}
+# the scan wire's y_hat against the device wire's, which sums its first
+# context conv in another order (the padded stacked weights): JAX's bar
+# (tests/test_device_codec.py::test_scan_wire_roundtrip_cnn), the share of
+# elements more than 1e-2 apart and the median difference; its y bytes
+# within that share of the device wire's, plus the tier byte a blob
+SCAN_VS_DEVICE = {"share_above_1e-2": 0.005, "median": 1e-4}
+# the port's kernels by the names of their CUDA functions in a trace,
+# under the names of the launch counters (graphs.launch_counts)
+TRACE_TRIES = 3
+TRACE_KERNELS = {"window_attention": "window_attention_kernel",
+                 "gdn_forward": "gdn_fwd_kernel", "gdn_backward": "gdn_bwd_kernel",
+                 "ENCODE_LAUNCHES": "rans_encode_lanes_kernel",
+                 "DECODE_LAUNCHES": "rans_decode_lanes_kernel"}
 # one training step, card against CPU, each loss term and each gradient
 # relative to its max: f32 on both, ~70 layers forward and back with sums
 # in other orders (cuDNN and the kernels against oneDNN and the plain
@@ -839,6 +868,209 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
     return result, enc_launches, dec_launches
 
 
+def traced_kernels(fn) -> dict:
+    """The names of the kernels one traced call of ``fn`` ran, counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    names: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def wire_times(codec, x, reps: int = 3):
+    """Host seconds of ``reps`` compress and decompress calls, each ending
+    in a synchronize."""
+    import torch
+
+    enc_s, dec_s = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.time()
+        e = codec.compress(x)
+        torch.cuda.synchronize()
+        enc_s.append(time.time() - t)
+        t = time.time()
+        codec.decompress(e["strings"], e["shape"])
+        torch.cuda.synchronize()
+        dec_s.append(time.time() - t)
+    return enc_s, dec_s
+
+
+def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, expect: dict,
+                    dev_counts: dict):
+    """Phases 7a and 13a: compress -> decompress on the scan wire, its four
+    programs replayed as CUDA graphs (captured by a first compress and
+    decompress, whose time, capture seconds and pool bytes are logged).
+    Then, counts zeroed right before and read right after each side: y_hat
+    and x_hat bit-exact, the launches held to ``expect[side]`` and equal
+    to the device wire's (``dev_counts``), no host round trip in
+    decompress; each graph's launches a replay against the kernels the
+    profiler sees in one replay; the blobs, y_hat and x_hat the same bits
+    as the same functions launch by launch (``cuda_graphs=False``); y_hat
+    and the y bytes against the device wire's (``SCAN_VS_DEVICE``); encode
+    and decode img/s graphed, launch by launch and on the device wire, and
+    each side's device idle share. -> (results, compress and decompress
+    counts)."""
+    import warnings
+
+    import torch
+
+    from icm_tpu_torch.models import DeviceWireCodec
+
+    B, size = x.shape[0], x.shape[1]
+    codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2, scan_wire=True)
+    plain = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2, scan_wire=True,
+                            cuda_graphs=False)
+    t = time.time()
+    first = codec.compress(x, return_debug=True)
+    codec.decompress(first["strings"], first["shape"])
+    torch.cuda.synchronize()
+    first_s = time.time() - t
+    stats = codec.graphs.stats()
+    graphs = {" ".join(str(p) for p in key): st for key, st in stats.items()}
+    capture_s = sum(st["capture_s"] for st in stats.values())
+    pool_bytes = sum(st["pool_bytes"] for st in stats.values())
+    log(f"  first compress + decompress {first_s:.2f}s, captures {capture_s:.2f}s of it, "
+        f"pools {pool_bytes / 2**20:.1f} MiB; per graph: {graphs}")
+
+    zero_counts()
+    enc = codec.compress(x, return_debug=True)
+    torch.cuda.synchronize()
+    enc_launches = read_counts()
+    zero_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            dec = codec.decompress(enc["strings"], enc["shape"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message).splitlines()[0] for c in caught if "synchroniz" in str(c.message)]
+    torch.cuda.synchronize()
+    dec_launches = read_counts()
+    tiers = sorted({blob[4] for blob in enc["strings"][0]})
+    log(f"  launches: compress {enc_launches}, decompress {dec_launches}; host round trips "
+        f"in decompress: {len(syncs)}; tier {tiers}")
+    if syncs:
+        raise AssertionError(f"scan wire: decompress waited for the card: {syncs[:3]}")
+    if not torch.equal(dec["y_hat"], enc["y_hat"]) or not torch.equal(dec["x_hat"], enc["x_hat"]):
+        raise AssertionError("scan wire: decoder's y_hat or x_hat differs from the encoder's")
+    if dec["x_hat"].shape != x.shape or not bool(torch.isfinite(dec["x_hat"]).all()):
+        raise AssertionError(f"bad x_hat {tuple(dec['x_hat'].shape)}")
+    check_launches("scan wire, compress", enc_launches, expect["compress"])
+    check_launches("scan wire, decompress", dec_launches, expect["decompress"])
+    if enc_launches != dev_counts["compress"] or dec_launches != dev_counts["decompress"]:
+        raise AssertionError(f"scan wire launches {enc_launches} / {dec_launches} differ from "
+                             f"the device wire's {dev_counts}")
+
+    # each graph's launches a replay, against the kernels a traced replay ran
+    per_replay = {}
+    for key, g in codec.graphs.graphs().items():
+        host_ms = []
+        for _ in range(3):  # the host's time to launch one replay
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            g(g.static_in)
+            host_ms.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        counted = {c: sum(g.launches[c].values()) for c in TRACE_KERNELS}
+        name = " ".join(str(p) for p in key)
+        # the trace has dropped a kernel record now and then (one of a front
+        # replay's three GDN kernels, on the card): up to three traced
+        # replays, and a kernel traced more often than counted fails at once
+        shortfalls = []
+        for _ in range(TRACE_TRIES):
+            names = traced_kernels(lambda: g(g.static_in))
+            traced = {c: sum(n for k, n in names.items() if kernel in k)
+                      for c, kernel in TRACE_KERNELS.items()}
+            if any(traced[c] > counted[c] for c in counted):
+                raise AssertionError(f"graph {name}: counted {counted}, the trace shows {traced}")
+            if traced == counted:
+                break
+            shortfalls.append(traced)
+        per_replay[name] = dict(counted=counted, traced=traced, kernels=sum(names.values()),
+                                traces_short=shortfalls, launch_host_ms=float(np.median(host_ms)))
+        if counted != traced:
+            raise AssertionError(f"graph {name}: counted {counted}, {TRACE_TRIES} traces "
+                                 f"show {shortfalls}")
+    short = {k: v["traces_short"] for k, v in per_replay.items() if v["traces_short"]}
+    if short:
+        log(f"  traces short of the counted launches before one matched: {short}")
+    log(f"  launches a replay, counted = traced: "
+        f"{ {k: {c: n for c, n in v['counted'].items() if n} for k, v in per_replay.items()} }; "
+        f"kernels a replay: { {k: v['kernels'] for k, v in per_replay.items()} }; host ms to "
+        f"launch a replay: { {k: round(v['launch_host_ms'], 3) for k, v in per_replay.items()} }")
+
+    # graphs against the same functions launch by launch
+    penc = plain.compress(x, return_debug=True)
+    pdec = plain.decompress(enc["strings"], enc["shape"])
+    if penc["strings"] != enc["strings"]:
+        raise AssertionError("scan wire: graphed blobs differ from launch by launch")
+    for k in ("y_hat", "x_hat", "z_hat"):
+        if not torch.equal(penc[k], enc[k]):
+            raise AssertionError(f"scan wire: graphed compress {k} differs from launch by launch")
+    for k in ("y_hat", "x_hat"):
+        if not torch.equal(pdec[k], dec[k]):
+            raise AssertionError(f"scan wire: graphed decompress {k} differs from launch by launch")
+
+    # against the device wire: y_hat's distribution and the bytes
+    denc = dev_codec.compress(x, return_debug=True)
+    d = (enc["y_hat"] - denc["y_hat"]).abs()
+    vs_device = {"share_above_1e-2": float((d > 1e-2).float().mean()),
+                 "median": float(d.median()), "max": float(d.max())}
+    stream_bytes = {}
+    for k, name in enumerate("yz"):
+        scan_b = sum(len(b) for b in enc["strings"][k])
+        dev_b = sum(len(b) for b in denc["strings"][k])
+        limit = (dev_b * (1 + SCAN_VS_DEVICE["share_above_1e-2"]) + B if name == "y" else dev_b)
+        stream_bytes[name] = dict(scan=scan_b, device=dev_b, limit=limit)
+        if scan_b > limit:
+            raise AssertionError(f"scan wire {name}: {scan_b} bytes over {limit}")
+    log(f"  y_hat against the device wire's: {vs_device} (bars {SCAN_VS_DEVICE}); "
+        f"bytes {stream_bytes}")
+    if not (vs_device["share_above_1e-2"] < SCAN_VS_DEVICE["share_above_1e-2"]
+            and vs_device["median"] < SCAN_VS_DEVICE["median"]):
+        raise AssertionError(f"scan wire y_hat strays from the device wire's: {vs_device}")
+
+    # img/s and device idle: graphed, launch by launch, the device wire
+    times = {}
+    for wire, c in (("graphed", codec), ("launches", plain), ("device_wire", dev_codec)):
+        enc_s, dec_s = wire_times(c, x)
+        times[wire] = dict(encode_img_per_s=B / float(np.median(enc_s)),
+                           decode_img_per_s=B / float(np.median(dec_s)),
+                           device=idle_shares(c, x, enc_s, dec_s))
+    log("  encode / decode img/s (median of 3, batch {}, {}): {}; device idle {}".format(
+        B, card, {w: f"{t['encode_img_per_s']:.2f} / {t['decode_img_per_s']:.2f}"
+                  for w, t in times.items()},
+        {w: f"{t['device']['compress']['device_idle_share']:.3f} / "
+            f"{t['device']['decompress']['device_idle_share']:.3f}" for w, t in times.items()}))
+    bpp = [8 * (len(y) + len(z)) / (size * size) for y, z in zip(*enc["strings"])]
+    result = dict(
+        images=B, size=size, lanes_per_image=1024, bpp=bpp, tier=tiers,
+        stream_bytes=stream_bytes, y_hat_vs_device_wire=vs_device,
+        first_call_s=first_s, capture_s=capture_s, pool_bytes=pool_bytes, graphs=graphs,
+        launches_per_replay=per_replay, host_round_trips_in_decompress=0,
+        launches_compress=enc_launches, launches_decompress=dec_launches,
+        blob_sha256={name: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
+                     for k, name in enumerate("yz")},
+        **times["graphed"], launch_by_launch=times["launches"], device_wire=times["device_wire"])
+    del codec, plain
+    torch.cuda.empty_cache()
+    return result, enc_launches, dec_launches
+
+
 def bf16_serving_phase(codec, dev_codec, x, card, f32: dict):
     """Phases 7b and 17: compress -> decompress under the bfloat16 policy on
     the host wire and the device wire, held as the float32 phases are and
@@ -1295,6 +1527,12 @@ def main() -> int:
             dev_codec, enc, x, card, zero_counts, read_counts,
             {"compress": {**on_path, "rans_encode": 2},
              "decompress": {**on_path, "rans_decode": model.ctx_slices + 1}})
+    with Phase("full-width WACNN on the scan wire, CUDA graphs"):
+        slice_result["scan_wire"], scan_enc_launches, scan_dec_launches = scan_wire_phase(
+            model, dev_codec, x, card, zero_counts, read_counts,
+            {"compress": {**on_path, "rans_encode": 2},
+             "decompress": {**on_path, "rans_decode": model.ctx_slices + 1}},
+            {"compress": dev_enc_launches, "decompress": dev_dec_launches})
     f32_counts = {"compress": enc_launches, "decompress": dec_launches,
                   "device_compress": dev_enc_launches, "device_decompress": dev_dec_launches}
 
@@ -1322,6 +1560,8 @@ def main() -> int:
                                  "launches_decompress": dec_launches,
                                  "launches_device_wire_compress": dev_enc_launches,
                                  "launches_device_wire_decompress": dev_dec_launches,
+                                 "launches_scan_wire_compress": scan_enc_launches,
+                                 "launches_scan_wire_decompress": scan_dec_launches,
                                  "launches_train_step": train_launches}},
              "bfloat16": {"cnn": {
                  "launches_compress": bf16_counts["compress"],
@@ -1362,6 +1602,13 @@ def main() -> int:
             {"compress": {**stf_expect["compress"], "rans_encode": 2},
              "decompress": {**stf_expect["decompress"], "rans_decode": stf.ctx_slices + 1}})
 
+    with Phase("full-width stf on the scan wire, CUDA graphs"):
+        stf_result["scan_wire"], stf_scan_enc_launches, stf_scan_dec_launches = scan_wire_phase(
+            stf, dev_codec, x, card, zero_counts, read_counts,
+            {"compress": {**stf_expect["compress"], "rans_encode": 2},
+             "decompress": {**stf_expect["decompress"], "rans_decode": stf.ctx_slices + 1}},
+            {"compress": stf_dev_enc_launches, "decompress": stf_dev_dec_launches})
+
     with Phase("full-width stf under the bf16 policy, both wires"):
         stf_result["bf16"], stf_bf16_counts = bf16_serving_phase(
             codec, dev_codec, x, card,
@@ -1391,6 +1638,8 @@ def main() -> int:
                                "launches_decompress": stf_dec_launches,
                                "launches_device_wire_compress": stf_dev_enc_launches,
                                "launches_device_wire_decompress": stf_dev_dec_launches,
+                               "launches_scan_wire_compress": stf_scan_enc_launches,
+                               "launches_scan_wire_decompress": stf_scan_dec_launches,
                                "launches_train_step": stf_result["train"]["launches_per_step"]}
     paths["bfloat16"]["stf"] = {
         "launches_compress": stf_bf16_counts["compress"],

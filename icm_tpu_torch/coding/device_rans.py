@@ -550,9 +550,13 @@ def encode_lanes(values_T, rows_T, tables: DeviceCoderTables):
 def fix_escapes(values_T: torch.Tensor, dest: torch.Tensor, raw: torch.Tensor):
     """Overwrite escaped positions with their raw values: values_T (T,
     lanes) from :func:`decode_lanes`; dest (E,) step-major positions in
-    that grid (no padding); raw int32 (E,). -> a new (T, lanes)."""
-    flat = values_T.reshape(-1).scatter(0, dest.to(torch.int64), raw)
-    return flat.reshape(values_T.shape)
+    that grid; raw int32 (E,). Entries at or past ``T * lanes`` are
+    padding and dropped (JAX's ``mode="drop"``): they land in one extra
+    slot past the grid, which is cut. -> a new (T, lanes)."""
+    n = values_T.numel()
+    d = dest.to(torch.int64).clamp(max=n)
+    flat = torch.cat([values_T.reshape(-1), values_T.new_zeros(1)]).scatter(0, d, raw)
+    return flat[:n].reshape(values_T.shape)
 
 
 # --------------------------------------------------------------------------

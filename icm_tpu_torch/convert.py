@@ -17,6 +17,14 @@ carries the flax names, so a path ``a/b/kernel`` becomes the key
 - LayerNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
 - everything else (bottleneck, relative-position tables) as it is.
 
+A tree of a JAX ``scan_charm=True`` model carries its context stacks as
+one ``charm_scan`` subtree, stacked over the slices; it is unstacked
+first (``models.cnn.unstack_charm_params``) into the per-slice
+``cc_mean_{i}``, ``cc_scale_{i}`` and ``lrp_{i}`` the port's models have.
+The slice width is the last conv's output width, the conditioning width
+``h_mean_s``'s output width, and the prefix support what is left of the
+first conv's input.
+
 Nothing here imports the JAX package.
 """
 
@@ -53,9 +61,35 @@ def _convert(path, value: np.ndarray):
     return leaf, value
 
 
+def _last_kernel(layers: dict) -> np.ndarray:
+    """The kernel of the highest-numbered ``Conv_k`` of a flax subtree."""
+    convs = [n for n in layers if n.startswith("Conv_")]
+    return np.asarray(layers[max(convs, key=lambda n: int(n.split("_")[1]))]["kernel"])
+
+
+def _unstack_charm_scan(params: dict) -> dict:
+    """A tree with a ``charm_scan`` subtree -> the same tree with per-slice
+    context stacks in its place."""
+    from .models.cnn import unstack_charm_params
+
+    scan = params["charm_scan"]
+    first = np.asarray(scan["cc_mean"]["Conv_0"]["kernel"])  # (S, kH, kW, I, O)
+    num_slices = first.shape[0]
+    slice_ch = _last_kernel(scan["cc_mean"]).shape[-1]
+    cond_width = _last_kernel(params["h_mean_s"]).shape[-1]
+    max_support = (first.shape[3] - cond_width) // slice_ch
+    slices = unstack_charm_params({"charm_scan": scan}, num_slices, slice_ch, max_support,
+                                  cond_width)
+    rest = {k: v for k, v in params.items() if k != "charm_scan"}
+    return {**rest, **{k: {ln: {leaf: t.numpy() for leaf, t in p.items()}
+                          for ln, p in layers.items()} for k, layers in slices.items()}}
+
+
 def from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
     if set(params) == {"params"}:
         params = params["params"]
+    if "charm_scan" in params:
+        params = _unstack_charm_scan(params)
     out: Dict[str, torch.Tensor] = {}
     for path, value in _walk(params):
         leaf, arr = _convert(path, np.asarray(value))

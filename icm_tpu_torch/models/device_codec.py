@@ -35,11 +35,19 @@ h * w / n_l pixels per lane; a slice-AR tensor concatenates each slice's
 layout along the steps. A bottleneck-coded z takes lanes over pixels and
 channel groups: (B * zh * zw, G, C / G) transposed to (C / G, pixels * G).
 
+``scan_wire=True`` serves the scan wire instead (``scan_codec.py``): the
+whole AR chain as one program both sides run, tagged ``WIRE_SCAN``. Its
+four programs (the encode front: analysis, z's symbols and the latent
+slices; the conditioning: z_hat and the hyper-decoders; the chain, one
+graph each way; assembly and synthesis) are captured as CUDA graphs on
+the card (``graphs.py``) and replayed; ``cuda_graphs=False`` runs the
+same functions launch by launch, as the CPU does. The JAX scan wire runs
+in float32 only (its context convolutions raise under the bfloat16
+policy), so this one raises under the policy too.
+
 Left out on purpose: the JAX wire's bucket padding of words and escapes
 (``_round_up``, ``esc_cap``), which keeps XLA from recompiling per shape
-and never reaches the wire; PyTorch compiles nothing per shape. The scan
-wire (``scan_wire``, one compiled program for the whole AR chain) is not
-ported.
+and never reaches the wire; PyTorch compiles nothing per shape.
 """
 
 from __future__ import annotations
@@ -59,7 +67,10 @@ from ..coding.device_rans import (
     lane_offsets,
 )
 from ..coding.wire import WIRE_DEVICE, WIRE_MAGIC, wire_offset
-from .codec import CharmCodec
+from ..graphs import GraphCache, weights_version
+from ..nn.layers import activation_dtype
+from .base import nhwc_to_nchw
+from .codec import CharmCodec, _canonical, enc_round
 
 # channel groups of a bottleneck-coded tensor's lanes (lane = pixel x
 # group, serial depth C / groups), the JAX package's default
@@ -73,8 +84,10 @@ def _pack_wire(lengths, words, dest, raw, fmt: int = WIRE_DEVICE) -> bytes:
             + dest.astype("<i4").tobytes() + raw.astype("<i4").tobytes())
 
 
-def _unpack_wire(blob, expect: int = WIRE_DEVICE):
-    o = wire_offset(blob, expect)
+def _unpack_wire(blob, expect: int = WIRE_DEVICE, skip: int = 0):
+    """-> (lengths, words, dest, raw) of one image's wire; ``skip`` bytes
+    after the tag are passed over (the scan wire's tier byte)."""
+    o = wire_offset(blob, expect) + skip
     n_lanes, n_words, n_esc = struct.unpack_from("<III", blob, o)
     o += 12
     lengths = np.frombuffer(blob, "<u2", count=n_lanes, offset=o).astype(np.int64)
@@ -213,6 +226,23 @@ class DeviceWireKit:
         enc = encode_lanes(vals_T, rows_T, self.gauss_dev)
         return [_pack_wire(*p) for p in self.fetch_encoded(enc, B)]
 
+    def encode_y_stack(self, syms: torch.Tensor, idxs: torch.Tensor,
+                       fmt: int = WIRE_DEVICE) -> List[bytes]:
+        """Stacked (N, B, c, h, w) int32 symbols and scale indexes (the scan
+        wire's outputs) -> the lane layout of :meth:`encode_y_slices` (each
+        slice's layout in slice order along the steps), one encode launch,
+        one wire per image tagged ``fmt``."""
+        N, B, C, h, w = syms.shape
+        n_l = self.n_lanes(h, w)
+        ppl = (h * w) // n_l
+
+        def lay(a):  # (N, B, C, n_l, ppl) -> (N, ppl, C, B, n_l)
+            a = a.reshape(N, B, C, n_l, ppl).permute(0, 4, 2, 1, 3)
+            return a.reshape(N * ppl * C, B * n_l).contiguous()
+
+        enc = encode_lanes(lay(syms), lay(idxs.to(torch.int32)), self.gauss_dev)
+        return [_pack_wire(*p, fmt=fmt) for p in self.fetch_encoded(enc, B)]
+
     def encode_z(self, z_sym: torch.Tensor, key: str) -> List[bytes]:
         """Bottleneck-coded tensor: int32 (B, C, zh, zw) symbols."""
         B, C, zh, zw = z_sym.shape
@@ -314,13 +344,96 @@ class DeviceWireCodec(CharmCodec):
     lanes: a shorter chain per slice, +4 bytes of flushed state a lane);
     the serial depth of a slice is h * w / lanes * C_slice. z lanes split
     hyper-pixels and ``Z_LANE_GROUPS`` channel groups.
+
+    ``scan_wire``: serve the scan wire (see the module docstring), float32
+    only; ``cuda_graphs``: on the card, replay its programs as captured
+    graphs (False: launch by launch, for holding the two against each
+    other).
     """
 
-    def __init__(self, model, lanes_per_image: int = 1024, narrow: float = 1.0):
+    def __init__(self, model, lanes_per_image: int = 1024, narrow: float = 1.0,
+                 scan_wire: bool = False, cuda_graphs: bool = True):
         super().__init__(model, narrow=narrow)
         self.kit = DeviceWireKit(self.tables, lanes_per_image=lanes_per_image,
                                  device=self.device)
+        self.scan_wire = scan_wire
+        if scan_wire:
+            from .scan_codec import CharmScanWire
 
+            self._check_f32()
+            self.graphs = GraphCache(enabled=cuda_graphs)
+            self._scan = CharmScanWire(self.model, self.kit, self._scale_table, self.graphs,
+                                       narrow=narrow)
+
+    # --- the scan wire -------------------------------------------------------
+    @staticmethod
+    def _check_f32() -> None:
+        if activation_dtype() is not None:
+            raise ValueError(
+                "the scan wire runs in float32 only, as the JAX package's does (its "
+                "context convolutions take no bfloat16 activations); set the activation "
+                "policy to None or serve the device wire")
+
+    def _scan_sync(self) -> None:
+        """Before each scan-wire call: float32 policy, and the stacked
+        weights and captured programs of the current weights."""
+        self._check_f32()
+        if self.graphs.refresh(weights_version(self.model)):
+            self._scan.restack()
+            self._medians = None
+
+    def _enc_front(self, x):
+        """NHWC images -> (z's int32 symbols, the latent slices stacked
+        (N, B, sc, h, w))."""
+        mdl = self.model
+        y, z = mdl.analyze(nhwc_to_nchw(x))
+        z_sym = enc_round(z - self._z_offset(), self.narrow).to(torch.int32)
+        return z_sym, torch.stack(mdl.latent_slices(y))
+
+    def _scan_state(self, z_sym):
+        """z's symbols -> the conditioning (means, scales)."""
+        state = self.model.ctx_prepare(self._z_hat(z_sym))
+        return state["means"], state["scales"]
+
+    def _assemble(self, y_hats):
+        """y_hat stack -> (y_hat (B, M, h, w), x_hat NHWC in [0, 1])."""
+        y_hat, x_hat = self._finish(list(y_hats))
+        return y_hat, x_hat.permute(0, 2, 3, 1).contiguous()
+
+    @torch.no_grad()
+    def compress(self, x, return_debug: bool = False):
+        if not self.scan_wire:
+            return super().compress(x, return_debug)
+        self._scan_sync()
+        run = self.graphs.run
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        z_sym, y_stack = run(("front",) + tuple(x.shape), self._enc_front, [x])
+        z_sym = _canonical(z_sym)
+        means, scales = run(("state",) + tuple(z_sym.shape), self._scan_state, [z_sym])
+        # y first: its encode waits for the card, and z's (the JAX wire's
+        # first) would make the chain's graph launch from an idle card
+        y_strings, y_hats = self._scan.encode(means, scales, y_stack)
+        z_strings = self.kit.encode_z(z_sym, "entropy_bottleneck")
+        out = {"strings": [y_strings, z_strings], "shape": (z_sym.shape[2], z_sym.shape[3])}
+        if return_debug:
+            y_hat, x_hat = run(("assemble",) + tuple(y_hats.shape), self._assemble, [y_hats])
+            out.update(y_hat=y_hat.clone(), z_hat=self._z_hat(z_sym), x_hat=x_hat.clone())
+        return out
+
+    @torch.no_grad()
+    def decompress(self, strings, shape):
+        if not self.scan_wire:
+            return super().decompress(strings, shape)
+        self._scan_sync()
+        y_strings, z_strings = strings
+        run = self.graphs.run
+        z_sym = _canonical(self._decode_z(z_strings, shape))
+        means, scales = run(("state",) + tuple(z_sym.shape), self._scan_state, [z_sym])
+        y_hats = self._scan.decode(y_strings, means, scales)
+        y_hat, x_hat = run(("assemble",) + tuple(y_hats.shape), self._assemble, [y_hats])
+        return {"x_hat": x_hat.clone(), "y_hat": y_hat.clone()}
+
+    # --- the device wire -----------------------------------------------------
     def _encode_strings(self, enc) -> List[List[bytes]]:
         return [self.kit.encode_y_slices(enc["syms"], enc["idxs"]),
                 self.kit.encode_z(enc["z_sym"], "entropy_bottleneck")]

@@ -752,3 +752,142 @@ def test_decode_launch_config_fits_shared_memory(real_tables):
         assert smem and smem_bytes(nbytes, threads, 1) <= limit
         assert (threads * sm_count >= lanes or smem_bytes(nbytes, 2 * threads, 1) > limit
                 or threads == 1024)
+
+
+# --- the scan wire's programs as CUDA graphs --------------------------------------
+# narrow twins, weights from the seed: tests/test_torch_scan_wire.py's
+# context and hyper widths, with the transforms as narrow as the window
+# attention kernel takes (head width 16: cnn's N and M of 128 over 8
+# heads, stf's embed 16 over heads 1/2/4/8); 4 slices with a prefix
+# support of 2, so the chain freezes its support buffer
+SCAN_TWINS = {
+    "cnn": dict(N=128, M=128, num_slices=4, max_support_slices=2,
+                hyper_enc_widths=(64, 56, 48, 40, 32), hyper_dec_widths=(40, 48, 56, 64, 64),
+                cc_widths=(24, 20, 16, 12)),
+    "stf": dict(embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8), window_size=4,
+                patch_size=2, num_slices=4, drop_path_rate=0.1,
+                hyper_enc_widths=(64, 56, 48, 40, 32), hyper_dec_widths=(40, 48, 56, 64, 64),
+                cc_widths=(24, 20, 16, 12)),
+}
+# the port's kernels by the names of their CUDA functions in a trace
+TRACE_NAMES = {"window_attention": "window_attention_kernel", "gdn_forward": "gdn_fwd_kernel",
+               "DECODE_LAUNCHES": "rans_decode_lanes_kernel",
+               "ENCODE_LAUNCHES": "rans_encode_lanes_kernel"}
+
+
+def _scan_codecs(name, seed=0):
+    """-> (model, graphed scan-wire codec, the same launch by launch)."""
+    from icm_tpu_torch.models import DeviceWireCodec, create_model
+
+    model = create_model(name, device="cuda", seed=seed, **SCAN_TWINS[name])
+    return (model, DeviceWireCodec(model, lanes_per_image=4, scan_wire=True),
+            DeviceWireCodec(model, lanes_per_image=4, scan_wire=True, cuda_graphs=False))
+
+
+def _scan_images(size=64, scale=None, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.random((2, size, size, 3)) if scale is None else scale * rng.standard_normal(
+        (2, size, size, 3))
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+def _same_codec_outputs(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        if isinstance(want[k], torch.Tensor):
+            assert torch.equal(got[k], want[k]), k
+        else:
+            assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("name", ["cnn", "stf"])
+def test_scan_wire_graphs_replay_as_launches(name):
+    """The four programs (front, conditioning, the chain each way,
+    assembly) replayed from their graphs give the bits of the same
+    functions launch by launch, twice in a row; the round trip is
+    bit-exact both ways."""
+    _needs_card()
+    _, graphed, plain = _scan_codecs(name)
+    x = _scan_images()
+    want = plain.compress(x, return_debug=True)
+    want_dec = plain.decompress(want["strings"], want["shape"])
+    assert torch.equal(want_dec["y_hat"], want["y_hat"])
+    assert torch.equal(want_dec["x_hat"], want["x_hat"])
+    assert len(plain.graphs) == 0
+    for _ in range(2):
+        _same_codec_outputs(graphed.compress(x, return_debug=True), want)
+        _same_codec_outputs(graphed.decompress(want["strings"], want["shape"]), want_dec)
+    programs = {key[0] + (f" {key[1]}" if key[0] == "scan" else "") for key in graphed.graphs.graphs()}
+    assert programs == {"front", "state", "scan encode", "scan decode", "assemble"}
+    for key, g in graphed.graphs.graphs().items():
+        launched = g.fn(*g.static_in)
+        for _ in range(2):
+            replayed = g(g.static_in)
+            assert all(torch.equal(a, b) for a, b in zip(replayed, launched)), key
+
+
+@pytest.mark.parametrize("name", ["cnn", "stf"])
+def test_scan_wire_recaptures_after_a_weight_change(name):
+    """A weight changed in place: the graphed codec captures again and
+    gives what the launch-by-launch codec gives on the changed weights."""
+    _needs_card()
+    model, graphed, plain = _scan_codecs(name)
+    x = _scan_images()
+    before = graphed.compress(x, return_debug=True)
+    with torch.no_grad():
+        model.cc_mean_1.Conv_0.weight.mul_(1.5)
+        (model.g_s[-1] if name == "cnn" else model.g_s.to_rgb).weight.mul_(0.5)
+    after = graphed.compress(x, return_debug=True)
+    _same_codec_outputs(after, plain.compress(x, return_debug=True))
+    assert not torch.equal(after["y_hat"], before["y_hat"])
+    assert not torch.equal(after["x_hat"], before["x_hat"])
+    _same_codec_outputs(graphed.decompress(after["strings"], after["shape"]),
+                        plain.decompress(after["strings"], after["shape"]))
+
+
+def test_scan_wire_escape_ladder_on_the_card():
+    """40 N(0, 1) at 128 px: a tier above 0, and the round trip through
+    that tier's decode graph bit-exact and equal to launch by launch."""
+    _needs_card()
+    _, graphed, plain = _scan_codecs("cnn")
+    x = _scan_images(128, scale=40.0, seed=7)
+    enc = graphed.compress(x, return_debug=True)
+    tiers = {blob[4] for blob in enc["strings"][0]}
+    assert len(tiers) == 1 and tiers.pop() > 0
+    dec = graphed.decompress(enc["strings"], enc["shape"])
+    assert torch.equal(dec["y_hat"], enc["y_hat"]) and torch.equal(dec["x_hat"], enc["x_hat"])
+    assert any(k[:2] == ("scan", "decode") and k[-1] > 0 for k in graphed.graphs.graphs())
+    _same_codec_outputs(dec, plain.decompress(enc["strings"], enc["shape"]))
+
+
+@pytest.mark.parametrize("name", ["cnn", "stf"])
+def test_scan_wire_replay_counts_match_the_profiler(name):
+    """The launches each graph adds to the counters at a replay are the
+    port's kernels the profiler sees in that replay."""
+    _needs_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    _, graphed, _ = _scan_codecs(name)
+    x = _scan_images()
+    enc = graphed.compress(x, return_debug=True)
+    graphed.decompress(enc["strings"], enc["shape"])
+    for key, g in graphed.graphs.graphs().items():
+        counted = +Counter({k: sum(c.values()) for k, c in g.launches.items()})
+        traces = []
+        # the trace can drop a kernel record (seen once on the card): up to
+        # three traced replays, none with a kernel more than counted
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                g(g.static_in)
+                torch.cuda.synchronize()
+            traced = Counter()
+            for e in prof.events():
+                for counter, kernel in TRACE_NAMES.items():
+                    if e.device_type.name == "CUDA" and kernel in e.name:
+                        traced[counter] += 1
+            assert not traced - counted, (key, counted, traced)
+            traces.append(traced)
+            if traced == counted:
+                break
+        assert traces[-1] == counted, (key, counted, traces)

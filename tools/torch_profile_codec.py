@@ -1,14 +1,17 @@
 """Where the time goes in icm_tpu_torch's full-width codecs and their
 training step, on the card.
 
-    python3 tools/torch_profile_codec.py [--model cnn|stf] [--wire host|device]
-        [--act-dtype f32|bf16] [--seed 0] [--out profile.json]
+    python3 tools/torch_profile_codec.py [--model cnn|stf] [--wire host|device|scan]
+        [--no-graphs] [--act-dtype f32|bf16] [--seed 0] [--out profile.json]
 
 Builds the full-width codec of ``--model`` (``cnn``, the default: WACNN,
 N=192, M=320, 10 slices; ``stf``: the Swin codec, embed 48, M=384, 12
 slices) on the CUDA card with weights drawn from ``--seed``, on the host
-wire (``CharmCodec``, the default) or the device wire
-(``DeviceWireCodec``, 1024 lanes an image, its rANS on the card), warms
+wire (``CharmCodec``, the default), the device wire
+(``DeviceWireCodec``, 1024 lanes an image, its rANS on the card) or the
+scan wire (``DeviceWireCodec(scan_wire=True)``, float32 only: its four
+programs replayed as CUDA graphs, or with ``--no-graphs`` launch by
+launch, for the A/B), warms
 it up on 2 images of 512x512 (``icm_tpu_torch.data.make_images``, as
 chip_smoke.py makes them), then traces one compress and one decompress with
 ``torch.profiler``; then warms up the RD training step
@@ -18,9 +21,10 @@ of it under the bfloat16 activation policy (``nn.set_activation_dtype``,
 the counterpart of ``bench.py``'s flag). For each it reports the host
 wall time, the device busy time (union of kernel, copy and memset
 intervals in the trace), the device idle share against the traced and
-an untraced run (median of 3; tracing slows the host), the device time by
-kernel, the port's own kernels' shares, and the host's operators by self
-CPU time. Prints a summary, and
+an untraced run (median of 3; tracing slows the host), the largest idle
+gaps of the card with the host operator running in each, the device time
+by kernel, the port's own kernels' shares, and the host's operators by
+self CPU time. Prints a summary, and
 writes the whole result as JSON to ``--out`` when it is given. Needs a
 CUDA card; exits non-zero without one.
 """
@@ -80,6 +84,23 @@ def _trace_summary(prof, wall_s: float) -> dict:
         by_name[key][1] += 1
     busy = _busy_us(dev)
     total = sum(v[0] for v in by_name.values())
+    # the card's idle gaps: between the device intervals, and before the
+    # first, from the first host operator on; each with the innermost host
+    # operator or CUDA runtime call running at its middle
+    ops = [e for e in trace.get("traceEvents", [])
+           if e.get("cat") in ("cpu_op", "cuda_runtime") and "dur" in e]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    t0 = min([e["ts"] for e in ops] + [s for s, _ in spans[:1]])
+    gaps, end = [], t0
+    for s0, e0 in spans:
+        if s0 > end:
+            gaps.append((end, s0))
+        end = max(end, e0)
+    gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:5]
+
+    def host_op(t):
+        inside = [e for e in ops if e["ts"] <= t <= e["ts"] + e["dur"]]
+        return min(inside, key=lambda e: e["dur"])["name"][:60] if inside else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     port = {}
     for name, patterns in PORT_KERNELS.items():
@@ -92,6 +113,8 @@ def _trace_summary(prof, wall_s: float) -> dict:
         "device_kernel_ms": total / 1e3,
         "port_kernels": port,
         "n_device_events": len(dev),
+        "idle_gaps": [{"at_ms": (a - t0) / 1e3, "ms": (b - a) / 1e3,
+                       "host_op": host_op((a + b) / 2)} for a, b in gaps],
         "top": [{"name": k[:120], "ms": v[0] / 1e3, "count": v[1],
                  "share": v[0] / total if total else 0.0} for k, v in top],
     }
@@ -113,7 +136,9 @@ def _host_summary(prof, n: int = 12) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("cnn", "stf"), default="cnn")
-    ap.add_argument("--wire", choices=("host", "device"), default="host")
+    ap.add_argument("--wire", choices=("host", "device", "scan"), default="host")
+    ap.add_argument("--no-graphs", action="store_true",
+                    help="scan wire: run its programs launch by launch, not as CUDA graphs")
     ap.add_argument("--act-dtype", choices=("f32", "bf16"), default="f32",
                     help="activation dtype of the transforms and context stacks (both "
                     "coder sides and the training step); the entropy math stays f32")
@@ -141,7 +166,10 @@ def main() -> int:
     if args.act_dtype == "bf16":
         set_activation_dtype(torch.bfloat16)
     model = create_model(args.model, seed=args.seed)
-    if args.wire == "device":
+    if args.wire == "scan":
+        codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2, scan_wire=True,
+                                cuda_graphs=not args.no_graphs)
+    elif args.wire == "device":
         codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
     else:
         codec = CharmCodec(model, narrow=0.2)
@@ -163,6 +191,7 @@ def main() -> int:
         "train_step": lambda: train_step(state, batch, noise),
     }
     result = {"card": card, "model": args.model, "wire": args.wire,
+              "cuda_graphs": args.wire == "scan" and not args.no_graphs,
               "act_dtype": args.act_dtype, "images": 2,
               "size": 512, "narrow": 0.2,
               "train_batch": 8, "train_size": 256}
@@ -197,13 +226,17 @@ def main() -> int:
         r = result[side]
         kernels = ", ".join(f"{k} {v['ms']:.3f} ms ({v['share_of_device']:.3%})"
                             for k, v in r["port_kernels"].items())
-        print(f"{args.model}, {args.wire} wire, {args.act_dtype}, {side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
+        wire = args.wire + (" (launch by launch)" if args.wire == "scan" and args.no_graphs
+                            else " (graphs)" if args.wire == "scan" else "")
+        print(f"{args.model}, {wire} wire, {args.act_dtype}, {side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
               f"untraced; device busy {r['device_busy_ms']:.2f} ms (idle share "
               f"{r['device_idle_share']:.3f} traced, {r['device_idle_share_unprofiled']:.3f} "
               f"untraced); {kernels} [{card}]")
         for row in r["top"][:8]:
             print(f"   {row['ms']:8.3f} ms {row['share']:6.1%} x{row['count']:<4d} "
                   f"{row['name'][:90]}")
+        print("   largest idle gaps: " + ", ".join(
+            f"{g['ms']:.3f} ms at {g['at_ms']:.2f} ms ({g['host_op']})" for g in r["idle_gaps"]))
         print(f"   host: {r['host_self_cpu_ms']:.2f} ms self CPU time traced, "
               f"{r['n_aten_calls']} ATen calls; by self CPU time:")
         for row in r["host_top"][:8]:
