@@ -11,9 +11,12 @@ package beside it. Phases, each printed with its elapsed seconds:
    and the host rANS coder (g++), from the sources in the checkout, all
    at once;
 3. window attention against its plain PyTorch version on the card, at
-   the shapes of the full-width WACNN's path (head widths 24 and 40) and
-   of the full-width stf's (head width 16, windows of 16 tokens: 3, 6, 12
-   and 24 heads over 8192, 2048, 512 and 128 windows), then a ragged
+   the shapes of the full-width WACNN's path (head widths 24 and 40), of
+   the full-width stf's (head width 16, windows of 16 tokens: 3, 6, 12
+   and 24 heads over 8192, 2048, 512 and 128 windows) and of the zigzag
+   family's refiners (4 heads: head width 8 over 128 windows of 16
+   tokens (stf5) and 32 of 64 (stf7), head width 16 over 32 of 16 (stf6)
+   and 8 of 64 (stf8), each at 1 and 4 window classes), then a ragged
    window count of each, in f32 and bf16; two launches must give the
    same bits; timed beside the plain version and
    F.scaled_dot_product_attention (a yardstick the port never calls);
@@ -112,11 +115,38 @@ package beside it. Phases, each printed with its elapsed seconds:
     phase 10, with stochastic depth 0;
 17. stf under the bfloat16 policy: serving as phase 7b (after phase 13)
     and training as phase 10b (24 bfloat16 window-attention launches a
-    step).
+    step);
+18. a reference checkpoint at full width: a seeded reference WACNN state
+    dict (the reference's module names, legacy bottleneck keys, ``module.``
+    prefix) converted by ``icm_tpu_torch.zoo`` and loaded strictly; the
+    converted model's own CDF tables written into it as the reference's
+    buffers and imported back equal; the images of phase 5 on the host
+    wire with the imported tables in the reference symbol order
+    (``ref_layout=True``), held as in phase 5, the blobs equal to the
+    built tables' in that order;
+19-22. the zigzag family stf5, stf6, stf7 and stf8 at their published
+    full width (weights from ``--seed``, f32), each on the images of phase
+    5 on the host wire and the device wire, held as in phases 5 and 7:
+    one window-attention launch a Swin block (compress 24 + r with its
+    debug reconstruction, decompress 12 + r, r the refiners' 432, 288,
+    240 and 480 blocks), no GDN launch, 2 encode and ctx_slices + 1 (13,
+    25, 13, 25) decode launches, no host round trip in decompress, the
+    device wire's y_hat the host wire's and its bytes within the bound
+    counted with each slice's lanes (a 16 x 16 zigzag block: 256 an
+    image); each model's eval forward on the card against the plain CPU
+    path on one 256 x 256 image (x_hat and y likelihoods within 1e-3);
+    stf8's phase also holds the lane-rANS kernels at the zigzag blocks'
+    shapes (y 512 lanes x 1536 steps in 24 decode launches).
 
 Each serving phase also logs its sides' device idle share: one traced
 compress and decompress (the union of the trace's kernel, copy and memset
 intervals) against the median untraced wall time.
+
+The kernels line splits window attention's float32 launches on the
+family paths between the transforms (under ``window_attention_d16``, at
+stf's shapes) and the refiners (``window_attention_d8`` for stf5 and
+stf7, ``window_attention_d16_refiners`` for stf6 and stf8), from the
+phases' exact counts.
 
 The wrappers of window attention and GDN count their launches by dtype;
 a float32 phase fails on a launch of a bfloat16 build and a bfloat16
@@ -335,6 +365,16 @@ def attention_inputs(W, N, D, n_cls, dtype, seed, heads=8):
 # 2, 2, 6, 2) and g_s's (2, 6, 2, 2, the other way round) launch each shape
 # the same number of times a side
 STF_SIDE_LAUNCHES = {(8192, 3): 2, (2048, 6): 2, (512, 12): 6, (128, 24): 2}
+# the zigzag family: its transforms are stf's; each slice's refiners attend
+# at 4 heads over the slice, at 2 x 512 px (W, N, D): stf5 and stf7 on 32 x
+# 32 channel slices of 32 channels at windows 4 and 8, stf6 and stf8 on 16
+# x 16 zigzag blocks of 64 channels at windows 4 and 8. Their Swin blocks
+# a side (one launch each), half of them at the shifted windows' 4 classes
+FAMILY = ("stf5", "stf6", "stf7", "stf8")
+FAMILY_REFINER_SHAPES = {"stf5": (128, 16, 8), "stf6": (32, 16, 16), "stf7": (32, 64, 8),
+                         "stf8": (8, 64, 16)}
+FAMILY_REFINER_BLOCKS = {"stf5": 432, "stf6": 288, "stf7": 240, "stf8": 480}
+REFINER_HEADS = 4
 
 
 def check_kernel(twa):
@@ -359,6 +399,12 @@ def check_kernel(twa):
     # class and a ragged window count
     cases += [("stf", W, H, 16, 16, 4) for W, H in STF_SIDE_LAUNCHES]
     cases += [("stf", 512, 12, 16, 16, 1), ("stf", 8191, 3, 16, 16, 4)]
+    # the family refiners' shapes, unshifted (1 class) and shifted (4), then
+    # a ragged window count of each head width and window
+    cases += [(m, W, REFINER_HEADS, N, D, n_cls) for m, (W, N, D) in FAMILY_REFINER_SHAPES.items()
+              for n_cls in (1, 4)]
+    cases += [("stf5", 127, REFINER_HEADS, 16, 8, 4), ("stf7", 31, REFINER_HEADS, 64, 8, 4),
+              ("stf8", 7, REFINER_HEADS, 64, 16, 4)]
     rows = []
     for dtype in ("float32", "bfloat16"):
         for model, W, heads, N, D, n_cls in cases:
@@ -542,10 +588,11 @@ def rans_bounds(host, values, rows, n_words: int, decode: bool):
 
 
 def check_rans(kit, tables, seed: int, B: int, size: int, model, model_name: str):
-    """Phases 6 and 12: the lane-rANS kernels vs their plain versions at
-    the device wire's shapes for ``model``'s latent (``model.M`` channels
-    in ``model.ctx_slices`` decode launches) and B images of size^2 ->
-    rows (y, z), each with ``model_name`` and its image count.
+    """Phases 6, 12 and 22: the lane-rANS kernels vs their plain versions
+    at the device wire's shapes for ``model``'s latent (``model.ctx_slices``
+    slices, each one decode launch; a slice is a zigzag block in the
+    family) and B images of size^2 -> rows (y, z), each with
+    ``model_name`` and its image count.
     Besides the
     launches' time, each part is timed on the first lane alone
     (``one_lane_ms``): the dependent chain of T steps with nothing beside
@@ -572,10 +619,10 @@ def check_rans(kit, tables, seed: int, B: int, size: int, model, model_name: str
         return err
 
     rng = np.random.default_rng(seed + 7)
-    h = w = size // 16  # y latent
+    h, w = y_slice_hw(model, size)
     n_l = kit.n_lanes(h, w)
-    S, M = model.ctx_slices, model.M
-    rows_y = rng.integers(0, kit.gauss_dev.num_rows, size=((h * w // n_l) * M, B * n_l))
+    S, sc = model.ctx_slices, model.M // model.num_slices
+    rows_y = rng.integers(0, kit.gauss_dev.num_rows, size=(S * (h * w // n_l) * sc, B * n_l))
     zh = zw = size // 64
     eb = kit.eb_dev["entropy_bottleneck"]
     C = eb.num_rows
@@ -787,6 +834,13 @@ def host_wire_phase(codec, x, card: str, zero_counts, read_counts, expect: dict)
     return result, enc, enc_launches, dec_launches
 
 
+def y_slice_hw(model, size: int):
+    """A latent slice's (h, w) at ``size`` px: y is size / 16 a side, cut
+    into spatial_number x spatial_number zigzag blocks in the family."""
+    h = size // 16 // getattr(model, "spatial_number", 1)
+    return h, h
+
+
 def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
                       expect: dict):
     """Phases 7 and 13: compress -> decompress on the device wire, the
@@ -827,8 +881,9 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
     check_launches("device wire, compress", enc_launches, expect["compress"])
     check_launches("device wire, decompress", dec_launches, expect["decompress"])
     # rate: the host wire's bytes x 1.02, plus per image and stream each
-    # lane's 4-byte flush and 2-byte length and the header
-    lanes = {"y": codec.kit.n_lanes(size // 16, size // 16),
+    # lane's 4-byte flush and 2-byte length and the header; y's lanes are a
+    # slice's (a zigzag block's, for the family)
+    lanes = {"y": codec.kit.n_lanes(*y_slice_hw(codec.model, size)),
              "z": (size // 64) ** 2 * codec.kit.z_groups(codec.kit.eb_dev["entropy_bottleneck"].num_rows)}
     stream_bytes = {}
     for k, name in enumerate("yz"):
@@ -1427,6 +1482,230 @@ def eval_vs_cpu_phase(name: str, model, seed: int):
             "bf16_layer_tolerance": BF16_LAYER_TOL}
 
 
+def reference_wacnn_state_dict(seed: int) -> dict:
+    """A reference CompressAI WACNN state dict at full width (N=192,
+    M=320, 10 slices of support 5): the reference's module names
+    (``g_a.4.conv_b.0.attn.qkv.weight`` ...) and shapes, the bottleneck's
+    legacy ParameterList keys, DataParallel's ``module.`` prefix and a
+    stray ``h_s`` entry, values drawn from ``seed`` at a trained model's
+    scale (fan-in scaled kernels, GDN near its init, ordered quantiles)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N, M, S, K = 192, 320, 10, 5
+    enc, dec, cc = (320, 288, 256, 224, 192), (192, 224, 256, 288, 320), (224, 176, 128, 64)
+    sd = {}
+
+    def put(name, shape, scale, shift=0.0):
+        sd[name] = (shift + scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def conv(name, o, i, k, transposed=False):
+        put(f"{name}.weight", (i, o, k, k) if transposed else (o, i, k, k), (i * k * k) ** -0.5)
+        put(f"{name}.bias", (o,), 0.01)
+
+    def gdn(name, c):
+        sd[f"{name}.beta"] = (1.0 + 0.05 * np.abs(rng.standard_normal(c))).astype(np.float32)
+        sd[f"{name}.gamma"] = np.sqrt(0.1 * np.eye(c) + 0.005 * np.abs(
+            rng.standard_normal((c, c)))).astype(np.float32)
+
+    def win(prefix, dim, ws):
+        for unit in [f"{prefix}.conv_a.{i}" for i in range(3)] + [
+                f"{prefix}.conv_b.{i}" for i in (1, 2, 3)]:
+            conv(f"{unit}.conv.0", dim // 2, dim, 1)
+            conv(f"{unit}.conv.2", dim // 2, dim // 2, 3)
+            conv(f"{unit}.conv.4", dim, dim // 2, 1)
+        a = f"{prefix}.conv_b.0.attn"
+        for name, o in (("qkv", 3 * dim), ("proj", dim)):
+            put(f"{a}.{name}.weight", (o, dim), dim ** -0.5)
+            put(f"{a}.{name}.bias", (o,), 0.01)
+        put(f"{a}.relative_position_bias_table", ((2 * ws - 1) ** 2, 8), 0.02)
+        conv(f"{prefix}.conv_b.4", dim, dim, 1)
+
+    conv("g_a.0", N, 3, 5)
+    gdn("g_a.1", N)
+    conv("g_a.2", N, N, 5)
+    gdn("g_a.3", N)
+    win("g_a.4", N, 8)
+    conv("g_a.5", N, N, 5)
+    gdn("g_a.6", N)
+    conv("g_a.7", M, N, 5)
+    win("g_a.8", M, 4)
+    win("g_s.0", M, 4)
+    conv("g_s.1", N, M, 5, transposed=True)
+    gdn("g_s.2", N)
+    conv("g_s.3", N, N, 5, transposed=True)
+    gdn("g_s.4", N)
+    win("g_s.5", N, 8)
+    conv("g_s.6", N, N, 5, transposed=True)
+    gdn("g_s.7", N)
+    conv("g_s.8", 3, N, 5, transposed=True)
+    for i, (o, c) in enumerate(zip(enc, (M,) + enc[:-1])):
+        conv(f"h_a.{2 * i}", o, c, 3)
+    for tag in ("h_mean_s", "h_scale_s"):
+        conv(f"{tag}.0", dec[0], enc[-1], 3)
+        conv(f"{tag}.2.0", dec[1] * 4, dec[0], 3)
+        conv(f"{tag}.4", dec[2], dec[1], 3)
+        conv(f"{tag}.6.0", dec[3] * 4, dec[2], 3)
+        conv(f"{tag}.8", dec[4], dec[3], 3)
+    sc = M // S
+    for i in range(S):
+        for tag, extra in (("cc_mean_transforms", 0), ("cc_scale_transforms", 0),
+                           ("lrp_transforms", sc)):
+            cin = [dec[-1] + sc * min(i, K) + extra] + list(cc)
+            for j in range(4):
+                conv(f"{tag}.{i}.{2 * j}", cc[j], cin[j], 3)
+            conv(f"{tag}.{i}.8", sc, cc[-1], 3)
+    C, fdims = enc[-1], (1, 3, 3, 3, 3, 1)
+    q = np.array([-8.0, 0.0, 8.0]) + 0.2 * rng.standard_normal((C, 1, 3))
+    sd["entropy_bottleneck.quantiles"] = np.sort(q, axis=-1).astype(np.float32)
+    for i in range(5):
+        put(f"entropy_bottleneck._matrices.{i}", (C, fdims[i + 1], fdims[i]), 0.5)
+        put(f"entropy_bottleneck._biases.{i}", (C, fdims[i + 1], 1), 0.5)
+        if i < 4:
+            put(f"entropy_bottleneck._factors.{i}", (C, fdims[i + 1], 1), 0.5)
+    sd["h_s.0.weight"] = np.zeros((3, 3), np.float32)
+    return {"module." + k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def reference_phase(x, card: str, zero_counts, read_counts, seed: int):
+    """Phase 18: a reference checkpoint at full width. The seeded reference
+    WACNN state dict is converted (``zoo.convert_reference_state_dict``)
+    and loaded strictly; the converted model's own tables are written into
+    the dict as the reference's CDF buffers and read back
+    (``zoo.import_reference_tables``), equal; then 2 x 512^2 on the host
+    wire with the imported tables in the reference symbol order, held as in
+    phase 5 (launch counts zeroed and read around each side), its blobs
+    equal to those of the built tables in that order. -> results."""
+    import torch
+
+    from icm_tpu_torch import zoo
+    from icm_tpu_torch.models import CharmCodec, build_codec_tables, create_model
+
+    t = time.time()
+    sd = reference_wacnn_state_dict(seed)
+    model = create_model("cnn", seed=seed)
+    model.load_state_dict(zoo.convert_reference_state_dict("cnn", sd), strict=True)
+    built = build_codec_tables(model)
+    for prefix, tab in (("entropy_bottleneck", built.bottlenecks["entropy_bottleneck"]),
+                        ("gaussian_conditional", built.gaussian)):
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            sd[f"module.{prefix}._{field}"] = torch.from_numpy(getattr(tab, field))
+    sd["module.gaussian_conditional.scale_table"] = torch.from_numpy(built.scale_table)
+    imported = zoo.import_reference_tables(sd)
+    for name, got, want in (("gaussian", imported.gaussian, built.gaussian),
+                            ("bottleneck", imported.bottlenecks["entropy_bottleneck"],
+                             built.bottlenecks["entropy_bottleneck"])):
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            if not np.array_equal(getattr(got, field), getattr(want, field)):
+                raise AssertionError(f"imported {name} {field} differs from the stored one")
+    if not np.array_equal(imported.scale_table, built.scale_table):
+        raise AssertionError("imported scale table differs from the stored one")
+    log(f"  {len(sd)} reference tensors converted, loaded strictly and tables imported in "
+        f"{time.time() - t:.1f}s")
+    codec = CharmCodec(model, tables=imported, ref_layout=True, narrow=0.2)
+    at_least_one = (1, None)
+    on_path = {"window_attention": at_least_one, "gdn_forward": at_least_one,
+               "rans_encode": 0, "rans_decode": 0}
+    result, enc, enc_l, dec_l = host_wire_phase(codec, x, card, zero_counts, read_counts,
+                                                {"compress": on_path, "decompress": on_path})
+    built_enc = CharmCodec(model, ref_layout=True, narrow=0.2).compress(x)
+    if built_enc["strings"] != enc["strings"]:
+        raise AssertionError("imported tables' blobs differ from the built tables' ones")
+    result.update(tensors=len(sd), blob_sha256={
+        name: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
+        for k, name in enumerate("yz")})
+    log(f"  blobs with imported tables = built tables (reference order); sha256 "
+        f"{result['blob_sha256']}")
+    del model, codec
+    torch.cuda.empty_cache()
+    return result, {"launches_reference_compress": enc_l, "launches_reference_decompress": dec_l}
+
+
+def family_eval_vs_cpu(name: str, model, seed: int) -> dict:
+    """A family model's eval forward on the card against the plain CPU path
+    with the same weights, one 256 x 256 image: x_hat and the y
+    likelihoods within 1e-3 (f32, sums in other orders through ~100
+    layers)."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.models import models
+
+    cls, kwargs = models[name]
+    with torch.device("meta"):
+        cpu_model = cls(**kwargs)
+    cpu_model = cpu_model.to_empty(device="cpu").eval()
+    cpu_model.load_state_dict(model.state_dict())
+    xs = torch.from_numpy(make_images(seed + 1, 1, 256))
+    with torch.no_grad():
+        ref = cpu_model(xs)
+        got = model(xs.cuda())
+    worst = {key: (got[a][b] if b else got[a]).cpu().sub(ref[a][b] if b else ref[a]).abs()
+             .max().item() for key, a, b in (("x_hat", "x_hat", None),
+                                             ("y likelihoods", "likelihoods", "y"),
+                                             ("z likelihoods", "likelihoods", "z"))}
+    log(f"  max |card - cpu| ({name}, 256 x 256): {worst}")
+    if not worst["x_hat"] <= 1e-3 or not worst["y likelihoods"] <= 1e-3:
+        raise AssertionError(f"card and CPU disagree: {worst}")
+    return {"size": 256, "f32_max_abs": worst, "tolerance": 1e-3}
+
+
+def family_phase(name: str, x, card: str, zero_counts, read_counts, seed: int,
+                 rans_rows: list):
+    """Phases 19-22: a zigzag family model at its published full width,
+    weights from ``seed``, on the images of phase 5: compress ->
+    decompress on the host wire, then on the device wire, the launch
+    counts zeroed right before and read right after each side: one
+    window-attention launch a Swin block (compress g_a + g_s + the
+    refiners', with the debug reconstruction; decompress g_s + the
+    refiners'), no GDN launch, and on the device wire 2 encode and
+    ctx_slices + 1 decode launches, no host round trip in decompress and
+    the bytes within the host wire's plus each slice-lane's flush (the
+    checks of phases 5 and 7); then its eval forward against the CPU's.
+    stf8 also holds the rANS kernels at the zigzag blocks' lanes (stf5's
+    and stf7's are stf's, phase 12). -> (results, counts by path, its
+    window-attention launches of the transforms and the refiners by side)."""
+    import torch
+
+    from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
+    from icm_tpu_torch.nn.swin import SwinBlock
+
+    t = time.time()
+    model = create_model(name, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    g_a, g_s = (sum(isinstance(m, SwinBlock) for m in g.modules())
+                for g in (model.g_a, model.g_s))
+    r = sum(isinstance(m, SwinBlock) for n, m in model.named_modules() if "_refine_" in n)
+    log(f"  {name}: {n_params / 1e6:.1f} M parameters in {time.time() - t:.1f}s; "
+        f"{model.ctx_slices} slices of {model.slice_ch} channels; Swin blocks g_a {g_a}, "
+        f"g_s {g_s}, refiners {r}")
+    if r != FAMILY_REFINER_BLOCKS[name]:
+        raise AssertionError(f"{name}: {r} refiner blocks, expected {FAMILY_REFINER_BLOCKS[name]}")
+    none = {"gdn_forward": 0, "gdn_backward": 0, "rans_encode": 0, "rans_decode": 0}
+    expect = {"compress": {**none, "window_attention": g_a + g_s + r},
+              "decompress": {**none, "window_attention": g_s + r}}
+    codec = CharmCodec(model, narrow=0.2)
+    result, enc, enc_l, dec_l = host_wire_phase(codec, x, card, zero_counts, read_counts, expect)
+    dev = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
+    result["device_wire"], dev_enc_l, dev_dec_l = device_wire_phase(
+        dev, enc, x, card, zero_counts, read_counts,
+        {"compress": {**expect["compress"], "rans_encode": 2},
+         "decompress": {**expect["decompress"], "rans_decode": model.ctx_slices + 1}})
+    if name == "stf8":
+        rans_rows += check_rans(dev.kit, dev.tables, seed, x.shape[0], x.shape[1], model, name)
+    result["card_vs_cpu"] = family_eval_vs_cpu(name, model, seed)
+    result.update(params=n_params, ctx_slices=model.ctx_slices, slice_channels=model.slice_ch,
+                  swin_blocks={"g_a": g_a, "g_s": g_s, "refiners": r},
+                  lanes_per_slice_image=dev.kit.n_lanes(*y_slice_hw(model, x.shape[1])))
+    counts = {"launches_compress": enc_l, "launches_decompress": dec_l,
+              "launches_device_wire_compress": dev_enc_l,
+              "launches_device_wire_decompress": dev_dec_l}
+    del model, codec, dev
+    torch.cuda.empty_cache()
+    return result, counts, {"compress": g_a + g_s, "decompress": g_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1648,6 +1927,30 @@ def main() -> int:
         "launches_device_wire_decompress": stf_bf16_counts["device_decompress"],
         "launches_train_step": stf_result["bf16"]["train"]["launches_per_step"]}
 
+    with Phase("reference checkpoint: full-width WACNN, imported tables, reference order"):
+        slice_result["reference"], ref_counts = reference_phase(x, card, zero_counts,
+                                                                read_counts, args.seed)
+    paths["float32"]["cnn"].update(ref_counts)  # the reference path runs cnn's kernels
+
+    family_transforms = {}  # each family model's g_a and g_s launches by side
+    for name in FAMILY:
+        with Phase(f"full-width {name}: host wire, device wire, card vs CPU"):
+            slice_result[name], paths["float32"][name], family_transforms[name] = family_phase(
+                name, x, card, zero_counts, read_counts, args.seed, rans_rows)
+
+    def family_attention(models, part: str) -> dict:
+        """Window attention's launches on the family paths of ``models``,
+        split by the phases' exact counts: its transforms' (g_a and g_s
+        blocks, stf's shapes) or its refiners' (the rest)."""
+        out = {}
+        for m in models:
+            for key, counts in paths["float32"][m].items():
+                g = family_transforms[m]["decompress" if key.endswith("decompress") else
+                                         "compress"]
+                out[f"{key}_{m}_{part}"] = (g if part == "transforms"
+                                            else counts["window_attention"] - g)
+        return {"launches": sum(out.values()), **out}
+
     def launch_keys(name, models=("cnn", "stf"), dtype="float32"):
         """The kernel's launches on each path of ``models``' main-path runs
         in ``dtype`` (its build of that dtype) and their sum."""
@@ -1669,6 +1972,11 @@ def main() -> int:
         unit = ("3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67"
                 if dtype == "float32" else
                 "bf16 on the tensor cores (989 TFLOP/s dense), softmax at 67")
+        d16_launches = launch_keys("window_attention", ("stf",), dtype)
+        if dtype == "float32":
+            fam = family_attention(FAMILY, "transforms")
+            d16_launches = {**d16_launches, **fam,
+                            "launches": d16_launches["launches"] + fam["launches"]}
         return [{
             "name": "window_attention" + suffix,
             "route": "cuda",
@@ -1687,13 +1995,14 @@ def main() -> int:
             "tolerance": TOLERANCE[dtype],
             "cases": [r for r in rows if r["model"] == "cnn" and r["dtype"] == dtype],
         }, {
-            # the same kernel's head-width-16 build on stf's path
+            # the same kernel's head-width-16 build on stf's path (and, in
+            # f32, the family's transforms)
             "name": "window_attention_d16" + suffix,
             "route": "cuda",
             "source": "icm_tpu_torch/csrc/window_attention.cu",
             "replaces": "icm_tpu/nn/pallas_kernels.py:33",
             "dtype": dtype,
-            **launch_keys("window_attention", ("stf",), dtype),
+            **d16_launches,
             "per": "one g_a or g_s pass of 2 x 512^2: " + ", ".join(
                 f"{n} launches at W={w}, H={h}" for (w, h), n in STF_SIDE_LAUNCHES.items()),
             "max_abs_err": max(r["max_abs_err"] for r, _ in stf_main),
@@ -1706,7 +2015,40 @@ def main() -> int:
             "cases": [r for r in rows if r["model"] == "stf" and r["dtype"] == dtype],
         }]
 
+    def refiner_entry(name: str, models: tuple) -> dict:
+        """Window attention on the family refiners of ``models`` (f32): one
+        side's refiner launches of each, half at the unshifted shape's row
+        and half at the shifted one's, times weighted by them; every row of
+        these models, bf16 too, under "cases"."""
+        main = [(r, FAMILY_REFINER_BLOCKS[r["model"]] // 2) for r in rows
+                if r["model"] in models and r["dtype"] == "float32"
+                and (r["W"], r["N"], r["D"]) == FAMILY_REFINER_SHAPES[r["model"]]]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "icm_tpu_torch/csrc/window_attention.cu",
+            "replaces": "icm_tpu/nn/pallas_kernels.py:33",
+            "dtype": "float32",
+            **family_attention(models, "refiners"),
+            "per": "one side's refiner launches at 2 x 512^2: " + ", ".join(
+                f"{m} {FAMILY_REFINER_BLOCKS[m]} at W={FAMILY_REFINER_SHAPES[m][0]}, H=4, "
+                f"N={FAMILY_REFINER_SHAPES[m][1]}, D={FAMILY_REFINER_SHAPES[m][2]}, half at 1 "
+                "window class and half at 4" for m in models),
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["model"] in models and r["dtype"] == "float32"),
+            **{key: sum(n * r[key] for r, n in main)
+               for key in ("ms", "plain_ms", "bound_ms", "f32_fma_bound_ms", "library_ms")},
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r, _ in main) else "operations",
+            "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67",
+            "tolerance": TOLERANCE["float32"],
+            "cases": [r for r in rows if r["model"] in models],
+        }
+
     kernels = attention_entries("float32", "")
+    # the family's refiners: head width 8 (stf5, stf7) and 16 (stf6 at N 16,
+    # stf8 at N 64)
+    kernels += [refiner_entry("window_attention_d8", ("stf5", "stf7")),
+                refiner_entry("window_attention_d16_refiners", ("stf6", "stf8"))]
     # the GDN layers of one training step: 8 x 192 at 128^2, 64^2, 32^2, GDN
     # and IGDN, one launch each; times summed. The serving and ragged rows
     # are in "cases", and every row's errors are under the tolerances
@@ -1758,7 +2100,7 @@ def main() -> int:
             "source": "icm_tpu_torch/csrc/rans_lanes.cu",
             "replaces": f"icm_tpu/coding/device_rans.py:{line}",
             "replaces_note": "not Pallas in JAX: integer jnp under lax.scan",
-            **launch_keys(name),
+            **launch_keys(name, ("cnn", "stf") + FAMILY),
             "max_abs_err": max(r["max_abs_err"] for r in rans_rows),
             "ms": sum(r[part]["ms"] for r in rans_main),
             "plain_ms": sum(r[part]["plain_ms"] for r in rans_main),

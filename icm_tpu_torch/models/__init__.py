@@ -24,10 +24,16 @@ from .cnn import WACNN
 from .codec import CharmCodec, build_codec_tables, cuda_numerics, enc_round
 from .device_codec import DeviceWireCodec, DeviceWireKit
 from .stf import SymmetricalTransFormer
+from .stf_family import STF5_CONFIG, STF6_CONFIG, STF7_CONFIG, STF8_CONFIG, ZigzagSwinCodec
 
 models = {
     "cnn": (WACNN, {}),
     "stf": (SymmetricalTransFormer, {}),
+    "stf5": (ZigzagSwinCodec, STF5_CONFIG),
+    "stf6": (ZigzagSwinCodec, STF6_CONFIG),
+    "stf6_2": (ZigzagSwinCodec, STF6_CONFIG),  # the reference's stf6_2 is stf6
+    "stf7": (ZigzagSwinCodec, STF7_CONFIG),
+    "stf8": (ZigzagSwinCodec, STF8_CONFIG),
 }
 
 
@@ -99,6 +105,7 @@ __all__ = [
     "CodecTables",
     "WACNN",
     "SymmetricalTransFormer",
+    "ZigzagSwinCodec",
     "CharmCodec",
     "DeviceWireCodec",
     "DeviceWireKit",

@@ -123,3 +123,12 @@ def prefix_support(max_support: int):
         return decoded if max_support < 0 else decoded[:max_support]
 
     return fn
+
+
+def sliding_support(max_support: int):
+    """Last-K sliding window (``decoded if K > i else decoded[i-K:]``)."""
+
+    def fn(i: int, decoded: list) -> list:
+        return decoded if max_support > i else decoded[i - max_support:]
+
+    return fn

@@ -6,7 +6,12 @@ the medians as quantization offsets; y slice by slice by the conditional
 Gaussian with scale-table CDFs, its context computed from the slices
 already reconstructed, LRP applied the same way on both sides; one rANS
 stream per image. Symbols are flattened in NHWC order, as the JAX codec's
-default (``ref_layout=False``) does.
+default does; ``ref_layout=True`` takes the reference coder's order
+instead (each slice and z flattened channel-major, z's bottleneck indexes
+channel-major), so that with the tables a reference checkpoint stores
+(``zoo.import_reference_tables``, passed as ``tables``) a one-image stream
+is byte-identical to the reference coder's. The port holds NCHW tensors,
+so the reference order is the one that flattens as it stands.
 
 The autoregressive context must be bit-identical between encoder and
 decoder, or the decoder reads the stream with the wrong CDFs. Both sides
@@ -38,7 +43,7 @@ sharding. They worked around a remote TPU link; the card needs none.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -101,20 +106,28 @@ def _canonical(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _eb_indexes(shape_hw: tuple, C: int) -> np.ndarray:
-    """Channel-index map for a flattened (h, w, C) tensor."""
+def _eb_indexes(shape_hw: tuple, C: int, ref_layout: bool) -> np.ndarray:
+    """Channel-index map for a flattened (C, h, w) tensor, in the symbol
+    order of :func:`_flat`."""
     h, w = shape_hw
+    if ref_layout:
+        return np.repeat(np.arange(C, dtype=np.int32), h * w)
     return np.tile(np.arange(C, dtype=np.int32), h * w)
 
 
-def _flat(a: np.ndarray) -> np.ndarray:
-    """(B, c, h, w) host array -> (B, h*w*c) in NHWC order."""
-    a = np.transpose(np.asarray(a), (0, 2, 3, 1))
+def _flat(a: np.ndarray, ref_layout: bool) -> np.ndarray:
+    """(B, c, h, w) host array -> (B, c*h*w) in NHWC order, or in NCHW
+    order with ``ref_layout``."""
+    a = np.asarray(a)
+    if not ref_layout:
+        a = np.transpose(a, (0, 2, 3, 1))
     return np.ascontiguousarray(a.reshape(a.shape[0], -1))
 
 
-def _unflat(a: np.ndarray, c: int, h: int, w: int) -> np.ndarray:
-    """(B, h*w*c) NHWC-ordered symbols -> (B, c, h, w)."""
+def _unflat(a: np.ndarray, c: int, h: int, w: int, ref_layout: bool) -> np.ndarray:
+    """(B, c*h*w) symbols in the order of :func:`_flat` -> (B, c, h, w)."""
+    if ref_layout:
+        return np.ascontiguousarray(a.reshape(a.shape[0], c, h, w))
     return np.ascontiguousarray(
         np.transpose(a.reshape(a.shape[0], h, w, c), (0, 3, 1, 2))
     )
@@ -130,14 +143,22 @@ class CharmCodec:
     whose ``decode_slice(index)`` gives a slice's symbols, continuing the
     streams). ``device_codec.DeviceWireCodec`` is the other wire."""
 
-    def __init__(self, model, narrow: float = 1.0):
+    def __init__(self, model, tables: Optional[CodecTables] = None, ref_layout: bool = False,
+                 narrow: float = 1.0):
+        """``tables``: coder tables to use in place of the model's own
+        (``build_codec_tables``), e.g. a reference checkpoint's;
+        ``ref_layout``: the reference coder's symbol order (module
+        docstring)."""
         self.model = model.eval()
         self.device = next(model.parameters()).device
         if self.device.type == "cuda":
             cuda_numerics()
         self.narrow = narrow
-        with torch.no_grad():
-            self.tables = build_codec_tables(model)
+        self.ref_layout = ref_layout
+        if tables is None:
+            with torch.no_grad():
+                tables = build_codec_tables(model)
+        self.tables = tables
         self._scale_table = torch.from_numpy(self.tables.scale_table).to(self.device)
         self._medians = None
 
@@ -234,10 +255,10 @@ class CharmCodec:
                                           torch.cat(enc["idxs"], 1))]
         z_sym_h, sym_h, idx_h = host
         bounds = np.cumsum([0] + [s.shape[1] for s in syms])
-        symbols = np.concatenate(
-            [_flat(sym_h[:, a:b]) for a, b in zip(bounds[:-1], bounds[1:])], 1)
-        indexes = np.concatenate(
-            [_flat(idx_h[:, a:b]) for a, b in zip(bounds[:-1], bounds[1:])], 1)
+        symbols = np.concatenate([_flat(sym_h[:, a:b], self.ref_layout)
+                                  for a, b in zip(bounds[:-1], bounds[1:])], 1)
+        indexes = np.concatenate([_flat(idx_h[:, a:b], self.ref_layout)
+                                  for a, b in zip(bounds[:-1], bounds[1:])], 1)
         gt = self.tables.gaussian
         y_strings = coding.encode_batch(
             symbols, indexes, gt.quantized_cdf, gt.cdf_length, gt.offset
@@ -245,7 +266,7 @@ class CharmCodec:
         return [y_strings, self._encode_z(z_sym_h)]
 
     def _y_decoder(self, y_strings: List[bytes]) -> "_HostYDecoder":
-        return _HostYDecoder(y_strings, self.tables.gaussian, self.device)
+        return _HostYDecoder(y_strings, self.tables.gaussian, self.device, self.ref_layout)
 
     # --- z (factorized bottleneck) ---------------------------------------------
     def _z_tables(self) -> EntropyTables:
@@ -254,9 +275,9 @@ class CharmCodec:
     def _encode_z(self, sym: np.ndarray) -> List[bytes]:
         B, C, h, w = sym.shape
         t = self._z_tables()
-        idx = np.broadcast_to(_eb_indexes((h, w), C), (B, h * w * C))
+        idx = np.broadcast_to(_eb_indexes((h, w), C, self.ref_layout), (B, h * w * C))
         return coding.encode_batch(
-            _flat(sym), idx, t.quantized_cdf, t.cdf_length, t.offset
+            _flat(sym, self.ref_layout), idx, t.quantized_cdf, t.cdf_length, t.offset
         )
 
     def _decode_z(self, strings: List[bytes], shape_hw) -> torch.Tensor:
@@ -264,32 +285,34 @@ class CharmCodec:
         h, w = shape_hw
         t = self._z_tables()
         C = t.num_distributions
-        idx = np.broadcast_to(_eb_indexes((h, w), C), (len(strings), h * w * C))
+        idx = np.broadcast_to(_eb_indexes((h, w), C, self.ref_layout),
+                              (len(strings), h * w * C))
         dec = coding.BatchRansDecoder(strings)
         sym = dec.decode_stream(idx, t.quantized_cdf, t.cdf_length, t.offset,
                                 lut=t.symbol_lut())
         dec.close()
-        return torch.from_numpy(_unflat(sym, C, h, w)).to(self.device)
+        return torch.from_numpy(_unflat(sym, C, h, w, self.ref_layout)).to(self.device)
 
 
 class _HostYDecoder:
     """The host wire's y decoder: per slice, the scale index to the host,
     rANS there (continuing each image's stream), the symbols back."""
 
-    def __init__(self, strings: List[bytes], tables: EntropyTables, device):
+    def __init__(self, strings: List[bytes], tables: EntropyTables, device, ref_layout: bool):
         self._dec = coding.BatchRansDecoder(strings)
         self._tables = tables
         self._lut = tables.symbol_lut()
         self._device = device
+        self._ref_layout = ref_layout
 
     def decode_slice(self, index: torch.Tensor) -> torch.Tensor:
         """(B, c, h, w) scale indexes -> int32 symbols of that shape."""
         idx_np = index.cpu().numpy()
         _, c, h, w = idx_np.shape
         t = self._tables
-        sym = self._dec.decode_stream(_flat(idx_np), t.quantized_cdf, t.cdf_length,
-                                      t.offset, lut=self._lut)
-        return torch.from_numpy(_unflat(sym, c, h, w)).to(self._device)
+        sym = self._dec.decode_stream(_flat(idx_np, self._ref_layout), t.quantized_cdf,
+                                      t.cdf_length, t.offset, lut=self._lut)
+        return torch.from_numpy(_unflat(sym, c, h, w, self._ref_layout)).to(self._device)
 
     def close(self):
         self._dec.close()

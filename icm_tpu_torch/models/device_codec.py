@@ -346,20 +346,33 @@ class DeviceWireCodec(CharmCodec):
     hyper-pixels and ``Z_LANE_GROUPS`` channel groups.
 
     ``scan_wire``: serve the scan wire (see the module docstring), float32
-    only; ``cuda_graphs``: on the card, replay its programs as captured
-    graphs (False: launch by launch, for holding the two against each
-    other).
+    only, for the models whose context is ``ChannelCharm``'s (``cnn``,
+    ``stf``); ``cuda_graphs``: on the card, replay its programs as
+    captured graphs (False: launch by launch, for holding the two against
+    each other). ``tables`` as ``CharmCodec``'s; the wire defines its own
+    symbol order, so ``ref_layout`` raises, as in the JAX package.
     """
 
     def __init__(self, model, lanes_per_image: int = 1024, narrow: float = 1.0,
-                 scan_wire: bool = False, cuda_graphs: bool = True):
-        super().__init__(model, narrow=narrow)
+                 scan_wire: bool = False, cuda_graphs: bool = True, tables=None,
+                 ref_layout: bool = False):
+        if ref_layout:
+            raise ValueError("DeviceWireCodec defines its own wire; ref_layout applies to "
+                             "the host coder only")
+        super().__init__(model, tables=tables, narrow=narrow)
         self.kit = DeviceWireKit(self.tables, lanes_per_image=lanes_per_image,
                                  device=self.device)
         self.scan_wire = scan_wire
         if scan_wire:
+            from .cnn import ChannelCharm
             from .scan_codec import CharmScanWire
 
+            if not isinstance(model, ChannelCharm):
+                raise NotImplementedError(
+                    f"the scan wire of {type(model).__name__} (the JAX package's "
+                    "ZigzagSwinScanWire, with its stacked refiner weights) is not ported yet "
+                    "(ROADMAP.md, Queue 1: the zigzag family's scan wire); serve the device "
+                    "wire (scan_wire=False)")
             self._check_f32()
             self.graphs = GraphCache(enabled=cuda_graphs)
             self._scan = CharmScanWire(self.model, self.kit, self._scale_table, self.graphs,

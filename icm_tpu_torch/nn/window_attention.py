@@ -40,7 +40,9 @@ from .. import _native
 LAUNCHES: Counter = Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_HEAD_DIMS = (16, 24, 40)  # built in the kernel's dispatch: stf's, WACNN's
+# built in the kernel's dispatch: the zigzag family's refiners (8, 16), stf's
+# (16), WACNN's (24, 40)
+SUPPORTED_HEAD_DIMS = (8, 16, 24, 40)
 MAX_TOKENS = 128  # N: tokens per window (a row's N scores live in a quad's registers)
 
 _fn = None

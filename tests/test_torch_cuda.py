@@ -51,10 +51,12 @@ def _inputs(W, N, D, n_cls, dtype, seed, heads=HEADS):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("W,n_cls", [(512, 4), (100, 4), (7, 1)])
-# the WACNN shapes, stf's (4x4 windows, head width 16), then a window of
-# 7x7 (more threads than rows) and 2x2 (fewer rows than a warp), at the
-# head widths the kernel is built for
-@pytest.mark.parametrize("N,D", SHAPES + [(49, 24), (4, 40), (16, 16), (4, 16)])
+# the WACNN shapes, stf's (4x4 windows, head width 16), the zigzag family
+# refiners' (head width 8 at windows of 4x4 and 8x8, 16 at 8x8), then a
+# window of 7x7 (more threads than rows) and 2x2 (fewer rows than a warp),
+# at the head widths the kernel is built for
+@pytest.mark.parametrize("N,D", SHAPES + [(49, 24), (4, 40), (16, 16), (4, 16), (16, 8),
+                                          (64, 8), (64, 16), (4, 8)])
 def test_window_attention_kernel_matches_plain(N, D, W, n_cls, dtype):
     _needs_card()
     ins = _inputs(W, N, D, n_cls, dtype, seed=W + N)
@@ -75,7 +77,7 @@ def test_window_attention_kernel_matches_plain(N, D, W, n_cls, dtype):
 # N = 4, 12, 25, 49 and 100 leave partial row and key tiles; N = 128 is
 # the largest the kernel takes (16 key tiles per row)
 @pytest.mark.parametrize("N,D", [(4, 40), (12, 24), (25, 40), (49, 24), (100, 40), (128, 24),
-                                 (12, 16), (49, 16), (128, 16)])
+                                 (12, 16), (49, 16), (128, 16), (12, 8), (49, 8), (128, 8)])
 @pytest.mark.parametrize("W", [1, 5, 333])
 def test_window_attention_kernel_partial_items_and_tiles(N, D, W, dtype):
     _needs_card()
@@ -109,6 +111,26 @@ def test_window_attention_kernel_at_stf_shapes(W, heads, n_cls, dtype):
     out = twa.window_attention_cuda(*ins)
     torch.cuda.synchronize()
     ref = twa.window_attention_reference(*ins)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=TOL[dtype])
+    assert torch.equal(twa.window_attention_cuda(*ins), out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# the zigzag family's refiner launches at 2 x 512 px (4 heads over the slice:
+# stf5 32 x 32 slices at window 4, stf7 at window 8, head width 8; stf6
+# and stf8 16 x 16 zigzag blocks at windows 4 and 8, head width 16), their
+# unshifted (1 class) and shifted (4) blocks, then ragged window counts
+@pytest.mark.parametrize("W,N,D,n_cls", [(128, 16, 8, 1), (128, 16, 8, 4), (32, 64, 8, 1),
+                                         (32, 64, 8, 4), (32, 16, 16, 4), (8, 64, 16, 1),
+                                         (8, 64, 16, 4), (127, 16, 8, 4), (31, 64, 8, 4),
+                                         (7, 64, 16, 4)])
+def test_window_attention_kernel_at_the_family_shapes(W, N, D, n_cls, dtype):
+    _needs_card()
+    ins = _inputs(W, N, D, n_cls, dtype, seed=W + N + D, heads=4)
+    out = twa.window_attention_cuda(*ins)
+    torch.cuda.synchronize()
+    ref = twa.window_attention_reference(*ins)
+    assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=TOL[dtype])
     assert torch.equal(twa.window_attention_cuda(*ins), out)
 
@@ -891,3 +913,80 @@ def test_scan_wire_replay_counts_match_the_profiler(name):
             if traced == counted:
                 break
         assert traces[-1] == counted, (key, counted, traces)
+
+
+# --- the zigzag family on the card -----------------------------------------------
+# narrow twins with the transforms at head width 16 (embed 16 over heads
+# 1/2/4/8, M = 128) and the refiners at the family's two head widths: 4
+# heads over 32-channel slices (D 8, stf7's window 8) and over 64-channel
+# zigzag blocks (D 16, stf8's unconstrained order and tail-clamped mean
+# window, at window 4)
+FAMILY_TWINS = {
+    "d8": ("stf7", dict(num_slices=4, spatial_number=1, support_mode="sliding", max_support=2,
+                        mean_mode="full", mu_refine=(2,), scale_refine=(1,), lrp_refine=(2,),
+                        refine_window=8)),
+    "d16": ("stf8", dict(num_slices=2, spatial_number=2, support_mode="sliding", max_support=4,
+                         mean_mode="window", mean_window=8, mu_refine=(2,), scale_refine=(1,),
+                         lrp_refine=(1,), refine_window=4, zigzag_constrained=False)),
+}
+FAMILY_WIDTHS = dict(embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8), window_size=4,
+                     patch_size=2, drop_path_rate=0.1, hyper_enc_widths=(64, 56, 48, 40, 32),
+                     hyper_dec_widths=(40, 48, 56, 64, 128), cc_widths=(24, 20, 16, 12))
+
+
+@pytest.mark.parametrize("twin", sorted(FAMILY_TWINS))
+def test_family_twin_wires_and_forward_on_the_card(twin):
+    """Host wire and device wire round trips bit-exact on 2 x 128 px, the
+    device wire's y_hat the host wire's, one window-attention launch a
+    Swin block (refiners included) and none of GDN's, one decode launch a
+    slice and one for z; the eval forward against the CPU's within 1e-3."""
+    _needs_card()
+    from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
+    from icm_tpu_torch.nn.swin import SwinBlock
+
+    preset, ctx = FAMILY_TWINS[twin]
+    model = create_model(preset, device="cuda", seed=0, **FAMILY_WIDTHS, **ctx)
+    blocks = {part: sum(isinstance(m, SwinBlock) for m in getattr(model, part).modules())
+              for part in ("g_a", "g_s")}
+    refiners = sum(isinstance(m, SwinBlock) for n, m in model.named_modules() if "_refine_" in n)
+    assert refiners > 0
+    x = _scan_images(128)
+    host = CharmCodec(model)
+    before = twa.LAUNCHES.copy()
+    enc = host.compress(x, return_debug=True)
+    torch.cuda.synchronize()
+    assert twa.LAUNCHES - before == Counter({torch.float32: blocks["g_a"] + blocks["g_s"]
+                                                            + refiners})
+    before = twa.LAUNCHES.copy()
+    fwd = tgdn.FWD_LAUNCHES.copy()
+    dec = host.decompress(enc["strings"], enc["shape"])
+    torch.cuda.synchronize()
+    assert twa.LAUNCHES - before == Counter({torch.float32: blocks["g_s"] + refiners})
+    assert tgdn.FWD_LAUNCHES == fwd
+    assert torch.equal(dec["y_hat"], enc["y_hat"]) and torch.equal(dec["x_hat"], enc["x_hat"])
+
+    dev = DeviceWireCodec(model, lanes_per_image=4)
+    denc = dev.compress(x, return_debug=True)
+    decodes = tdr.DECODE_LAUNCHES
+    ddec = dev.decompress(denc["strings"], denc["shape"])
+    torch.cuda.synchronize()
+    assert tdr.DECODE_LAUNCHES - decodes == model.ctx_slices + 1
+    assert torch.equal(denc["y_hat"], enc["y_hat"])
+    assert torch.equal(ddec["y_hat"], denc["y_hat"]) and torch.equal(ddec["x_hat"], denc["x_hat"])
+
+    cpu = create_model(preset, device="cpu", seed=0, **FAMILY_WIDTHS, **ctx)
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got, ref = model(x), cpu(x.cpu())
+    for a, b in ((got["x_hat"], ref["x_hat"]), (got["likelihoods"]["y"], ref["likelihoods"]["y"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3)
+
+
+def test_family_scan_wire_raises_on_the_card():
+    _needs_card()
+    from icm_tpu_torch.models import DeviceWireCodec, create_model
+
+    preset, ctx = FAMILY_TWINS["d8"]
+    model = create_model(preset, device="cuda", seed=0, **FAMILY_WIDTHS, **ctx)
+    with pytest.raises(NotImplementedError, match="ZigzagSwinScanWire"):
+        DeviceWireCodec(model, lanes_per_image=4, scan_wire=True)

@@ -191,10 +191,21 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(
+SCANNED = sorted(
     [p.relative_to(REPO).as_posix() for p in (REPO / "icm_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "tools/torch_profile_codec.py", "tools/torch_ab_rans.py",
-       "tools/torch_sweep_rans.py"]))
+       "tools/torch_sweep_rans.py"])
+
+
+def test_import_scan_covers_the_port_modules():
+    """Every module of the package is scanned, the reference-checkpoint
+    and zigzag-family ones among them."""
+    for path in ("icm_tpu_torch/zoo.py", "icm_tpu_torch/scan/zigzag.py",
+                 "icm_tpu_torch/models/stf_family.py", "icm_tpu_torch/models/codec.py"):
+        assert path in SCANNED
+
+
+@pytest.mark.parametrize("path", SCANNED)
 def test_port_imports_nothing_of_jax_or_icm_tpu(path):
     for name in _imports(REPO / path):
         top = name.split(".")[0]

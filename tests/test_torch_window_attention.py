@@ -3,9 +3,10 @@
 The port's plain version (the CPU path, and what the CUDA kernel is held
 against on the card) is compared with ``window_attention_fused`` run in
 Pallas interpret mode and with ``window_attention_reference``, at the two
-WACNN shapes (N=64, D=24 and N=16, D=40; 8 heads) and stf's (N=16,
-D=16), with 1 and 4 window classes and a window count that is not a
-multiple of the Pallas tile.
+WACNN shapes (N=64, D=24 and N=16, D=40; 8 heads), stf's (N=16, D=16)
+and the zigzag family refiners' (N=16 and 64 at D=8, N=64 at D=16), with 1
+and 4 window classes and a window count that is not a multiple of the
+Pallas tile.
 """
 
 import jax
@@ -20,8 +21,10 @@ from icm_tpu_torch.nn import window_attention as twa
 torch.set_num_threads(2)
 
 HEADS = 8
-# (N, D): g_a block 1 / g_s block 2; the 32x32x320 blocks; stf's blocks
-SHAPES = [(64, 24), (16, 40), (16, 16)]
+# (N, D): g_a block 1 / g_s block 2; the 32x32x320 blocks; stf's blocks;
+# the zigzag family's refiners (stf5 at window 4 and stf7 at window 8 over
+# 32 channels, stf8 at window 8 over 64)
+SHAPES = [(64, 24), (16, 40), (16, 16), (16, 8), (64, 8), (64, 16)]
 
 # f32: both sides compute the same f32 sums in another order; scores are
 # O(10), softmax rows sum to 1, so 1e-5 absolute is a few ulps of the output.

@@ -1,12 +1,16 @@
 """Where the time goes in icm_tpu_torch's full-width codecs and their
 training step, on the card.
 
-    python3 tools/torch_profile_codec.py [--model cnn|stf] [--wire host|device|scan]
-        [--no-graphs] [--act-dtype f32|bf16] [--seed 0] [--out profile.json]
+    python3 tools/torch_profile_codec.py [--model cnn|stf|stf5|stf6|stf7|stf8]
+        [--wire host|device|scan] [--no-graphs] [--act-dtype f32|bf16] [--seed 0]
+        [--out profile.json]
 
 Builds the full-width codec of ``--model`` (``cnn``, the default: WACNN,
 N=192, M=320, 10 slices; ``stf``: the Swin codec, embed 48, M=384, 12
-slices) on the CUDA card with weights drawn from ``--seed``, on the host
+slices; ``stf5``-``stf8``: the zigzag family, stf's transforms with
+per-slice Swin refiners, whose codec sides only are traced: the family's
+training step is not held yet) on the CUDA card with weights drawn from
+``--seed``, on the host
 wire (``CharmCodec``, the default), the device wire
 (``DeviceWireCodec``, 1024 lanes an image, its rANS on the card) or the
 scan wire (``DeviceWireCodec(scan_wire=True)``, float32 only: its four
@@ -41,6 +45,7 @@ import time
 from collections import defaultdict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FAMILY = ("stf5", "stf6", "stf7", "stf8")  # the zigzag family: codec sides only
 
 
 def _busy_us(events) -> float:
@@ -135,7 +140,7 @@ def _host_summary(prof, n: int = 12) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("cnn", "stf"), default="cnn")
+    ap.add_argument("--model", choices=("cnn", "stf") + FAMILY, default="cnn")
     ap.add_argument("--wire", choices=("host", "device", "scan"), default="host")
     ap.add_argument("--no-graphs", action="store_true",
                     help="scan wire: run its programs launch by launch, not as CUDA graphs")
@@ -179,17 +184,17 @@ def main() -> int:
         codec.decompress(enc["strings"], enc["shape"])
     torch.cuda.synchronize()
 
-    model = codec.model
-    state = TrainState(model, make_optimizer(model))
-    train_step = make_train_step(model, RateDistortionLoss(0.01))
-    noise = torch.Generator(device="cuda").manual_seed(args.seed)
-    batch = torch.from_numpy(make_images(args.seed + 100, 8, 256)).cuda()
     # the codec's sides first: training moves the weights its tables came from
     runs = {
         "compress": lambda: codec.compress(x),
         "decompress": lambda: codec.decompress(enc["strings"], enc["shape"]),
-        "train_step": lambda: train_step(state, batch, noise),
     }
+    if args.model not in FAMILY:
+        state = TrainState(model, make_optimizer(model))
+        train_step = make_train_step(model, RateDistortionLoss(0.01))
+        noise = torch.Generator(device="cuda").manual_seed(args.seed)
+        batch = torch.from_numpy(make_images(args.seed + 100, 8, 256)).cuda()
+        runs["train_step"] = lambda: train_step(state, batch, noise)
     result = {"card": card, "model": args.model, "wire": args.wire,
               "cuda_graphs": args.wire == "scan" and not args.no_graphs,
               "act_dtype": args.act_dtype, "images": 2,
