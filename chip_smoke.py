@@ -136,17 +136,40 @@ package beside it. Phases, each printed with its elapsed seconds:
     image); each model's eval forward on the card against the plain CPU
     path on one 256 x 256 image (x_hat and y likelihoods within 1e-3);
     stf8's phase also holds the lane-rANS kernels at the zigzag blocks'
-    shapes (y 512 lanes x 1536 steps in 24 decode launches).
+    shapes (y 512 lanes x 1536 steps in 24 decode launches); stf7's eval
+    forward is also held under the bfloat16 policy on both sides at 64 x
+    64, as phase 14's end to end;
+23. each family model on the scan wire (``ZigzagSwinScanWire``: the chain
+    with its refiners, padded first convolutions), held as in phase 7a:
+    capture seconds and pool bytes of each graph, bit-exact, equal to
+    launch by launch, counted launches a replay equal to a traced
+    replay's, the device wire's launch counts (one decode launch a slice
+    inside the decode graph, none of the encode kernel inside the encode
+    graph), no host round trip in decompress, y_hat and bytes against the
+    device wire's, img/s and idle graphed, launch by launch and on the
+    device wire; its graphs and stacked weights are freed before the next
+    model;
+24. each family model under the bfloat16 policy on both wires, as phase
+    7b (the refiners' window attention in its bfloat16 builds: head width
+    8 padded to 16, and 16), and its scan wire refusing the policy;
+25. stf7 and stf8 training (``run_training``, 8 x 256 x 256): 3 steps of
+    the registry's unrolled forward, then 3 of the ``scan_charm=True``
+    forward at the presets' stochastic depth 0.2 (the refiners' too), each
+    step finite, the parameters moved, one window-attention launch a Swin
+    block (g_a, g_s and the refiners) and no other kernel's; img/s and
+    peak memory of both; one ``scan_charm`` step against the CPU at depth
+    0, as phase 16;
+26. 3 bfloat16 training steps of each, as phase 17.
 
 Each serving phase also logs its sides' device idle share: one traced
 compress and decompress (the union of the trace's kernel, copy and memset
 intervals) against the median untraced wall time.
 
-The kernels line splits window attention's float32 launches on the
-family paths between the transforms (under ``window_attention_d16``, at
-stf's shapes) and the refiners (``window_attention_d8`` for stf5 and
-stf7, ``window_attention_d16_refiners`` for stf6 and stf8), from the
-phases' exact counts.
+The kernels line splits window attention's launches on the family paths
+between the transforms (under ``window_attention_d16`` and its bfloat16
+entry, at stf's shapes) and the refiners (``window_attention_d8`` for
+stf5 and stf7, ``window_attention_d16_refiners`` for stf6 and stf8, and
+their ``_bf16`` entries), from the phases' exact counts.
 
 The wrappers of window attention and GDN count their launches by dtype;
 a float32 phase fails on a launch of a bfloat16 build and a bfloat16
@@ -169,6 +192,7 @@ lane's alone (``one_lane_ms``).
 from __future__ import annotations
 
 import argparse
+import gc
 import hashlib
 import json
 import os
@@ -251,6 +275,10 @@ SCAN_VS_DEVICE = {"share_above_1e-2": 0.005, "median": 1e-4}
 # the port's kernels by the names of their CUDA functions in a trace,
 # under the names of the launch counters (graphs.launch_counts)
 TRACE_TRIES = 3
+# kernels each traced session runs before the traced call (see trace_events),
+# and the name of the call's marker in the trace
+TRACE_WARMUP_KERNELS = 64
+TRACE_MARK = "chip_smoke_traced_call"
 TRACE_KERNELS = {"window_attention": "window_attention_kernel",
                  "gdn_forward": "gdn_fwd_kernel", "gdn_backward": "gdn_bwd_kernel",
                  "ENCODE_LAUNCHES": "rans_encode_lanes_kernel",
@@ -375,6 +403,11 @@ FAMILY_REFINER_SHAPES = {"stf5": (128, 16, 8), "stf6": (32, 16, 16), "stf7": (32
                          "stf8": (8, 64, 16)}
 FAMILY_REFINER_BLOCKS = {"stf5": 432, "stf6": 288, "stf7": 240, "stf8": 480}
 REFINER_HEADS = 4
+# the family's training presets: a channel-slice one and a zigzag one (the
+# largest: 418 M parameters with Adam's moments); and the preset whose
+# bfloat16 eval forward is held against the CPU
+FAMILY_TRAIN = ("stf7", "stf8")
+FAMILY_BF16_EVAL = "stf7"
 
 
 def check_kernel(twa):
@@ -694,21 +727,38 @@ def check_rans(kit, tables, seed: int, B: int, size: int, model, model_name: str
     return out
 
 
-def device_busy_ms(fn) -> float:
-    """Device busy time of one traced call of ``fn``: the length of the
-    union of its kernel, copy and memset intervals in the trace."""
+def trace_events(fn) -> list:
+    """The chrome-trace events of one traced call of ``fn`` on the card.
+    The profiler has lost the first records of a session (late in a long
+    run, the first 14-15 kernels of a traced call, launch by launch as
+    in a graph replay), so each session first runs TRACE_WARMUP_KERNELS
+    tiny kernels and waits for them; only the events from the call's own
+    marker on are returned."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    torch.cuda.synchronize()
+    pad = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(TRACE_WARMUP_KERNELS):
+            pad.add_(1)
         torch.cuda.synchronize()
+        with record_function(TRACE_MARK):
+            fn()
+            torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+    start = min(e["ts"] for e in events if e.get("name") == TRACE_MARK and "ts" in e)
+    return [e for e in events if e.get("ts", start - 1) >= start]
+
+
+def device_busy_ms(fn) -> float:
+    """Device busy time of one traced call of ``fn``: the length of the
+    union of its kernel, copy and memset intervals in the trace."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace_events(fn)
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:
@@ -923,25 +973,15 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
     return result, enc_launches, dec_launches
 
 
-def traced_kernels(fn) -> dict:
-    """The names of the kernels one traced call of ``fn`` ran, counted."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
+def traced_kernels(fn, last: int = 0):
+    """The names of the kernels one traced call of ``fn`` ran, counted;
+    with ``last``, also the names of its last ``last`` kernels in time
+    order."""
+    kernels = sorted((e["ts"], e["name"]) for e in trace_events(fn) if e.get("cat") == "kernel")
     names: dict = {}
-    for e in events:
-        if e.get("cat") == "kernel":
-            names[e["name"]] = names.get(e["name"], 0) + 1
-    return names
+    for _, name in kernels:
+        names[name] = names.get(name, 0) + 1
+    return (names, [n[:60] for _, n in kernels[-last:]]) if last else names
 
 
 def wire_times(codec, x, reps: int = 3):
@@ -1030,6 +1070,16 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
         raise AssertionError(f"scan wire launches {enc_launches} / {dec_launches} differ from "
                              f"the device wire's {dev_counts}")
 
+    # the chain's graphs: one decode launch a slice inside the decode graph
+    # (z's outside), the encode launch after the encode graph
+    for key, g in codec.graphs.graphs().items():
+        if key[0] == "scan":
+            inside = {c: sum(g.launches[c].values()) for c in ("DECODE_LAUNCHES", "ENCODE_LAUNCHES")}
+            want = {"DECODE_LAUNCHES": model.ctx_slices if key[1] == "decode" else 0,
+                    "ENCODE_LAUNCHES": 0}
+            if inside != want:
+                raise AssertionError(f"graph {key}: rANS launches {inside}, expected {want}")
+
     # each graph's launches a replay, against the kernels a traced replay ran
     per_replay = {}
     for key, g in codec.graphs.graphs().items():
@@ -1058,6 +1108,12 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
         per_replay[name] = dict(counted=counted, traced=traced, kernels=sum(names.values()),
                                 traces_short=shortfalls, launch_host_ms=float(np.median(host_ms)))
         if counted != traced:
+            # what the trace saw, against a traced run of the same function
+            # launch by launch, and the last kernels of each in time order
+            names, tail = traced_kernels(lambda: g(g.static_in), last=30)
+            plain_names, plain_tail = traced_kernels(lambda: g.fn(*g.static_in), last=30)
+            log(f"  graph {name}: kernels of a traced replay {names}, the last {tail}; launch "
+                f"by launch {plain_names}, the last {plain_tail}")
             raise AssertionError(f"graph {name}: counted {counted}, {TRACE_TRIES} traces "
                                  f"show {shortfalls}")
     short = {k: v["traces_short"] for k, v in per_replay.items() if v["traces_short"]}
@@ -1311,22 +1367,39 @@ def bf16_train_phase(model, init_state: dict, seed: int, card: str, expect: dict
     return result
 
 
-def train_vs_cpu_phase(name: str, model, seed: int):
-    """Phases 10 and 16: one training step's loss terms and gradients, card
-    vs CPU, same weights, same noise (one seeded CPU generator for each
-    side: the noise is drawn on the generator's device), float32, no
-    stochastic depth (its rates set to 0 on the card for the step)."""
+def cpu_twin(name: str, model, **overrides):
+    """The registry's ``name`` (its config with ``overrides``) on the CPU
+    with ``model``'s weights: built on the meta device and loaded, so that
+    no weight is drawn (a full-width family model takes minutes to draw on
+    the CPU)."""
+    import torch
+
+    from icm_tpu_torch.models import models
+
+    cls, kwargs = models[name]
+    with torch.device("meta"):
+        cpu_model = cls(**{**kwargs, **overrides})
+    cpu_model = cpu_model.to_empty(device="cpu").eval()
+    cpu_model.load_state_dict(model.state_dict())
+    return cpu_model
+
+
+def train_vs_cpu_phase(name: str, model, seed: int, **overrides):
+    """Phases 10, 16 and 25: one training step's loss terms and gradients,
+    card vs CPU, same weights, same noise (one seeded CPU generator for
+    each side: the noise is drawn on the generator's device), float32, no
+    stochastic depth (its rates set to 0 on the card for the step);
+    ``overrides``: the CPU model's config beyond the registry's (the
+    forward the card model runs)."""
     import torch
 
     from icm_tpu_torch.data import make_images
-    from icm_tpu_torch.models import create_model
     from icm_tpu_torch.nn.swin import DropPath
     from icm_tpu_torch.train import RateDistortionLoss
 
     criterion = RateDistortionLoss(0.01)
-    cpu_model = create_model(name, device="cpu", seed=seed,
-                             **({"drop_path_rate": 0.0} if name == "stf" else {}))
-    cpu_model.load_state_dict(model.state_dict())
+    cpu_model = cpu_twin(name, model, **({"drop_path_rate": 0.0} if name != "cnn" else {}),
+                         **overrides)
     xs = torch.from_numpy(make_images(seed + 2, 1, 64))
     drop_paths = [m for m in model.modules() if isinstance(m, DropPath)]
     rates = [m.rate for m in drop_paths]
@@ -1621,21 +1694,19 @@ def reference_phase(x, card: str, zero_counts, read_counts, seed: int):
     return result, {"launches_reference_compress": enc_l, "launches_reference_decompress": dec_l}
 
 
-def family_eval_vs_cpu(name: str, model, seed: int) -> dict:
+def family_eval_vs_cpu(name: str, model, seed: int, bf16: bool = False) -> dict:
     """A family model's eval forward on the card against the plain CPU path
     with the same weights, one 256 x 256 image: x_hat and the y
     likelihoods within 1e-3 (f32, sums in other orders through ~100
-    layers)."""
+    layers). With ``bf16``, then one 64 x 64 image under the bfloat16
+    policy on both sides, end to end (BF16_EVAL_TOL, phase 14's bars; the
+    card's bfloat16 against the CPU's float32 beside it)."""
     import torch
 
     from icm_tpu_torch.data import make_images
-    from icm_tpu_torch.models import models
+    from icm_tpu_torch.nn import set_activation_dtype
 
-    cls, kwargs = models[name]
-    with torch.device("meta"):
-        cpu_model = cls(**kwargs)
-    cpu_model = cpu_model.to_empty(device="cpu").eval()
-    cpu_model.load_state_dict(model.state_dict())
+    cpu_model = cpu_twin(name, model)
     xs = torch.from_numpy(make_images(seed + 1, 1, 256))
     with torch.no_grad():
         ref = cpu_model(xs)
@@ -1647,7 +1718,26 @@ def family_eval_vs_cpu(name: str, model, seed: int) -> dict:
     log(f"  max |card - cpu| ({name}, 256 x 256): {worst}")
     if not worst["x_hat"] <= 1e-3 or not worst["y likelihoods"] <= 1e-3:
         raise AssertionError(f"card and CPU disagree: {worst}")
-    return {"size": 256, "f32_max_abs": worst, "tolerance": 1e-3}
+    out = {"size": 256, "f32_max_abs": worst, "tolerance": 1e-3}
+    if bf16:
+        xs = torch.from_numpy(make_images(seed + 1, 1, 64))
+        with torch.no_grad():
+            ref = cpu_model(xs)
+            set_activation_dtype(torch.bfloat16)
+            try:
+                ref16 = cpu_model(xs)
+                got16 = model(xs.cuda())
+            finally:
+                set_activation_dtype(None)
+        spread, against_f32 = bf16_spread(got16, ref16), bf16_spread(got16, ref)
+        log(f"  bf16 on both ({name}, 64 x 64): {spread}; bf16 card against f32 cpu: "
+            f"{against_f32}; bars {BF16_EVAL_TOL}")
+        if got16["x_hat"].dtype != ref16["x_hat"].dtype or any(
+                spread[k] > tol for k, tol in BF16_EVAL_TOL.items()):
+            raise AssertionError(f"card and CPU disagree under the bf16 policy: {spread}")
+        out.update(bf16_size=64, bf16=spread, bf16_card_against_f32_cpu=against_f32,
+                   bf16_tolerance=BF16_EVAL_TOL)
+    return out
 
 
 def family_phase(name: str, x, card: str, zero_counts, read_counts, seed: int,
@@ -1663,8 +1753,10 @@ def family_phase(name: str, x, card: str, zero_counts, read_counts, seed: int,
     the bytes within the host wire's plus each slice-lane's flush (the
     checks of phases 5 and 7); then its eval forward against the CPU's.
     stf8 also holds the rANS kernels at the zigzag blocks' lanes (stf5's
-    and stf7's are stf's, phase 12). -> (results, counts by path, its
-    window-attention launches of the transforms and the refiners by side)."""
+    and stf7's are stf's, phase 12). -> {model, codec (host wire), dev
+    (device wire), enc (the host wire's debug encode), result, counts (by
+    path), expect (the host wire's launches by side), transforms (window
+    attention's launches of g_a and g_s by side)}."""
     import torch
 
     from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
@@ -1694,16 +1786,56 @@ def family_phase(name: str, x, card: str, zero_counts, read_counts, seed: int,
          "decompress": {**expect["decompress"], "rans_decode": model.ctx_slices + 1}})
     if name == "stf8":
         rans_rows += check_rans(dev.kit, dev.tables, seed, x.shape[0], x.shape[1], model, name)
-    result["card_vs_cpu"] = family_eval_vs_cpu(name, model, seed)
+    result["card_vs_cpu"] = family_eval_vs_cpu(name, model, seed, bf16=name == FAMILY_BF16_EVAL)
     result.update(params=n_params, ctx_slices=model.ctx_slices, slice_channels=model.slice_ch,
                   swin_blocks={"g_a": g_a, "g_s": g_s, "refiners": r},
                   lanes_per_slice_image=dev.kit.n_lanes(*y_slice_hw(model, x.shape[1])))
     counts = {"launches_compress": enc_l, "launches_decompress": dec_l,
               "launches_device_wire_compress": dev_enc_l,
               "launches_device_wire_decompress": dev_dec_l}
-    del model, codec, dev
-    torch.cuda.empty_cache()
-    return result, counts, {"compress": g_a + g_s, "decompress": g_s}
+    return dict(model=model, codec=codec, dev=dev, enc=enc, result=result, counts=counts,
+                expect=expect, transforms={"compress": g_a + g_s, "decompress": g_s})
+
+
+def family_train_phase(fam: dict, name: str, seed: int, card: str) -> dict:
+    """Phases 24-26 for a training preset: ``run_training`` on the card,
+    each step launching window attention once a Swin block (g_a, g_s and
+    the refiners) and no other kernel: 3 steps through the registry's
+    unrolled forward (``tools/train.py``'s default), then 3 through the
+    ``scan_charm=True`` forward at the preset's stochastic depth (0.2, the
+    refiners' too); one ``scan_charm`` step card against CPU at depth 0
+    (phase 16's rule); then 3 bfloat16 steps of the unrolled forward from
+    the weights the first f32 step started from (phase 17's checks).
+    -> results; the per-step launches by forward and dtype under
+    "launches"."""
+    model = fam["model"]
+    expect = {"window_attention": fam["transforms"]["compress"] + fam["result"]["swin_blocks"][
+        "refiners"], "gdn_forward": 0, "gdn_backward": 0, "rans_encode": 0, "rans_decode": 0}
+    init_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out = {}
+    with Phase(f"full-width {name} training, unrolled forward"):
+        out["unrolled"] = train_phase(model, seed, card, expect, steps=3, resumed_steps=0)
+    with Phase(f"full-width {name} training, scan_charm forward (stochastic depth 0.2)"):
+        model.scan_charm = True
+        try:
+            out["scan_charm"] = train_phase(model, seed, card, expect, steps=3, resumed_steps=0)
+            out["scan_charm"]["drop_path_rate"] = max(
+                m.rate for m in model.modules() if hasattr(m, "rate"))
+        finally:
+            model.scan_charm = False
+    with Phase(f"{name} scan_charm training step, card vs CPU"):
+        model.scan_charm = True
+        try:
+            out["card_vs_cpu"] = train_vs_cpu_phase(name, model, seed, scan_charm=True)
+        finally:
+            model.scan_charm = False
+    with Phase(f"full-width {name} training under the bf16 policy"):
+        out["bf16"] = bf16_train_phase(model, init_state, seed, card, expect, out["unrolled"])
+    out["launches"] = {"float32": {"launches_train_step": out["unrolled"]["launches_per_step"],
+                                   "launches_train_step_scan_charm":
+                                       out["scan_charm"]["launches_per_step"]},
+                       "bfloat16": {"launches_train_step": out["bf16"]["launches_per_step"]}}
+    return out
 
 
 def main() -> int:
@@ -1721,6 +1853,7 @@ def main() -> int:
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
     from icm_tpu_torch.nn import gdn_fused as tgdn
+    from icm_tpu_torch.nn import set_activation_dtype
     from icm_tpu_torch.nn import window_attention as twa
     from icm_tpu_torch.nn.swin import SwinBlock
 
@@ -1935,16 +2068,60 @@ def main() -> int:
     family_transforms = {}  # each family model's g_a and g_s launches by side
     for name in FAMILY:
         with Phase(f"full-width {name}: host wire, device wire, card vs CPU"):
-            slice_result[name], paths["float32"][name], family_transforms[name] = family_phase(
-                name, x, card, zero_counts, read_counts, args.seed, rans_rows)
+            fam = family_phase(name, x, card, zero_counts, read_counts, args.seed, rans_rows)
+        result = slice_result[name] = fam["result"]
+        counts = paths["float32"][name] = fam["counts"]
+        family_transforms[name] = fam["transforms"]
+        with Phase(f"full-width {name} on the scan wire, CUDA graphs"):
+            result["scan_wire"], scan_enc_l, scan_dec_l = scan_wire_phase(
+                fam["model"], fam["dev"], x, card, zero_counts, read_counts,
+                {"compress": {**fam["expect"]["compress"], "rans_encode": 2},
+                 "decompress": {**fam["expect"]["decompress"],
+                                "rans_decode": fam["model"].ctx_slices + 1}},
+                {"compress": counts["launches_device_wire_compress"],
+                 "decompress": counts["launches_device_wire_decompress"]})
+            counts.update(launches_scan_wire_compress=scan_enc_l,
+                          launches_scan_wire_decompress=scan_dec_l)
+        with Phase(f"full-width {name} under the bf16 policy, both wires"):
+            result["bf16"], bf16_l = bf16_serving_phase(
+                fam["codec"], fam["dev"], x, card,
+                {"result": result, "enc": fam["enc"],
+                 "counts": {"compress": counts["launches_compress"],
+                            "decompress": counts["launches_decompress"],
+                            "device_compress": counts["launches_device_wire_compress"],
+                            "device_decompress": counts["launches_device_wire_decompress"]}})
+            # the scan wire runs in float32 only, as the JAX package's
+            set_activation_dtype(torch.bfloat16)
+            try:
+                DeviceWireCodec(fam["model"], lanes_per_image=1024, scan_wire=True)
+            except ValueError as e:
+                result["bf16"]["scan_wire_refused"] = str(e).split(";")[0]
+            else:
+                raise AssertionError(f"{name}: the scan wire took the bf16 policy")
+            finally:
+                set_activation_dtype(None)
+            log(f"  scan wire under the bf16 policy: refused ({result['bf16']['scan_wire_refused']})")
+        paths["bfloat16"][name] = {
+            "launches_compress": bf16_l["compress"],
+            "launches_decompress": bf16_l["decompress"],
+            "launches_device_wire_compress": bf16_l["device_compress"],
+            "launches_device_wire_decompress": bf16_l["device_decompress"]}
+        if name in FAMILY_TRAIN:
+            result["train"] = family_train_phase(fam, name, args.seed, card)
+            for dtype, per_step in result["train"].pop("launches").items():
+                paths[dtype][name].update(per_step)
+        del fam
+        gc.collect()  # the model, its codecs and their graphs, before the next model
+        torch.cuda.empty_cache()
 
-    def family_attention(models, part: str) -> dict:
-        """Window attention's launches on the family paths of ``models``,
-        split by the phases' exact counts: its transforms' (g_a and g_s
-        blocks, stf's shapes) or its refiners' (the rest)."""
+    def family_attention(models, part: str, dtype: str = "float32") -> dict:
+        """Window attention's launches (its ``dtype`` build) on the family
+        paths of ``models``, split by the phases' exact counts: its
+        transforms' (g_a and g_s blocks, stf's shapes; a training step runs
+        both) or its refiners' (the rest)."""
         out = {}
         for m in models:
-            for key, counts in paths["float32"][m].items():
+            for key, counts in paths[dtype][m].items():
                 g = family_transforms[m]["decompress" if key.endswith("decompress") else
                                          "compress"]
                 out[f"{key}_{m}_{part}"] = (g if part == "transforms"
@@ -1973,10 +2150,9 @@ def main() -> int:
                 if dtype == "float32" else
                 "bf16 on the tensor cores (989 TFLOP/s dense), softmax at 67")
         d16_launches = launch_keys("window_attention", ("stf",), dtype)
-        if dtype == "float32":
-            fam = family_attention(FAMILY, "transforms")
-            d16_launches = {**d16_launches, **fam,
-                            "launches": d16_launches["launches"] + fam["launches"]}
+        fam = family_attention(FAMILY, "transforms", dtype)
+        d16_launches = {**d16_launches, **fam,
+                        "launches": d16_launches["launches"] + fam["launches"]}
         return [{
             "name": "window_attention" + suffix,
             "route": "cuda",
@@ -2015,33 +2191,35 @@ def main() -> int:
             "cases": [r for r in rows if r["model"] == "stf" and r["dtype"] == dtype],
         }]
 
-    def refiner_entry(name: str, models: tuple) -> dict:
-        """Window attention on the family refiners of ``models`` (f32): one
-        side's refiner launches of each, half at the unshifted shape's row
-        and half at the shifted one's, times weighted by them; every row of
-        these models, bf16 too, under "cases"."""
+    def refiner_entry(name: str, models: tuple, dtype: str = "float32") -> dict:
+        """Window attention on the family refiners of ``models`` (its
+        ``dtype`` build): one side's refiner launches of each, half at the
+        unshifted shape's row and half at the shifted one's, times weighted
+        by them; every row of these models in ``dtype`` under "cases"."""
         main = [(r, FAMILY_REFINER_BLOCKS[r["model"]] // 2) for r in rows
-                if r["model"] in models and r["dtype"] == "float32"
+                if r["model"] in models and r["dtype"] == dtype
                 and (r["W"], r["N"], r["D"]) == FAMILY_REFINER_SHAPES[r["model"]]]
         return {
             "name": name,
             "route": "cuda",
             "source": "icm_tpu_torch/csrc/window_attention.cu",
             "replaces": "icm_tpu/nn/pallas_kernels.py:33",
-            "dtype": "float32",
-            **family_attention(models, "refiners"),
+            "dtype": dtype,
+            **family_attention(models, "refiners", dtype),
             "per": "one side's refiner launches at 2 x 512^2: " + ", ".join(
                 f"{m} {FAMILY_REFINER_BLOCKS[m]} at W={FAMILY_REFINER_SHAPES[m][0]}, H=4, "
                 f"N={FAMILY_REFINER_SHAPES[m][1]}, D={FAMILY_REFINER_SHAPES[m][2]}, half at 1 "
                 "window class and half at 4" for m in models),
             "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["model"] in models and r["dtype"] == "float32"),
+                               if r["model"] in models and r["dtype"] == dtype),
             **{key: sum(n * r[key] for r, n in main)
                for key in ("ms", "plain_ms", "bound_ms", "f32_fma_bound_ms", "library_ms")},
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r, _ in main) else "operations",
-            "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67",
-            "tolerance": TOLERANCE["float32"],
-            "cases": [r for r in rows if r["model"] in models],
+            "bound_unit": ("3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67"
+                           if dtype == "float32" else
+                           "bf16 on the tensor cores (989 TFLOP/s dense), softmax at 67"),
+            "tolerance": TOLERANCE[dtype],
+            "cases": [r for r in rows if r["model"] in models and r["dtype"] == dtype],
         }
 
     kernels = attention_entries("float32", "")
@@ -2088,6 +2266,10 @@ def main() -> int:
                            if k not in ("forward", "backward")} | r[part] for r in gdn_rows_d],
             })
     kernels += attention_entries("bfloat16", "_bf16")
+    # the refiners' bfloat16 builds: head width 8 padded to 16 (stf5, stf7)
+    # and 16 (stf6, stf8)
+    kernels += [refiner_entry("window_attention_d8_bf16", ("stf5", "stf7"), "bfloat16"),
+                refiner_entry("window_attention_d16_refiners_bf16", ("stf6", "stf8"), "bfloat16")]
     # the device wire's coder: integer kernels, held byte for byte (the
     # phase fails on any nonzero max_abs_err); y and z of one compress /
     # decompress of WACNN's B images, times summed; the rows at bench.py's

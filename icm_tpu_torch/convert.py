@@ -23,7 +23,12 @@ first (``models.cnn.unstack_charm_params``) into the per-slice
 ``cc_mean_{i}``, ``cc_scale_{i}`` and ``lrp_{i}`` the port's models have.
 The slice width is the last conv's output width, the conditioning width
 ``h_mean_s``'s output width, and the prefix support what is left of the
-first conv's input.
+first conv's input. A tree of a JAX ``ZigzagSwinCodec(scan_charm=True)``
+carries its context (convolutions and refiners) as one ``zigzag_scan``
+subtree; where its support sits in the padded first conv depends on the
+model's support mode and conditioning, which the tree does not show, so
+``from_jax_params(params, model=...)`` takes the port's model of that
+configuration and unstacks it (``models.stf_family.unstack_zigzag_params``).
 
 Nothing here imports the JAX package.
 """
@@ -85,11 +90,28 @@ def _unstack_charm_scan(params: dict) -> dict:
                           for ln, p in layers.items()} for k, layers in slices.items()}}
 
 
-def from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
+def _unstack_zigzag_scan(params: dict, model) -> dict:
+    """A tree with a ``zigzag_scan`` subtree -> the same tree with the
+    per-slice context groups in its place."""
+    from .models.stf_family import unstack_zigzag_params
+
+    if model is None:
+        raise ValueError("a zigzag_scan tree unstacks only with the model it belongs to "
+                         "(from_jax_params(params, model=...)): its support mode and "
+                         "conditioning width place the padding")
+    slices = unstack_zigzag_params({"zigzag_scan": params["zigzag_scan"]}, model)
+    return {**{k: v for k, v in params.items() if k != "zigzag_scan"}, **slices}
+
+
+def from_jax_params(params: dict, model=None) -> Dict[str, torch.Tensor]:
+    """``model``: the port's model of the tree's configuration, needed only
+    for a ``zigzag_scan`` tree (see the module docstring)."""
     if set(params) == {"params"}:
         params = params["params"]
     if "charm_scan" in params:
         params = _unstack_charm_scan(params)
+    if "zigzag_scan" in params:
+        params = _unstack_zigzag_scan(params, model)
     out: Dict[str, torch.Tensor] = {}
     for path, value in _walk(params):
         leaf, arr = _convert(path, np.asarray(value))

@@ -77,11 +77,12 @@ class CompressionModel(nn.Module):
         y_likelihood = []
         for i in range(self.ctx_slices):
             support = self.ctx_support(i, y_hat_slices)
-            mu, scale, mean_support = self.slice_context(i, state, support)
+            mu, scale, mean_support = self.forward_slice_context(i, state, support, generator)
             _, lik = self.gaussian_conditional(y_slices[i], scale, mu, generator)
             y_likelihood.append(lik)
             y_hat_slice = ste_round(y_slices[i] - mu) + mu
-            y_hat_slice = y_hat_slice + self.slice_lrp(i, mean_support, y_hat_slice)
+            y_hat_slice = y_hat_slice + self.forward_slice_lrp(i, mean_support, y_hat_slice,
+                                                               generator)
             y_hat_slices.append(y_hat_slice)
 
         y_hat = self.ctx_assemble(y_hat_slices)
@@ -104,6 +105,16 @@ class CompressionModel(nn.Module):
         """``synthesize`` as :meth:`forward` runs it (see
         :meth:`forward_analyze`)."""
         return self.synthesize(y_hat)
+
+    def forward_slice_context(self, i: int, state, support, generator=None):
+        """``slice_context`` as :meth:`forward` runs it (see
+        :meth:`forward_analyze`)."""
+        return self.slice_context(i, state, support)
+
+    def forward_slice_lrp(self, i: int, mean_support, y_hat_slice, generator=None):
+        """``slice_lrp`` as :meth:`forward` runs it (see
+        :meth:`forward_analyze`)."""
+        return self.slice_lrp(i, mean_support, y_hat_slice)
 
     def aux_loss(self) -> torch.Tensor:
         return self.entropy_bottleneck.aux_loss()

@@ -38,8 +38,9 @@ channel groups: (B * zh * zw, G, C / G) transposed to (C / G, pixels * G).
 ``scan_wire=True`` serves the scan wire instead (``scan_codec.py``): the
 whole AR chain as one program both sides run, tagged ``WIRE_SCAN``. Its
 four programs (the encode front: analysis, z's symbols and the latent
-slices; the conditioning: z_hat and the hyper-decoders; the chain, one
-graph each way; assembly and synthesis) are captured as CUDA graphs on
+slices; the conditioning: z_hat and the hyper-decoders, and for the
+zigzag family their blocks concatenated; the chain with the family's
+refiners, one graph each way; assembly and synthesis) are captured as CUDA graphs on
 the card (``graphs.py``) and replayed; ``cuda_graphs=False`` runs the
 same functions launch by launch, as the CPU does. The JAX scan wire runs
 in float32 only (its context convolutions raise under the bfloat16
@@ -346,8 +347,9 @@ class DeviceWireCodec(CharmCodec):
     hyper-pixels and ``Z_LANE_GROUPS`` channel groups.
 
     ``scan_wire``: serve the scan wire (see the module docstring), float32
-    only, for the models whose context is ``ChannelCharm``'s (``cnn``,
-    ``stf``); ``cuda_graphs``: on the card, replay its programs as
+    only: ``CharmScanWire`` for the models whose context is
+    ``ChannelCharm``'s (``cnn``, ``stf``), ``ZigzagSwinScanWire`` for the
+    zigzag family; ``cuda_graphs``: on the card, replay its programs as
     captured graphs (False: launch by launch, for holding the two against
     each other). ``tables`` as ``CharmCodec``'s; the wire defines its own
     symbol order, so ``ref_layout`` raises, as in the JAX package.
@@ -365,18 +367,22 @@ class DeviceWireCodec(CharmCodec):
         self.scan_wire = scan_wire
         if scan_wire:
             from .cnn import ChannelCharm
-            from .scan_codec import CharmScanWire
+            from .scan_codec import CharmScanWire, ZigzagSwinScanWire
+            from .stf_family import ZigzagSwinCodec
 
-            if not isinstance(model, ChannelCharm):
+            if isinstance(model, ChannelCharm):
+                wire_cls = CharmScanWire
+            elif isinstance(model, ZigzagSwinCodec):
+                wire_cls = ZigzagSwinScanWire
+            else:
                 raise NotImplementedError(
-                    f"the scan wire of {type(model).__name__} (the JAX package's "
-                    "ZigzagSwinScanWire, with its stacked refiner weights) is not ported yet "
-                    "(ROADMAP.md, Queue 1: the zigzag family's scan wire); serve the device "
-                    "wire (scan_wire=False)")
+                    f"no scan wire drives {type(model).__name__}: the port has CharmScanWire "
+                    "(cnn, stf) and ZigzagSwinScanWire (stf5-stf8); serve the device wire "
+                    "(scan_wire=False)")
             self._check_f32()
             self.graphs = GraphCache(enabled=cuda_graphs)
-            self._scan = CharmScanWire(self.model, self.kit, self._scale_table, self.graphs,
-                                       narrow=narrow)
+            self._scan = wire_cls(self.model, self.kit, self._scale_table, self.graphs,
+                                  narrow=narrow)
 
     # --- the scan wire -------------------------------------------------------
     @staticmethod
@@ -404,9 +410,9 @@ class DeviceWireCodec(CharmCodec):
         return z_sym, torch.stack(mdl.latent_slices(y))
 
     def _scan_state(self, z_sym):
-        """z's symbols -> the conditioning (means, scales)."""
-        state = self.model.ctx_prepare(self._z_hat(z_sym))
-        return state["means"], state["scales"]
+        """z's symbols -> the conditioning (means, scales) the scan wire
+        takes."""
+        return self._scan.conditioning(self.model.ctx_prepare(self._z_hat(z_sym)))
 
     def _assemble(self, y_hats):
         """y_hat stack -> (y_hat (B, M, h, w), x_hat NHWC in [0, 1])."""

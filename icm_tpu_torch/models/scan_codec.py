@@ -1,7 +1,8 @@
 """The scan wire: the whole ChARM chain as one program both coder sides run.
 
-Port of ``icm_tpu/models/scan_codec.py::CharmScanWire`` and the
-static-signature helpers it needs. The JAX package compiles the whole
+Port of ``icm_tpu/models/scan_codec.py``'s ``CharmScanWire`` (``cnn``,
+``stf``), ``ZigzagSwinScanWire`` (the zigzag family ``stf5``-``stf8``)
+and the static-signature helpers they share. The JAX package compiles the whole
 autoregressive chain of a prefix-support ChARM model (``cnn``, ``stf``)
 as one ``lax.scan``: per slice the context convolutions over stacked,
 zero-padded per-slice weights (``cnn.stack_charm_params``), the scale
@@ -186,10 +187,23 @@ def _wire_inputs(blobs, n_segs: int, seg_size: int, lanes: int, n_syms: int, dev
 
 
 class _StaticScanIO:
-    """Encode-side static-signature plumbing of a scan wire (``N``: the
-    segment count): the three-tier escape ladder."""
+    """What every scan wire shares: the static-signature plumbing (the
+    three-tier escape ladder), the lane layout, the step loop of both
+    directions (:meth:`_program`) and both run through the owner's
+    ``GraphCache``. A wire supplies ``N`` (the segment count: its
+    slices), ``kit``, ``graphs``, ``sc`` (a slice's channels),
+    ``max_sup``, ``prefix`` and ``Wc`` (its support and conditioning),
+    ``_stacked`` (the stacked context convolutions, built by
+    :meth:`restack`), :meth:`conditioning` and, where it has refiners,
+    :meth:`_refine`."""
 
-    N: int
+    def __init__(self, model, kit, scale_table: torch.Tensor, graphs, narrow: float):
+        self.model = model
+        self.kit = kit
+        self.scale_table = scale_table
+        self.graphs = graphs
+        self.narrow = narrow
+        self.N = int(model.ctx_slices)
 
     def _encode_tiered(self, run_pack, n_l_img: int, steps_per_seg: int, seg_size: int):
         """``run_pack()`` -> (outs, untiered blobs); -> (blobs framed with
@@ -199,41 +213,6 @@ class _StaticScanIO:
         counts = _seg_esc_counts(blobs, n_l_img, steps_per_seg, self.N)
         return _wrap_tier(blobs, _tier_for(int(counts.max()), seg_size)), outs
 
-
-class CharmScanWire(_StaticScanIO):
-    """Scan-wire driver of a prefix-support ChARM model (``cnn``, ``stf``):
-    the first ``max_support_slices`` reconstructed slices condition every
-    later one, and the full-width hyper-decoder outputs enter every
-    slice's context.
-
-    ``kit``: the codec's ``DeviceWireKit``; ``scale_table`` on the model's
-    device; ``graphs``: the codec's ``GraphCache``, through which both
-    directions run (the same functions launch by launch on the CPU).
-    :meth:`restack` builds the stacked weights again after the model's
-    parameters changed."""
-
-    def __init__(self, model, kit, scale_table: torch.Tensor, graphs, narrow: float = 1.0):
-        if not hasattr(model, "max_support_slices"):
-            raise ValueError("CharmScanWire drives prefix-support ChARM models (cnn, stf)")
-        self.model = model
-        self.kit = kit
-        self.scale_table = scale_table
-        self.graphs = graphs
-        self.narrow = narrow
-        self.N = int(model.ctx_slices)
-        self.max_sup = int(model.max_support_slices)
-        cc = model.cc_mean_0
-        names = sorted((n for n, _ in cc.named_children() if n.startswith("Conv_")),
-                       key=lambda n: int(n.split("_")[1]))
-        self.sc = int(getattr(cc, names[-1]).weight.shape[0])
-        self.cond_width = int(cc.Conv_0.weight.shape[1])
-        self.restack()
-
-    def restack(self) -> None:
-        with torch.no_grad():
-            self._stacked = stack_charm_params(self.model, self.N, self.sc, self.max_sup,
-                                               self.cond_width)["charm_scan"]
-
     def _layout(self, B: int, h: int, w: int, sc: int):
         """(n_l per image, lanes, steps a segment, symbols a segment)."""
         n_l = self.kit.n_lanes(h, w)
@@ -241,54 +220,10 @@ class CharmScanWire(_StaticScanIO):
         Ts = ((h * w) // n_l) * sc
         return n_l, L, Ts, Ts * L
 
-    def _program(self, is_enc: bool):
-        """The step loop of both directions: (means, scales, y_stack) ->
-        (y_hats, syms, idxs) on encode; (means, scales, words, off,
-        esc_d, esc_r) -> (y_hats,) on decode. Stacks are (N, B, sc, h,
-        w); only the symbol source depends on ``is_enc``."""
-        W, kit, N, sc, max_sup = self._stacked, self.kit, self.N, self.sc, self.max_sup
-
-        def program(means, scales, *rest):
-            B, _, h, w = means.shape
-            n_l = kit.n_lanes(h, w)
-            if is_enc:
-                (y_stack,) = rest
-            else:
-                words, off, esc_d, esc_r = rest
-            buf = means.new_zeros((B, max_sup * sc, h, w))
-            st = pt = None
-            y_hats, syms, idxs = [], [], []
-            for i in range(N):
-                mean_support = torch.cat([means, buf], 1)
-                mu = _cc_apply(W["cc_mean"], i, mean_support)
-                scale = _cc_apply(W["cc_scale"], i, torch.cat([scales, buf], 1))
-                index = build_indexes(scale, self.scale_table)
-                if is_enc:
-                    sym = enc_round(y_stack[i] - mu, self.narrow).to(torch.int32)
-                else:
-                    rows = kit.to_lanes(index, n_l)
-                    vals, st, pt = decode_lanes(words, off, rows, kit.gauss_dev, st, pt)
-                    vals = fix_escapes(vals, esc_d[i], esc_r[i])
-                    sym = kit.from_lanes(vals, B, sc, h, w)
-                sym = _canonical(sym)
-                y_hat = sym.to(mu.dtype) + mu
-                lrp = _cc_apply(W["lrp"], i, torch.cat([mean_support, y_hat], 1))
-                y_hat = y_hat + 0.5 * torch.tanh(lrp)
-                if i < max_sup:  # prefix support: slot i, then frozen
-                    buf[:, i * sc:(i + 1) * sc] = y_hat
-                y_hats.append(y_hat)
-                syms.append(sym)
-                idxs.append(index)
-            if is_enc:
-                return torch.stack(y_hats), torch.stack(syms), torch.stack(idxs)
-            return (torch.stack(y_hats),)
-
-        return program
-
     def encode(self, means: torch.Tensor, scales: torch.Tensor, y_stack: torch.Tensor):
-        """Conditioning (B, C, h, w) and latent slices (N, B, sc, h, w) ->
-        (tier-framed wire blobs, one an image; y_hat stack (N, B, sc, h,
-        w), which the next encode overwrites)."""
+        """Conditioning (B, C, h, w) (:meth:`conditioning`) and latent
+        slices (N, B, sc, h, w) -> (tier-framed wire blobs, one an image;
+        y_hat stack (N, B, sc, h, w), which the next encode overwrites)."""
         _, B, sc, h, w = y_stack.shape
         n_l, L, Ts, seg = self._layout(B, h, w, sc)
 
@@ -311,3 +246,151 @@ class CharmScanWire(_StaticScanIO):
         (y_hats,) = self.graphs.run(("scan", "decode", B, h, w, tier), self._program(False),
                                     [means, scales, words, off, esc_d, esc_r])
         return y_hats
+
+    prefix = True  # prefix support (slot i, then frozen), else sliding
+    Wc = 0  # conditioning window in zigzag blocks; 0: the whole of it
+
+    def _refine(self, tag: str, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Slice i's ``tag`` refiner ("mu", "sigma", "lrp") on x: none here."""
+        return x
+
+    def _program(self, is_enc: bool):
+        """The step loop of both directions: (means, scales, y_stack) ->
+        (y_hats, syms, idxs) on encode; (means, scales, words, off,
+        esc_d, esc_r) -> (y_hats,) on decode. The conditioning is (B, C,
+        h, w), the stacks (N, B, sc, h, w); only the symbol source depends
+        on ``is_enc``."""
+        W, N, sc, max_sup, Wc = self._stacked, self.N, self.sc, self.max_sup, self.Wc
+
+        def program(cond_m, cond_s, *rest):
+            B, _, h, w = cond_m.shape
+            y_stack = rest[0] if is_enc else None
+            dec = None if is_enc else [*rest, None, None]
+            buf = cond_m.new_zeros((B, max_sup * sc, h, w))
+            y_hats, syms, idxs = [], [], []
+            for i in range(N):
+                cm, cs = cond_m, cond_s
+                if Wc:  # blocks [s, s + Wc), clamped at the tail
+                    s = min(i, N - Wc)
+                    cm, cs = cond_m[:, s * sc:(s + Wc) * sc], cond_s[:, s * sc:(s + Wc) * sc]
+                mean_support = torch.cat([cm, buf], 1)
+                mu = self._refine("mu", i, _cc_apply(W["cc_mean"], i, mean_support))
+                scale = self._refine("sigma", i,
+                                     _cc_apply(W["cc_scale"], i, torch.cat([cs, buf], 1)))
+                index = build_indexes(scale, self.scale_table)
+                sym = self._symbols(is_enc, i, index, mu, y_stack, dec, B)
+                y_hat = sym.to(mu.dtype) + mu
+                lrp = _cc_apply(W["lrp"], i, torch.cat([mean_support, y_hat], 1))
+                y_hat = y_hat + 0.5 * torch.tanh(self._refine("lrp", i, lrp))
+                if not self.prefix:  # sliding support: newest last
+                    buf = torch.cat([buf[:, sc:], y_hat], 1)
+                elif i < max_sup:  # prefix support: slot i, then frozen
+                    buf[:, i * sc:(i + 1) * sc] = y_hat
+                y_hats.append(y_hat)
+                syms.append(sym)
+                idxs.append(index)
+            if is_enc:
+                return torch.stack(y_hats), torch.stack(syms), torch.stack(idxs)
+            return (torch.stack(y_hats),)
+
+        return program
+
+    def _symbols(self, is_enc: bool, i: int, index, mu, y_stack, dec, B: int):
+        """Slice i's int32 symbols (B, sc, h, w), standard strides: rounded
+        from the latent on encode; on decode one lane-rANS launch
+        continuing ``dec`` = [words, off, esc_d, esc_r, state, ptr] (the
+        state and pointers updated in place) and its escapes."""
+        if is_enc:
+            sym = enc_round(y_stack[i] - mu, self.narrow).to(torch.int32)
+        else:
+            words, off, esc_d, esc_r, st, pt = dec
+            _, sc, h, w = index.shape
+            rows = self.kit.to_lanes(index, self.kit.n_lanes(h, w))
+            vals, dec[4], dec[5] = decode_lanes(words, off, rows, self.kit.gauss_dev, st, pt)
+            vals = fix_escapes(vals, esc_d[i], esc_r[i])
+            sym = self.kit.from_lanes(vals, B, sc, h, w)
+        return _canonical(sym)
+
+
+class CharmScanWire(_StaticScanIO):
+    """Scan-wire driver of a prefix-support ChARM model (``cnn``, ``stf``):
+    the first ``max_support_slices`` reconstructed slices condition every
+    later one, and the full-width hyper-decoder outputs enter every
+    slice's context.
+
+    ``kit``: the codec's ``DeviceWireKit``; ``scale_table`` on the model's
+    device; ``graphs``: the codec's ``GraphCache``, through which both
+    directions run (the same functions launch by launch on the CPU).
+    :meth:`restack` builds the stacked weights again after the model's
+    parameters changed."""
+
+    def __init__(self, model, kit, scale_table: torch.Tensor, graphs, narrow: float = 1.0):
+        if not hasattr(model, "max_support_slices"):
+            raise ValueError("CharmScanWire drives prefix-support ChARM models (cnn, stf)")
+        super().__init__(model, kit, scale_table, graphs, narrow)
+        self.max_sup = int(model.max_support_slices)
+        cc = model.cc_mean_0
+        names = sorted((n for n, _ in cc.named_children() if n.startswith("Conv_")),
+                       key=lambda n: int(n.split("_")[1]))
+        self.sc = int(getattr(cc, names[-1]).weight.shape[0])
+        self.cond_width = int(cc.Conv_0.weight.shape[1])
+        self.restack()
+
+    def restack(self) -> None:
+        with torch.no_grad():
+            self._stacked = stack_charm_params(self.model, self.N, self.sc, self.max_sup,
+                                               self.cond_width)["charm_scan"]
+
+    @staticmethod
+    def conditioning(state: dict):
+        """The model's ``ctx_prepare`` state -> (means, scales) (B, C, h, w)."""
+        return state["means"], state["scales"]
+
+
+class ZigzagSwinScanWire(_StaticScanIO):
+    """The scan wire of the zigzag family (``stf_family.ZigzagSwinCodec``,
+    ``stf5``-``stf8``): prefix or sliding support, full or window
+    conditioning, and per-slice Swin refiners after the context
+    convolutions. Port of the JAX package's ``ZigzagSwinScanWire`` with
+    the step context it applies (``stf_family._ZigzagCodeCtx``, always
+    deterministic).
+
+    Per slice i the step concatenates the conditioning and the support
+    buffer, applies slice i's zero-padded first convolution and the rest
+    of its stack (:func:`stf_family.stack_zigzag_params`, convolutions
+    only), then the model's own slice-i refiner modules: JAX's stacked
+    refiner subtree holds the same values, so no second copy of the
+    refiners' parameters is made. Conditioning: the hyper-decoders'
+    outputs ("full"), or the window of ``mean_window`` zigzag blocks
+    ``[s, s + mean_window)``, ``s = min(i, N - mean_window)``, of the
+    blocks concatenated block-major (channel ``j * sc + c``, JAX's
+    ``moveaxis(v, 0, 3).reshape``). The buffer holds ``max_support``
+    slots: prefix support writes slot i while ``i < max_support``, then
+    freezes; sliding support shifts left a slot and appends. The padded
+    convolutions are rebuilt by :meth:`restack` when the weights change;
+    the refiners are read where they are."""
+
+    def __init__(self, model, kit, scale_table: torch.Tensor, graphs, narrow: float = 1.0):
+        super().__init__(model, kit, scale_table, graphs, narrow)
+        self.sc = int(model.slice_ch)
+        self.max_sup = int(model.max_support)
+        self.Wc = 0 if model.mean_mode == "full" else int(model.mean_window)
+        self.prefix = model.support_mode == "prefix"
+        self.restack()
+
+    def restack(self) -> None:
+        from .stf_family import stack_zigzag_params
+
+        with torch.no_grad():
+            self._stacked = stack_zigzag_params(self.model, self.model,
+                                                refiners=False)["zigzag_scan"]
+
+    @staticmethod
+    def conditioning(state: dict):
+        """The model's ``ctx_prepare`` state -> (means, scales) (B, C, h, w):
+        the hyper-decoders' outputs, or their zigzag blocks concatenated
+        block-major (C = N * sc)."""
+        return torch.cat(state["means"], 1), torch.cat(state["scales"], 1)
+
+    def _refine(self, tag: str, i: int, x: torch.Tensor) -> torch.Tensor:
+        return self.model.refine(tag, i, x)

@@ -798,12 +798,19 @@ TRACE_NAMES = {"window_attention": "window_attention_kernel", "gdn_forward": "gd
 
 
 def _scan_codecs(name, seed=0):
-    """-> (model, graphed scan-wire codec, the same launch by launch)."""
-    from icm_tpu_torch.models import DeviceWireCodec, create_model
+    """-> (model, graphed scan-wire codec, the same launch by launch);
+    ``name``: a SCAN_TWINS model or a FAMILY_TWINS twin."""
+    from icm_tpu_torch.models import DeviceWireCodec
 
-    model = create_model(name, device="cuda", seed=seed, **SCAN_TWINS[name])
+    model = _family_model(name, seed) if name in FAMILY_TWINS else _scan_model(name, seed)
     return (model, DeviceWireCodec(model, lanes_per_image=4, scan_wire=True),
             DeviceWireCodec(model, lanes_per_image=4, scan_wire=True, cuda_graphs=False))
+
+
+def _scan_model(name, seed=0):
+    from icm_tpu_torch.models import create_model
+
+    return create_model(name, device="cuda", seed=seed, **SCAN_TWINS[name])
 
 
 def _scan_images(size=64, scale=None, seed=0):
@@ -822,7 +829,7 @@ def _same_codec_outputs(got, want):
             assert got[k] == want[k], k
 
 
-@pytest.mark.parametrize("name", ["cnn", "stf"])
+@pytest.mark.parametrize("name", ["cnn", "stf", "d8", "d16"])
 def test_scan_wire_graphs_replay_as_launches(name):
     """The four programs (front, conditioning, the chain each way,
     assembly) replayed from their graphs give the bits of the same
@@ -848,10 +855,11 @@ def test_scan_wire_graphs_replay_as_launches(name):
             assert all(torch.equal(a, b) for a, b in zip(replayed, launched)), key
 
 
-@pytest.mark.parametrize("name", ["cnn", "stf"])
+@pytest.mark.parametrize("name", ["cnn", "stf", "d8", "d16"])
 def test_scan_wire_recaptures_after_a_weight_change(name):
     """A weight changed in place: the graphed codec captures again and
-    gives what the launch-by-launch codec gives on the changed weights."""
+    gives what the launch-by-launch codec gives on the changed weights
+    (the family's: a padded first conv's and a refiner's)."""
     _needs_card()
     model, graphed, plain = _scan_codecs(name)
     x = _scan_images()
@@ -859,6 +867,8 @@ def test_scan_wire_recaptures_after_a_weight_change(name):
     with torch.no_grad():
         model.cc_mean_1.Conv_0.weight.mul_(1.5)
         (model.g_s[-1] if name == "cnn" else model.g_s.to_rgb).weight.mul_(0.5)
+        if name in FAMILY_TWINS:
+            model.mu_refine_1.stage0.block0.mlp.Dense_1.weight.mul_(2.0)
     after = graphed.compress(x, return_debug=True)
     _same_codec_outputs(after, plain.compress(x, return_debug=True))
     assert not torch.equal(after["y_hat"], before["y_hat"])
@@ -882,7 +892,7 @@ def test_scan_wire_escape_ladder_on_the_card():
     _same_codec_outputs(dec, plain.decompress(enc["strings"], enc["shape"]))
 
 
-@pytest.mark.parametrize("name", ["cnn", "stf"])
+@pytest.mark.parametrize("name", ["cnn", "stf", "d8", "d16"])
 def test_scan_wire_replay_counts_match_the_profiler(name):
     """The launches each graph adds to the counters at a replay are the
     port's kernels the profiler sees in that replay."""
@@ -982,11 +992,136 @@ def test_family_twin_wires_and_forward_on_the_card(twin):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3)
 
 
-def test_family_scan_wire_raises_on_the_card():
-    _needs_card()
-    from icm_tpu_torch.models import DeviceWireCodec, create_model
+def _family_model(twin, seed=0, device="cuda", **overrides):
+    from icm_tpu_torch.models import create_model
 
-    preset, ctx = FAMILY_TWINS["d8"]
-    model = create_model(preset, device="cuda", seed=0, **FAMILY_WIDTHS, **ctx)
-    with pytest.raises(NotImplementedError, match="ZigzagSwinScanWire"):
-        DeviceWireCodec(model, lanes_per_image=4, scan_wire=True)
+    preset, ctx = FAMILY_TWINS[twin]
+    return create_model(preset, device=device, seed=seed, **{**FAMILY_WIDTHS, **ctx, **overrides})
+
+
+@pytest.mark.parametrize("twin", sorted(FAMILY_TWINS))
+def test_family_scan_wire_on_the_card(twin):
+    """The family twins' scan wire on 2 x 64 px: the round trip bit-exact,
+    one window-attention launch a Swin block (compress with its debug
+    reconstruction: g_a, g_s and the refiners; decompress g_s and the
+    refiners) and one decode launch a slice inside the decode graph, plus
+    z's outside; y_hat within JAX's bar of the device wire's."""
+    _needs_card()
+    from icm_tpu_torch.models import DeviceWireCodec
+    from icm_tpu_torch.nn.swin import SwinBlock
+
+    model, graphed, _ = _scan_codecs(twin)
+    blocks = {part: sum(isinstance(m, SwinBlock) for m in getattr(model, part).modules())
+              for part in ("g_a", "g_s")}
+    refiners = sum(isinstance(m, SwinBlock) for n, m in model.named_modules() if "_refine_" in n)
+    x = _scan_images()
+    first = graphed.compress(x, return_debug=True)  # captures every program
+    graphed.decompress(first["strings"], first["shape"])
+    before, decodes = twa.LAUNCHES.copy(), tdr.DECODE_LAUNCHES
+    enc = graphed.compress(x, return_debug=True)
+    torch.cuda.synchronize()
+    assert twa.LAUNCHES - before == Counter({torch.float32: blocks["g_a"] + blocks["g_s"]
+                                                            + refiners})
+    before = twa.LAUNCHES.copy()
+    dec = graphed.decompress(enc["strings"], enc["shape"])
+    torch.cuda.synchronize()
+    assert twa.LAUNCHES - before == Counter({torch.float32: blocks["g_s"] + refiners})
+    assert tdr.DECODE_LAUNCHES - decodes == model.ctx_slices + 1
+    decode_graph = [g for k, g in graphed.graphs.graphs().items() if k[:2] == ("scan", "decode")]
+    assert [sum(g.launches["DECODE_LAUNCHES"].values()) for g in decode_graph] == [
+        model.ctx_slices]
+    assert torch.equal(dec["y_hat"], enc["y_hat"]) and torch.equal(dec["x_hat"], enc["x_hat"])
+    denc = DeviceWireCodec(model, lanes_per_image=4).compress(x, return_debug=True)
+    d = (enc["y_hat"] - denc["y_hat"]).abs()
+    assert float((d > 1e-2).float().mean()) < 0.005 and float(d.median()) < 1e-4
+
+
+@pytest.mark.parametrize("twin", sorted(FAMILY_TWINS))
+def test_family_scan_charm_train_step_card_vs_cpu(twin):
+    """One ``scan_charm=True`` training step at stochastic depth 0 on the
+    card and on the CPU, the same weights and noise (one seeded CPU
+    generator each): loss terms and every gradient within 1e-3 of its max
+    (``chip_smoke.py``'s rule), one window-attention launch a Swin block;
+    then at depth 0.5 the card's step is finite and repeats with one
+    generator seed."""
+    _needs_card()
+    from icm_tpu_torch.models import cuda_numerics
+    from icm_tpu_torch.nn.swin import SwinBlock
+    from icm_tpu_torch.train import RateDistortionLoss
+
+    cuda_numerics()
+
+    model = _family_model(twin, drop_path_rate=0.0, scan_charm=True).train()
+    cpu = _family_model(twin, device="cpu", drop_path_rate=0.0, scan_charm=True).train()
+    cpu.load_state_dict(model.state_dict())
+    x = _scan_images(64)
+    criterion = RateDistortionLoss(0.01)
+
+    def step(m, xs, seed=0):
+        m.zero_grad(set_to_none=True)
+        before = twa.LAUNCHES.copy()
+        out = m(xs, generator=torch.Generator().manual_seed(seed))
+        rd = criterion(out, xs)
+        aux = m.aux_loss()
+        (rd["loss"] + aux).backward()
+        launched = twa.LAUNCHES - before
+        return ({k: float(v) for k, v in {**rd, "aux_loss": aux}.items()},
+                {n: p.grad.detach().cpu() for n, p in m.named_parameters()}, launched)
+
+    got_terms, got, launched = step(model, x)
+    ref_terms, ref, _ = step(cpu, x.cpu())
+    blocks = sum(isinstance(m, SwinBlock) for m in model.modules())
+    assert launched == Counter({torch.float32: blocks})
+    for k, v in ref_terms.items():
+        assert abs(got_terms[k] - v) <= 1e-3 * max(abs(v), 1e-30), k
+    for n in ref:
+        err = (got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)
+        assert err <= 1e-3, (n, float(err))
+    sd = _family_model(twin, drop_path_rate=0.5, scan_charm=True).train()
+    sd.load_state_dict(model.state_dict())
+    a, ga, _ = step(sd, x, seed=1)
+    b, _, _ = step(sd, x, seed=1)
+    assert all(np.isfinite(v) for v in a.values()) and a == b
+    assert all(bool(torch.isfinite(g).all()) for g in ga.values())
+
+
+@pytest.mark.parametrize("twin", sorted(FAMILY_TWINS))
+def test_family_bf16_wires_on_the_card(twin):
+    """Under the bfloat16 policy, host and device wire on 2 x 128 px:
+    bit-exact round trips, the device wire's y_hat the host wire's, every
+    window-attention launch the bfloat16 build's (one a Swin block), bpp
+    within 5% and mean |x_hat difference| under 0.01 of float32; the scan
+    wire refuses the policy."""
+    _needs_card()
+    from icm_tpu_torch.models import CharmCodec, DeviceWireCodec
+    from icm_tpu_torch.nn import set_activation_dtype
+    from icm_tpu_torch.nn.swin import SwinBlock
+
+    model = _family_model(twin)
+    blocks = sum(isinstance(m, SwinBlock) for n, m in model.named_modules()
+                 if n.startswith("g_s") or "_refine_" in n)
+    x = _scan_images(128)
+    f32 = CharmCodec(model).compress(x, return_debug=True)
+    set_activation_dtype(torch.bfloat16)
+    try:
+        with pytest.raises(ValueError, match="float32 only"):
+            DeviceWireCodec(model, lanes_per_image=4, scan_wire=True)
+        host, dev = CharmCodec(model), DeviceWireCodec(model, lanes_per_image=4)
+        enc = host.compress(x, return_debug=True)
+        before = twa.LAUNCHES.copy()
+        dec = host.decompress(enc["strings"], enc["shape"])
+        torch.cuda.synchronize()
+        assert twa.LAUNCHES - before == Counter({torch.bfloat16: blocks})
+        denc = dev.compress(x, return_debug=True)
+        ddec = dev.decompress(denc["strings"], denc["shape"])
+    finally:
+        set_activation_dtype(None)
+    assert torch.equal(dec["y_hat"], enc["y_hat"]) and torch.equal(dec["x_hat"], enc["x_hat"])
+    assert torch.equal(ddec["y_hat"], denc["y_hat"]) and torch.equal(ddec["x_hat"], denc["x_hat"])
+    assert torch.equal(denc["y_hat"], enc["y_hat"])
+
+    def bpp(e):
+        return 8 * sum(len(s) for k in (0, 1) for s in e["strings"][k]) / (2 * 128 * 128)
+
+    assert bpp(enc) == pytest.approx(bpp(f32), rel=0.05)
+    assert float((dec["x_hat"].float() - f32["x_hat"]).abs().mean()) < 0.01

@@ -199,9 +199,12 @@ SCANNED = sorted(
 
 def test_import_scan_covers_the_port_modules():
     """Every module of the package is scanned, the reference-checkpoint
-    and zigzag-family ones among them."""
+    and zigzag-family ones among them (the family's scan wire and stacked
+    weights too)."""
     for path in ("icm_tpu_torch/zoo.py", "icm_tpu_torch/scan/zigzag.py",
-                 "icm_tpu_torch/models/stf_family.py", "icm_tpu_torch/models/codec.py"):
+                 "icm_tpu_torch/models/stf_family.py", "icm_tpu_torch/models/codec.py",
+                 "icm_tpu_torch/models/scan_codec.py", "icm_tpu_torch/convert.py",
+                 "icm_tpu_torch/graphs.py"):
         assert path in SCANNED
 
 

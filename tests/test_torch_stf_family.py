@@ -186,15 +186,6 @@ class FamilyTwin:
 
 # --- the family's other tests -------------------------------------------------------
 
-def test_scan_wire_raises_not_implemented():
-    """The family's scan wire is not ported; asking for it must not fall
-    back to ``CharmScanWire``, whose step has no refiners."""
-    preset, ctx = TWINS["stf5like"]
-    tm = tmodels.create_model(preset, device="cpu", **TINY_SWIN, **ctx)
-    with pytest.raises(NotImplementedError, match="ZigzagSwinScanWire"):
-        tmodels.DeviceWireCodec(tm, lanes_per_image=4, scan_wire=True)
-
-
 # refiner Swin blocks a side: per slice, the blocks of each enabled refiner
 PRESETS = {"stf5": (12, 32, 432), "stf6": (24, 64, 288), "stf6_2": (24, 64, 288),
            "stf7": (12, 32, 240), "stf8": (24, 64, 480)}

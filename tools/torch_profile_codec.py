@@ -2,14 +2,15 @@
 training step, on the card.
 
     python3 tools/torch_profile_codec.py [--model cnn|stf|stf5|stf6|stf7|stf8]
-        [--wire host|device|scan] [--no-graphs] [--act-dtype f32|bf16] [--seed 0]
-        [--out profile.json]
+        [--wire host|device|scan] [--no-graphs] [--act-dtype f32|bf16]
+        [--scan-charm] [--seed 0] [--out profile.json]
 
 Builds the full-width codec of ``--model`` (``cnn``, the default: WACNN,
 N=192, M=320, 10 slices; ``stf``: the Swin codec, embed 48, M=384, 12
 slices; ``stf5``-``stf8``: the zigzag family, stf's transforms with
-per-slice Swin refiners, whose codec sides only are traced: the family's
-training step is not held yet) on the CUDA card with weights drawn from
+per-slice Swin refiners; its training step runs the registry's unrolled
+forward, or with ``--scan-charm`` the ``scan_charm=True`` forward, whose
+refiners take stochastic depth) on the CUDA card with weights drawn from
 ``--seed``, on the host
 wire (``CharmCodec``, the default), the device wire
 (``DeviceWireCodec``, 1024 lanes an image, its rANS on the card) or the
@@ -45,7 +46,7 @@ import time
 from collections import defaultdict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FAMILY = ("stf5", "stf6", "stf7", "stf8")  # the zigzag family: codec sides only
+FAMILY = ("stf5", "stf6", "stf7", "stf8")  # the zigzag family
 
 
 def _busy_us(events) -> float:
@@ -147,6 +148,8 @@ def main() -> int:
     ap.add_argument("--act-dtype", choices=("f32", "bf16"), default="f32",
                     help="activation dtype of the transforms and context stacks (both "
                     "coder sides and the training step); the entropy math stays f32")
+    ap.add_argument("--scan-charm", action="store_true",
+                    help="the zigzag family: train through the scan_charm=True forward")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="write the whole result here as JSON")
     args = ap.parse_args()
@@ -170,7 +173,10 @@ def main() -> int:
     ).stdout.strip().splitlines()[0].strip()
     if args.act_dtype == "bf16":
         set_activation_dtype(torch.bfloat16)
-    model = create_model(args.model, seed=args.seed)
+    if args.scan_charm and args.model not in FAMILY:
+        ap.error("--scan-charm is an option of the zigzag family (stf5-stf8)")
+    model = create_model(args.model, seed=args.seed,
+                         **({"scan_charm": True} if args.scan_charm else {}))
     if args.wire == "scan":
         codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2, scan_wire=True,
                                 cuda_graphs=not args.no_graphs)
@@ -189,13 +195,13 @@ def main() -> int:
         "compress": lambda: codec.compress(x),
         "decompress": lambda: codec.decompress(enc["strings"], enc["shape"]),
     }
-    if args.model not in FAMILY:
-        state = TrainState(model, make_optimizer(model))
-        train_step = make_train_step(model, RateDistortionLoss(0.01))
-        noise = torch.Generator(device="cuda").manual_seed(args.seed)
-        batch = torch.from_numpy(make_images(args.seed + 100, 8, 256)).cuda()
-        runs["train_step"] = lambda: train_step(state, batch, noise)
+    state = TrainState(model, make_optimizer(model))
+    train_step = make_train_step(model, RateDistortionLoss(0.01))
+    noise = torch.Generator(device="cuda").manual_seed(args.seed)
+    batch = torch.from_numpy(make_images(args.seed + 100, 8, 256)).cuda()
+    runs["train_step"] = lambda: train_step(state, batch, noise)
     result = {"card": card, "model": args.model, "wire": args.wire,
+              "scan_charm": args.scan_charm,
               "cuda_graphs": args.wire == "scan" and not args.no_graphs,
               "act_dtype": args.act_dtype, "images": 2,
               "size": 512, "narrow": 0.2,
@@ -233,7 +239,8 @@ def main() -> int:
                             for k, v in r["port_kernels"].items())
         wire = args.wire + (" (launch by launch)" if args.wire == "scan" and args.no_graphs
                             else " (graphs)" if args.wire == "scan" else "")
-        print(f"{args.model}, {wire} wire, {args.act_dtype}, {side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
+        fwd = ", scan_charm" if args.scan_charm and side == "train_step" else ""
+        print(f"{args.model}{fwd}, {wire} wire, {args.act_dtype}, {side}: wall {r['wall_ms']:.2f} ms traced, {r['wall_ms_unprofiled']:.2f} ms "
               f"untraced; device busy {r['device_busy_ms']:.2f} ms (idle share "
               f"{r['device_idle_share']:.3f} traced, {r['device_idle_share_unprofiled']:.3f} "
               f"untraced); {kernels} [{card}]")
