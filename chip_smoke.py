@@ -16,13 +16,17 @@ package beside it. Phases, each printed with its elapsed seconds:
    and 24 heads over 8192, 2048, 512 and 128 windows) and of the zigzag
    family's refiners (4 heads: head width 8 over 128 windows of 16
    tokens (stf5) and 32 of 64 (stf7), head width 16 over 32 of 16 (stf6)
-   and 8 of 64 (stf8), each at 1 and 4 window classes), then a ragged
-   window count of each, in f32 and bf16; two launches must give the
-   same bits; timed beside the plain version and
-   F.scaled_dot_product_attention (a yardstick the port never calls);
+   and 8 of 64 (stf8), each at 1 and 4 window classes) and of the CRC
+   family (8 heads: head width 32 over 512 windows of 64 tokens, 48 over
+   128 of 16, each at 1 and 4 classes), then a ragged window count of
+   each, in f32 and bf16; two launches must give the same bits; timed
+   beside the plain version and F.scaled_dot_product_attention (a
+   yardstick the port never calls);
 4. the fused GDN forward and backward kernels against their plain
    versions at the training step's shapes (8 x 192 x 128^2, 64^2, 32^2,
-   GDN and IGDN), the serving path's and one ragged shape, timed beside
+   GDN and IGDN), the serving path's and one ragged shape, and the CRC
+   family's 256 channels (2 x 256 x 128^2 serving, 8 x 256 x 64^2
+   training), timed beside
    the plain versions; two launches of each must give the same bits; in
    float32 and then the bfloat16 builds (x, g, y, dx bfloat16, gamma
    rounded to it, beta float32);
@@ -151,7 +155,8 @@ package beside it. Phases, each printed with its elapsed seconds:
     model;
 24. each family model under the bfloat16 policy on both wires, as phase
     7b (the refiners' window attention in its bfloat16 builds: head width
-    8 padded to 16, and 16), and its scan wire refusing the policy;
+    8 padded to 16, and 16), and its scan wire refusing the policy; phases
+    19-24 time each wire once (``FAMILY_REPS``), not the median of 3;
 25. stf7 and stf8 training (``run_training``, 8 x 256 x 256): 3 steps of
     the registry's unrolled forward, then 3 of the ``scan_charm=True``
     forward at the presets' stochastic depth 0.2 (the refiners' too), each
@@ -159,13 +164,47 @@ package beside it. Phases, each printed with its elapsed seconds:
     block (g_a, g_s and the refiners) and no other kernel's; img/s and
     peak memory of both; one ``scan_charm`` step against the CPU at depth
     0, as phase 16;
-26. 3 bfloat16 training steps of each, as phase 17.
+26. 3 bfloat16 training steps of each, as phase 17;
+27-28. the CRC family's stf9 (stf11 is its class and weights) and stf14
+    at their published full width (N=192, M=384, mid=256, 6 x 2x2 zigzag
+    = 24 slices, weights from ``--seed``, f32), each on the images of
+    phase 5 at ``narrow=0.2`` with ``CRCCodec`` on the host wire, the
+    device wire and the scan wire (graphed, and launch by launch), each
+    side's counts zeroed right before and read right after: y_hat and
+    x_hat bit-exact; window attention's launches by head width (24, 48,
+    32) and GDN's by channels (192, 256) as CRC_SIDE_LAUNCHES says
+    (stf9: compress 4 / 6, decompress none; stf14: 6 / 9 and 2 / 3); 4
+    encode launches a compress and 27 decode launches a decompress (24
+    slices, both z, the human y) on the device and scan wires; no host
+    round trip in decompress; the device wire's y_hat and x_hat the host
+    wire's and each stream's bytes within the host wire's x 1.02 plus
+    its lanes' flushes (256 lanes an image for the machine y, 1024 for
+    the human y); the scan wire held as phase 7a (graphs against a
+    traced replay and against launch by launch, y_hat within JAX's bar
+    of the device wire's) and refusing the bf16 policy; each side's
+    img/s (median of 3), device idle share and ATen calls on each wire;
+    the eval forward against the CPU's on one 256 x 256 image (x_hat,
+    machine_x_hat, both y likelihoods within 1e-3);
+29. stf9 training (``run_training``, 8 x 256 x 256, RateDistortionLoss
+    over both layers' likelihoods): 3 steps, each finite, 6 window
+    attention, 9 GDN forward and 6 GDN backward launches (the split
+    decoder g_s1 / g_s2 gives machine_x_hat, which no loss term reads:
+    its parameters must not move, all others must), by width and
+    channels as CRC_STEP_SHAPES; img/s and peak memory; one step card
+    against CPU as phase 10;
+30. a reference stf9 checkpoint at full width, as phase 18 (both
+    bottlenecks' and the Gaussian's tables stored and imported, the host
+    wire in the reference symbol order).
 
 Each serving phase also logs its sides' device idle share: one traced
 compress and decompress (the union of the trace's kernel, copy and memset
 intervals) against the median untraced wall time.
 
-The kernels line splits window attention's launches on the family paths
+The kernels line lists window attention's head widths 32 and 48 and the
+GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
+``gdn_forward_c256``, ``gdn_backward_c256``) with their launches on the
+CRC paths, read from the wrappers' counts by width and channels. It
+splits window attention's launches on the family paths
 between the transforms (under ``window_attention_d16`` and its bfloat16
 entry, at stf's shapes) and the refiners (``window_attention_d8`` for
 stf5 and stf7, ``window_attention_d16_refiners`` for stf6 and stf8, and
@@ -408,6 +447,33 @@ REFINER_HEADS = 4
 # bfloat16 eval forward is held against the CPU
 FAMILY_TRAIN = ("stf7", "stf8")
 FAMILY_BF16_EVAL = "stf7"
+# host-clock calls whose median gives a family wire's img/s: one, so that the
+# CRC phases fit the run's time (the other models' wires take the median of 3)
+FAMILY_REPS = 1
+# the CRC family (stf11 is stf9's class and weights): window attention at
+# 2 x 512 px by head width -> (W, N): MainCNNDecoder's 256-channel block
+# (128 x 128 at window 8) and every 384-channel block (32 x 32 at window
+# 4), 8 heads; a training step of 8 x 256^2 gives the same shapes. Its
+# launches by side and model (g_a, human_g_s2; stf14's decoder runs
+# human_g_s2 again): by head width 24, 48, 32, and the GDN forward's at
+# 192 and 256 channels
+CRC = ("stf9", "stf14")
+CRC_ATTENTION_SHAPES = {32: (512, 64), 48: (128, 16)}
+CRC_SIDE_LAUNCHES = {
+    "stf9": {"compress": {24: 1, 48: 2, 32: 1, "gdn192": 5, "gdn256": 1},
+             "decompress": {}},
+    "stf14": {"compress": {24: 1, 48: 3, 32: 2, "gdn192": 7, "gdn256": 2},
+              "decompress": {48: 1, 32: 1, "gdn192": 2, "gdn256": 1}},
+}
+# a training step of stf9 forward: g_a, g_s1 and human_g_s2 (6 attention,
+# 9 GDN: 2 at 256 channels); backward: the split decoder g_s1 / g_s2 feeds
+# no loss term (machine_x_hat), so 6 GDN backward launches, 1 at 256
+CRC_STEP = {"window_attention": 6, "gdn_forward": 9, "gdn_backward": 6,
+            "rans_encode": 0, "rans_decode": 0}
+CRC_STEP_SHAPES = {"window_attention": {"float32 D24": 1, "float32 D32": 2, "float32 D48": 3},
+                   "gdn": {"backward float32 C192": 5, "backward float32 C256": 1,
+                           "forward float32 C192": 7, "forward float32 C256": 2}}
+CRC_LIKELIHOODS = ("likelihoods", "machine_likelihoods")
 
 
 def check_kernel(twa):
@@ -438,6 +504,11 @@ def check_kernel(twa):
               for n_cls in (1, 4)]
     cases += [("stf5", 127, REFINER_HEADS, 16, 8, 4), ("stf7", 31, REFINER_HEADS, 64, 8, 4),
               ("stf8", 7, REFINER_HEADS, 64, 16, 4)]
+    # the CRC family's new widths (CRC_ATTENTION_SHAPES), at the shifted
+    # blocks' 4 classes and at 1, then a ragged window count of each
+    cases += [("crc", W, 8, N, D, n_cls) for D, (W, N) in CRC_ATTENTION_SHAPES.items()
+              for n_cls in (4, 1)]
+    cases += [("crc", 100, 8, 64, 32, 4), ("crc", 37, 8, 16, 48, 4)]
     rows = []
     for dtype in ("float32", "bfloat16"):
         for model, W, heads, N, D, n_cls in cases:
@@ -525,6 +596,9 @@ def check_gdn(tgdn):
     cases = [("train", 8, 192, s, s) for s in (128, 64, 32)]
     cases += [("serve", 2, 192, s, s) for s in (256, 128, 64)]
     cases.append(("ragged", 3, 192, 13, 21))  # 273 pixels, 9 tiles of 32
+    # the CRC family's 256-channel IGDN (MainCNNDecoder's): serving 2 x
+    # 512^2, training 8 x 256^2
+    cases += [("crc_serve", 2, 256, 128, 128), ("crc_train", 8, 256, 64, 64)]
     rows = []
     for dtype, (path, B, C, H, W) in ((d, c) for d in ("float32", "bfloat16") for c in cases):
         rng = np.random.default_rng([B, H, W])
@@ -789,24 +863,26 @@ def launch_counts(dtype: str):
     import torch
 
     from icm_tpu_torch.coding import device_rans as tdr
+    from icm_tpu_torch.graphs import by_dtype
     from icm_tpu_torch.nn import gdn_fused as tgdn
     from icm_tpu_torch.nn import window_attention as twa
 
-    by_dtype = {"window_attention": twa.LAUNCHES, "gdn_forward": tgdn.FWD_LAUNCHES,
+    counters = {"window_attention": twa.LAUNCHES, "gdn_forward": tgdn.FWD_LAUNCHES,
                 "gdn_backward": tgdn.BWD_LAUNCHES}
     want = getattr(torch, dtype)
 
     def zero():
-        for counter in by_dtype.values():
+        for counter in counters.values():
             counter.clear()
         tdr.ENCODE_LAUNCHES = tdr.DECODE_LAUNCHES = 0
 
     def read() -> dict:
-        other = {f"{name} {dt}": n for name, counter in by_dtype.items()
-                 for dt, n in counter.items() if dt != want and n}
+        totals = {name: by_dtype(counter) for name, counter in counters.items()}
+        other = {f"{name} {dt}": n for name, counter in totals.items()
+                 for dt, n in counter.items() if dt != want}
         if other:
             raise AssertionError(f"a {dtype} run launched other builds: {other}")
-        return {**{name: counter[want] for name, counter in by_dtype.items()},
+        return {**{name: counter[want] for name, counter in totals.items()},
                 "rans_encode": tdr.ENCODE_LAUNCHES, "rans_decode": tdr.DECODE_LAUNCHES}
 
     return zero, read
@@ -820,11 +896,13 @@ def check_launches(what: str, counts: dict, expect: dict) -> None:
             raise AssertionError(f"{what}: launches {counts}, expected {expect}")
 
 
-def host_wire_phase(codec, x, card: str, zero_counts, read_counts, expect: dict):
+def host_wire_phase(codec, x, card: str, zero_counts, read_counts, expect: dict,
+                    reps: int = 3):
     """Phases 5 and 11: compress -> decompress on the host wire, the
     launch counts zeroed right before and read right after each side and
-    held to ``expect[side]``. -> (results, the encoder's output, the
-    compress and decompress counts)."""
+    held to ``expect[side]``; img/s the median of ``reps`` calls. ->
+    (results, the encoder's output, the compress and decompress
+    counts)."""
     import torch
 
     B, size = x.shape[0], x.shape[1]
@@ -857,7 +935,7 @@ def host_wire_phase(codec, x, card: str, zero_counts, read_counts, expect: dict)
     psnr = (10 * torch.log10(1.0 / mse)).tolist()
 
     enc_s, dec_s = [], []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t = time.time()
         e = codec.compress(x)
@@ -879,7 +957,7 @@ def host_wire_phase(codec, x, card: str, zero_counts, read_counts, expect: dict)
     )
     log(f"  bpp {[round(b, 4) for b in bpp]}, PSNR {[round(p, 2) for p in psnr]} dB, "
         f"encode {result['encode_img_per_s']:.2f} img/s, decode "
-        f"{result['decode_img_per_s']:.2f} img/s (median of 3, batch {B}, {card}); device "
+        f"{result['decode_img_per_s']:.2f} img/s (median of {reps}, batch {B}, {card}); device "
         f"{result['device']}")
     return result, enc, enc_launches, dec_launches
 
@@ -892,9 +970,10 @@ def y_slice_hw(model, size: int):
 
 
 def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
-                      expect: dict):
+                      expect: dict, reps: int = 3):
     """Phases 7 and 13: compress -> decompress on the device wire, the
-    launch counts held to ``expect[side]``; -> results."""
+    launch counts held to ``expect[side]``, img/s the median of ``reps``
+    calls; -> results."""
     import warnings
 
     import torch
@@ -948,7 +1027,7 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
     mse = torch.mean((dec["x_hat"] - x) ** 2, dim=(1, 2, 3))
     psnr = (10 * torch.log10(1.0 / mse)).tolist()
     enc_s, dec_s = [], []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t = time.time()
         e = codec.compress(x)
@@ -968,7 +1047,7 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
         blob_sha256=blob_sha256, device=idle_shares(codec, x, enc_s, dec_s))
     log(f"  bytes {stream_bytes}; bpp {[round(b, 4) for b in bpp]}, PSNR "
         f"{[round(p, 2) for p in psnr]} dB, encode {result['encode_img_per_s']:.2f} img/s, "
-        f"decode {result['decode_img_per_s']:.2f} img/s (median of 3, batch {B}, {card}); "
+        f"decode {result['decode_img_per_s']:.2f} img/s (median of {reps}, batch {B}, {card}); "
         f"device {result['device']}")
     return result, enc_launches, dec_launches
 
@@ -1003,8 +1082,73 @@ def wire_times(codec, x, reps: int = 3):
     return enc_s, dec_s
 
 
+def graph_replays(codec, n_slices: int) -> dict:
+    """The scan wire's graphs of ``codec`` (captured): the chain's decode
+    graph holds one decode launch a slice (z's outside), its encode graph
+    none of the encode kernel (it runs after the graph); each graph's
+    counted launches a replay equal the port's kernels a traced replay ran
+    (up to TRACE_TRIES traces: the trace has dropped a record). -> per
+    graph: counted, traced, kernels and the host's ms to launch a replay."""
+    import torch
+
+    # the chain's graphs: one decode launch a slice inside the decode graph
+    # (z's outside), the encode launch after the encode graph
+    for key, g in codec.graphs.graphs().items():
+        if key[0] == "scan":
+            inside = {c: sum(g.launches[c].values()) for c in ("DECODE_LAUNCHES", "ENCODE_LAUNCHES")}
+            want = {"DECODE_LAUNCHES": n_slices if key[1] == "decode" else 0,
+                    "ENCODE_LAUNCHES": 0}
+            if inside != want:
+                raise AssertionError(f"graph {key}: rANS launches {inside}, expected {want}")
+
+    # each graph's launches a replay, against the kernels a traced replay ran
+    per_replay = {}
+    for key, g in codec.graphs.graphs().items():
+        host_ms = []
+        for _ in range(3):  # the host's time to launch one replay
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            g(g.static_in)
+            host_ms.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        counted = {c: sum(g.launches[c].values()) for c in TRACE_KERNELS}
+        name = " ".join(str(p) for p in key)
+        # the trace has dropped a kernel record now and then (one of a front
+        # replay's three GDN kernels, on the card): up to three traced
+        # replays, and a kernel traced more often than counted fails at once
+        shortfalls = []
+        for _ in range(TRACE_TRIES):
+            names = traced_kernels(lambda: g(g.static_in))
+            traced = {c: sum(n for k, n in names.items() if kernel in k)
+                      for c, kernel in TRACE_KERNELS.items()}
+            if any(traced[c] > counted[c] for c in counted):
+                raise AssertionError(f"graph {name}: counted {counted}, the trace shows {traced}")
+            if traced == counted:
+                break
+            shortfalls.append(traced)
+        per_replay[name] = dict(counted=counted, traced=traced, kernels=sum(names.values()),
+                                traces_short=shortfalls, launch_host_ms=float(np.median(host_ms)))
+        if counted != traced:
+            # what the trace saw, against a traced run of the same function
+            # launch by launch, and the last kernels of each in time order
+            names, tail = traced_kernels(lambda: g(g.static_in), last=30)
+            plain_names, plain_tail = traced_kernels(lambda: g.fn(*g.static_in), last=30)
+            log(f"  graph {name}: kernels of a traced replay {names}, the last {tail}; launch "
+                f"by launch {plain_names}, the last {plain_tail}")
+            raise AssertionError(f"graph {name}: counted {counted}, {TRACE_TRIES} traces "
+                                 f"show {shortfalls}")
+    short = {k: v["traces_short"] for k, v in per_replay.items() if v["traces_short"]}
+    if short:
+        log(f"  traces short of the counted launches before one matched: {short}")
+    log(f"  launches a replay, counted = traced: "
+        f"{ {k: {c: n for c, n in v['counted'].items() if n} for k, v in per_replay.items()} }; "
+        f"kernels a replay: { {k: v['kernels'] for k, v in per_replay.items()} }; host ms to "
+        f"launch a replay: { {k: round(v['launch_host_ms'], 3) for k, v in per_replay.items()} }")
+    return per_replay
+
+
 def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, expect: dict,
-                    dev_counts: dict):
+                    dev_counts: dict, reps: int = 3):
     """Phases 7a and 13a: compress -> decompress on the scan wire, its four
     programs replayed as CUDA graphs (captured by a first compress and
     decompress, whose time, capture seconds and pool bytes are logged).
@@ -1070,59 +1214,7 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
         raise AssertionError(f"scan wire launches {enc_launches} / {dec_launches} differ from "
                              f"the device wire's {dev_counts}")
 
-    # the chain's graphs: one decode launch a slice inside the decode graph
-    # (z's outside), the encode launch after the encode graph
-    for key, g in codec.graphs.graphs().items():
-        if key[0] == "scan":
-            inside = {c: sum(g.launches[c].values()) for c in ("DECODE_LAUNCHES", "ENCODE_LAUNCHES")}
-            want = {"DECODE_LAUNCHES": model.ctx_slices if key[1] == "decode" else 0,
-                    "ENCODE_LAUNCHES": 0}
-            if inside != want:
-                raise AssertionError(f"graph {key}: rANS launches {inside}, expected {want}")
-
-    # each graph's launches a replay, against the kernels a traced replay ran
-    per_replay = {}
-    for key, g in codec.graphs.graphs().items():
-        host_ms = []
-        for _ in range(3):  # the host's time to launch one replay
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            g(g.static_in)
-            host_ms.append(1e3 * (time.perf_counter() - t))
-        torch.cuda.synchronize()
-        counted = {c: sum(g.launches[c].values()) for c in TRACE_KERNELS}
-        name = " ".join(str(p) for p in key)
-        # the trace has dropped a kernel record now and then (one of a front
-        # replay's three GDN kernels, on the card): up to three traced
-        # replays, and a kernel traced more often than counted fails at once
-        shortfalls = []
-        for _ in range(TRACE_TRIES):
-            names = traced_kernels(lambda: g(g.static_in))
-            traced = {c: sum(n for k, n in names.items() if kernel in k)
-                      for c, kernel in TRACE_KERNELS.items()}
-            if any(traced[c] > counted[c] for c in counted):
-                raise AssertionError(f"graph {name}: counted {counted}, the trace shows {traced}")
-            if traced == counted:
-                break
-            shortfalls.append(traced)
-        per_replay[name] = dict(counted=counted, traced=traced, kernels=sum(names.values()),
-                                traces_short=shortfalls, launch_host_ms=float(np.median(host_ms)))
-        if counted != traced:
-            # what the trace saw, against a traced run of the same function
-            # launch by launch, and the last kernels of each in time order
-            names, tail = traced_kernels(lambda: g(g.static_in), last=30)
-            plain_names, plain_tail = traced_kernels(lambda: g.fn(*g.static_in), last=30)
-            log(f"  graph {name}: kernels of a traced replay {names}, the last {tail}; launch "
-                f"by launch {plain_names}, the last {plain_tail}")
-            raise AssertionError(f"graph {name}: counted {counted}, {TRACE_TRIES} traces "
-                                 f"show {shortfalls}")
-    short = {k: v["traces_short"] for k, v in per_replay.items() if v["traces_short"]}
-    if short:
-        log(f"  traces short of the counted launches before one matched: {short}")
-    log(f"  launches a replay, counted = traced: "
-        f"{ {k: {c: n for c, n in v['counted'].items() if n} for k, v in per_replay.items()} }; "
-        f"kernels a replay: { {k: v['kernels'] for k, v in per_replay.items()} }; host ms to "
-        f"launch a replay: { {k: round(v['launch_host_ms'], 3) for k, v in per_replay.items()} }")
+    per_replay = graph_replays(codec, model.ctx_slices)
 
     # graphs against the same functions launch by launch
     penc = plain.compress(x, return_debug=True)
@@ -1158,12 +1250,12 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
     # img/s and device idle: graphed, launch by launch, the device wire
     times = {}
     for wire, c in (("graphed", codec), ("launches", plain), ("device_wire", dev_codec)):
-        enc_s, dec_s = wire_times(c, x)
+        enc_s, dec_s = wire_times(c, x, reps)
         times[wire] = dict(encode_img_per_s=B / float(np.median(enc_s)),
                            decode_img_per_s=B / float(np.median(dec_s)),
                            device=idle_shares(c, x, enc_s, dec_s))
-    log("  encode / decode img/s (median of 3, batch {}, {}): {}; device idle {}".format(
-        B, card, {w: f"{t['encode_img_per_s']:.2f} / {t['decode_img_per_s']:.2f}"
+    log("  encode / decode img/s (median of {}, batch {}, {}): {}; device idle {}".format(
+        reps, B, card, {w: f"{t['encode_img_per_s']:.2f} / {t['decode_img_per_s']:.2f}"
                   for w, t in times.items()},
         {w: f"{t['device']['compress']['device_idle_share']:.3f} / "
             f"{t['device']['decompress']['device_idle_share']:.3f}" for w, t in times.items()}))
@@ -1182,7 +1274,7 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
     return result, enc_launches, dec_launches
 
 
-def bf16_serving_phase(codec, dev_codec, x, card, f32: dict):
+def bf16_serving_phase(codec, dev_codec, x, card, f32: dict, reps: int = 3):
     """Phases 7b and 17: compress -> decompress under the bfloat16 policy on
     the host wire and the device wire, held as the float32 phases are and
     to their launch counts, every launch the bfloat16 build's (``f32``: the
@@ -1199,10 +1291,11 @@ def bf16_serving_phase(codec, dev_codec, x, card, f32: dict):
     try:
         result, enc, enc_l, dec_l = host_wire_phase(
             codec, x, card, zero_counts, read_counts,
-            {"compress": counts["compress"], "decompress": counts["decompress"]})
+            {"compress": counts["compress"], "decompress": counts["decompress"]}, reps)
         result["device_wire"], dev_enc_l, dev_dec_l = device_wire_phase(
             dev_codec, enc, x, card, zero_counts, read_counts,
-            {"compress": counts["device_compress"], "decompress": counts["device_decompress"]})
+            {"compress": counts["device_compress"], "decompress": counts["device_decompress"]},
+            reps)
     finally:
         set_activation_dtype(None)
     bpp_rel = [b16 / b32 - 1 for r16, r32 in ((result, f32["result"]),
@@ -1247,6 +1340,7 @@ def instrumented(make_step, records, dtype: str):
             seconds = time.time() - t
             records.append(dict(
                 seconds=seconds, step=state.step, launches=read_counts(),
+                shapes=shape_counts(),
                 **{k: float(v) for k, v in metrics.items()}))
             return metrics
 
@@ -1263,10 +1357,13 @@ TRAIN_STEP_LAUNCHES = {"window_attention": 4, "gdn_forward": 6, "gdn_backward": 
 
 
 def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
-                resumed_steps: int = 2, dtype: str = "float32"):
+                resumed_steps: int = 2, dtype: str = "float32", criterion=None,
+                fixed: tuple = ()):
     """Phases 9 and 15: ``run_training`` on the card, each step's launches
     exactly ``expect`` (in ``dtype``'s builds), then (``resumed_steps`` > 0)
-    a resume from the checkpoint. -> results."""
+    a resume from the checkpoint. ``criterion``: RateDistortionLoss(0.01)
+    by default; ``fixed``: prefixes of the parameters no loss term reaches,
+    which must not move (every other one must). -> results."""
     import torch
 
     from icm_tpu_torch.data import make_images
@@ -1281,7 +1378,7 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "best.pt")
         common = dict(
-            model=model, criterion=RateDistortionLoss(0.01),
+            model=model, criterion=criterion or RateDistortionLoss(0.01),
             make_step=instrumented(make_train_step, records, dtype),
             eval_batches=lambda: iter([eval_batch]), learning_rate=1e-4,
             aux_learning_rate=1e-3, clip_max_norm=1.0, seed=seed, save_path=ckpt,
@@ -1291,7 +1388,7 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
         torch.cuda.synchronize()
         if not os.path.exists(ckpt) or state.step != steps:
             raise AssertionError(f"no checkpoint after epoch 0 (step {state.step})")
-        moved = sum(not torch.equal(before[n], p) for n, p in model.named_parameters())
+        moved = {n for n, p in model.named_parameters() if not torch.equal(before[n], p)}
         history2 = []
         if resumed_steps:
             resumed, history2 = run_training(
@@ -1303,8 +1400,9 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if len(records) != steps + resumed_steps:
         raise AssertionError(f"{len(records)} steps run, not {steps + resumed_steps}")
-    if moved != len(before):
-        raise AssertionError(f"{len(before) - moved} of {len(before)} parameters did not move")
+    if moved != {n for n in before if not n.startswith(fixed or ("\0",))}:
+        raise AssertionError(f"{len(before) - len(moved)} of {len(before)} parameters did not "
+                             f"move, {len([n for n in moved if n.startswith(fixed)])} fixed moved")
     for r in records:
         if not all(np.isfinite(r[k]) for k in ("loss", "bpp_loss", "mse_loss", "aux_loss")):
             raise AssertionError(f"non-finite training metrics: {r}")
@@ -1320,7 +1418,8 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
         step_seconds=[r["seconds"] for r in records],
         loss=[r["loss"] for r in records], bpp=[r["bpp_loss"] for r in records],
         aux_loss=[r["aux_loss"] for r in records], eval_loss=history + history2,
-        peak_mem_gb=peak_gb, launches_per_step=records[-1]["launches"])
+        peak_mem_gb=peak_gb, launches_per_step=records[-1]["launches"],
+        launches_by_shape_per_step=records[-1]["shapes"])
     for r in records:
         log(f"  step {r['step']}: {r['seconds'] * 1e3:.1f} ms loss {r['loss']:.4f} "
             f"bpp {r['bpp_loss']:.4f} aux {r['aux_loss']:.2f} launches {r['launches']}")
@@ -1384,22 +1483,24 @@ def cpu_twin(name: str, model, **overrides):
     return cpu_model
 
 
-def train_vs_cpu_phase(name: str, model, seed: int, **overrides):
+def train_vs_cpu_phase(name: str, model, seed: int, criterion=None, **overrides):
     """Phases 10, 16 and 25: one training step's loss terms and gradients,
     card vs CPU, same weights, same noise (one seeded CPU generator for
     each side: the noise is drawn on the generator's device), float32, no
     stochastic depth (its rates set to 0 on the card for the step);
     ``overrides``: the CPU model's config beyond the registry's (the
-    forward the card model runs)."""
+    forward the card model runs); ``criterion``: RateDistortionLoss(0.01)
+    by default. A parameter no loss term reaches (the CRC family's split
+    decoder) has no gradient on either side."""
     import torch
 
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.nn.swin import DropPath
     from icm_tpu_torch.train import RateDistortionLoss
 
-    criterion = RateDistortionLoss(0.01)
-    cpu_model = cpu_twin(name, model, **({"drop_path_rate": 0.0} if name != "cnn" else {}),
-                         **overrides)
+    criterion = criterion or RateDistortionLoss(0.01)
+    swin = name not in ("cnn",) + CRC
+    cpu_model = cpu_twin(name, model, **({"drop_path_rate": 0.0} if swin else {}), **overrides)
     xs = torch.from_numpy(make_images(seed + 2, 1, 64))
     drop_paths = [m for m in model.modules() if isinstance(m, DropPath)]
     rates = [m.rate for m in drop_paths]
@@ -1412,7 +1513,8 @@ def train_vs_cpu_phase(name: str, model, seed: int, **overrides):
         aux = m.aux_loss()
         (rd["loss"] + aux).backward()
         terms = {k: float(v.detach()) for k, v in {**rd, "aux_loss": aux}.items()}
-        return terms, {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        return terms, {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                       if p.grad is not None}
 
     for m in drop_paths:
         m.rate = 0.0
@@ -1424,6 +1526,9 @@ def train_vs_cpu_phase(name: str, model, seed: int, **overrides):
     ref_terms, ref = step_grads(cpu_model, xs)
     model.zero_grad(set_to_none=True)
     worst = {k: abs(got_terms[k] - v) / max(abs(v), 1e-30) for k, v in ref_terms.items()}
+    if set(got) != set(ref):
+        raise AssertionError(f"gradients of {len(got)} parameters on the card, {len(ref)} on "
+                             "the CPU")
     grad_err = {n: ((got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)).item()
                 for n in ref}
     worst_grad, err = max(grad_err.items(), key=lambda kv: kv[1])
@@ -1433,7 +1538,7 @@ def train_vs_cpu_phase(name: str, model, seed: int, **overrides):
     if max(worst.values()) > TRAIN_TOLERANCE or err > TRAIN_TOLERANCE:
         raise AssertionError("training step: card and CPU disagree")
     return dict(loss_terms_rel_err=worst, max_grad_rel_err=err, worst_grad=worst_grad,
-                tolerance=TRAIN_TOLERANCE)
+                tolerance=TRAIN_TOLERANCE, parameters_with_gradients=len(ref))
 
 
 def bf16_layer_replay(model, cpu_model, x) -> dict:
@@ -1555,89 +1660,112 @@ def eval_vs_cpu_phase(name: str, model, seed: int):
             "bf16_layer_tolerance": BF16_LAYER_TOL}
 
 
+class _RefDraw:
+    """A reference state dict drawn from ``rng`` at a trained model's scale:
+    fan-in scaled kernels, small biases, GDN near its init, ordered
+    bottleneck quantiles; ``dtype``: the draws' (float64 draws are rounded
+    to float32)."""
+
+    def __init__(self, rng, dtype=np.float64):
+        self.rng, self.dtype, self.sd = rng, dtype, {}
+
+    def normal(self, shape):
+        return self.rng.standard_normal(shape, dtype=self.dtype)
+
+    def put(self, name, shape, scale, shift=0.0):
+        self.sd[name] = (shift + scale * self.normal(shape)).astype(np.float32)
+
+    def conv(self, name, o, i, k, transposed=False):
+        self.put(f"{name}.weight", (i, o, k, k) if transposed else (o, i, k, k),
+                 (i * k * k) ** -0.5)
+        self.put(f"{name}.bias", (o,), 0.01)
+
+    def gdn(self, name, c):
+        self.sd[f"{name}.beta"] = (1.0 + 0.05 * np.abs(self.normal(c))).astype(np.float32)
+        self.sd[f"{name}.gamma"] = np.sqrt(0.1 * np.eye(c) + 0.005 * np.abs(
+            self.normal((c, c)))).astype(np.float32)
+
+    def win(self, prefix, dim, ws):
+        for unit in [f"{prefix}.conv_a.{i}" for i in range(3)] + [
+                f"{prefix}.conv_b.{i}" for i in (1, 2, 3)]:
+            self.conv(f"{unit}.conv.0", dim // 2, dim, 1)
+            self.conv(f"{unit}.conv.2", dim // 2, dim // 2, 3)
+            self.conv(f"{unit}.conv.4", dim, dim // 2, 1)
+        a = f"{prefix}.conv_b.0.attn"
+        for name, o in (("qkv", 3 * dim), ("proj", dim)):
+            self.put(f"{a}.{name}.weight", (o, dim), dim ** -0.5)
+            self.put(f"{a}.{name}.bias", (o,), 0.01)
+        self.put(f"{a}.relative_position_bias_table", ((2 * ws - 1) ** 2, 8), 0.02)
+        self.conv(f"{prefix}.conv_b.4", dim, dim, 1)
+
+    def hyper_dec(self, tag, z, dec, extra=0):
+        self.conv(f"{tag}.0", dec[0], z, 3)
+        self.conv(f"{tag}.2.0", dec[1] * 4, dec[0], 3)
+        self.conv(f"{tag}.4", dec[2], dec[1], 3)
+        self.conv(f"{tag}.6.0", dec[3] * 4, dec[2], 3)
+        self.conv(f"{tag}.8", dec[4], dec[3], 3)
+        for j in range(extra):
+            self.conv(f"{tag}.{10 + 2 * j}", dec[4], dec[4], 3)
+
+    def bottleneck(self, prefix, C, legacy=False):
+        """(legacy: the ParameterList keys ``_matrices.{i}`` ...)"""
+        fdims = (1, 3, 3, 3, 3, 1)
+        q = np.array([-8.0, 0.0, 8.0]) + 0.2 * self.normal((C, 1, 3))
+        self.sd[f"{prefix}.quantiles"] = np.sort(q, axis=-1).astype(np.float32)
+        for i in range(5):
+            names = ((f"_matrices.{i}", f"_biases.{i}", f"_factors.{i}") if legacy
+                     else (f"_matrix{i}", f"_bias{i}", f"_factor{i}"))
+            self.put(f"{prefix}.{names[0]}", (C, fdims[i + 1], fdims[i]), 0.5)
+            self.put(f"{prefix}.{names[1]}", (C, fdims[i + 1], 1), 0.5)
+            if i < 4:
+                self.put(f"{prefix}.{names[2]}", (C, fdims[i + 1], 1), 0.5)
+
+
 def reference_wacnn_state_dict(seed: int) -> dict:
     """A reference CompressAI WACNN state dict at full width (N=192,
     M=320, 10 slices of support 5): the reference's module names
     (``g_a.4.conv_b.0.attn.qkv.weight`` ...) and shapes, the bottleneck's
     legacy ParameterList keys, DataParallel's ``module.`` prefix and a
     stray ``h_s`` entry, values drawn from ``seed`` at a trained model's
-    scale (fan-in scaled kernels, GDN near its init, ordered quantiles)."""
+    scale (``_RefDraw``)."""
     import torch
 
-    rng = np.random.default_rng(seed)
+    ref = _RefDraw(np.random.default_rng(seed))
     N, M, S, K = 192, 320, 10, 5
     enc, dec, cc = (320, 288, 256, 224, 192), (192, 224, 256, 288, 320), (224, 176, 128, 64)
-    sd = {}
-
-    def put(name, shape, scale, shift=0.0):
-        sd[name] = (shift + scale * rng.standard_normal(shape)).astype(np.float32)
-
-    def conv(name, o, i, k, transposed=False):
-        put(f"{name}.weight", (i, o, k, k) if transposed else (o, i, k, k), (i * k * k) ** -0.5)
-        put(f"{name}.bias", (o,), 0.01)
-
-    def gdn(name, c):
-        sd[f"{name}.beta"] = (1.0 + 0.05 * np.abs(rng.standard_normal(c))).astype(np.float32)
-        sd[f"{name}.gamma"] = np.sqrt(0.1 * np.eye(c) + 0.005 * np.abs(
-            rng.standard_normal((c, c)))).astype(np.float32)
-
-    def win(prefix, dim, ws):
-        for unit in [f"{prefix}.conv_a.{i}" for i in range(3)] + [
-                f"{prefix}.conv_b.{i}" for i in (1, 2, 3)]:
-            conv(f"{unit}.conv.0", dim // 2, dim, 1)
-            conv(f"{unit}.conv.2", dim // 2, dim // 2, 3)
-            conv(f"{unit}.conv.4", dim, dim // 2, 1)
-        a = f"{prefix}.conv_b.0.attn"
-        for name, o in (("qkv", 3 * dim), ("proj", dim)):
-            put(f"{a}.{name}.weight", (o, dim), dim ** -0.5)
-            put(f"{a}.{name}.bias", (o,), 0.01)
-        put(f"{a}.relative_position_bias_table", ((2 * ws - 1) ** 2, 8), 0.02)
-        conv(f"{prefix}.conv_b.4", dim, dim, 1)
-
-    conv("g_a.0", N, 3, 5)
-    gdn("g_a.1", N)
-    conv("g_a.2", N, N, 5)
-    gdn("g_a.3", N)
-    win("g_a.4", N, 8)
-    conv("g_a.5", N, N, 5)
-    gdn("g_a.6", N)
-    conv("g_a.7", M, N, 5)
-    win("g_a.8", M, 4)
-    win("g_s.0", M, 4)
-    conv("g_s.1", N, M, 5, transposed=True)
-    gdn("g_s.2", N)
-    conv("g_s.3", N, N, 5, transposed=True)
-    gdn("g_s.4", N)
-    win("g_s.5", N, 8)
-    conv("g_s.6", N, N, 5, transposed=True)
-    gdn("g_s.7", N)
-    conv("g_s.8", 3, N, 5, transposed=True)
+    ref.conv("g_a.0", N, 3, 5)
+    ref.gdn("g_a.1", N)
+    ref.conv("g_a.2", N, N, 5)
+    ref.gdn("g_a.3", N)
+    ref.win("g_a.4", N, 8)
+    ref.conv("g_a.5", N, N, 5)
+    ref.gdn("g_a.6", N)
+    ref.conv("g_a.7", M, N, 5)
+    ref.win("g_a.8", M, 4)
+    ref.win("g_s.0", M, 4)
+    ref.conv("g_s.1", N, M, 5, transposed=True)
+    ref.gdn("g_s.2", N)
+    ref.conv("g_s.3", N, N, 5, transposed=True)
+    ref.gdn("g_s.4", N)
+    ref.win("g_s.5", N, 8)
+    ref.conv("g_s.6", N, N, 5, transposed=True)
+    ref.gdn("g_s.7", N)
+    ref.conv("g_s.8", 3, N, 5, transposed=True)
     for i, (o, c) in enumerate(zip(enc, (M,) + enc[:-1])):
-        conv(f"h_a.{2 * i}", o, c, 3)
+        ref.conv(f"h_a.{2 * i}", o, c, 3)
     for tag in ("h_mean_s", "h_scale_s"):
-        conv(f"{tag}.0", dec[0], enc[-1], 3)
-        conv(f"{tag}.2.0", dec[1] * 4, dec[0], 3)
-        conv(f"{tag}.4", dec[2], dec[1], 3)
-        conv(f"{tag}.6.0", dec[3] * 4, dec[2], 3)
-        conv(f"{tag}.8", dec[4], dec[3], 3)
+        ref.hyper_dec(tag, enc[-1], dec)
     sc = M // S
     for i in range(S):
         for tag, extra in (("cc_mean_transforms", 0), ("cc_scale_transforms", 0),
                            ("lrp_transforms", sc)):
             cin = [dec[-1] + sc * min(i, K) + extra] + list(cc)
             for j in range(4):
-                conv(f"{tag}.{i}.{2 * j}", cc[j], cin[j], 3)
-            conv(f"{tag}.{i}.8", sc, cc[-1], 3)
-    C, fdims = enc[-1], (1, 3, 3, 3, 3, 1)
-    q = np.array([-8.0, 0.0, 8.0]) + 0.2 * rng.standard_normal((C, 1, 3))
-    sd["entropy_bottleneck.quantiles"] = np.sort(q, axis=-1).astype(np.float32)
-    for i in range(5):
-        put(f"entropy_bottleneck._matrices.{i}", (C, fdims[i + 1], fdims[i]), 0.5)
-        put(f"entropy_bottleneck._biases.{i}", (C, fdims[i + 1], 1), 0.5)
-        if i < 4:
-            put(f"entropy_bottleneck._factors.{i}", (C, fdims[i + 1], 1), 0.5)
-    sd["h_s.0.weight"] = np.zeros((3, 3), np.float32)
-    return {"module." + k: torch.from_numpy(v) for k, v in sd.items()}
+                ref.conv(f"{tag}.{i}.{2 * j}", cc[j], cin[j], 3)
+            ref.conv(f"{tag}.{i}.8", sc, cc[-1], 3)
+    ref.bottleneck("entropy_bottleneck", enc[-1], legacy=True)
+    ref.sd["h_s.0.weight"] = np.zeros((3, 3), np.float32)
+    return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
 
 
 def reference_phase(x, card: str, zero_counts, read_counts, seed: int):
@@ -1778,12 +1906,14 @@ def family_phase(name: str, x, card: str, zero_counts, read_counts, seed: int,
     expect = {"compress": {**none, "window_attention": g_a + g_s + r},
               "decompress": {**none, "window_attention": g_s + r}}
     codec = CharmCodec(model, narrow=0.2)
-    result, enc, enc_l, dec_l = host_wire_phase(codec, x, card, zero_counts, read_counts, expect)
+    result, enc, enc_l, dec_l = host_wire_phase(codec, x, card, zero_counts, read_counts, expect,
+                                                FAMILY_REPS)
     dev = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
     result["device_wire"], dev_enc_l, dev_dec_l = device_wire_phase(
         dev, enc, x, card, zero_counts, read_counts,
         {"compress": {**expect["compress"], "rans_encode": 2},
-         "decompress": {**expect["decompress"], "rans_decode": model.ctx_slices + 1}})
+         "decompress": {**expect["decompress"], "rans_decode": model.ctx_slices + 1}},
+        FAMILY_REPS)
     if name == "stf8":
         rans_rows += check_rans(dev.kit, dev.tables, seed, x.shape[0], x.shape[1], model, name)
     result["card_vs_cpu"] = family_eval_vs_cpu(name, model, seed, bf16=name == FAMILY_BF16_EVAL)
@@ -1836,6 +1966,425 @@ def family_train_phase(fam: dict, name: str, seed: int, card: str) -> dict:
                                        out["scan_charm"]["launches_per_step"]},
                        "bfloat16": {"launches_train_step": out["bf16"]["launches_per_step"]}}
     return out
+
+
+def shape_counts() -> dict:
+    """Window attention's launches by (dtype, head width) and GDN's by
+    (direction, dtype, channels) since the counts were last zeroed."""
+    from icm_tpu_torch.nn import gdn_fused as tgdn
+    from icm_tpu_torch.nn import window_attention as twa
+
+    def name(dt) -> str:
+        return str(dt).split('.')[-1]
+
+    return {"window_attention": {f"{name(dt)} D{d}": n
+                                 for (dt, d), n in sorted(twa.LAUNCHES.items(), key=str)},
+            "gdn": {f"{k} {name(dt)} C{c}": n
+                    for k, counter in (("forward", tgdn.FWD_LAUNCHES),
+                                       ("backward", tgdn.BWD_LAUNCHES))
+                    for (dt, c), n in sorted(counter.items(), key=str)}}
+
+
+def crc_expect(name: str, side: str, **rans) -> tuple:
+    """(the launch counts of one side of a CRC model, by kernel; by shape,
+    as ``shape_counts`` gives them), float32."""
+    per = CRC_SIDE_LAUNCHES[name][side]
+    attn = {f"float32 D{d}": per[d] for d in (24, 48, 32) if per.get(d)}
+    gdn = {f"forward float32 C{c}": per[f"gdn{c}"] for c in (192, 256) if per.get(f"gdn{c}")}
+    counts = {"window_attention": sum(attn.values()), "gdn_forward": sum(gdn.values()),
+              "gdn_backward": 0, "rans_encode": 0, "rans_decode": 0, **rans}
+    return counts, {"window_attention": attn, "gdn": gdn}
+
+
+def aten_calls(fn) -> int:
+    """ATen operator calls of one call of ``fn`` (host-side profile)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+
+
+def crc_side_runs(codec, x, enc):
+    """(compress, decompress) of ``codec`` as argument-free calls."""
+    return (lambda: codec.compress(x),
+            lambda: codec.decompress(enc["strings"], enc["shape"], enc["human_shape"]))
+
+
+def crc_timing(codec, x, enc, reps: int = 3) -> dict:
+    """img/s of each side (median of ``reps`` host-clock calls ending in a
+    synchronize), its device busy ms and idle share (one traced call) and
+    its ATen calls."""
+    import torch
+
+    B = x.shape[0]
+    out = {}
+    for side, fn in zip(("compress", "decompress"), crc_side_runs(codec, x, enc)):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.time()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.time() - t)
+        busy = device_busy_ms(fn)
+        wall = float(np.median(walls))
+        out[side] = dict(img_per_s=B / wall, wall_ms=1e3 * wall, device_busy_ms=busy,
+                         device_idle_share=max(0.0, 1.0 - busy / (1e3 * wall)),
+                         aten_calls=aten_calls(fn))
+    return out
+
+
+def crc_roundtrip(codec, x, zero_counts, read_counts, what: str, expect: dict):
+    """compress (debug) -> decompress of ``codec``, the launch counts zeroed
+    right before and read right after each side and held to ``expect[side]``
+    (kernel counts, shape counts); decompress watched for host round trips
+    (``torch.cuda.set_sync_debug_mode``) off the host wire. Holds y_hat
+    bit-exact and the decoder's x_hat equal to the encoder's, finite and
+    of the images' shape. -> (enc, dec, counts by side, shape counts by
+    side, host round trips in decompress)."""
+    import warnings
+
+    import torch
+
+    counts, shapes = {}, {}
+    zero_counts()
+    enc = codec.compress(x, return_debug=True)
+    torch.cuda.synchronize()
+    counts["compress"], shapes["compress"] = read_counts(), shape_counts()
+    zero_counts()
+    watch = codec.wire == "device"
+    if watch:
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            dec = codec.decompress(enc["strings"], enc["shape"], enc["human_shape"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message).splitlines()[0] for c in caught if "synchroniz" in str(c.message)]
+    torch.cuda.synchronize()
+    counts["decompress"], shapes["decompress"] = read_counts(), shape_counts()
+    log(f"  {what}: launches {counts}; by shape {shapes}"
+        + (f"; host round trips in decompress: {len(syncs)}" if watch else ""))
+    if syncs:
+        raise AssertionError(f"{what}: decompress waited for the card: {syncs[:3]}")
+    if not torch.equal(dec["y_hat"], enc["y_hat"]) or not torch.equal(dec["x_hat"], enc["x_hat"]):
+        raise AssertionError(f"{what}: the decoder's y_hat or x_hat differs from the encoder's")
+    if dec["x_hat"].shape != x.shape or not bool(torch.isfinite(dec["x_hat"]).all()):
+        raise AssertionError(f"{what}: bad x_hat {tuple(dec['x_hat'].shape)}")
+    for side in counts:
+        check_launches(f"{what}, {side}", counts[side], expect[side][0])
+        if shapes[side] != expect[side][1]:
+            raise AssertionError(f"{what}, {side}: launches by shape {shapes[side]}, expected "
+                                 f"{expect[side][1]}")
+    return enc, dec, counts, shapes, len(syncs)
+
+
+CRC_STREAMS = ("machine_y", "machine_z", "human_y", "human_z")
+
+
+def crc_bytes(enc, size: int) -> dict:
+    per = {name: sum(len(b) for b in enc["strings"][k]) for k, name in enumerate(CRC_STREAMS)}
+    B = len(enc["strings"][0])
+    return {"bytes": per, "bpp": [8 * sum(len(enc["strings"][k][b]) for k in range(4))
+                                  / (size * size) for b in range(B)]}
+
+
+def crc_eval_vs_cpu(name: str, model, seed: int) -> dict:
+    """The eval forward on the card against the plain CPU path, the same
+    weights, one 256 x 256 image: x_hat, machine_x_hat and the human and
+    machine y likelihoods within 1e-3."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+
+    cpu_model = cpu_twin(name, model)
+    xs = torch.from_numpy(make_images(seed + 1, 1, 256))
+    with torch.no_grad():
+        ref = cpu_model(xs)
+        got = model(xs.cuda())
+    worst = {key: (got[a][b] if b else got[a]).cpu().sub(ref[a][b] if b else ref[a]).abs()
+             .max().item() for key, a, b in (("x_hat", "x_hat", None),
+                                             ("machine_x_hat", "machine_x_hat", None),
+                                             ("human y likelihoods", "likelihoods", "y"),
+                                             ("machine y likelihoods", "machine_likelihoods", "y"),
+                                             ("human z likelihoods", "likelihoods", "z"))}
+    log(f"  max |card - cpu| ({name}, 256 x 256): {worst}")
+    if not all(worst[k] <= 1e-3 for k in ("x_hat", "machine_x_hat", "human y likelihoods",
+                                          "machine y likelihoods")):
+        raise AssertionError(f"card and CPU disagree: {worst}")
+    del cpu_model
+    gc.collect()
+    return {"size": 256, "f32_max_abs": worst, "tolerance": 1e-3}
+
+
+def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> dict:
+    """Phases 27-28: a CRC model (stf9, stf14) at its published full width,
+    weights from ``seed``, on the images of phase 5 at ``narrow=0.2``:
+    compress -> decompress on the host wire, the device wire and the scan
+    wire (graphed and launch by launch), each held by ``crc_roundtrip``
+    with the launches of CRC_SIDE_LAUNCHES (window attention by head
+    width, GDN by channels; the device and scan wires: 4 encode launches,
+    ctx_slices + 3 decode launches); the device wire's y_hat and x_hat
+    equal to the host wire's and each stream's bytes within the host
+    wire's x 1.02 plus each lane's flush and header; the scan wire's graphs
+    held as phase 7a's (``graph_replays``), its blobs and bits equal to
+    launch by launch, its y_hat within JAX's bar of the device wire's, and
+    the bf16 policy refused; each side's img/s, device idle share and ATen
+    calls on each wire; then the eval forward against the CPU's. -> {model,
+    result, counts}."""
+    import torch
+
+    from icm_tpu_torch.models import create_model
+    from icm_tpu_torch.models.crc_codec import CRCCodec
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    B, size = x.shape[0], x.shape[1]
+    t = time.time()
+    model = create_model(name, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    c = model.coder
+    log(f"  {name}: {n_params / 1e6:.1f} M parameters in {time.time() - t:.1f}s; "
+        f"{c.ctx_slices} slices of {c.slice_ch} channels, support {c.max_support}, "
+        f"conditioning window {c.cond_blocks}")
+    host_expect = {side: crc_expect(name, side) for side in ("compress", "decompress")}
+    dev_expect = {"compress": crc_expect(name, "compress", rans_encode=4),
+                  "decompress": crc_expect(name, "decompress", rans_decode=c.ctx_slices + 3)}
+    result = {"params": n_params, "ctx_slices": c.ctx_slices, "slice_channels": c.slice_ch}
+    counts = {}
+
+    codec = CRCCodec(model, narrow=0.2)
+    enc, _, l, sh, _ = crc_roundtrip(codec, x, zero_counts, read_counts,
+                                     f"{name} host wire", host_expect)
+    counts.update(launches_compress=l["compress"], launches_decompress=l["decompress"])
+    result["host_wire"] = {**crc_bytes(enc, size), "launches": l, "launches_by_shape": sh,
+                           **crc_timing(codec, x, enc)}
+
+    dev = CRCCodec(model, narrow=0.2, wire="device")
+    denc, _, l, sh, syncs = crc_roundtrip(dev, x, zero_counts, read_counts,
+                                          f"{name} device wire", dev_expect)
+    counts.update(launches_device_wire_compress=l["compress"],
+                  launches_device_wire_decompress=l["decompress"])
+    if not torch.equal(denc["y_hat"], enc["y_hat"]) or not torch.equal(denc["x_hat"], enc["x_hat"]):
+        raise AssertionError(f"{name}: the device wire's y_hat or x_hat differs from the host's")
+    kit = dev.kit
+    h = size // 16
+    lanes = {"machine_y": kit.n_lanes(h // 2, h // 2),
+             "machine_z": (size // 64) ** 2 * kit.z_groups(c.entropy_bottleneck.channels),
+             "human_y": kit.n_lanes(h, h),
+             "human_z": (size // 64) ** 2 * kit.z_groups(
+                 model.human_hyper.entropy_bottleneck.channels)}
+    host_b, dev_b = crc_bytes(enc, size)["bytes"], crc_bytes(denc, size)["bytes"]
+    stream_bytes = {k: dict(device=dev_b[k], host=host_b[k], lanes=lanes[k],
+                            limit=host_b[k] * 1.02 + B * (lanes[k] * 8 + 16)) for k in lanes}
+    log(f"  {name} device wire bytes {stream_bytes}")
+    for k, v in stream_bytes.items():
+        if v["device"] > v["limit"]:
+            raise AssertionError(f"{name} device wire {k}: {v['device']} bytes over {v['limit']}")
+    result["device_wire"] = {**crc_bytes(denc, size), "stream_bytes": stream_bytes,
+                             "launches": l, "launches_by_shape": sh,
+                             "host_round_trips_in_decompress": syncs,
+                             **crc_timing(dev, x, denc)}
+
+    scan = CRCCodec(model, narrow=0.2, wire="device", scan_wire=True)
+    t = time.time()
+    first = scan.compress(x, return_debug=True)
+    scan.decompress(first["strings"], first["shape"], first["human_shape"])
+    torch.cuda.synchronize()
+    first_s = time.time() - t
+    stats = scan.graphs.stats()
+    graphs = {" ".join(str(p) for p in key): st for key, st in stats.items()}
+    capture_s = sum(st["capture_s"] for st in stats.values())
+    pool_bytes = sum(st["pool_bytes"] for st in stats.values())
+    log(f"  {name} scan wire: first compress + decompress {first_s:.2f}s, captures "
+        f"{capture_s:.2f}s of it, pools {pool_bytes / 2**20:.1f} MiB, {len(graphs)} graphs")
+    senc, sdec, l, sh, syncs = crc_roundtrip(scan, x, zero_counts, read_counts,
+                                             f"{name} scan wire", dev_expect)
+    counts.update(launches_scan_wire_compress=l["compress"],
+                  launches_scan_wire_decompress=l["decompress"])
+    per_replay = graph_replays(scan, c.ctx_slices)
+    plain = CRCCodec(model, narrow=0.2, wire="device", scan_wire=True, cuda_graphs=False)
+    penc = plain.compress(x, return_debug=True)
+    pdec = plain.decompress(senc["strings"], senc["shape"], senc["human_shape"])
+    if penc["strings"] != senc["strings"]:
+        raise AssertionError(f"{name} scan wire: graphed blobs differ from launch by launch")
+    for got, want, what in ((penc, senc, "compress"), (pdec, sdec, "decompress")):
+        for k in ("y_hat", "x_hat"):
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"{name} scan wire: graphed {what} {k} differs from launch "
+                                     "by launch")
+    d = (senc["y_hat"] - enc["y_hat"]).abs()
+    vs_device = {"share_above_1e-2": float((d > 1e-2).float().mean()),
+                 "median": float(d.median()), "max": float(d.max())}
+    log(f"  {name} scan wire y_hat against the device wire's: {vs_device} (bars "
+        f"{SCAN_VS_DEVICE})")
+    if not (vs_device["share_above_1e-2"] < SCAN_VS_DEVICE["share_above_1e-2"]
+            and vs_device["median"] < SCAN_VS_DEVICE["median"]):
+        raise AssertionError(f"{name} scan wire y_hat strays from the device wire's: {vs_device}")
+    set_activation_dtype(torch.bfloat16)
+    try:
+        CRCCodec(model, wire="device", scan_wire=True)
+    except ValueError as e:
+        refused = str(e).split(";")[0]
+    else:
+        raise AssertionError(f"{name}: the scan wire took the bf16 policy")
+    finally:
+        set_activation_dtype(None)
+    result["scan_wire"] = {
+        **crc_bytes(senc, size), "launches": l, "launches_by_shape": sh,
+        "host_round_trips_in_decompress": syncs, "tier": sorted({b[4] for b in senc["strings"][0]}),
+        "first_call_s": first_s, "capture_s": capture_s, "pool_bytes": pool_bytes,
+        "graphs": graphs, "launches_per_replay": per_replay, "y_hat_vs_device_wire": vs_device,
+        "bf16_refused": refused, **crc_timing(scan, x, senc),
+        "launch_by_launch": crc_timing(plain, x, penc)}
+    sides = {w: {s: result[w][s] for s in ("compress", "decompress")}
+             for w in ("host_wire", "device_wire", "scan_wire")}
+    sides["scan_launch_by_launch"] = result["scan_wire"]["launch_by_launch"]
+    log(f"  {name} img/s, device idle, ATen calls (median of 3, batch {B}, {card}): " + "; ".join(
+        f"{w} " + " / ".join(f"{v['img_per_s']:.2f} img/s idle {v['device_idle_share']:.3f} "
+                             f"{v['aten_calls']} ATen" for v in per.values())
+        for w, per in sides.items()))
+    del scan, plain, dev, codec
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["card_vs_cpu"] = crc_eval_vs_cpu(name, model, seed)
+    return dict(model=model, result=result, counts=counts)
+
+
+def crc_train_phase(model, name: str, seed: int, card: str) -> dict:
+    """Phase 29: ``run_training`` of a CRC model on the card, its
+    RateDistortionLoss over both layers' likelihoods (the JAX model's
+    docstring for training from scratch): 3 steps of 8 x 256^2, each
+    finite, each launching CRC_STEP, every parameter moved but the split
+    decoder's (machine_x_hat enters no loss term); then one step on the
+    card against the plain CPU path on a small input. -> results."""
+    from icm_tpu_torch.train import RateDistortionLoss
+
+    criterion = RateDistortionLoss(0.01, likelihood_keys=CRC_LIKELIHOODS)
+    out = train_phase(model, seed, card, CRC_STEP, steps=3, resumed_steps=0,
+                      criterion=criterion, fixed=("g_s1.", "g_s2."))
+    if out["launches_by_shape_per_step"] != CRC_STEP_SHAPES:
+        raise AssertionError(f"{name} step: launches by shape {out['launches_by_shape_per_step']}"
+                             f", expected {CRC_STEP_SHAPES}")
+    out["card_vs_cpu"] = train_vs_cpu_phase(name, model, seed, criterion=criterion)
+    return out
+
+
+def reference_crc_state_dict(seed: int, N: int = 192, M: int = 384, mid: int = 256,
+                             enc=(384, 336, 288, 240, 192), dec=(240, 288, 336, 384, 384),
+                             cc=(224, 176, 128, 64), K: int = 12) -> dict:
+    """A reference stf9 state dict at full width: the reference's module
+    names (stf9.py: ``g_a``, the inline coder's ``h_a``, ``h_mean_s``,
+    ``cc_*_transforms2`` and the ``lrp_transforms2`` its forward discards,
+    ``g_s1``, ``g_s2``, ``human_g_s2``, ``human_g_a``, ``human_g_s``, the
+    ``human_h_*`` hyperprior, ``human_context_decoder``, both bottlenecks)
+    and shapes (the published widths by default), DataParallel's ``module.``
+    prefix, values drawn from ``seed`` as ``reference_wacnn_state_dict``
+    draws them."""
+    import torch
+
+    S = Wc = 24  # 6 x 2x2 zigzag slices, all of them in the conditioning window
+    ref = _RefDraw(np.random.default_rng(seed), np.float32)
+    ref.conv("g_a.0", N, 3, 5)
+    ref.gdn("g_a.1", N)
+    ref.conv("g_a.2", N, N, 5)
+    ref.gdn("g_a.3", N)
+    ref.win("g_a.4", N, 8)
+    ref.conv("g_a.5", N, N, 5)
+    ref.gdn("g_a.6", N)
+    ref.conv("g_a.7", M, N, 5)
+    ref.win("g_a.8", M, 4)
+    for prefix, extra in (("", 0), ("human_", 5)):
+        for i, (o, c) in enumerate(zip(enc, (M,) + enc[:-1])):
+            ref.conv(f"{prefix}h_a.{2 * i}", o, c, 3)
+        for tag in ("h_mean_s", "h_scale_s"):
+            ref.hyper_dec(f"{prefix}{tag}", enc[-1], dec, extra)
+    sc = M // 6
+    for i in range(S):
+        for tag, lrp in (("cc_mean_transforms2", 0), ("cc_scale_transforms2", 0),
+                         ("lrp_transforms2", sc)):
+            cin = [Wc * sc + sc * min(i, K) + lrp] + list(cc)
+            for j in range(4):
+                ref.conv(f"{tag}.{i}.{2 * j}", cc[j], cin[j], 3)
+            ref.conv(f"{tag}.{i}.8", sc, cc[-1], 3)
+    ref.bottleneck("entropy_bottleneck", enc[-1])
+    ref.bottleneck("entropy_bottleneck_human", enc[-1])
+    for prefix, part in (("g_s1", 1), ("g_s2", 2), ("human_g_s2", None)):
+        if part != 2:
+            ref.win(f"{prefix}.0", M, 4)
+            ref.conv(f"{prefix}.1", N, M, 5, transposed=True)
+            ref.gdn(f"{prefix}.2", N)
+            ref.conv(f"{prefix}.3", mid, N, 5, transposed=True)
+            ref.gdn(f"{prefix}.4", mid)
+            ref.win(f"{prefix}.5", mid, 8)
+        if part != 1:
+            o = 0 if part == 2 else 6
+            ref.conv(f"{prefix}.{o}", N, mid, 5, transposed=True)
+            ref.gdn(f"{prefix}.{o + 1}", N)
+            ref.conv(f"{prefix}.{o + 2}", 3, N, 5, transposed=True)
+    for j, (i, o) in enumerate(zip((6, N, N, N), (N, N, N, M))):
+        ref.conv(f"human_g_a.{2 * j}", o, i, 5)
+    for j, (i, o) in enumerate(zip((2 * M, N, N, N), (N, N, N, 3))):
+        ref.conv(f"human_g_s.{2 * j}", o, i, 5, transposed=True)
+    for j in range(5):
+        ref.conv(f"human_context_decoder.{2 * j}", M, M, 3)
+    return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
+
+
+def crc_reference_phase(model, x, card: str, zero_counts, read_counts, seed: int) -> dict:
+    """Phase 30: a reference stf9 checkpoint at full width, as phase 18:
+    the seeded reference dict converted (``zoo.convert_reference_state_dict``)
+    and loaded strictly into ``model``; the converted model's own CDF tables
+    (both bottlenecks and the Gaussian) written into it as the reference's
+    buffers and imported back equal; the images of phase 5 on the host wire
+    with the imported tables in the reference symbol order
+    (``ref_layout=True``), held by ``crc_roundtrip``, the blobs equal to the
+    built tables' in that order. -> results."""
+    import torch
+
+    from icm_tpu_torch import zoo
+    from icm_tpu_torch.models import build_codec_tables
+    from icm_tpu_torch.models.crc_codec import CRCCodec
+
+    t = time.time()
+    sd = reference_crc_state_dict(seed)
+    model.load_state_dict(zoo.convert_reference_state_dict("stf9", sd), strict=True)
+    built = build_codec_tables(model)
+    stored = {"gaussian_conditional": built.gaussian, **built.bottlenecks}
+    for prefix, tab in stored.items():
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            sd[f"module.{prefix}._{field}"] = torch.from_numpy(getattr(tab, field))
+    sd["module.gaussian_conditional.scale_table"] = torch.from_numpy(built.scale_table)
+    imported = zoo.import_reference_tables(sd)
+    got = {"gaussian_conditional": imported.gaussian, **imported.bottlenecks}
+    if set(got) != set(stored):
+        raise AssertionError(f"imported tables {sorted(got)}, stored {sorted(stored)}")
+    for prefix, tab in stored.items():
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            if not np.array_equal(getattr(got[prefix], field), getattr(tab, field)):
+                raise AssertionError(f"imported {prefix} {field} differs from the stored one")
+    log(f"  {len(sd)} reference tensors converted, loaded strictly and tables imported in "
+        f"{time.time() - t:.1f}s")
+    codec = CRCCodec(model, tables=imported, ref_layout=True, narrow=0.2)
+    expect = {side: crc_expect("stf9", side) for side in ("compress", "decompress")}
+    enc, _, l, shapes, _ = crc_roundtrip(codec, x, zero_counts, read_counts,
+                                         "stf9 reference, host wire", expect)
+    built_enc = CRCCodec(model, ref_layout=True, narrow=0.2).compress(x)
+    if built_enc["strings"] != enc["strings"]:
+        raise AssertionError("imported tables' blobs differ from the built tables' ones")
+    sha = {name: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
+           for k, name in enumerate(CRC_STREAMS)}
+    log(f"  blobs with imported tables = built tables (reference order); sha256 {sha}")
+    return {"tensors": len(sd), **crc_bytes(enc, x.shape[1]), "blob_sha256": sha,
+            "launches_reference_compress": l["compress"],
+            "launches_reference_decompress": l["decompress"],
+            "shapes_reference_compress": shapes["compress"],
+            "shapes_reference_decompress": shapes["decompress"]}
 
 
 def main() -> int:
@@ -2079,7 +2628,7 @@ def main() -> int:
                  "decompress": {**fam["expect"]["decompress"],
                                 "rans_decode": fam["model"].ctx_slices + 1}},
                 {"compress": counts["launches_device_wire_compress"],
-                 "decompress": counts["launches_device_wire_decompress"]})
+                 "decompress": counts["launches_device_wire_decompress"]}, FAMILY_REPS)
             counts.update(launches_scan_wire_compress=scan_enc_l,
                           launches_scan_wire_decompress=scan_dec_l)
         with Phase(f"full-width {name} under the bf16 policy, both wires"):
@@ -2089,7 +2638,8 @@ def main() -> int:
                  "counts": {"compress": counts["launches_compress"],
                             "decompress": counts["launches_decompress"],
                             "device_compress": counts["launches_device_wire_compress"],
-                            "device_decompress": counts["launches_device_wire_decompress"]}})
+                            "device_decompress": counts["launches_device_wire_decompress"]}},
+                FAMILY_REPS)
             # the scan wire runs in float32 only, as the JAX package's
             set_activation_dtype(torch.bfloat16)
             try:
@@ -2111,6 +2661,33 @@ def main() -> int:
             for dtype, per_step in result["train"].pop("launches").items():
                 paths[dtype][name].update(per_step)
         del fam
+        gc.collect()  # the model, its codecs and their graphs, before the next model
+        torch.cuda.empty_cache()
+
+    crc_shapes = {}  # each CRC path's launches by head width and GDN channels
+    for name in CRC:
+        with Phase(f"full-width {name}: host, device and scan wires, card vs CPU"):
+            crc = crc_phase(name, x, card, zero_counts, read_counts, args.seed)
+        result = slice_result[name] = crc["result"]
+        paths["float32"][name] = crc["counts"]
+        crc_shapes[name] = {
+            f"launches{'' if w == 'host_wire' else '_' + w}_{side}":
+                result[w]["launches_by_shape"][side]
+            for w in ("host_wire", "device_wire", "scan_wire") for side in ("compress", "decompress")}
+        if name == "stf9":
+            with Phase("full-width stf9 training, card vs CPU"):
+                result["train"] = crc_train_phase(crc["model"], name, args.seed, card)
+            paths["float32"][name]["launches_train_step"] = result["train"]["launches_per_step"]
+            crc_shapes[name]["launches_train_step"] = result["train"][
+                "launches_by_shape_per_step"]
+            with Phase("reference checkpoint: full-width stf9, imported tables, reference order"):
+                result["reference"] = crc_reference_phase(crc["model"], x, card, zero_counts,
+                                                          read_counts, args.seed)
+            for side in ("compress", "decompress"):
+                key = f"launches_reference_{side}"
+                paths["float32"][name][key] = result["reference"][key]
+                crc_shapes[name][key] = result["reference"][f"shapes_reference_{side}"]
+        del crc
         gc.collect()  # the model, its codecs and their graphs, before the next model
         torch.cuda.empty_cache()
 
@@ -2227,6 +2804,35 @@ def main() -> int:
     # stf8 at N 64)
     kernels += [refiner_entry("window_attention_d8", ("stf5", "stf7")),
                 refiner_entry("window_attention_d16_refiners", ("stf6", "stf8"))]
+
+    def crc_launches(group: str, key: str) -> dict:
+        """A kernel build's launches on every CRC path, by shape key."""
+        per = {f"{path}_{m}": shapes[group].get(key, 0)
+               for m, by_path in crc_shapes.items() for path, shapes in by_path.items()}
+        return {"launches": sum(per.values()), **per}
+
+    # the CRC family's head widths 32 and 48, float32 (their bfloat16 rows,
+    # on no path yet, under "cases"); one launch at the path's shape
+    for D, (W, N) in CRC_ATTENTION_SHAPES.items():
+        main = [r for r in rows if r["model"] == "crc" and r["D"] == D and r["W"] == W
+                and r["n_cls"] == 4 and r["dtype"] == "float32"]
+        kernels.append({
+            "name": f"window_attention_d{D}",
+            "route": "cuda",
+            "source": "icm_tpu_torch/csrc/window_attention.cu",
+            "replaces": "icm_tpu/nn/pallas_kernels.py:33",
+            "dtype": "float32",
+            **crc_launches("window_attention", f"float32 D{D}"),
+            "per": f"one launch at W={W}, H=8, N={N}, D={D}, 4 window classes (2 x 512^2 "
+                   "serving, 8 x 256^2 training)",
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["model"] == "crc" and r["D"] == D and r["dtype"] == "float32"),
+            **{key: main[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "f32_fma_bound_ms", "library_ms")},
+            "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67",
+            "tolerance": TOLERANCE["float32"],
+            "cases": [r for r in rows if r["model"] == "crc" and r["D"] == D],
+        })
     # the GDN layers of one training step: 8 x 192 at 128^2, 64^2, 32^2, GDN
     # and IGDN, one launch each; times summed. The serving and ragged rows
     # are in "cases", and every row's errors are under the tolerances
@@ -2265,6 +2871,35 @@ def main() -> int:
                 "cases": [{k: v for k, v in r.items()
                            if k not in ("forward", "backward")} | r[part] for r in gdn_rows_d],
             })
+    # the GDN kernels' designs above 192 channels on the CRC path (the
+    # forward on the FMA units, the backward's dx streaming gamma): the
+    # forward at the serving shape, the backward at the training step's
+    for name, part, err_key, line, path in (
+            ("gdn_forward", "forward", "y", 50, "crc_serve"),
+            ("gdn_backward", "backward", "dx", 64, "crc_train")):
+        rows_256 = [r for r in gdn_rows if r["C"] == 256]
+        main = [r for r in rows_256 if r["path"] == path and r["inverse"]
+                and r["dtype"] == "float32"][0]
+        kernels.append({
+            "name": f"{name}_c256",
+            "route": "cuda",
+            "source": "icm_tpu_torch/csrc/gdn.cu",
+            "replaces": f"icm_tpu/nn/gdn_pallas.py:{line}",
+            "dtype": "float32",
+            **crc_launches("gdn", f"{part} float32 C256"),
+            "per": f"one IGDN launch at {main['B']} x 256 x {main['H']}^2",
+            "max_abs_err": max(r["max_abs_err"][err_key] for r in rows_256
+                               if r["dtype"] == "float32"),
+            **{key: main[part][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "f32_fma_bound_ms")},
+            "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), elementwise at 67; "
+                          "4-byte activations",
+            "library_ms": None,
+            "library_note": no_library,
+            "tolerance": GDN_TOLERANCE,
+            "cases": [{k: v for k, v in r.items() if k not in ("forward", "backward")} | r[part]
+                      for r in rows_256],
+        })
     kernels += attention_entries("bfloat16", "_bf16")
     # the refiners' bfloat16 builds: head width 8 padded to 16 (stf5, stf7)
     # and 16 (stf6, stf8)
@@ -2282,7 +2917,7 @@ def main() -> int:
             "source": "icm_tpu_torch/csrc/rans_lanes.cu",
             "replaces": f"icm_tpu/coding/device_rans.py:{line}",
             "replaces_note": "not Pallas in JAX: integer jnp under lax.scan",
-            **launch_keys(name, ("cnn", "stf") + FAMILY),
+            **launch_keys(name, ("cnn", "stf") + FAMILY + CRC),
             "max_abs_err": max(r["max_abs_err"] for r in rans_rows),
             "ms": sum(r[part]["ms"] for r in rans_main),
             "plain_ms": sum(r[part]["plain_ms"] for r in rans_main),

@@ -29,6 +29,10 @@ subtree; where its support sits in the padded first conv depends on the
 model's support mode and conditioning, which the tree does not show, so
 ``from_jax_params(params, model=...)`` takes the port's model of that
 configuration and unstacks it (``models.stf_family.unstack_zigzag_params``).
+A CRC model's scanned coder (JAX's ``ZigzagCharmCoder(scan=True)``)
+carries its context stacks as a ``zz_scan`` subtree at the coder's path
+(``machine/coder/zz_scan``); given the model, each is unstacked by the
+port's coder there (``models.zigzag_coder.unstack_zigzag_params``).
 
 Nothing here imports the JAX package.
 """
@@ -103,15 +107,34 @@ def _unstack_zigzag_scan(params: dict, model) -> dict:
     return {**{k: v for k, v in params.items() if k != "zigzag_scan"}, **slices}
 
 
+def _unstack_zz_scan(params: dict, model, path=()) -> dict:
+    """A tree with ``zz_scan`` subtrees (the CRC family's scanned coders,
+    ``machine/coder/zz_scan``) -> the same tree with each coder's
+    per-slice context stacks in their place, unstacked by the port's coder
+    at that path of ``model``."""
+    if "zz_scan" in params:
+        from .models.zigzag_coder import unstack_zigzag_params
+
+        if model is None:
+            raise ValueError("a zz_scan tree unstacks only with the model it belongs to "
+                             "(from_jax_params(params, model=...))")
+        coder = model.get_submodule(".".join(path))
+        slices = unstack_zigzag_params({"zz_scan": params["zz_scan"]}, coder)
+        return {**{k: v for k, v in params.items() if k != "zz_scan"}, **slices}
+    return {k: _unstack_zz_scan(v, model, path + (k,)) if isinstance(v, dict) else v
+            for k, v in params.items()}
+
+
 def from_jax_params(params: dict, model=None) -> Dict[str, torch.Tensor]:
     """``model``: the port's model of the tree's configuration, needed only
-    for a ``zigzag_scan`` tree (see the module docstring)."""
+    for a ``zigzag_scan`` or ``zz_scan`` tree (see the module docstring)."""
     if set(params) == {"params"}:
         params = params["params"]
     if "charm_scan" in params:
         params = _unstack_charm_scan(params)
     if "zigzag_scan" in params:
         params = _unstack_zigzag_scan(params, model)
+    params = _unstack_zz_scan(params, model)
     out: Dict[str, torch.Tensor] = {}
     for path, value in _walk(params):
         leaf, arr = _convert(path, np.asarray(value))

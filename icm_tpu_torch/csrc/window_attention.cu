@@ -24,7 +24,11 @@
 // 3.8 us a launch, 0.1425 ms a side. The zigzag family's per-slice
 // refiners attend on small maps: at 2 x 512 px a launch holds 32 to 512
 // window-heads (N 16 or 64, D 8 or 16), 0.5-0.8 MB in f32, a byte bound of
-// 0.16-0.24 us, far below the cost of a launch itself.
+// 0.16-0.24 us, far below the cost of a launch itself. The CRC family
+// (stf9, stf11, stf14) adds D 32 at N 64 (MainCNNDecoder's 256-channel
+// block: 512 windows x 8 heads at 2 x 512 px) and D 48 at N 16 (its
+// 384-channel blocks, 128 x 8): 134 and 12.6 MB of q, k, v, out in f32,
+// byte bounds of 40 and 3.8 us.
 //
 // What the design does about it:
 // - The products run on the tensor cores with mma.sync, several query rows
@@ -37,11 +41,12 @@
 // - f32 inputs use 3xTF32: each operand x is split into hi = tf32(x) and
 //   lo = tf32(x - hi), and the product accumulates lo*hi + hi*lo + hi*hi
 //   (lo*lo, about 2^-22 of the product, is dropped). The m16n8k8 TF32 shape
-//   takes the head width (8, 16, 24, 40) as it is: D/8 k-steps in q k^T, D/8
-//   output tiles in the PV product (one of each at D = 8). In the PV product the keys of
-//   each 8-key step are taken in the order 0, 2, 4, 6, 1, 3, 5, 7, so the
-//   score fragment (columns 2t, 2t+1 in lane t of a quad) is the A fragment
-//   as it stands (columns t, t+4); v's rows are read in the same order.
+//   takes the head width (8, 16, 24, 32, 40, 48) as it is: D/8 k-steps in
+//   q k^T, D/8 output tiles in the PV product (one of each at D = 8). In
+//   the PV product the keys of each 8-key step are taken in the order 0,
+//   2, 4, 6, 1, 3, 5, 7, so the score fragment (columns 2t, 2t+1 in lane t
+//   of a quad) is the A fragment as it stands (columns t, t+4); v's rows
+//   are read in the same order.
 //   The tensor cores' own additions do not round to nearest, so each key
 //   step's PV share is summed from zero and added to the output in f32, and
 //   the bias is added to the scores after q k^T: the result stays within
@@ -49,10 +54,10 @@
 // - bf16 inputs use m16n8k16 bf16 with f32 accumulation. q * scale and the
 //   probabilities are rounded to bf16 before their products, as in the
 //   Pallas kernel. The head width is padded to the k16 step with zeros in
-//   shared memory (8 -> 16, 24 -> 32, 40 -> 48; 16 needs none): the padded
-//   columns of q and k are zeroed before the copies and never written by
-//   them, so they add exact zeros to q k^T; v's are never read, since the
-//   PV product takes D / 8 output tiles of the real columns only.
+//   shared memory (8 -> 16, 24 -> 32, 40 -> 48; 16, 32 and 48 need none):
+//   the padded columns of q and k are zeroed before the copies and never
+//   written by them, so they add exact zeros to q k^T; v's are never read,
+//   since the PV product takes D / 8 output tiles of the real columns only.
 // - A block of four warps takes one item: one window-head at N > 32 (a
 //   warp per 16 query rows), two at N <= 32, four at N <= 16 (a warp each).
 //   Its q, k, v and bias slabs are staged in shared memory by 16-byte
@@ -66,14 +71,15 @@
 // - Row strides are padded (D + 4 floats, the padded width + 8 bf16 values,
 //   N + 8 floats for the bias) so that the fragment reads of a warp hit
 //   distinct banks. f32: lane (g, t) reads word g*LD + t of q or k, and
-//   LD = 12, 20, 28, 44 (D = 8, 16, 24, 40) is 4 times an odd number, so
-//   g*LD mod 32 takes the eight multiples of 4 and t fills the gaps; it
-//   reads v at word 2t*LD + g, and 2*LD mod 32 = 24, 8, 24, 24 puts the
-//   four t eight banks apart. bf16 (D = 8 laid out as 16): a q or k pair
-//   is word g*LD/2 + t, LD/2 = 12, 20, 28
-//   (4 times an odd number again); v's values are words t*LD + g/2, two
-//   lanes to a word, and t*LD mod 32 (LD = 24, 40, 56) takes four distinct
-//   multiples of 8, so the quads' four words each land eight banks apart.
+//   LD = 12, 20, 28, 36, 44, 52 (D = 8, 16, 24, 32, 40, 48) is 4 times an
+//   odd number, so g*LD mod 32 takes the eight multiples of 4 and t fills
+//   the gaps; it reads v at word 2t*LD + g, and 2*LD mod 32 = 24, 8, 24,
+//   8, 24, 8 puts the four t eight banks apart. bf16 (D = 8 laid out as
+//   16): a q or k pair is word g*LD/2 + t, LD/2 = 12, 20, 28 (D 8 and 16,
+//   24 and 32, 40 and 48; 4 times an odd number again); v's values are
+//   words t*LD + g/2, two lanes to a word, and t*LD mod 32 (LD = 24, 40,
+//   56) takes four distinct multiples of 8, so the quads' four words each
+//   land eight banks apart.
 // - A score more than 87 below its row's max (a masked key) takes
 //   probability 0 rather than a subnormal exp, and the row is normalised by
 //   one reciprocal: expf and division of subnormals take slow paths, which
@@ -82,8 +88,9 @@
 // Contract: any W with no padding by the caller; N from 1 to 128 (partial
 // tiles masked: keys past N score -inf, rows past N are not written); D 8
 // (the stf5 and stf7 refiners), 16 (stf, the stf6 and stf8 refiners), 24
-// and 40 (WACNN); NaN output for a window whose class is out of range; no atomics,
-// every output element has one writer, so the bits are the same run to run
+// and 40 (WACNN), 32 and 48 (the CRC family's MainCNN transforms); NaN
+// output for a window whose class is out of range; no atomics, every
+// output element has one writer, so the bits are the same run to run
 // (the decoder's x_hat must equal the encoder's).
 //
 // Plain C interface for ctypes (no PyTorch headers, so nvcc builds it in
@@ -524,7 +531,8 @@ int dispatch(int D, const void* q, const void* k, const void* v,
 #define CASE(DD) \
   case DD:       \
     return dispatch_n<T, DD>(q, k, v, bias, cls, out, W, H, N, n_cls, scale, stream);
-    CASE(8) CASE(16) CASE(24) CASE(40)  // the zigzag family's refiners, stf's, WACNN's
+    // the zigzag family's refiners, stf's, WACNN's, the CRC family's
+    CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48)
 #undef CASE
     default:
       return -1;

@@ -43,11 +43,20 @@ from .nn import gdn_fused as _gdn
 from .nn import window_attention as _attn
 from .nn.layers import activation_dtype
 
-# the launch counters of the hand kernels: Counters keyed by dtype
+# the launch counters of the hand kernels: Counters keyed by (dtype, head
+# width or channels)
 _COUNTERS = {"window_attention": _attn.LAUNCHES, "gdn_forward": _gdn.FWD_LAUNCHES,
              "gdn_backward": _gdn.BWD_LAUNCHES}
 # and the lane coder's plain integers
 _RANS_COUNTERS = ("ENCODE_LAUNCHES", "DECODE_LAUNCHES")
+
+
+def by_dtype(counter: Counter) -> Counter:
+    """A kernel's launches keyed by (dtype, width) -> keyed by dtype."""
+    out: Counter = Counter()
+    for key, n in counter.items():
+        out[key[0]] += n
+    return +out
 
 
 def launch_counts() -> Dict[str, Counter]:

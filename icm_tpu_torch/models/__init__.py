@@ -22,6 +22,8 @@ from ..nn.layers import WindowAttention
 from .base import CodecTables, CompressionModel
 from .cnn import WACNN
 from .codec import CharmCodec, build_codec_tables, cuda_numerics, enc_round
+from .crc import ConditionalResidualCoding, ResidualCoding
+from .crc_codec import CRCCodec
 from .device_codec import DeviceWireCodec, DeviceWireKit
 from .stf import SymmetricalTransFormer
 from .stf_family import STF5_CONFIG, STF6_CONFIG, STF7_CONFIG, STF8_CONFIG, ZigzagSwinCodec
@@ -34,6 +36,9 @@ models = {
     "stf6_2": (ZigzagSwinCodec, STF6_CONFIG),  # the reference's stf6_2 is stf6
     "stf7": (ZigzagSwinCodec, STF7_CONFIG),
     "stf8": (ZigzagSwinCodec, STF8_CONFIG),
+    "stf9": (ConditionalResidualCoding, {}),
+    "stf11": (ConditionalResidualCoding, {}),  # the reference's stf11 is stf9
+    "stf14": (ResidualCoding, {}),
 }
 
 
@@ -107,6 +112,8 @@ __all__ = [
     "SymmetricalTransFormer",
     "ZigzagSwinCodec",
     "CharmCodec",
+    "ConditionalResidualCoding",
+    "CRCCodec",
     "DeviceWireCodec",
     "DeviceWireKit",
     "build_codec_tables",
@@ -116,4 +123,5 @@ __all__ = [
     "init_parameters",
     "models",
     "resolve_device",
+    "ResidualCoding",
 ]

@@ -19,80 +19,20 @@ from __future__ import annotations
 import re
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..entropy import EntropyBottleneck, GaussianConditional
-from ..nn import (
-    GDN,
-    SubpelConv,
-    Win_noShift_Attention,
-    conv,
-    conv3x3,
-    deconv,
-    named_sequential,
-)
+from ..nn.factories import hyper_encoder as _hyper_encoder
+from ..nn.factories import hyper_mean as _hyper_decoder
+from ..nn.factories import main_cnn_decoder
+from ..nn.factories import main_cnn_encoder as _analysis
+from ..nn.factories import shallow_cc as _cc_transform
 from .base import CompressionModel, prefix_support
 
 
-class _Gelu(nn.Module):
-    def forward(self, x):
-        return F.gelu(x)
-
-
-def _analysis(N: int, M: int) -> nn.Sequential:
-    return named_sequential(
-        conv(3, N, 5, 2), GDN(N),
-        conv(N, N, 5, 2), GDN(N),
-        Win_noShift_Attention(N, num_heads=8, window_size=8, shift_size=4),
-        conv(N, N, 5, 2), GDN(N),
-        conv(N, M, 5, 2),
-        Win_noShift_Attention(M, num_heads=8, window_size=4, shift_size=2),
-    )
-
-
 def _synthesis(N: int, M: int, out_ch: int = 3) -> nn.Sequential:
-    return named_sequential(
-        Win_noShift_Attention(M, num_heads=8, window_size=4, shift_size=2),
-        deconv(M, N, 5, 2), GDN(N, inverse=True),
-        deconv(N, N, 5, 2), GDN(N, inverse=True),
-        Win_noShift_Attention(N, num_heads=8, window_size=8, shift_size=4),
-        deconv(N, N, 5, 2), GDN(N, inverse=True),
-        deconv(N, out_ch, 5, 2),
-    )
-
-
-def _hyper_encoder(in_ch: int, widths: tuple) -> nn.Sequential:
-    """3x3 convs with strides 1, 1, 2, 1, 2 and GELU between."""
-    layers, c = [], in_ch
-    for i, (w, s) in enumerate(zip(widths, (1, 1, 2, 1, 2))):
-        if i > 0:
-            layers.append(_Gelu())
-        layers.append(conv3x3(c, w, stride=s))
-        c = w
-    return named_sequential(*layers)
-
-
-def _hyper_decoder(in_ch: int, widths: tuple) -> nn.Sequential:
-    """conv + sub-pixel 2x upsample stack (h_mean_s / h_scale_s)."""
-    w = widths
-    return named_sequential(
-        conv3x3(in_ch, w[0]), _Gelu(),
-        SubpelConv(w[0], w[1], r=2), _Gelu(),
-        conv3x3(w[1], w[2]), _Gelu(),
-        SubpelConv(w[2], w[3], r=2), _Gelu(),
-        conv3x3(w[3], w[4]),
-    )
-
-
-def _cc_transform(in_ch: int, out_ch: int, widths: tuple) -> nn.Sequential:
-    """Per-slice context stack: 3x3 convs with GELU between."""
-    layers, c = [], in_ch
-    for w in widths:
-        layers += [conv(c, w, kernel_size=3, stride=1), _Gelu()]
-        c = w
-    layers.append(conv(c, out_ch, kernel_size=3, stride=1))
-    return named_sequential(*layers)
+    """WACNN's synthesis: ``MainCNNDecoder`` with its middle width N."""
+    return main_cnn_decoder(N, M, mid=N, out_ch=out_ch)
 
 
 class ChannelCharm(CompressionModel):

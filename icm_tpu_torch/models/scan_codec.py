@@ -1,8 +1,9 @@
 """The scan wire: the whole ChARM chain as one program both coder sides run.
 
 Port of ``icm_tpu/models/scan_codec.py``'s ``CharmScanWire`` (``cnn``,
-``stf``), ``ZigzagSwinScanWire`` (the zigzag family ``stf5``-``stf8``)
-and the static-signature helpers they share. The JAX package compiles the whole
+``stf``), ``ZigzagSwinScanWire`` (the zigzag family ``stf5``-``stf8``),
+``ZigzagScanWire`` (the CRC family's machine layer, ``stf9``, ``stf11``,
+``stf14``) and the static-signature helpers they share. The JAX package compiles the whole
 autoregressive chain of a prefix-support ChARM model (``cnn``, ``stf``)
 as one ``lax.scan``: per slice the context convolutions over stacked,
 zero-padded per-slice weights (``cnn.stack_charm_params``), the scale
@@ -280,8 +281,9 @@ class _StaticScanIO:
                 index = build_indexes(scale, self.scale_table)
                 sym = self._symbols(is_enc, i, index, mu, y_stack, dec, B)
                 y_hat = sym.to(mu.dtype) + mu
-                lrp = _cc_apply(W["lrp"], i, torch.cat([mean_support, y_hat], 1))
-                y_hat = y_hat + 0.5 * torch.tanh(self._refine("lrp", i, lrp))
+                if "lrp" in W:  # the CRC family's layers compute none
+                    lrp = _cc_apply(W["lrp"], i, torch.cat([mean_support, y_hat], 1))
+                    y_hat = y_hat + 0.5 * torch.tanh(self._refine("lrp", i, lrp))
                 if not self.prefix:  # sliding support: newest last
                     buf = torch.cat([buf[:, sc:], y_hat], 1)
                 elif i < max_sup:  # prefix support: slot i, then frozen
@@ -394,3 +396,36 @@ class ZigzagSwinScanWire(_StaticScanIO):
 
     def _refine(self, tag: str, i: int, x: torch.Tensor) -> torch.Tensor:
         return self.model.refine(tag, i, x)
+
+
+class ZigzagScanWire(_StaticScanIO):
+    """The scan wire of one ``zigzag_coder.ZigzagCharmCoder`` layer (the
+    CRC family's machine layer). Port of the JAX package's
+    ``ZigzagScanWire`` and its ``_zigzag_scan_program``: sliding support
+    (the buffer shifts left a slot and appends the newest slice), a
+    conditioning window of ``support_num`` zigzag blocks ``[s, s + Wc)``,
+    ``s = min(i, N - Wc)``, of the hyper-decoders' blocks concatenated
+    block-major, the stacked context convolutions of
+    :func:`zigzag_coder.stack_zigzag_params`, and no LRP. ``coder``: the
+    layer, which plays the model's part of :class:`_StaticScanIO`."""
+
+    prefix = False
+
+    def __init__(self, coder, kit, scale_table: torch.Tensor, graphs, narrow: float = 1.0):
+        super().__init__(coder, kit, scale_table, graphs, narrow)
+        self.sc = int(coder.slice_ch)
+        self.max_sup = int(coder.max_support)
+        self.Wc = int(coder.cond_blocks)
+        self.restack()
+
+    def restack(self) -> None:
+        from .zigzag_coder import stack_zigzag_params
+
+        with torch.no_grad():
+            self._stacked = stack_zigzag_params(self.model, self.model)["zz_scan"]
+
+    @staticmethod
+    def conditioning(state: dict):
+        """The coder's ``ctx_prepare`` state -> (means, scales) (B, N * sc,
+        h, w): its zigzag blocks concatenated block-major."""
+        return torch.cat(state["means"], 1), torch.cat(state["scales"], 1)

@@ -25,8 +25,8 @@ In float32 every cast is the identity.
   loaded with ctypes), its float32 or its bfloat16 build by x's dtype.
   They take contiguous CUDA tensors only and raise on anything else;
   ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count their calls by x's dtype
-  (the backward's call launches three kernels: dx and dn, the partial
-  sums of dgamma and dbeta, and their fixed-order reduce).
+  and channels (the backward's call launches three kernels: dx and dn,
+  the partial sums of dgamma and dbeta, and their fixed-order reduce).
 - :func:`gdn` is what ``GDN.forward`` calls, on every device: an autograd
   function whose forward and backward are the kernels for a CUDA tensor
   and the plain versions for a CPU tensor.
@@ -49,13 +49,15 @@ import torch.nn.functional as F
 
 from .. import _native
 
-# calls of the CUDA kernels in this process, by x's dtype (the build
-# launched); chip_smoke.py clears them before driving a path and reads them
-# after
+# calls of the CUDA kernels in this process, by (x's dtype, channels): the
+# build launched, and above 192 channels another design (MAX_CHANNELS'
+# note); chip_smoke.py clears them before driving a path and reads them
+# after (``graphs.by_dtype`` sums the channels)
 FWD_LAUNCHES: Counter = Counter()
 BWD_LAUNCHES: Counter = Counter()
 
-# channels the kernels take. Up to 192 (every GDN of every model) both keep
+# channels the kernels take. Up to 192 (every GDN but the CRC family's
+# 256-channel IGDN in MainCNNDecoder) both keep
 # gamma resident in shared memory and run their products on the tensor
 # cores. Above, the backward streams gamma, its two (C x 24) float tiles
 # and two gamma chunks fitting a block's 227 KB of shared memory up to
@@ -176,7 +178,7 @@ def gdn_forward_cuda(x, gamma, beta, inverse: bool):
                  B, C, H * W, int(inverse), _DTYPE_CODE[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"gdn forward kernel launch failed (code {rc})")
-    FWD_LAUNCHES[x.dtype] += 1
+    FWD_LAUNCHES[x.dtype, C] += 1
     return y
 
 
@@ -206,7 +208,7 @@ def gdn_backward_cuda(g, x, gamma, beta, inverse: bool):
                  workspace.data_ptr(), B, C, H * W, int(inverse), code, stream)
     if rc != 0:
         raise RuntimeError(f"gdn backward kernel launch failed (code {rc})")
-    BWD_LAUNCHES[x.dtype] += 1
+    BWD_LAUNCHES[x.dtype, C] += 1
     return dx, dgamma.to(gamma.dtype), dbeta
 
 

@@ -269,7 +269,9 @@ class WindowAttention(nn.Module):
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B_, nh, N, hd)
         bias = self.relative_position_bias_table[self._bias_index(x.device)]
         bias = bias.reshape(N, N, nh).permute(2, 0, 1)  # (nh, N, N)
-        bias_cls = bias[None].float() + cls_masks[:, None]  # (n_cls, nh, N, N)
+        # (n_cls, nh, N, N), f32 (f64 for a float64 model)
+        bias = bias.to(torch.promote_types(bias.dtype, torch.float32))
+        bias_cls = bias[None] + cls_masks[:, None]
         out = window_attention(q, k, v, bias_cls, cls_idx)
         out = out.transpose(1, 2).reshape(B_, N, C)
         return self.proj(out)

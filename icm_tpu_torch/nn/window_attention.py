@@ -11,7 +11,7 @@ per window, it computes ``softmax(q*D^-1/2 @ k^T + bias[cls[w]]) @ v``.
 - :func:`window_attention_cuda` launches ``csrc/window_attention.cu`` on
   the current stream (built with nvcc at first use and loaded with
   ctypes). It takes CUDA tensors only and raises on anything it does not
-  take; ``LAUNCHES`` counts its launches by q's dtype.
+  take; ``LAUNCHES`` counts its launches by q's dtype and head width.
 - :func:`window_attention` is what the model calls: the kernel for a CUDA
   tensor, the plain version for a CPU tensor, and, for training, an
   autograd function whose backward differentiates the plain version (as
@@ -34,15 +34,15 @@ import torch
 
 from .. import _native
 
-# launches of the CUDA kernel in this process, by q's dtype (the build
-# launched); chip_smoke.py clears them before driving the codec and reads
-# them after
+# launches of the CUDA kernel in this process, by (q's dtype, head width):
+# the build launched; chip_smoke.py clears them before driving the codec
+# and reads them after (``graphs.by_dtype`` sums the widths)
 LAUNCHES: Counter = Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # built in the kernel's dispatch: the zigzag family's refiners (8, 16), stf's
-# (16), WACNN's (24, 40)
-SUPPORTED_HEAD_DIMS = (8, 16, 24, 40)
+# (16), WACNN's (24, 40), the CRC family's MainCNN transforms (32, 48)
+SUPPORTED_HEAD_DIMS = (8, 16, 24, 32, 40, 48)
 MAX_TOKENS = 128  # N: tokens per window (a row's N scores live in a quad's registers)
 
 _fn = None
@@ -73,17 +73,25 @@ def window_attention_reference(q, k, v, bias, cls_idx):
     """Plain version with the kernel's numerics: q*scale rounded to the
     input dtype, scores and softmax in f32, probabilities rounded to v's
     dtype, PV accumulated in f32, output in the input dtype. In f32 this is
-    ``icm_tpu.nn.pallas_kernels.window_attention_reference``."""
-    return _attend(q, k, v, bias.float()[cls_idx.long()])
+    ``icm_tpu.nn.pallas_kernels.window_attention_reference``; a float64
+    input stays float64 throughout, as the JAX package's jnp attention
+    keeps it (``promote_types(dtype, float32)``)."""
+    return _attend(q, k, v, bias.to(_acc(q.dtype))[cls_idx.long()])
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The scores' and sums' dtype: float32, or float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def _attend(q, k, v, window_bias):
     """The plain version with each window's bias (W, H, N, N) f32."""
     D = q.shape[-1]
+    acc = _acc(q.dtype)
     qs = q * torch.tensor(_scale(D, q.dtype), dtype=q.dtype, device=q.device)
-    attn = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    attn = torch.matmul(qs.to(acc), k.to(acc).transpose(-1, -2))
     attn = torch.softmax(attn + window_bias, dim=-1)
-    out = torch.matmul(attn.to(v.dtype).float(), v.float())
+    out = torch.matmul(attn.to(v.dtype).to(acc), v.to(acc))
     return out.to(q.dtype)
 
 
@@ -126,7 +134,7 @@ def window_attention_cuda(q, k, v, bias, cls_idx):
         )
     if rc != 0:
         raise RuntimeError(f"window_attention kernel launch failed (code {rc})")
-    LAUNCHES[q.dtype] += 1
+    LAUNCHES[q.dtype, D] += 1
     return out
 
 
@@ -155,7 +163,7 @@ class _WindowAttentionFn(torch.autograd.Function):
         q, k, v, bias, cls_idx = ctx.saved_tensors
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            window_bias = bias.detach().float()[cls_idx.long()]
+            window_bias = bias.detach().to(_acc(q.dtype))[cls_idx.long()]
             if ctx.needs_input_grad[3]:
                 ins.append(window_bias.requires_grad_(True))
             grads = torch.autograd.grad(_attend(*ins[:3], window_bias), ins,
@@ -163,7 +171,7 @@ class _WindowAttentionFn(torch.autograd.Function):
         d_bias = None
         if ctx.needs_input_grad[3]:
             one_hot = torch.nn.functional.one_hot(cls_idx.long(), bias.shape[0])
-            d_bias = one_hot.t().float() @ grads[3].reshape(cls_idx.shape[0], -1)
+            d_bias = one_hot.t().to(grads[3].dtype) @ grads[3].reshape(cls_idx.shape[0], -1)
             d_bias = d_bias.reshape(bias.shape).to(bias.dtype)
         return grads[0], grads[1], grads[2], d_bias, None
 

@@ -2,7 +2,8 @@
 state dict, and the coder tables the checkpoint stores.
 
 Port of ``icm_tpu/zoo.py`` for the architectures the port builds (``cnn``,
-``stf`` and the zigzag family ``stf5``-``stf8``). ``load_pretrained`` does
+``stf``, the zigzag family ``stf5``-``stf8`` and the CRC family's
+``stf9``, ``stf11`` and ``stf14``). ``load_pretrained`` does
 the reference's key cleanup (``zoo/pretrained.py``: strip DataParallel's
 ``module.``, drop ``h_s.*``, rename the legacy bottleneck ParameterList
 keys). The converters rename the reference's module paths into the flax
@@ -261,9 +262,98 @@ ZIGZAG_CONVERT_CONFIGS = {
 }
 ZIGZAG_CONVERT_CONFIGS["stf6_2"] = ZIGZAG_CONVERT_CONFIGS["stf6"]
 
+# --- the CRC family (stf9, stf11, stf14) -------------------------------------------
+# The reference's module layouts (stf9.py, stf14.py); its dead groups are
+# dropped: the Swin scaffolding pasted into these models (patch_embed,
+# layers, syn_layers, end_conv), the LRP stacks whose output the forward
+# discards (stf9.py:1094-1106), the commented-out LRP refiners, and stf14's
+# unused context decoder (stf14.py:1153).
+
+def _stack(sd, prefix: str, n: int, kind: str = "Conv") -> dict:
+    """``n`` convs (``kind="ConvTranspose"``: transposed convs) at the
+    reference's even indexes, activations between."""
+    return {f"{kind}_{j}": _leaves(sd, f"{prefix}.{2 * j}") for j in range(n)}
+
+
+def _main_cnn_decoder(sd, prefix: str, part: Optional[int] = None) -> dict:
+    """The reference's mainCNNdecoder (Win, deconv, GDN, deconv, GDN, Win,
+    deconv, GDN, deconv), or its first (``part=1``: through the second
+    Win) or second half (``part=2``: deconv, GDN, deconv)."""
+    first = {} if part == 2 else {
+        "Win_noShift_Attention_0": _win_noshift(sd, f"{prefix}.0"),
+        "ConvTranspose_0": _leaves(sd, f"{prefix}.1"), "GDN_0": _gdn(sd, f"{prefix}.2"),
+        "ConvTranspose_1": _leaves(sd, f"{prefix}.3"), "GDN_1": _gdn(sd, f"{prefix}.4"),
+        "Win_noShift_Attention_1": _win_noshift(sd, f"{prefix}.5"),
+    }
+    if part == 1:
+        return first
+    o, k = (0, 0) if part == 2 else (6, 2)
+    return {**first, f"ConvTranspose_{k}": _leaves(sd, f"{prefix}.{o}"),
+            f"GDN_{k}": _gdn(sd, f"{prefix}.{o + 1}"),
+            f"ConvTranspose_{k + 1}": _leaves(sd, f"{prefix}.{o + 2}")}
+
+
+def _main_cnn_encoder(sd, prefix: str) -> dict:
+    """The reference's mainCNNencoder: WACNN's g_a."""
+    return {
+        "Conv_0": _leaves(sd, f"{prefix}.0"), "GDN_0": _gdn(sd, f"{prefix}.1"),
+        "Conv_1": _leaves(sd, f"{prefix}.2"), "GDN_1": _gdn(sd, f"{prefix}.3"),
+        "Win_noShift_Attention_0": _win_noshift(sd, f"{prefix}.4"),
+        "Conv_2": _leaves(sd, f"{prefix}.5"), "GDN_2": _gdn(sd, f"{prefix}.6"),
+        "Conv_3": _leaves(sd, f"{prefix}.7"),
+        "Win_noShift_Attention_1": _win_noshift(sd, f"{prefix}.8"),
+    }
+
+
+def _human_hyper_dec(sd, prefix: str, extra: int = 5) -> dict:
+    """The hyper-decoder and its ``extra`` trailing convs (reference
+    indexes 10, 12, ...)."""
+    p = _hyper_dec(sd, prefix)
+    for j in range(extra):
+        p[f"Conv_{3 + j}"] = _leaves(sd, f"{prefix}.{10 + 2 * j}")
+    return p
+
+
+def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
+                           ctx_slices: int = 24) -> Dict[str, torch.Tensor]:
+    """Reference stf9 / stf11 / stf14 state dict -> the port's
+    ``ConditionalResidualCoding`` / ``ResidualCoding`` state dict: the
+    machine layer's ``g_a`` and zigzag coder (``cc_*_transforms2``, 5 convs
+    a slice, no LRP), the split decoder, the human layer's transforms,
+    hyperprior (``human_h_*``, ``entropy_bottleneck_human``) and, for
+    stf9 and stf11, its context decoder."""
+    if arch not in ("stf9", "stf11", "stf14"):
+        raise ValueError(f"{arch!r} is not stf9, stf11 or stf14")
+    sd = load_pretrained(state_dict)
+    coder = {"h_a": _stack(sd, "h_a", 5), "h_mean_s": _hyper_dec(sd, "h_mean_s"),
+             "h_scale_s": _hyper_dec(sd, "h_scale_s"),
+             "entropy_bottleneck": _entropy_bottleneck(sd, "entropy_bottleneck")}
+    for tag, ours in (("cc_mean_transforms2", "cc_mean"), ("cc_scale_transforms2", "cc_scale")):
+        for i in range(ctx_slices):
+            coder[f"{ours}_{i}"] = _stack(sd, f"{tag}.{i}", 5)
+    tree = {
+        "machine": {"g_a": _main_cnn_encoder(sd, "g_a"), "coder": coder},
+        "g_s1": _main_cnn_decoder(sd, "g_s1", part=1),
+        "g_s2": _main_cnn_decoder(sd, "g_s2", part=2),
+        "human_g_s2": _main_cnn_decoder(sd, "human_g_s2"),
+        "human_g_a": _stack(sd, "human_g_a", 4),
+        "human_g_s": _stack(sd, "human_g_s", 4, kind="ConvTranspose"),
+        "human_hyper": {
+            "h_a": _stack(sd, "human_h_a", 5),
+            "h_mean_s": _human_hyper_dec(sd, "human_h_mean_s"),
+            "h_scale_s": _human_hyper_dec(sd, "human_h_scale_s"),
+            "entropy_bottleneck": _entropy_bottleneck(sd, "entropy_bottleneck_human"),
+        },
+    }
+    if arch != "stf14":
+        tree["human_context_decoder"] = _stack(sd, "human_context_decoder", 5)
+    return _state_dict(tree)
+
+
 # the zoo's other architectures: the port does not build them yet
 _NOT_PORTED = {
-    **{a: "Queue 1 item 5 (the CRC family)" for a in ("stf9", "stf11", "stf12", "stf13", "stf14")},
+    "stf12": "Queue 1 item 5b (stf12)",
+    "stf13": "Queue 1 item 5c (stf13)",
     **{a: "Queue 1 item 6 (the masked family)" for a in ("stf2", "stf3", "stf4")},
     "czigzag": "Queue 1 item 7 (czigzag)",
     **{a: "Queue 1 item 8 (ICM)" for a in ("cnn2", "stf10", "oj_ICM", "seg_oj_ICM")},
@@ -278,6 +368,8 @@ def convert_reference_state_dict(arch: str, sd: dict) -> Dict[str, torch.Tensor]
         return convert_stf_checkpoint(sd)
     if arch in ZIGZAG_CONVERT_CONFIGS:
         return convert_zigzag_checkpoint(sd, **ZIGZAG_CONVERT_CONFIGS[arch])
+    if arch in ("stf9", "stf11", "stf14"):
+        return convert_crc_checkpoint(sd, arch)
     where = _NOT_PORTED.get(arch, "no item: not an architecture of the zoo")
     raise NotImplementedError(
         f"reference checkpoint conversion for {arch!r} is not ported yet (ROADMAP.md, {where})")

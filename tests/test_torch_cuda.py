@@ -18,6 +18,7 @@ import torch
 from icm_tpu_torch.coding import device_rans as tdr
 from icm_tpu_torch.entropy import EntropyTables
 from icm_tpu_torch.entropy.base import pmf_to_quantized_cdf_np
+from icm_tpu_torch.graphs import by_dtype
 from icm_tpu_torch.nn import gdn_fused as tgdn
 from icm_tpu_torch.nn import window_attention as twa
 
@@ -63,7 +64,7 @@ def test_window_attention_kernel_matches_plain(N, D, W, n_cls, dtype):
     before = twa.LAUNCHES.copy()
     out = twa.window_attention_cuda(*ins)
     torch.cuda.synchronize()
-    assert twa.LAUNCHES - before == Counter({ins[0].dtype: 1})
+    assert twa.LAUNCHES - before == Counter({(ins[0].dtype, D): 1})
     ref = twa.window_attention_reference(*ins)
     assert out.dtype == ins[0].dtype and out.shape == ins[0].shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=TOL[dtype])
@@ -135,6 +136,27 @@ def test_window_attention_kernel_at_the_family_shapes(W, N, D, n_cls, dtype):
     assert torch.equal(twa.window_attention_cuda(*ins), out)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# the CRC family's widths at 2 x 512 px (and 8 x 256 px in training): D 32
+# over MainCNNDecoder's 256-channel block (512 windows of 8 x 8), D 48 over
+# every 384-channel block (128 of 4 x 4), 8 heads, at 4 window classes and
+# at 1, then ragged window counts
+@pytest.mark.parametrize("W,N,D,n_cls", [(512, 64, 32, 4), (512, 64, 32, 1), (128, 16, 48, 4),
+                                         (128, 16, 48, 1), (100, 64, 32, 4), (37, 16, 48, 4),
+                                         (5, 49, 32, 4), (3, 100, 48, 4)])
+def test_window_attention_kernel_at_the_crc_shapes(W, N, D, n_cls, dtype):
+    _needs_card()
+    ins = _inputs(W, N, D, n_cls, dtype, seed=W + N + D + n_cls)
+    before = twa.LAUNCHES.copy()
+    out = twa.window_attention_cuda(*ins)
+    torch.cuda.synchronize()
+    assert twa.LAUNCHES - before == Counter({(ins[0].dtype, D): 1})
+    ref = twa.window_attention_reference(*ins)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=TOL[dtype])
+    assert torch.equal(twa.window_attention_cuda(*ins), out)
+
+
 @pytest.mark.parametrize("N,D,heads", [(64, 24, 8), (16, 16, 3)])
 def test_window_attention_bf16_backward_types(N, D, heads):
     """The model path's bfloat16 q, k and v with a float32 bias, through the
@@ -146,7 +168,7 @@ def test_window_attention_bf16_backward_types(N, D, heads):
     q, k, v, bias = (t.requires_grad_(True) for t in (q, k, v, bias))
     before = twa.LAUNCHES.copy()
     out = twa.window_attention(q, k, v, bias, cls)
-    assert twa.LAUNCHES - before == Counter({torch.bfloat16: 1})
+    assert twa.LAUNCHES - before == Counter({(torch.bfloat16, D): 1})
     assert out.dtype == torch.bfloat16
     out.float().square().sum().backward()
     torch.cuda.synchronize()
@@ -230,7 +252,7 @@ def test_gdn_kernels_match_plain(B, C, H, W, inverse, f32_reference):
     dx, dgamma, dbeta = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
     torch.cuda.synchronize()
     assert (tgdn.FWD_LAUNCHES - before[0], tgdn.BWD_LAUNCHES - before[1]) == (
-        Counter({torch.float32: 1}), Counter({torch.float32: 1}))
+        Counter({(torch.float32, C): 1}), Counter({(torch.float32, C): 1}))
     y_ref = tgdn.gdn_forward_reference(x, gamma, beta, inverse)
     dx_ref, dgamma_ref, dbeta_ref = tgdn.gdn_backward_reference(g, x, gamma, beta, inverse)
     torch.testing.assert_close(y, y_ref, rtol=0, atol=GDN_TOL["y"])
@@ -267,9 +289,11 @@ def test_gdn_kernels_are_deterministic(kernel):
 # 1 x 35 pixels, fewer tiles than SMs; the serving path's 2 x 192 x 64^2
 @pytest.mark.parametrize("B,C,H,W", [(4, 200, 16, 16), (2, 12, 33, 35), (5, 13, 7, 9),
                                      (1, 512, 9, 11), (70, 192, 8, 8), (1, 192, 5, 7),
-                                     (2, 192, 64, 64), (2, 256, 128, 128), (3, 256, 13, 21)])
+                                     (2, 192, 64, 64), (2, 256, 128, 128), (3, 256, 13, 21),
+                                     (8, 256, 64, 64)])
 # C = 256: MainCNNDecoder's IGDN (icm_tpu/nn/factories.py:52,64-65) at its
-# path's shape, 2 x 512 px, and at a ragged pixel count
+# path's shapes, 2 x 512 px serving and 8 x 256 px training, and at a
+# ragged pixel count
 def test_gdn_kernels_edges_match_plain_and_repeat(B, C, H, W, inverse, f32_reference):
     _needs_card()
     x, g, gamma, beta = _gdn_inputs(B, C, H, W, seed=B * C + H)
@@ -301,7 +325,7 @@ def test_gdn_module_launches_both_kernels_in_training():
     m(x).square().sum().backward()
     torch.cuda.synchronize()
     assert (tgdn.FWD_LAUNCHES - before[0], tgdn.BWD_LAUNCHES - before[1]) == (
-        Counter({torch.float32: 1}), Counter({torch.float32: 1}))
+        Counter({(torch.float32, 192): 1}), Counter({(torch.float32, 192): 1}))
     assert all(torch.isfinite(t).all() for t in (x.grad, m.gamma.grad, m.beta.grad))
 
 
@@ -337,7 +361,7 @@ def test_gdn_bf16_kernels_match_plain_and_repeat(B, C, H, W, inverse, f32_refere
     grads = tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse)
     torch.cuda.synchronize()
     assert (tgdn.FWD_LAUNCHES - before[0], tgdn.BWD_LAUNCHES - before[1]) == (
-        Counter({torch.bfloat16: 1}), Counter({torch.bfloat16: 1}))
+        Counter({(torch.bfloat16, C): 1}), Counter({(torch.bfloat16, C): 1}))
     assert y.dtype == grads[0].dtype == grads[1].dtype == torch.bfloat16
     assert grads[2].dtype == torch.float32
     y_ref = tgdn.gdn_forward_reference(x, gamma, beta, inverse)
@@ -367,7 +391,7 @@ def test_gdn_module_bf16_launches_the_bf16_kernels():
     y.float().square().sum().backward()
     torch.cuda.synchronize()
     assert (tgdn.FWD_LAUNCHES - before[0], tgdn.BWD_LAUNCHES - before[1]) == (
-        Counter({torch.bfloat16: 1}), Counter({torch.bfloat16: 1}))
+        Counter({(torch.bfloat16, 192): 1}), Counter({(torch.bfloat16, 192): 1}))
     assert y.dtype == x.grad.dtype == torch.bfloat16
     assert m.gamma.grad.dtype == m.beta.grad.dtype == torch.float32
     assert all(torch.isfinite(t).all() for t in (x.grad.float(), m.gamma.grad, m.beta.grad))
@@ -965,13 +989,13 @@ def test_family_twin_wires_and_forward_on_the_card(twin):
     before = twa.LAUNCHES.copy()
     enc = host.compress(x, return_debug=True)
     torch.cuda.synchronize()
-    assert twa.LAUNCHES - before == Counter({torch.float32: blocks["g_a"] + blocks["g_s"]
-                                                            + refiners})
+    assert by_dtype(twa.LAUNCHES - before) == Counter(
+        {torch.float32: blocks["g_a"] + blocks["g_s"] + refiners})
     before = twa.LAUNCHES.copy()
     fwd = tgdn.FWD_LAUNCHES.copy()
     dec = host.decompress(enc["strings"], enc["shape"])
     torch.cuda.synchronize()
-    assert twa.LAUNCHES - before == Counter({torch.float32: blocks["g_s"] + refiners})
+    assert by_dtype(twa.LAUNCHES - before) == Counter({torch.float32: blocks["g_s"] + refiners})
     assert tgdn.FWD_LAUNCHES == fwd
     assert torch.equal(dec["y_hat"], enc["y_hat"]) and torch.equal(dec["x_hat"], enc["x_hat"])
 
@@ -1020,12 +1044,12 @@ def test_family_scan_wire_on_the_card(twin):
     before, decodes = twa.LAUNCHES.copy(), tdr.DECODE_LAUNCHES
     enc = graphed.compress(x, return_debug=True)
     torch.cuda.synchronize()
-    assert twa.LAUNCHES - before == Counter({torch.float32: blocks["g_a"] + blocks["g_s"]
-                                                            + refiners})
+    assert by_dtype(twa.LAUNCHES - before) == Counter(
+        {torch.float32: blocks["g_a"] + blocks["g_s"] + refiners})
     before = twa.LAUNCHES.copy()
     dec = graphed.decompress(enc["strings"], enc["shape"])
     torch.cuda.synchronize()
-    assert twa.LAUNCHES - before == Counter({torch.float32: blocks["g_s"] + refiners})
+    assert by_dtype(twa.LAUNCHES - before) == Counter({torch.float32: blocks["g_s"] + refiners})
     assert tdr.DECODE_LAUNCHES - decodes == model.ctx_slices + 1
     decode_graph = [g for k, g in graphed.graphs.graphs().items() if k[:2] == ("scan", "decode")]
     assert [sum(g.launches["DECODE_LAUNCHES"].values()) for g in decode_graph] == [
@@ -1064,7 +1088,7 @@ def test_family_scan_charm_train_step_card_vs_cpu(twin):
         rd = criterion(out, xs)
         aux = m.aux_loss()
         (rd["loss"] + aux).backward()
-        launched = twa.LAUNCHES - before
+        launched = by_dtype(twa.LAUNCHES - before)
         return ({k: float(v) for k, v in {**rd, "aux_loss": aux}.items()},
                 {n: p.grad.detach().cpu() for n, p in m.named_parameters()}, launched)
 
@@ -1111,7 +1135,7 @@ def test_family_bf16_wires_on_the_card(twin):
         before = twa.LAUNCHES.copy()
         dec = host.decompress(enc["strings"], enc["shape"])
         torch.cuda.synchronize()
-        assert twa.LAUNCHES - before == Counter({torch.bfloat16: blocks})
+        assert by_dtype(twa.LAUNCHES - before) == Counter({torch.bfloat16: blocks})
         denc = dev.compress(x, return_debug=True)
         ddec = dev.decompress(denc["strings"], denc["shape"])
     finally:
@@ -1125,3 +1149,65 @@ def test_family_bf16_wires_on_the_card(twin):
 
     assert bpp(enc) == pytest.approx(bpp(f32), rel=0.05)
     assert float((dec["x_hat"].float() - f32["x_hat"]).abs().mean()) < 0.01
+
+
+# --- the CRC family on the card -----------------------------------------------------
+# a narrow stf9 / stf14 whose window attention runs built widths: N 64 and
+# mid 64 at 8 heads (D 8), M 128 (D 16); 2 x 2x2 zigzag = 8 slices
+CRC_WIDTHS = dict(N=64, M=128, mid=64, num_slices=2, max_support=4, support_num=8,
+                  hyper_enc_widths=(128, 96, 64, 48, 32), hyper_dec_widths=(48, 64, 96, 128, 128),
+                  cc_widths=(48, 32))
+
+
+@pytest.mark.parametrize("name", ["stf9", "stf14"])
+def test_crc_wires_on_the_card(name):
+    """Host, device and scan wire (graphed and launch by launch) on 2 x 128
+    px: every round trip bit-exact; the device wire's y_hat and x_hat the
+    host wire's, 4 encode launches and slices + 3 decode launches, the
+    same on the scan wire with the slices' decodes inside its decode
+    graph; the graphed scan wire's blobs and bits those of its launches;
+    the eval forward against the CPU's within 1e-3."""
+    _needs_card()
+    from icm_tpu_torch.models import create_model
+    from icm_tpu_torch.models.crc_codec import CRCCodec
+
+    model = create_model(name, device="cuda", seed=0, **CRC_WIDTHS)
+    x = _scan_images(128)
+    host = CRCCodec(model, narrow=0.2)
+    enc = host.compress(x, return_debug=True)
+    dec = host.decompress(enc["strings"], enc["shape"], enc["human_shape"])
+    assert torch.equal(dec["y_hat"], enc["y_hat"]) and torch.equal(dec["x_hat"], enc["x_hat"])
+    n = model.coder.ctx_slices
+    outs = {}
+    for wire, kw in (("device", {}), ("scan", dict(scan_wire=True)),
+                     ("scan_launches", dict(scan_wire=True, cuda_graphs=False))):
+        codec = CRCCodec(model, narrow=0.2, wire="device", **kw)
+        w = codec.compress(x)  # the scan wire's graphs are captured by a first call
+        codec.decompress(w["strings"], w["shape"], w["human_shape"])
+        counts = (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES)
+        e = codec.compress(x, return_debug=True)
+        d = codec.decompress(e["strings"], e["shape"], e["human_shape"])
+        torch.cuda.synchronize()
+        assert (tdr.ENCODE_LAUNCHES - counts[0], tdr.DECODE_LAUNCHES - counts[1]) == (4, n + 3)
+        assert torch.equal(d["y_hat"], e["y_hat"]) and torch.equal(d["x_hat"], e["x_hat"])
+        outs[wire] = (e, d)
+        if wire == "scan":
+            chain = [g for key, g in codec.graphs.graphs().items() if key[:2] == ("scan", "decode")]
+            assert len(chain) == 1 and sum(chain[0].launches["DECODE_LAUNCHES"].values()) == n
+    assert torch.equal(outs["device"][0]["y_hat"], enc["y_hat"])
+    assert torch.equal(outs["device"][0]["x_hat"], enc["x_hat"])
+    (se, sd), (pe, pd) = outs["scan"], outs["scan_launches"]
+    assert se["strings"] == pe["strings"]
+    for got, want in ((se, pe), (sd, pd)):
+        assert torch.equal(got["y_hat"], want["y_hat"]) and torch.equal(got["x_hat"], want["x_hat"])
+    diff = (se["y_hat"] - enc["y_hat"]).abs()
+    assert float((diff > 1e-2).float().mean()) < 0.005 and float(diff.median()) < 1e-4
+
+    cpu = create_model(name, device="cpu", seed=0, **CRC_WIDTHS)
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got, ref = model(x), cpu(x.cpu())
+    for key in ("x_hat", "machine_x_hat"):
+        torch.testing.assert_close(got[key].cpu(), ref[key], rtol=0, atol=1e-3)
+    for group in ("likelihoods", "machine_likelihoods"):
+        torch.testing.assert_close(got[group]["y"].cpu(), ref[group]["y"], rtol=0, atol=1e-3)

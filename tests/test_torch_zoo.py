@@ -407,7 +407,7 @@ def test_load_reference_checkpoint_reads_a_saved_file(tmp_path, monkeypatch):
     assert_same_state_dict(tzoo.load_reference_checkpoint("stf", str(path)), want)
 
 
-@pytest.mark.parametrize("arch", ["czigzag", "stf9", "stf13", "stf3", "cnn2", "oj_ICM", "nope"])
+@pytest.mark.parametrize("arch", ["czigzag", "stf12", "stf13", "stf3", "cnn2", "oj_ICM", "nope"])
 def test_architectures_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tzoo.convert_reference_state_dict(arch, {})

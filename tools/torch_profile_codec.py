@@ -1,7 +1,7 @@
 """Where the time goes in icm_tpu_torch's full-width codecs and their
 training step, on the card.
 
-    python3 tools/torch_profile_codec.py [--model cnn|stf|stf5|stf6|stf7|stf8]
+    python3 tools/torch_profile_codec.py [--model cnn|stf|stf5|...|stf8|stf9|stf11|stf14]
         [--wire host|device|scan] [--no-graphs] [--act-dtype f32|bf16]
         [--scan-charm] [--seed 0] [--out profile.json]
 
@@ -10,8 +10,10 @@ N=192, M=320, 10 slices; ``stf``: the Swin codec, embed 48, M=384, 12
 slices; ``stf5``-``stf8``: the zigzag family, stf's transforms with
 per-slice Swin refiners; its training step runs the registry's unrolled
 forward, or with ``--scan-charm`` the ``scan_charm=True`` forward, whose
-refiners take stochastic depth) on the CUDA card with weights drawn from
-``--seed``, on the host
+refiners take stochastic depth; ``stf9``, ``stf11``, ``stf14``: the CRC
+family, a machine layer with the zigzag ChARM coder and a human layer,
+served by ``CRCCodec`` on the same three wires and trained on both layers'
+likelihoods) on the CUDA card with weights drawn from ``--seed``, on the host
 wire (``CharmCodec``, the default), the device wire
 (``DeviceWireCodec``, 1024 lanes an image, its rANS on the card) or the
 scan wire (``DeviceWireCodec(scan_wire=True)``, float32 only: its four
@@ -47,6 +49,7 @@ from collections import defaultdict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILY = ("stf5", "stf6", "stf7", "stf8")  # the zigzag family
+CRC = ("stf9", "stf11", "stf14")  # the CRC family
 
 
 def _busy_us(events) -> float:
@@ -141,7 +144,7 @@ def _host_summary(prof, n: int = 12) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("cnn", "stf") + FAMILY, default="cnn")
+    ap.add_argument("--model", choices=("cnn", "stf") + FAMILY + CRC, default="cnn")
     ap.add_argument("--wire", choices=("host", "device", "scan"), default="host")
     ap.add_argument("--no-graphs", action="store_true",
                     help="scan wire: run its programs launch by launch, not as CUDA graphs")
@@ -163,6 +166,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
+    from icm_tpu_torch.models.crc_codec import CRCCodec
     from icm_tpu_torch.nn import set_activation_dtype
     from icm_tpu_torch.train import (
         RateDistortionLoss, TrainState, make_optimizer, make_train_step)
@@ -177,7 +181,10 @@ def main() -> int:
         ap.error("--scan-charm is an option of the zigzag family (stf5-stf8)")
     model = create_model(args.model, seed=args.seed,
                          **({"scan_charm": True} if args.scan_charm else {}))
-    if args.wire == "scan":
+    if args.model in CRC:
+        codec = CRCCodec(model, narrow=0.2, wire="host" if args.wire == "host" else "device",
+                         scan_wire=args.wire == "scan", cuda_graphs=not args.no_graphs)
+    elif args.wire == "scan":
         codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2, scan_wire=True,
                                 cuda_graphs=not args.no_graphs)
     elif args.wire == "device":
@@ -185,18 +192,23 @@ def main() -> int:
     else:
         codec = CharmCodec(model, narrow=0.2)
     x = torch.from_numpy(make_images(args.seed, 2, 512)).cuda()
+    def decompress(enc):
+        extra = (enc["human_shape"],) if args.model in CRC else ()
+        return codec.decompress(enc["strings"], enc["shape"], *extra)
+
     for _ in range(2):  # warm-up: cuDNN handles, allocator, kernel library
         enc = codec.compress(x)
-        codec.decompress(enc["strings"], enc["shape"])
+        decompress(enc)
     torch.cuda.synchronize()
 
     # the codec's sides first: training moves the weights its tables came from
     runs = {
         "compress": lambda: codec.compress(x),
-        "decompress": lambda: codec.decompress(enc["strings"], enc["shape"]),
+        "decompress": lambda: decompress(enc),
     }
     state = TrainState(model, make_optimizer(model))
-    train_step = make_train_step(model, RateDistortionLoss(0.01))
+    keys = ("likelihoods", "machine_likelihoods") if args.model in CRC else ("likelihoods",)
+    train_step = make_train_step(model, RateDistortionLoss(0.01, likelihood_keys=keys))
     noise = torch.Generator(device="cuda").manual_seed(args.seed)
     batch = torch.from_numpy(make_images(args.seed + 100, 8, 256)).cuda()
     runs["train_step"] = lambda: train_step(state, batch, noise)
