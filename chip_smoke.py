@@ -26,10 +26,15 @@ package beside it. Phases, each printed with its elapsed seconds:
    versions at the training step's shapes (8 x 192 x 128^2, 64^2, 32^2,
    GDN and IGDN), the serving path's and one ragged shape, and the CRC
    family's 256 channels (2 x 256 x 128^2 serving, 8 x 256 x 64^2
-   training), timed beside
+   training), and 2 x 512 x 64^2, the widest the kernels take (on no
+   model's path: gamma staged, the FMA forward and the streamed dx),
+   timed beside
    the plain versions; two launches of each must give the same bits; in
    float32 and then the bfloat16 builds (x, g, y, dx bfloat16, gamma
-   rounded to it, beta float32);
+   rounded to it, beta float32); above 192 channels (at 256 gamma held
+   by a two-block cluster) the backward's device time split into its
+   three kernels from a profiler trace (dx, dgamma, reduce), on a line of
+   its own;
 5. the full-width WACNN (N=192, M=320, 10 slices) on the card with
    weights drawn from ``--seed``: compress -> decompress of 2 images of
    512x512 made from ``--seed``. The kernel launch counts are zeroed
@@ -202,8 +207,11 @@ intervals) against the median untraced wall time.
 
 The kernels line lists window attention's head widths 32 and 48 and the
 GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
-``gdn_forward_c256``, ``gdn_backward_c256``) with their launches on the
-CRC paths, read from the wrappers' counts by width and channels. It
+``gdn_forward_c256``, ``gdn_backward_c256`` and their ``_bf16`` builds,
+each naming its CUDA function, ``gdn_fwd_kernel_cluster`` or
+``gdn_bwd_kernel_dx_cluster``; the backward's with its split) with their
+launches on the CRC paths, read from the wrappers' counts by width and
+channels. It
 splits window attention's launches on the family paths
 between the transforms (under ``window_attention_d16`` and its bfloat16
 entry, at stf's shapes) and the refiners (``window_attention_d8`` for
@@ -235,6 +243,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -586,19 +595,39 @@ def gdn_errors(got, ref, dtype: str) -> dict:
     return out
 
 
-def check_gdn(tgdn):
-    """Phase 4: the GDN kernels vs their plain versions, float32 and then
-    bfloat16. -> rows."""
+# (path, B, C, H, W): the GDN layers of the training step (8 x 256 px)
+# and of compress/decompress (2 x 512 px), then a ragged row count
+GDN_CASES = [("train", 8, 192, s, s) for s in (128, 64, 32)]
+GDN_CASES += [("serve", 2, 192, s, s) for s in (256, 128, 64)]
+GDN_CASES.append(("ragged", 3, 192, 13, 21))  # 273 pixels, 9 tiles of 32
+# the CRC family's 256-channel IGDN (MainCNNDecoder's): serving 2 x 512^2,
+# training 8 x 256^2
+GDN_C256_CASES = [("crc_serve", 2, 256, 128, 128), ("crc_train", 8, 256, 64, 64)]
+GDN_CASES += GDN_C256_CASES
+# 512 channels, the kernels' widest (MAX_CHANNELS), which no model uses:
+# gdn_fwd_kernel_fma and gdn_bwd_kernel_dx_streamed
+GDN_CASES.append(("wide", 2, 512, 64, 64))
+
+
+def gdn_kernel_split(fn, reps: int = 10) -> dict:
+    """Device ms of each GDN kernel one call of ``fn`` launches, by the
+    kernel's function name (``gdn_bwd_kernel_dx_cluster``, ...): the
+    kernels' durations in one traced run of ``reps`` calls, summed by name
+    and divided by ``reps``."""
+    split: dict = {}
+    for e in trace_events(lambda: [fn() for _ in range(reps)]):
+        found = re.search(r"gdn_\w+", e.get("name", "")) if e.get("cat") == "kernel" else None
+        if found and "dur" in e:
+            split[found.group(0)] = split.get(found.group(0), 0.0) + e["dur"] / 1e3 / reps
+    return split
+
+
+def check_gdn(tgdn, cases=GDN_CASES):
+    """Phase 4: the GDN kernels vs their plain versions at ``cases``,
+    float32 and then bfloat16; the backward above 192 channels also split
+    into its kernels. -> rows."""
     import torch
 
-    # (path, B, C, H, W): the GDN layers of the training step (8 x 256 px)
-    # and of compress/decompress (2 x 512 px), then a ragged row count
-    cases = [("train", 8, 192, s, s) for s in (128, 64, 32)]
-    cases += [("serve", 2, 192, s, s) for s in (256, 128, 64)]
-    cases.append(("ragged", 3, 192, 13, 21))  # 273 pixels, 9 tiles of 32
-    # the CRC family's 256-channel IGDN (MainCNNDecoder's): serving 2 x
-    # 512^2, training 8 x 256^2
-    cases += [("crc_serve", 2, 256, 128, 128), ("crc_train", 8, 256, 64, 64)]
     rows = []
     for dtype, (path, B, C, H, W) in ((d, c) for d in ("float32", "bfloat16") for c in cases):
         rng = np.random.default_rng([B, H, W])
@@ -637,6 +666,11 @@ def check_gdn(tgdn):
                 row[name] = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                                  bound_ms=bound_ms, bound_by=by,
                                  f32_fma_bound_ms=fma_ms, f32_fma_bound_by=fma_by)
+            if C > 192:
+                row["backward"]["split_ms"] = gdn_kernel_split(
+                    lambda: tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse))
+                log(f"  gdn {dtype} backward split {B}x{C}x{H}x{W} inverse={inverse}: "
+                    + ", ".join(f"{k} {v:.4f} ms" for k, v in row["backward"]["split_ms"].items()))
             rows.append(row)
             f, b = row["forward"], row["backward"]
             log(f"  gdn {dtype} {path} {B}x{C}x{H}x{W} inverse={inverse}: err "
@@ -2871,35 +2905,41 @@ def main() -> int:
                 "cases": [{k: v for k, v in r.items()
                            if k not in ("forward", "backward")} | r[part] for r in gdn_rows_d],
             })
-    # the GDN kernels' designs above 192 channels on the CRC path (the
-    # forward on the FMA units, the backward's dx streaming gamma): the
-    # forward at the serving shape, the backward at the training step's
-    for name, part, err_key, line, path in (
-            ("gdn_forward", "forward", "y", 50, "crc_serve"),
-            ("gdn_backward", "backward", "dx", 64, "crc_train")):
-        rows_256 = [r for r in gdn_rows if r["C"] == 256]
-        main = [r for r in rows_256 if r["path"] == path and r["inverse"]
-                and r["dtype"] == "float32"][0]
-        kernels.append({
-            "name": f"{name}_c256",
-            "route": "cuda",
-            "source": "icm_tpu_torch/csrc/gdn.cu",
-            "replaces": f"icm_tpu/nn/gdn_pallas.py:{line}",
-            "dtype": "float32",
-            **crc_launches("gdn", f"{part} float32 C256"),
-            "per": f"one IGDN launch at {main['B']} x 256 x {main['H']}^2",
-            "max_abs_err": max(r["max_abs_err"][err_key] for r in rows_256
-                               if r["dtype"] == "float32"),
-            **{key: main[part][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "f32_fma_bound_ms")},
-            "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), elementwise at 67; "
-                          "4-byte activations",
-            "library_ms": None,
-            "library_note": no_library,
-            "tolerance": GDN_TOLERANCE,
-            "cases": [{k: v for k, v in r.items() if k not in ("forward", "backward")} | r[part]
-                      for r in rows_256],
-        })
+    # the GDN kernels at 256 channels on the CRC path (gamma resident over a
+    # two-block cluster: gdn_fwd_kernel_cluster, gdn_bwd_kernel_dx_cluster
+    # beside the backward's dgamma and reduce kernels): the forward at the
+    # serving shape, the backward at the training step's, split into its
+    # kernels; the bfloat16 builds, on no path yet, at the same shapes
+    for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+        rows_256 = [r for r in gdn_rows if r["C"] == 256 and r["dtype"] == dtype]
+        for name, part, err_key, line, path, kernel in (
+                ("gdn_forward", "forward", "y", 50, "crc_serve", "gdn_fwd_kernel_cluster"),
+                ("gdn_backward", "backward", "dx", 64, "crc_train", "gdn_bwd_kernel_dx_cluster")):
+            main = [r for r in rows_256 if r["path"] == path and r["inverse"]][0]
+            kernels.append({
+                "name": f"{name}_c256{suffix}",
+                "route": "cuda",
+                "source": "icm_tpu_torch/csrc/gdn.cu",
+                "replaces": f"icm_tpu/nn/gdn_pallas.py:{line}",
+                "kernel": kernel,
+                "dtype": dtype,
+                **crc_launches("gdn", f"{part} {dtype} C256"),
+                "per": f"one IGDN launch at {main['B']} x 256 x {main['H']}^2",
+                "max_abs_err": max(r["max_abs_err"][err_key] for r in rows_256),
+                **{key: main[part][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "f32_fma_bound_ms")},
+                **({"split_ms": main[part]["split_ms"]} if part == "backward" else {}),
+                "bound_unit": (
+                    "3xTF32 on the tensor cores (495 TFLOP/s dense), elementwise at 67; "
+                    "4-byte activations" if dtype == "float32" else
+                    f"{GDN_BF16_PASSES[part]} bfloat16 passes of its products on the tensor "
+                    "cores (989 TFLOP/s dense), elementwise at 67; 2-byte activations"),
+                "library_ms": None,
+                "library_note": no_library,
+                "tolerance": GDN_TOLERANCE if dtype == "float32" else GDN_BF16_TOLERANCE,
+                "cases": [{k: v for k, v in r.items() if k not in ("forward", "backward")}
+                          | r[part] for r in rows_256],
+            })
     kernels += attention_entries("bfloat16", "_bf16")
     # the refiners' bfloat16 builds: head width 8 padded to 16 (stf5, stf7)
     # and 16 (stf6, stf8)

@@ -46,24 +46,37 @@
 // each take a large share of the time, so what the forward's design does
 // is keep both going at once.
 //
+// Three designs by channels, the same for the forward and dx, set by how
+// much of gamma (C^2 floats) a block's 227 KB of shared memory holds:
+// - C <= 192, every GDN of every model but the one below: one block per SM
+//   holds gamma (150 KB at C = 192) resident.
+// - 192 < C <= 256, MainCNNDecoder's IGDN at 256 channels
+//   (icm_tpu/nn/factories.py:52,64-65, on the path of stf9, stf11-stf14,
+//   oj_ICM and seg_oj_ICM): gamma (256 KB) is split over a cluster of two
+//   blocks on neighbouring SMs, each holding the rows of half the output
+//   channels (132 KB); dx's second product, a sum over output channels,
+//   swaps the halves' partial sums through distributed shared memory.
+// - 256 < C <= 512, which no model uses: gamma staged or streamed through
+//   shared memory per tile, on the FMA units in the forward.
+//
 // The forward:
-// - gdn_fwd_kernel_resident (C <= 192, every GDN of every model): one
-//   persistent block per SM loads gamma (150 KB at C = 192) and beta into
-//   shared memory once, so per tile no gamma moves (read per tile, gamma
-//   would be three times the launch's own bytes at 8 x 192 x 128^2). Its
-//   two warpgroups each walk their own tiles of 32 pixels with their own x
-//   buffer; a warp holds 48 channels by 32 pixels of the product, so each
-//   split operand feeds 3 or 4 mma tiles, and the product runs without a
-//   barrier. A warpgroup loads its next tile and stores y
-//   while the other runs its product; the second starts one product late,
-//   so the two (and the SMs) do not fall into step.
-// - gdn_fwd_kernel_fma (C > 192: MainCNNDecoder's IGDN at 256 channels,
-//   icm_tpu/nn/factories.py:52,64-65, on the path of stf9, stf11-stf14,
-//   oj_ICM and seg_oj_ICM; not redesigned yet): a block owns a tile of TP =
-//   32 pixels of one image and all C channels, on the f32 FMA units. x of
-//   the tile is read once into shared memory, gamma is staged through
-//   shared memory in chunks of BK input channels by TO = 192 output
-//   channels, and each thread keeps a 6 x 4 register tile.
+// - gdn_fwd_kernel_resident (C <= 192): one persistent block per SM loads
+//   gamma and beta into shared memory once, so per tile no gamma moves
+//   (read per tile, gamma would be three times the launch's own bytes at
+//   8 x 192 x 128^2). Its two warpgroups each walk their own tiles of 32
+//   pixels with their own x buffer; a warp holds 48 channels by 32 pixels
+//   of the product, so each split operand feeds 3 or 4 mma tiles, and the
+//   product runs without a barrier. A warpgroup loads its next tile and
+//   stores y while the other runs its product; the second starts one
+//   product late, so the two (and the SMs) do not fall into step.
+// - gdn_fwd_kernel_cluster (192 < C <= 256): the same code on each block's
+//   half of the output channels, one persistent cluster per two SMs; both
+//   blocks read the whole x tile, and need nothing of each other.
+// - gdn_fwd_kernel_fma (C > 256): a block owns a tile of TP = 32 pixels of
+//   one image and all C channels, on the f32 FMA units. x of the tile is
+//   read once into shared memory, gamma is staged through shared memory in
+//   chunks of BK input channels by TO = 192 output channels, and each
+//   thread keeps a 6 x 4 register tile.
 //
 // The backward:
 // - All three products run on the tensor cores with mma.sync m16n8k8 in
@@ -74,13 +87,17 @@
 //   tensor cores' own additions do not round to nearest, so sums over 32
 //   channels or pixels start from zero and are added up in f32: dx stays
 //   within about 4e-6 of the plain version (tolerance 1e-5).
-// - gdn_bwd_kernel_dx_resident (C <= 192, every GDN of the model): one
-//   block per SM holds gamma in shared memory (150 KB at C = 192, loaded
-//   once) and walks tiles of 32 pixels. Per tile no gamma moves and the
-//   products run with no barrier inside; dn stays in shared memory, the
-//   direct term of dx and x in registers, and the next tile's x loads
-//   during the second product.
-// - gdn_bwd_kernel_dx_streamed (C > 192): gamma streams through a
+// - gdn_bwd_kernel_dx_resident (C <= 192): one block per SM holds gamma in
+//   shared memory (loaded once) and walks tiles of 32 pixels. Per tile no
+//   gamma moves and the products run with no barrier inside; dn stays in
+//   shared memory, the direct term of dx and x in registers, and the next
+//   tile's x loads during the second product.
+// - gdn_bwd_kernel_dx_cluster (192 < C <= 256): the same on each block's
+//   half of gamma's rows: n and dn for its output channels, then Gamma^T dn
+//   over them for all input channels; the half for the peer's channels goes
+//   to the peer's shared memory (16 KB a tile) across one cluster barrier,
+//   and each block adds the two partial sums for its own.
+// - gdn_bwd_kernel_dx_streamed (C > 256): gamma streams through a
 //   double-buffered ring of 32-channel chunks (cp.async, the next chunk in
 //   flight while one computes) beside tiles of 16 pixels; the direct term
 //   of dx waits in dx.
@@ -105,6 +122,9 @@
 // Plain C interface for ctypes (no PyTorch headers); the wrapper is
 // icm_tpu_torch/nn/gdn_fused.py.
 
+#include <atomic>
+
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -112,6 +132,8 @@
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int TP = 32;          // pixels per tile
 constexpr int LD = TP + 1;      // padded row stride of a (C x TP) tile
@@ -211,10 +233,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int C,
   }
 }
 
-// The forward for C > 192 (MainCNNDecoder's IGDN at 256 channels, on five
-// families' path; see the head note): one block per tile of TP pixels, f32
-// FMA units, gamma staged through shared memory in chunks of BK input
-// channels.
+// The forward for C > 256 (no model's width; see the head note): one block
+// per tile of TP pixels, f32 FMA units, gamma staged through shared memory
+// in chunks of BK input channels.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 gdn_fwd_kernel_fma(const T* __restrict__ x, const float* __restrict__ gamma,
@@ -357,23 +378,67 @@ __device__ __forceinline__ void mma_3xtf32_grid(float (&c)[I][J][4], const uint3
 }
 
 // ---------------------------------------------------------------------------
-// Forward with gamma resident, for C <= fwd::MAX_C: every GDN and IGDN of
-// every model. A persistent block (one per SM) loads gamma and beta into
-// shared memory once; its two warpgroups walk tiles of RP pixels, each with
-// its own x buffer, so one warpgroup's load and epilogue run beside the
-// other's product. Each warp holds 3 m-tiles (48 channels) by 4 n-tiles
-// (all 32 pixels) of its tile's product in 3xTF32 on mma.sync, so each
-// split gamma fragment feeds 4 mma tiles and each split x^2 fragment 3.
+// The forward with gamma resident in shared memory, for C <= clu::MAX_C: a
+// block holds the rows of ROWS = 64 MI output channels (all input channels)
+// and loads them once with beta's. Alone (gdn_fwd_kernel_resident, MI = 3,
+// C <= fwd::MAX_C: every GDN and IGDN of every model but the one below) a
+// persistent block per SM holds all of gamma; in a cluster of two
+// (gdn_fwd_kernel_cluster, MI = 2, 192 < C <= 256) block rank r holds rows
+// r ROWS .. r ROWS + ROWS - 1, and the two need nothing of each other.
+// A block's two warpgroups walk tiles of RP pixels, each with its own x
+// buffer (all input channels), so one warpgroup's load and epilogue run
+// beside the other's product. Each warp holds MI m-tiles (16 MI channels)
+// by 4 n-tiles (all 32 pixels) of its tile's product in 3xTF32 on
+// mma.sync, so each split gamma fragment feeds 4 mma tiles and each split
+// x^2 fragment MI.
 namespace fwd {
 constexpr int MAX_C = 192;
 constexpr int RP = 32;           // pixels per tile
 constexpr int NT = RP / 8;       // n-tiles of a warp: all the tile's pixels
-constexpr int GROUP = 128;       // a warpgroup: warp w holds m-tiles w, w + 4, w + 8
+constexpr int GROUP = 128;       // a warpgroup: warp w holds m-tiles w, w + 4, ...
 constexpr int THREADS = 2 * GROUP;
 constexpr int KC = 32;           // channels per sum added in f32
 constexpr int LDT = RP + 4;      // x tile rows: the B fragments' reads hit 32 banks
 constexpr int PAD_G = 8;         // gamma rows: CK + 8, the A fragments' 8-byte reads hit 32 banks
 }  // namespace fwd
+
+// Forward and dx for 192 < C <= clu::MAX_C: MainCNNDecoder's IGDN
+// at 256 channels. gamma is 256 KB in float32, more than a block's 227 KB of
+// shared memory, so a cluster of two blocks holds it: block rank r keeps the
+// rows of output channels r HALF .. r HALF + HALF - 1 (all input channels)
+// resident and loads them once. The cluster walks tiles of RP pixels; both
+// blocks take the same tiles, each the whole x tile (the second read of it
+// is mostly an L2 hit: the two blocks run side by side). Products run in
+// 3xTF32 on mma.sync as the resident kernels' do. Each tile and each half
+// is computed alone, in a fixed order, and every output has one writer, so
+// neither the grid nor the card changes a bit.
+namespace clu {
+constexpr int MAX_C = 256;       // channels the cluster kernels take
+constexpr int HALF = MAX_C / 2;  // output channels a block holds: 8 m-tiles
+constexpr int THREADS = 256;
+constexpr int RP = 32;           // pixels per tile
+constexpr int KC = 32;           // channels per sum added in f32
+constexpr int LDG = MAX_C + 8;   // gamma rows: the A reads hit 32 banks both as
+                                 // rows (8-byte pairs) and transposed
+constexpr int LDX = RP + 4;      // x tile rows: the B reads (rows 2 tq apart)
+constexpr int LDD = RP + 8;      // g / dn tile rows: the B reads (rows tq apart)
+}  // namespace clu
+
+// Rows c0 .. c0 + ROWS of gamma (input channels 0 .. cols, zero past C;
+// rows ldg floats apart) and the same of beta into shared memory
+template <int ROWS>
+__device__ __forceinline__ void load_gamma_rows(const float* __restrict__ gamma,
+                                                const float* __restrict__ beta, int C, int c0,
+                                                int cols, int ldg, int gamma_aligned, float* gs,
+                                                float* betas) {
+  for (int e = threadIdx.x; e < ROWS * (cols / 4); e += blockDim.x) {
+    const int r = e / (cols / 4);
+    const int i = (e % (cols / 4)) * 4;
+    const int o = c0 + r;
+    copy4(gs + r * ldg + i, gamma + (size_t)o * C + i, o < C ? C - i : 0, gamma_aligned);
+  }
+  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) betas[r] = c0 + r < C ? beta[c0 + r] : 0.f;
+}
 
 // Each tile: acc = Gamma x^2 over all CK input channels with no barrier, in
 // sums of 32 channels that start from zero and are added in f32 (the tensor
@@ -385,24 +450,32 @@ constexpr int PAD_G = 8;         // gamma rows: CK + 8, the A fragments' 8-byte 
 // mma's k = tq reads channel 2 tq and k = tq + 4 channel 2 tq + 1, so a
 // thread's two gamma values of a row are neighbours (one 8-byte read).
 //
-// Warpgroup g takes tiles blockIdx.x + (2 i + g) gridDim.x, i = 0, 1, ...;
-// every tile is computed alone, in one fixed order, and each y has one
-// writer: neither the grid nor the card changes a bit of y.
-template <typename T>
-__global__ void __launch_bounds__(fwd::THREADS, 1)
-gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, T* __restrict__ y, int C, int P,
-                        int tiles_per_image, int n_tiles, int inverse, int x_aligned,
-                        int gamma_aligned, int y_aligned) {
+// Warpgroup g of block (or cluster) q of n takes tiles q + (2 i + g) n, i =
+// 0, 1, ...; every tile is computed alone, in one fixed order, and each y
+// has one writer: neither the grid nor the card changes a bit of y.
+template <typename T, int MI, int CLUSTER>
+__device__ __forceinline__ void gdn_fwd_tiles(const T* __restrict__ x,
+                                              const float* __restrict__ gamma,
+                                              const float* __restrict__ beta, T* __restrict__ y,
+                                              int C, int P, int tiles_per_image, int n_tiles,
+                                              int inverse, int x_aligned, int gamma_aligned,
+                                              int y_aligned) {
   constexpr int RP = fwd::RP, NT = fwd::NT, LDT = fwd::LDT, GROUP = fwd::GROUP;
-  constexpr int THREADS = fwd::THREADS, KC = fwd::KC, MAX_C = fwd::MAX_C;
+  constexpr int THREADS = fwd::THREADS, KC = fwd::KC, ROWS = 64 * MI;
   extern __shared__ float4 smem4[];
-  // input channels padded to the f32 sum, output channels to MAX_C: the
-  // product runs the same instructions at every C
+  // input channels padded to the f32 sum; the x buffers and gamma's rows
+  // are sized for KCAP of them (a cluster's for all clu::MAX_C, so its
+  // shared memory, and with it the clusters that fit, is one per kernel).
+  // Output channels are padded to ROWS: the product runs the same
+  // instructions at every C.
   const int CK = (C + KC - 1) / KC * KC;
-  const int LDG = CK + fwd::PAD_G;
-  float* gs = reinterpret_cast<float*>(smem4);  // gamma (MAX_C x LDG), zero past C
-  float* betas = gs + MAX_C * LDG;
+  const int KCAP = CLUSTER > 1 ? clu::MAX_C : CK;
+  const int LDG = KCAP + fwd::PAD_G;
+  float* gs = reinterpret_cast<float*>(smem4);  // gamma rows c0 .. c0 + ROWS (ROWS x LDG)
+  float* betas = gs + ROWS * LDG;
+  int c0 = 0;  // the block's first output channel
+  if constexpr (CLUSTER > 1) c0 = (int)cg::this_cluster().block_rank() * ROWS;
+  const int n_blocks = gridDim.x / CLUSTER;  // blocks, or clusters, that walk the tiles
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -410,20 +483,15 @@ gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma
   const int gq = lane / 4;
   const int tq = lane % 4;
   const int group = warp / 4;
-  const int wq = warp % 4;      // m-tiles wq, wq + 4, wq + 8
+  const int wq = warp % 4;      // m-tiles wq, wq + 4, ...
   const int gt = tid % GROUP;   // thread within the warpgroup
-  float* xs = betas + MAX_C + group * CK * LDT;  // the warpgroup's x tile (CK x LDT)
+  float* xs = betas + ROWS + group * KCAP * LDT;  // the warpgroup's x tile (CK x LDT)
   // the warpgroup's barrier: named barrier 1 + group, its 128 threads
   auto group_sync = [&]() {
     asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(GROUP) : "memory");
   };
 
-  for (int e = tid; e < MAX_C * (CK / 4); e += THREADS) {
-    const int o = e / (CK / 4);
-    const int i = (e % (CK / 4)) * 4;
-    copy4(gs + o * LDG + i, gamma + (size_t)o * C + i, o < C ? C - i : 0, gamma_aligned);
-  }
-  for (int c = tid; c < C; c += THREADS) betas[c] = beta[c];
+  load_gamma_rows<ROWS>(gamma, beta, C, c0, KCAP, LDG, gamma_aligned, gs, betas);
   // tile t's x into the warpgroup's buffer, zero past C channels and past
   // the image
   auto load_tile = [&](int tile) {
@@ -435,8 +503,8 @@ gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma
       copy4(xs + c * LDT + p, s0 + (size_t)c * P + p, c < C ? P - p0 - p : 0, x_aligned);
     }
   };
-  const int step = 2 * gridDim.x;
-  const int first = blockIdx.x + group * gridDim.x;
+  const int step = 2 * n_blocks;
+  const int first = blockIdx.x / CLUSTER + group * n_blocks;
   if (first < n_tiles) load_tile(first);
   cp_async_commit();
   cp_async_wait<0>();
@@ -452,9 +520,9 @@ gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma
   }
 
   for (int tile = first; tile < n_tiles; tile += step) {
-    float acc[3][NT][4] = {};
+    float acc[MI][NT][4] = {};
     for (int k0 = 0; k0 < CK; k0 += KC) {
-      float part[3][NT][4] = {};
+      float part[MI][NT][4] = {};
 #pragma unroll
       for (int ks = 0; ks < KC / 8; ++ks) {
         const int k = k0 + ks * 8;
@@ -466,9 +534,9 @@ gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma
           split_tf32(v0 * v0, bh[j][0], bl[j][0]);
           split_tf32(v1 * v1, bh[j][1], bl[j][1]);
         }
-        uint32_t ah[3][4], al[3][4];
+        uint32_t ah[MI][4], al[MI][4];
 #pragma unroll
-        for (int mi = 0; mi < 3; ++mi) {  // A[m][k] = gamma[out][in]
+        for (int mi = 0; mi < MI; ++mi) {  // A[m][k] = gamma[out][in]
           const int m0 = (wq + 4 * mi) * 16;
           const float2 r0 = *reinterpret_cast<const float2*>(gs + (m0 + gq) * LDG + k + 2 * tq);
           const float2 r8 = *reinterpret_cast<const float2*>(gs + (m0 + gq + 8) * LDG + k + 2 * tq);
@@ -480,7 +548,7 @@ gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma
         mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
       }
 #pragma unroll
-      for (int mi = 0; mi < 3; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -488,17 +556,17 @@ gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma
     }
     if (group == 0 && tile == first) asm volatile("bar.arrive 3, %0;\n" ::"n"(THREADS) : "memory");
 
-    // accumulator e of tile (mi, j): channel m0 + gq (+8 for e >= 2),
+    // accumulator e of tile (mi, j): channel c0 + m0 + gq (+8 for e >= 2),
     // pixels j * 8 + 2 tq and + 1 (e even and odd); x there into registers,
     // and the buffer takes the next tile while the epilogue runs
-    float2 xr[3][2][NT];
+    float2 xr[MI][2][NT];
 #pragma unroll
-    for (int mi = 0; mi < 3; ++mi)
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          const int c = (wq + 4 * mi) * 16 + gq + 8 * h;
+          const int c = c0 + (wq + 4 * mi) * 16 + gq + 8 * h;
           xr[mi][h][j] = c < C ? *reinterpret_cast<const float2*>(xs + c * LDT + j * 8 + 2 * tq)
                                : make_float2(0.f, 0.f);
         }
@@ -509,12 +577,13 @@ gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma
     const int p0 = (tile % tiles_per_image) * RP;
     T* yt = y + (size_t)(tile / tiles_per_image) * C * P + p0;
 #pragma unroll
-    for (int mi = 0; mi < 3; ++mi)
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int c = (wq + 4 * mi) * 16 + gq + 8 * h;
+        const int r = (wq + 4 * mi) * 16 + gq + 8 * h;
+        const int c = c0 + r;
         if (c >= C) continue;
-        const float bc = betas[c];
+        const float bc = betas[r];
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int pl = j * 8 + 2 * tq;
@@ -535,6 +604,32 @@ gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma
   }
 }
 
+// C <= fwd::MAX_C: one block per SM holds all of gamma
+template <typename T>
+__global__ void __launch_bounds__(fwd::THREADS, 1)
+gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, T* __restrict__ y, int C, int P,
+                        int tiles_per_image, int n_tiles, int inverse, int x_aligned,
+                        int gamma_aligned, int y_aligned) {
+  static_assert(3 * 64 == fwd::MAX_C, "the block's rows are all of gamma's");
+  gdn_fwd_tiles<T, 3, 1>(x, gamma, beta, y, C, P, tiles_per_image, n_tiles, inverse, x_aligned,
+                         gamma_aligned, y_aligned);
+}
+
+// 192 < C <= clu::MAX_C: a cluster of two blocks, each with half of gamma's rows
+template <typename T>
+__global__ void __launch_bounds__(fwd::THREADS, 1)
+gdn_fwd_kernel_cluster(const T* __restrict__ x, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, T* __restrict__ y, int C, int P,
+                       int tiles_per_image, int n_tiles, int inverse, int x_aligned,
+                       int gamma_aligned, int y_aligned) {
+  static_assert(2 * 64 == clu::HALF && clu::LDG == clu::MAX_C + fwd::PAD_G &&
+                    clu::LDX == fwd::LDT && clu::RP == fwd::RP,
+                "the cluster's halves and tiles are the dx kernel's");
+  gdn_fwd_tiles<T, 2, 2>(x, gamma, beta, y, C, P, tiles_per_image, n_tiles, inverse, x_aligned,
+                         gamma_aligned, y_aligned);
+}
+
 // n = beta + Gamma x^2 -> the direct term of dx and dn, for GDN (IGDN with
 // inverse): r = n^(-1/2); GDN: g r and -1/2 g x r^3; IGDN: g n r and 1/2 g x r
 __device__ __forceinline__ void gdn_terms(float n, float xv, float gv, int inverse,
@@ -552,7 +647,7 @@ __device__ __forceinline__ void gdn_terms(float n, float xv, float gv, int inver
 namespace bwd {
 constexpr int THREADS = 256;  // 8 warps
 constexpr int MO = 192;       // channels per pass (12 m-tiles of 16)
-constexpr int SP = 16;        // pixels per tile with gamma streamed (C > MO)
+constexpr int SP = 16;        // pixels per tile with gamma streamed (C > 256)
 constexpr int BK = 32;        // channels per streamed gamma chunk
 constexpr int NS = 2;         // stages of the gamma ring
 constexpr int LDA1 = BK + 4;  // chunk gamma[o][k0 + kk] as [o][kk]: n = Gamma x^2
@@ -567,7 +662,7 @@ constexpr int GNS = 3;
 constexpr int MAX_PARTIALS = 64;
 }  // namespace bwd
 
-// dx and dn for C > MO, a tile of SP pixels of one image and all C
+// dx and dn for C > 256, a tile of SP pixels of one image and all C
 // channels per block. Shared memory: x and dn as (CK x SP) tiles (row
 // stride SP + 8: the B fragments' reads hit 32 banks; g is staged in dn's
 // place) and a ring of NS gamma chunks. Channels go in passes of MO; each
@@ -950,6 +1045,229 @@ gdn_bwd_kernel_dx_resident(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
+// dx and dn: the cluster walks tiles q, q + n_clusters, ... (cluster q);
+// per tile, block r
+// 1. runs n = beta + Gamma x^2 for its HALF output channels o over the
+//    whole x tile, then leaves dn[o] in shared memory (and dn_out) and the
+//    direct term of dx[o] and x[o] in registers;
+// 2. runs partial_r = Gamma^T dn over its own o, for all MAX_C input
+//    channels i (A read transposed from its resident rows), while the next
+//    tile's x loads;
+// 3. writes partial_r at the peer's input channels into the peer's shared
+//    memory (DSMEM; two buffers, the tile's parity, so one cluster barrier
+//    a tile suffices) and waits at the cluster barrier; the next tile's g
+//    then loads;
+// 4. stores dx[i] = direct[i] + 2 x[i] (partial_0[i] + partial_1[i]) for
+//    its own i, which sit at the first product's places in its registers.
+// A warp holds 2 m-tiles (wm, wm + 4 of a half) by 2 n-tiles (2 wn, 2 wn +
+// 1) of the first product and 4 m-tiles (both halves) by the same n-tiles
+// of the second. The first product's k is permuted as the forward's (gamma
+// pairs read 8 bytes at a time), the second's is not.
+template <typename T>
+__global__ void __launch_bounds__(clu::THREADS, 1)
+gdn_bwd_kernel_dx_cluster(const T* __restrict__ g, const T* __restrict__ x,
+                          const float* __restrict__ gamma, const float* __restrict__ beta,
+                          T* __restrict__ dx, float* __restrict__ dn_out, int C, int P,
+                          int tiles_per_image, int n_tiles, int inverse, int x_aligned,
+                          int gamma_aligned) {
+  constexpr int RP = clu::RP, LDX = clu::LDX, LDD = clu::LDD, LDG = clu::LDG;
+  constexpr int THREADS = clu::THREADS, KC = clu::KC, HALF = clu::HALF;
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CK = (C + KC - 1) / KC * KC;         // input channels padded to the f32 sum
+  float* gs = reinterpret_cast<float*>(smem4);   // gamma rows c0 .. c0 + HALF (HALF x LDG)
+  float* betas = gs + HALF * LDG;                // beta's half
+  float* xs = betas + HALF;                      // x tile (CK x LDX)
+  float* dns = xs + clu::MAX_C * LDX;            // g tile of the block's channels, then dn
+  float* recv = dns + HALF * LDD;                // [2][HALF][RP]: the peer's partials
+  const int rank = (int)cluster.block_rank();
+  const int c0 = rank * HALF;                    // the block's first channel
+  const int n_clusters = gridDim.x / 2;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  const int wm = warp % 4;
+  const int wn = warp / 4;
+  // accumulator e of tile (mi, j): channel c0 + chan(mi, e) (the peer's
+  // half for the second product's mi >= 2), pixel pix(j, e)
+  auto chan = [&](int mi, int e) { return (wm + 4 * (mi & 1)) * 16 + gq + (e >= 2 ? 8 : 0); };
+  auto pix = [&](int j, int e) { return (2 * wn + j) * 8 + 2 * tq + (e & 1); };
+  // a partial's place in a receive buffer: row r, pixels swizzled by r so
+  // that a warp's 8-byte stores and loads hit 32 banks
+  auto slot = [&](int r, int pl) { return r * RP + (pl ^ ((r & 3) << 3)); };
+
+  load_gamma_rows<HALF>(gamma, beta, C, c0, clu::MAX_C, LDG, gamma_aligned, gs, betas);
+  auto load_x = [&](int tile) {  // all CK channels, zero past C and the image
+    const int p0 = (tile % tiles_per_image) * RP;
+    const T* s0 = x + (size_t)(tile / tiles_per_image) * C * P + p0;
+    for (int e = tid; e < CK * (RP / 4); e += THREADS) {
+      const int c = e / (RP / 4);
+      const int p = (e % (RP / 4)) * 4;
+      copy4(xs + c * LDX + p, s0 + (size_t)c * P + p, c < C ? P - p0 - p : 0, x_aligned);
+    }
+  };
+  auto load_g = [&](int tile) {  // the block's HALF channels, zero past C and the image
+    const int p0 = (tile % tiles_per_image) * RP;
+    const T* s0 = g + (size_t)(tile / tiles_per_image) * C * P + p0;
+    for (int e = tid; e < HALF * (RP / 4); e += THREADS) {
+      const int r = e / (RP / 4);
+      const int p = (e % (RP / 4)) * 4;
+      const int c = c0 + r;
+      copy4(dns + r * LDD + p, s0 + (size_t)c * P + p, c < C ? P - p0 - p : 0, x_aligned);
+    }
+  };
+  const int first = blockIdx.x / 2;
+  if (first < n_tiles) {
+    load_x(first);
+    load_g(first);
+  }
+  cp_async_commit();
+  cluster.sync();  // both blocks have started before either writes to the other
+
+  float direct[2][2][4], xr[2][2][4];
+  int parity = 0;
+  for (int tile = first; tile < n_tiles; tile += n_clusters, parity ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's x and g (and at first gamma) are in
+    const int p0 = (tile % tiles_per_image) * RP;
+    const size_t base = (size_t)(tile / tiles_per_image) * C * P + p0;
+
+    // 1. n over the block's output channels; sums of KC channels start
+    // from zero and are added in f32
+    float acc[2][2][4] = {};
+    for (int k0 = 0; k0 < CK; k0 += KC) {
+      float part[2][2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks) {
+        const int k = k0 + ks * 8;
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {  // B[k][n] = x[channel][pixel]^2
+          const float* br = xs + (k + 2 * tq) * LDX + (2 * wn + j) * 8 + gq;
+          const float v0 = br[0], v1 = br[LDX];
+          split_tf32(v0 * v0, bh[j][0], bl[j][0]);
+          split_tf32(v1 * v1, bh[j][1], bl[j][1]);
+        }
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {  // A[m][k] = gamma[out][in]
+          const int m0 = (wm + 4 * mi) * 16;
+          const float2 r0 = *reinterpret_cast<const float2*>(gs + (m0 + gq) * LDG + k + 2 * tq);
+          const float2 r8 = *reinterpret_cast<const float2*>(gs + (m0 + gq + 8) * LDG + k + 2 * tq);
+          split_tf32(r0.x, ah[mi][0], al[mi][0]);
+          split_tf32(r8.x, ah[mi][1], al[mi][1]);
+          split_tf32(r0.y, ah[mi][2], al[mi][2]);
+          split_tf32(r8.y, ah[mi][3], al[mi][3]);
+        }
+        mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[mi][j][e];
+    }
+    // n -> dn (shared memory and dn_out), the direct term and x
+    // (registers). Past the image x = g = 0, so dn = 0; past C dn keeps
+    // the g tile's zeros.
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = chan(mi, e), c = c0 + r, pl = pix(j, e);
+          xr[mi][j][e] = c < C ? xs[c * LDX + pl] : 0.f;
+          direct[mi][j][e] = 0.f;
+          if (c >= C) continue;
+          float dnv;
+          gdn_terms(acc[mi][j][e] + betas[r], xr[mi][j][e], dns[r * LDD + pl], inverse,
+                    direct[mi][j][e], dnv);
+          dns[r * LDD + pl] = dnv;
+          if (p0 + pl < P) dn_out[base + (size_t)c * P + pl] = dnv;
+        }
+    __syncthreads();  // dn is whole; the x tile is free
+    if (tile + n_clusters < n_tiles) load_x(tile + n_clusters);
+    cp_async_commit();
+
+    // 2. Gamma^T dn over the block's output channels: mi 0, 1 at its own
+    // input channels, 2, 3 at the peer's
+    float acc2[4][2][4] = {};
+    for (int k0 = 0; k0 < HALF; k0 += KC) {
+      float part[4][2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks) {
+        const int k = k0 + ks * 8;
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {  // B[k][n] = dn[output channel][pixel]
+          const float* br = dns + (k + tq) * LDD + (2 * wn + j) * 8 + gq;
+          split_tf32(br[0], bh[j][0], bl[j][0]);
+          split_tf32(br[4 * LDD], bh[j][1], bl[j][1]);
+        }
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {  // A[m][k] = gamma[out][in] transposed
+          const int i0 = (mi < 2 ? c0 : HALF - c0) + (wm + 4 * (mi & 1)) * 16;
+          const float* ar = gs + (k + tq) * LDG + i0 + gq;
+          split_tf32(ar[0], ah[mi][0], al[mi][0]);
+          split_tf32(ar[8], ah[mi][1], al[mi][1]);
+          split_tf32(ar[4 * LDG], ah[mi][2], al[mi][2]);
+          split_tf32(ar[4 * LDG + 8], ah[mi][3], al[mi][3]);
+        }
+        mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc2[mi][j][e] += part[mi][j][e];
+    }
+
+    // 3. the peer's input channels to the peer
+    float* mine = recv + parity * HALF * RP;
+    float* theirs = cluster.map_shared_rank(mine, rank ^ 1);
+#pragma unroll
+    for (int mi = 2; mi < 4; ++mi)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float2*>(theirs + slot(chan(mi, 2 * h), pix(j, 0))) =
+              make_float2(acc2[mi][j][2 * h], acc2[mi][j][2 * h + 1]);
+        }
+    cluster.sync();  // the peer's partials are in mine; this block is done with dn
+    if (tile + n_clusters < n_tiles) load_g(tile + n_clusters);
+    cp_async_commit();
+
+    // 4. dx = direct term + 2 x (partial_0 + partial_1): one addition of
+    // two values, the same bits in both blocks' order
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = chan(mi, 2 * h), c = c0 + r, pl = pix(j, 0);
+          if (c >= C) continue;
+          const float2 q = *reinterpret_cast<const float2*>(mine + slot(r, pl));
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int e = 2 * h + u;
+            const float s = acc2[mi][j][e] + (u ? q.y : q.x);
+            if (p0 + pl + u < P) {
+              store1(dx + base + (size_t)c * P + pl + u, direct[mi][j][e] + 2.f * xr[mi][j][e] * s);
+            }
+          }
+        }
+  }
+}
+
 // Partial sums of dGamma[o][i] = sum_p dn[o][p] x[i][p]^2 and dbeta[o] =
 // sum_p dn[o][p] over one fixed range of pixel chunks (blockIdx.y of
 // gridDim.y slots), for one GT x GT output tile (blockIdx.x). dn and x of a
@@ -1153,6 +1471,74 @@ int launch_dx_resident(const T* g, const T* x, const float* gamma, const float* 
   return (int)cudaGetLastError();
 }
 
+// A launch of `kernel` in clusters of two blocks of clu::THREADS threads
+// and `smem` bytes of shared memory each (one size per kernel): as many
+// clusters as the card holds at once, at most one a tile. That count is
+// asked of the runtime: the H100's GPCs do not all hold an even number of
+// free SMs, so it is not half the SMs. The kernel, its shared memory and
+// the card fix it, so it is asked once a card, with the shared memory
+// set; later launches only read it. A launch the card refuses returns its
+// error; nothing falls back.
+template <auto kernel, typename... Args>
+int launch_cluster(size_t smem, int n_tiles, cudaStream_t s, Args... args) {
+  constexpr int MAX_CARDS = 64;
+  static std::atomic<int> slots_of[MAX_CARDS];  // 0: not asked yet
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc != 0) return rc;
+  int slots = dev < MAX_CARDS ? slots_of[dev].load(std::memory_order_relaxed) : 0;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 2;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(clu::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (slots == 0) {
+    if ((rc = set_smem((const void*)kernel, smem)) != 0) return rc;
+    rc = (int)cudaOccupancyMaxActiveClusters(&slots, (const void*)kernel, &cfg);
+    if (rc != 0) return rc;
+    if (slots < 1) return -5;  // no cluster of two such blocks fits
+    if (dev < MAX_CARDS) slots_of[dev].store(slots, std::memory_order_relaxed);
+  }
+  cfg.gridDim = dim3(2 * (n_tiles < slots ? n_tiles : slots));
+  rc = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd_cluster(const T* x, const float* gamma, const float* beta, T* y, int B, int C,
+                       int P, int inverse, cudaStream_t s) {
+  const size_t smem = sizeof(float) * ((size_t)clu::HALF * clu::LDG + clu::HALF +
+                                       2 * (size_t)clu::MAX_C * clu::LDX);
+  const int tpi = (P + clu::RP - 1) / clu::RP;
+  const int x_aligned = rows_aligned4<T>(P, x);
+  const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
+  const int y_aligned = P % 2 == 0 && (uintptr_t)y % (2 * sizeof(T)) == 0;
+  return launch_cluster<gdn_fwd_kernel_cluster<T>>(smem, B * tpi, s, x, gamma, beta, y, C, P,
+                                                   tpi, B * tpi, inverse, x_aligned,
+                                                   gamma_aligned, y_aligned);
+}
+
+template <typename T>
+int launch_dx_cluster(const T* g, const T* x, const float* gamma, const float* beta, T* dx,
+                      float* dn, int B, int C, int P, int inverse, cudaStream_t s) {
+  const size_t smem = sizeof(float) * ((size_t)clu::HALF * clu::LDG + clu::HALF +
+                                       (size_t)clu::MAX_C * clu::LDX + clu::HALF * clu::LDD +
+                                       2 * clu::HALF * clu::RP);
+  const int tpi = (P + clu::RP - 1) / clu::RP;
+  const int x_aligned = rows_aligned4<T>(P, x, g);
+  const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
+  return launch_cluster<gdn_bwd_kernel_dx_cluster<T>>(smem, B * tpi, s, g, x, gamma, beta, dx,
+                                                      dn, C, P, tpi, B * tpi, inverse, x_aligned,
+                                                      gamma_aligned);
+}
+
 template <typename T>
 int launch_fwd_fma(const T* x, const float* gamma, const float* beta, T* y, int B, int C, int P,
                    int inverse, cudaStream_t s) {
@@ -1193,10 +1579,12 @@ int forward(const void* x, const void* gamma, const void* beta, void* y, int B, 
   const float* gammaf = static_cast<const float*>(gamma);
   const float* betaf = static_cast<const float*>(beta);
   T* yt = static_cast<T*>(y);
-  // gamma resident in shared memory on the tensor cores up to MAX_C
-  // channels; above, gamma staged in chunks on the FMA units
-  return C <= fwd::MAX_C ? launch_fwd_resident<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s)
-                         : launch_fwd_fma<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s);
+  // gamma resident in shared memory on the tensor cores: one block up to
+  // 192 channels, a cluster of two up to 256; above, gamma staged in chunks
+  // on the FMA units
+  if (C <= fwd::MAX_C) return launch_fwd_resident<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s);
+  if (C <= clu::MAX_C) return launch_fwd_cluster<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s);
+  return launch_fwd_fma<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s);
 }
 
 // Partial slots of the backward's dGamma/dbeta sums for B images of P
@@ -1207,8 +1595,9 @@ int backward_partials(int B, int P) {
 }
 
 // dx's float32 direct term between the streamed kernel's two products has
-// a workspace of its own only in bfloat16 (in float32 it waits in dx)
-bool direct_in_workspace(int C, int dtype) { return dtype != 0 && C > bwd::MO; }
+// a workspace of its own only in bfloat16 (in float32 it waits in dx); the
+// resident and cluster kernels keep it in registers
+bool direct_in_workspace(int C, int dtype) { return dtype != 0 && C > clu::MAX_C; }
 
 template <typename T>
 int backward(const void* g, const void* x, const void* gamma, const void* beta, void* dx,
@@ -1221,11 +1610,14 @@ int backward(const void* g, const void* x, const void* gamma, const void* beta, 
   T* dxt = static_cast<T*>(dx);
   float* dn = static_cast<float*>(workspace);
   float* partials = dn + (size_t)B * C * P;
-  // gamma resident in shared memory up to MO channels; above, gamma
-  // streams through the ring beside tiles of 16 pixels
+  // gamma resident in shared memory: one block up to MO channels, a
+  // cluster of two up to 256; above, gamma streams through the ring beside
+  // tiles of 16 pixels
   int rc;
   if (C <= bwd::MO) {
     rc = launch_dx_resident<T>(gt, xt, gammaf, betaf, dxt, dn, B, C, P, inverse, s);
+  } else if (C <= clu::MAX_C) {
+    rc = launch_dx_cluster<T>(gt, xt, gammaf, betaf, dxt, dn, B, C, P, inverse, s);
   } else {
     float* direct = sizeof(T) == sizeof(float)
                         ? reinterpret_cast<float*>(dxt)
@@ -1257,7 +1649,7 @@ extern "C" {
 // Floats of workspace the backward needs for B images of C channels and P
 // pixels, x of dtype code `dtype` (0 float32, 1 bfloat16): dn (B x C x P),
 // the partial slots of dGamma and dbeta (backward_partials(B, P) x C x
-// (C + 1)), and in bfloat16 above 192 channels dx's direct term (B x C x P).
+// (C + 1)), and in bfloat16 above 256 channels dx's direct term (B x C x P).
 long long gdn_backward_workspace(int B, int C, int P, int dtype) {
   const long long elems = (long long)B * C * P;
   return elems + (long long)backward_partials(B, P) * C * (C + 1) +
@@ -1266,7 +1658,8 @@ long long gdn_backward_workspace(int B, int C, int P, int dtype) {
 
 // x, y: (B, C, P) contiguous, float32 (dtype 0) or bfloat16 (dtype 1);
 // gamma (C, C) and beta (C,) float32. Returns 0, -3 when C needs more
-// shared memory than a block has, -4 for an unknown dtype, or the
+// shared memory than a block has, -4 for an unknown dtype, -5 when no
+// cluster of two of the kernel's blocks fits on the card, or the
 // cudaError_t of the launch.
 int gdn_forward(const void* x, const void* gamma, const void* beta, void* y,
                 int B, int C, int P, int inverse, int dtype, void* stream) {
@@ -1279,7 +1672,8 @@ int gdn_forward(const void* x, const void* gamma, const void* beta, void* y,
 
 // g, x, dx: (B, C, P) contiguous, float32 (dtype 0) or bfloat16 (dtype 1);
 // gamma, dgamma (C, C) and beta, dbeta (C,) float32; workspace:
-// gdn_backward_workspace(B, C, P, dtype) floats, 16-byte aligned.
+// gdn_backward_workspace(B, C, P, dtype) floats, 16-byte aligned. Returns
+// as gdn_forward does.
 int gdn_backward(const void* g, const void* x, const void* gamma,
                  const void* beta, void* dx, void* dgamma, void* dbeta,
                  void* workspace, int B, int C, int P, int inverse, int dtype,

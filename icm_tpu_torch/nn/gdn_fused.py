@@ -50,19 +50,21 @@ import torch.nn.functional as F
 from .. import _native
 
 # calls of the CUDA kernels in this process, by (x's dtype, channels): the
-# build launched, and above 192 channels another design (MAX_CHANNELS'
+# dtype names the build launched, the channels its design (MAX_CHANNELS'
 # note); chip_smoke.py clears them before driving a path and reads them
 # after (``graphs.by_dtype`` sums the channels)
 FWD_LAUNCHES: Counter = Counter()
 BWD_LAUNCHES: Counter = Counter()
 
-# channels the kernels take. Up to 192 (every GDN but the CRC family's
-# 256-channel IGDN in MainCNNDecoder) both keep
-# gamma resident in shared memory and run their products on the tensor
-# cores. Above, the backward streams gamma, its two (C x 24) float tiles
-# and two gamma chunks fitting a block's 227 KB of shared memory up to
-# C = 896, and the forward stages gamma in chunks on the f32 FMA units
-# (beyond C = 1,600)
+# channels the kernels take, in three designs (csrc/gdn.cu's head note).
+# Every model's GDN has 192 channels or, MainCNNDecoder's IGDN in the CRC
+# family, 256; both keep gamma resident in shared memory and run their
+# products on the tensor cores: up to 192 channels one block holds gamma,
+# from 193 to 256 a cluster of two blocks, each half of its rows. Above
+# 256, which no model uses, the backward streams gamma, its two (C x 24)
+# float tiles and two gamma chunks fitting a block's 227 KB of shared
+# memory up to C = 896, and the forward stages gamma in chunks on the f32
+# FMA units (beyond C = 1,600)
 MAX_CHANNELS = 512
 
 # the kernels' element type of x, g, y and dx: the C entries' dtype code
@@ -198,7 +200,7 @@ def gdn_backward_cuda(g, x, gamma, beta, inverse: bool):
     dgamma = torch.empty_like(gamma32)
     dbeta = torch.empty_like(beta)
     # dn (B x C x H x W), the partial sums of dgamma and dbeta, and in
-    # bfloat16 above 192 channels dx's float32 direct term
+    # bfloat16 above 256 channels dx's float32 direct term
     workspace = torch.empty(max(workspace_floats(B, C, H * W, code), 1), dtype=torch.float32,
                             device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -9,6 +9,7 @@ without it:
 (``--noconftest``: the suite's conftest configures JAX).
 """
 
+import re
 from collections import Counter
 
 import numpy as np
@@ -279,18 +280,22 @@ def test_gdn_kernels_are_deterministic(kernel):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-# the kernels' edges: C = 12, 13 and 200 are not multiples of the 16-row
-# mma tile (13 also leaves gamma's rows off 16-byte boundaries, and 200 is
-# past 192 channels, so the backward streams gamma beside 16-pixel tiles
-# and the forward runs on the FMA units); ragged pixel counts (1155 = 36
-# tiles of 32 and 3 pixels; 63, 99 and 35, not multiples of 4); C = 512,
-# the most the wrapper takes; 70 x 64 pixels, 140 tiles of 32 for at most
-# one block per SM, and 140 chunks of 32 pixels for 64 partial slots;
-# 1 x 35 pixels, fewer tiles than SMs; the serving path's 2 x 192 x 64^2
+# the kernels' edges: C = 12, 13, 200 and 208 are not multiples of the
+# 16-row mma tile (13 also leaves gamma's rows off 16-byte boundaries);
+# 200, 208 and 224 are past 192 channels, so a two-block cluster holds
+# gamma with the second block's last m-tiles padded; ragged pixel counts
+# (1155 = 36 tiles of 32 and 3 pixels; 63, 99, 35 and 323, not multiples
+# of 4); C = 512, the most the wrapper takes (the backward streams gamma
+# beside 16-pixel tiles, the forward runs on the FMA units); 70 x 64
+# pixels, 140 tiles of 32 for at most one block per SM, and 140 chunks of
+# 32 pixels for 64 partial slots; 1 x 35 pixels, fewer tiles than SMs (and
+# than clusters at 256 channels); one pixel; the serving path's 2 x 192 x
+# 64^2
 @pytest.mark.parametrize("B,C,H,W", [(4, 200, 16, 16), (2, 12, 33, 35), (5, 13, 7, 9),
                                      (1, 512, 9, 11), (70, 192, 8, 8), (1, 192, 5, 7),
                                      (2, 192, 64, 64), (2, 256, 128, 128), (3, 256, 13, 21),
-                                     (8, 256, 64, 64)])
+                                     (8, 256, 64, 64), (2, 208, 17, 19), (2, 224, 16, 16),
+                                     (1, 256, 5, 7), (1, 256, 1, 1)])
 # C = 256: MainCNNDecoder's IGDN (icm_tpu/nn/factories.py:52,64-65) at its
 # path's shapes, 2 x 512 px serving and 8 x 256 px training, and at a
 # ragged pixel count
@@ -312,6 +317,30 @@ def test_gdn_kernels_edges_match_plain_and_repeat(B, C, H, W, inverse, f32_refer
         torch.testing.assert_close(got / scale, ref / scale, rtol=0, atol=GDN_TOL[key])
     for a, b in zip(again, (dx, dgamma, dbeta)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C,designs", [
+    (256, ("gdn_fwd_kernel_cluster", "gdn_bwd_kernel_dx_cluster")),
+    (512, ("gdn_fwd_kernel_fma", "gdn_bwd_kernel_dx_streamed")),
+])
+def test_gdn_launches_the_design_of_its_width(C, designs):
+    """The kernels a launch at C channels runs, by their names in a
+    profiler trace: at 256 the two-block cluster's forward and dx, at 512
+    the FMA forward and the streamed dx; the backward's dgamma and reduce
+    at both."""
+    _needs_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    x, g, gamma, beta = _gdn_inputs(2, C, 9, 11, seed=C)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):  # a trace has dropped a kernel record now and then
+            tgdn.gdn_forward_cuda(x, gamma, beta, True)
+            tgdn.gdn_backward_cuda(g, x, gamma, beta, True)
+        torch.cuda.synchronize()
+    names = {re.search(r"gdn_\w+", e.name).group(0) for e in prof.events()
+             if e.device_type.name == "CUDA" and "gdn_" in e.name}
+    assert names == {*designs, "gdn_bwd_kernel_dgamma", "gdn_reduce_kernel"}
 
 
 def test_gdn_module_launches_both_kernels_in_training():
@@ -346,12 +375,13 @@ def gdn_bf16_err(got, ref):
 @pytest.mark.parametrize("inverse", [False, True])
 # the training step's 192 channels and its smallest map; C = 12 and 13
 # (not multiples of the 16-row tile; 13 leaves gamma's rows unaligned), 200
-# and 512 (gamma streamed, the forward on the FMA units), 256 (the CRC
-# decoder's IGDN); ragged pixel counts (273 = 13 x 21, 35, 63 and 99: not
-# multiples of 4, so the loads take one value at a time)
+# (the two-block cluster, its last m-tiles padded), 512 (gamma streamed,
+# the forward on the FMA units), 256 (the CRC decoder's IGDN, at its
+# training and serving shapes); ragged pixel counts (273 = 13 x 21, 35, 63
+# and 99: not multiples of 4, so the loads take one value at a time)
 @pytest.mark.parametrize("B,C,H,W", [(8, 192, 32, 32), (3, 192, 13, 21), (2, 12, 33, 35),
                                      (5, 13, 7, 9), (4, 200, 16, 16), (2, 256, 64, 64),
-                                     (3, 256, 13, 21), (1, 512, 9, 11)])
+                                     (3, 256, 13, 21), (1, 512, 9, 11), (2, 256, 128, 128)])
 def test_gdn_bf16_kernels_match_plain_and_repeat(B, C, H, W, inverse, f32_reference):
     _needs_card()
     x, g, gamma, beta = _gdn_inputs(B, C, H, W, seed=B + C + W)

@@ -52,7 +52,7 @@ def _nhwc(t):
     return t.detach().permute(0, 2, 3, 1).numpy()
 
 
-@pytest.mark.parametrize("C", [192, 12])
+@pytest.mark.parametrize("C", [192, 12, 256, 200])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_plain_forward_matches_pallas_kernels(inverse, C):
     x, _, gamma, beta = _inputs(C)
@@ -69,7 +69,7 @@ def test_plain_forward_matches_pallas_kernels(inverse, C):
     np.testing.assert_allclose(out.reshape(-1, C), fwd, atol=TOL_FWD, rtol=TOL_FWD)
 
 
-@pytest.mark.parametrize("C", [192, 12])
+@pytest.mark.parametrize("C", [192, 12, 256, 200])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_plain_backward_matches_pallas_kernel(inverse, C):
     x, g, gamma, beta = _inputs(C, seed=1)
