@@ -17,9 +17,10 @@ package beside it. Phases, each printed with its elapsed seconds:
    family's refiners (4 heads: head width 8 over 128 windows of 16
    tokens (stf5) and 32 of 64 (stf7), head width 16 over 32 of 16 (stf6)
    and 8 of 64 (stf8), each at 1 and 4 window classes) and of the CRC
-   family (8 heads: head width 32 over 512 windows of 64 tokens, 48 over
-   128 of 16, each at 1 and 4 classes), then a ragged window count of
-   each, in f32 and bf16; two launches must give the same bits; timed
+   family (8 heads: head width 32 over 512 windows of 64 tokens, 48 and
+   96 (stf12's decoder head) over 128 of 16, each at 1 and 4 classes),
+   then a ragged window count of each, in f32 and bf16; two launches must
+   give the same bits; timed
    beside the plain version and F.scaled_dot_product_attention (a
    yardstick the port never calls);
 4. the fused GDN forward and backward kernels against their plain
@@ -199,19 +200,42 @@ package beside it. Phases, each printed with its elapsed seconds:
     against CPU as phase 10;
 30. a reference stf9 checkpoint at full width, as phase 18 (both
     bottlenecks' and the Gaussian's tables stored and imported, the host
-    wire in the reference symbol order).
+    wire in the reference symbol order);
+31. stf14 training (after phase 28) as phase 29: the port's one forward,
+    which computes both of JAX's (the unrolled and ``scan_charm=True``);
+32. stf12 (N=192, M=384, mid=256; 363.8 M parameters) at full width as
+    phases 27-28 (its launches: CRC_SIDE_LAUNCHES, window attention at
+    head width 96 in its decoder head);
+33. stf12 training as phase 29 (9 window-attention launches a step, one
+    at head width 96; 10 GDN forward, 7 backward);
+34. stf12 under the bfloat16 policy from phase 32's weights: the device
+    wire held as phase 32's (bit-exact, no host round trip, the same
+    launches by head width and channels, every one a bfloat16 build's:
+    head widths 24, 32, 48 and 96, GDN at 192 and 256 channels), its bpp
+    within 5% and mean |x_hat - x_hat_f32| under 0.01 of phase 32's
+    device wire (the seeded weights saturate x_hat, so that bar cannot
+    catch a wrong bf16 path: the layer replay, bpp and likelihoods do),
+    img/s and idle; the eval forward card against CPU as
+    phase 8 (float32, then bfloat16 end to end and layer by layer with
+    its control); 3 bfloat16 training steps as phase 10b (both layers'
+    rates, the split decoder fixed);
+35. a reference stf12 checkpoint at full width, as phase 30.
 
 Each serving phase also logs its sides' device idle share: one traced
 compress and decompress (the union of the trace's kernel, copy and memset
 intervals) against the median untraced wall time.
 
-The kernels line lists window attention's head widths 32 and 48 and the
-GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
-``gdn_forward_c256``, ``gdn_backward_c256`` and their ``_bf16`` builds,
-each naming its CUDA function, ``gdn_fwd_kernel_cluster`` or
-``gdn_bwd_kernel_dx_cluster``; the backward's with its split) with their
-launches on the CRC paths, read from the wrappers' counts by width and
-channels. It
+The kernels line lists window attention's head widths 32, 48 and 96 and
+the GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
+``_d96``, ``gdn_forward_c256``, ``gdn_backward_c256`` and their ``_bf16``
+builds, the GDN entries naming their CUDA function,
+``gdn_fwd_kernel_cluster`` or ``gdn_bwd_kernel_dx_cluster``; the
+backward's with its split) with their launches on the CRC paths (the
+bfloat16 builds' on stf12's bfloat16 paths), read from the wrappers'
+counts by width and channels; WACNN's attention and 192-channel GDN
+entries keep their own paths' sum as ``launches`` and list the CRC paths'
+launches at head width 24 and 192 channels beside it (``launches_crc``).
+It
 splits window attention's launches on the family paths
 between the transforms (under ``window_attention_d16`` and its bfloat16
 entry, at stf's shapes) and the refiners (``window_attention_d8`` for
@@ -462,27 +486,59 @@ FAMILY_REPS = 1
 # the CRC family (stf11 is stf9's class and weights): window attention at
 # 2 x 512 px by head width -> (W, N): MainCNNDecoder's 256-channel block
 # (128 x 128 at window 8) and every 384-channel block (32 x 32 at window
-# 4), 8 heads; a training step of 8 x 256^2 gives the same shapes. Its
+# 4), 8 heads; stf12's decoder head over 768 channels (32 x 32 at window 4:
+# head width 96); a training step of 8 x 256^2 gives the same shapes. Its
 # launches by side and model (g_a, human_g_s2; stf14's decoder runs
-# human_g_s2 again): by head width 24, 48, 32, and the GDN forward's at
-# 192 and 256 channels
-CRC = ("stf9", "stf14")
-CRC_ATTENTION_SHAPES = {32: (512, 64), 48: (128, 16)}
+# human_g_s2 again; stf12's encoder and decoder each run its two
+# conditioning decoders, human_g_enc2 a whole MainCNNDecoder and
+# human_g_enc3 a 384-channel block and an IGDN, and its decoder head, and
+# its encoder tail a 384-channel block): by head width 24, 48, 32, 96, and
+# the GDN forward's at 192 and 256 channels
+CRC = ("stf9", "stf14", "stf12")
+CRC_ATTENTION_SHAPES = {32: (512, 64), 48: (128, 16), 96: (128, 16)}
 CRC_SIDE_LAUNCHES = {
     "stf9": {"compress": {24: 1, 48: 2, 32: 1, "gdn192": 5, "gdn256": 1},
              "decompress": {}},
     "stf14": {"compress": {24: 1, 48: 3, 32: 2, "gdn192": 7, "gdn256": 2},
               "decompress": {48: 1, 32: 1, "gdn192": 2, "gdn256": 1}},
+    "stf12": {"compress": {24: 1, 48: 6, 32: 2, 96: 1, "gdn192": 9, "gdn256": 2},
+              "decompress": {48: 2, 32: 1, 96: 1, "gdn192": 3, "gdn256": 1}},
 }
-# a training step of stf9 forward: g_a, g_s1 and human_g_s2 (6 attention,
-# 9 GDN: 2 at 256 channels); backward: the split decoder g_s1 / g_s2 feeds
-# no loss term (machine_x_hat), so 6 GDN backward launches, 1 at 256
-CRC_STEP = {"window_attention": 6, "gdn_forward": 9, "gdn_backward": 6,
-            "rans_encode": 0, "rans_decode": 0}
-CRC_STEP_SHAPES = {"window_attention": {"float32 D24": 1, "float32 D32": 2, "float32 D48": 3},
-                   "gdn": {"backward float32 C192": 5, "backward float32 C256": 1,
-                           "forward float32 C192": 7, "forward float32 C256": 2}}
+# a training step's forward: stf9 and stf14 run g_a, g_s1 and human_g_s2 (6
+# attention, 9 GDN: 2 at 256 channels), stf12 g_a, g_s1, its two
+# conditioning decoders once, its encoder tail and decoder head (9
+# attention, 10 GDN); backward: the split decoder g_s1 / g_s2 feeds no loss
+# term (machine_x_hat), so 6 (stf12: 7) GDN backward launches, 1 at 256
+CRC_STEP = {
+    "stf9": {"window_attention": 6, "gdn_forward": 9, "gdn_backward": 6,
+             "rans_encode": 0, "rans_decode": 0},
+    "stf12": {"window_attention": 9, "gdn_forward": 10, "gdn_backward": 7,
+              "rans_encode": 0, "rans_decode": 0},
+}
+CRC_STEP["stf14"] = CRC_STEP["stf9"]
+CRC_STEP_SHAPES = {
+    "stf9": {"window_attention": {"D24": 1, "D32": 2, "D48": 3},
+             "gdn": {"backward C192": 5, "backward C256": 1, "forward C192": 7,
+                     "forward C256": 2}},
+    "stf12": {"window_attention": {"D24": 1, "D32": 2, "D48": 5, "D96": 1},
+              "gdn": {"backward C192": 6, "backward C256": 1, "forward C192": 8,
+                      "forward C256": 2}},
+}
+CRC_STEP_SHAPES["stf14"] = CRC_STEP_SHAPES["stf9"]
 CRC_LIKELIHOODS = ("likelihoods", "machine_likelihoods")
+# host-clock calls whose median gives a CRC wire's img/s
+CRC_REPS = 3
+# the CRC model whose bfloat16 policy is held on the card (the one that runs
+# every CRC head width and both GDN widths)
+CRC_BF16 = "stf12"
+
+
+def crc_step_shapes(name: str, dtype: str = "float32") -> dict:
+    """CRC_STEP_SHAPES of ``name`` keyed as ``shape_counts`` gives them."""
+    return {"window_attention": {f"{dtype} {k}": n
+                                 for k, n in CRC_STEP_SHAPES[name]["window_attention"].items()},
+            "gdn": {f"{k.split()[0]} {dtype} {k.split()[1]}": n
+                    for k, n in CRC_STEP_SHAPES[name]["gdn"].items()}}
 
 
 def check_kernel(twa):
@@ -513,11 +569,11 @@ def check_kernel(twa):
               for n_cls in (1, 4)]
     cases += [("stf5", 127, REFINER_HEADS, 16, 8, 4), ("stf7", 31, REFINER_HEADS, 64, 8, 4),
               ("stf8", 7, REFINER_HEADS, 64, 16, 4)]
-    # the CRC family's new widths (CRC_ATTENTION_SHAPES), at the shifted
+    # the CRC family's widths (CRC_ATTENTION_SHAPES), at the shifted
     # blocks' 4 classes and at 1, then a ragged window count of each
     cases += [("crc", W, 8, N, D, n_cls) for D, (W, N) in CRC_ATTENTION_SHAPES.items()
               for n_cls in (4, 1)]
-    cases += [("crc", 100, 8, 64, 32, 4), ("crc", 37, 8, 16, 48, 4)]
+    cases += [("crc", 100, 8, 64, 32, 4), ("crc", 37, 8, 16, 48, 4), ("crc", 37, 8, 16, 96, 4)]
     rows = []
     for dtype in ("float32", "bfloat16"):
         for model, W, heads, N, D, n_cls in cases:
@@ -1464,13 +1520,14 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
 
 
 def bf16_train_phase(model, init_state: dict, seed: int, card: str, expect: dict,
-                     f32_train: dict, steps: int = 3):
-    """Phases 10b and 17: ``train_phase`` under the bfloat16 policy from the
-    weights ``init_state`` the float32 phase started from, on its batches
-    and noise: each step's launches exactly ``expect``, all of them the
-    bfloat16 builds'; the gradients
-    float32 on the float32 masters; the first step's bpp within
-    BF16_BPP_RTOL of the float32 phase's first. -> results."""
+                     f32_train: dict, steps: int = 3, **train_kw):
+    """Phases 10b, 17 and 34: ``train_phase`` under the bfloat16 policy from
+    the weights ``init_state`` the float32 phase started from, on its
+    batches and noise (``train_kw``: its criterion and fixed parameters):
+    each step's launches exactly ``expect``, all of them the bfloat16
+    builds'; the gradients float32 on the float32 masters; the first
+    step's bpp within BF16_BPP_RTOL of the float32 phase's first. ->
+    results."""
     import torch
 
     from icm_tpu_torch.nn import set_activation_dtype
@@ -1479,7 +1536,7 @@ def bf16_train_phase(model, init_state: dict, seed: int, card: str, expect: dict
     set_activation_dtype(torch.bfloat16)
     try:
         result = train_phase(model, seed, card, expect, steps=steps, resumed_steps=0,
-                             dtype="bfloat16")
+                             dtype="bfloat16", **train_kw)
     finally:
         set_activation_dtype(None)
     grad_types = {p.grad.dtype for p in model.parameters() if p.grad is not None}
@@ -1643,12 +1700,13 @@ def bf16_spread(got: dict, ref: dict) -> dict:
             "z_likelihood_max": diff(got["likelihoods"]["z"], ref["likelihoods"]["z"]).max().item()}
 
 
-def eval_vs_cpu_phase(name: str, model, seed: int):
-    """Phases 8 and 14: the same weights' eval forward on the card against
-    the plain CPU path on a small input, in float32, then under the
+def eval_vs_cpu_phase(name: str, model, seed: int, cpu_model=None):
+    """Phases 8, 14 and 34: the same weights' eval forward on the card
+    against the plain CPU path on a small input, in float32, then under the
     bfloat16 policy on both sides end to end (BF16_EVAL_TOL; beside it the
     card's bfloat16 against the CPU's float32) and layer by layer
-    (BF16_LAYER_TOL, with its control). -> the differences."""
+    (BF16_LAYER_TOL, with its control); ``cpu_model``: the CPU twin, by
+    default one drawn and loaded. -> the differences."""
     import torch
 
     from icm_tpu_torch.data import make_images
@@ -1656,8 +1714,9 @@ def eval_vs_cpu_phase(name: str, model, seed: int):
     from icm_tpu_torch.nn import set_activation_dtype
 
     xs = torch.from_numpy(make_images(seed + 1, 1, 64))
-    cpu_model = create_model(name, device="cpu", seed=seed)
-    cpu_model.load_state_dict(model.state_dict())
+    if cpu_model is None:
+        cpu_model = create_model(name, device="cpu", seed=seed)
+        cpu_model.load_state_dict(model.state_dict())
     with torch.no_grad():
         ref = cpu_model(xs)
         got = model(xs.cuda())
@@ -2019,12 +2078,12 @@ def shape_counts() -> dict:
                     for (dt, c), n in sorted(counter.items(), key=str)}}
 
 
-def crc_expect(name: str, side: str, **rans) -> tuple:
+def crc_expect(name: str, side: str, dtype: str = "float32", **rans) -> tuple:
     """(the launch counts of one side of a CRC model, by kernel; by shape,
-    as ``shape_counts`` gives them), float32."""
+    as ``shape_counts`` gives them), in ``dtype``'s builds."""
     per = CRC_SIDE_LAUNCHES[name][side]
-    attn = {f"float32 D{d}": per[d] for d in (24, 48, 32) if per.get(d)}
-    gdn = {f"forward float32 C{c}": per[f"gdn{c}"] for c in (192, 256) if per.get(f"gdn{c}")}
+    attn = {f"{dtype} D{d}": per[d] for d in (24, 48, 32, 96) if per.get(d)}
+    gdn = {f"forward {dtype} C{c}": per[f"gdn{c}"] for c in (192, 256) if per.get(f"gdn{c}")}
     counts = {"window_attention": sum(attn.values()), "gdn_forward": sum(gdn.values()),
               "gdn_backward": 0, "rans_encode": 0, "rans_decode": 0, **rans}
     return counts, {"window_attention": attn, "gdn": gdn}
@@ -2157,7 +2216,8 @@ def crc_eval_vs_cpu(name: str, model, seed: int) -> dict:
 
 
 def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> dict:
-    """Phases 27-28: a CRC model (stf9, stf14) at its published full width,
+    """Phases 27-28 and 32: a CRC model (stf9, stf14, stf12) at its
+    published full width,
     weights from ``seed``, on the images of phase 5 at ``narrow=0.2``:
     compress -> decompress on the host wire, the device wire and the scan
     wire (graphed and launch by launch), each held by ``crc_roundtrip``
@@ -2197,7 +2257,7 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
                                      f"{name} host wire", host_expect)
     counts.update(launches_compress=l["compress"], launches_decompress=l["decompress"])
     result["host_wire"] = {**crc_bytes(enc, size), "launches": l, "launches_by_shape": sh,
-                           **crc_timing(codec, x, enc)}
+                           **crc_timing(codec, x, enc, CRC_REPS)}
 
     dev = CRCCodec(model, narrow=0.2, wire="device")
     denc, _, l, sh, syncs = crc_roundtrip(dev, x, zero_counts, read_counts,
@@ -2223,7 +2283,7 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
     result["device_wire"] = {**crc_bytes(denc, size), "stream_bytes": stream_bytes,
                              "launches": l, "launches_by_shape": sh,
                              "host_round_trips_in_decompress": syncs,
-                             **crc_timing(dev, x, denc)}
+                             **crc_timing(dev, x, denc, CRC_REPS)}
 
     scan = CRCCodec(model, narrow=0.2, wire="device", scan_wire=True)
     t = time.time()
@@ -2274,12 +2334,13 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
         "host_round_trips_in_decompress": syncs, "tier": sorted({b[4] for b in senc["strings"][0]}),
         "first_call_s": first_s, "capture_s": capture_s, "pool_bytes": pool_bytes,
         "graphs": graphs, "launches_per_replay": per_replay, "y_hat_vs_device_wire": vs_device,
-        "bf16_refused": refused, **crc_timing(scan, x, senc),
-        "launch_by_launch": crc_timing(plain, x, penc)}
+        "bf16_refused": refused, **crc_timing(scan, x, senc, CRC_REPS),
+        "launch_by_launch": crc_timing(plain, x, penc, CRC_REPS)}
     sides = {w: {s: result[w][s] for s in ("compress", "decompress")}
              for w in ("host_wire", "device_wire", "scan_wire")}
     sides["scan_launch_by_launch"] = result["scan_wire"]["launch_by_launch"]
-    log(f"  {name} img/s, device idle, ATen calls (median of 3, batch {B}, {card}): " + "; ".join(
+    log(f"  {name} img/s, device idle, ATen calls (median of {CRC_REPS}, batch {B}, {card}): "
+        + "; ".join(
         f"{w} " + " / ".join(f"{v['img_per_s']:.2f} img/s idle {v['device_idle_share']:.3f} "
                              f"{v['aten_calls']} ATen" for v in per.values())
         for w, per in sides.items()))
@@ -2287,12 +2348,75 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
     gc.collect()
     torch.cuda.empty_cache()
     result["card_vs_cpu"] = crc_eval_vs_cpu(name, model, seed)
-    return dict(model=model, result=result, counts=counts)
+    return dict(model=model, result=result, counts=counts, device_enc=denc)
+
+
+def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_train: dict,
+                   seed: int) -> dict:
+    """Phase 34: a CRC model under the bfloat16 policy, from the weights
+    ``init_state`` its float32 phases served and trained from: the device
+    wire held by ``crc_roundtrip`` with CRC_SIDE_LAUNCHES in the bfloat16
+    builds (every head width and both GDN widths), its bpp within 5% and
+    mean |x_hat - x_hat_f32| under 0.01 of the float32 device wire's
+    (``crc["device_enc"]``), its img/s and idle; the eval forward card
+    against CPU end to end and layer by layer (phase 8's
+    ``eval_vs_cpu_phase``); 3 bfloat16 training steps (``bf16_train_phase``,
+    both layers' rates), each launching CRC_STEP in the bfloat16 builds.
+    -> results, with the launches by shape of each path under "shapes"."""
+    import torch
+
+    from icm_tpu_torch.models.crc_codec import CRCCodec
+    from icm_tpu_torch.nn import set_activation_dtype
+    from icm_tpu_torch.train import RateDistortionLoss
+
+    model = crc["model"]
+    model.load_state_dict(init_state)
+    zero_counts, read_counts = launch_counts("bfloat16")
+    size, c = x.shape[1], model.coder
+    expect = {"compress": crc_expect(name, "compress", "bfloat16", rans_encode=4),
+              "decompress": crc_expect(name, "decompress", "bfloat16",
+                                       rans_decode=c.ctx_slices + 3)}
+    set_activation_dtype(torch.bfloat16)
+    try:
+        dev = CRCCodec(model, narrow=0.2, wire="device")
+        enc, _, l, sh, syncs = crc_roundtrip(dev, x, zero_counts, read_counts,
+                                             f"{name} bf16 device wire", expect)
+        timing = crc_timing(dev, x, enc, reps=CRC_REPS)
+    finally:
+        set_activation_dtype(None)
+    f32 = crc["device_enc"]
+    bpp_rel = [b16 / b32 - 1 for b16, b32 in zip(crc_bytes(enc, size)["bpp"],
+                                                  crc_bytes(f32, size)["bpp"])]
+    x_hat_mean = (enc["x_hat"].float() - f32["x_hat"].float()).abs().mean().item()
+    log(f"  {name} bf16 device wire against f32: bpp {[f'{r:+.2e}' for r in bpp_rel]} (bar "
+        f"{BF16_BPP_RTOL}), mean |x_hat - x_hat_f32| {x_hat_mean:.3e} (bar {BF16_XHAT_MEAN_TOL}); "
+        f"img/s " + " / ".join(f"{v['img_per_s']:.2f} idle {v['device_idle_share']:.3f}"
+                               for v in timing.values()) + f" ({card})")
+    if max(abs(r) for r in bpp_rel) > BF16_BPP_RTOL or not x_hat_mean < BF16_XHAT_MEAN_TOL:
+        raise AssertionError(f"{name} bf16 serving strays from f32: {bpp_rel}, {x_hat_mean}")
+    out = {"device_wire": {**crc_bytes(enc, size), "launches": l, "launches_by_shape": sh,
+                           "host_round_trips_in_decompress": syncs, **timing,
+                           "against_f32": dict(bpp_rel=bpp_rel, x_hat_mean_abs=x_hat_mean,
+                                               bpp_rtol=BF16_BPP_RTOL,
+                                               x_hat_mean_tol=BF16_XHAT_MEAN_TOL)}}
+    out["card_vs_cpu"] = eval_vs_cpu_phase(name, model, seed, cpu_model=cpu_twin(name, model))
+    gc.collect()
+    criterion = RateDistortionLoss(0.01, likelihood_keys=CRC_LIKELIHOODS)
+    out["train"] = bf16_train_phase(model, init_state, seed, card, CRC_STEP[name], f32_train,
+                                    criterion=criterion, fixed=("g_s1.", "g_s2."))
+    want = crc_step_shapes(name, "bfloat16")
+    if out["train"]["launches_by_shape_per_step"] != want:
+        raise AssertionError(f"{name} bf16 step: launches by shape "
+                             f"{out['train']['launches_by_shape_per_step']}, expected {want}")
+    out["shapes"] = {"launches_bf16_device_wire_compress": sh["compress"],
+                     "launches_bf16_device_wire_decompress": sh["decompress"],
+                     "launches_bf16_train_step": out["train"]["launches_by_shape_per_step"]}
+    return out
 
 
 def crc_train_phase(model, name: str, seed: int, card: str) -> dict:
-    """Phase 29: ``run_training`` of a CRC model on the card, its
-    RateDistortionLoss over both layers' likelihoods (the JAX model's
+    """Phases 29, 31 and 33: ``run_training`` of a CRC model on the card,
+    its RateDistortionLoss over both layers' likelihoods (the JAX model's
     docstring for training from scratch): 3 steps of 8 x 256^2, each
     finite, each launching CRC_STEP, every parameter moved but the split
     decoder's (machine_x_hat enters no loss term); then one step on the
@@ -2300,26 +2424,31 @@ def crc_train_phase(model, name: str, seed: int, card: str) -> dict:
     from icm_tpu_torch.train import RateDistortionLoss
 
     criterion = RateDistortionLoss(0.01, likelihood_keys=CRC_LIKELIHOODS)
-    out = train_phase(model, seed, card, CRC_STEP, steps=3, resumed_steps=0,
+    out = train_phase(model, seed, card, CRC_STEP[name], steps=3, resumed_steps=0,
                       criterion=criterion, fixed=("g_s1.", "g_s2."))
-    if out["launches_by_shape_per_step"] != CRC_STEP_SHAPES:
+    want = crc_step_shapes(name)
+    if out["launches_by_shape_per_step"] != want:
         raise AssertionError(f"{name} step: launches by shape {out['launches_by_shape_per_step']}"
-                             f", expected {CRC_STEP_SHAPES}")
+                             f", expected {want}")
     out["card_vs_cpu"] = train_vs_cpu_phase(name, model, seed, criterion=criterion)
     return out
 
 
-def reference_crc_state_dict(seed: int, N: int = 192, M: int = 384, mid: int = 256,
-                             enc=(384, 336, 288, 240, 192), dec=(240, 288, 336, 384, 384),
-                             cc=(224, 176, 128, 64), K: int = 12) -> dict:
-    """A reference stf9 state dict at full width: the reference's module
-    names (stf9.py: ``g_a``, the inline coder's ``h_a``, ``h_mean_s``,
-    ``cc_*_transforms2`` and the ``lrp_transforms2`` its forward discards,
-    ``g_s1``, ``g_s2``, ``human_g_s2``, ``human_g_a``, ``human_g_s``, the
-    ``human_h_*`` hyperprior, ``human_context_decoder``, both bottlenecks)
-    and shapes (the published widths by default), DataParallel's ``module.``
-    prefix, values drawn from ``seed`` as ``reference_wacnn_state_dict``
-    draws them."""
+def reference_crc_state_dict(seed: int, name: str = "stf9", N: int = 192, M: int = 384,
+                             mid: int = 256, enc=(384, 336, 288, 240, 192),
+                             dec=(240, 288, 336, 384, 384), cc=(224, 176, 128, 64),
+                             K: int = 12) -> dict:
+    """A reference stf9 or stf12 state dict at full width: the reference's
+    module names (stf9.py, stf12.py: ``g_a``, the inline coder's ``h_a``,
+    ``h_mean_s``, ``cc_*_transforms2`` and the ``lrp_transforms2`` its
+    forward discards, ``g_s1``, ``g_s2``, the ``human_h_*`` hyperprior,
+    both bottlenecks; stf9's ``human_g_s2``, ``human_g_a``, ``human_g_s``
+    and ``human_context_decoder``; stf12's ``human_g_enc2``,
+    ``human_g_enc3``, ``human_context_decoder`` (3 convs), ``human_g_a1``,
+    ``human_g_a2``, ``human_g_s1``, ``human_g_s2`` and
+    ``human_context_decoder2``) and shapes (the published widths by
+    default), DataParallel's ``module.`` prefix, values drawn from
+    ``seed`` as ``reference_wacnn_state_dict`` draws them."""
     import torch
 
     S = Wc = 24  # 6 x 2x2 zigzag slices, all of them in the conditioning window
@@ -2348,7 +2477,9 @@ def reference_crc_state_dict(seed: int, N: int = 192, M: int = 384, mid: int = 2
             ref.conv(f"{tag}.{i}.8", sc, cc[-1], 3)
     ref.bottleneck("entropy_bottleneck", enc[-1])
     ref.bottleneck("entropy_bottleneck_human", enc[-1])
-    for prefix, part in (("g_s1", 1), ("g_s2", 2), ("human_g_s2", None)):
+    decoders = (("g_s1", 1), ("g_s2", 2),
+                ("human_g_enc2" if name == "stf12" else "human_g_s2", None))
+    for prefix, part in decoders:
         if part != 2:
             ref.win(f"{prefix}.0", M, 4)
             ref.conv(f"{prefix}.1", N, M, 5, transposed=True)
@@ -2361,17 +2492,42 @@ def reference_crc_state_dict(seed: int, N: int = 192, M: int = 384, mid: int = 2
             ref.conv(f"{prefix}.{o}", N, mid, 5, transposed=True)
             ref.gdn(f"{prefix}.{o + 1}", N)
             ref.conv(f"{prefix}.{o + 2}", 3, N, 5, transposed=True)
-    for j, (i, o) in enumerate(zip((6, N, N, N), (N, N, N, M))):
-        ref.conv(f"human_g_a.{2 * j}", o, i, 5)
-    for j, (i, o) in enumerate(zip((2 * M, N, N, N), (N, N, N, 3))):
-        ref.conv(f"human_g_s.{2 * j}", o, i, 5, transposed=True)
-    for j in range(5):
-        ref.conv(f"human_context_decoder.{2 * j}", M, M, 3)
+    if name == "stf12":
+        ref.win("human_g_enc3.0", M, 4)
+        ref.conv("human_g_enc3.1", N, M, 3, transposed=True)
+        ref.gdn("human_g_enc3.2", N)
+        ref.conv("human_g_enc3.3", N, N, 3, transposed=True)
+        for j in range(3):
+            ref.conv(f"human_context_decoder.{2 * j}", M, M, 3)
+        ref.conv("human_g_a1.0", N, 6, 3)
+        ref.conv("human_g_a1.2", N, N, 3)
+        ref.conv("human_g_a2.0", N, 2 * N, 5)
+        ref.conv("human_g_a2.2", M, N, 5)
+        ref.win("human_g_a2.4", M, 4)
+        ref.win("human_g_s1.0", 2 * M, 4)
+        ref.conv("human_g_s1.2", N, 2 * M, 3, transposed=True)
+        ref.conv("human_g_s1.4", N, N, 3, transposed=True)
+        ref.conv("human_g_s2.0", N, 2 * N, 3, transposed=True)
+        ref.conv("human_g_s2.2", N, N, 3)
+        ref.conv("human_g_s2.4", 3, N, 3, transposed=True)
+        ref.conv("human_context_decoder2.0", M, M, 3)
+        ref.conv("human_context_decoder2.2", M, M, 3)
+        ref.conv("human_context_decoder2.4.0", 4 * N, M, 3)
+        ref.conv("human_context_decoder2.6.0", 4 * N, N, 3)
+    else:
+        for j, (i, o) in enumerate(zip((6, N, N, N), (N, N, N, M))):
+            ref.conv(f"human_g_a.{2 * j}", o, i, 5)
+        for j, (i, o) in enumerate(zip((2 * M, N, N, N), (N, N, N, 3))):
+            ref.conv(f"human_g_s.{2 * j}", o, i, 5, transposed=True)
+        for j in range(5):
+            ref.conv(f"human_context_decoder.{2 * j}", M, M, 3)
     return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
 
 
-def crc_reference_phase(model, x, card: str, zero_counts, read_counts, seed: int) -> dict:
-    """Phase 30: a reference stf9 checkpoint at full width, as phase 18:
+def crc_reference_phase(model, name: str, x, card: str, zero_counts, read_counts,
+                        seed: int) -> dict:
+    """Phases 30 and 35: a reference stf9 (stf12) checkpoint at full width,
+    as phase 18:
     the seeded reference dict converted (``zoo.convert_reference_state_dict``)
     and loaded strictly into ``model``; the converted model's own CDF tables
     (both bottlenecks and the Gaussian) written into it as the reference's
@@ -2386,8 +2542,8 @@ def crc_reference_phase(model, x, card: str, zero_counts, read_counts, seed: int
     from icm_tpu_torch.models.crc_codec import CRCCodec
 
     t = time.time()
-    sd = reference_crc_state_dict(seed)
-    model.load_state_dict(zoo.convert_reference_state_dict("stf9", sd), strict=True)
+    sd = reference_crc_state_dict(seed, name)
+    model.load_state_dict(zoo.convert_reference_state_dict(name, sd), strict=True)
     built = build_codec_tables(model)
     stored = {"gaussian_conditional": built.gaussian, **built.bottlenecks}
     for prefix, tab in stored.items():
@@ -2405,9 +2561,9 @@ def crc_reference_phase(model, x, card: str, zero_counts, read_counts, seed: int
     log(f"  {len(sd)} reference tensors converted, loaded strictly and tables imported in "
         f"{time.time() - t:.1f}s")
     codec = CRCCodec(model, tables=imported, ref_layout=True, narrow=0.2)
-    expect = {side: crc_expect("stf9", side) for side in ("compress", "decompress")}
+    expect = {side: crc_expect(name, side) for side in ("compress", "decompress")}
     enc, _, l, shapes, _ = crc_roundtrip(codec, x, zero_counts, read_counts,
-                                         "stf9 reference, host wire", expect)
+                                         f"{name} reference, host wire", expect)
     built_enc = CRCCodec(model, ref_layout=True, narrow=0.2).compress(x)
     if built_enc["strings"] != enc["strings"]:
         raise AssertionError("imported tables' blobs differ from the built tables' ones")
@@ -2703,27 +2859,51 @@ def main() -> int:
         with Phase(f"full-width {name}: host, device and scan wires, card vs CPU"):
             crc = crc_phase(name, x, card, zero_counts, read_counts, args.seed)
         result = slice_result[name] = crc["result"]
-        paths["float32"][name] = crc["counts"]
-        crc_shapes[name] = {
+        counts = paths["float32"][name] = crc["counts"]
+        shapes = crc_shapes[name] = {
             f"launches{'' if w == 'host_wire' else '_' + w}_{side}":
                 result[w]["launches_by_shape"][side]
             for w in ("host_wire", "device_wire", "scan_wire") for side in ("compress", "decompress")}
-        if name == "stf9":
-            with Phase("full-width stf9 training, card vs CPU"):
-                result["train"] = crc_train_phase(crc["model"], name, args.seed, card)
-            paths["float32"][name]["launches_train_step"] = result["train"]["launches_per_step"]
-            crc_shapes[name]["launches_train_step"] = result["train"][
-                "launches_by_shape_per_step"]
-            with Phase("reference checkpoint: full-width stf9, imported tables, reference order"):
-                result["reference"] = crc_reference_phase(crc["model"], x, card, zero_counts,
-                                                          read_counts, args.seed)
+        init_state = None
+        if name == CRC_BF16:  # the weights the float32 phases serve and train from
+            init_state = {k: v.detach().clone() for k, v in crc["model"].state_dict().items()}
+        with Phase(f"full-width {name} training, card vs CPU"):
+            result["train"] = crc_train_phase(crc["model"], name, args.seed, card)
+        counts["launches_train_step"] = result["train"]["launches_per_step"]
+        shapes["launches_train_step"] = result["train"]["launches_by_shape_per_step"]
+        if init_state is not None:
+            with Phase(f"full-width {name} under the bf16 policy: device wire, card vs CPU "
+                       "layer by layer, training"):
+                result["bf16"] = crc_bf16_phase(name, crc, x, card, init_state, result["train"],
+                                                args.seed)
+            shapes.update(result["bf16"].pop("shapes"))
+            del init_state
+        if name in ("stf9", "stf12"):
+            with Phase(f"reference checkpoint: full-width {name}, imported tables, reference "
+                       "order"):
+                result["reference"] = crc_reference_phase(crc["model"], name, x, card,
+                                                          zero_counts, read_counts, args.seed)
             for side in ("compress", "decompress"):
                 key = f"launches_reference_{side}"
-                paths["float32"][name][key] = result["reference"][key]
-                crc_shapes[name][key] = result["reference"][f"shapes_reference_{side}"]
+                counts[key] = result["reference"][key]
+                shapes[key] = result["reference"][f"shapes_reference_{side}"]
         del crc
         gc.collect()  # the model, its codecs and their graphs, before the next model
         torch.cuda.empty_cache()
+
+    def crc_launches(group: str, key: str) -> dict:
+        """A kernel build's launches on every CRC path, by shape key."""
+        per = {f"{path}_{m}": shapes[group].get(key, 0)
+               for m, by_path in crc_shapes.items() for path, shapes in by_path.items()}
+        return {"launches": sum(per.values()), **per}
+
+    def with_crc(launches: dict, group: str, key: str) -> dict:
+        """``launches`` (its own paths' sum kept as ``launches``) with the
+        CRC paths' launches of the same build (``crc_launches``) beside it:
+        each path's under its key with ``_crc`` added, their sum as
+        ``launches_crc``."""
+        crc = crc_launches(group, key)
+        return {**launches, **{f"{k}_crc": v for k, v in crc.items()}}
 
     def family_attention(models, part: str, dtype: str = "float32") -> dict:
         """Window attention's launches (its ``dtype`` build) on the family
@@ -2770,7 +2950,9 @@ def main() -> int:
             "source": "icm_tpu_torch/csrc/window_attention.cu",
             "replaces": "icm_tpu/nn/pallas_kernels.py:33",
             "dtype": dtype,
-            **launch_keys("window_attention", ("cnn",), dtype),
+            # WACNN's path, and the CRC family's g_a (head width 24)
+            **with_crc(launch_keys("window_attention", ("cnn",), dtype), "window_attention",
+                       f"{dtype} D24"),
             "max_abs_err": max(r["max_abs_err"] for r in main),
             "ms": sum(r["ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -2839,34 +3021,32 @@ def main() -> int:
     kernels += [refiner_entry("window_attention_d8", ("stf5", "stf7")),
                 refiner_entry("window_attention_d16_refiners", ("stf6", "stf8"))]
 
-    def crc_launches(group: str, key: str) -> dict:
-        """A kernel build's launches on every CRC path, by shape key."""
-        per = {f"{path}_{m}": shapes[group].get(key, 0)
-               for m, by_path in crc_shapes.items() for path, shapes in by_path.items()}
-        return {"launches": sum(per.values()), **per}
-
-    # the CRC family's head widths 32 and 48, float32 (their bfloat16 rows,
-    # on no path yet, under "cases"); one launch at the path's shape
-    for D, (W, N) in CRC_ATTENTION_SHAPES.items():
-        main = [r for r in rows if r["model"] == "crc" and r["D"] == D and r["W"] == W
-                and r["n_cls"] == 4 and r["dtype"] == "float32"]
-        kernels.append({
-            "name": f"window_attention_d{D}",
-            "route": "cuda",
-            "source": "icm_tpu_torch/csrc/window_attention.cu",
-            "replaces": "icm_tpu/nn/pallas_kernels.py:33",
-            "dtype": "float32",
-            **crc_launches("window_attention", f"float32 D{D}"),
-            "per": f"one launch at W={W}, H=8, N={N}, D={D}, 4 window classes (2 x 512^2 "
-                   "serving, 8 x 256^2 training)",
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["model"] == "crc" and r["D"] == D and r["dtype"] == "float32"),
-            **{key: main[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "f32_fma_bound_ms", "library_ms")},
-            "bound_unit": "3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67",
-            "tolerance": TOLERANCE["float32"],
-            "cases": [r for r in rows if r["model"] == "crc" and r["D"] == D],
-        })
+    # the CRC family's head widths 32, 48 and 96 in both builds (the
+    # bfloat16 ones on stf12's bfloat16 paths); one launch at the path's
+    # shape
+    for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+        for D, (W, N) in CRC_ATTENTION_SHAPES.items():
+            crc_rows = [r for r in rows if r["model"] == "crc" and r["D"] == D
+                        and r["dtype"] == dtype]
+            main = [r for r in crc_rows if r["W"] == W and r["n_cls"] == 4]
+            kernels.append({
+                "name": f"window_attention_d{D}{suffix}",
+                "route": "cuda",
+                "source": "icm_tpu_torch/csrc/window_attention.cu",
+                "replaces": "icm_tpu/nn/pallas_kernels.py:33",
+                "dtype": dtype,
+                **crc_launches("window_attention", f"{dtype} D{D}"),
+                "per": f"one launch at W={W}, H=8, N={N}, D={D}, 4 window classes (2 x 512^2 "
+                       "serving, 8 x 256^2 training)",
+                "max_abs_err": max(r["max_abs_err"] for r in crc_rows),
+                **{key: main[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "f32_fma_bound_ms", "library_ms")},
+                "bound_unit": ("3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67"
+                               if dtype == "float32" else
+                               "bf16 on the tensor cores (989 TFLOP/s dense), softmax at 67"),
+                "tolerance": TOLERANCE[dtype],
+                "cases": crc_rows,
+            })
     # the GDN layers of one training step: 8 x 192 at 128^2, 64^2, 32^2, GDN
     # and IGDN, one launch each; times summed. The serving and ragged rows
     # are in "cases", and every row's errors are under the tolerances
@@ -2883,7 +3063,8 @@ def main() -> int:
                 "source": "icm_tpu_torch/csrc/gdn.cu",
                 "replaces": f"icm_tpu/nn/gdn_pallas.py:{line}",
                 "dtype": dtype,
-                **launch_keys(name, dtype=dtype),
+                # cnn's path, and the CRC family's 192-channel layers
+                **with_crc(launch_keys(name, dtype=dtype), "gdn", f"{part} {dtype} C192"),
                 "max_abs_err": max(r["max_abs_err"][err_key] for r in gdn_rows_d
                                    if r["path"] in ("train", "serve")),
                 "max_err": max(r["err"][err_key] for r in gdn_rows_d
@@ -2909,7 +3090,8 @@ def main() -> int:
     # two-block cluster: gdn_fwd_kernel_cluster, gdn_bwd_kernel_dx_cluster
     # beside the backward's dgamma and reduce kernels): the forward at the
     # serving shape, the backward at the training step's, split into its
-    # kernels; the bfloat16 builds, on no path yet, at the same shapes
+    # kernels; the bfloat16 builds (stf12's bfloat16 paths) at the same
+    # shapes
     for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
         rows_256 = [r for r in gdn_rows if r["C"] == 256 and r["dtype"] == dtype]
         for name, part, err_key, line, path, kernel in (

@@ -28,7 +28,10 @@
 // (stf9, stf11, stf14) adds D 32 at N 64 (MainCNNDecoder's 256-channel
 // block: 512 windows x 8 heads at 2 x 512 px) and D 48 at N 16 (its
 // 384-channel blocks, 128 x 8): 134 and 12.6 MB of q, k, v, out in f32,
-// byte bounds of 40 and 3.8 us.
+// byte bounds of 40 and 3.8 us. stf12's decoder head attends over 768
+// channels at 8 heads, D 96 at N 16 (128 x 8 window-heads at 2 x 512 px,
+// and at the 8 x 256 px training batch): 25.2 MB in f32 (7.5 us) and 12.6
+// MB in bf16 (3.8 us).
 //
 // What the design does about it:
 // - The products run on the tensor cores with mma.sync, several query rows
@@ -41,8 +44,13 @@
 // - f32 inputs use 3xTF32: each operand x is split into hi = tf32(x) and
 //   lo = tf32(x - hi), and the product accumulates lo*hi + hi*lo + hi*hi
 //   (lo*lo, about 2^-22 of the product, is dropped). The m16n8k8 TF32 shape
-//   takes the head width (8, 16, 24, 32, 40, 48) as it is: D/8 k-steps in
-//   q k^T, D/8 output tiles in the PV product (one of each at D = 8). In
+//   takes the head width (8, 16, 24, 32, 40, 48, 96) as it is: D/8 k-steps
+//   in q k^T, D/8 output tiles in the PV product (one of each at D = 8). Up
+//   to D 48 a warp holds q's split for every k-step (D/2 registers) and
+//   takes all output tiles of a key step at once; at D 96 that would be 96
+//   registers of q and 144 of v's split, the partial sums and the output,
+//   so q is split again from shared memory at each k-step and the output
+//   tiles go four at a time (ptxas: no spill at any N). In
 //   the PV product the keys of each 8-key step are taken in the order 0,
 //   2, 4, 6, 1, 3, 5, 7, so the score fragment (columns 2t, 2t+1 in lane t
 //   of a quad) is the A fragment as it stands (columns t, t+4); v's rows
@@ -54,7 +62,7 @@
 // - bf16 inputs use m16n8k16 bf16 with f32 accumulation. q * scale and the
 //   probabilities are rounded to bf16 before their products, as in the
 //   Pallas kernel. The head width is padded to the k16 step with zeros in
-//   shared memory (8 -> 16, 24 -> 32, 40 -> 48; 16, 32 and 48 need none):
+//   shared memory (8 -> 16, 24 -> 32, 40 -> 48; 16, 32, 48, 96 need none):
 //   the padded columns of q and k are zeroed before the copies and never
 //   written by them, so they add exact zeros to q k^T; v's are never read,
 //   since the PV product takes D / 8 output tiles of the real columns only.
@@ -72,14 +80,14 @@
 //   N + 8 floats for the bias) so that the fragment reads of a warp hit
 //   distinct banks. f32: lane (g, t) reads word g*LD + t of q or k, and
 //   LD = 12, 20, 28, 36, 44, 52 (D = 8, 16, 24, 32, 40, 48) is 4 times an
-//   odd number, so g*LD mod 32 takes the eight multiples of 4 and t fills
-//   the gaps; it reads v at word 2t*LD + g, and 2*LD mod 32 = 24, 8, 24,
-//   8, 24, 8 puts the four t eight banks apart. bf16 (D = 8 laid out as
-//   16): a q or k pair is word g*LD/2 + t, LD/2 = 12, 20, 28 (D 8 and 16,
-//   24 and 32, 40 and 48; 4 times an odd number again); v's values are
-//   words t*LD + g/2, two lanes to a word, and t*LD mod 32 (LD = 24, 40,
-//   56) takes four distinct multiples of 8, so the quads' four words each
-//   land eight banks apart.
+//   odd number (D 96: LD = 100 = 4 x 25), so g*LD mod 32 takes the eight
+//   multiples of 4 and t fills the gaps; it reads v at word 2t*LD + g, and
+//   2*LD mod 32 = 24, 8, 24, 8, 24, 8, 8 puts the four t eight banks apart.
+//   bf16 (D = 8 laid out as 16): a q or k pair is word g*LD/2 + t, LD/2 =
+//   12, 20, 28, 52 (D 8 and 16, 24 and 32, 40 and 48, 96; 4 times an odd
+//   number again); v's values are words t*LD + g/2, two lanes to a word,
+//   and t*LD mod 32 (LD = 24, 40, 56, 104) takes four distinct multiples of
+//   8, so the quads' four words each land eight banks apart.
 // - A score more than 87 below its row's max (a masked key) takes
 //   probability 0 rather than a subnormal exp, and the row is normalised by
 //   one reciprocal: expf and division of subnormals take slow paths, which
@@ -88,7 +96,8 @@
 // Contract: any W with no padding by the caller; N from 1 to 128 (partial
 // tiles masked: keys past N score -inf, rows past N are not written); D 8
 // (the stf5 and stf7 refiners), 16 (stf, the stf6 and stf8 refiners), 24
-// and 40 (WACNN), 32 and 48 (the CRC family's MainCNN transforms); NaN
+// and 40 (WACNN), 32 and 48 (the CRC family's MainCNN transforms), 96
+// (stf12's decoder head); NaN
 // output for a window whose class is out of range; no atomics, every
 // output element has one writer, so the bits are the same run to run
 // (the decoder's x_hat must equal the encoder's).
@@ -284,16 +293,23 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float s[NTM][4] = {};  // scores, from zero; the bias is added after q k^T
     if constexpr (sizeof(T) == 4) {
-      // q * scale as the A fragments of the D / 8 k-steps, split for 3xTF32
+      // q * scale as the A fragments of the D / 8 k-steps, split for
+      // 3xTF32: held in registers for all k-steps up to D 48; at D 96
+      // (12 k-steps, 96 registers) each k-step's is split again from
+      // shared memory where it is used (QKS: the k-steps held)
       constexpr int KS = D / 8;
-      uint32_t qh[KS][4], ql[KS][4];
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
+      constexpr int QKS = D <= 48 ? KS : 1;
+      uint32_t qh[QKS][4], ql[QKS][4];
+      auto q_split = [&](int kk, uint32_t h[4], uint32_t l[4]) {
         const int c0 = kk * 8 + t;
-        split_tf32(qa[r0 * LD + c0] * scale, qh[kk][0], ql[kk][0]);
-        split_tf32(qa[r1 * LD + c0] * scale, qh[kk][1], ql[kk][1]);
-        split_tf32(qa[r0 * LD + c0 + 4] * scale, qh[kk][2], ql[kk][2]);
-        split_tf32(qa[r1 * LD + c0 + 4] * scale, qh[kk][3], ql[kk][3]);
+        split_tf32(qa[r0 * LD + c0] * scale, h[0], l[0]);
+        split_tf32(qa[r1 * LD + c0] * scale, h[1], l[1]);
+        split_tf32(qa[r0 * LD + c0 + 4] * scale, h[2], l[2]);
+        split_tf32(qa[r1 * LD + c0 + 4] * scale, h[3], l[3]);
+      };
+      if constexpr (QKS == KS) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) q_split(kk, qh[kk], ql[kk]);
       }
       // key tiles in groups of four, each k-step as three passes over the
       // group, so that every mma has independent neighbours
@@ -303,6 +319,8 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (n0 < NT) {
 #pragma unroll
           for (int kk = 0; kk < KS; ++kk) {
+            const int qk = QKS == KS ? kk : 0;
+            if constexpr (QKS != KS) q_split(kk, qh[0], ql[0]);
             uint32_t bh[NG][2], bl[NG][2];
 #pragma unroll
             for (int u = 0; u < NG; ++u) {
@@ -311,11 +329,11 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
               split_tf32(krow[4], bh[u][1], bl[u][1]);
             }
 #pragma unroll
-            for (int u = 0; u < NG; ++u) mma_tf32(s[n0 + u], ql[kk], bh[u]);
+            for (int u = 0; u < NG; ++u) mma_tf32(s[n0 + u], ql[qk], bh[u]);
 #pragma unroll
-            for (int u = 0; u < NG; ++u) mma_tf32(s[n0 + u], qh[kk], bl[u]);
+            for (int u = 0; u < NG; ++u) mma_tf32(s[n0 + u], qh[qk], bl[u]);
 #pragma unroll
-            for (int u = 0; u < NG; ++u) mma_tf32(s[n0 + u], qh[kk], bh[u]);
+            for (int u = 0; u < NG; ++u) mma_tf32(s[n0 + u], qh[qk], bh[u]);
           }
         }
       }
@@ -410,6 +428,8 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // out = P v, D / 8 output tiles
     constexpr int DT = D / 8;
+    constexpr int DG = D <= 48 ? DT : 4;  // f32: output tiles a group (DT % DG == 0)
+    static_assert(DT % DG == 0, "output tiles split into whole groups");
     float o[DT][4];
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
@@ -424,25 +444,31 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           split_tf32(s[kk][1], ah[2], al[2]);
           split_tf32(s[kk][3], ah[3], al[3]);
           const T* v0 = va + (size_t)(kk * 8 + 2 * t) * LD + g;
-          uint32_t bh[DT][2], bl[DT][2];
+          // output tiles in groups of DG (all of them up to D 48; at D 96
+          // four at a time, so that v's split and the partial sums of a
+          // group, not of all twelve tiles, are live at once)
 #pragma unroll
-          for (int dt = 0; dt < DT; ++dt) {
-            split_tf32(v0[dt * 8], bh[dt][0], bl[dt][0]);
-            split_tf32(v0[LD + dt * 8], bh[dt][1], bl[dt][1]);
+          for (int d0 = 0; d0 < DT; d0 += DG) {
+            uint32_t bh[DG][2], bl[DG][2];
+#pragma unroll
+            for (int u = 0; u < DG; ++u) {
+              split_tf32(v0[(d0 + u) * 8], bh[u][0], bl[u][0]);
+              split_tf32(v0[LD + (d0 + u) * 8], bh[u][1], bl[u][1]);
+            }
+            // this key tile's share from zero, added to o in f32: the
+            // tensor cores' own additions do not round to nearest
+            float part[DG][4] = {};
+#pragma unroll
+            for (int u = 0; u < DG; ++u) mma_tf32(part[u], al, bh[u]);
+#pragma unroll
+            for (int u = 0; u < DG; ++u) mma_tf32(part[u], ah, bl[u]);
+#pragma unroll
+            for (int u = 0; u < DG; ++u) mma_tf32(part[u], ah, bh[u]);
+#pragma unroll
+            for (int u = 0; u < DG; ++u)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) o[d0 + u][e] += part[u][e];
           }
-          // this key tile's share from zero, added to o in f32: the
-          // tensor cores' own additions do not round to nearest
-          float part[DT][4] = {};
-#pragma unroll
-          for (int dt = 0; dt < DT; ++dt) mma_tf32(part[dt], al, bh[dt]);
-#pragma unroll
-          for (int dt = 0; dt < DT; ++dt) mma_tf32(part[dt], ah, bl[dt]);
-#pragma unroll
-          for (int dt = 0; dt < DT; ++dt) mma_tf32(part[dt], ah, bh[dt]);
-#pragma unroll
-          for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[dt][e] += part[dt][e];
         }
       }
     } else {
@@ -532,7 +558,8 @@ int dispatch(int D, const void* q, const void* k, const void* v,
   case DD:       \
     return dispatch_n<T, DD>(q, k, v, bias, cls, out, W, H, N, n_cls, scale, stream);
     // the zigzag family's refiners, stf's, WACNN's, the CRC family's
-    CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48)
+    // (stf12's 768-channel block at 96)
+    CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48) CASE(96)
 #undef CASE
     default:
       return -1;

@@ -22,7 +22,7 @@ from ..nn.layers import WindowAttention
 from .base import CodecTables, CompressionModel
 from .cnn import WACNN
 from .codec import CharmCodec, build_codec_tables, cuda_numerics, enc_round
-from .crc import ConditionalResidualCoding, ResidualCoding
+from .crc import ConditionalResidualCoding, ConditionalResidualCoding2, ResidualCoding
 from .crc_codec import CRCCodec
 from .device_codec import DeviceWireCodec, DeviceWireKit
 from .stf import SymmetricalTransFormer
@@ -38,6 +38,7 @@ models = {
     "stf8": (ZigzagSwinCodec, STF8_CONFIG),
     "stf9": (ConditionalResidualCoding, {}),
     "stf11": (ConditionalResidualCoding, {}),  # the reference's stf11 is stf9
+    "stf12": (ConditionalResidualCoding2, {}),
     "stf14": (ResidualCoding, {}),
 }
 
@@ -113,6 +114,7 @@ __all__ = [
     "ZigzagSwinCodec",
     "CharmCodec",
     "ConditionalResidualCoding",
+    "ConditionalResidualCoding2",
     "CRCCodec",
     "DeviceWireCodec",
     "DeviceWireKit",

@@ -1,8 +1,10 @@
-"""The conditional residual coding family: ``stf9`` / ``stf11`` and ``stf14``.
+"""The conditional residual coding family: ``stf9`` / ``stf11``, ``stf12``
+and ``stf14``.
 
 Port of ``icm_tpu/models/crc.py`` (``ConditionalResidualCoding``,
-``ResidualCoding`` and the modules they are built of; ``stf12`` and
-``stf13`` come later). A layered codec for machines and humans:
+``ConditionalResidualCoding2``, ``ResidualCoding`` and the modules they
+are built of; ``stf13`` comes later). A layered codec for machines and
+humans:
 
 - the machine layer (:class:`_MachineLayer`): ``MainCNNEncoder`` to
   y (M channels at /16), coded by the zigzag ChARM coder
@@ -10,12 +12,23 @@ Port of ``icm_tpu/models/crc.py`` (``ConditionalResidualCoding``,
   support 12, a conditioning window of 24 blocks, 5-conv context stacks,
   LRP not applied), decoded by the split decoder ``g_s1``, ``g_s2`` to
   ``machine_x_hat``;
-- the human layer: the decoder side's conditioning image
-  ``human_g_s2(y_hat)`` (a whole ``MainCNNDecoder``), an encoder of
-  ``cat(x, cond)`` (stf9) or of the residual ``cond - x`` (stf14) to a
-  second latent, coded one-shot by its own hyperprior
-  (:class:`_SimpleHyper`), and a decoder: of ``cat(human_y_hat,
-  context(y_hat))`` (stf9), or ``cond - human_g_s(human_y_hat)`` (stf14).
+- the human layer: a second latent, coded one-shot by its own hyperprior
+  (:class:`_SimpleHyper`), from an encoder and to a decoder that are
+  conditioned on the machine latent y_hat:
+
+  - stf9: the decoder side's conditioning image ``human_g_s2(y_hat)`` (a
+    whole ``MainCNNDecoder``), an encoder of ``cat(x, cond)``, a decoder
+    of ``cat(human_y_hat, context(y_hat))``;
+  - stf14: the same conditioning image, an encoder of the residual
+    ``cond - x``, the decoder ``cond - human_g_s(human_y_hat)``;
+  - stf12 (:class:`ConditionalResidualCoding2`): two conditioning
+    signals, an image (``human_g_enc2``, ``context_scale1``) and N
+    channels at a quarter of its scale (``human_g_enc3``,
+    ``context_scale2``); a two-stage residual encoder (``x - image``,
+    then its first stage's output less the quarter-scale signal) and a
+    two-stage decoder that adds them back, each stage fed a context of
+    y_hat. Its decoder head attends over 2M = 768 channels at 8 heads:
+    window attention at head width 96.
 
 The output dict is the JAX package's: ``x_hat`` and ``decompressedImage``
 (the human reconstruction), ``machine_x_hat``, ``likelihoods`` (the human
@@ -23,7 +36,17 @@ layer's y and z) and ``machine_likelihoods``, NHWC. To train from scratch
 take both: ``RateDistortionLoss(likelihood_keys=("likelihoods",
 "machine_likelihoods"))``. stf14's training forward adds the encoder's
 residual back, as the reference's does; its decodable reconstruction is
-:meth:`ResidualCoding.human_synthesize`, ``cond - r_hat``.
+:meth:`ResidualCoding.human_synthesize`, ``cond - r_hat``. stf12's
+training forward computes its two conditioning signals once for the
+encoder and the decoder (JAX's traces them twice, the same values).
+
+JAX's ``scan_charm=True`` models run the machine coder's AR loop as one
+``lax.scan`` over stacked, zero-padded context weights (``code_scan``),
+which computes the unrolled loop's function up to the order of the sums.
+The port has the one forward for both (``ZigzagCharmCoder``'s module
+docstring); a JAX tree of such a model carries the coder's context as a
+``zz_scan`` subtree, which ``convert.from_jax_params(tree, model=...)``
+unstacks.
 
 The stages the coders call (``crc_codec.CRCCodec``): ``machine_analyze``,
 the machine coder's protocol, ``machine_synthesize``, ``human_encode``,
@@ -41,9 +64,11 @@ import torch
 from torch import nn
 
 from ..entropy import EntropyBottleneck, GaussianConditional
-from ..nn import conv, deconv, named_sequential
+from ..nn import SubpelConv, Win_noShift_Attention, conv, deconv, named_sequential
 from ..nn.factories import (
     Gelu,
+    context_scale1,
+    context_scale2,
     hyper_encoder,
     hyper_mean,
     main_cnn_decoder,
@@ -111,6 +136,46 @@ class _SimpleHyper(nn.Module):
         return y_hat, {"y": nchw_to_nhwc(y_lik), "z": nchw_to_nhwc(z_lik)}
 
 
+def _stride_conv_pair(in_ch: int, N: int) -> nn.Sequential:
+    """``_StrideConvPair`` (stf12's ``human_g_a1``): two stride-2 3x3 convs,
+    GELU between."""
+    return named_sequential(conv(in_ch, N, 3, 2), Gelu(), conv(N, N, 3, 2))
+
+
+def _enc_tail(in_ch: int, N: int, M: int) -> nn.Sequential:
+    """``_EncTail`` with its attention (stf12's ``human_g_a2``): stride-2
+    5x5 convs to N and M, GELU after each, window attention (window 4,
+    shift 2) over M."""
+    return named_sequential(
+        conv(in_ch, N, 5, 2), Gelu(), conv(N, M, 5, 2), Gelu(),
+        Win_noShift_Attention(M, num_heads=8, window_size=4, shift_size=2))
+
+
+def _dec_head(N: int, M: int) -> nn.Sequential:
+    """``_DecHead`` (stf12's ``human_g_s1``): window attention over 2M
+    channels at 8 heads (head width 2M / 8, 96 at M = 384), then stride-2
+    3x3 deconvs to N, GELU after each but the last."""
+    return named_sequential(
+        Win_noShift_Attention(2 * M, num_heads=8, window_size=4, shift_size=2), Gelu(),
+        deconv(2 * M, N, 3, 2), Gelu(), deconv(N, N, 3, 2))
+
+
+def _dec_tail(in_ch: int, N: int, out_ch: int = 3) -> nn.Sequential:
+    """``_DecTail`` (stf12's ``human_g_s2``): 3x3 deconv, conv, deconv to
+    the image, GELU between."""
+    return named_sequential(deconv(in_ch, N, 3, 2), Gelu(), conv(N, N, 3, 1), Gelu(),
+                            deconv(N, out_ch, 3, 2))
+
+
+def _subpel_context(N: int, M: int) -> nn.Sequential:
+    """``_SubpelContext`` (stf12's ``human_context_decoder2``): two 3x3
+    convs at M, then two sub-pixel x2 convs to N, GELU between: y_hat's
+    context at a quarter of the image's scale."""
+    return named_sequential(
+        conv(M, M, 3, 1), Gelu(), conv(M, M, 3, 1), Gelu(),
+        SubpelConv(M, N, r=2), Gelu(), SubpelConv(N, N, r=2))
+
+
 class _MachineLayer(nn.Module):
     """``MainCNNEncoder`` and the zigzag ChARM coder of its latent."""
 
@@ -129,7 +194,9 @@ class _MachineLayer(nn.Module):
 
 
 class ConditionalResidualCoding(CompressionModel):
-    """stf9 / stf11 (registry "stf9", "stf11")."""
+    """stf9 / stf11 (registry "stf9", "stf11"), and the base of stf12's and
+    stf14's classes: the machine layer, the split decoder, and the human
+    layer that :meth:`_human_layer` builds."""
 
     residual = False  # stf14: the human layer codes cond - x
 
@@ -153,10 +220,14 @@ class ConditionalResidualCoding(CompressionModel):
                                      tuple(cc_widths))
         self.g_s1 = main_cnn_decoder_part1(N, M, mid)
         self.g_s2 = main_cnn_decoder_part2(N, mid)
+        self._human_layer(N, M, mid, tuple(hyper_enc_widths), tuple(hyper_dec_widths))
+
+    def _human_layer(self, N, M, mid, hyper_enc_widths, hyper_dec_widths) -> None:
+        """The human layer's modules, in the JAX model's order."""
         self.human_g_s2 = main_cnn_decoder(N, M, mid)  # the decoder side's conditioning
         self.human_g_a = _human_encoder(3 if self.residual else 6, N, M)
         self.human_g_s = _human_decoder(M if self.residual else 2 * M, N)
-        self.human_hyper = _SimpleHyper(M, tuple(hyper_enc_widths), tuple(hyper_dec_widths))
+        self.human_hyper = _SimpleHyper(M, hyper_enc_widths, hyper_dec_widths)
         if not self.residual:
             self.human_context_decoder = _conv_stack(M, M, 5)
 
@@ -170,14 +241,9 @@ class ConditionalResidualCoding(CompressionModel):
         x = nhwc_to_nchw(x)
         y_hat, m_lik = self.machine.encode_code(x, generator)
         machine_x_hat = self.machine_synthesize(y_hat)
-        human_y, residual = self._human_latent(x, y_hat)
+        human_y, cond = self._human_latent(x, y_hat)
         human_y_hat, h_lik = self.human_hyper.code(human_y, generator)
-        if self.residual:
-            # the reference's training formula adds the encoder's residual back
-            x_hat = self.human_g_s(human_y_hat) + residual
-        else:
-            x_hat = self.human_synthesize(human_y_hat, y_hat)
-        x_hat = nchw_to_nhwc(x_hat)
+        x_hat = nchw_to_nhwc(self._train_reconstruction(human_y_hat, y_hat, cond))
         return {"x_hat": x_hat, "decompressedImage": x_hat,
                 "machine_x_hat": nchw_to_nhwc(machine_x_hat),
                 "likelihoods": h_lik, "machine_likelihoods": m_lik}
@@ -192,12 +258,21 @@ class ConditionalResidualCoding(CompressionModel):
         return self.g_s2(self.g_s1(y_hat))
 
     def _human_latent(self, x, y_hat):
-        """-> (human_y, the residual cond - x, or None for stf9)."""
+        """-> (human_y, what the training forward's reconstruction reuses:
+        the residual cond - x for stf14, None for stf9)."""
         cond = self.human_g_s2(y_hat)
         if self.residual:
             residual = cond - x
             return self.human_g_a(residual), residual
         return self.human_g_a(torch.cat([x, cond], dim=1)), None
+
+    def _train_reconstruction(self, human_y_hat, y_hat, cond):
+        """The training forward's x_hat (NCHW); ``cond``: from
+        :meth:`_human_latent`."""
+        if self.residual:
+            # the reference's training formula adds the encoder's residual back
+            return self.human_g_s(human_y_hat) + cond
+        return self.human_synthesize(human_y_hat, y_hat)
 
     def human_encode(self, x, y_hat):
         """-> (human_y, its hyper-latent hz)."""
@@ -232,3 +307,41 @@ class ResidualCoding(ConditionalResidualCoding):
         reference's training formula adds the encoder's residual, which a
         decoder does not have)."""
         return self.human_g_s2(y_hat) - self.human_g_s(human_y_hat)
+
+
+class ConditionalResidualCoding2(ConditionalResidualCoding):
+    """stf12 (registry "stf12"): a two-stage residual human layer, the
+    module docstring's."""
+
+    def _human_layer(self, N, M, mid, hyper_enc_widths, hyper_dec_widths) -> None:
+        self.human_g_enc2 = context_scale1(N, M, mid)  # the image-scale conditioning
+        self.human_g_enc3 = context_scale2(N, M)  # and the quarter-scale one
+        self.human_hyper = _SimpleHyper(M, hyper_enc_widths, hyper_dec_widths)
+        self.human_context_decoder = _conv_stack(M, M, 3)
+        self.human_g_a1 = _stride_conv_pair(6, N)
+        self.human_g_a2 = _enc_tail(2 * N, N, M)
+        self.human_g_s1 = _dec_head(N, M)
+        self.human_g_s2 = _dec_tail(2 * N, N)
+        self.human_context_decoder2 = _subpel_context(N, M)
+
+    def _conditioning(self, y_hat):
+        """-> (the image-scale, the quarter-scale conditioning signal)."""
+        return self.human_g_enc2(y_hat), self.human_g_enc3(y_hat)
+
+    def _human_latent(self, x, y_hat):
+        cond_img, cond_quarter = cond = self._conditioning(y_hat)
+        human_y_1 = self.human_g_a1(torch.cat([x, x - cond_img], dim=1))
+        residual2 = human_y_1 - cond_quarter
+        return self.human_g_a2(torch.cat([human_y_1, residual2], dim=1)), cond
+
+    def _train_reconstruction(self, human_y_hat, y_hat, cond):
+        """The decoder's reconstruction from both latents and the two
+        conditioning signals ``cond``."""
+        cond_img, cond_quarter = cond
+        context = self.human_context_decoder(y_hat)
+        d1 = self.human_g_s1(torch.cat([human_y_hat, context], dim=1)) + cond_quarter
+        context2 = self.human_context_decoder2(y_hat)
+        return self.human_g_s2(torch.cat([d1, context2], dim=1)) + cond_img
+
+    def human_synthesize(self, human_y_hat, y_hat):
+        return self._train_reconstruction(human_y_hat, y_hat, self._conditioning(y_hat))

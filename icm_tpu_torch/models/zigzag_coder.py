@@ -20,8 +20,18 @@ of ``support_num`` mean (scale) blocks starting at i, clamped at the
 tail. The layer applies no LRP: stf9, stf11 and stf14 build it with
 ``apply_lrp=False`` (their reference computes LRP and drops it), and
 flax creates no parameters for modules never called, so the port has no
-LRP stacks; stf13, the one model that applies LRP, is not ported. The
-JAX layer's ``scan=True`` forward (``code_scan``) is not ported.
+LRP stacks; stf13, the one model that applies LRP, is not ported.
+
+The JAX layer's ``scan=True`` forward (``code_scan``: its AR loop as one
+``lax.scan`` over stacked per-slice weights, ``_ZigzagScanStep``) keeps a
+sliding buffer of the last ``max_support`` decoded blocks, oldest to
+newest, zeros where a slice has fewer, and zero-pads each slice's first
+convolution to that fixed width, which computes the unrolled
+convolutions' function up to the order of the sums. So :meth:`code`
+serves both JAX forwards: it runs the per-slice convolutions on the same
+support, and a JAX tree of a scanned coder carries its context as a
+``zz_scan`` subtree, which ``convert.from_jax_params(tree, model=...)``
+unstacks.
 
 :func:`stack_zigzag_params` and :func:`unstack_zigzag_params` give the
 JAX ``zz_scan`` subtree's stacked, zero-padded context weights, which the
@@ -139,7 +149,9 @@ class ZigzagCharmCoder(nn.Module):
     def code(self, y: torch.Tensor, generator: Optional[torch.Generator] = None):
         """y (B, M, h, w) -> (y_hat, {"y": ..., "z": ...}), the likelihoods
         NHWC as the models return them; noise drawn from ``generator`` (the
-        training forward), none without (the eval forward)."""
+        training forward), none without (the eval forward). It is JAX's
+        ``code``, and its ``code_scan`` up to the order of the sums (module
+        docstring)."""
         z = self.h_a(y)
         _, z_likelihoods = self.entropy_bottleneck(z, generator)
         z_offset = self.eb_medians().reshape(1, -1, 1, 1)

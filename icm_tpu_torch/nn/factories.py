@@ -7,17 +7,18 @@ halves), the hyper-encoder and hyper-decoder stacks, and the per-slice
 context stacks. Each is an ``nn.Sequential`` whose children carry the
 flax names (``Conv_0``, ``GDN_1``, ``Win_noShift_Attention_0`` ...), so
 ``convert.from_jax_params`` maps a JAX subtree one to one; NCHW in and
-out. ``ContextScale1`` and ``ContextScale2`` come with ``stf12`` and
-``stf13``.
+out. ``context_scale1`` and ``context_scale2`` are stf12's conditioning
+decoders (stf13's too).
 
 Window attention runs at head width N / 8 and M / 8 in the encoder, M / 8
-and mid / 8 in the decoders: 24, 48 and 32 at the published N = 192,
-M = 384, mid = 256; the decoders' 256-channel IGDN is the fused GDN at
-C = 256.
+and mid / 8 in the decoders and ``context_scale2``: 24, 48 and 32 at the
+published N = 192, M = 384, mid = 256; the decoders' 256-channel IGDN is
+the fused GDN at C = 256.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Tuple
 
 import torch.nn.functional as F
@@ -77,6 +78,21 @@ def main_cnn_decoder_part1(N: int = 192, M: int = 384, mid: int = 256) -> nn.Seq
 def main_cnn_decoder_part2(N: int = 192, mid: int = 256, out_ch: int = 3) -> nn.Sequential:
     """``MainCNNDecoderPart2``: the second half, x4 to the image."""
     return named_sequential(*_decoder_part2(N, mid, out_ch))
+
+
+def context_scale1(N: int = 192, M: int = 384, mid: int = 256, out_ch: int = 3) -> nn.Sequential:
+    """``ContextScale1``: a whole ``MainCNNDecoder`` to an image-scale
+    conditioning signal (its one child carries flax's ``MainCNNDecoder_0``)."""
+    return nn.Sequential(OrderedDict(MainCNNDecoder_0=main_cnn_decoder(N, M, mid, out_ch)))
+
+
+def context_scale2(N: int = 192, M: int = 384) -> nn.Sequential:
+    """``ContextScale2``: window attention (window 4, shift 2) over the
+    latent, then 3x3 deconv, IGDN, 3x3 deconv to N channels at a quarter
+    of the image's scale."""
+    return named_sequential(
+        Win_noShift_Attention(M, num_heads=8, window_size=4, shift_size=2),
+        deconv(M, N, 3, 2), GDN(N, inverse=True), deconv(N, N, 3, 2))
 
 
 def hyper_encoder(in_ch: int, widths: Tuple[int, ...]) -> nn.Sequential:

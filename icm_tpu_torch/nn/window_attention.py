@@ -41,8 +41,9 @@ LAUNCHES: Counter = Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # built in the kernel's dispatch: the zigzag family's refiners (8, 16), stf's
-# (16), WACNN's (24, 40), the CRC family's MainCNN transforms (32, 48)
-SUPPORTED_HEAD_DIMS = (8, 16, 24, 32, 40, 48)
+# (16), WACNN's (24, 40), the CRC family's MainCNN transforms (32, 48) and
+# stf12's decoder head (96)
+SUPPORTED_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 96)
 MAX_TOKENS = 128  # N: tokens per window (a row's N scores live in a quad's registers)
 
 _fn = None

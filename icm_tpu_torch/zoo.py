@@ -3,7 +3,7 @@ state dict, and the coder tables the checkpoint stores.
 
 Port of ``icm_tpu/zoo.py`` for the architectures the port builds (``cnn``,
 ``stf``, the zigzag family ``stf5``-``stf8`` and the CRC family's
-``stf9``, ``stf11`` and ``stf14``). ``load_pretrained`` does
+``stf9``, ``stf11``, ``stf12`` and ``stf14``). ``load_pretrained`` does
 the reference's key cleanup (``zoo/pretrained.py``: strip DataParallel's
 ``module.``, drop ``h_s.*``, rename the legacy bottleneck ParameterList
 keys). The converters rename the reference's module paths into the flax
@@ -262,8 +262,8 @@ ZIGZAG_CONVERT_CONFIGS = {
 }
 ZIGZAG_CONVERT_CONFIGS["stf6_2"] = ZIGZAG_CONVERT_CONFIGS["stf6"]
 
-# --- the CRC family (stf9, stf11, stf14) -------------------------------------------
-# The reference's module layouts (stf9.py, stf14.py); its dead groups are
+# --- the CRC family (stf9, stf11, stf12, stf14) ------------------------------------
+# The reference's module layouts (stf9.py, stf12.py, stf14.py); its dead groups are
 # dropped: the Swin scaffolding pasted into these models (patch_embed,
 # layers, syn_layers, end_conv), the LRP stacks whose output the forward
 # discards (stf9.py:1094-1106), the commented-out LRP refiners, and stf14's
@@ -316,14 +316,18 @@ def _human_hyper_dec(sd, prefix: str, extra: int = 5) -> dict:
 
 def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
                            ctx_slices: int = 24) -> Dict[str, torch.Tensor]:
-    """Reference stf9 / stf11 / stf14 state dict -> the port's
-    ``ConditionalResidualCoding`` / ``ResidualCoding`` state dict: the
-    machine layer's ``g_a`` and zigzag coder (``cc_*_transforms2``, 5 convs
-    a slice, no LRP), the split decoder, the human layer's transforms,
-    hyperprior (``human_h_*``, ``entropy_bottleneck_human``) and, for
-    stf9 and stf11, its context decoder."""
-    if arch not in ("stf9", "stf11", "stf14"):
-        raise ValueError(f"{arch!r} is not stf9, stf11 or stf14")
+    """Reference stf9 / stf11 / stf12 / stf14 state dict -> the port's
+    ``ConditionalResidualCoding`` / ``ConditionalResidualCoding2`` /
+    ``ResidualCoding`` state dict: the machine layer's ``g_a`` and zigzag
+    coder (``cc_*_transforms2``, 5 convs a slice, no LRP), the split
+    decoder, the human layer's hyperprior (``human_h_*``,
+    ``entropy_bottleneck_human``) and transforms: stf9's and stf14's, with
+    stf9's (and stf11's) context decoder; or stf12's conditioning decoders
+    (``human_g_enc2``, a whole mainCNNdecoder; ``human_g_enc3``,
+    mainCNNcontextScale2), its two-stage encoder and decoder and its two
+    context decoders (3 convs, and 2 convs with 2 sub-pixel convs)."""
+    if arch not in CRC_ARCHS:
+        raise ValueError(f"{arch!r} is not one of {CRC_ARCHS}")
     sd = load_pretrained(state_dict)
     coder = {"h_a": _stack(sd, "h_a", 5), "h_mean_s": _hyper_dec(sd, "h_mean_s"),
              "h_scale_s": _hyper_dec(sd, "h_scale_s"),
@@ -335,9 +339,6 @@ def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
         "machine": {"g_a": _main_cnn_encoder(sd, "g_a"), "coder": coder},
         "g_s1": _main_cnn_decoder(sd, "g_s1", part=1),
         "g_s2": _main_cnn_decoder(sd, "g_s2", part=2),
-        "human_g_s2": _main_cnn_decoder(sd, "human_g_s2"),
-        "human_g_a": _stack(sd, "human_g_a", 4),
-        "human_g_s": _stack(sd, "human_g_s", 4, kind="ConvTranspose"),
         "human_hyper": {
             "h_a": _stack(sd, "human_h_a", 5),
             "h_mean_s": _human_hyper_dec(sd, "human_h_mean_s"),
@@ -345,18 +346,47 @@ def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
             "entropy_bottleneck": _entropy_bottleneck(sd, "entropy_bottleneck_human"),
         },
     }
+    if arch == "stf12":
+        tree.update({
+            "human_g_enc2": {"MainCNNDecoder_0": _main_cnn_decoder(sd, "human_g_enc2")},
+            "human_g_enc3": {  # mainCNNcontextScale2
+                "Win_noShift_Attention_0": _win_noshift(sd, "human_g_enc3.0"),
+                "ConvTranspose_0": _leaves(sd, "human_g_enc3.1"),
+                "GDN_0": _gdn(sd, "human_g_enc3.2"),
+                "ConvTranspose_1": _leaves(sd, "human_g_enc3.3")},
+            "human_context_decoder": _stack(sd, "human_context_decoder", 3),
+            "human_g_a1": _stack(sd, "human_g_a1", 2),
+            "human_g_a2": {**_stack(sd, "human_g_a2", 2),
+                           "Win_noShift_Attention_0": _win_noshift(sd, "human_g_a2.4")},
+            "human_g_s1": {"Win_noShift_Attention_0": _win_noshift(sd, "human_g_s1.0"),
+                           "ConvTranspose_0": _leaves(sd, "human_g_s1.2"),
+                           "ConvTranspose_1": _leaves(sd, "human_g_s1.4")},
+            "human_g_s2": {"ConvTranspose_0": _leaves(sd, "human_g_s2.0"),
+                           "Conv_0": _leaves(sd, "human_g_s2.2"),
+                           "ConvTranspose_1": _leaves(sd, "human_g_s2.4")},
+            "human_context_decoder2": {
+                **_stack(sd, "human_context_decoder2", 2),
+                "SubpelConv_0": {"Conv_0": _leaves(sd, "human_context_decoder2.4.0")},
+                "SubpelConv_1": {"Conv_0": _leaves(sd, "human_context_decoder2.6.0")}},
+        })
+        return _state_dict(tree)
+    tree["human_g_s2"] = _main_cnn_decoder(sd, "human_g_s2")
+    tree["human_g_a"] = _stack(sd, "human_g_a", 4)
+    tree["human_g_s"] = _stack(sd, "human_g_s", 4, kind="ConvTranspose")
     if arch != "stf14":
         tree["human_context_decoder"] = _stack(sd, "human_context_decoder", 5)
     return _state_dict(tree)
 
 
+CRC_ARCHS = ("stf9", "stf11", "stf12", "stf14")
+
+
 # the zoo's other architectures: the port does not build them yet
 _NOT_PORTED = {
-    "stf12": "Queue 1 item 5b (stf12)",
-    "stf13": "Queue 1 item 5c (stf13)",
-    **{a: "Queue 1 item 6 (the masked family)" for a in ("stf2", "stf3", "stf4")},
-    "czigzag": "Queue 1 item 7 (czigzag)",
-    **{a: "Queue 1 item 8 (ICM)" for a in ("cnn2", "stf10", "oj_ICM", "seg_oj_ICM")},
+    "stf13": "Queue 1 item 1 (stf13)",
+    **{a: "Queue 1 item 2 (the masked family)" for a in ("stf2", "stf3", "stf4")},
+    "czigzag": "Queue 1 item 3 (czigzag)",
+    **{a: "Queue 1 item 4 (ICM)" for a in ("cnn2", "stf10", "oj_ICM", "seg_oj_ICM")},
 }
 
 
@@ -368,7 +398,7 @@ def convert_reference_state_dict(arch: str, sd: dict) -> Dict[str, torch.Tensor]
         return convert_stf_checkpoint(sd)
     if arch in ZIGZAG_CONVERT_CONFIGS:
         return convert_zigzag_checkpoint(sd, **ZIGZAG_CONVERT_CONFIGS[arch])
-    if arch in ("stf9", "stf11", "stf14"):
+    if arch in CRC_ARCHS:
         return convert_crc_checkpoint(sd, arch)
     where = _NOT_PORTED.get(arch, "no item: not an architecture of the zoo")
     raise NotImplementedError(

@@ -1,5 +1,5 @@
-"""The CRC family ``stf9`` / ``stf11`` and ``stf14``: icm_tpu_torch against
-the JAX package.
+"""The CRC family ``stf9`` / ``stf11``, ``stf12`` and ``stf14``:
+icm_tpu_torch against the JAX package.
 
 Narrow twins at ``tests/test_crc.py``'s ``TINY`` (N 16, M 24, mid 32, 2 x
 2x2 zigzag = 8 slices, sliding support 4, a conditioning window of all 8
@@ -9,21 +9,27 @@ parameters are drawn with numpy at the shapes of its init
 and carried over with ``from_jax_params``. Each twin's tests run in files
 of their own, so that the suite's workers run them side by side:
 
-- ``test_torch_crc_stf9.py`` / ``_stf14.py`` (:class:`CRCTwin`): the eval
-  forward (x_hat, machine_x_hat and all four likelihoods within 1e-4),
-  the host wire's four streams byte for byte with JAX's ``CRCCodec`` and
-  its y symbols identical, the device wire's blobs byte for byte with
-  JAX's ``CRCCodec(wire="device")`` and its y_hat equal to the host
-  wire's, decoding across the two frameworks both ways on both wires;
-- ``test_torch_crc_scan_stf9.py`` / ``_stf14.py`` (:class:`CRCScanTwin`):
-  the scan wire's blobs byte for byte with JAX's ``CRCCodec(
-  scan_wire=True)`` (tier byte included), its round trip, cross decoding,
-  y_hat against the device wire's within JAX's distribution bar
-  (``tests/test_crc.py``), the stacked context weights against JAX's
-  ``stack_zigzag_params`` and ``from_jax_params`` of a ``zz_scan`` tree,
-  and one training step against JAX autodiff, both in float64, the noise
-  replayed into both: loss terms within 1e-5, every gradient within 1e-4
-  of its max.
+- ``test_torch_crc_stf{9,12,14}.py`` (:class:`CRCTwin`): the eval forward
+  (x_hat, machine_x_hat and all four likelihoods within 1e-4), the host
+  wire's four streams byte for byte with JAX's ``CRCCodec`` and its y
+  symbols identical, the device wire's blobs byte for byte with JAX's
+  ``CRCCodec(wire="device")`` and its y_hat equal to the host wire's,
+  decoding across the two frameworks both ways on both wires;
+- ``test_torch_crc_scan_stf{9,12,14}.py`` (:class:`CRCScanTwin`): the
+  scan wire's blobs byte for byte with JAX's ``CRCCodec(scan_wire=True)``
+  (tier byte included), its round trip, cross decoding, y_hat against the
+  device wire's within JAX's distribution bar (``tests/test_crc.py``),
+  the stacked context weights against JAX's ``stack_zigzag_params`` and
+  ``from_jax_params`` of a ``zz_scan`` tree, and one training step of
+  each JAX forward (the unrolled one, and ``scan_charm=True``: its
+  ``code_scan`` over the stacked tree) against the port's one forward
+  through JAX autodiff, both in
+  float64, the noise replayed into both: loss terms within 1e-5, every
+  gradient within 1e-4 of its max;
+- ``test_torch_crc_bf16_stf{9,12,14}.py`` (:class:`CRCBf16Twin`): the
+  bfloat16 policy's eval forward and training step (both forwards) and
+  both wires against JAX's bfloat16 models, at ``tests/test_bf16.py``'s
+  bars.
 
 The port's codecs take the JAX codecs' tables (``tables=``), as the zigzag
 family's twins do (``test_torch_stf_family.py``): the bottlenecks' CDF
@@ -37,11 +43,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_bf16 import (BF16, BPP_RTOL, SYMBOL_SHARE_TOL, XHAT_MEAN_TOL,
+                             _assert_bf16_close, _bpp)
 from test_torch_cnn_codec import CROSS_TOL
 from test_torch_stf_family import port_tables
 from test_torch_stf_family_paths import GRAD_TOL, TERMS_TOL, _f64_port_params
 from test_torch_train import _close, _replay
 
+from icm_tpu import nn as jnn
 from icm_tpu.entropy import EntropyBottleneck
 from icm_tpu.models import models as jax_models
 from icm_tpu.models.crc_codec import CRCCodec as JaxCRCCodec
@@ -53,7 +62,8 @@ from icm_tpu_torch import train as ttrain
 from icm_tpu_torch.coding import WireFormatError
 from icm_tpu_torch.coding.wire import WIRE_SCAN
 from icm_tpu_torch.convert import from_jax_params
-from icm_tpu_torch.models.crc import ConditionalResidualCoding, ResidualCoding
+from icm_tpu_torch.models.crc import (ConditionalResidualCoding, ConditionalResidualCoding2,
+                                     ResidualCoding)
 from icm_tpu_torch.models.crc_codec import CRCCodec
 from icm_tpu_torch.models.zigzag_coder import stack_zigzag_params, unstack_zigzag_params
 
@@ -143,7 +153,10 @@ def jax_tables(jcodec):
 
 # parameters of the published widths: the JAX registry models' own counts
 # (jax.eval_shape of their init)
-FULL_WIDTH_PARAMS = {"stf9": 339_633_593, "stf11": 339_633_593, "stf14": 331_138_553}
+FULL_WIDTH_PARAMS = {"stf9": 339_633_593, "stf11": 339_633_593, "stf12": 363_781_457,
+                     "stf14": 331_138_553}
+CLASSES = {"stf9": ConditionalResidualCoding, "stf11": ConditionalResidualCoding,
+           "stf12": ConditionalResidualCoding2, "stf14": ResidualCoding}
 
 
 @pytest.mark.parametrize("name", sorted(FULL_WIDTH_PARAMS))
@@ -151,11 +164,10 @@ def test_registry_builds_the_published_widths(name):
     """The port's registry holds the JAX package's class for each name at its
     defaults (stf11 is stf9's class): built on the meta device, each has
     the JAX model's parameter count, 24 zigzag slices of 64 channels, a
-    conditioning window of 24 blocks, and no LRP stacks."""
+    conditioning window of 24 blocks and no LRP stacks."""
     cls, kwargs = tmodels.models[name]
     jcls, jkwargs = jax_models[name]
-    want = ResidualCoding if name == "stf14" else ConditionalResidualCoding
-    assert cls is want and cls.__name__ == jcls.__name__ and kwargs == jkwargs == {}
+    assert cls is CLASSES[name] and cls.__name__ == jcls.__name__ and kwargs == jkwargs == {}
     with torch.device("meta"):
         m = cls()
     assert sum(p.numel() for p in m.parameters()) == FULL_WIDTH_PARAMS[name]
@@ -169,12 +181,15 @@ def test_stf11_is_stf9():
     assert tmodels.models["stf11"][0] is tmodels.models["stf9"][0]
 
 
-@pytest.mark.parametrize("name", ["stf9", "stf14"])
+@pytest.mark.parametrize("name", ["stf9", "stf12", "stf14"])
 def test_attention_and_gdn_widths_on_the_path(name):
     """The published widths put window attention at head widths 24 (g_a's
     first block), 48 (every 384-channel block) and 32 (the decoders'
-    256-channel block), and GDN at 192 and 256 channels, on the path."""
+    256-channel block), stf12's decoder head at 96 (768 channels), and GDN
+    at 192 and 256 channels, on the path; each width is one the kernel is
+    built for."""
     from icm_tpu_torch.nn import GDN, WinBasedAttention
+    from icm_tpu_torch.nn.window_attention import SUPPORTED_HEAD_DIMS
 
     with torch.device("meta"):
         m = tmodels.models[name][0]()
@@ -183,7 +198,14 @@ def test_attention_and_gdn_widths_on_the_path(name):
         if isinstance(mod, WinBasedAttention):
             heads[n.split(".")[0]].add(mod.attn.dim // mod.attn.num_heads)
     assert heads["machine"] == {24, 48}
-    assert heads["g_s1"] == heads["human_g_s2"] == {48, 32}
+    assert heads["g_s1"] == {48, 32}
+    if name == "stf12":
+        assert heads["human_g_enc2"] == {48, 32}
+        assert heads["human_g_enc3"] == heads["human_g_a2"] == {48}
+        assert heads["human_g_s1"] == {96}
+    else:
+        assert heads["human_g_s2"] == {48, 32}
+    assert set().union(*heads.values()) <= set(SUPPORTED_HEAD_DIMS)
     assert {mod.channels for mod in m.modules() if isinstance(mod, GDN)} == {192, 256}
 
 
@@ -303,10 +325,13 @@ class CRCTwin:
                         nhwc(enc["y_hat"]), enc["x_hat"].numpy())
 
 
-def _noise(tm, x, seed: int = 5):
-    """-> the noise arrays of one training forward, in the order both
-    frameworks draw them: the machine z (bottleneck layout (C, 1, n)),
-    each machine slice (NHWC), the human z and the human y."""
+def _noise(tm, x, scan: bool = False, seed: int = 5):
+    """-> (JAX's noise arrays, the port's) of one training forward, in the
+    order both frameworks draw them: the machine z (bottleneck layout (C,
+    1, n)), each machine slice (NHWC), the human z and the human y. JAX's
+    ``scan_charm=True`` forward traces its scan step twice (once to build
+    it), so one array stands for every slice there, and the port is
+    handed that array for each slice."""
     rng = np.random.default_rng(seed)
     B, H, W, _ = x.shape
     c = tm.coder
@@ -316,9 +341,34 @@ def _noise(tm, x, seed: int = 5):
     def u(*shape):
         return rng.uniform(-0.5, 0.5, shape).astype(np.float32)
 
-    return ([u(zc, 1, B * (H // 64) * (W // 64))]
-            + [u(B, hb, hb, c.slice_ch) for _ in range(c.ctx_slices)]
-            + [u(zc, 1, B * (H // 64) * (W // 64)), u(B, H // 16, W // 16, TINY["M"])])
+    z = u(zc, 1, B * (H // 64) * (W // 64))
+    human = [u(zc, 1, B * (H // 64) * (W // 64)), u(B, H // 16, W // 16, TINY["M"])]
+    if scan:
+        s = u(B, hb, hb, c.slice_ch)
+        return [z, s, s] + human, [z] + [s] * c.ctx_slices + human
+    ys = [u(B, hb, hb, c.slice_ch) for _ in range(c.ctx_slices)]
+    return [z] + ys + human, [z] + ys + human
+
+
+def _scanned_tree(params: dict, coder) -> dict:
+    """A JAX parameter tree with the machine coder's context stacks stacked
+    into its ``zz_scan`` subtree, as a ``scan_charm=True`` model holds
+    them."""
+    c = dict(params["machine"]["coder"])
+    scanned = {k: v for k, v in c.items() if k.rsplit("_", 1)[0] not in ("cc_mean", "cc_scale")}
+    scanned.update(jax_stack(c, coder.ctx_slices, coder.slice_ch, coder.max_support,
+                             coder.cond_width, apply_lrp=False))
+    return {**params, "machine": {**params["machine"], "coder": scanned}}
+
+
+def _unscanned_tree(tree: dict, coder) -> dict:
+    """The inverse of :func:`_scanned_tree` on a float64 tree (the port's
+    ``unstack_zigzag_params`` keeps the dtype)."""
+    c = dict(tree["machine"]["coder"])
+    slices = unstack_zigzag_params({"zz_scan": c.pop("zz_scan")}, coder)
+    c.update({k: {ln: {leaf: t.numpy() for leaf, t in p.items()} for ln, p in layers.items()}
+              for k, layers in slices.items()})
+    return {**tree, "machine": {**tree["machine"], "coder": c}}
 
 
 class CRCScanTwin:
@@ -428,13 +478,7 @@ class CRCScanTwin:
         ``jax.eval_shape``) converts, given the model, to the state dict of
         the unrolled tree it was stacked from."""
         params = jax.device_get(twin["variables"]["params"])
-        c = twin["tm"].coder
-        coder = dict(params["machine"]["coder"])
-        scanned_coder = {k: v for k, v in coder.items()
-                         if k.rsplit("_", 1)[0] not in ("cc_mean", "cc_scale")}
-        scanned_coder.update(jax_stack(coder, c.ctx_slices, c.slice_ch, c.max_support,
-                                       c.cond_width, apply_lrp=False))
-        scanned = {**params, "machine": {**params["machine"], "coder": scanned_coder}}
+        scanned = _scanned_tree(params, twin["tm"].coder)
         jcls, jkw = jax_models[self.name]
         real = jax.eval_shape(lambda: jcls(**{**jkw, **TINY}, scan_charm=True).init(
             {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
@@ -448,21 +492,33 @@ class CRCScanTwin:
         with pytest.raises(ValueError, match="model"):
             from_jax_params(scanned)
 
-    def test_train_step_matches_jax(self, twin, monkeypatch):
-        """One training step, the port and JAX both in float64 (as the zigzag
-        family's steps, ``test_torch_stf_family_paths.py``), the same noise
-        in both: RateDistortionLoss over both layers' likelihoods
+    @pytest.mark.parametrize("forward", ["unrolled", "scan_charm"])
+    def test_train_step_matches_jax(self, twin, forward, monkeypatch):
+        """One training step of JAX's forward (the registry's unrolled one,
+        or ``scan_charm=True``: its ``code_scan`` over the stacked tree)
+        against the port's registry model, which serves both, the two in
+        float64 (as the zigzag family's steps,
+        ``test_torch_stf_family_paths.py``), the same noise in both:
+        RateDistortionLoss over both layers' likelihoods
         (``likelihood_keys=("likelihoods", "machine_likelihoods")``, the JAX
         model's docstring for training from scratch) and the aux loss of
         both bottlenecks; loss terms within 1e-5, every gradient within
-        1e-4 of its max. The split decoder ``g_s1``/``g_s2`` (machine_x_hat)
-        enters no term: no gradient in the port, zero in JAX."""
+        1e-4 of its max, JAX's ``zz_scan`` gradients unstacked. The split
+        decoder ``g_s1``/``g_s2`` (machine_x_hat) enters no term: no
+        gradient in the port, zero in JAX."""
+        scan = forward == "scan_charm"
         x = twin["x"]
         keys = ("likelihoods", "machine_likelihoods")
-        jm, tm = twin["jm"], make_twin(self.name)[2].double()
-        noise = [a.astype(np.float64) for a in _noise(tm, x)]
-        tr, jr = _replay(monkeypatch, noise)
-        tr.noise = noise
+        params = jax.device_get(twin["variables"]["params"])
+        jm, tm = twin["jm"], make_twin(self.name)[2]
+        if scan:
+            jcls, jkw = jax_models[self.name]
+            jm = jcls(**{**jkw, **TINY}, scan_charm=True)
+            params = _scanned_tree(params, tm.coder)
+        tm = tm.double()
+        jax_noise, port_noise = _noise(tm, x, scan)
+        tr, jr = _replay(monkeypatch, [a.astype(np.float64) for a in jax_noise])
+        tr.noise = [a.astype(np.float64) for a in port_noise]
         x64 = x.astype(np.float64)
         key = jax.random.PRNGKey(0)
 
@@ -474,13 +530,12 @@ class CRCScanTwin:
             return rd["loss"] + aux, {**rd, "aux_loss": aux}
 
         with jax.enable_x64(True):
-            p64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
-                                         jax.device_get(twin["variables"]["params"]))
+            p64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params)
             (_, ref_m), ref_g = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(p64)
             ref_m, ref_g = jax.device_get((ref_m, ref_g))
         assert {np.asarray(g).dtype for g in jax.tree_util.tree_leaves(ref_g)} == {
             np.dtype(np.float64)}
-        assert jr.i == len(noise)
+        assert jr.i == len(jax_noise)
 
         tm.train()
         out = tm(torch.from_numpy(x64), generator=torch.Generator())
@@ -488,10 +543,10 @@ class CRCScanTwin:
         rd = ttrain.RateDistortionLoss(0.01, likelihood_keys=keys)(out, torch.from_numpy(x64))
         aux = tm.aux_loss()
         (rd["loss"] + aux).backward()
-        assert tr.i == len(noise)
+        assert tr.i == len(port_noise)
         for k, v in {**rd, "aux_loss": aux}.items():
             _close(v.item(), ref_m[k], TERMS_TOL, k)
-        ref_grads = _f64_port_params(ref_g, tm)
+        ref_grads = _f64_port_params(_unscanned_tree(ref_g, tm.coder) if scan else ref_g, tm)
         assert set(ref_grads) == {n for n, _ in tm.named_parameters()}
         # machine_x_hat enters no loss term: the split decoder gets no
         # gradient in the port and a zero one in JAX
@@ -500,5 +555,173 @@ class CRCScanTwin:
         assert not any(np.any(ref_grads[name]) for name in idle)
         worst = {name: _close(p.grad.numpy(), ref_grads[name], GRAD_TOL, name)
                  for name, p in tm.named_parameters() if name not in idle}
-        print(f"{self.name}: largest gradient error relative to its max:",
+        print(f"{self.name} {forward}: largest gradient error relative to its max:",
               max(worst.items(), key=lambda kv: kv[1]))
+
+
+class CRCBf16Twin:
+    """The bfloat16 policy's tests of one twin, against JAX's model and
+    ``CRCCodec`` under ``set_activation_dtype(jnp.bfloat16)``, at
+    ``tests/test_bf16.py``'s bars (``test_torch_bf16.py``); a file per twin
+    subclasses it as ``Test<Name>Bf16`` with ``name`` set.
+
+    The twins take the JAX model's own init (``init``), on which
+    ``tests/test_bf16.py``'s bars were set. With the float32 twins' draws
+    (``_draw_params``: GDN perturbed, transposed convs at twice the
+    fan-in scale) JAX's own bfloat16 forward strays from its float32 one
+    by 0.036 of mean |x_hat| (stf12; stf14 0.014, machine_x_hat 0.053),
+    past the bar; at the init the two packages' bfloat16 forwards stray
+    from their float32 ones by 0.002-0.003 (on the CPU). stf9's human
+    x_hat is near zero at the init, so the machine layer's machine_x_hat
+    is held beside it."""
+
+    name = ""
+    keys = ("likelihoods", "machine_likelihoods")
+
+    @pytest.fixture(autouse=True)
+    def _reset_policies(self):
+        yield
+        jnn.set_activation_dtype(None)
+        tnn.set_activation_dtype(None)
+
+    @pytest.fixture(scope="class")
+    def twin(self):
+        jm, _, tm, x = make_twin(self.name)
+        params = jax.device_get(jm.init(
+            {"params": jax.random.PRNGKey(1), "noise": jax.random.PRNGKey(2)},
+            jnp.asarray(x), training=False)["params"])
+        tm.load_state_dict(from_jax_params(params), strict=True)
+        return dict(jm=jm, params=params, tm=tm.eval(), x=x)
+
+    def _models(self, twin, scan: bool):
+        """-> (JAX model of the forward, its params, a new port model with
+        the twin's weights: the port's one forward serves both JAX's)."""
+        tm = tmodels.create_model(self.name, device="cpu", **TINY)
+        tm.load_state_dict(twin["tm"].state_dict())
+        if not scan:
+            return twin["jm"], twin["params"], tm.eval()
+        jcls, jkw = jax_models[self.name]
+        return (jcls(**{**jkw, **TINY}, scan_charm=True),
+                _scanned_tree(twin["params"], tm.coder), tm.eval())
+
+    def _bpp(self, out, n_px) -> float:
+        return sum(_bpp({k: np.asarray(v, np.float32) for k, v in out[g].items()}, n_px)
+                   for g in self.keys)
+
+    @pytest.mark.parametrize("forward", ["unrolled", "scan_charm"])
+    def test_eval_forward_bf16_matches_jax_bf16(self, twin, forward):
+        """x_hat in JAX's dtype (bfloat16 from the last transposed conv,
+        float32 where stf14's training forward adds the float32 residual)
+        and both layers' bpp against JAX's bfloat16 forward and the port's
+        float32 one; every likelihood float32."""
+        jm, params, tm = self._models(twin, forward == "scan_charm")
+        x = twin["x"]
+        n_px = x.shape[0] * x.shape[1] * x.shape[2]
+        xs = torch.from_numpy(x)
+        with torch.no_grad():
+            f32 = tm(xs)
+            tnn.set_activation_dtype(BF16)
+            out = tm(xs)
+        jnn.set_activation_dtype(jnp.bfloat16)
+        ref = jax.jit(lambda p, a: jm.apply({"params": p}, a, training=False))(
+            params, jnp.asarray(x))
+        assert str(out["x_hat"].dtype).split(".")[-1] == np.asarray(ref["x_hat"]).dtype.name
+        assert {v.dtype for g in self.keys for v in out[g].values()} == {torch.float32}
+        bpp = self._bpp(out, n_px)
+        for key in ("x_hat", "machine_x_hat"):
+            _assert_bf16_close(f"{self.name} {forward} {key}: port bf16 against JAX bf16",
+                               out[key].float(), bpp, ref[key], self._bpp(ref, n_px))
+            _assert_bf16_close(f"{self.name} {forward} {key}: port bf16 against port f32",
+                               out[key].float(), bpp, f32[key], self._bpp(f32, n_px))
+
+    @pytest.mark.parametrize("forward", ["unrolled", "scan_charm"])
+    def test_train_step_bf16_matches_jax_bf16(self, twin, forward, monkeypatch):
+        """One training step under the policy, the same noise in both, both
+        layers' rates: float32 gradients on float32 masters, all finite (the
+        split decoder's none: no loss term reads machine_x_hat); loss, bpp
+        and MSE within 5% of JAX's bfloat16 training forward and mean
+        |x_hat difference| under 0.01; the aux loss within 1e-5."""
+        scan = forward == "scan_charm"
+        jm, params, tm = self._models(twin, scan)
+        x = twin["x"]
+        jax_noise, port_noise = _noise(tm, x, scan)
+        tr, jr = _replay(monkeypatch, jax_noise)
+        tr.noise = port_noise
+        key = jax.random.PRNGKey(0)
+        jnn.set_activation_dtype(jnp.bfloat16)
+
+        def terms(p):
+            out = jm.apply({"params": p}, jnp.asarray(x), training=True, rngs={"noise": key})
+            rd = JaxRD(0.01, likelihood_keys=self.keys)(out, jnp.asarray(x))
+            return {**rd, "aux_loss": jm.apply({"params": p}, method=jm.aux_loss)}, out["x_hat"]
+
+        ref_m, ref_x_hat = jax.jit(terms)(params)
+        assert jr.i == len(jax_noise)
+
+        tm.train()
+        tnn.set_activation_dtype(BF16)
+        state = ttrain.TrainState(tm, ttrain.make_optimizer(tm, 1e-4, 1e-3, 1.0))
+        seen = {}
+        handle = tm.register_forward_hook(
+            lambda m, a, out: seen.update(x_hat=out["x_hat"].detach()))
+        metrics = ttrain.make_train_step(
+            tm, ttrain.RateDistortionLoss(0.01, likelihood_keys=self.keys))(
+            state, torch.from_numpy(x), torch.Generator())
+        handle.remove()
+        assert tr.i == len(port_noise)
+        grads = {n: p.grad for n, p in tm.named_parameters() if p.grad is not None}
+        assert set(grads) == {n for n, _ in tm.named_parameters()
+                              if not n.startswith(("g_s1.", "g_s2."))}
+        assert {g.dtype for g in grads.values()} == {torch.float32}
+        assert all(torch.isfinite(g).all() for g in grads.values())
+        assert {p.dtype for p in tm.parameters()} == {torch.float32}
+        got = {k: float(v) for k, v in metrics.items()}
+        print(f"{self.name} {forward} bf16 step: port {got}, JAX "
+              f"{ {k: float(v) for k, v in ref_m.items()} }")
+        for k in ("loss", "bpp_loss", "mse_loss"):
+            assert got[k] == pytest.approx(float(ref_m[k]), rel=BPP_RTOL), k
+        assert got["aux_loss"] == pytest.approx(float(ref_m["aux_loss"]), rel=1e-5)
+        mean = float(np.abs(seen["x_hat"].float().numpy()
+                            - np.asarray(ref_x_hat, np.float32)).mean())
+        assert mean < XHAT_MEAN_TOL
+
+    def test_codec_bf16_round_trips_on_both_wires(self, twin):
+        """Compress and decompress under the policy on the host and the
+        device wire: bit-exact, the device wire's y_hat and x_hat the host
+        wire's; mean |x_hat difference| under 0.01 against float32 and
+        against JAX's bfloat16 codec; under 2% of the machine y symbols
+        differ from JAX's bfloat16 codec on each wire. (The streams are
+        tens of bytes an image, so a symbol or two moves their bytes by a
+        few percent: the rate is held by the eval forward's likelihoods.)"""
+        tm, x = twin["tm"], twin["x"]
+        xs = torch.from_numpy(x)
+        jm, variables = twin["jm"], {"params": twin["params"]}
+        jnn.set_activation_dtype(jnp.bfloat16)  # before the JAX codecs trace
+        jc = {w: JaxCRCCodec(jm, variables, wire=w) for w in ("host", "device")}
+        jenc = {w: c.compress(jnp.asarray(x), return_debug=True) for w, c in jc.items()}
+        jnn.set_activation_dtype(None)
+        tables = jax_tables(jc["device"])
+        f32 = CRCCodec(tm, tables=tables).compress(xs, return_debug=True)
+        tnn.set_activation_dtype(BF16)
+        enc = {}
+        for w in ("host", "device"):
+            codec = CRCCodec(tm, tables=tables, wire=w)
+            e = enc[w] = codec.compress(xs, return_debug=True)
+            d = codec.decompress(e["strings"], e["shape"], e["human_shape"])
+            assert e["y_hat"].dtype == BF16
+            assert torch.equal(d["y_hat"], e["y_hat"]) and torch.equal(d["x_hat"], e["x_hat"])
+        assert torch.equal(enc["device"]["y_hat"], enc["host"]["y_hat"])
+        assert torch.equal(enc["device"]["x_hat"], enc["host"]["x_hat"])
+        for against, ref in (("f32", f32["x_hat"]), ("JAX bf16", jenc["host"]["x_hat"])):
+            mean = float(np.abs(enc["host"]["x_hat"].float().numpy()
+                                - np.asarray(ref, np.float32)).mean())
+            print(f"{self.name} codec bf16 against {against}: mean |x_hat difference| {mean:.2e}")
+            assert mean < XHAT_MEAN_TOL, against
+        for w in ("host", "device"):
+            share = float((np.abs(nhwc(enc[w]["y_hat"].float())
+                                  - np.asarray(jenc[w]["y_hat"], np.float32)) > 0.5).mean())
+            print(f"{self.name} {w} wire: machine y symbols that differ from JAX's bfloat16 "
+                  f"codec: {share:.2e} (bar {SYMBOL_SHARE_TOL}); bytes "
+                  f"{[sum(map(len, s)) for s in enc[w]['strings']]}, JAX "
+                  f"{[sum(map(len, s)) for s in jenc[w]['strings']]}")
+            assert share <= SYMBOL_SHARE_TOL, w

@@ -140,11 +140,14 @@ def test_window_attention_kernel_at_the_family_shapes(W, N, D, n_cls, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 # the CRC family's widths at 2 x 512 px (and 8 x 256 px in training): D 32
 # over MainCNNDecoder's 256-channel block (512 windows of 8 x 8), D 48 over
-# every 384-channel block (128 of 4 x 4), 8 heads, at 4 window classes and
-# at 1, then ragged window counts
+# every 384-channel block (128 of 4 x 4), D 96 over stf12's 768-channel
+# decoder head (128 of 4 x 4), 8 heads, at 4 window classes and at 1, then
+# ragged window counts (D 96 at every token bucket of the kernel)
 @pytest.mark.parametrize("W,N,D,n_cls", [(512, 64, 32, 4), (512, 64, 32, 1), (128, 16, 48, 4),
                                          (128, 16, 48, 1), (100, 64, 32, 4), (37, 16, 48, 4),
-                                         (5, 49, 32, 4), (3, 100, 48, 4)])
+                                         (5, 49, 32, 4), (3, 100, 48, 4),
+                                         (128, 16, 96, 4), (128, 16, 96, 1), (37, 16, 96, 4),
+                                         (7, 30, 96, 4), (5, 49, 96, 4), (3, 100, 96, 4)])
 def test_window_attention_kernel_at_the_crc_shapes(W, N, D, n_cls, dtype):
     _needs_card()
     ins = _inputs(W, N, D, n_cls, dtype, seed=W + N + D + n_cls)
@@ -1182,14 +1185,15 @@ def test_family_bf16_wires_on_the_card(twin):
 
 
 # --- the CRC family on the card -----------------------------------------------------
-# a narrow stf9 / stf14 whose window attention runs built widths: N 64 and
-# mid 64 at 8 heads (D 8), M 128 (D 16); 2 x 2x2 zigzag = 8 slices
+# a narrow stf9 / stf12 / stf14 whose window attention runs built widths: N 64
+# and mid 64 at 8 heads (D 8), M 128 (D 16), stf12's decoder head 2M = 256
+# (D 32); 2 x 2x2 zigzag = 8 slices
 CRC_WIDTHS = dict(N=64, M=128, mid=64, num_slices=2, max_support=4, support_num=8,
                   hyper_enc_widths=(128, 96, 64, 48, 32), hyper_dec_widths=(48, 64, 96, 128, 128),
                   cc_widths=(48, 32))
 
 
-@pytest.mark.parametrize("name", ["stf9", "stf14"])
+@pytest.mark.parametrize("name", ["stf9", "stf12", "stf14"])
 def test_crc_wires_on_the_card(name):
     """Host, device and scan wire (graphed and launch by launch) on 2 x 128
     px: every round trip bit-exact; the device wire's y_hat and x_hat the
@@ -1241,3 +1245,90 @@ def test_crc_wires_on_the_card(name):
         torch.testing.assert_close(got[key].cpu(), ref[key], rtol=0, atol=1e-3)
     for group in ("likelihoods", "machine_likelihoods"):
         torch.testing.assert_close(got[group]["y"].cpu(), ref[group]["y"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["stf9", "stf12", "stf14"])
+def test_crc_train_step_card_vs_cpu(name):
+    """One training step (the port's one forward, which computes both of
+    JAX's: the unrolled and ``scan_charm=True``) on the card and on the
+    CPU, the same weights and noise (one seeded CPU generator each), both
+    layers' rates: loss terms
+    and every gradient within 1e-3 of its max (``chip_smoke.py``'s rule);
+    the split decoder gets no gradient on either."""
+    _needs_card()
+    from icm_tpu_torch.models import create_model, cuda_numerics
+    from icm_tpu_torch.train import RateDistortionLoss
+
+    cuda_numerics()
+    model = create_model(name, device="cuda", seed=0, **CRC_WIDTHS).train()
+    cpu = create_model(name, device="cpu", seed=0, **CRC_WIDTHS).train()
+    cpu.load_state_dict(model.state_dict())
+    x = _scan_images(64)
+    criterion = RateDistortionLoss(0.01, likelihood_keys=("likelihoods", "machine_likelihoods"))
+
+    def step(m, xs):
+        m.zero_grad(set_to_none=True)
+        out = m(xs, generator=torch.Generator().manual_seed(0))
+        rd = criterion(out, xs)
+        aux = m.aux_loss()
+        (rd["loss"] + aux).backward()
+        return ({k: float(v) for k, v in {**rd, "aux_loss": aux}.items()},
+                {n: p.grad.detach().cpu() for n, p in m.named_parameters() if p.grad is not None})
+
+    got_terms, got = step(model, x)
+    ref_terms, ref = step(cpu, x.cpu())
+    assert set(got) == set(ref) == {n for n, _ in model.named_parameters()
+                                    if not n.startswith(("g_s1.", "g_s2."))}
+    for k, v in ref_terms.items():
+        assert abs(got_terms[k] - v) <= 1e-3 * max(abs(v), 1e-30), k
+    for n in ref:
+        err = (got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)
+        assert err <= 1e-3, (n, float(err))
+
+
+def test_crc_bf16_wires_on_the_card():
+    """A narrow stf12 under the bfloat16 policy, host and device wire on 2 x
+    128 px: bit-exact round trips, the device wire's y_hat and x_hat the
+    host wire's, every window-attention and GDN launch a bfloat16 build's
+    (the decoder's head width 32 among them), bpp within 5% and mean
+    |x_hat difference| under 0.01 of float32; the eval forward on the card
+    against the CPU's, both under the policy: mean |x_hat difference| under
+    0.02 (``chip_smoke.BF16_EVAL_TOL``); the scan wire refuses the policy."""
+    _needs_card()
+    from icm_tpu_torch.models import create_model
+    from icm_tpu_torch.models.crc_codec import CRCCodec
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    model = create_model("stf12", device="cuda", seed=0, **CRC_WIDTHS)
+    x = _scan_images(128)
+    f32 = CRCCodec(model, narrow=0.2).compress(x, return_debug=True)
+    cpu = create_model("stf12", device="cpu", seed=0, **CRC_WIDTHS)
+    cpu.load_state_dict(model.state_dict())
+    set_activation_dtype(torch.bfloat16)
+    try:
+        with pytest.raises(ValueError, match="float32"):
+            CRCCodec(model, wire="device", scan_wire=True)
+        enc = {}
+        for wire in ("host", "device"):
+            codec = CRCCodec(model, narrow=0.2, wire=wire)
+            before = (twa.LAUNCHES.copy(), tgdn.FWD_LAUNCHES.copy())
+            e = enc[wire] = codec.compress(x, return_debug=True)
+            d = codec.decompress(e["strings"], e["shape"], e["human_shape"])
+            torch.cuda.synchronize()
+            attn, gdn = twa.LAUNCHES - before[0], tgdn.FWD_LAUNCHES - before[1]
+            assert set(by_dtype(attn)) == set(by_dtype(gdn)) == {torch.bfloat16}
+            assert attn[torch.bfloat16, 32] == 2  # the decoder head, both sides
+            assert torch.equal(d["y_hat"], e["y_hat"]) and torch.equal(d["x_hat"], e["x_hat"])
+        with torch.no_grad():
+            got, ref = model(x[:1]), cpu(x[:1].cpu())
+    finally:
+        set_activation_dtype(None)
+    assert torch.equal(enc["device"]["y_hat"], enc["host"]["y_hat"])
+    assert torch.equal(enc["device"]["x_hat"], enc["host"]["x_hat"])
+
+    def bpp(e):
+        return 8 * sum(len(b) for s in e["strings"] for b in s) / (2 * 128 * 128)
+
+    assert bpp(enc["host"]) == pytest.approx(bpp(f32), rel=0.05)
+    assert float((enc["host"]["x_hat"].float() - f32["x_hat"]).abs().mean()) < 0.01
+    assert float((got["x_hat"].float().cpu() - ref["x_hat"].float()).abs().mean()) < 0.02

@@ -10,7 +10,8 @@ a random latent: its parameters, drawn with numpy at the shapes of the
 JAX init, carried over with ``from_jax_params``; the eval loop's y_hat
 and likelihoods within 1e-5; the stacked, zero-padded context weights
 (``zz_scan``) bit for bit with JAX's ``stack_zigzag_params``, and
-unstacked back to the per-slice weights.
+unstacked back to the per-slice weights; the port's eval loop against
+JAX's ``code_scan`` on the stacked tree within 1e-5.
 """
 
 import jax
@@ -99,3 +100,23 @@ def test_stacked_context_weights_match_jax(layers):
         for ln, leaves in layers_.items():
             for leaf, v in leaves.items():
                 assert torch.equal(v, sd[f"{name}.{ln}.{leaf}"]), (name, ln, leaf)
+
+
+def test_scan_eval_loop_matches_jax_code_scan(layers):
+    """The port's ``code`` against JAX's ``scan=True`` layer (``code_scan``
+    over the stacked, zero-padded tree): y_hat and both likelihoods within
+    1e-5."""
+    _, params, tm, y = layers
+    js = JaxCoder(**LAYER, apply_lrp=False, scan=True)
+    tree = {k: v for k, v in params.items() if k.rsplit("_", 1)[0] not in ("cc_mean", "cc_scale")}
+    tree.update(jax_stack(params, tm.ctx_slices, tm.slice_ch, tm.max_support, tm.cond_width,
+                          apply_lrp=False))
+    y_hat, lik = jax.jit(lambda p, a: js.apply({"params": p}, a, training=False,
+                                               method=js.code))(tree, jnp.asarray(y))
+    with torch.no_grad():
+        got_hat, got = tm.eval().code(torch.from_numpy(y).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got_hat.permute(0, 2, 3, 1).numpy(), np.asarray(y_hat),
+                               rtol=0, atol=1e-5)
+    for k in "yz":
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(lik[k]), rtol=0, atol=1e-5)
+

@@ -1,18 +1,22 @@
-"""Reference checkpoints of the CRC family (``stf9``, ``stf11``, ``stf14``):
+"""Reference checkpoints of the CRC family (``stf9``, ``stf11``, ``stf12``,
+``stf14``):
 the checks of ``test_torch_zoo.py`` at narrow widths with the published
 slices (6 x 2x2 zigzag = 24, sliding support 12, a conditioning window of
 24 blocks, 5-conv context stacks).
 
 The synthetic reference dict carries the reference's module names
-(stf9.py, stf14.py: the machine layer's ``g_a`` and inline coder with its
-``cc_*_transforms2`` and ``lrp_transforms2`` stacks, ``g_s1``, ``g_s2``,
-``human_g_s2``, ``human_g_a``, ``human_g_s``, the human hyperprior, and
-stf9's ``human_context_decoder``), filled with seeded values. Held: the
-JAX converter's tree has the JAX model's init specs; the port's
-conversion equals ``from_jax_params`` of the JAX conversion bit for bit
-and loads strictly; the dead LRP stacks are dropped; the stored tables of
-both bottlenecks import, and with them the host wire round-trips in both
-symbol orders; ``stf12`` and ``stf13`` are refused by their queue items.
+(stf9.py, stf12.py, stf14.py: the machine layer's ``g_a`` and inline
+coder with its ``cc_*_transforms2`` and ``lrp_transforms2`` stacks,
+``g_s1``, ``g_s2``, the human hyperprior; stf9's and stf14's
+``human_g_s2``, ``human_g_a``, ``human_g_s`` and ``human_context_decoder``;
+stf12's ``human_g_enc2`` / ``human_g_enc3`` conditioning decoders, its
+two-stage ``human_g_a1`` / ``_a2`` / ``_s1`` / ``_s2`` and its two context
+decoders), filled with seeded values. Held: the JAX converter's tree has
+the JAX model's init specs; the port's conversion equals
+``from_jax_params`` of the JAX conversion bit for bit and loads strictly;
+the dead LRP stacks are dropped; the stored tables of both bottlenecks
+import, and with them the host wire round-trips in both symbol orders;
+the architectures not ported yet are refused by their queue items.
 """
 
 import functools
@@ -37,7 +41,7 @@ torch.set_num_threads(2)
 CRC_NARROW = dict(N=16, M=24, mid=32, num_slices=6, max_support=12, support_num=24,
                   hyper_enc_widths=(24, 20, 16, 14, 12), hyper_dec_widths=(14, 16, 20, 24, 24),
                   cc_widths=(16, 12, 12, 8))
-NAMES = ["stf9", "stf11", "stf14"]
+NAMES = ["stf9", "stf11", "stf12", "stf14"]
 
 
 def _hyper_dec(sd, prefix, z, dec, extra=0):
@@ -109,6 +113,9 @@ def crc_sd(name: str) -> _RefDict:
     _bottleneck(sd, "entropy_bottleneck_human", enc[-1])
     _decoder(sd, "g_s1", N, M, mid, part=1)
     _decoder(sd, "g_s2", N, M, mid, part=2)
+    if name == "stf12":
+        _stf12_human(sd, N, M, mid)
+        return sd
     _decoder(sd, "human_g_s2", N, M, mid)
     residual = name == "stf14"
     g_a_in = [3 if residual else 6, N, N, N]
@@ -122,6 +129,35 @@ def crc_sd(name: str) -> _RefDict:
     return sd
 
 
+def _stf12_human(sd, N, M, mid):
+    """stf12.py's human layer: mainCNNdecoder and mainCNNcontextScale2 as
+    conditioning, the 3-conv context decoder, the two-stage encoder
+    (conv pair; conv, conv, Win) and decoder (Win at 2M, deconv pair;
+    deconv, conv, deconv), the sub-pixel context decoder."""
+    _decoder(sd, "human_g_enc2", N, M, mid)
+    _win_noshift(sd, "human_g_enc3.0", M, 8, 4)
+    sd.deconv("human_g_enc3.1", M, N, 3)
+    sd.gdn("human_g_enc3.2", N)
+    sd.deconv("human_g_enc3.3", N, N, 3)
+    for j in range(3):
+        sd.conv(f"human_context_decoder.{2 * j}", M, M, 3)
+    sd.conv("human_g_a1.0", N, 6, 3)
+    sd.conv("human_g_a1.2", N, N, 3)
+    sd.conv("human_g_a2.0", N, 2 * N, 5)
+    sd.conv("human_g_a2.2", M, N, 5)
+    _win_noshift(sd, "human_g_a2.4", M, 8, 4)
+    _win_noshift(sd, "human_g_s1.0", 2 * M, 8, 4)
+    sd.deconv("human_g_s1.2", 2 * M, N, 3)
+    sd.deconv("human_g_s1.4", N, N, 3)
+    sd.deconv("human_g_s2.0", 2 * N, N, 3)
+    sd.conv("human_g_s2.2", N, N, 3)
+    sd.deconv("human_g_s2.4", N, 3, 3)
+    sd.conv("human_context_decoder2.0", M, M, 3)
+    sd.conv("human_context_decoder2.2", M, M, 3)
+    sd.conv("human_context_decoder2.4.0", 4 * N, M, 3)
+    sd.conv("human_context_decoder2.6.0", 4 * N, N, 3)
+
+
 @functools.lru_cache(maxsize=None)
 def converted(name: str):
     """-> (the filled reference dict, the JAX conversion, the port's)."""
@@ -129,7 +165,7 @@ def converted(name: str):
     return sd, jzoo.convert_crc_checkpoint(sd, name), tzoo.convert_reference_state_dict(name, sd)
 
 
-@pytest.mark.parametrize("name", ["stf9", "stf14"])
+@pytest.mark.parametrize("name", ["stf9", "stf12", "stf14"])
 def test_converter_tree_matches_init(name):
     """The synthetic dict is complete: the JAX converter's tree has the JAX
     model's init specs."""
@@ -161,7 +197,7 @@ def test_dead_reference_groups_are_dropped():
     assert any(k.startswith("human_context_decoder.") for k in converted("stf9")[2])
 
 
-@pytest.mark.parametrize("arch,item", [("stf12", "5b"), ("stf13", "5c")])
+@pytest.mark.parametrize("arch,item", [("czigzag", "3"), ("stf13", "1")])
 def test_rest_of_the_family_is_refused_by_its_queue_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         tzoo.convert_reference_state_dict(arch, {})

@@ -1,7 +1,7 @@
 """Where the time goes in icm_tpu_torch's full-width codecs and their
 training step, on the card.
 
-    python3 tools/torch_profile_codec.py [--model cnn|stf|stf5|...|stf8|stf9|stf11|stf14]
+    python3 tools/torch_profile_codec.py [--model cnn|stf|stf5|...|stf8|stf9|stf11|stf12|stf14]
         [--wire host|device|scan] [--no-graphs] [--act-dtype f32|bf16]
         [--scan-charm] [--seed 0] [--out profile.json]
 
@@ -10,10 +10,10 @@ N=192, M=320, 10 slices; ``stf``: the Swin codec, embed 48, M=384, 12
 slices; ``stf5``-``stf8``: the zigzag family, stf's transforms with
 per-slice Swin refiners; its training step runs the registry's unrolled
 forward, or with ``--scan-charm`` the ``scan_charm=True`` forward, whose
-refiners take stochastic depth; ``stf9``, ``stf11``, ``stf14``: the CRC
-family, a machine layer with the zigzag ChARM coder and a human layer,
-served by ``CRCCodec`` on the same three wires and trained on both layers'
-likelihoods) on the CUDA card with weights drawn from ``--seed``, on the host
+refiners take stochastic depth; ``stf9``, ``stf11``, ``stf12``, ``stf14``:
+the CRC family, a machine layer with the zigzag ChARM coder and a human
+layer, served by ``CRCCodec`` on the same three wires and trained on both
+layers' likelihoods) on the CUDA card with weights drawn from ``--seed``, on the host
 wire (``CharmCodec``, the default), the device wire
 (``DeviceWireCodec``, 1024 lanes an image, its rANS on the card) or the
 scan wire (``DeviceWireCodec(scan_wire=True)``, float32 only: its four
@@ -49,7 +49,7 @@ from collections import defaultdict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILY = ("stf5", "stf6", "stf7", "stf8")  # the zigzag family
-CRC = ("stf9", "stf11", "stf14")  # the CRC family
+CRC = ("stf9", "stf11", "stf12", "stf14")  # the CRC family
 
 
 def _busy_us(events) -> float:
