@@ -219,7 +219,29 @@ package beside it. Phases, each printed with its elapsed seconds:
     phase 8 (float32, then bfloat16 end to end and layer by layer with
     its control); 3 bfloat16 training steps as phase 10b (both layers'
     rates, the split decoder fixed);
-35. a reference stf12 checkpoint at full width, as phase 30.
+35. a reference stf12 checkpoint at full width, as phase 30;
+36. stf13 (N=192, M=384, mid=256; 801.8 M parameters: a machine layer, a
+    segmentation layer and a human layer conditioned on both through
+    learned masks; both zigzag coders with LRP and 3-conv context stacks)
+    at full width as phases 27-28 with ``CRC3Codec``, from its seeded
+    weights with the segmentation analysis's last convolution scaled by 16
+    (CRC_GAIN: unscaled, its latent rounds to 0 everywhere and mu and LRP
+    are 0, so every check of it would compare zeros): each zigzag layer's
+    nonzero symbols held above 0; six streams; every wire's y_hat,
+    seg_y_hat and x_hat bit-exact, the device wire's the host wire's; 6
+    encode and 52 decode launches on the device and scan wires (24 + 24
+    slices, three z, the human y); a chain graph each way for each zigzag
+    layer on the scan wire, each decode graph with its 24 slices' decode
+    launches (the LRP step inside); window attention and GDN by head width
+    and channels as CRC_SIDE_LAUNCHES; the eval forward card against CPU
+    (seg_x_hat and the segmentation y likelihoods too);
+37. stf13 training as phase 29 over the three layers' rates (CRC_STEP: 16
+    window-attention, 21 GDN forward and 15 GDN backward launches a step;
+    g_s and seg_g_s, whose outputs no loss term reads, fixed);
+38. stf13 under the bfloat16 policy from phase 36's weights, as phase 34;
+39. a reference stf13 checkpoint at full width, as phase 30 (three
+    bottlenecks' tables stored and imported, six streams in the reference
+    order).
 
 Each serving phase also logs its sides' device idle share: one traced
 compress and decompress (the union of the trace's kernel, copy and memset
@@ -268,6 +290,7 @@ import hashlib
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -494,7 +517,7 @@ FAMILY_REPS = 1
 # human_g_enc3 a 384-channel block and an IGDN, and its decoder head, and
 # its encoder tail a 384-channel block): by head width 24, 48, 32, 96, and
 # the GDN forward's at 192 and 256 channels
-CRC = ("stf9", "stf14", "stf12")
+CRC = ("stf9", "stf14", "stf12", "stf13")
 CRC_ATTENTION_SHAPES = {32: (512, 64), 48: (128, 16), 96: (128, 16)}
 CRC_SIDE_LAUNCHES = {
     "stf9": {"compress": {24: 1, 48: 2, 32: 1, "gdn192": 5, "gdn256": 1},
@@ -525,12 +548,43 @@ CRC_STEP_SHAPES = {
                       "forward C256": 2}},
 }
 CRC_STEP_SHAPES["stf14"] = CRC_STEP_SHAPES["stf9"]
-CRC_LIKELIHOODS = ("likelihoods", "machine_likelihoods")
+# stf13 (phases 36-39): three layers, its machine and segmentation coders with
+# LRP (3-conv context stacks), five MainCNNDecoders (g_s, seg_g_enc2, seg_g_s,
+# human_g_enc2, human_g_enc4: attention at 48 and 32, IGDN at 192 twice and
+# 256 once) and three ContextScale2 (seg_g_enc3, human_g_enc3, human_g_enc5:
+# attention at 48, an IGDN at 192). A compress runs g_a, seg_g_enc2 and _enc3,
+# seg_g_a2's block and the human layer's four conditioning decoders, and again
+# the four for its debug reconstruction (the decoder's function); a
+# decompress the four; neither runs g_s or seg_g_s. A training step's forward
+# runs all of them once (the masks and conditioning signals once), its
+# backward none of g_s or seg_g_s (no loss term reads machine_x_hat or
+# seg_x_hat): 12 + 3 GDN backward launches
+CRC_SIDE_LAUNCHES["stf13"] = {
+    "compress": {24: 1, 48: 12, 32: 5, "gdn192": 18, "gdn256": 5},
+    "decompress": {48: 4, 32: 2, "gdn192": 6, "gdn256": 2}}
+CRC_STEP["stf13"] = {"window_attention": 16, "gdn_forward": 21, "gdn_backward": 15,
+                     "rans_encode": 0, "rans_decode": 0}
+CRC_STEP_SHAPES["stf13"] = {"window_attention": {"D24": 1, "D32": 5, "D48": 10},
+                            "gdn": {"backward C192": 12, "backward C256": 3,
+                                    "forward C192": 16, "forward C256": 5}}
+# weights scaled after the seeded draw, by model: parameter -> factor. stf13's
+# segmentation latent is small at untrained draws (at most 0.16-0.62 on
+# narrow CPU twins, seeded or drawn at a reference's scale), so at narrow 0.2
+# the seeded model codes no nonzero segmentation symbol, and with zero
+# biases its mu and LRP are 0 too (JAX's init gives the same zero latent:
+# tests/test_torch_crc.py). Its analysis's last convolution scaled by 16
+# codes 4.3% of them nonzero and none escaped (crc_phase holds the count
+# above 0); at 24 and 32 the untrained scales let 1,475 and 11,403 escape,
+# 8 bytes each on the device wire, past its byte bar (PERF.md section 6;
+# tools/torch_smoke_crc.py --probe-gains)
+CRC_GAIN = {"stf13": {"seg_g_a2.Conv_1.weight": 16.0}}
 # host-clock calls whose median gives a CRC wire's img/s
 CRC_REPS = 3
-# the CRC model whose bfloat16 policy is held on the card (the one that runs
-# every CRC head width and both GDN widths)
-CRC_BF16 = "stf12"
+# the CRC models whose bfloat16 policy is held on the card (stf12 runs every
+# CRC head width and both GDN widths; stf13 its two LRP coders and masks)
+CRC_BF16 = ("stf12", "stf13")
+# the CRC models served from a reference checkpoint
+CRC_REFERENCE = ("stf9", "stf12", "stf13")
 
 
 def crc_step_shapes(name: str, dtype: str = "float32") -> dict:
@@ -1491,8 +1545,10 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
     if len(records) != steps + resumed_steps:
         raise AssertionError(f"{len(records)} steps run, not {steps + resumed_steps}")
     if moved != {n for n in before if not n.startswith(fixed or ("\0",))}:
+        still = [n for n in before if n not in moved and not n.startswith(fixed or ("\0",))]
         raise AssertionError(f"{len(before) - len(moved)} of {len(before)} parameters did not "
-                             f"move, {len([n for n in moved if n.startswith(fixed)])} fixed moved")
+                             f"move, {len([n for n in moved if n.startswith(fixed)])} fixed moved; "
+                             f"unfixed that did not: {still[:8]}")
     for r in records:
         if not all(np.isfinite(r[k]) for k in ("loss", "bpp_loss", "mse_loss", "aux_loss")):
             raise AssertionError(f"non-finite training metrics: {r}")
@@ -2101,10 +2157,32 @@ def aten_calls(fn) -> int:
     return sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
 
 
+def crc_codec(model, **kw):
+    """The codec of a CRC model: ``CRC3Codec`` for stf13's class, else
+    ``CRCCodec``."""
+    from icm_tpu_torch.models.crc import ConditionalResidualCoding3
+    from icm_tpu_torch.models.crc_codec import CRC3Codec, CRCCodec
+
+    return (CRC3Codec if isinstance(model, ConditionalResidualCoding3) else CRCCodec)(model,
+                                                                                     **kw)
+
+
+def crc_loss(model):
+    """(RateDistortionLoss over every layer's rates, the prefixes of the
+    parameters no loss term reaches) of a CRC model."""
+    from icm_tpu_torch.train import RateDistortionLoss
+
+    return RateDistortionLoss(0.01, likelihood_keys=model.likelihood_keys), model.no_loss
+
+
+def crc_dec_args(codec, enc) -> list:
+    """A compress's output -> ``codec``'s decompress arguments."""
+    return [enc["strings"], *[enc[k] for k in codec.SHAPE_KEYS], enc["human_shape"]]
+
+
 def crc_side_runs(codec, x, enc):
     """(compress, decompress) of ``codec`` as argument-free calls."""
-    return (lambda: codec.compress(x),
-            lambda: codec.decompress(enc["strings"], enc["shape"], enc["human_shape"]))
+    return (lambda: codec.compress(x), lambda: codec.decompress(*crc_dec_args(codec, enc)))
 
 
 def crc_timing(codec, x, enc, reps: int = 3) -> dict:
@@ -2136,8 +2214,8 @@ def crc_roundtrip(codec, x, zero_counts, read_counts, what: str, expect: dict):
     right before and read right after each side and held to ``expect[side]``
     (kernel counts, shape counts); decompress watched for host round trips
     (``torch.cuda.set_sync_debug_mode``) off the host wire. Holds y_hat
-    bit-exact and the decoder's x_hat equal to the encoder's, finite and
-    of the images' shape. -> (enc, dec, counts by side, shape counts by
+    (stf13: and seg_y_hat) bit-exact and the decoder's x_hat equal to the
+    encoder's, finite and of the images' shape. -> (enc, dec, counts by side, shape counts by
     side, host round trips in decompress)."""
     import warnings
 
@@ -2155,7 +2233,7 @@ def crc_roundtrip(codec, x, zero_counts, read_counts, what: str, expect: dict):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            dec = codec.decompress(enc["strings"], enc["shape"], enc["human_shape"])
+            dec = codec.decompress(*crc_dec_args(codec, enc))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     syncs = [str(c.message).splitlines()[0] for c in caught if "synchroniz" in str(c.message)]
@@ -2165,8 +2243,9 @@ def crc_roundtrip(codec, x, zero_counts, read_counts, what: str, expect: dict):
         + (f"; host round trips in decompress: {len(syncs)}" if watch else ""))
     if syncs:
         raise AssertionError(f"{what}: decompress waited for the card: {syncs[:3]}")
-    if not torch.equal(dec["y_hat"], enc["y_hat"]) or not torch.equal(dec["x_hat"], enc["x_hat"]):
-        raise AssertionError(f"{what}: the decoder's y_hat or x_hat differs from the encoder's")
+    for k in codec.LATENT_KEYS + ("x_hat",):
+        if not torch.equal(dec[k], enc[k]):
+            raise AssertionError(f"{what}: the decoder's {k} differs from the encoder's")
     if dec["x_hat"].shape != x.shape or not bool(torch.isfinite(dec["x_hat"]).all()):
         raise AssertionError(f"{what}: bad x_hat {tuple(dec['x_hat'].shape)}")
     for side in counts:
@@ -2177,118 +2256,155 @@ def crc_roundtrip(codec, x, zero_counts, read_counts, what: str, expect: dict):
     return enc, dec, counts, shapes, len(syncs)
 
 
-CRC_STREAMS = ("machine_y", "machine_z", "human_y", "human_z")
+def wire_escapes(blobs) -> int:
+    """Escaped symbols in a stream's device- or scan-wire blobs (the
+    header's n_esc; each costs 8 bytes: its position and raw value)."""
+    from icm_tpu_torch.coding.wire import WIRE_SCAN
+
+    return sum(struct.unpack_from("<I", b, (5 if b[3] == WIRE_SCAN else 4) + 8)[0]
+               for b in blobs)
 
 
-def crc_bytes(enc, size: int) -> dict:
-    per = {name: sum(len(b) for b in enc["strings"][k]) for k, name in enumerate(CRC_STREAMS)}
+def crc_bytes(enc, size: int, streams) -> dict:
+    """Each stream's bytes (``streams``: the codec's names) and each image's
+    bpp."""
+    per = {name: sum(len(b) for b in enc["strings"][k]) for k, name in enumerate(streams)}
     B = len(enc["strings"][0])
-    return {"bytes": per, "bpp": [8 * sum(len(enc["strings"][k][b]) for k in range(4))
-                                  / (size * size) for b in range(B)]}
+    return {"bytes": per, "bpp": [8 * sum(len(s[b]) for s in enc["strings"]) / (size * size)
+                                  for b in range(B)]}
+
+
+def crc_stream_bytes(model, dev, enc, denc, size: int) -> dict:
+    """Each stream's bytes on the device wire (``dev``'s compress ``denc``)
+    against the host wire's (``enc``), its lanes (a zigzag layer's y and z,
+    then the human y and z), its escapes and its limit: the host wire's x
+    1.02 plus each lane's flushed state and length and the header."""
+    B, h, kit = len(enc["strings"][0]), size // 16, dev.kit
+    ebs = [get(model).entropy_bottleneck for *_, get in dev.LAYERS]
+    lanes = {}
+    for (y_name, z_name), eb in zip(zip(dev.STREAMS[::2], dev.STREAMS[1::2]),
+                                    ebs + [model.human_hyper.entropy_bottleneck]):
+        lanes[y_name] = kit.n_lanes(h, h) if y_name == "human_y" else kit.n_lanes(h // 2, h // 2)
+        lanes[z_name] = (size // 64) ** 2 * kit.z_groups(eb.channels)
+    host_b = crc_bytes(enc, size, dev.STREAMS)["bytes"]
+    dev_b = crc_bytes(denc, size, dev.STREAMS)["bytes"]
+    return {k: dict(device=dev_b[k], host=host_b[k], lanes=lanes[k],
+                    escapes=wire_escapes(denc["strings"][dev.STREAMS.index(k)]),
+                    limit=host_b[k] * 1.02 + B * (lanes[k] * 8 + 16)) for k in lanes}
 
 
 def crc_eval_vs_cpu(name: str, model, seed: int) -> dict:
     """The eval forward on the card against the plain CPU path, the same
-    weights, one 256 x 256 image: x_hat, machine_x_hat and the human and
-    machine y likelihoods within 1e-3."""
+    weights, one 256 x 256 image: each reconstruction (x_hat,
+    machine_x_hat; stf13's seg_x_hat) and each layer's y likelihoods within
+    1e-3."""
     import torch
 
     from icm_tpu_torch.data import make_images
 
     cpu_model = cpu_twin(name, model)
     xs = torch.from_numpy(make_images(seed + 1, 1, 256))
+    t = time.time()
     with torch.no_grad():
         ref = cpu_model(xs)
+        cpu_s = time.time() - t
         got = model(xs.cuda())
+    held = ([(k, k, None) for k in ("x_hat", "machine_x_hat", "seg_x_hat") if k in ref]
+            + [(f"{k.split('_')[0] if '_' in k else 'human'} y likelihoods", k, "y")
+               for k in model.likelihood_keys])
     worst = {key: (got[a][b] if b else got[a]).cpu().sub(ref[a][b] if b else ref[a]).abs()
-             .max().item() for key, a, b in (("x_hat", "x_hat", None),
-                                             ("machine_x_hat", "machine_x_hat", None),
-                                             ("human y likelihoods", "likelihoods", "y"),
-                                             ("machine y likelihoods", "machine_likelihoods", "y"),
-                                             ("human z likelihoods", "likelihoods", "z"))}
-    log(f"  max |card - cpu| ({name}, 256 x 256): {worst}")
-    if not all(worst[k] <= 1e-3 for k in ("x_hat", "machine_x_hat", "human y likelihoods",
-                                          "machine y likelihoods")):
+             .max().item() for key, a, b in held + [("human z likelihoods", "likelihoods", "z")]}
+    log(f"  max |card - cpu| ({name}, 256 x 256; the CPU side {cpu_s:.1f}s): {worst}")
+    if not all(worst[k] <= 1e-3 for k, _, _ in held):
         raise AssertionError(f"card and CPU disagree: {worst}")
     del cpu_model
     gc.collect()
-    return {"size": 256, "f32_max_abs": worst, "tolerance": 1e-3}
+    return {"size": 256, "f32_max_abs": worst, "tolerance": 1e-3, "cpu_s": cpu_s}
 
 
 def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> dict:
-    """Phases 27-28 and 32: a CRC model (stf9, stf14, stf12) at its
-    published full width,
-    weights from ``seed``, on the images of phase 5 at ``narrow=0.2``:
-    compress -> decompress on the host wire, the device wire and the scan
-    wire (graphed and launch by launch), each held by ``crc_roundtrip``
-    with the launches of CRC_SIDE_LAUNCHES (window attention by head
-    width, GDN by channels; the device and scan wires: 4 encode launches,
-    ctx_slices + 3 decode launches); the device wire's y_hat and x_hat
-    equal to the host wire's and each stream's bytes within the host
-    wire's x 1.02 plus each lane's flush and header; the scan wire's graphs
-    held as phase 7a's (``graph_replays``), its blobs and bits equal to
-    launch by launch, its y_hat within JAX's bar of the device wire's, and
-    the bf16 policy refused; each side's img/s, device idle share and ATen
-    calls on each wire; then the eval forward against the CPU's. -> {model,
-    result, counts}."""
+    """Phases 27-28, 32 and 36: a CRC model (stf9, stf14, stf12, stf13) at
+    its published full width, weights from ``seed`` (scaled as CRC_GAIN
+    says), on the images of phase 5 at ``narrow=0.2``: each zigzag layer's
+    nonzero y symbols counted on the host wire's chain (``symbols``) and
+    held above 0, so that no wire's check compares a latent made of its
+    context alone; compress -> decompress on the host wire, the device wire
+    and the scan wire (graphed and launch by launch), each held by
+    ``crc_roundtrip`` with the launches of CRC_SIDE_LAUNCHES (window
+    attention by head width, GDN by channels; the device and scan wires: 2
+    encode launches a zigzag layer and 2 for the human layer, ctx_slices +
+    1 decode launches a zigzag layer and 2: 4 and 27, stf13 6 and 52); the
+    device wire's latents and x_hat equal to the host wire's and each
+    stream's bytes within the host wire's x 1.02 plus each lane's flush and
+    header; the scan wire's graphs held as phase 7a's (``graph_replays``:
+    a chain graph each way for each zigzag layer), its blobs and bits
+    equal to launch by launch, its latents within JAX's bar of the device
+    wire's, and the bf16 policy refused; each side's img/s (the median of
+    CRC_REPS calls), device idle share and ATen calls on each wire; then
+    the eval forward against the CPU's. -> {model, result, counts}."""
     import torch
 
     from icm_tpu_torch.models import create_model
-    from icm_tpu_torch.models.crc_codec import CRCCodec
     from icm_tpu_torch.nn import set_activation_dtype
 
     B, size = x.shape[0], x.shape[1]
     t = time.time()
     model = create_model(name, seed=seed)
+    with torch.no_grad():
+        for pname, gain in CRC_GAIN.get(name, {}).items():
+            model.get_parameter(pname).mul_(gain)
     n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
-    c = model.coder
+    codec = crc_codec(model, narrow=0.2)
+    coders = [layer[3](model) for layer in codec.LAYERS]
+    c = coders[0]
     log(f"  {name}: {n_params / 1e6:.1f} M parameters in {time.time() - t:.1f}s; "
-        f"{c.ctx_slices} slices of {c.slice_ch} channels, support {c.max_support}, "
-        f"conditioning window {c.cond_blocks}")
+        f"{len(coders)} zigzag coder(s) of {c.ctx_slices} slices of {c.slice_ch} channels, "
+        f"support {c.max_support}, conditioning window {c.cond_blocks}, LRP {c.apply_lrp}; "
+        f"scaled {CRC_GAIN.get(name, {})}")
+    n_layers = len(coders)
     host_expect = {side: crc_expect(name, side) for side in ("compress", "decompress")}
-    dev_expect = {"compress": crc_expect(name, "compress", rans_encode=4),
-                  "decompress": crc_expect(name, "decompress", rans_decode=c.ctx_slices + 3)}
-    result = {"params": n_params, "ctx_slices": c.ctx_slices, "slice_channels": c.slice_ch}
+    dev_expect = {"compress": crc_expect(name, "compress", rans_encode=2 * n_layers + 2),
+                  "decompress": crc_expect(name, "decompress",
+                                           rans_decode=n_layers * (c.ctx_slices + 1) + 2)}
+    symbols = {k: [sum(int(s.count_nonzero()) for s in syms), sum(s.numel() for s in syms)]
+               for k, syms in codec.symbols(x).items()}
+    log(f"  {name}: nonzero y symbols of each zigzag layer, of all: {symbols}")
+    if not all(n for n, _ in symbols.values()):
+        raise AssertionError(f"{name}: a zigzag layer codes only zero symbols: {symbols}")
+    result = {"params": n_params, "ctx_slices": c.ctx_slices, "slice_channels": c.slice_ch,
+              "zigzag_layers": n_layers, "lrp": c.apply_lrp, "gain": CRC_GAIN.get(name, {}),
+              "nonzero_y_symbols": symbols}
     counts = {}
 
-    codec = CRCCodec(model, narrow=0.2)
     enc, _, l, sh, _ = crc_roundtrip(codec, x, zero_counts, read_counts,
                                      f"{name} host wire", host_expect)
     counts.update(launches_compress=l["compress"], launches_decompress=l["decompress"])
-    result["host_wire"] = {**crc_bytes(enc, size), "launches": l, "launches_by_shape": sh,
-                           **crc_timing(codec, x, enc, CRC_REPS)}
+    result["host_wire"] = {**crc_bytes(enc, size, codec.STREAMS), "launches": l,
+                           "launches_by_shape": sh, **crc_timing(codec, x, enc, CRC_REPS)}
 
-    dev = CRCCodec(model, narrow=0.2, wire="device")
+    dev = crc_codec(model, narrow=0.2, wire="device")
     denc, _, l, sh, syncs = crc_roundtrip(dev, x, zero_counts, read_counts,
                                           f"{name} device wire", dev_expect)
     counts.update(launches_device_wire_compress=l["compress"],
                   launches_device_wire_decompress=l["decompress"])
-    if not torch.equal(denc["y_hat"], enc["y_hat"]) or not torch.equal(denc["x_hat"], enc["x_hat"]):
-        raise AssertionError(f"{name}: the device wire's y_hat or x_hat differs from the host's")
-    kit = dev.kit
-    h = size // 16
-    lanes = {"machine_y": kit.n_lanes(h // 2, h // 2),
-             "machine_z": (size // 64) ** 2 * kit.z_groups(c.entropy_bottleneck.channels),
-             "human_y": kit.n_lanes(h, h),
-             "human_z": (size // 64) ** 2 * kit.z_groups(
-                 model.human_hyper.entropy_bottleneck.channels)}
-    host_b, dev_b = crc_bytes(enc, size)["bytes"], crc_bytes(denc, size)["bytes"]
-    stream_bytes = {k: dict(device=dev_b[k], host=host_b[k], lanes=lanes[k],
-                            limit=host_b[k] * 1.02 + B * (lanes[k] * 8 + 16)) for k in lanes}
+    for k in codec.LATENT_KEYS + ("x_hat",):
+        if not torch.equal(denc[k], enc[k]):
+            raise AssertionError(f"{name}: the device wire's {k} differs from the host's")
+    stream_bytes = crc_stream_bytes(model, dev, enc, denc, size)
     log(f"  {name} device wire bytes {stream_bytes}")
     for k, v in stream_bytes.items():
         if v["device"] > v["limit"]:
             raise AssertionError(f"{name} device wire {k}: {v['device']} bytes over {v['limit']}")
-    result["device_wire"] = {**crc_bytes(denc, size), "stream_bytes": stream_bytes,
+    result["device_wire"] = {**crc_bytes(denc, size, dev.STREAMS), "stream_bytes": stream_bytes,
                              "launches": l, "launches_by_shape": sh,
                              "host_round_trips_in_decompress": syncs,
                              **crc_timing(dev, x, denc, CRC_REPS)}
 
-    scan = CRCCodec(model, narrow=0.2, wire="device", scan_wire=True)
+    scan = crc_codec(model, narrow=0.2, wire="device", scan_wire=True)
     t = time.time()
     first = scan.compress(x, return_debug=True)
-    scan.decompress(first["strings"], first["shape"], first["human_shape"])
+    scan.decompress(*crc_dec_args(scan, first))
     torch.cuda.synchronize()
     first_s = time.time() - t
     stats = scan.graphs.stats()
@@ -2301,28 +2417,33 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
                                              f"{name} scan wire", dev_expect)
     counts.update(launches_scan_wire_compress=l["compress"],
                   launches_scan_wire_decompress=l["decompress"])
+    chains = {k for k in scan.graphs.graphs() if k[0] == "scan"}
+    if len(chains) != 2 * n_layers:
+        raise AssertionError(f"{name} scan wire: chain graphs {sorted(map(str, chains))}, "
+                             f"expected an encode and a decode one for each of {n_layers} layers")
     per_replay = graph_replays(scan, c.ctx_slices)
-    plain = CRCCodec(model, narrow=0.2, wire="device", scan_wire=True, cuda_graphs=False)
+    plain = crc_codec(model, narrow=0.2, wire="device", scan_wire=True, cuda_graphs=False)
     penc = plain.compress(x, return_debug=True)
-    pdec = plain.decompress(senc["strings"], senc["shape"], senc["human_shape"])
+    pdec = plain.decompress(*crc_dec_args(plain, senc))
     if penc["strings"] != senc["strings"]:
         raise AssertionError(f"{name} scan wire: graphed blobs differ from launch by launch")
     for got, want, what in ((penc, senc, "compress"), (pdec, sdec, "decompress")):
-        for k in ("y_hat", "x_hat"):
+        for k in scan.LATENT_KEYS + ("x_hat",):
             if not torch.equal(got[k], want[k]):
                 raise AssertionError(f"{name} scan wire: graphed {what} {k} differs from launch "
                                      "by launch")
-    d = (senc["y_hat"] - enc["y_hat"]).abs()
-    vs_device = {"share_above_1e-2": float((d > 1e-2).float().mean()),
-                 "median": float(d.median()), "max": float(d.max())}
-    log(f"  {name} scan wire y_hat against the device wire's: {vs_device} (bars "
-        f"{SCAN_VS_DEVICE})")
-    if not (vs_device["share_above_1e-2"] < SCAN_VS_DEVICE["share_above_1e-2"]
-            and vs_device["median"] < SCAN_VS_DEVICE["median"]):
-        raise AssertionError(f"{name} scan wire y_hat strays from the device wire's: {vs_device}")
+    vs_device = {}
+    for k in scan.LATENT_KEYS:
+        d = (senc[k] - enc[k]).abs()
+        vs_device[k] = v = {"share_above_1e-2": float((d > 1e-2).float().mean()),
+                            "median": float(d.median()), "max": float(d.max())}
+        log(f"  {name} scan wire {k} against the device wire's: {v} (bars {SCAN_VS_DEVICE})")
+        if not (v["share_above_1e-2"] < SCAN_VS_DEVICE["share_above_1e-2"]
+                and v["median"] < SCAN_VS_DEVICE["median"]):
+            raise AssertionError(f"{name} scan wire {k} strays from the device wire's: {v}")
     set_activation_dtype(torch.bfloat16)
     try:
-        CRCCodec(model, wire="device", scan_wire=True)
+        crc_codec(model, wire="device", scan_wire=True)
     except ValueError as e:
         refused = str(e).split(";")[0]
     else:
@@ -2330,10 +2451,10 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
     finally:
         set_activation_dtype(None)
     result["scan_wire"] = {
-        **crc_bytes(senc, size), "launches": l, "launches_by_shape": sh,
+        **crc_bytes(senc, size, scan.STREAMS), "launches": l, "launches_by_shape": sh,
         "host_round_trips_in_decompress": syncs, "tier": sorted({b[4] for b in senc["strings"][0]}),
         "first_call_s": first_s, "capture_s": capture_s, "pool_bytes": pool_bytes,
-        "graphs": graphs, "launches_per_replay": per_replay, "y_hat_vs_device_wire": vs_device,
+        "graphs": graphs, "launches_per_replay": per_replay, "latents_vs_device_wire": vs_device,
         "bf16_refused": refused, **crc_timing(scan, x, senc, CRC_REPS),
         "launch_by_launch": crc_timing(plain, x, penc, CRC_REPS)}
     sides = {w: {s: result[w][s] for s in ("compress", "decompress")}
@@ -2353,7 +2474,7 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
 
 def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_train: dict,
                    seed: int) -> dict:
-    """Phase 34: a CRC model under the bfloat16 policy, from the weights
+    """Phases 34 and 38: a CRC model under the bfloat16 policy, from the weights
     ``init_state`` its float32 phases served and trained from: the device
     wire held by ``crc_roundtrip`` with CRC_SIDE_LAUNCHES in the bfloat16
     builds (every head width and both GDN widths), its bpp within 5% and
@@ -2361,32 +2482,32 @@ def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_tra
     (``crc["device_enc"]``), its img/s and idle; the eval forward card
     against CPU end to end and layer by layer (phase 8's
     ``eval_vs_cpu_phase``); 3 bfloat16 training steps (``bf16_train_phase``,
-    both layers' rates), each launching CRC_STEP in the bfloat16 builds.
+    every layer's rates), each launching CRC_STEP in the bfloat16 builds.
     -> results, with the launches by shape of each path under "shapes"."""
     import torch
 
-    from icm_tpu_torch.models.crc_codec import CRCCodec
     from icm_tpu_torch.nn import set_activation_dtype
-    from icm_tpu_torch.train import RateDistortionLoss
 
     model = crc["model"]
     model.load_state_dict(init_state)
     zero_counts, read_counts = launch_counts("bfloat16")
-    size, c = x.shape[1], model.coder
-    expect = {"compress": crc_expect(name, "compress", "bfloat16", rans_encode=4),
-              "decompress": crc_expect(name, "decompress", "bfloat16",
-                                       rans_decode=c.ctx_slices + 3)}
+    size = x.shape[1]
+    f32_dev = crc["result"]["device_wire"]["launches"]
+    expect = {side: crc_expect(name, side, "bfloat16",
+                               rans_encode=f32_dev[side]["rans_encode"],
+                               rans_decode=f32_dev[side]["rans_decode"])
+              for side in ("compress", "decompress")}
     set_activation_dtype(torch.bfloat16)
     try:
-        dev = CRCCodec(model, narrow=0.2, wire="device")
+        dev = crc_codec(model, narrow=0.2, wire="device")
         enc, _, l, sh, syncs = crc_roundtrip(dev, x, zero_counts, read_counts,
                                              f"{name} bf16 device wire", expect)
         timing = crc_timing(dev, x, enc, reps=CRC_REPS)
     finally:
         set_activation_dtype(None)
     f32 = crc["device_enc"]
-    bpp_rel = [b16 / b32 - 1 for b16, b32 in zip(crc_bytes(enc, size)["bpp"],
-                                                  crc_bytes(f32, size)["bpp"])]
+    bpp_rel = [b16 / b32 - 1 for b16, b32 in zip(crc_bytes(enc, size, dev.STREAMS)["bpp"],
+                                                  crc_bytes(f32, size, dev.STREAMS)["bpp"])]
     x_hat_mean = (enc["x_hat"].float() - f32["x_hat"].float()).abs().mean().item()
     log(f"  {name} bf16 device wire against f32: bpp {[f'{r:+.2e}' for r in bpp_rel]} (bar "
         f"{BF16_BPP_RTOL}), mean |x_hat - x_hat_f32| {x_hat_mean:.3e} (bar {BF16_XHAT_MEAN_TOL}); "
@@ -2394,16 +2515,17 @@ def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_tra
                                for v in timing.values()) + f" ({card})")
     if max(abs(r) for r in bpp_rel) > BF16_BPP_RTOL or not x_hat_mean < BF16_XHAT_MEAN_TOL:
         raise AssertionError(f"{name} bf16 serving strays from f32: {bpp_rel}, {x_hat_mean}")
-    out = {"device_wire": {**crc_bytes(enc, size), "launches": l, "launches_by_shape": sh,
+    out = {"device_wire": {**crc_bytes(enc, size, dev.STREAMS), "launches": l,
+                           "launches_by_shape": sh,
                            "host_round_trips_in_decompress": syncs, **timing,
                            "against_f32": dict(bpp_rel=bpp_rel, x_hat_mean_abs=x_hat_mean,
                                                bpp_rtol=BF16_BPP_RTOL,
                                                x_hat_mean_tol=BF16_XHAT_MEAN_TOL)}}
     out["card_vs_cpu"] = eval_vs_cpu_phase(name, model, seed, cpu_model=cpu_twin(name, model))
     gc.collect()
-    criterion = RateDistortionLoss(0.01, likelihood_keys=CRC_LIKELIHOODS)
+    criterion, fixed = crc_loss(model)
     out["train"] = bf16_train_phase(model, init_state, seed, card, CRC_STEP[name], f32_train,
-                                    criterion=criterion, fixed=("g_s1.", "g_s2."))
+                                    criterion=criterion, fixed=fixed)
     want = crc_step_shapes(name, "bfloat16")
     if out["train"]["launches_by_shape_per_step"] != want:
         raise AssertionError(f"{name} bf16 step: launches by shape "
@@ -2415,17 +2537,17 @@ def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_tra
 
 
 def crc_train_phase(model, name: str, seed: int, card: str) -> dict:
-    """Phases 29, 31 and 33: ``run_training`` of a CRC model on the card,
-    its RateDistortionLoss over both layers' likelihoods (the JAX model's
-    docstring for training from scratch): 3 steps of 8 x 256^2, each
-    finite, each launching CRC_STEP, every parameter moved but the split
-    decoder's (machine_x_hat enters no loss term); then one step on the
-    card against the plain CPU path on a small input. -> results."""
-    from icm_tpu_torch.train import RateDistortionLoss
-
-    criterion = RateDistortionLoss(0.01, likelihood_keys=CRC_LIKELIHOODS)
+    """Phases 29, 31, 33 and 37: ``run_training`` of a CRC model on the
+    card, its RateDistortionLoss over every layer's likelihoods (the JAX
+    model's docstring for training from scratch): 3 steps of 8 x 256^2,
+    each finite, each launching CRC_STEP, every
+    parameter moved but those of the decoders no loss term reads (the
+    split decoder of machine_x_hat; stf13's g_s and seg_g_s); then one
+    step on the card against the plain CPU path on a small input. ->
+    results."""
+    criterion, fixed = crc_loss(model)
     out = train_phase(model, seed, card, CRC_STEP[name], steps=3, resumed_steps=0,
-                      criterion=criterion, fixed=("g_s1.", "g_s2."))
+                      criterion=criterion, fixed=fixed)
     want = crc_step_shapes(name)
     if out["launches_by_shape_per_step"] != want:
         raise AssertionError(f"{name} step: launches by shape {out['launches_by_shape_per_step']}"
@@ -2451,17 +2573,11 @@ def reference_crc_state_dict(seed: int, name: str = "stf9", N: int = 192, M: int
     ``seed`` as ``reference_wacnn_state_dict`` draws them."""
     import torch
 
+    if name == "stf13":
+        return reference_stf13_state_dict(seed, N, M, mid, enc, dec, K=K)
     S = Wc = 24  # 6 x 2x2 zigzag slices, all of them in the conditioning window
     ref = _RefDraw(np.random.default_rng(seed), np.float32)
-    ref.conv("g_a.0", N, 3, 5)
-    ref.gdn("g_a.1", N)
-    ref.conv("g_a.2", N, N, 5)
-    ref.gdn("g_a.3", N)
-    ref.win("g_a.4", N, 8)
-    ref.conv("g_a.5", N, N, 5)
-    ref.gdn("g_a.6", N)
-    ref.conv("g_a.7", M, N, 5)
-    ref.win("g_a.8", M, 4)
+    _ref_g_a(ref, N, M)
     for prefix, extra in (("", 0), ("human_", 5)):
         for i, (o, c) in enumerate(zip(enc, (M,) + enc[:-1])):
             ref.conv(f"{prefix}h_a.{2 * i}", o, c, 3)
@@ -2480,23 +2596,9 @@ def reference_crc_state_dict(seed: int, name: str = "stf9", N: int = 192, M: int
     decoders = (("g_s1", 1), ("g_s2", 2),
                 ("human_g_enc2" if name == "stf12" else "human_g_s2", None))
     for prefix, part in decoders:
-        if part != 2:
-            ref.win(f"{prefix}.0", M, 4)
-            ref.conv(f"{prefix}.1", N, M, 5, transposed=True)
-            ref.gdn(f"{prefix}.2", N)
-            ref.conv(f"{prefix}.3", mid, N, 5, transposed=True)
-            ref.gdn(f"{prefix}.4", mid)
-            ref.win(f"{prefix}.5", mid, 8)
-        if part != 1:
-            o = 0 if part == 2 else 6
-            ref.conv(f"{prefix}.{o}", N, mid, 5, transposed=True)
-            ref.gdn(f"{prefix}.{o + 1}", N)
-            ref.conv(f"{prefix}.{o + 2}", 3, N, 5, transposed=True)
+        _ref_decoder(ref, prefix, N, M, mid, part)
     if name == "stf12":
-        ref.win("human_g_enc3.0", M, 4)
-        ref.conv("human_g_enc3.1", N, M, 3, transposed=True)
-        ref.gdn("human_g_enc3.2", N)
-        ref.conv("human_g_enc3.3", N, N, 3, transposed=True)
+        _ref_context_scale2(ref, "human_g_enc3", N, M)
         for j in range(3):
             ref.conv(f"human_context_decoder.{2 * j}", M, M, 3)
         ref.conv("human_g_a1.0", N, 6, 3)
@@ -2524,13 +2626,127 @@ def reference_crc_state_dict(seed: int, name: str = "stf9", N: int = 192, M: int
     return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
 
 
+def _ref_g_a(ref, N: int, M: int) -> None:
+    """The reference's mainCNNencoder ``g_a``."""
+    ref.conv("g_a.0", N, 3, 5)
+    ref.gdn("g_a.1", N)
+    ref.conv("g_a.2", N, N, 5)
+    ref.gdn("g_a.3", N)
+    ref.win("g_a.4", N, 8)
+    ref.conv("g_a.5", N, N, 5)
+    ref.gdn("g_a.6", N)
+    ref.conv("g_a.7", M, N, 5)
+    ref.win("g_a.8", M, 4)
+
+
+def _ref_decoder(ref, prefix: str, N: int, M: int, mid: int, part=None) -> None:
+    """The reference's mainCNNdecoder, or its first (``part=1``) or second
+    (``part=2``) half."""
+    if part != 2:
+        ref.win(f"{prefix}.0", M, 4)
+        ref.conv(f"{prefix}.1", N, M, 5, transposed=True)
+        ref.gdn(f"{prefix}.2", N)
+        ref.conv(f"{prefix}.3", mid, N, 5, transposed=True)
+        ref.gdn(f"{prefix}.4", mid)
+        ref.win(f"{prefix}.5", mid, 8)
+    if part != 1:
+        o = 0 if part == 2 else 6
+        ref.conv(f"{prefix}.{o}", N, mid, 5, transposed=True)
+        ref.gdn(f"{prefix}.{o + 1}", N)
+        ref.conv(f"{prefix}.{o + 2}", 3, N, 5, transposed=True)
+
+
+def _ref_context_scale2(ref, prefix: str, N: int, M: int) -> None:
+    """The reference's mainCNNcontextScale2."""
+    ref.win(f"{prefix}.0", M, 4)
+    ref.conv(f"{prefix}.1", N, M, 3, transposed=True)
+    ref.gdn(f"{prefix}.2", N)
+    ref.conv(f"{prefix}.3", N, N, 3, transposed=True)
+
+
+def reference_stf13_state_dict(seed: int, N: int = 192, M: int = 384, mid: int = 256,
+                               enc=(384, 336, 288, 240, 192), dec=(240, 288, 336, 384, 384),
+                               cc=(224, 64), K: int = 12) -> dict:
+    """A reference stf13 state dict at full width (stf13.py's names and the
+    published shapes, DataParallel's ``module.`` prefix, values drawn from
+    ``seed`` as ``reference_wacnn_state_dict`` draws them): ``g_a``; the
+    machine coder (``h_a``, ``h_mean_s``, ``h_scale_s``, 3-conv
+    ``cc_*_transforms2`` and the ``lrp_transforms2`` it applies) and the
+    segmentation coder (the same names with ``seg_``); ``g_s`` and the
+    split decoder ``g_s1`` / ``g_s2`` the reference builds and never runs;
+    ``seg_g_enc2`` / ``seg_g_enc3``, ``seg_g_a1`` / ``seg_g_a2``,
+    ``seg_g_s``; the human layer's ``human_h_a``, deconv-style
+    ``human_h_mean_s_2`` / ``human_h_scale_s_2``, four conditioning
+    decoders, two 2-conv context decoders, ``human_g_a1_2`` /
+    ``human_g_a2_2``, the mask nets ``generate_mask_scale1`` / ``2``, the
+    deconv context decoders and ``human_g_s1_2`` / ``human_g_s2_2``; three
+    bottlenecks."""
+    import torch
+
+    S = Wc = 24
+    sc = M // 6
+    ref = _RefDraw(np.random.default_rng(seed), np.float32)
+    _ref_g_a(ref, N, M)
+    for prefix in ("", "seg_"):
+        for i, (o, c) in enumerate(zip(enc, (M,) + enc[:-1])):
+            ref.conv(f"{prefix}h_a.{2 * i}", o, c, 3)
+        for tag in ("h_mean_s", "h_scale_s"):
+            ref.hyper_dec(f"{prefix}{tag}", enc[-1], dec)
+        for i in range(S):
+            for tag, lrp in (("cc_mean_transforms2", 0), ("cc_scale_transforms2", 0),
+                             ("lrp_transforms2", sc)):
+                cin = [Wc * sc + sc * min(i, K) + lrp] + list(cc)
+                for j in range(len(cc)):
+                    ref.conv(f"{prefix}{tag}.{i}.{2 * j}", cc[j], cin[j], 3)
+                ref.conv(f"{prefix}{tag}.{i}.{2 * len(cc)}", sc, cc[-1], 3)
+    for i, (o, c) in enumerate(zip(enc, (M,) + enc[:-1])):
+        ref.conv(f"human_h_a.{2 * i}", o, c, 3)
+    for tag in ("human_h_mean_s_2", "human_h_scale_s_2"):
+        ref.conv(f"{tag}.0", dec[0], enc[-1], 3)
+        ref.conv(f"{tag}.2", dec[1], dec[0], 3, transposed=True)
+        ref.conv(f"{tag}.4", dec[-1], dec[1], 3, transposed=True)
+    for prefix in ("entropy_bottleneck", "entropy_bottleneck_seg", "entropy_bottleneck_human"):
+        ref.bottleneck(prefix, enc[-1])
+    for prefix, part in (("g_s", None), ("g_s1", 1), ("g_s2", 2), ("seg_g_enc2", None),
+                         ("seg_g_s", None), ("human_g_enc2", None), ("human_g_enc4", None)):
+        _ref_decoder(ref, prefix, N, M, mid, part)
+    for prefix in ("seg_g_enc3", "human_g_enc3", "human_g_enc5"):
+        _ref_context_scale2(ref, prefix, N, M)
+    for prefix in ("human_context_decoder", "human_context_decoder3"):
+        ref.conv(f"{prefix}.0", M, M, 3)
+        ref.conv(f"{prefix}.2", M, M, 3)
+    ref.conv("seg_g_a1.0", N, 6, 3)
+    ref.conv("seg_g_a1.2", N, N, 3)
+    ref.conv("seg_g_a2.0", N, 2 * N, 5)
+    ref.conv("seg_g_a2.2", M, N, 5)
+    ref.win("seg_g_a2.4", M, 4)
+    ref.conv("human_g_a1_2.0", N, 9, 3)
+    ref.conv("human_g_a1_2.2", N, N, 3)
+    ref.conv("human_g_a2_2.0", N, 3 * N, 5)
+    ref.conv("human_g_a2_2.2", M, N, 5)
+    for prefix, cin, widths in (("generate_mask_scale1", 6, (12, 12, 9)),
+                                ("generate_mask_scale2", 2 * N, (4 * N, 4 * N, 3 * N))):
+        for j, (o, c) in enumerate(zip(widths, (cin,) + widths)):
+            ref.conv(f"{prefix}.{2 * j}", o, c, 3)
+    for prefix in ("human_context_decoder2_2", "human_context_decoder4"):
+        ref.conv(f"{prefix}.0", N, M, 3)
+        ref.conv(f"{prefix}.2", N, N, 3, transposed=True)
+        ref.conv(f"{prefix}.4", N, N, 3, transposed=True)
+    ref.conv("human_g_s1_2.0", N, 3 * M, 3, transposed=True)
+    ref.conv("human_g_s1_2.2", N, N, 3, transposed=True)
+    ref.conv("human_g_s2_2.0", N, 3 * N, 3, transposed=True)
+    ref.conv("human_g_s2_2.2", N, N, 3)
+    ref.conv("human_g_s2_2.4", 3, N, 3, transposed=True)
+    return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
+
+
 def crc_reference_phase(model, name: str, x, card: str, zero_counts, read_counts,
                         seed: int) -> dict:
-    """Phases 30 and 35: a reference stf9 (stf12) checkpoint at full width,
-    as phase 18:
+    """Phases 30, 35 and 39: a reference stf9 (stf12, stf13) checkpoint at
+    full width, as phase 18:
     the seeded reference dict converted (``zoo.convert_reference_state_dict``)
     and loaded strictly into ``model``; the converted model's own CDF tables
-    (both bottlenecks and the Gaussian) written into it as the reference's
+    (every bottleneck and the Gaussian) written into it as the reference's
     buffers and imported back equal; the images of phase 5 on the host wire
     with the imported tables in the reference symbol order
     (``ref_layout=True``), held by ``crc_roundtrip``, the blobs equal to the
@@ -2539,7 +2755,6 @@ def crc_reference_phase(model, name: str, x, card: str, zero_counts, read_counts
 
     from icm_tpu_torch import zoo
     from icm_tpu_torch.models import build_codec_tables
-    from icm_tpu_torch.models.crc_codec import CRCCodec
 
     t = time.time()
     sd = reference_crc_state_dict(seed, name)
@@ -2560,21 +2775,109 @@ def crc_reference_phase(model, name: str, x, card: str, zero_counts, read_counts
                 raise AssertionError(f"imported {prefix} {field} differs from the stored one")
     log(f"  {len(sd)} reference tensors converted, loaded strictly and tables imported in "
         f"{time.time() - t:.1f}s")
-    codec = CRCCodec(model, tables=imported, ref_layout=True, narrow=0.2)
+    codec = crc_codec(model, tables=imported, ref_layout=True, narrow=0.2)
     expect = {side: crc_expect(name, side) for side in ("compress", "decompress")}
     enc, _, l, shapes, _ = crc_roundtrip(codec, x, zero_counts, read_counts,
                                          f"{name} reference, host wire", expect)
-    built_enc = CRCCodec(model, ref_layout=True, narrow=0.2).compress(x)
+    built_enc = crc_codec(model, ref_layout=True, narrow=0.2).compress(x)
     if built_enc["strings"] != enc["strings"]:
         raise AssertionError("imported tables' blobs differ from the built tables' ones")
-    sha = {name: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
-           for k, name in enumerate(CRC_STREAMS)}
+    sha = {stream: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
+           for k, stream in enumerate(codec.STREAMS)}
     log(f"  blobs with imported tables = built tables (reference order); sha256 {sha}")
-    return {"tensors": len(sd), **crc_bytes(enc, x.shape[1]), "blob_sha256": sha,
+    return {"tensors": len(sd), **crc_bytes(enc, x.shape[1], codec.STREAMS), "blob_sha256": sha,
             "launches_reference_compress": l["compress"],
             "launches_reference_decompress": l["decompress"],
             "shapes_reference_compress": shapes["compress"],
             "shapes_reference_decompress": shapes["decompress"]}
+
+
+def environment() -> str:
+    """Logs the card (``nvidia-smi``'s name and power limit) and the
+    software. -> the card's line."""
+    import torch
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0].strip()
+    log(f"card: {card}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}, devices {torch.cuda.device_count()}, "
+        f"name {torch.cuda.get_device_name(0)}")
+    return card
+
+
+def build_kernels() -> None:
+    """Builds every native library of the port in parallel (one nvcc or g++
+    a source) and logs ptxas' register and spill lines."""
+    from icm_tpu_torch import _native
+
+    results, threads = {}, []
+
+    def build(name, fn):
+        t = time.time()
+        try:
+            results[name] = (fn(), time.time() - t)
+        except BaseException as e:  # re-raised below, in the main thread
+            results[name] = e
+
+    for name, fn in _native.BUILDERS.items():
+        threads.append(threading.Thread(target=build, args=(name, fn)))
+        threads[-1].start()
+    for t in threads:
+        t.join()
+    for name, res in results.items():
+        if isinstance(res, BaseException):
+            raise res
+        log(f"  built {name}: {os.path.relpath(res[0], REPO)} in {res[1]:.1f}s")
+    for lib in ("libwindow_attention", "libgdn", "librans_lanes"):
+        for line in _native.BUILD_LOG.get(lib, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas ({lib}): {line.strip()}")
+
+
+def crc_model_phases(name: str, x, card: str, zero_counts, read_counts, seed: int) -> tuple:
+    """Every phase of one CRC model, in order: its wires and eval forward
+    (``crc_phase``), its training, its bfloat16 policy (CRC_BF16, from the
+    weights training started from) and its reference checkpoint
+    (CRC_REFERENCE). -> (results, float32 launch counts by path, launches
+    by shape by path)."""
+    import torch
+
+    with Phase(f"full-width {name}: host, device and scan wires, card vs CPU"):
+        crc = crc_phase(name, x, card, zero_counts, read_counts, seed)
+    result, counts, model = crc["result"], crc["counts"], crc["model"]
+    shapes = {f"launches{'' if w == 'host_wire' else '_' + w}_{side}":
+              result[w]["launches_by_shape"][side]
+              for w in ("host_wire", "device_wire", "scan_wire")
+              for side in ("compress", "decompress")}
+    init_state = None
+    if name in CRC_BF16:  # the weights the float32 phases train from
+        init_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with Phase(f"full-width {name} training, card vs CPU"):
+        result["train"] = crc_train_phase(model, name, seed, card)
+    counts["launches_train_step"] = result["train"]["launches_per_step"]
+    shapes["launches_train_step"] = result["train"]["launches_by_shape_per_step"]
+    if init_state is not None:
+        with Phase(f"full-width {name} under the bf16 policy: device wire, card vs CPU "
+                   "layer by layer, training"):
+            result["bf16"] = crc_bf16_phase(name, crc, x, card, init_state, result["train"],
+                                            seed)
+        shapes.update(result["bf16"].pop("shapes"))
+        del init_state
+    if name in CRC_REFERENCE:
+        with Phase(f"reference checkpoint: full-width {name}, imported tables, reference order"):
+            result["reference"] = crc_reference_phase(model, name, x, card, zero_counts,
+                                                      read_counts, seed)
+        for side in ("compress", "decompress"):
+            key = f"launches_reference_{side}"
+            counts[key] = result["reference"][key]
+            shapes[key] = result["reference"][f"shapes_reference_{side}"]
+    del crc, model
+    gc.collect()  # the model, its codecs and their graphs, before the next model
+    torch.cuda.empty_cache()
+    return result, counts, shapes
 
 
 def main() -> int:
@@ -2588,7 +2891,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from icm_tpu_torch import _native
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
     from icm_tpu_torch.nn import gdn_fused as tgdn
@@ -2597,38 +2899,10 @@ def main() -> int:
     from icm_tpu_torch.nn.swin import SwinBlock
 
     with Phase("environment"):
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True,
-        ).stdout.strip().splitlines()[0].strip()
-        log(f"card: {card}")
-        log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-            f"cuda {torch.version.cuda}, devices {torch.cuda.device_count()}, "
-            f"name {torch.cuda.get_device_name(0)}")
+        card = environment()
 
     with Phase("build"):
-        results, threads = {}, []
-
-        def build(name, fn):
-            t = time.time()
-            try:
-                results[name] = (fn(), time.time() - t)
-            except BaseException as e:  # re-raised below, in the main thread
-                results[name] = e
-
-        for name, fn in _native.BUILDERS.items():
-            threads.append(threading.Thread(target=build, args=(name, fn)))
-            threads[-1].start()
-        for t in threads:
-            t.join()
-        for name, res in results.items():
-            if isinstance(res, BaseException):
-                raise res
-            log(f"  built {name}: {os.path.relpath(res[0], REPO)} in {res[1]:.1f}s")
-        for lib in ("libwindow_attention", "libgdn", "librans_lanes"):
-            for line in _native.BUILD_LOG.get(lib, "").splitlines():
-                if "registers" in line or "spill" in line or "Compiling" in line:
-                    log(f"  ptxas ({lib}): {line.strip()}")
+        build_kernels()
 
     # the codec's numerics (full f32, deterministic cuDNN) for every phase
     from icm_tpu_torch.models import cuda_numerics
@@ -2856,40 +3130,8 @@ def main() -> int:
 
     crc_shapes = {}  # each CRC path's launches by head width and GDN channels
     for name in CRC:
-        with Phase(f"full-width {name}: host, device and scan wires, card vs CPU"):
-            crc = crc_phase(name, x, card, zero_counts, read_counts, args.seed)
-        result = slice_result[name] = crc["result"]
-        counts = paths["float32"][name] = crc["counts"]
-        shapes = crc_shapes[name] = {
-            f"launches{'' if w == 'host_wire' else '_' + w}_{side}":
-                result[w]["launches_by_shape"][side]
-            for w in ("host_wire", "device_wire", "scan_wire") for side in ("compress", "decompress")}
-        init_state = None
-        if name == CRC_BF16:  # the weights the float32 phases serve and train from
-            init_state = {k: v.detach().clone() for k, v in crc["model"].state_dict().items()}
-        with Phase(f"full-width {name} training, card vs CPU"):
-            result["train"] = crc_train_phase(crc["model"], name, args.seed, card)
-        counts["launches_train_step"] = result["train"]["launches_per_step"]
-        shapes["launches_train_step"] = result["train"]["launches_by_shape_per_step"]
-        if init_state is not None:
-            with Phase(f"full-width {name} under the bf16 policy: device wire, card vs CPU "
-                       "layer by layer, training"):
-                result["bf16"] = crc_bf16_phase(name, crc, x, card, init_state, result["train"],
-                                                args.seed)
-            shapes.update(result["bf16"].pop("shapes"))
-            del init_state
-        if name in ("stf9", "stf12"):
-            with Phase(f"reference checkpoint: full-width {name}, imported tables, reference "
-                       "order"):
-                result["reference"] = crc_reference_phase(crc["model"], name, x, card,
-                                                          zero_counts, read_counts, args.seed)
-            for side in ("compress", "decompress"):
-                key = f"launches_reference_{side}"
-                counts[key] = result["reference"][key]
-                shapes[key] = result["reference"][f"shapes_reference_{side}"]
-        del crc
-        gc.collect()  # the model, its codecs and their graphs, before the next model
-        torch.cuda.empty_cache()
+        slice_result[name], paths["float32"][name], crc_shapes[name] = crc_model_phases(
+            name, x, card, zero_counts, read_counts, args.seed)
 
     def crc_launches(group: str, key: str) -> dict:
         """A kernel build's launches on every CRC path, by shape key."""

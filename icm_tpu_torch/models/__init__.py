@@ -22,7 +22,8 @@ from ..nn.layers import WindowAttention
 from .base import CodecTables, CompressionModel
 from .cnn import WACNN
 from .codec import CharmCodec, build_codec_tables, cuda_numerics, enc_round
-from .crc import ConditionalResidualCoding, ConditionalResidualCoding2, ResidualCoding
+from .crc import (ConditionalResidualCoding, ConditionalResidualCoding2,
+                  ConditionalResidualCoding3, ResidualCoding)
 from .crc_codec import CRCCodec
 from .device_codec import DeviceWireCodec, DeviceWireKit
 from .stf import SymmetricalTransFormer
@@ -39,6 +40,7 @@ models = {
     "stf9": (ConditionalResidualCoding, {}),
     "stf11": (ConditionalResidualCoding, {}),  # the reference's stf11 is stf9
     "stf12": (ConditionalResidualCoding2, {}),
+    "stf13": (ConditionalResidualCoding3, {}),
     "stf14": (ResidualCoding, {}),
 }
 
@@ -115,6 +117,7 @@ __all__ = [
     "CharmCodec",
     "ConditionalResidualCoding",
     "ConditionalResidualCoding2",
+    "ConditionalResidualCoding3",
     "CRCCodec",
     "DeviceWireCodec",
     "DeviceWireKit",

@@ -1,34 +1,39 @@
-"""Real-bitstream compress/decompress for the CRC family (stf9, stf11, stf14).
+"""Real-bitstream compress/decompress for the CRC family (stf9, stf11,
+stf12, stf14; stf13's three layers: :class:`CRC3Codec`).
 
-Port of ``icm_tpu/models/crc_codec.py``'s ``CRCCodec`` and its
-``_CharmLayerDriver`` (the device and scan wires' layer functions too).
-The reference shipped no coder for these models; the JAX package's
+Port of ``icm_tpu/models/crc_codec.py``'s ``CRCCodec``, ``CRC3Codec`` and
+their ``_CharmLayerDriver`` (the device and scan wires' layer functions
+too). The reference shipped no coder for these models; the JAX package's
 design, kept here:
 
     strings = [machine_y, machine_z, human_y, human_z]
+    stf13:    [machine_y, machine_z, seg_y, seg_z, human_y, human_z]
 
-- the machine layer is the zigzag ChARM coder, coded slice by slice as
+- each zigzag layer (the machine layer; stf13's segmentation layer after
+  it, analysed from the images and the machine y_hat) is the zigzag ChARM
+  coder, coded slice by slice as
   ``CharmCodec`` codes its slices (:class:`_CharmLayerDriver`: the
-  context of slice i, then one step that reconstructs slice i and
-  computes slice i + 1's context, shared by both sides, so that the
-  context is the same floats on both);
+  context of slice i, then one step that reconstructs slice i, adds its
+  LRP where the layer applies it (stf13) and computes slice i + 1's
+  context, shared by both sides, so that the context is the same floats
+  on both);
 - the human layer is a one-shot conditional Gaussian: the scale indexes
   from its hyper-decoded scales, the means as quantization offsets. The
-  decoder rebuilds the conditioning image and context from the machine
-  latent, so only the residual layer's streams are sent.
+  decoder rebuilds the conditioning (stf13: its masks too) from the
+  decoded latents, so only the residual layer's streams are sent.
 
 Three wires, as in the JAX codec:
 
 - ``wire="host"``: rANS on the host (``coding/``), one stream an image
-  for each of the four; symbols in NHWC order, or with ``ref_layout``
+  for each stream; symbols in NHWC order, or with ``ref_layout``
   channel-major as ``CharmCodec`` lays them out;
 - ``wire="device"``: the lane rANS on the card (``device_codec.
-  DeviceWireKit``): the machine y one encode launch and one decode launch
-  a slice, z and the human z as bottleneck lanes, the human y as one
+  DeviceWireKit``): each zigzag layer's y one encode launch and one
+  decode launch a slice, every z as bottleneck lanes, the human y as one
   Gaussian-coded tensor (``encode_gaussian`` / ``decode_gaussian``);
   decompress makes no host round trip;
-- ``wire="device", scan_wire=True``: the machine layer's chain on the
-  scan wire (``scan_codec.ZigzagScanWire``). Its programs (encode front:
+- ``wire="device", scan_wire=True``: each zigzag layer's chain on a scan
+  wire of its own (``scan_codec.ZigzagScanWire``). Its programs (encode front:
   analysis, z's symbols and the latent slices; conditioning; the chain,
   one program each way; assembly) and the human layer's three (encode
   front, hyper-decoders, synthesis) run through the codec's
@@ -36,7 +41,7 @@ Three wires, as in the JAX codec:
   replayed, launch by launch with ``cuda_graphs=False`` and on the CPU.
   It runs in float32 only, as the JAX scan wire does.
 
-The machine y_hat and the human x_hat of the host and device wires are
+The zigzag layers' y_hat and the human x_hat of the host and device wires are
 the same floats (the same functions on the same symbols); the scan
 wire's context convolutions are zero-padded to one width, which sums in
 another order, so its streams are its own. Left out, as ``CharmCodec``
@@ -66,7 +71,8 @@ from .codec import (
     enc_round,
 )
 
-MACHINE_Z, HUMAN_Z = "entropy_bottleneck", "entropy_bottleneck_human"
+MACHINE_Z, SEG_Z, HUMAN_Z = ("entropy_bottleneck", "entropy_bottleneck_seg",
+                             "entropy_bottleneck_human")
 
 
 class _CharmLayerDriver:
@@ -97,17 +103,21 @@ class _CharmLayerDriver:
         return z_sym.to(torch.float32) + self.z_offset()
 
     def context(self, i: int, state, decoded: List[torch.Tensor]):
-        """Slice i's (mu, scale index)."""
+        """Slice i's (mu, scale index, mean support)."""
         c = self.coder
-        mu, scale = c.slice_context(i, state, c.ctx_support(i, decoded))
-        return mu, build_indexes(scale, self.scale_table)
+        mu, scale, mean_support = c.slice_context(i, state, c.ctx_support(i, decoded))
+        return mu, build_indexes(scale, self.scale_table), mean_support
 
     def step(self, i: int, state, decoded: List[torch.Tensor], sym: torch.Tensor, ctx):
         """Slice i's y_hat from its int32 symbols and ``ctx`` (its context),
-        appended to ``decoded``; -> slice i + 1's context, or None after
-        the last."""
-        decoded.append(self.coder.reconstruct(_canonical(sym), ctx[0]))
-        if i + 1 >= self.coder.ctx_slices:
+        LRP added where the layer applies it, appended to ``decoded``; ->
+        slice i + 1's context, or None after the last."""
+        c = self.coder
+        y_hat = c.reconstruct(_canonical(sym), ctx[0])
+        if c.apply_lrp:
+            y_hat = y_hat + c.slice_lrp(i, ctx[2], y_hat)
+        decoded.append(y_hat)
+        if i + 1 >= c.ctx_slices:
             return None
         return self.context(i + 1, state, decoded)
 
@@ -139,16 +149,58 @@ class _CharmLayerDriver:
         return decoded
 
 
+class _Layer:
+    """One zigzag ChARM layer of a codec: its stage driver, its bottleneck's
+    table key, its analysis (``analyze(x, *latents)``: the images and the
+    latents of the layers before it -> its latent y) and, on the scan
+    wire, its ``ZigzagScanWire``; ``name`` prefixes its programs' keys in
+    the codec's graph cache."""
+
+    def __init__(self, name: str, driver: _CharmLayerDriver, z_key: str, analyze):
+        self.name = name
+        self.driver = driver
+        self.z_key = z_key
+        self.analyze = analyze
+        self.scan = None
+
+    @property
+    def coder(self):
+        return self.driver.coder
+
+    # --- the scan wire's programs of this layer --------------------------------
+    def front(self, x, *latents):
+        """Images (NCHW) and earlier latents -> (z's int32 symbols, the
+        latent slices stacked (N, B, sc, h, w))."""
+        y = self.analyze(x, *latents)
+        return self.driver.z_sym(self.coder.h_a(y)), torch.stack(self.coder.latent_slices(y))
+
+    def state(self, z_sym):
+        return self.scan.conditioning(self.coder.ctx_prepare(self.driver.z_hat(z_sym)))
+
+    def assemble(self, y_hats):
+        return (self.coder.ctx_assemble(list(y_hats)),)
+
+
 class CRCCodec:
     """compress()/decompress() for ``crc.ConditionalResidualCoding`` (stf9,
-    stf11) and ``crc.ResidualCoding`` (stf14).
+    stf11), ``crc.ConditionalResidualCoding2`` (stf12) and
+    ``crc.ResidualCoding`` (stf14).
 
     ``tables``: coder tables in place of the model's own
-    (``build_codec_tables`` over both bottlenecks); ``narrow``: see
+    (``build_codec_tables`` over its bottlenecks); ``narrow``: see
     ``codec.enc_round``; ``wire``, ``scan_wire``, ``cuda_graphs``: the
     module docstring (the device wire codes a Gaussian-coded tensor on up
     to 1024 lanes an image, the JAX codec's default); ``ref_layout``: the
     host wire's channel-major symbol order (``CharmCodec``'s)."""
+
+    # per zigzag layer: (its name in the graph cache, its bottleneck's table
+    # key, the model's analysis of its latent, its coder); the shape keys of
+    # compress and the latent keys of the debug output and decompress, in
+    # its order
+    LAYERS = (("m", MACHINE_Z, lambda m: m.machine.g_a, lambda m: m.coder),)
+    SHAPE_KEYS = ("shape",)
+    LATENT_KEYS = ("y_hat",)
+    STREAMS = ("machine_y", "machine_z", "human_y", "human_z")  # compress's "strings"
 
     def __init__(self, model, tables: Optional[CodecTables] = None, narrow: float = 1.0,
                  wire: str = "host", scan_wire: bool = False, cuda_graphs: bool = True,
@@ -172,7 +224,10 @@ class CRCCodec:
                 tables = build_codec_tables(model)
         self.tables = tables
         self._scale_table = torch.from_numpy(tables.scale_table).to(self.device)
-        self._machine = _CharmLayerDriver(model.coder, self._scale_table, narrow)
+        self._layers = [
+            _Layer(name, _CharmLayerDriver(coder(model), self._scale_table, narrow), z_key,
+                   analyze(model))
+            for name, z_key, analyze, coder in self.LAYERS]
         self._human_medians = None
         self.graphs = GraphCache(enabled=cuda_graphs and scan_wire)
         if wire == "device":
@@ -184,8 +239,9 @@ class CRCCodec:
             from .scan_codec import ZigzagScanWire
 
             DeviceWireCodec._check_f32()
-            self._scan = ZigzagScanWire(model.coder, self.kit, self._scale_table, self.graphs,
-                                        narrow=narrow)
+            for layer in self._layers:
+                layer.scan = ZigzagScanWire(layer.coder, self.kit, self._scale_table,
+                                            self.graphs, layer.name, narrow=narrow)
 
     # --- the human layer's stages, shared by both sides ------------------------
     def _human_offset(self) -> torch.Tensor:
@@ -193,9 +249,9 @@ class CRCCodec:
             self._human_medians = self.model.human_eb_medians().detach().reshape(1, -1, 1, 1)
         return self._human_medians
 
-    def _human_front(self, x, y_hat):
+    def _human_front(self, x, *latents):
         """-> (human_y, its hyper-latent's int32 symbols)."""
-        human_y, hz = self.model.human_encode(x, y_hat)
+        human_y, hz = self.model.human_encode(x, *latents)
         return human_y, enc_round(hz - self._human_offset(), self.narrow).to(torch.int32)
 
     def _human_hyper(self, hz_sym):
@@ -206,23 +262,10 @@ class CRCCodec:
         scales = hyper.h_scale_s(z_hat)
         return hyper.h_mean_s(z_hat), build_indexes(scales, self._scale_table)
 
-    def _human_decode(self, hy_sym, means, y_hat):
+    def _human_decode(self, hy_sym, means, *latents):
         """-> x_hat (B, H, W, 3) in [0, 1]."""
-        x_hat = self.model.human_synthesize(hy_sym.to(torch.float32) + means, y_hat)
+        x_hat = self.model.human_synthesize(hy_sym.to(torch.float32) + means, *latents)
         return (torch.clamp(x_hat, 0.0, 1.0).permute(0, 2, 3, 1).contiguous(),)
-
-    # --- the scan wire's machine-layer programs ----------------------------------
-    def _m_front(self, x):
-        """Images (NCHW) -> (z's int32 symbols, the latent slices stacked
-        (N, B, sc, h, w))."""
-        y, z = self.model.machine_analyze(x)
-        return self._machine.z_sym(z), torch.stack(self.model.coder.latent_slices(y))
-
-    def _m_state(self, z_sym):
-        return self._scan.conditioning(self.model.coder.ctx_prepare(self._machine.z_hat(z_sym)))
-
-    def _m_assemble(self, y_hats):
-        return (self.model.coder.ctx_assemble(list(y_hats)),)
 
     def _sync(self) -> None:
         """Before each scan-wire call: float32, and the stacked weights,
@@ -231,82 +274,123 @@ class CRCCodec:
 
         DeviceWireCodec._check_f32()
         if self.graphs.refresh(weights_version(self.model)):
-            self._scan.restack()
-            self._machine.reset()
+            for layer in self._layers:
+                layer.scan.restack()
+                layer.driver.reset()
             self._human_medians = None
 
     def _run(self, name: str, fn, inputs):
         """A program through the graph cache, keyed by its input shapes."""
         return self.graphs.run((name,) + tuple(tuple(t.shape) for t in inputs), fn, inputs)
 
+    # --- one zigzag layer, each side ---------------------------------------------
+    def _encode_layer(self, layer: _Layer, x, latents):
+        """-> (y strings, z strings, y_hat, z's symbols) of ``layer`` from the
+        images and the latents of the layers before it."""
+        n = layer.name
+        if self.scan_wire:
+            z_sym, y_stack = self._run(f"{n}_front", layer.front, [x, *latents])
+            z_sym = _canonical(z_sym)
+            means, scales = self._run(f"{n}_state", layer.state, [z_sym])
+            y_strings, y_hats = layer.scan.encode(means, scales, y_stack)
+            z_strings = self.kit.encode_z(z_sym, layer.z_key)
+            (y_hat,) = self._run(f"{n}_assemble", layer.assemble, [y_hats])
+            return y_strings, z_strings, y_hat.clone(), z_sym
+        syms, idxs, decoded, z_sym = self._chain(layer, x, latents)
+        return (self._encode_y(syms, idxs), self._encode_z(z_sym, layer.z_key),
+                layer.coder.ctx_assemble(decoded), z_sym)
+
+    @staticmethod
+    def _chain(layer: _Layer, x, latents):
+        """The host and device wires' encoder chain of ``layer``: -> (its y
+        symbols and scale indexes slice by slice, its y_hat slices, z's
+        symbols)."""
+        y = layer.analyze(x, *latents)
+        z_sym = layer.driver.z_sym(layer.coder.h_a(y))
+        return (*layer.driver.encode(y, z_sym), z_sym)
+
+    def _decode_layer(self, layer: _Layer, y_strings, z_strings, shape):
+        """-> ``layer``'s y_hat from its streams and z's grid ``shape``."""
+        n = layer.name
+        z_sym = _canonical(self._decode_z(z_strings, shape, layer.z_key))
+        if self.scan_wire:
+            means, scales = self._run(f"{n}_state", layer.state, [z_sym])
+            y_hats = layer.scan.decode(y_strings, means, scales)
+            (y_hat,) = self._run(f"{n}_assemble", layer.assemble, [y_hats])
+            return y_hat.clone()
+        ydec = self._y_decoder(y_strings, layer.coder.ctx_slices)
+        try:
+            return layer.coder.ctx_assemble(layer.driver.decode(z_sym, ydec))
+        finally:
+            ydec.close()
+
     # --- public API ------------------------------------------------------------
     @torch.no_grad()
+    def symbols(self, x) -> Dict[str, List[torch.Tensor]]:
+        """x as :meth:`compress` takes it. -> each zigzag layer's y symbols
+        as the host and device wires code them (int32, slice by slice), by
+        the layer's latent key (``LATENT_KEYS``)."""
+        x = nhwc_to_nchw(torch.as_tensor(x, dtype=torch.float32, device=self.device))
+        out, latents = {}, []
+        for key, layer in zip(self.LATENT_KEYS, self._layers):
+            syms, _, decoded, _ = self._chain(layer, x, latents)
+            out[key] = syms
+            latents.append(layer.coder.ctx_assemble(decoded))
+        return out
+
+    @torch.no_grad()
     def compress(self, x, return_debug: bool = False) -> Dict[str, Any]:
-        """x: (B, H, W, 3) in [0, 1] (tensor or numpy). -> {"strings":
-        [machine_y, machine_z, human_y, human_z], "shape" (machine z's
-        grid), "human_shape"}; with ``return_debug`` also the machine
-        "y_hat" (NCHW) and the decoder's "x_hat" (NHWC, in [0, 1])."""
+        """x: (B, H, W, 3) in [0, 1] (tensor or numpy). -> {"strings": [y, z]
+        of each zigzag layer, then [human_y, human_z]; the z grid of each
+        (``SHAPE_KEYS``: "shape", stf13's "seg_shape") and "human_shape"};
+        with ``return_debug`` also each layer's y_hat (NCHW; ``LATENT_KEYS``)
+        and the decoder's "x_hat" (NHWC, in [0, 1])."""
         x = nhwc_to_nchw(torch.as_tensor(x, dtype=torch.float32, device=self.device))
         if self.scan_wire:
             self._sync()
-            z_sym, y_stack = self._run("m_front", self._m_front, [x])
-            z_sym = _canonical(z_sym)
-            means, scales = self._run("m_state", self._m_state, [z_sym])
-            y_strings, y_hats = self._scan.encode(means, scales, y_stack)
-            z_strings = self.kit.encode_z(z_sym, MACHINE_Z)
-            (y_hat,) = self._run("m_assemble", self._m_assemble, [y_hats])
-            y_hat = y_hat.clone()
-        else:
-            y, z = self.model.machine_analyze(x)
-            z_sym = self._machine.z_sym(z)
-            syms, idxs, decoded = self._machine.encode(y, z_sym)
-            y_strings = self._encode_y(syms, idxs)
-            z_strings = self._encode_z(z_sym, MACHINE_Z)
-            y_hat = self.model.coder.ctx_assemble(decoded)
+        strings, shapes, latents = [], [], []
+        for layer in self._layers:
+            y_strings, z_strings, y_hat, z_sym = self._encode_layer(layer, x, latents)
+            strings += [y_strings, z_strings]
+            shapes.append((z_sym.shape[2], z_sym.shape[3]))
+            latents.append(y_hat)
 
-        human_y, hz_sym = self._run("h_front", self._human_front, [x, y_hat])
+        human_y, hz_sym = self._run("h_front", self._human_front, [x, *latents])
         hz_sym = _canonical(hz_sym)
         hz_strings = self._encode_z(hz_sym, HUMAN_Z)
         means, index = self._run("h_hyper", self._human_hyper, [hz_sym])
         hy_sym = _canonical(enc_round(human_y - means, self.narrow).to(torch.int32))
         hy_strings = self._encode_human_y(hy_sym, index)
-        out: Dict[str, Any] = {
-            "strings": [y_strings, z_strings, hy_strings, hz_strings],
-            "shape": (z_sym.shape[2], z_sym.shape[3]),
-            "human_shape": (hz_sym.shape[2], hz_sym.shape[3]),
-        }
+        out: Dict[str, Any] = {"strings": strings + [hy_strings, hz_strings],
+                               **dict(zip(self.SHAPE_KEYS, shapes)),
+                               "human_shape": (hz_sym.shape[2], hz_sym.shape[3])}
         if return_debug:
-            (x_hat,) = self._run("h_decode", self._human_decode, [hy_sym, means, y_hat])
-            out.update(y_hat=y_hat, x_hat=x_hat.clone())
+            (x_hat,) = self._run("h_decode", self._human_decode, [hy_sym, means, *latents])
+            out.update(zip(self.LATENT_KEYS, latents))
+            out["x_hat"] = x_hat.clone()
         return out
 
     @torch.no_grad()
     def decompress(self, strings, shape, human_shape) -> Dict[str, Any]:
         """-> {"x_hat": (B, H, W, 3) in [0, 1], "y_hat": the machine latent
         (B, M, h, w)}."""
-        y_strings, z_strings, hy_strings, hz_strings = strings
-        z_sym = _canonical(self._decode_z(z_strings, shape, MACHINE_Z))
+        return self._decompress(strings, (shape,), human_shape)
+
+    def _decompress(self, strings, shapes, human_shape) -> Dict[str, Any]:
         if self.scan_wire:
             self._sync()
-            means, scales = self._run("m_state", self._m_state, [z_sym])
-            y_hats = self._scan.decode(y_strings, means, scales)
-            (y_hat,) = self._run("m_assemble", self._m_assemble, [y_hats])
-            y_hat = y_hat.clone()
-        else:
-            ydec = self._y_decoder(y_strings)
-            try:
-                y_hat = self.model.coder.ctx_assemble(self._machine.decode(z_sym, ydec))
-            finally:
-                ydec.close()
+        latents = [self._decode_layer(layer, strings[2 * k], strings[2 * k + 1], shapes[k])
+                   for k, layer in enumerate(self._layers)]
+        hy_strings, hz_strings = strings[-2:]
         hz_sym = _canonical(self._decode_z(hz_strings, human_shape, HUMAN_Z))
         means, index = self._run("h_hyper", self._human_hyper, [hz_sym])
         hy_sym = _canonical(self._decode_human_y(hy_strings, index))
-        (x_hat,) = self._run("h_decode", self._human_decode, [hy_sym, means, y_hat])
-        return {"x_hat": x_hat.clone(), "y_hat": y_hat}
+        (x_hat,) = self._run("h_decode", self._human_decode, [hy_sym, means, *latents])
+        return {"x_hat": x_hat.clone(), **dict(zip(self.LATENT_KEYS, latents))}
 
     # --- the wires' coders -----------------------------------------------------------
     def _encode_y(self, syms, idxs) -> List[bytes]:
-        """The machine y, slice after slice along each image's stream."""
+        """A zigzag layer's y, slice after slice along each image's stream."""
         if self.wire == "device":
             return self.kit.encode_y_slices(syms, idxs)
         sym_h = torch.cat(syms, 1).cpu().numpy()
@@ -319,9 +403,9 @@ class CRCCodec:
             np.concatenate([_flat(idx_h[:, a:b], self.ref_layout) for a, b in parts], 1),
             gt.quantized_cdf, gt.cdf_length, gt.offset)
 
-    def _y_decoder(self, y_strings: List[bytes]):
+    def _y_decoder(self, y_strings: List[bytes], n_slices: int):
         if self.wire == "device":
-            return self.kit.y_stream_decoder(y_strings, self.model.coder.ctx_slices)
+            return self.kit.y_stream_decoder(y_strings, n_slices)
         return _HostYDecoder(y_strings, self.tables.gaussian, self.device, self.ref_layout)
 
     def _encode_human_y(self, sym, index) -> List[bytes]:
@@ -366,3 +450,30 @@ class CRCCodec:
         finally:
             dec.close()
         return torch.from_numpy(_unflat(sym, C, h, w, self.ref_layout)).to(self.device)
+
+
+class CRC3Codec(CRCCodec):
+    """compress()/decompress() for ``crc.ConditionalResidualCoding3``
+    (stf13): six streams, ``[y, z, seg_y, seg_z, human_y, human_z]``. The
+    machine and segmentation layers are zigzag layers, each coded as
+    :class:`CRCCodec` codes its machine layer (a ``_CharmLayerDriver``
+    each, with LRP; on the scan wire a ``ZigzagScanWire`` each, their
+    programs keyed by layer in the one graph cache); the segmentation
+    layer's latent is analysed from the images and the machine y_hat. The
+    human layer is :class:`CRCCodec`'s, its stages conditioned on both
+    decoded latents (the decoder rebuilds the masks and conditioning
+    signals from them, so the human layer needs no side information).
+    Port of the JAX package's ``CRC3Codec``; arguments as
+    :class:`CRCCodec`'s. compress adds "seg_shape" (and with
+    ``return_debug`` "seg_y_hat"); :meth:`decompress` takes it."""
+
+    LAYERS = CRCCodec.LAYERS + (("s", SEG_Z, lambda m: m.seg_encode, lambda m: m.seg_coder),)
+    SHAPE_KEYS = ("shape", "seg_shape")
+    LATENT_KEYS = ("y_hat", "seg_y_hat")
+    STREAMS = ("machine_y", "machine_z", "seg_y", "seg_z", "human_y", "human_z")
+
+    @torch.no_grad()
+    def decompress(self, strings, shape, seg_shape, human_shape) -> Dict[str, Any]:
+        """-> {"x_hat": (B, H, W, 3) in [0, 1], "y_hat" and "seg_y_hat": the
+        machine and segmentation latents (B, M, h, w)}."""
+        return self._decompress(strings, (shape, seg_shape), human_shape)

@@ -2,8 +2,9 @@
 
 Port of ``icm_tpu/models/scan_codec.py``'s ``CharmScanWire`` (``cnn``,
 ``stf``), ``ZigzagSwinScanWire`` (the zigzag family ``stf5``-``stf8``),
-``ZigzagScanWire`` (the CRC family's machine layer, ``stf9``, ``stf11``,
-``stf14``) and the static-signature helpers they share. The JAX package compiles the whole
+``ZigzagScanWire`` (a CRC model's zigzag coding layers: the machine
+layer of ``stf9``, ``stf11``, ``stf12`` and ``stf14``, the machine and
+segmentation layers of ``stf13``) and the static-signature helpers they share. The JAX package compiles the whole
 autoregressive chain of a prefix-support ChARM model (``cnn``, ``stf``)
 as one ``lax.scan``: per slice the context convolutions over stacked,
 zero-padded per-slice weights (``cnn.stack_charm_params``), the scale
@@ -230,7 +231,7 @@ class _StaticScanIO:
 
         def run_pack():
             y_hats, syms, idxs = self.graphs.run(
-                ("scan", "encode", B, h, w, None), self._program(True), [means, scales, y_stack])
+                self._key("encode", B, h, w, None), self._program(True), [means, scales, y_stack])
             return y_hats, self.kit.encode_y_stack(syms, idxs, fmt=WIRE_SCAN)
 
         return self._encode_tiered(run_pack, n_l, Ts, seg)
@@ -244,12 +245,17 @@ class _StaticScanIO:
         _, L, _, seg = self._layout(B, h, w, self.sc)
         tier, words, off, esc_d, esc_r = _wire_inputs(
             blobs, self.N, seg, L, self.N * seg, means.device)
-        (y_hats,) = self.graphs.run(("scan", "decode", B, h, w, tier), self._program(False),
+        (y_hats,) = self.graphs.run(self._key("decode", B, h, w, tier), self._program(False),
                                     [means, scales, words, off, esc_d, esc_r])
         return y_hats
 
     prefix = True  # prefix support (slot i, then frozen), else sliding
     Wc = 0  # conditioning window in zigzag blocks; 0: the whole of it
+
+    def _key(self, *parts) -> tuple:
+        """The graph cache's key of a chain program: "scan", its direction
+        and shapes."""
+        return ("scan",) + parts
 
     def _refine(self, tag: str, i: int, x: torch.Tensor) -> torch.Tensor:
         """Slice i's ``tag`` refiner ("mu", "sigma", "lrp") on x: none here."""
@@ -281,7 +287,7 @@ class _StaticScanIO:
                 index = build_indexes(scale, self.scale_table)
                 sym = self._symbols(is_enc, i, index, mu, y_stack, dec, B)
                 y_hat = sym.to(mu.dtype) + mu
-                if "lrp" in W:  # the CRC family's layers compute none
+                if "lrp" in W:  # of the CRC family, stf13's layers only
                     lrp = _cc_apply(W["lrp"], i, torch.cat([mean_support, y_hat], 1))
                     y_hat = y_hat + 0.5 * torch.tanh(self._refine("lrp", i, lrp))
                 if not self.prefix:  # sliding support: newest last
@@ -399,24 +405,34 @@ class ZigzagSwinScanWire(_StaticScanIO):
 
 
 class ZigzagScanWire(_StaticScanIO):
-    """The scan wire of one ``zigzag_coder.ZigzagCharmCoder`` layer (the
-    CRC family's machine layer). Port of the JAX package's
-    ``ZigzagScanWire`` and its ``_zigzag_scan_program``: sliding support
-    (the buffer shifts left a slot and appends the newest slice), a
-    conditioning window of ``support_num`` zigzag blocks ``[s, s + Wc)``,
-    ``s = min(i, N - Wc)``, of the hyper-decoders' blocks concatenated
-    block-major, the stacked context convolutions of
-    :func:`zigzag_coder.stack_zigzag_params`, and no LRP. ``coder``: the
-    layer, which plays the model's part of :class:`_StaticScanIO`."""
+    """The scan wire of one ``zigzag_coder.ZigzagCharmCoder`` layer (a CRC
+    model's machine layer, and stf13's segmentation layer). Port of the
+    JAX package's ``ZigzagScanWire`` and its ``_zigzag_scan_program``:
+    sliding support (the buffer shifts left a slot and appends the newest
+    slice), a conditioning window of ``support_num`` zigzag blocks ``[s,
+    s + Wc)``, ``s = min(i, N - Wc)``, of the hyper-decoders' blocks
+    concatenated block-major, the stacked context convolutions of
+    :func:`zigzag_coder.stack_zigzag_params`, and where the layer applies
+    LRP (stf13) its step inside the chain: ``y_hat += 0.5 *
+    tanh(lrp_i(cat(mean_support, y_hat)))`` on both sides, the mean
+    support the conditioning and the whole buffer, as the padded ``lrp``
+    kernels expect. ``coder``: the layer, which plays the model's part of
+    :class:`_StaticScanIO`; ``layer``: its name, the last part of its
+    programs' graph keys (a codec may drive two such layers)."""
 
     prefix = False
 
-    def __init__(self, coder, kit, scale_table: torch.Tensor, graphs, narrow: float = 1.0):
+    def __init__(self, coder, kit, scale_table: torch.Tensor, graphs, layer: str,
+                 narrow: float = 1.0):
         super().__init__(coder, kit, scale_table, graphs, narrow)
+        self.layer = layer
         self.sc = int(coder.slice_ch)
         self.max_sup = int(coder.max_support)
         self.Wc = int(coder.cond_blocks)
         self.restack()
+
+    def _key(self, *parts) -> tuple:
+        return super()._key(*parts) + (self.layer,)
 
     def restack(self) -> None:
         from .zigzag_coder import stack_zigzag_params

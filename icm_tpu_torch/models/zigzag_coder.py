@@ -3,8 +3,9 @@
 Port of ``icm_tpu/models/zigzag_coder.py``: one self-contained
 entropy-coding layer, a hyper-encoder, mean and scale hyper-decoders,
 per-slice zigzag context stacks, a bottleneck for z and a conditional
-Gaussian for y, as the machine layer of ``stf9``, ``stf11`` and ``stf14``
-uses it (``crc.py``). Its protocol (``ctx_prepare``, ``latent_slices``,
+Gaussian for y, as the machine layer of ``stf9``, ``stf11``, ``stf12`` and
+``stf14`` and the machine and segmentation layers of ``stf13`` use it
+(``crc.py``). Its protocol (``ctx_prepare``, ``latent_slices``,
 ``ctx_support``, ``slice_context``, ``reconstruct``, ``ctx_assemble``,
 ``eb_medians``) is what the CRC codecs drive slice by slice, and
 :meth:`ZigzagCharmCoder.code` is the whole training and eval loop of this
@@ -17,10 +18,14 @@ channel-unconstrained order; the JAX layer's ``spatial_number`` and
 port builds, so they are constants here); slice i sees the last
 ``max_support`` decoded blocks (``base.sliding_support``) and a window
 of ``support_num`` mean (scale) blocks starting at i, clamped at the
-tail. The layer applies no LRP: stf9, stf11 and stf14 build it with
-``apply_lrp=False`` (their reference computes LRP and drops it), and
-flax creates no parameters for modules never called, so the port has no
-LRP stacks; stf13, the one model that applies LRP, is not ported.
+tail. LRP (latent residual prediction, ``apply_lrp=True``): after slice
+i is reconstructed, ``y_hat += 0.5 * tanh(lrp_i(cat(mean_support,
+y_hat)))``, where the mean support is slice i's conditioning window of
+mean blocks and its support; the corrected slice is what later slices'
+support holds. Only stf13 applies it (both of its coders). stf9, stf11,
+stf12 and stf14 build the layer with ``apply_lrp=False`` (their
+reference computes LRP and drops it), and flax creates no parameters
+for modules never called, so those layers have no ``lrp_`` stacks.
 
 The JAX layer's ``scan=True`` forward (``code_scan``: its AR loop as one
 ``lax.scan`` over stacked per-slice weights, ``_ZigzagScanStep``) keeps a
@@ -52,11 +57,11 @@ from ..ops import ste_round
 from ..scan import zigzag_merge, zigzag_split
 from .base import nchw_to_nhwc, sliding_support
 
-_TAGS = ("cc_mean", "cc_scale")  # the context stacks of each slice
+_TAGS = ("cc_mean", "cc_scale", "lrp")  # the context stacks a slice can have
 
 class ZigzagCharmCoder(nn.Module):
     # 2x2 spatial blocks a channel slice, in the channel-unconstrained
-    # order, and no LRP: the JAX layer's settings in every port model
+    # order: the JAX layer's settings in every port model
     spatial_number = 2
     zigzag_constrained = False
 
@@ -69,6 +74,7 @@ class ZigzagCharmCoder(nn.Module):
         hyper_enc_widths: Tuple[int, ...] = (384, 336, 288, 240, 192),
         hyper_dec_widths: Tuple[int, ...] = (240, 288, 336, 384, 384),
         cc_widths: Tuple[int, ...] = (224, 64),
+        apply_lrp: bool = False,
     ):
         super().__init__()
         if latent_dim % num_slices or hyper_dec_widths[-1] != latent_dim:
@@ -78,18 +84,25 @@ class ZigzagCharmCoder(nn.Module):
         self.num_slices = num_slices
         self.max_support = max_support
         self.support_num = support_num
+        self.apply_lrp = apply_lrp
         sc = self.slice_ch
         self.h_a = hyper_encoder(latent_dim, tuple(hyper_enc_widths))
         z_ch = hyper_enc_widths[-1]
         self.h_mean_s = hyper_mean(z_ch, tuple(hyper_dec_widths))
         self.h_scale_s = hyper_mean(z_ch, tuple(hyper_dec_widths))
         self.cond_width = self.cond_blocks * sc
-        for tag in _TAGS:
+        for tag in self.tags:
             for i in range(self.ctx_slices):
-                cin = self.cond_width + sc * min(i, max_support)
+                # LRP sees the mean support and the slice it corrects
+                cin = self.cond_width + sc * min(i, max_support) + (sc if tag == "lrp" else 0)
                 self.add_module(f"{tag}_{i}", shallow_cc(cin, sc, tuple(cc_widths)))
         self.entropy_bottleneck = EntropyBottleneck(z_ch)
         self.gaussian_conditional = GaussianConditional()
+
+    @property
+    def tags(self) -> Tuple[str, ...]:
+        """The context stacks each slice has."""
+        return _TAGS if self.apply_lrp else _TAGS[:2]
 
     @property
     def ctx_slices(self) -> int:
@@ -126,11 +139,17 @@ class ZigzagCharmCoder(nn.Module):
         return blocks[n - w:] if i + w > n else blocks[i:i + w]
 
     def slice_context(self, i, state, support):
-        """Slice i's (mu, scale)."""
-        mu = getattr(self, f"cc_mean_{i}")(torch.cat(self._cond(state["means"], i) + support, 1))
+        """Slice i's (mu, scale, mean support)."""
+        mean_support = torch.cat(self._cond(state["means"], i) + support, 1)
+        mu = getattr(self, f"cc_mean_{i}")(mean_support)
         scale = getattr(self, f"cc_scale_{i}")(
             torch.cat(self._cond(state["scales"], i) + support, 1))
-        return mu, scale
+        return mu, scale, mean_support
+
+    def slice_lrp(self, i: int, mean_support: torch.Tensor, y_hat_slice: torch.Tensor):
+        """Slice i's latent residual prediction, added to its y_hat."""
+        lrp = getattr(self, f"lrp_{i}")(torch.cat([mean_support, y_hat_slice], 1))
+        return 0.5 * torch.tanh(lrp)
 
     @staticmethod
     def reconstruct(sym: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
@@ -163,10 +182,13 @@ class ZigzagCharmCoder(nn.Module):
         y_likelihood = []
         for i in range(self.ctx_slices):
             support = self.ctx_support(i, y_hat_slices)
-            mu, scale = self.slice_context(i, state, support)
+            mu, scale, mean_support = self.slice_context(i, state, support)
             _, lik = self.gaussian_conditional(y_slices[i], scale, mu, generator)
             y_likelihood.append(lik)
-            y_hat_slices.append(ste_round(y_slices[i] - mu) + mu)
+            y_hat_slice = ste_round(y_slices[i] - mu) + mu
+            if self.apply_lrp:
+                y_hat_slice = y_hat_slice + self.slice_lrp(i, mean_support, y_hat_slice)
+            y_hat_slices.append(y_hat_slice)
         y_hat = self.ctx_assemble(y_hat_slices)
         return y_hat, {"y": nchw_to_nhwc(torch.cat(y_likelihood, dim=1)),
                        "z": nchw_to_nhwc(z_likelihoods)}
@@ -207,23 +229,26 @@ def _per_slice(params) -> dict:
     return out
 
 
-def _first_conv(k: torch.Tensor, ax: int, i: int, coder, pad: bool) -> torch.Tensor:
+def _first_conv(k: torch.Tensor, ax: int, i: int, coder, pad: bool, tag: str) -> torch.Tensor:
     """Slice i's first-conv kernel (input channels on ``ax``) padded to the
     scan's fixed width: the conditioning, then ``max_support`` support
     slots with the decoded blocks in the last ``min(i, max_support)`` of
-    them (the oldest slots, not decoded yet, zero); or, with
-    ``pad=False``, the padding cut away again."""
+    them (the oldest slots, not decoded yet, zero), then for ``lrp`` the
+    slice it corrects; or, with ``pad=False``, the padding cut away
+    again."""
     sc, cond = coder.slice_ch, coder.cond_width
     sup_w = coder.max_support * sc
     have = min(i, coder.max_support) * sc
+    tail = sc if tag == "lrp" else 0
     if not pad:
-        return torch.cat([k.narrow(ax, 0, cond), k.narrow(ax, cond + sup_w - have, have)],
-                         ax).contiguous()
+        return torch.cat([k.narrow(ax, 0, cond), k.narrow(ax, cond + sup_w - have, have),
+                          k.narrow(ax, cond + sup_w, tail)], ax).contiguous()
     shape = list(k.shape)
-    shape[ax] = cond + sup_w
+    shape[ax] = cond + sup_w + tail
     out = k.new_zeros(shape)
     out.narrow(ax, 0, cond).copy_(k.narrow(ax, 0, cond))
     out.narrow(ax, cond + sup_w - have, have).copy_(k.narrow(ax, cond, have))
+    out.narrow(ax, cond + sup_w, tail).copy_(k.narrow(ax, cond + have, tail))
     return out
 
 
@@ -232,13 +257,15 @@ def stack_zigzag_params(params, coder: ZigzagCharmCoder) -> dict:
     stacked}}}}``, each leaf stacked over the slices on a new first axis.
     Port of ``icm_tpu/models/zigzag_coder.py::stack_zigzag_params``: only
     ``Conv_0`` changes shape, zero-padded to ``cond_width + max_support *
-    slice_ch`` input channels, the support in the last slots, where the scan's sliding buffer holds the decoded blocks.
-    ``params``: the coder, its state dict (``weight``) or nested dicts in
-    either layout (the JAX package's ``kernel``); ``coder``: its
-    configuration."""
+    slice_ch`` input channels, the support in the last slots, where the
+    scan's sliding buffer holds the decoded blocks (``lrp``: and the
+    slice it corrects after them, JAX's ``tail``). ``params``: the coder,
+    its state dict (``weight``) or nested dicts in either layout (the JAX
+    package's ``kernel``); ``coder``: its configuration, whose
+    ``apply_lrp`` says whether an ``lrp`` slot is stacked."""
     src = _per_slice(params)
     out: dict = {}
-    for tag in _TAGS:
+    for tag in coder.tags:
         out[tag] = {}
         for ln in src[f"{tag}_0"]:
             out[tag][ln] = {}
@@ -247,7 +274,7 @@ def stack_zigzag_params(params, coder: ZigzagCharmCoder) -> dict:
                 for i in range(coder.ctx_slices):
                     k = src[f"{tag}_{i}"][ln][leaf]
                     if ln == "Conv_0" and leaf != "bias":
-                        k = _first_conv(k, _in_axis(leaf), i, coder, pad=True)
+                        k = _first_conv(k, _in_axis(leaf), i, coder, True, tag)
                     slices.append(k)
                 out[tag][ln][leaf] = torch.stack(slices)
     return {"zz_scan": out}
@@ -267,7 +294,7 @@ def unstack_zigzag_params(stacked: dict, coder: ZigzagCharmCoder) -> dict:
                 for leaf, v in p.items():
                     k = _as_tensor(v)[i]
                     if ln == "Conv_0" and leaf != "bias":
-                        k = _first_conv(k, _in_axis(leaf), i, coder, pad=False)
+                        k = _first_conv(k, _in_axis(leaf), i, coder, False, tag)
                     tree[ln][leaf] = k.contiguous()
             out[f"{tag}_{i}"] = tree
     return out

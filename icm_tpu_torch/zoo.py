@@ -3,7 +3,7 @@ state dict, and the coder tables the checkpoint stores.
 
 Port of ``icm_tpu/zoo.py`` for the architectures the port builds (``cnn``,
 ``stf``, the zigzag family ``stf5``-``stf8`` and the CRC family's
-``stf9``, ``stf11``, ``stf12`` and ``stf14``). ``load_pretrained`` does
+``stf9``, ``stf11``, ``stf12``, ``stf13`` and ``stf14``). ``load_pretrained`` does
 the reference's key cleanup (``zoo/pretrained.py``: strip DataParallel's
 ``module.``, drop ``h_s.*``, rename the legacy bottleneck ParameterList
 keys). The converters rename the reference's module paths into the flax
@@ -262,12 +262,13 @@ ZIGZAG_CONVERT_CONFIGS = {
 }
 ZIGZAG_CONVERT_CONFIGS["stf6_2"] = ZIGZAG_CONVERT_CONFIGS["stf6"]
 
-# --- the CRC family (stf9, stf11, stf12, stf14) ------------------------------------
-# The reference's module layouts (stf9.py, stf12.py, stf14.py); its dead groups are
-# dropped: the Swin scaffolding pasted into these models (patch_embed,
+# --- the CRC family (stf9, stf11, stf12, stf13, stf14) ------------------------------
+# The reference's module layouts (stf9.py, stf12.py, stf13.py, stf14.py); its dead
+# groups are dropped: the Swin scaffolding pasted into these models (patch_embed,
 # layers, syn_layers, end_conv), the LRP stacks whose output the forward
-# discards (stf9.py:1094-1106), the commented-out LRP refiners, and stf14's
-# unused context decoder (stf14.py:1153).
+# discards (stf9.py:1094-1106; stf13 applies its LRP and keeps them), the
+# commented-out LRP refiners, stf14's unused context decoder (stf14.py:1153)
+# and stf13's unused split decoder g_s1 / g_s2 (stf13.py:539).
 
 def _stack(sd, prefix: str, n: int, kind: str = "Conv") -> dict:
     """``n`` convs (``kind="ConvTranspose"``: transposed convs) at the
@@ -305,6 +306,81 @@ def _main_cnn_encoder(sd, prefix: str) -> dict:
     }
 
 
+def _context_scale2(sd, prefix: str) -> dict:
+    """The reference's mainCNNcontextScale2: Win, 3x3 deconv, IGDN, 3x3
+    deconv."""
+    return {"Win_noShift_Attention_0": _win_noshift(sd, f"{prefix}.0"),
+            "ConvTranspose_0": _leaves(sd, f"{prefix}.1"), "GDN_0": _gdn(sd, f"{prefix}.2"),
+            "ConvTranspose_1": _leaves(sd, f"{prefix}.3")}
+
+
+def _zigzag_coder(sd, prefix: str = "", eb_key: str = "entropy_bottleneck",
+                  ctx_slices: int = 24, n_convs: int = 5, lrp: bool = False) -> dict:
+    """An inline zigzag coder (``{prefix}h_a``, ``{prefix}h_mean_s``, ...,
+    ``{prefix}cc_*_transforms2``, with ``lrp``: ``{prefix}lrp_transforms2``)
+    -> the port's ``ZigzagCharmCoder`` tree."""
+    coder = {"h_a": _stack(sd, f"{prefix}h_a", 5), "h_mean_s": _hyper_dec(sd, f"{prefix}h_mean_s"),
+             "h_scale_s": _hyper_dec(sd, f"{prefix}h_scale_s"),
+             "entropy_bottleneck": _entropy_bottleneck(sd, eb_key)}
+    tags = (("cc_mean_transforms2", "cc_mean"), ("cc_scale_transforms2", "cc_scale"))
+    for tag, ours in tags + ((("lrp_transforms2", "lrp"),) if lrp else ()):
+        for i in range(ctx_slices):
+            coder[f"{ours}_{i}"] = _stack(sd, f"{prefix}{tag}.{i}", n_convs)
+    return coder
+
+
+def _stf13_layers(sd) -> dict:
+    """stf13's decoder, segmentation layer and human layer (stf13.py): the
+    machine decoder ``g_s``; ``seg_g_enc2`` (a mainCNNdecoder) and
+    ``seg_g_enc3`` (mainCNNcontextScale2), the ``seg_``-prefixed coder
+    with its LRP, ``seg_g_a1`` / ``seg_g_a2`` and ``seg_g_s``; the four
+    conditioning decoders ``human_g_enc2``-``5``, the hyperprior with its
+    deconv-style decoders (``human_h_mean_s_2``, ``human_h_scale_s_2``),
+    the 2-conv context decoders ``human_context_decoder`` / ``3``, the
+    encoder ``human_g_a1_2`` / ``human_g_a2_2``, the mask nets
+    ``generate_mask_scale1`` / ``2``, the deconv context decoders
+    ``human_context_decoder2_2`` / ``4`` and the decoder ``human_g_s1_2``
+    / ``human_g_s2_2``."""
+    def deconv_context(prefix):
+        return {"Conv_0": _leaves(sd, f"{prefix}.0"),
+                "ConvTranspose_0": _leaves(sd, f"{prefix}.2"),
+                "ConvTranspose_1": _leaves(sd, f"{prefix}.4")}
+
+    tree = {
+        "g_s": _main_cnn_decoder(sd, "g_s"),
+        "seg_g_enc2": {"MainCNNDecoder_0": _main_cnn_decoder(sd, "seg_g_enc2")},
+        "seg_g_enc3": _context_scale2(sd, "seg_g_enc3"),
+        "seg_coder": _zigzag_coder(sd, "seg_", "entropy_bottleneck_seg", n_convs=3, lrp=True),
+        "seg_g_s": _main_cnn_decoder(sd, "seg_g_s"),
+        "human_hyper": {
+            "h_a": _stack(sd, "human_h_a", 5),
+            "h_mean_s": deconv_context("human_h_mean_s_2"),
+            "h_scale_s": deconv_context("human_h_scale_s_2"),
+            "entropy_bottleneck": _entropy_bottleneck(sd, "entropy_bottleneck_human"),
+        },
+        "seg_g_a1": _stack(sd, "seg_g_a1", 2),
+        "seg_g_a2": {**_stack(sd, "seg_g_a2", 2),
+                     "Win_noShift_Attention_0": _win_noshift(sd, "seg_g_a2.4")},
+        "human_g_a1_2": _stack(sd, "human_g_a1_2", 2),
+        "human_g_a2_2": _stack(sd, "human_g_a2_2", 2),
+        "human_g_s1_2": _stack(sd, "human_g_s1_2", 2, kind="ConvTranspose"),
+        "human_g_s2_2": {"ConvTranspose_0": _leaves(sd, "human_g_s2_2.0"),
+                         "Conv_0": _leaves(sd, "human_g_s2_2.2"),
+                         "ConvTranspose_1": _leaves(sd, "human_g_s2_2.4")},
+    }
+    for name in ("human_g_enc2", "human_g_enc4"):
+        tree[name] = {"MainCNNDecoder_0": _main_cnn_decoder(sd, name)}
+    for name in ("human_g_enc3", "human_g_enc5"):
+        tree[name] = _context_scale2(sd, name)
+    for name in ("human_context_decoder", "human_context_decoder3"):
+        tree[name] = _stack(sd, name, 2)
+    for name in ("generate_mask_scale1", "generate_mask_scale2"):
+        tree[name] = _stack(sd, name, 3)
+    for name in ("human_context_decoder2_2", "human_context_decoder4"):
+        tree[name] = deconv_context(name)
+    return tree
+
+
 def _human_hyper_dec(sd, prefix: str, extra: int = 5) -> dict:
     """The hyper-decoder and its ``extra`` trailing convs (reference
     indexes 10, 12, ...)."""
@@ -316,27 +392,29 @@ def _human_hyper_dec(sd, prefix: str, extra: int = 5) -> dict:
 
 def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
                            ctx_slices: int = 24) -> Dict[str, torch.Tensor]:
-    """Reference stf9 / stf11 / stf12 / stf14 state dict -> the port's
-    ``ConditionalResidualCoding`` / ``ConditionalResidualCoding2`` /
-    ``ResidualCoding`` state dict: the machine layer's ``g_a`` and zigzag
-    coder (``cc_*_transforms2``, 5 convs a slice, no LRP), the split
-    decoder, the human layer's hyperprior (``human_h_*``,
-    ``entropy_bottleneck_human``) and transforms: stf9's and stf14's, with
-    stf9's (and stf11's) context decoder; or stf12's conditioning decoders
-    (``human_g_enc2``, a whole mainCNNdecoder; ``human_g_enc3``,
-    mainCNNcontextScale2), its two-stage encoder and decoder and its two
-    context decoders (3 convs, and 2 convs with 2 sub-pixel convs)."""
+    """Reference stf9 / stf11 / stf12 / stf13 / stf14 state dict -> the
+    port's ``ConditionalResidualCoding`` / ``ConditionalResidualCoding2`` /
+    ``ConditionalResidualCoding3`` / ``ResidualCoding`` state dict: the
+    machine layer's ``g_a`` and zigzag coder (``cc_*_transforms2``, 5
+    convs a slice, no LRP; stf13: 3 convs and the ``lrp_transforms2`` its
+    forward applies), the split decoder, the human layer's hyperprior
+    (``human_h_*``, ``entropy_bottleneck_human``) and transforms: stf9's
+    and stf14's, with stf9's (and stf11's) context decoder; or stf12's
+    conditioning decoders (``human_g_enc2``, a whole mainCNNdecoder;
+    ``human_g_enc3``, mainCNNcontextScale2), its two-stage encoder and
+    decoder and its two context decoders (3 convs, and 2 convs with 2
+    sub-pixel convs); or stf13's decoder and layers
+    (:func:`_stf13_layers`)."""
     if arch not in CRC_ARCHS:
         raise ValueError(f"{arch!r} is not one of {CRC_ARCHS}")
     sd = load_pretrained(state_dict)
-    coder = {"h_a": _stack(sd, "h_a", 5), "h_mean_s": _hyper_dec(sd, "h_mean_s"),
-             "h_scale_s": _hyper_dec(sd, "h_scale_s"),
-             "entropy_bottleneck": _entropy_bottleneck(sd, "entropy_bottleneck")}
-    for tag, ours in (("cc_mean_transforms2", "cc_mean"), ("cc_scale_transforms2", "cc_scale")):
-        for i in range(ctx_slices):
-            coder[f"{ours}_{i}"] = _stack(sd, f"{tag}.{i}", 5)
+    stf13 = arch == "stf13"
+    coder = _zigzag_coder(sd, ctx_slices=ctx_slices, n_convs=3 if stf13 else 5, lrp=stf13)
+    machine = {"g_a": _main_cnn_encoder(sd, "g_a"), "coder": coder}
+    if stf13:
+        return _state_dict({"machine": machine, **_stf13_layers(sd)})
     tree = {
-        "machine": {"g_a": _main_cnn_encoder(sd, "g_a"), "coder": coder},
+        "machine": machine,
         "g_s1": _main_cnn_decoder(sd, "g_s1", part=1),
         "g_s2": _main_cnn_decoder(sd, "g_s2", part=2),
         "human_hyper": {
@@ -349,11 +427,7 @@ def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
     if arch == "stf12":
         tree.update({
             "human_g_enc2": {"MainCNNDecoder_0": _main_cnn_decoder(sd, "human_g_enc2")},
-            "human_g_enc3": {  # mainCNNcontextScale2
-                "Win_noShift_Attention_0": _win_noshift(sd, "human_g_enc3.0"),
-                "ConvTranspose_0": _leaves(sd, "human_g_enc3.1"),
-                "GDN_0": _gdn(sd, "human_g_enc3.2"),
-                "ConvTranspose_1": _leaves(sd, "human_g_enc3.3")},
+            "human_g_enc3": _context_scale2(sd, "human_g_enc3"),
             "human_context_decoder": _stack(sd, "human_context_decoder", 3),
             "human_g_a1": _stack(sd, "human_g_a1", 2),
             "human_g_a2": {**_stack(sd, "human_g_a2", 2),
@@ -378,12 +452,11 @@ def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
     return _state_dict(tree)
 
 
-CRC_ARCHS = ("stf9", "stf11", "stf12", "stf14")
+CRC_ARCHS = ("stf9", "stf11", "stf12", "stf13", "stf14")
 
 
 # the zoo's other architectures: the port does not build them yet
 _NOT_PORTED = {
-    "stf13": "Queue 1 item 1 (stf13)",
     **{a: "Queue 1 item 2 (the masked family)" for a in ("stf2", "stf3", "stf4")},
     "czigzag": "Queue 1 item 3 (czigzag)",
     **{a: "Queue 1 item 4 (ICM)" for a in ("cnn2", "stf10", "oj_ICM", "seg_oj_ICM")},

@@ -1191,6 +1191,29 @@ def test_family_bf16_wires_on_the_card(twin):
 CRC_WIDTHS = dict(N=64, M=128, mid=64, num_slices=2, max_support=4, support_num=8,
                   hyper_enc_widths=(128, 96, 64, 48, 32), hyper_dec_widths=(48, 64, 96, 128, 128),
                   cc_widths=(48, 32))
+# the hyper-decoders' first convolutions read z_hat, which at the bottlenecks'
+# init medians (0) is 0 wherever z rounds to 0: at these widths everywhere
+Z_READERS = ("h_mean_s.Conv_0.weight", "h_scale_s.Conv_0.weight")
+
+
+def _crc_model(name, device):
+    """A narrow CRC model from seed 0 whose every layer codes nonzero
+    symbols and reaches its weights' gradients: its biases drawn at 0.01
+    (seed 0; the seeded init's are 0, and so mu and LRP of a latent that
+    rounds to 0), stf13's segmentation analysis's last convolution scaled
+    by 16 (``chip_smoke.CRC_GAIN``: at an untrained draw its latent
+    rounds to 0 everywhere)."""
+    from icm_tpu_torch.models import create_model
+
+    model = create_model(name, device=device, seed=0, **CRC_WIDTHS)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".bias"):
+                p.copy_(0.01 * torch.randn(p.shape, generator=g))
+        if name == "stf13":
+            model.seg_g_a2.Conv_1.weight.mul_(16.0)
+    return model
 
 
 @pytest.mark.parametrize("name", ["stf9", "stf12", "stf14"])
@@ -1247,24 +1270,28 @@ def test_crc_wires_on_the_card(name):
         torch.testing.assert_close(got[group]["y"].cpu(), ref[group]["y"], rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("name", ["stf9", "stf12", "stf14"])
+# stf13's three layers' rates and the decoders no loss term reads
+@pytest.mark.parametrize("name", ["stf9", "stf12", "stf13", "stf14"])
 def test_crc_train_step_card_vs_cpu(name):
     """One training step (the port's one forward, which computes both of
     JAX's: the unrolled and ``scan_charm=True``) on the card and on the
-    CPU, the same weights and noise (one seeded CPU generator each), both
-    layers' rates: loss terms
+    CPU, the same weights and noise (one seeded CPU generator each), every
+    layer's rates: loss terms
     and every gradient within 1e-3 of its max (``chip_smoke.py``'s rule);
-    the split decoder gets no gradient on either."""
+    the split decoder (stf13: g_s and seg_g_s) gets no gradient on
+    either, and every other gradient but the z readers' (``Z_READERS``)
+    has a nonzero entry (``_crc_model``'s weights)."""
     _needs_card()
-    from icm_tpu_torch.models import create_model, cuda_numerics
+    from icm_tpu_torch.models import cuda_numerics
     from icm_tpu_torch.train import RateDistortionLoss
 
     cuda_numerics()
-    model = create_model(name, device="cuda", seed=0, **CRC_WIDTHS).train()
-    cpu = create_model(name, device="cpu", seed=0, **CRC_WIDTHS).train()
+    model = _crc_model(name, "cuda").train()
+    cpu = _crc_model(name, "cpu").train()
     cpu.load_state_dict(model.state_dict())
     x = _scan_images(64)
-    criterion = RateDistortionLoss(0.01, likelihood_keys=("likelihoods", "machine_likelihoods"))
+    keys, fixed = model.likelihood_keys, model.no_loss
+    criterion = RateDistortionLoss(0.01, likelihood_keys=keys)
 
     def step(m, xs):
         m.zero_grad(set_to_none=True)
@@ -1278,12 +1305,135 @@ def test_crc_train_step_card_vs_cpu(name):
     got_terms, got = step(model, x)
     ref_terms, ref = step(cpu, x.cpu())
     assert set(got) == set(ref) == {n for n, _ in model.named_parameters()
-                                    if not n.startswith(("g_s1.", "g_s2."))}
+                                    if not n.startswith(fixed)}
+    zero = sorted(n for n, g in ref.items() if not bool(g.ne(0).any()))
+    assert all(n.endswith(Z_READERS) for n in zero), zero
     for k, v in ref_terms.items():
         assert abs(got_terms[k] - v) <= 1e-3 * max(abs(v), 1e-30), k
     for n in ref:
         err = (got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)
         assert err <= 1e-3, (n, float(err))
+
+
+def test_crc3_wires_on_the_card():
+    """A narrow stf13 (both coders with LRP) on 2 x 128 px: host, device and
+    scan wire (graphed and launch by launch), every round trip bit-exact
+    in y_hat, seg_y_hat and x_hat; the device wire's the host wire's, 6
+    encode launches and 2 x slices + 4 decode launches; the same on the
+    scan wire, each layer's chain a decode graph of its own with one
+    decode launch a slice (the LRP step inside it) and its encode graph
+    none; the graphed scan wire's blobs and bits those of its launches;
+    the eval forward against the CPU's within 1e-3. Both zigzag layers
+    code nonzero symbols (``_crc_model``'s weights), so that no check
+    compares a latent made of its context alone."""
+    _needs_card()
+    from icm_tpu_torch.models import create_model
+    from icm_tpu_torch.models.crc_codec import CRC3Codec
+
+    model = _crc_model("stf13", "cuda")
+    x = _scan_images(128)
+    keys = ("y_hat", "seg_y_hat", "x_hat")
+
+    def dec(codec, e):
+        return codec.decompress(e["strings"], e["shape"], e["seg_shape"], e["human_shape"])
+
+    host = CRC3Codec(model, narrow=0.2)
+    for k, syms in host.symbols(x).items():
+        assert sum(int(s.count_nonzero()) for s in syms) > 0, k
+    enc = host.compress(x, return_debug=True)
+    assert len(enc["strings"]) == 6
+    d = dec(host, enc)
+    assert all(torch.equal(d[k], enc[k]) for k in keys)
+    n = model.coder.ctx_slices
+    outs = {}
+    for wire, kw in (("device", {}), ("scan", dict(scan_wire=True)),
+                     ("scan_launches", dict(scan_wire=True, cuda_graphs=False))):
+        codec = CRC3Codec(model, narrow=0.2, wire="device", **kw)
+        dec(codec, codec.compress(x))  # the scan wire's graphs are captured by a first call
+        counts = (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES)
+        e = codec.compress(x, return_debug=True)
+        d = dec(codec, e)
+        torch.cuda.synchronize()
+        assert (tdr.ENCODE_LAUNCHES - counts[0], tdr.DECODE_LAUNCHES - counts[1]) == (6, 2 * n + 4)
+        assert all(torch.equal(d[k], e[k]) for k in keys)
+        outs[wire] = (e, d)
+        if wire == "scan":
+            chains = {key: g for key, g in codec.graphs.graphs().items() if key[0] == "scan"}
+            assert {(k[1], k[-1]) for k in chains} == {(w, layer) for w in ("encode", "decode")
+                                                       for layer in ("m", "s")}
+            for key, g in chains.items():
+                want = n if key[1] == "decode" else 0
+                assert sum(g.launches["DECODE_LAUNCHES"].values()) == want, key
+                assert sum(g.launches["ENCODE_LAUNCHES"].values()) == 0, key
+    assert all(torch.equal(outs["device"][0][k], enc[k]) for k in keys)
+    (se, sd), (pe, pd) = outs["scan"], outs["scan_launches"]
+    assert se["strings"] == pe["strings"]
+    for got, want in ((se, pe), (sd, pd)):
+        assert all(torch.equal(got[k], want[k]) for k in keys)
+    for k in ("y_hat", "seg_y_hat"):
+        diff = (se[k] - enc[k]).abs()
+        assert float((diff > 1e-2).float().mean()) < 0.005 and float(diff.median()) < 1e-4, k
+
+    cpu = create_model("stf13", device="cpu", seed=0, **CRC_WIDTHS)
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got, ref = model(x), cpu(x.cpu())
+    for key in ("x_hat", "machine_x_hat", "seg_x_hat"):
+        torch.testing.assert_close(got[key].cpu(), ref[key], rtol=0, atol=1e-3)
+    for group in ("likelihoods", "machine_likelihoods", "seg_likelihoods"):
+        torch.testing.assert_close(got[group]["y"].cpu(), ref[group]["y"], rtol=0, atol=1e-3)
+
+
+def test_lrp_scan_step_graph_matches_launches():
+    """The scan wire's LRP step alone: a narrow stf13's machine coder on its
+    own ``ZigzagScanWire`` (narrow 1: plain rounding), its encode and
+    decode chain programs captured as CUDA graphs and run launch by launch
+    on the same inputs: the same blobs and y_hat stacks bit for bit, the
+    decoder's the encoder's, one decode launch a slice inside the decode
+    graph; y_hat within the scan wire's distribution bar of the layer's
+    unrolled eval loop with LRP, which LRP moves by more than the bar."""
+    _needs_card()
+    from icm_tpu_torch.graphs import GraphCache
+    from icm_tpu_torch.models import build_codec_tables, create_model
+    from icm_tpu_torch.models.device_codec import DeviceWireKit
+    from icm_tpu_torch.models.scan_codec import ZigzagScanWire
+
+    model = create_model("stf13", device="cuda", seed=0, **CRC_WIDTHS)
+    coder = model.coder
+    assert coder.apply_lrp
+    with torch.no_grad():
+        tables = build_codec_tables(model)
+        kit = DeviceWireKit(tables, device=torch.device("cuda"))
+        st = torch.from_numpy(tables.scale_table).cuda()
+        y = model.machine.g_a(_scan_images(128).permute(0, 3, 1, 2).contiguous())
+        z = coder.h_a(y)
+        z_off = coder.eb_medians().reshape(1, -1, 1, 1)
+        state = coder.ctx_prepare(torch.round(z - z_off) + z_off)
+        y_stack = torch.stack(coder.latent_slices(y))
+        outs, caches = [], (GraphCache(enabled=True), GraphCache(enabled=False))
+        for graphs in caches:
+            wire = ZigzagScanWire(coder, kit, st, graphs, "m")
+            means, scales = wire.conditioning(state)
+            wire.encode(means, scales, y_stack)  # captures on the card
+            blobs, y_hats = wire.encode(means, scales, y_stack)
+            y_hats = y_hats.clone()
+            wire.decode(blobs, means, scales)
+            outs.append((blobs, y_hats, wire.decode(blobs, means, scales).clone()))
+        unrolled, _ = coder.code(y)
+        coder.apply_lrp = False
+        try:
+            without, _ = coder.code(y)
+        finally:
+            coder.apply_lrp = True
+    (gb, gy, gd), (pb, py, pd) = outs
+    assert gb == pb
+    assert torch.equal(gy, py) and torch.equal(gd, pd) and torch.equal(gd, gy)
+    chain = {k[1]: g for k, g in caches[0].graphs().items() if k[0] == "scan"}
+    assert sum(chain["decode"].launches["DECODE_LAUNCHES"].values()) == coder.ctx_slices
+    assert sum(chain["encode"].launches["ENCODE_LAUNCHES"].values()) == 0
+    diff = (coder.ctx_assemble(list(gy)) - unrolled).abs()
+    assert float((diff > 1e-2).float().mean()) < 0.005 and float(diff.median()) < 1e-4
+    assert float((unrolled - without).abs().median()) > 1e-3
 
 
 def test_crc_bf16_wires_on_the_card():

@@ -194,7 +194,7 @@ def _imports(path):
 SCANNED = sorted(
     [p.relative_to(REPO).as_posix() for p in (REPO / "icm_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "tools/torch_profile_codec.py", "tools/torch_ab_rans.py",
-       "tools/torch_sweep_rans.py", "tools/torch_ab_gdn.py"])
+       "tools/torch_sweep_rans.py", "tools/torch_ab_gdn.py", "tools/torch_smoke_crc.py"])
 
 
 def test_import_scan_covers_the_port_modules():

@@ -1,7 +1,7 @@
 """Where the time goes in icm_tpu_torch's full-width codecs and their
 training step, on the card.
 
-    python3 tools/torch_profile_codec.py [--model cnn|stf|stf5|...|stf8|stf9|stf11|stf12|stf14]
+    python3 tools/torch_profile_codec.py [--model cnn|stf|stf5|...|stf8|stf9|...|stf14]
         [--wire host|device|scan] [--no-graphs] [--act-dtype f32|bf16]
         [--scan-charm] [--seed 0] [--out profile.json]
 
@@ -13,6 +13,8 @@ forward, or with ``--scan-charm`` the ``scan_charm=True`` forward, whose
 refiners take stochastic depth; ``stf9``, ``stf11``, ``stf12``, ``stf14``:
 the CRC family, a machine layer with the zigzag ChARM coder and a human
 layer, served by ``CRCCodec`` on the same three wires and trained on both
+layers' likelihoods; ``stf13``: its third member, with a segmentation
+layer between the two, served by ``CRC3Codec`` and trained on the three
 layers' likelihoods) on the CUDA card with weights drawn from ``--seed``, on the host
 wire (``CharmCodec``, the default), the device wire
 (``DeviceWireCodec``, 1024 lanes an image, its rANS on the card) or the
@@ -49,7 +51,7 @@ from collections import defaultdict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILY = ("stf5", "stf6", "stf7", "stf8")  # the zigzag family
-CRC = ("stf9", "stf11", "stf12", "stf14")  # the CRC family
+CRC = ("stf9", "stf11", "stf12", "stf13", "stf14")  # the CRC family
 
 
 def _busy_us(events) -> float:
@@ -166,7 +168,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
-    from icm_tpu_torch.models.crc_codec import CRCCodec
+    from icm_tpu_torch.models.crc import ConditionalResidualCoding3
+    from icm_tpu_torch.models.crc_codec import CRC3Codec, CRCCodec
     from icm_tpu_torch.nn import set_activation_dtype
     from icm_tpu_torch.train import (
         RateDistortionLoss, TrainState, make_optimizer, make_train_step)
@@ -182,8 +185,9 @@ def main() -> int:
     model = create_model(args.model, seed=args.seed,
                          **({"scan_charm": True} if args.scan_charm else {}))
     if args.model in CRC:
-        codec = CRCCodec(model, narrow=0.2, wire="host" if args.wire == "host" else "device",
-                         scan_wire=args.wire == "scan", cuda_graphs=not args.no_graphs)
+        codec = (CRC3Codec if isinstance(model, ConditionalResidualCoding3) else CRCCodec)(
+            model, narrow=0.2, wire="host" if args.wire == "host" else "device",
+            scan_wire=args.wire == "scan", cuda_graphs=not args.no_graphs)
     elif args.wire == "scan":
         codec = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2, scan_wire=True,
                                 cuda_graphs=not args.no_graphs)
@@ -193,7 +197,7 @@ def main() -> int:
         codec = CharmCodec(model, narrow=0.2)
     x = torch.from_numpy(make_images(args.seed, 2, 512)).cuda()
     def decompress(enc):
-        extra = (enc["human_shape"],) if args.model in CRC else ()
+        extra = [enc[k] for k in ("seg_shape", "human_shape") if k in enc]
         return codec.decompress(enc["strings"], enc["shape"], *extra)
 
     for _ in range(2):  # warm-up: cuDNN handles, allocator, kernel library
@@ -207,7 +211,7 @@ def main() -> int:
         "decompress": lambda: decompress(enc),
     }
     state = TrainState(model, make_optimizer(model))
-    keys = ("likelihoods", "machine_likelihoods") if args.model in CRC else ("likelihoods",)
+    keys = model.likelihood_keys if args.model in CRC else ("likelihoods",)
     train_step = make_train_step(model, RateDistortionLoss(0.01, likelihood_keys=keys))
     noise = torch.Generator(device="cuda").manual_seed(args.seed)
     batch = torch.from_numpy(make_images(args.seed + 100, 8, 256)).cuda()

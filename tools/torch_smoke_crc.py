@@ -1,0 +1,117 @@
+"""chip_smoke.py's phases of some CRC models alone, on the card: the quick
+check of one model's paths without the whole run.
+
+    python3 tools/torch_smoke_crc.py [--models stf13] [--seed 0] [--out crc.json]
+        [--probe-gains 8,16,32]
+
+Builds every kernel (``chip_smoke.build_kernels``), then runs, for each
+model of ``--models`` (comma-separated, of ``chip_smoke.CRC``),
+``chip_smoke.crc_model_phases`` on phase 5's images as ``chip_smoke.main``
+does: the three wires and the eval forward card against CPU, training,
+the bf16 policy (``CRC_BF16``) and the reference checkpoint
+(``CRC_REFERENCE``), each phase holding what it holds in the whole run.
+Prints the card's name and power limit and, last, one JSON line of each
+model's results and launch counts; ``--out`` also writes it. Exits 1 if a
+phase fails. With ``--probe-gains`` it runs no phase: for each gain in
+place of ``chip_smoke.CRC_GAIN``'s factors, each zigzag layer's nonzero
+symbols and each stream's host and device-wire bytes, escapes and limit
+(``chip_smoke.crc_stream_bytes``) of one host and one device-wire compress
+of the same images. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+import traceback
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def probe_gains(smoke, name: str, x, seed: int, gains) -> dict:
+    """For each gain, ``name``'s seeded weights with CRC_GAIN's parameters
+    scaled by it: each zigzag layer's nonzero symbols (of all) and the
+    device wire's stream bytes against the host wire's."""
+    import torch
+
+    from icm_tpu_torch.models import create_model
+
+    model = create_model(name, seed=seed)
+    base = {p: model.get_parameter(p).detach().clone() for p in smoke.CRC_GAIN.get(name, {})}
+    out = {}
+    for g in gains:
+        with torch.no_grad():
+            for p, w in base.items():
+                model.get_parameter(p).copy_(w * g)
+        host = smoke.crc_codec(model, narrow=0.2)
+        dev = smoke.crc_codec(model, narrow=0.2, wire="device")
+        symbols = {k: [sum(int(s.count_nonzero()) for s in v), sum(s.numel() for s in v)]
+                   for k, v in host.symbols(x).items()}
+        stream_bytes = smoke.crc_stream_bytes(model, dev, host.compress(x), dev.compress(x),
+                                              x.shape[1])
+        over = [k for k, v in stream_bytes.items() if v["device"] > v["limit"]]
+        smoke.log(f"  {name} gain {g}: nonzero symbols {symbols}; over the limit {over}; "
+                  f"bytes {stream_bytes}")
+        out[str(g)] = {"nonzero_y_symbols": symbols, "stream_bytes": stream_bytes,
+                       "over_limit": over}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--models", default="stf13")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--probe-gains", default=None,
+                    help="comma-separated factors for CRC_GAIN's parameters; no phase runs")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_smoke_crc: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    names = args.models.split(",")
+    unknown = sorted(set(names) - set(smoke.CRC))
+    if unknown:
+        print(f"torch_smoke_crc: not CRC models of chip_smoke.py: {unknown}", file=sys.stderr)
+        return 2
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.models import cuda_numerics
+
+    card = smoke.environment()
+    smoke.build_kernels()
+    cuda_numerics()
+    zero_counts, read_counts = smoke.launch_counts("float32")
+    x = torch.from_numpy(make_images(args.seed, 2, 512)).cuda()  # phase 5's images
+    out = {"card": card}
+    try:
+        for name in names:
+            if args.probe_gains:
+                out[name] = probe_gains(smoke, name, x, args.seed,
+                                        [float(g) for g in args.probe_gains.split(",")])
+                continue
+            result, counts, shapes = smoke.crc_model_phases(name, x, card, zero_counts,
+                                                            read_counts, args.seed)
+            out[name] = {"result": result, "launches": counts, "launches_by_shape": shapes}
+    except Exception:
+        traceback.print_exc()
+        return 1
+    line = json.dumps(out, default=str)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(card, flush=True)
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
