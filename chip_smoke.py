@@ -9,7 +9,8 @@ package beside it. Phases, each printed with its elapsed seconds:
 1. environment: the card's name and power limit (nvidia-smi), versions;
 2. build: the window-attention, GDN and lane-rANS kernels (nvcc, sm_90a)
    and the host rANS coder (g++), from the sources in the checkout, all
-   at once;
+   at once; phase 4 runs while window attention's build finishes, then
+   phase 3;
 3. window attention against its plain PyTorch version on the card, at
    the shapes of the full-width WACNN's path (head widths 24 and 40), of
    the full-width stf's (head width 16, windows of 16 tokens: 3, 6, 12
@@ -188,7 +189,8 @@ package beside it. Phases, each printed with its elapsed seconds:
     the human y); the scan wire held as phase 7a (graphs against a
     traced replay and against launch by launch, y_hat within JAX's bar
     of the device wire's) and refusing the bf16 policy; each side's
-    img/s (median of 3), device idle share and ATen calls on each wire;
+    img/s (one call: ``CRC_REPS``), device idle share and ATen
+    calls on each wire;
     the eval forward against the CPU's on one 256 x 256 image (x_hat,
     machine_x_hat, both y likelihoods within 1e-3);
 29. stf9 training (``run_training``, 8 x 256 x 256, RateDistortionLoss
@@ -241,11 +243,46 @@ package beside it. Phases, each printed with its elapsed seconds:
 38. stf13 under the bfloat16 policy from phase 36's weights, as phase 34;
 39. a reference stf13 checkpoint at full width, as phase 30 (three
     bottlenecks' tables stored and imported, six streams in the reference
-    order).
+    order);
+40. stf3 (92.6 M parameters: stf's transforms, two 5-block masked context
+    stacks over [hyper tokens | y tokens] of D = 768, a global LRP) at full
+    width with its reference mask, from its seeded weights with its context
+    stacks' MLP outputs x0.25 (MASKED_GAIN) on 2 images of 512 x 512 at
+    latent scale 0.3 (MASKED_LATENT_SCALE): its nonzero y symbols held
+    above 0; the context pass at full width on the card with the buffer's
+    rows >= i zeroed and set to 1, rows <= i of mu and scale bit-identical
+    (i = 0, 1, N/2, N - 1); the host wire and the device wire (``Stf3Codec``:
+    one lane per image and token element, 2 encode launches and N + 1 = 513
+    decode launches, the y blob in the scan-wire format with its tier
+    byte), each side's counts zeroed right before and read right after: y_hat
+    and x_hat bit-exact, the device wire's the host wire's, 24 / 12
+    window-attention launches at head width 16 and no GDN, no host round
+    trip in a device-wire decompress, the device wire's bytes within the
+    host wire's x 1.02 plus each lane's flush and header (768 lanes an image
+    for y), each side's img/s (one call), device idle share and ATen calls;
+    the eval forward card against CPU on one 256 x 256 image (x_hat and y
+    likelihoods within 1e-3);
+41. stf3 training (``run_training``, 8 x 256 x 256, stochastic depth 0.2): 3
+    steps, each finite, 24 window-attention launches and no other kernel's,
+    every parameter moved; one step card against CPU as phase 16;
+42. a reference stf3 checkpoint at full width, as phase 18 (the bottleneck's
+    and the Gaussian's tables stored and imported), on the host wire at the
+    phase's latent scale, its nonzero symbols above 0;
+43-45. stf4 (135.5 M parameters: one 2-head attention and the fused conv
+    heads over 27-token windows; its dead scale head) as phases 40-42 with
+    ``causal=True`` (its reference mask lets token 0 see every token) on 2
+    images of 256 x 256 at latent scale 0.5 (129 decode launches); its
+    training through its reference mask, as the JAX package trains it,
+    every parameter moved but the scale head's.
 
-Each serving phase also logs its sides' device idle share: one traced
-compress and decompress (the union of the trace's kernel, copy and memset
-intervals) against the median untraced wall time.
+Each serving phase also logs its sides' device idle share: one profiled
+compress and decompress (the union of the card's kernel, copy and memset
+intervals, read from the profiler's events: ``profiled_call``) against the
+median unprofiled wall time.
+
+The masked family's phases add their window-attention launches to
+``window_attention_d16`` (its transforms are stf's) and their lane-rANS
+launches to ``rans_encode`` / ``rans_decode``, under their own path keys.
 
 The kernels line lists window attention's head widths 32, 48 and 96 and
 the GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
@@ -370,10 +407,13 @@ SCAN_VS_DEVICE = {"share_above_1e-2": 0.005, "median": 1e-4}
 # the port's kernels by the names of their CUDA functions in a trace,
 # under the names of the launch counters (graphs.launch_counts)
 TRACE_TRIES = 3
-# kernels each traced session runs before the traced call (see trace_events),
-# and the name of the call's marker in the trace
+# kernels each profiled session runs before the call (see profile_session),
+# and the name of the call's marker in the session
 TRACE_WARMUP_KERNELS = 64
 TRACE_MARK = "chip_smoke_traced_call"
+# the ATen utility calls the profiler's summaries (``key_averages``) leave
+# out, and profiled_call too
+ATEN_UNCOUNTED = ("aten::is_leaf", "aten::output_nr", "aten::_version")
 TRACE_KERNELS = {"window_attention": "window_attention_kernel",
                  "gdn_forward": "gdn_fwd_kernel", "gdn_backward": "gdn_bwd_kernel",
                  "ENCODE_LAUNCHES": "rans_encode_lanes_kernel",
@@ -576,15 +616,41 @@ CRC_STEP_SHAPES["stf13"] = {"window_attention": {"D24": 1, "D32": 5, "D48": 10},
 # codes 4.3% of them nonzero and none escaped (crc_phase holds the count
 # above 0); at 24 and 32 the untrained scales let 1,475 and 11,403 escape,
 # 8 bytes each on the device wire, past its byte bar (PERF.md section 6;
-# tools/torch_smoke_crc.py --probe-gains)
+# tools/torch_smoke_models.py --probe-gains)
 CRC_GAIN = {"stf13": {"seg_g_a2.Conv_1.weight": 16.0}}
-# host-clock calls whose median gives a CRC wire's img/s
-CRC_REPS = 3
+# host-clock calls whose median gives a CRC wire's img/s: one since the
+# masked family's phases took the run near 1,000 s (before them, the median of 3)
+CRC_REPS = 1
 # the CRC models whose bfloat16 policy is held on the card (stf12 runs every
 # CRC head width and both GDN widths; stf13 its two LRP coders and masks)
 CRC_BF16 = ("stf12", "stf13")
 # the CRC models served from a reference checkpoint
 CRC_REFERENCE = ("stf9", "stf12", "stf13")
+# the masked family (phases 40-45): stf3 and stf4 at their published width
+# (stf's transforms; 8 slices of 48 in windows of 4 x 4: tokens of D = 768).
+# Their decoder runs the whole context pass once a token, N passes a
+# decompress (N = 512 an image at 512 px): stf3 serves 2 x 512^2, stf4,
+# whose pass runs its conv heads over every token (~0.7 TFLOP at 256 px, 16x
+# that at 512), 2 x 256^2. The codec's model: stf3 with its reference mask,
+# stf4 with causal=True (its reference mask lets token 0 see every token);
+# stf4 trains through its reference mask, as the JAX package trains it
+MASKED = ("stf3", "stf4")
+MASKED_SIZE = {"stf3": 512, "stf4": 256}
+MASKED_CAUSAL = {"stf3": False, "stf4": True}
+# y and z scaled before rounding (Stf3Codec's latent_scale: the context reads
+# the coded tokens, so no per-symbol narrowing can stand in), chosen on the
+# CPU from the seeded weights on each phase's images so that some symbols are
+# nonzero and none escapes: stf4 at 0.5 codes 6.5% of them nonzero, none
+# escaped (0.7: 4 escapes a 2 x 256^2 batch). stf3's untrained context
+# lifts any nonzero row to unit scale through its LayerNorms, so one nonzero
+# token makes mu round to +-1..3 on a fifth of the later tokens, at scales
+# that escape: at every latent scale up to 0.225 it codes only zeros, from
+# 0.23 on 22-47% nonzero with 1-2.5% escaped (8 device-wire bytes each, past
+# the byte bar). Its context stacks' MLP outputs scaled by 0.25
+# (MASKED_GAIN) at 0.3: 0.49% nonzero, mu among them, none escaped
+MASKED_LATENT_SCALE = {"stf3": 0.3, "stf4": 0.5}
+MASKED_GAIN = {"stf3": {f"maskedContextModel_{s}.Dense_{2 * i + 1}.weight": 0.25
+                        for s in ("mu", "sigma") for i in range(5)}}
 
 
 def crc_step_shapes(name: str, dtype: str = "float32") -> dict:
@@ -725,10 +791,11 @@ def gdn_kernel_split(fn, reps: int = 10) -> dict:
     kernels' durations in one traced run of ``reps`` calls, summed by name
     and divided by ``reps``."""
     split: dict = {}
-    for e in trace_events(lambda: [fn() for _ in range(reps)]):
-        found = re.search(r"gdn_\w+", e.get("name", "")) if e.get("cat") == "kernel" else None
-        if found and "dur" in e:
-            split[found.group(0)] = split.get(found.group(0), 0.0) + e["dur"] / 1e3 / reps
+    events = marked_events(profile_session(lambda: [fn() for _ in range(reps)]))
+    for a, b, name in card_spans(events, kernels_only=True):
+        found = re.search(r"gdn_\w+", name)
+        if found:
+            split[found.group(0)] = split.get(found.group(0), 0.0) + (b - a) / 1e6 / reps
     return split
 
 
@@ -945,13 +1012,13 @@ def check_rans(kit, tables, seed: int, B: int, size: int, model, model_name: str
     return out
 
 
-def trace_events(fn) -> list:
-    """The chrome-trace events of one traced call of ``fn`` on the card.
-    The profiler has lost the first records of a session (late in a long
-    run, the first 14-15 kernels of a traced call, launch by launch as
-    in a graph replay), so each session first runs TRACE_WARMUP_KERNELS
-    tiny kernels and waits for them; only the events from the call's own
-    marker on are returned."""
+def profile_session(fn):
+    """One profiler session (CPU and CUDA) around one call of ``fn`` on the
+    card. The profiler has lost the first records of a session (late in a
+    long run, the first 14-15 kernels of a traced call, launch by launch as
+    in a graph replay), so the session first runs TRACE_WARMUP_KERNELS tiny
+    kernels and waits for them, then calls ``fn`` under the marker
+    TRACE_MARK. -> the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -964,36 +1031,59 @@ def trace_events(fn) -> list:
         with record_function(TRACE_MARK):
             fn()
             torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-    start = min(e["ts"] for e in events if e.get("name") == TRACE_MARK and "ts" in e)
-    return [e for e in events if e.get("ts", start - 1) >= start]
+    return prof
 
 
-def device_busy_ms(fn) -> float:
-    """Device busy time of one traced call of ``fn``: the length of the
-    union of its kernel, copy and memset intervals in the trace."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace_events(fn)
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-    return busy_us / 1e3
+def marked_events(prof) -> list:
+    """The events of a ``profile_session`` from the call's marker on, read
+    from the profiler's own records (name, start_ns, duration_ns,
+    device_type) without a chrome-trace export: a masked-family decompress
+    runs ~400,000 operators and as many kernels, whose trace takes the
+    better part of a minute to write and read
+    (tests/test_torch_cuda.py::test_profiler_events_read_what_the_trace_export_reads
+    holds the two readings equal)."""
+    events = prof.profiler.kineto_results.events()
+    start = min(e.start_ns() for e in events if e.name() == TRACE_MARK)
+    return [e for e in events if e.start_ns() >= start]
+
+
+def card_spans(events, kernels_only: bool = False) -> list:
+    """(start ns, end ns, name) of the card's events among ``events``, in
+    time order: its kernels, copies and memsets (``kernels_only``: its
+    kernels), without the marker's span on the card's timeline."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
+                  if e.device_type() == DeviceType.CUDA and e.name() != TRACE_MARK
+                  and not (kernels_only and e.name().startswith(("Memcpy", "Memset"))))
+
+
+def profiled_call(fn) -> tuple:
+    """(ATen operator calls, device busy ms) of one call of ``fn`` from one
+    ``profile_session``: the ATen calls as ``key_averages`` counts them
+    (without ATEN_UNCOUNTED); busy is the length of the union of the card's
+    kernel, copy and memset intervals."""
+    from torch.autograd import DeviceType
+
+    events = marked_events(profile_session(fn))
+    aten = sum(1 for e in events if e.device_type() == DeviceType.CPU
+               and e.name().startswith("aten::") and e.name() not in ATEN_UNCOUNTED)
+    busy_ns, end = 0, float("-inf")
+    for a, b, _ in card_spans(events):
+        busy_ns += max(0, b - max(a, end))
+        end = max(end, b)
+    return aten, busy_ns / 1e6
 
 
 def idle_shares(codec, x, enc_s, dec_s) -> dict:
-    """Each side's device busy ms (one traced call) and idle share against
+    """Each side's device busy ms (one profiled call) and idle share against
     the median untraced wall time ``enc_s`` / ``dec_s``."""
     enc = codec.compress(x)
     out = {}
     for side, fn, walls in (("compress", lambda: codec.compress(x), enc_s),
                             ("decompress", lambda: codec.decompress(enc["strings"], enc["shape"]),
                              dec_s)):
-        busy = device_busy_ms(fn)
+        _, busy = profiled_call(fn)
         out[side] = dict(device_busy_ms=busy,
                          device_idle_share=max(0.0, 1.0 - busy / (1e3 * float(np.median(walls)))))
     return out
@@ -1200,11 +1290,12 @@ def traced_kernels(fn, last: int = 0):
     """The names of the kernels one traced call of ``fn`` ran, counted;
     with ``last``, also the names of its last ``last`` kernels in time
     order."""
-    kernels = sorted((e["ts"], e["name"]) for e in trace_events(fn) if e.get("cat") == "kernel")
+    kernels = [name for _, _, name in card_spans(marked_events(profile_session(fn)),
+                                                 kernels_only=True)]
     names: dict = {}
-    for _, name in kernels:
+    for name in kernels:
         names[name] = names.get(name, 0) + 1
-    return (names, [n[:60] for _, n in kernels[-last:]]) if last else names
+    return (names, [n[:60] for n in kernels[-last:]]) if last else names
 
 
 def wire_times(codec, x, reps: int = 3):
@@ -2145,18 +2236,6 @@ def crc_expect(name: str, side: str, dtype: str = "float32", **rans) -> tuple:
     return counts, {"window_attention": attn, "gdn": gdn}
 
 
-def aten_calls(fn) -> int:
-    """ATen operator calls of one call of ``fn`` (host-side profile)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
-
-
 def crc_codec(model, **kw):
     """The codec of a CRC model: ``CRC3Codec`` for stf13's class, else
     ``CRCCodec``."""
@@ -2175,25 +2254,26 @@ def crc_loss(model):
     return RateDistortionLoss(0.01, likelihood_keys=model.likelihood_keys), model.no_loss
 
 
-def crc_dec_args(codec, enc) -> list:
-    """A compress's output -> ``codec``'s decompress arguments."""
-    return [enc["strings"], *[enc[k] for k in codec.SHAPE_KEYS], enc["human_shape"]]
+def codec_dec_args(codec, enc) -> list:
+    """A compress's output -> ``codec``'s decompress arguments: its streams,
+    then ``codec.DECOMPRESS_KEYS``."""
+    return [enc["strings"], *[enc[k] for k in codec.DECOMPRESS_KEYS]]
 
 
-def crc_side_runs(codec, x, enc):
+def codec_side_runs(codec, x, enc):
     """(compress, decompress) of ``codec`` as argument-free calls."""
-    return (lambda: codec.compress(x), lambda: codec.decompress(*crc_dec_args(codec, enc)))
+    return (lambda: codec.compress(x), lambda: codec.decompress(*codec_dec_args(codec, enc)))
 
 
-def crc_timing(codec, x, enc, reps: int = 3) -> dict:
+def codec_timing(codec, x, enc, reps: int = 3) -> dict:
     """img/s of each side (median of ``reps`` host-clock calls ending in a
-    synchronize), its device busy ms and idle share (one traced call) and
-    its ATen calls."""
+    synchronize), its device busy ms and idle share and its ATen calls (one
+    profiled call, ``profiled_call``)."""
     import torch
 
     B = x.shape[0]
     out = {}
-    for side, fn in zip(("compress", "decompress"), crc_side_runs(codec, x, enc)):
+    for side, fn in zip(("compress", "decompress"), codec_side_runs(codec, x, enc)):
         walls = []
         for _ in range(reps):
             torch.cuda.synchronize()
@@ -2201,22 +2281,22 @@ def crc_timing(codec, x, enc, reps: int = 3) -> dict:
             fn()
             torch.cuda.synchronize()
             walls.append(time.time() - t)
-        busy = device_busy_ms(fn)
+        aten, busy = profiled_call(fn)
         wall = float(np.median(walls))
         out[side] = dict(img_per_s=B / wall, wall_ms=1e3 * wall, device_busy_ms=busy,
-                         device_idle_share=max(0.0, 1.0 - busy / (1e3 * wall)),
-                         aten_calls=aten_calls(fn))
+                         device_idle_share=max(0.0, 1.0 - busy / (1e3 * wall)), aten_calls=aten)
     return out
 
 
-def crc_roundtrip(codec, x, zero_counts, read_counts, what: str, expect: dict):
+def codec_roundtrip(codec, x, zero_counts, read_counts, what: str, expect: dict):
     """compress (debug) -> decompress of ``codec``, the launch counts zeroed
     right before and read right after each side and held to ``expect[side]``
     (kernel counts, shape counts); decompress watched for host round trips
-    (``torch.cuda.set_sync_debug_mode``) off the host wire. Holds y_hat
-    (stf13: and seg_y_hat) bit-exact and the decoder's x_hat equal to the
-    encoder's, finite and of the images' shape. -> (enc, dec, counts by side, shape counts by
-    side, host round trips in decompress)."""
+    (``torch.cuda.set_sync_debug_mode``) off the host wire. Holds the
+    codec's latents (``LATENT_KEYS``: y_hat, stf13's seg_y_hat too)
+    bit-exact and the decoder's x_hat equal to the encoder's, finite and of
+    the images' shape. -> (enc, dec, counts by side, shape counts by side,
+    host round trips in decompress)."""
     import warnings
 
     import torch
@@ -2233,7 +2313,7 @@ def crc_roundtrip(codec, x, zero_counts, read_counts, what: str, expect: dict):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            dec = codec.decompress(*crc_dec_args(codec, enc))
+            dec = codec.decompress(*codec_dec_args(codec, enc))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     syncs = [str(c.message).splitlines()[0] for c in caught if "synchroniz" in str(c.message)]
@@ -2330,7 +2410,7 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
     held above 0, so that no wire's check compares a latent made of its
     context alone; compress -> decompress on the host wire, the device wire
     and the scan wire (graphed and launch by launch), each held by
-    ``crc_roundtrip`` with the launches of CRC_SIDE_LAUNCHES (window
+    ``codec_roundtrip`` with the launches of CRC_SIDE_LAUNCHES (window
     attention by head width, GDN by channels; the device and scan wires: 2
     encode launches a zigzag layer and 2 for the human layer, ctx_slices +
     1 decode launches a zigzag layer and 2: 4 and 27, stf13 6 and 52); the
@@ -2377,14 +2457,14 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
               "nonzero_y_symbols": symbols}
     counts = {}
 
-    enc, _, l, sh, _ = crc_roundtrip(codec, x, zero_counts, read_counts,
+    enc, _, l, sh, _ = codec_roundtrip(codec, x, zero_counts, read_counts,
                                      f"{name} host wire", host_expect)
     counts.update(launches_compress=l["compress"], launches_decompress=l["decompress"])
     result["host_wire"] = {**crc_bytes(enc, size, codec.STREAMS), "launches": l,
-                           "launches_by_shape": sh, **crc_timing(codec, x, enc, CRC_REPS)}
+                           "launches_by_shape": sh, **codec_timing(codec, x, enc, CRC_REPS)}
 
     dev = crc_codec(model, narrow=0.2, wire="device")
-    denc, _, l, sh, syncs = crc_roundtrip(dev, x, zero_counts, read_counts,
+    denc, _, l, sh, syncs = codec_roundtrip(dev, x, zero_counts, read_counts,
                                           f"{name} device wire", dev_expect)
     counts.update(launches_device_wire_compress=l["compress"],
                   launches_device_wire_decompress=l["decompress"])
@@ -2399,12 +2479,12 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
     result["device_wire"] = {**crc_bytes(denc, size, dev.STREAMS), "stream_bytes": stream_bytes,
                              "launches": l, "launches_by_shape": sh,
                              "host_round_trips_in_decompress": syncs,
-                             **crc_timing(dev, x, denc, CRC_REPS)}
+                             **codec_timing(dev, x, denc, CRC_REPS)}
 
     scan = crc_codec(model, narrow=0.2, wire="device", scan_wire=True)
     t = time.time()
     first = scan.compress(x, return_debug=True)
-    scan.decompress(*crc_dec_args(scan, first))
+    scan.decompress(*codec_dec_args(scan, first))
     torch.cuda.synchronize()
     first_s = time.time() - t
     stats = scan.graphs.stats()
@@ -2413,7 +2493,7 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
     pool_bytes = sum(st["pool_bytes"] for st in stats.values())
     log(f"  {name} scan wire: first compress + decompress {first_s:.2f}s, captures "
         f"{capture_s:.2f}s of it, pools {pool_bytes / 2**20:.1f} MiB, {len(graphs)} graphs")
-    senc, sdec, l, sh, syncs = crc_roundtrip(scan, x, zero_counts, read_counts,
+    senc, sdec, l, sh, syncs = codec_roundtrip(scan, x, zero_counts, read_counts,
                                              f"{name} scan wire", dev_expect)
     counts.update(launches_scan_wire_compress=l["compress"],
                   launches_scan_wire_decompress=l["decompress"])
@@ -2424,7 +2504,7 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
     per_replay = graph_replays(scan, c.ctx_slices)
     plain = crc_codec(model, narrow=0.2, wire="device", scan_wire=True, cuda_graphs=False)
     penc = plain.compress(x, return_debug=True)
-    pdec = plain.decompress(*crc_dec_args(plain, senc))
+    pdec = plain.decompress(*codec_dec_args(plain, senc))
     if penc["strings"] != senc["strings"]:
         raise AssertionError(f"{name} scan wire: graphed blobs differ from launch by launch")
     for got, want, what in ((penc, senc, "compress"), (pdec, sdec, "decompress")):
@@ -2455,8 +2535,8 @@ def crc_phase(name: str, x, card: str, zero_counts, read_counts, seed: int) -> d
         "host_round_trips_in_decompress": syncs, "tier": sorted({b[4] for b in senc["strings"][0]}),
         "first_call_s": first_s, "capture_s": capture_s, "pool_bytes": pool_bytes,
         "graphs": graphs, "launches_per_replay": per_replay, "latents_vs_device_wire": vs_device,
-        "bf16_refused": refused, **crc_timing(scan, x, senc, CRC_REPS),
-        "launch_by_launch": crc_timing(plain, x, penc, CRC_REPS)}
+        "bf16_refused": refused, **codec_timing(scan, x, senc, CRC_REPS),
+        "launch_by_launch": codec_timing(plain, x, penc, CRC_REPS)}
     sides = {w: {s: result[w][s] for s in ("compress", "decompress")}
              for w in ("host_wire", "device_wire", "scan_wire")}
     sides["scan_launch_by_launch"] = result["scan_wire"]["launch_by_launch"]
@@ -2476,7 +2556,7 @@ def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_tra
                    seed: int) -> dict:
     """Phases 34 and 38: a CRC model under the bfloat16 policy, from the weights
     ``init_state`` its float32 phases served and trained from: the device
-    wire held by ``crc_roundtrip`` with CRC_SIDE_LAUNCHES in the bfloat16
+    wire held by ``codec_roundtrip`` with CRC_SIDE_LAUNCHES in the bfloat16
     builds (every head width and both GDN widths), its bpp within 5% and
     mean |x_hat - x_hat_f32| under 0.01 of the float32 device wire's
     (``crc["device_enc"]``), its img/s and idle; the eval forward card
@@ -2500,9 +2580,9 @@ def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_tra
     set_activation_dtype(torch.bfloat16)
     try:
         dev = crc_codec(model, narrow=0.2, wire="device")
-        enc, _, l, sh, syncs = crc_roundtrip(dev, x, zero_counts, read_counts,
+        enc, _, l, sh, syncs = codec_roundtrip(dev, x, zero_counts, read_counts,
                                              f"{name} bf16 device wire", expect)
-        timing = crc_timing(dev, x, enc, reps=CRC_REPS)
+        timing = codec_timing(dev, x, enc, reps=CRC_REPS)
     finally:
         set_activation_dtype(None)
     f32 = crc["device_enc"]
@@ -2749,7 +2829,7 @@ def crc_reference_phase(model, name: str, x, card: str, zero_counts, read_counts
     (every bottleneck and the Gaussian) written into it as the reference's
     buffers and imported back equal; the images of phase 5 on the host wire
     with the imported tables in the reference symbol order
-    (``ref_layout=True``), held by ``crc_roundtrip``, the blobs equal to the
+    (``ref_layout=True``), held by ``codec_roundtrip``, the blobs equal to the
     built tables' in that order. -> results."""
     import torch
 
@@ -2777,7 +2857,7 @@ def crc_reference_phase(model, name: str, x, card: str, zero_counts, read_counts
         f"{time.time() - t:.1f}s")
     codec = crc_codec(model, tables=imported, ref_layout=True, narrow=0.2)
     expect = {side: crc_expect(name, side) for side in ("compress", "decompress")}
-    enc, _, l, shapes, _ = crc_roundtrip(codec, x, zero_counts, read_counts,
+    enc, _, l, shapes, _ = codec_roundtrip(codec, x, zero_counts, read_counts,
                                          f"{name} reference, host wire", expect)
     built_enc = crc_codec(model, ref_layout=True, narrow=0.2).compress(x)
     if built_enc["strings"] != enc["strings"]:
@@ -2808,12 +2888,16 @@ def environment() -> str:
     return card
 
 
-def build_kernels() -> None:
-    """Builds every native library of the port in parallel (one nvcc or g++
-    a source) and logs ptxas' register and spill lines."""
+def build_kernels(later: tuple = ()):
+    """Starts the build of every native library of the port in parallel
+    (one nvcc or g++ a source), waits for all but those named in ``later``
+    (``_native.BUILDERS``' names) and logs each one's time and ptxas'
+    register and spill lines. -> a function that waits for the rest and
+    logs them, so that phases that need none of them run meanwhile."""
     from icm_tpu_torch import _native
 
-    results, threads = {}, []
+    libs = {"kernels": "libwindow_attention", "gdn": "libgdn", "rans_lanes": "librans_lanes"}
+    results, threads = {}, {}
 
     def build(name, fn):
         t = time.time()
@@ -2822,19 +2906,22 @@ def build_kernels() -> None:
         except BaseException as e:  # re-raised below, in the main thread
             results[name] = e
 
+    def finish(names):
+        for name in names:
+            threads[name].join()
+            res = results[name]
+            if isinstance(res, BaseException):
+                raise res
+            log(f"  built {name}: {os.path.relpath(res[0], REPO)} in {res[1]:.1f}s")
+            for line in _native.BUILD_LOG.get(libs.get(name, ""), "").splitlines():
+                if "registers" in line or "spill" in line or "Compiling" in line:
+                    log(f"  ptxas ({libs[name]}): {line.strip()}")
+
     for name, fn in _native.BUILDERS.items():
-        threads.append(threading.Thread(target=build, args=(name, fn)))
-        threads[-1].start()
-    for t in threads:
-        t.join()
-    for name, res in results.items():
-        if isinstance(res, BaseException):
-            raise res
-        log(f"  built {name}: {os.path.relpath(res[0], REPO)} in {res[1]:.1f}s")
-    for lib in ("libwindow_attention", "libgdn", "librans_lanes"):
-        for line in _native.BUILD_LOG.get(lib, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  ptxas ({lib}): {line.strip()}")
+        threads[name] = threading.Thread(target=build, args=(name, fn))
+        threads[name].start()
+    finish([n for n in threads if n not in later])
+    return lambda: finish(later)
 
 
 def crc_model_phases(name: str, x, card: str, zero_counts, read_counts, seed: int) -> tuple:
@@ -2880,6 +2967,350 @@ def crc_model_phases(name: str, x, card: str, zero_counts, read_counts, seed: in
     return result, counts, shapes
 
 
+def masked_expect(model, N: int = 0) -> dict:
+    """Each side's launches of a masked-family codec: window attention once
+    a Swin block at head width 16 (compress: g_a and g_s, whose debug
+    reconstruction is the decoder's; decompress: g_s), no GDN; with ``N``
+    tokens the device wire's 2 encode and N + 1 decode launches. -> side ->
+    (counts, counts by shape)."""
+    from icm_tpu_torch.nn.swin import SwinBlock
+
+    g_a, g_s = (sum(isinstance(m, SwinBlock) for m in g.modules()) for g in (model.g_a, model.g_s))
+    out = {}
+    for side, attn, rans in (("compress", g_a + g_s, {"rans_encode": 2 if N else 0}),
+                             ("decompress", g_s, {"rans_decode": N + 1 if N else 0})):
+        counts = {"window_attention": attn, "gdn_forward": 0, "gdn_backward": 0,
+                  "rans_encode": 0, "rans_decode": 0, **rans}
+        out[side] = (counts, {"window_attention": {"float32 D16": attn}, "gdn": {}})
+    return out
+
+
+def masked_rows(codec, x, rows) -> dict:
+    """The decoder's invariant at full width on the card: the context pass
+    on the encoder's tokens against the same pass with the buffer's rows >=
+    i zeroed (the decoder's buffer at token i) and set to 1: rows <= i of mu
+    and scale bit-identical, for each i of ``rows``. -> i -> the later rows
+    that the fill of ones changed (they read the buffer)."""
+    import torch
+
+    mdl = codec.model
+    out = {}
+    with torch.no_grad():
+        y_tok, m_tok, s_tok = codec._encode(x)["tokens"]
+        base = mdl.causal_mu_scale(m_tok, s_tok, y_tok)
+        for i in rows:
+            for fill in (0.0, 1.0):
+                buf = y_tok.clone()
+                buf[:, i:] = fill
+                got = mdl.causal_mu_scale(m_tok, s_tok, buf)
+                if not all(torch.equal(a[:, :i + 1], b[:, :i + 1]) for a, b in zip(got, base)):
+                    raise AssertionError(f"context rows <= {i} moved with the buffer's rows "
+                                         f">= {i} (fill {fill})")
+            out[i] = int(sum((a[:, i + 1:] != b[:, i + 1:]).any(-1).any(0).sum()
+                             for a, b in zip(got, base)))
+    if not all(n > 0 for i, n in out.items() if i + 1 < y_tok.shape[1]):
+        raise AssertionError(f"later context rows ignore the buffer: {out}")
+    return out
+
+
+def masked_eval_vs_cpu(name: str, model, seed: int) -> dict:
+    """The eval forward on the card against the plain CPU path, the same
+    weights and mask, one 256 x 256 image: x_hat and the y likelihoods
+    within 1e-3 (z's printed)."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+
+    cpu_model = cpu_twin(name, model, causal=model.causal)
+    xs = torch.from_numpy(make_images(seed + 1, 1, 256))
+    t = time.time()
+    with torch.no_grad():
+        ref = cpu_model(xs)
+        cpu_s = time.time() - t
+        got = model(xs.cuda())
+    worst = {"x_hat": (got["x_hat"].cpu() - ref["x_hat"]).abs().max().item(),
+             **{f"{k} likelihoods": (got["likelihoods"][k].cpu() - ref["likelihoods"][k]).abs()
+                .max().item() for k in "yz"}}
+    log(f"  max |card - cpu| ({name}, 256 x 256; the CPU side {cpu_s:.1f}s): {worst}")
+    if not (worst["x_hat"] <= 1e-3 and worst["y likelihoods"] <= 1e-3):
+        raise AssertionError(f"card and CPU disagree: {worst}")
+    del cpu_model
+    gc.collect()
+    return {"size": 256, "f32_max_abs": worst, "tolerance": 1e-3, "cpu_s": cpu_s}
+
+
+def masked_phase(name: str, card: str, zero_counts, read_counts, seed: int,
+                 size: int = 0) -> dict:
+    """Phases 40 and 43: a masked-family model at its published width, its
+    codec's mask (MASKED_CAUSAL), weights from ``seed`` (scaled as
+    MASKED_GAIN says), on 2 images of MASKED_SIZE (or ``size``) px made from
+    ``seed``: its nonzero y symbols (of all, at MASKED_LATENT_SCALE) held
+    above 0; the decoder's invariant held at full width (``masked_rows``);
+    compress -> decompress on the host wire and the device wire, each held
+    by ``codec_roundtrip`` with ``masked_expect``'s launches (one window
+    attention launch a Swin block, no GDN; the device wire 2 encode and N + 1
+    decode launches) and no host round trip in a device-wire decompress;
+    the device wire's y_hat and x_hat the host wire's, its bytes within the
+    host wire's x 1.02 plus each lane's flush and header (D lanes an image
+    for y), its escapes counted; each side's img/s (one host-clock call),
+    device idle share and ATen calls (``codec_timing``); then the eval forward
+    against the CPU's. -> {model, result, counts}."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.models import create_model
+    from icm_tpu_torch.models.masked_codec import Stf3Codec
+
+    size = size or MASKED_SIZE[name]
+    B = 2
+    x = torch.from_numpy(make_images(seed, B, size)).cuda()
+    t = time.time()
+    model = create_model(name, seed=seed, causal=MASKED_CAUSAL[name])
+    with torch.no_grad():
+        for pname, gain in MASKED_GAIN.get(name, {}).items():
+            model.get_parameter(pname).mul_(gain)
+    n_params = sum(p.numel() for p in model.parameters())
+    ls = MASKED_LATENT_SCALE[name]
+    host = Stf3Codec(model, latent_scale=ls)
+    sym = host.symbols(x)
+    torch.cuda.synchronize()
+    N, D = sym.shape[1:]
+    nonzero = [int(sym.count_nonzero()), sym.numel()]
+    log(f"  {name}: {n_params / 1e6:.1f} M parameters in {time.time() - t:.1f}s; {N} tokens of "
+        f"{D} an image at {size} px, causal {model.causal}, latent scale {ls}, scaled "
+        f"{sorted(set(MASKED_GAIN.get(name, {}).values()))}; nonzero y symbols {nonzero} "
+        f"({nonzero[0] / nonzero[1]:.3%})")
+    if nonzero[0] < 1:
+        raise AssertionError(f"{name}: every y symbol is 0")
+    rows = masked_rows(host, x, (0, 1, N // 2, N - 1))
+    log(f"  {name}: context rows <= i unmoved by the buffer's rows >= i at i = {sorted(rows)}; "
+        f"later rows that read it: {rows}")
+    result = {"params": n_params, "size": size, "tokens": N, "token_dim": D,
+              "causal": model.causal, "latent_scale": ls, "gain": MASKED_GAIN.get(name, {}),
+              "nonzero_y_symbols": nonzero, "row_check": rows}
+    host_expect = masked_expect(model)
+    dev_expect = masked_expect(model, N)
+    counts = {}
+    enc, _, l, sh, _ = codec_roundtrip(host, x, zero_counts, read_counts, f"{name} host wire",
+                                     host_expect)
+    counts.update(launches_compress=l["compress"], launches_decompress=l["decompress"])
+    result["host_wire"] = {**crc_bytes(enc, size, ("y", "z")), "launches": l,
+                           "launches_by_shape": sh, **codec_timing(host, x, enc, 1)}
+    dev = Stf3Codec(model, latent_scale=ls, wire="device")
+    denc, _, l, sh, syncs = codec_roundtrip(dev, x, zero_counts, read_counts, f"{name} device wire",
+                                          dev_expect)
+    counts.update(launches_device_wire_compress=l["compress"],
+                  launches_device_wire_decompress=l["decompress"])
+    for k in ("y_hat", "x_hat"):
+        if not torch.equal(denc[k], enc[k]):
+            raise AssertionError(f"{name}: the device wire's {k} differs from the host's")
+    lanes = {"y": D, "z": (size // 64) ** 2 * dev.kit.z_groups(model.entropy_bottleneck.channels)}
+    host_b, dev_b = crc_bytes(enc, size, "yz")["bytes"], crc_bytes(denc, size, "yz")["bytes"]
+    stream_bytes = {k: dict(device=dev_b[k], host=host_b[k], lanes=lanes[k],
+                            escapes=wire_escapes(denc["strings"]["yz".index(k)]),
+                            limit=host_b[k] * 1.02 + B * (lanes[k] * 8 + 16)) for k in lanes}
+    log(f"  {name} device wire bytes {stream_bytes}; y blobs' tier "
+        f"{sorted({b[4] for b in denc['strings'][0]})}")
+    for k, v in stream_bytes.items():
+        if v["device"] > v["limit"]:
+            raise AssertionError(f"{name} device wire {k}: {v['device']} bytes over {v['limit']}")
+    result["device_wire"] = {**crc_bytes(denc, size, "yz"), "stream_bytes": stream_bytes,
+                             "launches": l, "launches_by_shape": sh,
+                             "host_round_trips_in_decompress": syncs,
+                             **codec_timing(dev, x, denc, 1)}
+    log(f"  {name} img/s, device idle, ATen calls (one call, batch {B} x {size}^2, {card}): "
+        + "; ".join(f"{w} " + " / ".join(
+            f"{result[w][s]['img_per_s']:.3f} img/s idle {result[w][s]['device_idle_share']:.3f} "
+            f"{result[w][s]['aten_calls']} ATen" for s in ("compress", "decompress"))
+            for w in ("host_wire", "device_wire")))
+    del host, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["card_vs_cpu"] = masked_eval_vs_cpu(name, model, seed)
+    return dict(model=model, result=result, counts=counts)
+
+
+def masked_train_phase(model, name: str, seed: int, card: str) -> dict:
+    """Phases 41 and 44: ``run_training`` of a masked-family model through
+    the JAX package's training forward (the reference mask: stf4's
+    ``causal`` off for it, and back after), RateDistortionLoss(0.01), 3
+    steps of 8 x 256^2 at the registry's stochastic depth 0.2, each finite,
+    each launching window attention once a Swin block (24) and no other
+    kernel, every parameter moved but stf4's scale head, which no forward
+    applies; then one step on the card against the plain CPU path at depth
+    0. -> results."""
+    causal = model.causal
+    model.causal = False
+    try:
+        expect = {**masked_expect(model)["compress"][0], "rans_encode": 0, "rans_decode": 0}
+        fixed = ("cc_scale_head.",) if name == "stf4" else ()
+        out = train_phase(model, seed, card, expect, steps=3, resumed_steps=0, fixed=fixed)
+        if out["launches_by_shape_per_step"] != {
+                "window_attention": {"float32 D16": expect["window_attention"]}, "gdn": {}}:
+            raise AssertionError(f"{name} step: launches by shape "
+                                 f"{out['launches_by_shape_per_step']}")
+        out["card_vs_cpu"] = train_vs_cpu_phase(name, model, seed)
+    finally:
+        model.causal = causal
+    return out
+
+
+def reference_masked_state_dict(seed: int, name: str) -> dict:
+    """A reference stf3 or stf4 state dict at full width: the reference's
+    module names (stf3.py, stf4.py: stf's ``patch_embed``, ``layers``,
+    ``syn_layers``, ``end_conv``, ``h_a``, ``h_mean_s``, ``h_scale_s`` and
+    bottleneck; stf3's ``maskedContextModel_{mu,sigma}.context{i}``,
+    ``.norm{i}``, ``.mlp{i}.fc1`` / ``fc2``; stf4's
+    ``maskedContextModel_{mu,sigma}.0.qkv`` and ``cc_{mean,scale}_transforms``;
+    the ``lrp_transforms``), DataParallel's ``module.`` prefix, values drawn
+    from ``seed`` as ``reference_wacnn_state_dict`` draws them."""
+    import torch
+
+    ref = _RefDraw(np.random.default_rng(seed), np.float32)
+    embed, depths, heads, ws = 48, (2, 2, 6, 2), (3, 6, 12, 24), 4
+    enc, dec = (384, 336, 288, 240, 192), (240, 288, 336, 384, 384)
+    M, Cp, D = 384, 48, 768
+
+    def lin(n, o, i):
+        ref.put(f"{n}.weight", (o, i), i ** -0.5)
+        ref.put(f"{n}.bias", (o,), 0.01)
+
+    def ln(n, c):
+        ref.put(f"{n}.weight", (c,), 0.1, 1.0)
+        ref.put(f"{n}.bias", (c,), 0.05)
+
+    def blocks(prefix, dim, depth, h):
+        for j in range(depth):
+            b = f"{prefix}.blocks.{j}"
+            ln(f"{b}.norm1", dim)
+            lin(f"{b}.attn.qkv", 3 * dim, dim)
+            lin(f"{b}.attn.proj", dim, dim)
+            ref.put(f"{b}.attn.relative_position_bias_table", ((2 * ws - 1) ** 2, h), 0.02)
+            ln(f"{b}.norm2", dim)
+            lin(f"{b}.mlp.fc1", 4 * dim, dim)
+            lin(f"{b}.mlp.fc2", dim, 4 * dim)
+
+    ref.conv("patch_embed.proj", embed, 3, 2)
+    ln("patch_embed.norm", embed)
+    for i in range(4):
+        dim = embed * 2 ** i
+        blocks(f"layers.{i}", dim, depths[i], heads[i])
+        if i < 3:
+            ref.put(f"layers.{i}.downsample.reduction.weight", (2 * dim, 4 * dim),
+                    (4 * dim) ** -0.5)
+            ln(f"layers.{i}.downsample.norm", 4 * dim)
+        dim = embed * 2 ** (3 - i)
+        blocks(f"syn_layers.{i}", dim, depths[3 - i], heads[3 - i])
+        if i < 3:
+            ref.put(f"syn_layers.{i}.downsample.reduction.weight", (2 * dim, dim), dim ** -0.5)
+            ln(f"syn_layers.{i}.downsample.norm", dim)
+    ref.conv("end_conv.0", embed * 4, embed, 5)
+    ref.conv("end_conv.2", 3, embed, 3)
+    for i, (o, c) in enumerate(zip(enc, (M,) + enc[:-1])):
+        ref.conv(f"h_a.{2 * i}", o, c, 3)
+    for tag in ("h_mean_s", "h_scale_s"):
+        ref.hyper_dec(tag, enc[-1], dec)
+    ref.bottleneck("entropy_bottleneck", enc[-1])
+    if name == "stf3":
+        for tag in ("maskedContextModel_mu", "maskedContextModel_sigma"):
+            for i in range(1, 6):
+                lin(f"{tag}.context{i}.qkv", 3 * D, D)
+                ln(f"{tag}.norm{i}", D)
+                lin(f"{tag}.mlp{i}.fc1", 2 * D, D)
+                lin(f"{tag}.mlp{i}.fc2", D, 2 * D)
+    else:
+        w = 27
+        for tag in ("maskedContextModel_mu", "maskedContextModel_sigma"):
+            lin(f"{tag}.0.qkv", 3 * D, D)
+        for tag in ("cc_mean_transforms", "cc_scale_transforms"):
+            for j, (o, i) in enumerate(zip((w * Cp, 15 * Cp, 8 * Cp, Cp),
+                                           (2 * w * Cp, w * Cp, 15 * Cp, 8 * Cp))):
+                ref.conv(f"{tag}.{2 * j}", o, i, 3)
+    for j, (o, i) in enumerate(zip((2 * M, M, M, M), (3 * M, 2 * M, M, M))):
+        ref.conv(f"lrp_transforms.{2 * j}", o, i, 3)
+    return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
+
+
+def masked_reference_phase(model, name: str, card: str, zero_counts, read_counts,
+                           seed: int, size: int) -> dict:
+    """Phases 42 and 45: a reference stf3 (stf4) checkpoint at full width, as
+    phase 18: the seeded reference dict converted and loaded strictly into
+    ``model`` (the codec's mask); the converted model's own CDF tables (the
+    bottleneck's and the Gaussian's) written into it as the reference's
+    buffers and imported back equal; 2 images of ``size`` px on the host
+    wire at MASKED_LATENT_SCALE with the imported tables, held by
+    ``codec_roundtrip``, its nonzero y symbols above 0, the blobs equal to the
+    built tables'. -> results."""
+    import torch
+
+    from icm_tpu_torch import zoo
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.models import build_codec_tables
+    from icm_tpu_torch.models.masked_codec import Stf3Codec
+
+    t = time.time()
+    sd = reference_masked_state_dict(seed, name)
+    model.load_state_dict(zoo.convert_reference_state_dict(name, sd), strict=True)
+    built = build_codec_tables(model)
+    stored = {"gaussian_conditional": built.gaussian, **built.bottlenecks}
+    for prefix, tab in stored.items():
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            sd[f"module.{prefix}._{field}"] = torch.from_numpy(getattr(tab, field))
+    sd["module.gaussian_conditional.scale_table"] = torch.from_numpy(built.scale_table)
+    imported = zoo.import_reference_tables(sd)
+    got = {"gaussian_conditional": imported.gaussian, **imported.bottlenecks}
+    if set(got) != set(stored) or not np.array_equal(imported.scale_table, built.scale_table):
+        raise AssertionError(f"imported tables {sorted(got)}, stored {sorted(stored)}")
+    for prefix, tab in stored.items():
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            if not np.array_equal(getattr(got[prefix], field), getattr(tab, field)):
+                raise AssertionError(f"imported {prefix} {field} differs from the stored one")
+    log(f"  {len(sd)} reference tensors converted, loaded strictly and tables imported in "
+        f"{time.time() - t:.1f}s")
+    x = torch.from_numpy(make_images(seed, 2, size)).cuda()
+    ls = MASKED_LATENT_SCALE[name]
+    codec = Stf3Codec(model, tables=imported, latent_scale=ls)
+    sym = codec.symbols(x)
+    nonzero = [int(sym.count_nonzero()), sym.numel()]
+    if nonzero[0] < 1:
+        raise AssertionError(f"{name} reference: every y symbol is 0")
+    enc, _, l, shapes, _ = codec_roundtrip(codec, x, zero_counts, read_counts,
+                                         f"{name} reference, host wire", masked_expect(model))
+    if Stf3Codec(model, latent_scale=ls).compress(x)["strings"] != enc["strings"]:
+        raise AssertionError("imported tables' blobs differ from the built tables' ones")
+    sha = {k: hashlib.sha256(b"".join(enc["strings"][i])).hexdigest() for i, k in enumerate("yz")}
+    log(f"  nonzero y symbols {nonzero} ({nonzero[0] / nonzero[1]:.3%}); blobs with imported "
+        f"tables = built tables; sha256 {sha}")
+    return {"tensors": len(sd), "nonzero_y_symbols": nonzero, **crc_bytes(enc, size, "yz"),
+            "blob_sha256": sha, "launches_reference_compress": l["compress"],
+            "launches_reference_decompress": l["decompress"]}
+
+
+def masked_model_phases(name: str, card: str, zero_counts, read_counts, seed: int,
+                        size: int = 0) -> tuple:
+    """Every phase of one masked-family model, in order: its wires and eval
+    forward (``masked_phase``), its training, its reference checkpoint. ->
+    (results, float32 launch counts by path)."""
+    import torch
+
+    size = size or MASKED_SIZE[name]
+    with Phase(f"full-width {name}: host and device wires at {size} px, card vs CPU"):
+        ph = masked_phase(name, card, zero_counts, read_counts, seed, size)
+    result, counts, model = ph["result"], ph["counts"], ph["model"]
+    with Phase(f"full-width {name} training, card vs CPU"):
+        result["train"] = masked_train_phase(model, name, seed, card)
+    counts["launches_train_step"] = result["train"]["launches_per_step"]
+    with Phase(f"reference checkpoint: full-width {name}, imported tables"):
+        result["reference"] = masked_reference_phase(model, name, card, zero_counts,
+                                                     read_counts, seed, size)
+    for side in ("compress", "decompress"):
+        counts[f"launches_reference_{side}"] = result["reference"][f"launches_reference_{side}"]
+    del ph, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2902,17 +3333,22 @@ def main() -> int:
         card = environment()
 
     with Phase("build"):
-        build_kernels()
+        # window attention's 56 template instances take the longest; the GDN
+        # phase, which needs no attention, runs while they compile
+        finish_attention = build_kernels(later=("kernels",))
 
     # the codec's numerics (full f32, deterministic cuDNN) for every phase
     from icm_tpu_torch.models import cuda_numerics
     cuda_numerics()
 
-    with Phase("window attention vs plain"):
-        rows = check_kernel(twa)
-
     with Phase("GDN kernels vs plain"):
         gdn_rows = check_gdn(tgdn)
+
+    with Phase("build: window attention"):
+        finish_attention()
+
+    with Phase("window attention vs plain"):
+        rows = check_kernel(twa)
 
     zero_counts, read_counts = launch_counts("float32")
     B, size = 2, 512
@@ -3133,6 +3569,10 @@ def main() -> int:
         slice_result[name], paths["float32"][name], crc_shapes[name] = crc_model_phases(
             name, x, card, zero_counts, read_counts, args.seed)
 
+    for name in MASKED:
+        slice_result[name], paths["float32"][name] = masked_model_phases(
+            name, card, zero_counts, read_counts, args.seed)
+
     def crc_launches(group: str, key: str) -> dict:
         """A kernel build's launches on every CRC path, by shape key."""
         per = {f"{path}_{m}": shapes[group].get(key, 0)
@@ -3184,8 +3624,12 @@ def main() -> int:
                 "bf16 on the tensor cores (989 TFLOP/s dense), softmax at 67")
         d16_launches = launch_keys("window_attention", ("stf",), dtype)
         fam = family_attention(FAMILY, "transforms", dtype)
-        d16_launches = {**d16_launches, **fam,
-                        "launches": d16_launches["launches"] + fam["launches"]}
+        # the masked family's transforms (f32 only: its bf16 policy is not ported)
+        masked = (launch_keys("window_attention", MASKED, dtype) if dtype == "float32"
+                  else {"launches": 0})
+        d16_launches = {**d16_launches, **fam, **masked,
+                        "launches": d16_launches["launches"] + fam["launches"]
+                        + masked["launches"]}
         return [{
             "name": "window_attention" + suffix,
             "route": "cuda",
@@ -3214,7 +3658,8 @@ def main() -> int:
             "replaces": "icm_tpu/nn/pallas_kernels.py:33",
             "dtype": dtype,
             **d16_launches,
-            "per": "one g_a or g_s pass of 2 x 512^2: " + ", ".join(
+            "per": "one g_a or g_s pass of 2 x 512^2 (stf4's at 256^2 a quarter of the "
+                   "windows): " + ", ".join(
                 f"{n} launches at W={w}, H={h}" for (w, h), n in STF_SIDE_LAUNCHES.items()),
             "max_abs_err": max(r["max_abs_err"] for r, _ in stf_main),
             **{key: sum(n * r[key] for r, n in stf_main)
@@ -3381,7 +3826,7 @@ def main() -> int:
             "source": "icm_tpu_torch/csrc/rans_lanes.cu",
             "replaces": f"icm_tpu/coding/device_rans.py:{line}",
             "replaces_note": "not Pallas in JAX: integer jnp under lax.scan",
-            **launch_keys(name, ("cnn", "stf") + FAMILY + CRC),
+            **launch_keys(name, ("cnn", "stf") + FAMILY + CRC + MASKED),
             "max_abs_err": max(r["max_abs_err"] for r in rans_rows),
             "ms": sum(r[part]["ms"] for r in rans_main),
             "plain_ms": sum(r[part]["plain_ms"] for r in rans_main),

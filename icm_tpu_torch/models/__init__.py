@@ -6,7 +6,8 @@ model is had only by asking for ``device="cpu"``). Parameters are made
 directly on the device (the module tree is built on the meta device, then
 materialized) and drawn from a ``torch.Generator`` seeded with ``seed``,
 with the JAX package's initializers: truncated-normal fan-in scaling for
-conv kernels, truncated normal (0.02) for dense layers and the
+conv kernels, truncated normal (0.02) for dense layers (fan-in scaled
+for those marked ``fan_in_init``, flax's default ``nn.Dense``) and the
 relative-position tables, zero biases, LayerNorm scales of one, the GDN
 and bottleneck inits.
 """
@@ -26,6 +27,8 @@ from .crc import (ConditionalResidualCoding, ConditionalResidualCoding2,
                   ConditionalResidualCoding3, ResidualCoding)
 from .crc_codec import CRCCodec
 from .device_codec import DeviceWireCodec, DeviceWireKit
+from .masked_codec import Stf3Codec, Stf4Codec
+from .masked_ctx import ClipEncoder3, ClipEncoder4
 from .stf import SymmetricalTransFormer
 from .stf_family import STF5_CONFIG, STF6_CONFIG, STF7_CONFIG, STF8_CONFIG, ZigzagSwinCodec
 
@@ -42,6 +45,8 @@ models = {
     "stf12": (ConditionalResidualCoding2, {}),
     "stf13": (ConditionalResidualCoding3, {}),
     "stf14": (ResidualCoding, {}),
+    "stf3": (ClipEncoder3, {}),
+    "stf4": (ClipEncoder4, {}),
 }
 
 
@@ -83,7 +88,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             w.copy_(_trunc_normal(w.shape, std, generator))
             mod.bias.zero_()
         elif isinstance(mod, nn.Linear):
-            mod.weight.copy_(_trunc_normal(mod.weight.shape, 0.02, generator))
+            # flax's default (lecun_normal) where the JAX model keeps it, else
+            # the Swin layers' 0.02
+            std = (math.sqrt(1.0 / mod.in_features) / trunc_std
+                   if getattr(mod, "fan_in_init", False) else 0.02)
+            mod.weight.copy_(_trunc_normal(mod.weight.shape, std, generator))
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.LayerNorm):
@@ -115,6 +124,8 @@ __all__ = [
     "SymmetricalTransFormer",
     "ZigzagSwinCodec",
     "CharmCodec",
+    "ClipEncoder3",
+    "ClipEncoder4",
     "ConditionalResidualCoding",
     "ConditionalResidualCoding2",
     "ConditionalResidualCoding3",
@@ -129,4 +140,6 @@ __all__ = [
     "models",
     "resolve_device",
     "ResidualCoding",
+    "Stf3Codec",
+    "Stf4Codec",
 ]

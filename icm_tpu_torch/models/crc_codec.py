@@ -196,10 +196,12 @@ class CRCCodec:
     # per zigzag layer: (its name in the graph cache, its bottleneck's table
     # key, the model's analysis of its latent, its coder); the shape keys of
     # compress and the latent keys of the debug output and decompress, in
-    # its order
+    # its order; the keys of compress's output that decompress takes after
+    # the strings, in its order
     LAYERS = (("m", MACHINE_Z, lambda m: m.machine.g_a, lambda m: m.coder),)
     SHAPE_KEYS = ("shape",)
     LATENT_KEYS = ("y_hat",)
+    DECOMPRESS_KEYS = SHAPE_KEYS + ("human_shape",)
     STREAMS = ("machine_y", "machine_z", "human_y", "human_z")  # compress's "strings"
 
     def __init__(self, model, tables: Optional[CodecTables] = None, narrow: float = 1.0,
@@ -470,6 +472,7 @@ class CRC3Codec(CRCCodec):
     LAYERS = CRCCodec.LAYERS + (("s", SEG_Z, lambda m: m.seg_encode, lambda m: m.seg_coder),)
     SHAPE_KEYS = ("shape", "seg_shape")
     LATENT_KEYS = ("y_hat", "seg_y_hat")
+    DECOMPRESS_KEYS = SHAPE_KEYS + ("human_shape",)
     STREAMS = ("machine_y", "machine_z", "seg_y", "seg_z", "human_y", "human_z")
 
     @torch.no_grad()

@@ -2,8 +2,9 @@
 state dict, and the coder tables the checkpoint stores.
 
 Port of ``icm_tpu/zoo.py`` for the architectures the port builds (``cnn``,
-``stf``, the zigzag family ``stf5``-``stf8`` and the CRC family's
-``stf9``, ``stf11``, ``stf12``, ``stf13`` and ``stf14``). ``load_pretrained`` does
+``stf``, the zigzag family ``stf5``-``stf8``, the CRC family's
+``stf9``, ``stf11``, ``stf12``, ``stf13`` and ``stf14``, and the masked
+family's ``stf3`` and ``stf4``). ``load_pretrained`` does
 the reference's key cleanup (``zoo/pretrained.py``: strip DataParallel's
 ``module.``, drop ``h_s.*``, rename the legacy bottleneck ParameterList
 keys). The converters rename the reference's module paths into the flax
@@ -454,10 +455,52 @@ def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
 
 CRC_ARCHS = ("stf9", "stf11", "stf12", "stf13", "stf14")
 
+# --- the masked-transformer codecs (stf3, stf4) --------------------------------------
+# The reference's layouts (stf3.py, stf4.py): stf's Swin transforms and conv
+# hyper-codec under their stf names; stf4's never-called
+# maskedContextModel_sigma is dropped (its forward takes mu and scale from the
+# mu context).
+
+
+def convert_masked_ctx_checkpoint(state_dict: dict, arch: str) -> Dict[str, torch.Tensor]:
+    """Reference stf3 / stf4 state dict -> the port's ``ClipEncoder3`` /
+    ``ClipEncoder4`` state dict (port of the JAX package's
+    ``convert_masked_ctx_checkpoint`` with ``_stf_transforms_tree``): the
+    transforms and hyper-codec as stf's; stf3's two context stacks
+    (``maskedContextModel_{mu,sigma}.context{i}.qkv``, ``.norm{i}``,
+    ``.mlp{i}.fc1`` / ``fc2`` for blocks 1-5 -> ``attn{i-1}.qkv``,
+    ``LayerNorm_{i-1}``, ``Dense_{2i-2}`` / ``Dense_{2i-1}``); stf4's one
+    attention (``maskedContextModel_mu.0.qkv``) and its conv heads
+    (``cc_mean_transforms``, ``cc_scale_transforms``, 4 convs); the LRP
+    stack (``lrp_transforms``, 4 convs)."""
+    if arch not in MASKED_ARCHS:
+        raise ValueError(f"{arch!r} is not one of {MASKED_ARCHS}")
+    sd = load_pretrained(state_dict)
+    tree = {**_swin_transforms(sd, (2, 2, 6, 2)), **_hyper(sd),
+            "entropy_bottleneck": _entropy_bottleneck(sd, "entropy_bottleneck")}
+    if arch == "stf3":
+        for tag in ("maskedContextModel_mu", "maskedContextModel_sigma"):
+            ctx = {}
+            for i in range(5):
+                ctx[f"attn{i}"] = {"qkv": _leaves(sd, f"{tag}.context{i + 1}.qkv")}
+                ctx[f"LayerNorm_{i}"] = _leaves(sd, f"{tag}.norm{i + 1}")
+                ctx[f"Dense_{2 * i}"] = _leaves(sd, f"{tag}.mlp{i + 1}.fc1")
+                ctx[f"Dense_{2 * i + 1}"] = _leaves(sd, f"{tag}.mlp{i + 1}.fc2")
+            tree[tag] = ctx
+    else:
+        tree["maskedContextModel_mu"] = {"qkv": _leaves(sd, "maskedContextModel_mu.0.qkv")}
+        tree["cc_mean_head"] = _stack(sd, "cc_mean_transforms", 4)
+        tree["cc_scale_head"] = _stack(sd, "cc_scale_transforms", 4)
+    tree["lrp"] = _stack(sd, "lrp_transforms", 4)
+    return _state_dict(tree)
+
+
+MASKED_ARCHS = ("stf3", "stf4")
+
 
 # the zoo's other architectures: the port does not build them yet
 _NOT_PORTED = {
-    **{a: "Queue 1 item 2 (the masked family)" for a in ("stf2", "stf3", "stf4")},
+    "stf2": "Queue 1 item 2 (the masked family's stf2)",
     "czigzag": "Queue 1 item 3 (czigzag)",
     **{a: "Queue 1 item 4 (ICM)" for a in ("cnn2", "stf10", "oj_ICM", "seg_oj_ICM")},
 }
@@ -473,6 +516,8 @@ def convert_reference_state_dict(arch: str, sd: dict) -> Dict[str, torch.Tensor]
         return convert_zigzag_checkpoint(sd, **ZIGZAG_CONVERT_CONFIGS[arch])
     if arch in CRC_ARCHS:
         return convert_crc_checkpoint(sd, arch)
+    if arch in MASKED_ARCHS:
+        return convert_masked_ctx_checkpoint(sd, arch)
     where = _NOT_PORTED.get(arch, "no item: not an architecture of the zoo")
     raise NotImplementedError(
         f"reference checkpoint conversion for {arch!r} is not ported yet (ROADMAP.md, {where})")

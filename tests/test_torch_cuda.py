@@ -9,7 +9,12 @@ without it:
 (``--noconftest``: the suite's conftest configures JAX).
 """
 
+import importlib.util
+import json
+import os
+import pathlib
 import re
+import tempfile
 from collections import Counter
 
 import numpy as np
@@ -1482,3 +1487,190 @@ def test_crc_bf16_wires_on_the_card():
     assert bpp(enc["host"]) == pytest.approx(bpp(f32), rel=0.05)
     assert float((enc["host"]["x_hat"].float() - f32["x_hat"]).abs().mean()) < 0.01
     assert float((got["x_hat"].float().cpu() - ref["x_hat"].float()).abs().mean()) < 0.02
+
+
+# --- the masked family on the card ----------------------------------------------------
+# tests/test_masked_codec.py's TINY: window attention at head width 8, tokens of
+# D = 16 (64 of them on 32 x 32 px); the three narrow twins of
+# tests/test_torch_masked_*.py
+MASKED_TINY = dict(embed_dim=8, depths=(1, 1), num_heads=(1, 2), window_size=4, patch_size=2,
+                   drop_path_rate=0.0, num_slices=4, mask_win_size=2,
+                   hyper_enc_widths=(16, 14, 12, 10, 8), hyper_dec_widths=(10, 12, 14, 16, 16))
+MASKED_TWINS = {"stf3": ("stf3", {}), "stf3_causal": ("stf3", {"causal": True}),
+                "stf4": ("stf4", {"causal": True, "sliding": 8})}
+# the codecs' latent scale: the narrow stf4's y rounds to 0 everywhere at 1
+# (its seeded weights), and at 4 codes 410 of 2,048 symbols nonzero
+MASKED_LATENT_SCALE = {"stf3": 1.0, "stf3_causal": 1.0, "stf4": 4.0}
+
+
+def _masked_model(twin, device, **widths):
+    """A masked twin from seed 0 with its biases drawn at 0.01 (seed 0), so
+    that its hyper tokens and context are not zero where its latent rounds
+    to 0."""
+    from icm_tpu_torch.models import create_model
+
+    name, kw = MASKED_TWINS[twin]
+    model = create_model(name, device=device, seed=0, **{**kw, **widths})
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".bias"):
+                p.copy_(0.01 * torch.randn(p.shape, generator=g))
+    return model.eval()
+
+
+@pytest.mark.parametrize("twin", sorted(MASKED_TWINS))
+def test_masked_context_rows_at_full_width_on_the_card(twin):
+    """The decoder's invariant at the published width (tokens of D = 768,
+    stf4's 27-token windows) on the card: the context pass's rows <= i are
+    bit-identical after the buffer's rows >= i are zeroed (the decoder's
+    buffer) or redrawn, at several i, for stf3 under both masks and stf4
+    with its causal mask; the rows after i do change."""
+    _needs_card()
+    from icm_tpu_torch.models import create_model, cuda_numerics
+
+    cuda_numerics()
+    name, kw = MASKED_TWINS[twin]
+    kw = {k: v for k, v in kw.items() if k != "sliding"}
+    model = create_model(name, device="cuda", seed=0, **kw).eval()
+    g = torch.Generator().manual_seed(1)
+    B, N, D = 2, 128, 768
+    m_tok, s_tok = (0.5 * torch.randn(B, N, D, generator=g) for _ in range(2))
+    y_tok = torch.randint(-2, 3, (B, N, D), generator=g).float()
+    m_tok, s_tok, y_tok = m_tok.cuda(), s_tok.cuda(), y_tok.cuda()
+    with torch.no_grad():
+        base = model.causal_mu_scale(m_tok, s_tok, y_tok)
+        for i in (0, 1, 31, 64, 127):
+            for fill in ("zeros", "redrawn"):
+                buf = y_tok.clone()
+                buf[:, i:] = 0 if fill == "zeros" else torch.randint(
+                    -2, 3, (B, N - i, D), generator=g).float().cuda()
+                got = model.causal_mu_scale(m_tok, s_tok, buf)
+                for a, b in zip(got, base):
+                    assert torch.equal(a[:, :i + 1], b[:, :i + 1]), (i, fill)
+                    if i + 1 < N:
+                        assert not torch.equal(a[:, i + 1:], b[:, i + 1:]), (i, fill)
+
+
+@pytest.mark.parametrize("twin", sorted(MASKED_TWINS))
+def test_masked_twin_wires_on_the_card(twin):
+    """A narrow twin on 2 x 32 px, host and device wire: round trips bit for
+    bit, the device wire's y_hat and x_hat the host wire's, 2 encode and
+    N + 1 decode launches (N = 64 tokens) on the device wire, some symbols
+    nonzero (at ``MASKED_LATENT_SCALE``)."""
+    _needs_card()
+    from icm_tpu_torch.models.masked_codec import Stf3Codec
+
+    model = _masked_model(twin, "cuda", **MASKED_TINY)
+    x = _scan_images(32)
+    enc = {}
+    for wire in ("host", "device"):
+        codec = Stf3Codec(model, wire=wire, latent_scale=MASKED_LATENT_SCALE[twin])
+        counts = (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES)
+        e = enc[wire] = codec.compress(x, return_debug=True)
+        d = codec.decompress(e["strings"], e["shape"])
+        torch.cuda.synchronize()
+        launches = (tdr.ENCODE_LAUNCHES - counts[0], tdr.DECODE_LAUNCHES - counts[1])
+        assert launches == ((2, 65) if wire == "device" else (0, 0)), wire
+        assert torch.equal(d["y_hat"], e["y_hat"]) and torch.equal(d["x_hat"], e["x_hat"])
+        assert int(codec.symbols(x).count_nonzero()) > 0
+    assert torch.equal(enc["device"]["y_hat"], enc["host"]["y_hat"])
+    assert torch.equal(enc["device"]["x_hat"], enc["host"]["x_hat"])
+
+
+@pytest.mark.parametrize("twin", sorted(MASKED_TWINS))
+def test_masked_twin_forward_card_vs_cpu(twin):
+    """A narrow twin's eval forward on the card against the plain CPU path
+    on the same weights: x_hat and both likelihoods within 1e-3."""
+    _needs_card()
+    model = _masked_model(twin, "cuda", **MASKED_TINY)
+    cpu = _masked_model(twin, "cpu", **MASKED_TINY)
+    cpu.load_state_dict(model.state_dict())
+    x = _scan_images(64)
+    with torch.no_grad():
+        got, ref = model(x), cpu(x.cpu())
+    torch.testing.assert_close(got["x_hat"].cpu(), ref["x_hat"], rtol=0, atol=1e-3)
+    for k in "yz":
+        torch.testing.assert_close(got["likelihoods"][k].cpu(), ref["likelihoods"][k], rtol=0,
+                                   atol=1e-3)
+
+
+# --- chip_smoke.py's profiler readings ---------------------------------------------------
+def _chip_smoke():
+    """chip_smoke.py loaded as a module (its helpers; its main is not run)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _exported(prof, mark, uncounted=()):
+    """A profiler session's chrome-trace export from the event named
+    ``mark`` on: (its card spans in microseconds: kernels, copies and
+    memsets; its kernels counted by name; its ATen operator calls but
+    those named in ``uncounted``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    start = min(e["ts"] for e in events if e.get("name") == mark and "ts" in e)
+    events = [e for e in events if e.get("ts", start - 1) >= start and "dur" in e]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    aten = sum(1 for e in events if e.get("cat") == "cpu_op"
+               and e["name"].startswith("aten::") and e["name"] not in uncounted)
+    return spans, Counter(e["name"] for e in events if e.get("cat") == "kernel"), aten
+
+
+@pytest.mark.parametrize("side", ["compress", "decompress"])
+def test_profiler_events_read_what_the_trace_export_reads(side, monkeypatch):
+    """chip_smoke.py reads a profiled call from the profiler's own events
+    (``profiled_call``, ``traced_kernels``), without a chrome-trace export.
+    On one side of a narrow stf4 twin's device wire, each reading against
+    the export of its own session: the card's spans as many and their
+    union's length (device busy ms) within the export's rounding (a few ns
+    a span), the ATen calls and the kernels by name equal. The ATen calls
+    against a CPU-only profile's summary of the same call
+    (``key_averages``, chip_smoke.py's count before it read the events):
+    never fewer, and at most 1% more, since the summary folds an operator
+    into its parent where it is that parent's one child of the same name
+    (``a & 1``: ``aten::bitwise_and`` twice)."""
+    _needs_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from icm_tpu_torch.models.masked_codec import Stf3Codec
+
+    smoke = _chip_smoke()
+    sessions = []
+    session = smoke.profile_session
+    monkeypatch.setattr(smoke, "profile_session", lambda fn: sessions.append(session(fn))
+                        or sessions[-1])
+    codec = Stf3Codec(_masked_model("stf4", "cuda", **MASKED_TINY), wire="device",
+                      latent_scale=MASKED_LATENT_SCALE["stf4"])
+    x = _scan_images(32)
+    fn = dict(zip(("compress", "decompress"),
+                  smoke.codec_side_runs(codec, x, codec.compress(x))))[side]
+    fn()
+
+    aten, busy_ms = smoke.profiled_call(fn)
+    spans, _, exported_aten = _exported(sessions[-1], smoke.TRACE_MARK, smoke.ATEN_UNCOUNTED)
+    assert aten == exported_aten > 0
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    assert len(smoke.card_spans(smoke.marked_events(sessions[-1]))) == len(spans) > 0
+    assert busy_ms == pytest.approx(busy_us / 1e3, rel=0, abs=4e-6 * len(spans) + 1e-6)
+
+    names = smoke.traced_kernels(fn)
+    assert names == dict(_exported(sessions[-1], smoke.TRACE_MARK)[1])
+    assert any("rans_" in n for n in names) and any("window_attention" in n for n in names)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    summary = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+    assert summary <= aten <= 1.01 * summary

@@ -1,22 +1,30 @@
-"""chip_smoke.py's phases of some CRC models alone, on the card: the quick
-check of one model's paths without the whole run.
+"""chip_smoke.py's phases of some CRC-family or masked-family models alone,
+on the card: the quick check of one model's paths without the whole run.
 
-    python3 tools/torch_smoke_crc.py [--models stf13] [--seed 0] [--out crc.json]
-        [--probe-gains 8,16,32]
+    python3 tools/torch_smoke_models.py [--models stf13] [--size 512] [--seed 0]
+        [--out models.json] [--probe-gains 8,16,32]
 
 Builds every kernel (``chip_smoke.build_kernels``), then runs, for each
-model of ``--models`` (comma-separated, of ``chip_smoke.CRC``),
-``chip_smoke.crc_model_phases`` on phase 5's images as ``chip_smoke.main``
-does: the three wires and the eval forward card against CPU, training,
-the bf16 policy (``CRC_BF16``) and the reference checkpoint
-(``CRC_REFERENCE``), each phase holding what it holds in the whole run.
+model of ``--models`` (comma-separated, of ``chip_smoke.CRC`` and
+``chip_smoke.MASKED``), its phases as ``chip_smoke.main`` does, each phase
+holding what it holds in the whole run:
+
+- a CRC model (``chip_smoke.crc_model_phases``) on phase 5's images: the
+  three wires and the eval forward card against CPU, training, the bf16
+  policy (``CRC_BF16``) and the reference checkpoint (``CRC_REFERENCE``);
+- a masked model (``chip_smoke.masked_model_phases``): the host and device
+  wires and the eval forward card against CPU, training and the reference
+  checkpoint, on 2 images of ``--size`` px (default: the model's
+  ``MASKED_SIZE``; the decoder's work grows with the square of the token
+  count, so stf4 at 512 px takes about 16 times its 256 px decompress).
+
 Prints the card's name and power limit and, last, one JSON line of each
 model's results and launch counts; ``--out`` also writes it. Exits 1 if a
-phase fails. With ``--probe-gains`` it runs no phase: for each gain in
-place of ``chip_smoke.CRC_GAIN``'s factors, each zigzag layer's nonzero
-symbols and each stream's host and device-wire bytes, escapes and limit
-(``chip_smoke.crc_stream_bytes``) of one host and one device-wire compress
-of the same images. Needs a CUDA card.
+phase fails. With ``--probe-gains`` (CRC models only) it runs no phase: for
+each gain in place of ``chip_smoke.CRC_GAIN``'s factors, each zigzag
+layer's nonzero symbols and each stream's host and device-wire bytes,
+escapes and limit (``chip_smoke.crc_stream_bytes``) of one host and one
+device-wire compress of the same images. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -63,6 +71,8 @@ def probe_gains(smoke, name: str, x, seed: int, gains) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--models", default="stf13")
+    ap.add_argument("--size", type=int, default=0,
+                    help="px a side of a masked model's images; 0: MASKED_SIZE")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
     ap.add_argument("--probe-gains", default=None,
@@ -72,16 +82,19 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("torch_smoke_crc: no CUDA device", file=sys.stderr)
+        print("torch_smoke_models: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     names = args.models.split(",")
-    unknown = sorted(set(names) - set(smoke.CRC))
+    unknown = sorted(set(names) - set(smoke.CRC) - set(smoke.MASKED))
+    if args.probe_gains:
+        unknown += sorted(set(names) & set(smoke.MASKED))
     if unknown:
-        print(f"torch_smoke_crc: not CRC models of chip_smoke.py: {unknown}", file=sys.stderr)
+        print(f"torch_smoke_models: not {'CRC' if args.probe_gains else 'CRC or masked'} "
+              f"models of chip_smoke.py: {unknown}", file=sys.stderr)
         return 2
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import cuda_numerics
@@ -97,10 +110,14 @@ def main() -> int:
             if args.probe_gains:
                 out[name] = probe_gains(smoke, name, x, args.seed,
                                         [float(g) for g in args.probe_gains.split(",")])
-                continue
-            result, counts, shapes = smoke.crc_model_phases(name, x, card, zero_counts,
-                                                            read_counts, args.seed)
-            out[name] = {"result": result, "launches": counts, "launches_by_shape": shapes}
+            elif name in smoke.MASKED:
+                result, counts = smoke.masked_model_phases(name, card, zero_counts, read_counts,
+                                                           args.seed, args.size)
+                out[name] = {"result": result, "launches": counts}
+            else:
+                result, counts, shapes = smoke.crc_model_phases(name, x, card, zero_counts,
+                                                                read_counts, args.seed)
+                out[name] = {"result": result, "launches": counts, "launches_by_shape": shapes}
     except Exception:
         traceback.print_exc()
         return 1
