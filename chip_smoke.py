@@ -136,22 +136,26 @@ package beside it. Phases, each printed with its elapsed seconds:
     (``ref_layout=True``), held as in phase 5, the blobs equal to the
     built tables' in that order;
 19-22. the zigzag family stf5, stf6, stf7 and stf8 at their published
-    full width (weights from ``--seed``, f32), each on the images of phase
-    5 on the host wire and the device wire, held as in phases 5 and 7:
+    full width (weights from ``--seed``, f32), each on 2 images of 256 x
+    256 (``FAMILY_WIRE_SIZE``, a quarter of phase 5's pixels, to keep the
+    run inside its time) on the host wire and the device wire, held as in
+    phases 5 and 7:
     one window-attention launch a Swin block (compress 24 + r with its
     debug reconstruction, decompress 12 + r, r the refiners' 432, 288,
     240 and 480 blocks), no GDN launch, 2 encode and ctx_slices + 1 (13,
     25, 13, 25) decode launches, no host round trip in decompress, the
     device wire's y_hat the host wire's and its bytes within the bound
-    counted with each slice's lanes (a 16 x 16 zigzag block: 256 an
-    image); each model's eval forward on the card against the plain CPU
+    counted with each slice's lanes (an 8 x 8 zigzag block at 256 px: 64
+    an image); each model's eval forward on the card against the plain CPU
     path on one 256 x 256 image (x_hat and y likelihoods within 1e-3);
     stf8's phase also holds the lane-rANS kernels at the zigzag blocks'
-    shapes (y 512 lanes x 1536 steps in 24 decode launches); stf7's eval
+    shapes at 512 px (y 512 lanes x 1536 steps in 24 decode launches); stf7's eval
     forward is also held under the bfloat16 policy on both sides at 64 x
     64, as phase 14's end to end;
 23. each family model on the scan wire (``ZigzagSwinScanWire``: the chain
-    with its refiners, padded first convolutions), held as in phase 7a:
+    with its refiners, padded first convolutions) on phase 5's 512 px
+    images, held as in phase 7a (the device wire's launch counts of phases
+    19-22, which do not depend on the size):
     capture seconds and pool bytes of each graph, bit-exact, equal to
     launch by launch, counted launches a replay equal to a traced
     replay's, the device wire's launch counts (one decode launch a slice
@@ -160,8 +164,8 @@ package beside it. Phases, each printed with its elapsed seconds:
     device wire's, img/s and idle graphed, launch by launch and on the
     device wire; its graphs and stacked weights are freed before the next
     model;
-24. each family model under the bfloat16 policy on both wires, as phase
-    7b (the refiners' window attention in its bfloat16 builds: head width
+24. each family model under the bfloat16 policy on both wires at 256 px,
+    as phase 7b (the refiners' window attention in its bfloat16 builds: head width
     8 padded to 16, and 16), and its scan wire refusing the policy; phases
     19-24 time each wire once (``FAMILY_REPS``), not the median of 3;
 25. stf7 and stf8 training (``run_training``, 8 x 256 x 256): 3 steps of
@@ -273,7 +277,36 @@ package beside it. Phases, each printed with its elapsed seconds:
     ``causal=True`` (its reference mask lets token 0 see every token) on 2
     images of 256 x 256 at latent scale 0.5 (129 decode launches); its
     training through its reference mask, as the JAX package trains it,
-    every parameter moved but the scale head's.
+    every parameter moved but the scale head's;
+40b, 43b. stf3 and stf4 under the bfloat16 policy from their f32 phases'
+    weights (``masked_bf16_phase``): the device wire on the same images,
+    held as phase 40's with its launches, all of them the bfloat16 builds'
+    (window attention at head width 16), the encoder's y_hat bfloat16, its
+    bpp within 5% of the f32 device wire's; the context pass's rows <= i
+    unmoved under the policy at full width; the eval forward card against
+    CPU as phase 8 (float32, then the policy end to end and layer by layer
+    with its control); after phases 41 and 44, 2 bfloat16 training steps
+    from the f32 training's starting weights (phase 10b's checks);
+46. stf2 (337.1 M parameters: stf's transforms, 4 slices of 96 in 8 x 8
+    windows, tokens of D = 6144, 64 an image at 512 px; a token loop whose
+    step attends over 6 hyper and 6 decoded tokens, then three conv
+    heads) at full width from its seeded weights on 2 images of 512 x 512
+    at ``STF2_NARROW`` (0.5): its nonzero y symbols held at 1 or more;
+    ``Stf2Codec`` on the host wire, on the device wire's token scan as CUDA
+    graphs (captured by a first compress and decompress: seconds, capture
+    seconds, pool bytes; the 64 token decodes inside the decode graph,
+    each graph's launches a replay equal to a traced replay's) and on the
+    same functions launch by launch, each side held as phase 40's (24 / 12
+    window-attention launches, 2 encode and 65 decode launches, no host
+    round trip), the two device runs' blobs and bits equal and their y_hat
+    / x_hat the host wire's, the bytes within the host wire's x 1.02 plus
+    each lane's flush and header (6,144 lanes an image), img/s, idle and
+    ATen calls on the three; the eval forward card against CPU at 256 px;
+46b. stf2 under the bfloat16 policy, as 40b (its y_hat bfloat16, as the
+    JAX package's ``Stf2Codec`` gives it; its graphs captured anew);
+47-48. stf2 training (3 steps at stochastic depth 0.2, one card against
+    CPU, then 2 bfloat16 steps) and a reference stf2 checkpoint, as phases
+    41-42.
 
 Each serving phase also logs its sides' device idle share: one profiled
 compress and decompress (the union of the card's kernel, copy and memset
@@ -281,8 +314,10 @@ intervals, read from the profiler's events: ``profiled_call``) against the
 median unprofiled wall time.
 
 The masked family's phases add their window-attention launches to
-``window_attention_d16`` (its transforms are stf's) and their lane-rANS
-launches to ``rans_encode`` / ``rans_decode``, under their own path keys.
+``window_attention_d16`` and, under the bfloat16 policy, to
+``window_attention_d16_bf16`` (its transforms are stf's), and their f32
+lane-rANS launches to ``rans_encode`` / ``rans_decode``, under their own
+path keys.
 
 The kernels line lists window attention's head widths 32, 48 and 96 and
 the GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
@@ -430,6 +465,13 @@ INT32_OPS_PER_S = PEAK_OPS_PER_S["float32"] / 2
 INT32_EXTREMES = np.array([2 ** 31 - 1, -(2 ** 31), 2 ** 20, -12345678], np.int64)
 # phase 6's second case: bench.py's default batch (bench.py:270)
 RANS_BENCH_IMAGES = 32
+# the zigzag family's host and device wires and its bfloat16 wires (phases
+# 19-22 and 24) at 2 x 256^2, a quarter of phase 5's pixels, to keep the run
+# inside its time (their sides are host-bound: ~2 s a model saved); its
+# graphed scan wire (phase 23) stays at 512. Their device idle share is
+# measured on the float32 device wire only (a profiled side of 40,000-93,000
+# ATen calls takes 2-4 s)
+FAMILY_WIRE_SIZE = 256
 
 
 def log(msg: str) -> None:
@@ -633,10 +675,18 @@ CRC_REFERENCE = ("stf9", "stf12", "stf13")
 # whose pass runs its conv heads over every token (~0.7 TFLOP at 256 px, 16x
 # that at 512), 2 x 256^2. The codec's model: stf3 with its reference mask,
 # stf4 with causal=True (its reference mask lets token 0 see every token);
-# stf4 trains through its reference mask, as the JAX package trains it
-MASKED = ("stf3", "stf4")
-MASKED_SIZE = {"stf3": 512, "stf4": 256}
+# stf4 trains through its reference mask, as the JAX package trains it.
+# stf2 (4 slices of 96 in windows of 8 x 8: tokens of D = 6144, 64 an image
+# at 512 px) codes one step a token on both sides, O(N) work: 2 x 512^2
+MASKED = ("stf3", "stf4", "stf2")
+MASKED_SIZE = {"stf3": 512, "stf4": 256, "stf2": 512}
 MASKED_CAUSAL = {"stf3": False, "stf4": True}
+# stf2's codec narrows its symbols as the ChARM codecs do (Stf2Codec's
+# ``narrow``: its decoder rebuilds y_hat from the coded symbols, so the
+# context stays the encoder's), chosen on the CPU from the seeded weights on
+# a 256 px image (tools/probe_stf2_narrow.py): at 1.0 37% of the y symbols
+# are nonzero (up to 2), at 0.5 6.4% (up to 1), at 0.3 0.4%, at 0.2 none
+STF2_NARROW = 0.5
 # y and z scaled before rounding (Stf3Codec's latent_scale: the context reads
 # the coded tokens, so no per-symbol narrowing can stand in), chosen on the
 # CPU from the seeded weights on each phase's images so that some symbols are
@@ -651,6 +701,22 @@ MASKED_CAUSAL = {"stf3": False, "stf4": True}
 MASKED_LATENT_SCALE = {"stf3": 0.3, "stf4": 0.5}
 MASKED_GAIN = {"stf3": {f"maskedContextModel_{s}.Dense_{2 * i + 1}.weight": 0.25
                         for s in ("mu", "sigma") for i in range(5)}}
+# the end-to-end bfloat16 measures a masked model's phase 8 logs without
+# holding them. stf3's y likelihoods: its seeded context lifts any changed
+# token to unit scale through its LayerNorms, so one y element rounded the
+# other way (an ulp of a bfloat16 y) moves mu and scale of every later
+# token: card against CPU both under the policy 13.6% of its y likelihoods
+# moved by more than 1e-3 on 64 x 64, and the card's bfloat16 against the
+# CPU's float32 12.7% (on an H100 80GB HBM3 at 700 W), so the bar cannot tell a
+# broken path from the policy there. The layer replay holds every layer
+MASKED_BF16_UNHELD = {"stf3": ("y_likelihood_share",)}
+# the sides whose device idle share and ATen calls a masked phase reads from
+# one profiled call, on its host wire and its bfloat16 device wire (the f32
+# device wire profiles both): a stf3 decompress runs ~400,000 operators and
+# profiling one takes ~12 s, so its host wire's and its bf16 decompress are
+# timed by the host clock alone
+SIDES = ("compress", "decompress")
+MASKED_PROFILED = {"stf3": ("compress",)}
 
 
 def crc_step_shapes(name: str, dtype: str = "float32") -> dict:
@@ -1131,10 +1197,11 @@ def check_launches(what: str, counts: dict, expect: dict) -> None:
 
 
 def host_wire_phase(codec, x, card: str, zero_counts, read_counts, expect: dict,
-                    reps: int = 3):
+                    reps: int = 3, idle: bool = True):
     """Phases 5 and 11: compress -> decompress on the host wire, the
     launch counts zeroed right before and read right after each side and
-    held to ``expect[side]``; img/s the median of ``reps`` calls. ->
+    held to ``expect[side]``; img/s the median of ``reps`` calls; with
+    ``idle``, each side's device idle share (one profiled call). ->
     (results, the encoder's output, the compress and decompress
     counts)."""
     import torch
@@ -1187,7 +1254,7 @@ def host_wire_phase(codec, x, card: str, zero_counts, read_counts, expect: dict,
         decode_img_per_s=B / float(np.median(dec_s)),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches_compress=enc_launches, launches_decompress=dec_launches,
-        device=idle_shares(codec, x, enc_s, dec_s),
+        device=idle_shares(codec, x, enc_s, dec_s) if idle else "not measured",
     )
     log(f"  bpp {[round(b, 4) for b in bpp]}, PSNR {[round(p, 2) for p in psnr]} dB, "
         f"encode {result['encode_img_per_s']:.2f} img/s, decode "
@@ -1204,10 +1271,10 @@ def y_slice_hw(model, size: int):
 
 
 def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
-                      expect: dict, reps: int = 3):
+                      expect: dict, reps: int = 3, idle: bool = True):
     """Phases 7 and 13: compress -> decompress on the device wire, the
     launch counts held to ``expect[side]``, img/s the median of ``reps``
-    calls; -> results."""
+    calls, with ``idle`` each side's device idle share; -> results."""
     import warnings
 
     import torch
@@ -1278,7 +1345,8 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
         stream_bytes=stream_bytes, encode_img_per_s=B / float(np.median(enc_s)),
         decode_img_per_s=B / float(np.median(dec_s)), host_round_trips_in_decompress=0,
         launches_compress=enc_launches, launches_decompress=dec_launches,
-        blob_sha256=blob_sha256, device=idle_shares(codec, x, enc_s, dec_s))
+        blob_sha256=blob_sha256,
+        device=idle_shares(codec, x, enc_s, dec_s) if idle else "not measured")
     log(f"  bytes {stream_bytes}; bpp {[round(b, 4) for b in bpp]}, PSNR "
         f"{[round(p, 2) for p in psnr]} dB, encode {result['encode_img_per_s']:.2f} img/s, "
         f"decode {result['decode_img_per_s']:.2f} img/s (median of {reps}, batch {B}, {card}); "
@@ -1509,13 +1577,13 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
     return result, enc_launches, dec_launches
 
 
-def bf16_serving_phase(codec, dev_codec, x, card, f32: dict, reps: int = 3):
+def bf16_serving_phase(codec, dev_codec, x, card, f32: dict, reps: int = 3, idle: bool = True):
     """Phases 7b and 17: compress -> decompress under the bfloat16 policy on
     the host wire and the device wire, held as the float32 phases are and
     to their launch counts, every launch the bfloat16 build's (``f32``: the
     float32 phases' results, encoder output and counts), then to
-    tests/test_bf16.py's bars against them. -> (results, the launch counts
-    of each side)."""
+    tests/test_bf16.py's bars against them; ``idle``: each side's device
+    idle share too. -> (results, the launch counts of each side)."""
     import torch
 
     from icm_tpu_torch.nn import set_activation_dtype
@@ -1526,11 +1594,11 @@ def bf16_serving_phase(codec, dev_codec, x, card, f32: dict, reps: int = 3):
     try:
         result, enc, enc_l, dec_l = host_wire_phase(
             codec, x, card, zero_counts, read_counts,
-            {"compress": counts["compress"], "decompress": counts["decompress"]}, reps)
+            {"compress": counts["compress"], "decompress": counts["decompress"]}, reps, idle)
         result["device_wire"], dev_enc_l, dev_dec_l = device_wire_phase(
             dev_codec, enc, x, card, zero_counts, read_counts,
             {"compress": counts["device_compress"], "decompress": counts["device_decompress"]},
-            reps)
+            reps, idle)
     finally:
         set_activation_dtype(None)
     bpp_rel = [b16 / b32 - 1 for r16, r32 in ((result, f32["result"]),
@@ -1847,13 +1915,14 @@ def bf16_spread(got: dict, ref: dict) -> dict:
             "z_likelihood_max": diff(got["likelihoods"]["z"], ref["likelihoods"]["z"]).max().item()}
 
 
-def eval_vs_cpu_phase(name: str, model, seed: int, cpu_model=None):
+def eval_vs_cpu_phase(name: str, model, seed: int, cpu_model=None, unheld: tuple = ()):
     """Phases 8, 14 and 34: the same weights' eval forward on the card
     against the plain CPU path on a small input, in float32, then under the
-    bfloat16 policy on both sides end to end (BF16_EVAL_TOL; beside it the
-    card's bfloat16 against the CPU's float32) and layer by layer
-    (BF16_LAYER_TOL, with its control); ``cpu_model``: the CPU twin, by
-    default one drawn and loaded. -> the differences."""
+    bfloat16 policy on both sides end to end (BF16_EVAL_TOL but its
+    ``unheld`` measures, which are logged; beside it the card's bfloat16
+    against the CPU's float32) and layer by layer (BF16_LAYER_TOL, with its
+    control); ``cpu_model``: the CPU twin, by default one drawn and loaded.
+    -> the differences."""
     import torch
 
     from icm_tpu_torch.data import make_images
@@ -1886,7 +1955,7 @@ def eval_vs_cpu_phase(name: str, model, seed: int, cpu_model=None):
     log(f"  bf16 on both ({name}): {bf16}; bf16 card against f32 cpu: {against_f32}; "
         f"bars {BF16_EVAL_TOL}")
     if got16["x_hat"].dtype != ref16["x_hat"].dtype or any(
-            bf16[k] > tol for k, tol in BF16_EVAL_TOL.items()):
+            bf16[k] > tol for k, tol in BF16_EVAL_TOL.items() if k not in unheld):
         raise AssertionError(f"card and CPU disagree under the bf16 policy: {bf16}")
     layers = bf16_layer_replay(model, cpu_model, xs)
     log(f"  bf16 layer by layer ({name}): {layers}; bars {BF16_LAYER_TOL}")
@@ -1896,7 +1965,8 @@ def eval_vs_cpu_phase(name: str, model, seed: int, cpu_model=None):
         if not row["control_share"] > BF16_LAYER_TOL["share"]:
             raise AssertionError(f"{kind}: the bar cannot tell bf16 from f32: {row}")
     return {"f32_max_abs": worst, "bf16": bf16, "bf16_card_against_f32_cpu": against_f32,
-            "bf16_tolerance": BF16_EVAL_TOL, "bf16_layers": layers,
+            "bf16_tolerance": {k: v for k, v in BF16_EVAL_TOL.items() if k not in unheld},
+            "bf16_unheld": list(unheld), "bf16_layers": layers,
             "bf16_layer_tolerance": BF16_LAYER_TOL}
 
 
@@ -2147,7 +2217,7 @@ def family_phase(name: str, x, card: str, zero_counts, read_counts, seed: int,
               "decompress": {**none, "window_attention": g_s + r}}
     codec = CharmCodec(model, narrow=0.2)
     result, enc, enc_l, dec_l = host_wire_phase(codec, x, card, zero_counts, read_counts, expect,
-                                                FAMILY_REPS)
+                                                FAMILY_REPS, idle=False)
     dev = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
     result["device_wire"], dev_enc_l, dev_dec_l = device_wire_phase(
         dev, enc, x, card, zero_counts, read_counts,
@@ -2265,10 +2335,10 @@ def codec_side_runs(codec, x, enc):
     return (lambda: codec.compress(x), lambda: codec.decompress(*codec_dec_args(codec, enc)))
 
 
-def codec_timing(codec, x, enc, reps: int = 3) -> dict:
+def codec_timing(codec, x, enc, reps: int = 3, profiled=("compress", "decompress")) -> dict:
     """img/s of each side (median of ``reps`` host-clock calls ending in a
-    synchronize), its device busy ms and idle share and its ATen calls (one
-    profiled call, ``profiled_call``)."""
+    synchronize), and for the sides in ``profiled`` its device busy ms and
+    idle share and its ATen calls (one profiled call, ``profiled_call``)."""
     import torch
 
     B = x.shape[0]
@@ -2281,11 +2351,23 @@ def codec_timing(codec, x, enc, reps: int = 3) -> dict:
             fn()
             torch.cuda.synchronize()
             walls.append(time.time() - t)
-        aten, busy = profiled_call(fn)
         wall = float(np.median(walls))
-        out[side] = dict(img_per_s=B / wall, wall_ms=1e3 * wall, device_busy_ms=busy,
-                         device_idle_share=max(0.0, 1.0 - busy / (1e3 * wall)), aten_calls=aten)
+        out[side] = dict(img_per_s=B / wall, wall_ms=1e3 * wall)
+        if side in profiled:
+            aten, busy = profiled_call(fn)
+            out[side].update(device_busy_ms=busy, aten_calls=aten,
+                             device_idle_share=max(0.0, 1.0 - busy / (1e3 * wall)))
+        else:
+            out[side].update(device_busy_ms=None, device_idle_share=None, aten_calls=None)
     return out
+
+
+def timing_text(side: dict) -> str:
+    """One side of ``codec_timing`` for the log."""
+    if side["aten_calls"] is None:
+        return f"{side['img_per_s']:.3f} img/s (not profiled)"
+    return (f"{side['img_per_s']:.3f} img/s idle {side['device_idle_share']:.3f} "
+            f"{side['aten_calls']} ATen")
 
 
 def codec_roundtrip(codec, x, zero_counts, read_counts, what: str, expect: dict):
@@ -2967,12 +3049,12 @@ def crc_model_phases(name: str, x, card: str, zero_counts, read_counts, seed: in
     return result, counts, shapes
 
 
-def masked_expect(model, N: int = 0) -> dict:
+def masked_expect(model, N: int = 0, dtype: str = "float32") -> dict:
     """Each side's launches of a masked-family codec: window attention once
     a Swin block at head width 16 (compress: g_a and g_s, whose debug
     reconstruction is the decoder's; decompress: g_s), no GDN; with ``N``
-    tokens the device wire's 2 encode and N + 1 decode launches. -> side ->
-    (counts, counts by shape)."""
+    tokens the device wire's 2 encode and N + 1 decode launches; in
+    ``dtype``'s builds. -> side -> (counts, counts by shape)."""
     from icm_tpu_torch.nn.swin import SwinBlock
 
     g_a, g_s = (sum(isinstance(m, SwinBlock) for m in g.modules()) for g in (model.g_a, model.g_s))
@@ -2981,8 +3063,24 @@ def masked_expect(model, N: int = 0) -> dict:
                              ("decompress", g_s, {"rans_decode": N + 1 if N else 0})):
         counts = {"window_attention": attn, "gdn_forward": 0, "gdn_backward": 0,
                   "rans_encode": 0, "rans_decode": 0, **rans}
-        out[side] = (counts, {"window_attention": {"float32 D16": attn}, "gdn": {}})
+        out[side] = (counts, {"window_attention": {f"{dtype} D16": attn}, "gdn": {}})
     return out
+
+
+def masked_codec(name: str, model, **kw):
+    """The codec of a masked-family model: ``Stf2Codec`` at STF2_NARROW for
+    stf2, else ``Stf3Codec`` at MASKED_LATENT_SCALE; ``kw``: its tables,
+    wire, graphs."""
+    from icm_tpu_torch.models.masked_codec import Stf2Codec, Stf3Codec
+
+    if name == "stf2":
+        return Stf2Codec(model, narrow=STF2_NARROW, **kw)
+    return Stf3Codec(model, latent_scale=MASKED_LATENT_SCALE[name], **kw)
+
+
+def masked_overrides(model) -> dict:
+    """The registry config a CPU twin of ``model`` needs: stf3 / stf4's mask."""
+    return {"causal": model.causal} if hasattr(model, "causal") else {}
 
 
 def masked_rows(codec, x, rows) -> dict:
@@ -3021,7 +3119,7 @@ def masked_eval_vs_cpu(name: str, model, seed: int) -> dict:
 
     from icm_tpu_torch.data import make_images
 
-    cpu_model = cpu_twin(name, model, causal=model.causal)
+    cpu_model = cpu_twin(name, model, **masked_overrides(model))
     xs = torch.from_numpy(make_images(seed + 1, 1, 256))
     t = time.time()
     with torch.no_grad():
@@ -3095,7 +3193,8 @@ def masked_phase(name: str, card: str, zero_counts, read_counts, seed: int,
                                      host_expect)
     counts.update(launches_compress=l["compress"], launches_decompress=l["decompress"])
     result["host_wire"] = {**crc_bytes(enc, size, ("y", "z")), "launches": l,
-                           "launches_by_shape": sh, **codec_timing(host, x, enc, 1)}
+                           "launches_by_shape": sh,
+                           **codec_timing(host, x, enc, 1, MASKED_PROFILED.get(name, SIDES))}
     dev = Stf3Codec(model, latent_scale=ls, wire="device")
     denc, _, l, sh, syncs = codec_roundtrip(dev, x, zero_counts, read_counts, f"{name} device wire",
                                           dev_expect)
@@ -3119,50 +3218,241 @@ def masked_phase(name: str, card: str, zero_counts, read_counts, seed: int,
                              "host_round_trips_in_decompress": syncs,
                              **codec_timing(dev, x, denc, 1)}
     log(f"  {name} img/s, device idle, ATen calls (one call, batch {B} x {size}^2, {card}): "
-        + "; ".join(f"{w} " + " / ".join(
-            f"{result[w][s]['img_per_s']:.3f} img/s idle {result[w][s]['device_idle_share']:.3f} "
-            f"{result[w][s]['aten_calls']} ATen" for s in ("compress", "decompress"))
-            for w in ("host_wire", "device_wire")))
+        + "; ".join(f"{w} " + " / ".join(timing_text(result[w][s]) for s in SIDES)
+                    for w in ("host_wire", "device_wire")))
     del host, dev
     gc.collect()
     torch.cuda.empty_cache()
     result["card_vs_cpu"] = masked_eval_vs_cpu(name, model, seed)
-    return dict(model=model, result=result, counts=counts)
+    return dict(model=model, result=result, counts=counts, x_hat=denc["x_hat"])
 
 
-def masked_train_phase(model, name: str, seed: int, card: str) -> dict:
-    """Phases 41 and 44: ``run_training`` of a masked-family model through
-    the JAX package's training forward (the reference mask: stf4's
+def stf2_phase(name: str, card: str, zero_counts, read_counts, seed: int, size: int = 0) -> dict:
+    """Phase 46: stf2 at its published width (337.1 M parameters), weights
+    from ``seed``, on 2 images of MASKED_SIZE (or ``size``) px made from
+    ``seed``, its codec at STF2_NARROW: its nonzero y symbols held at 1 or
+    more; compress -> decompress, each side's counts zeroed right before
+    and read right after, held by ``codec_roundtrip`` with
+    ``masked_expect``'s launches (24 / 12 window-attention launches at head
+    width 16, no GDN; the device wire 2 encode and N + 1 = 65 decode
+    launches), on the host wire, on the device wire's graphed token scan
+    (its programs captured by a first compress and decompress, whose
+    seconds, capture seconds and pool bytes are logged; the 64 token
+    decodes inside the decode graph, each graph's launches a replay equal
+    to a traced replay's: ``graph_replays``) and on the same functions
+    launch by launch (``cuda_graphs=False``): every side bit-exact, no host
+    round trip in a device-wire decompress, the two device runs' blobs and
+    y_hat / x_hat bits equal and equal to the host wire's y_hat / x_hat; the
+    device wire's bytes within the host wire's x 1.02 plus each lane's
+    flush and header (D = 6144 lanes an image for y), its escapes counted;
+    each side's img/s (one call), device idle share and ATen calls on the
+    three; then the eval forward against the CPU's at 256 px. -> {model,
+    result, counts, x_hat}."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.models import create_model
+
+    size = size or MASKED_SIZE[name]
+    B = 2
+    x = torch.from_numpy(make_images(seed, B, size)).cuda()
+    t = time.time()
+    model = create_model(name, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    host = masked_codec(name, model)
+    sym = host.symbols(x)
+    torch.cuda.synchronize()
+    N, D = sym.shape[1:]
+    nonzero = [int(sym.count_nonzero()), sym.numel()]
+    log(f"  {name}: {n_params / 1e6:.1f} M parameters in {time.time() - t:.1f}s; {N} tokens of "
+        f"{D} an image at {size} px, {model.num_sliding} sliding, narrow {STF2_NARROW}; nonzero y "
+        f"symbols {nonzero} ({nonzero[0] / nonzero[1]:.3%})")
+    if nonzero[0] < 1:
+        raise AssertionError(f"{name}: every y symbol is 0")
+    result = {"params": n_params, "size": size, "tokens": N, "token_dim": D,
+              "num_sliding": model.num_sliding, "narrow": STF2_NARROW,
+              "nonzero_y_symbols": nonzero}
+    counts = {}
+    enc, _, l, sh, _ = codec_roundtrip(host, x, zero_counts, read_counts, f"{name} host wire",
+                                       masked_expect(model))
+    counts.update(launches_compress=l["compress"], launches_decompress=l["decompress"])
+    result["host_wire"] = {**crc_bytes(enc, size, "yz"), "launches": l, "launches_by_shape": sh,
+                           **codec_timing(host, x, enc, 1)}
+
+    dev = masked_codec(name, model, wire="device")
+    t = time.time()
+    first = dev.compress(x, return_debug=True)
+    dev.decompress(*codec_dec_args(dev, first))
+    torch.cuda.synchronize()
+    first_s = time.time() - t
+    stats = dev.graphs.stats()
+    graphs = {" ".join(str(p) for p in key): st for key, st in stats.items()}
+    capture_s = sum(st["capture_s"] for st in stats.values())
+    pool_bytes = sum(st["pool_bytes"] for st in stats.values())
+    log(f"  {name} graphed token scan: first compress + decompress {first_s:.2f}s, captures "
+        f"{capture_s:.2f}s of it, pools {pool_bytes / 2**20:.1f} MiB; per graph: {graphs}")
+    dev_expect = masked_expect(model, N)
+    denc, _, l, sh, syncs = codec_roundtrip(dev, x, zero_counts, read_counts,
+                                            f"{name} device wire (graphed token scan)", dev_expect)
+    counts.update(launches_device_wire_compress=l["compress"],
+                  launches_device_wire_decompress=l["decompress"])
+    per_replay = graph_replays(dev, N)
+    plain = masked_codec(name, model, wire="device", cuda_graphs=False)
+    penc, _, pl, _, psyncs = codec_roundtrip(plain, x, zero_counts, read_counts,
+                                             f"{name} device wire, launch by launch", dev_expect)
+    counts.update(launches_launch_by_launch_compress=pl["compress"],
+                  launches_launch_by_launch_decompress=pl["decompress"])
+    if penc["strings"] != denc["strings"]:
+        raise AssertionError(f"{name}: graphed blobs differ from launch by launch")
+    for k in ("y_hat", "x_hat"):
+        for what, other in (("launch by launch", penc), ("the host wire", enc)):
+            if not torch.equal(denc[k], other[k]):
+                raise AssertionError(f"{name}: the graphed device wire's {k} differs from {what}'s")
+    lanes = {"y": D, "z": (size // 64) ** 2 * dev.kit.z_groups(model.entropy_bottleneck.channels)}
+    host_b, dev_b = crc_bytes(enc, size, "yz")["bytes"], crc_bytes(denc, size, "yz")["bytes"]
+    stream_bytes = {k: dict(device=dev_b[k], host=host_b[k], lanes=lanes[k],
+                            escapes=wire_escapes(denc["strings"]["yz".index(k)]),
+                            limit=host_b[k] * 1.02 + B * (lanes[k] * 8 + 16)) for k in lanes}
+    log(f"  {name} device wire bytes {stream_bytes}; y blobs' tier "
+        f"{sorted({b[4] for b in denc['strings'][0]})}")
+    for k, v in stream_bytes.items():
+        if v["device"] > v["limit"]:
+            raise AssertionError(f"{name} device wire {k}: {v['device']} bytes over {v['limit']}")
+    result["device_wire"] = {**crc_bytes(denc, size, "yz"), "stream_bytes": stream_bytes,
+                             "launches": l, "launches_by_shape": sh,
+                             "host_round_trips_in_decompress": syncs,
+                             "first_call_s": first_s, "capture_s": capture_s,
+                             "pool_bytes": pool_bytes, "graphs": graphs,
+                             "launches_per_replay": per_replay,
+                             **codec_timing(dev, x, denc, 1),
+                             "launch_by_launch": {"host_round_trips_in_decompress": psyncs,
+                                                  **codec_timing(plain, x, penc, 1)}}
+    log(f"  {name} img/s, device idle, ATen calls (one call, batch {B} x {size}^2, {card}): "
+        + "; ".join(f"{w} " + " / ".join(timing_text(r[s]) for s in SIDES)
+                    for w, r in (("host wire", result["host_wire"]),
+                                 ("graphed", result["device_wire"]),
+                                 ("launch by launch", result["device_wire"]["launch_by_launch"]))))
+    del host, dev, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["card_vs_cpu"] = masked_eval_vs_cpu(name, model, seed)
+    return dict(model=model, result=result, counts=counts, x_hat=denc["x_hat"])
+
+
+def masked_bf16_phase(name: str, model, card: str, seed: int, size: int, f32: dict) -> tuple:
+    """Phases 40b, 43b and 46b: the masked-family model under the bfloat16
+    policy, its f32 phase's weights: the device wire on that phase's images
+    (stf2's graphed token scan, captured anew for the policy by a first
+    call), held by ``codec_roundtrip`` with the f32 device wire's launches,
+    every one a bfloat16 build's (head width 16), the encoder's y_hat
+    bfloat16, bit-exact, no host round trip; its bpp within 5%
+    (BF16_BPP_RTOL) of the f32 device wire's (``f32``: that phase's result
+    and x_hat), mean |x_hat - x_hat_f32| logged; img/s, idle and ATen calls;
+    stf3 / stf4's context pass under the policy at full width, rows <= i
+    unmoved by the buffer's rows >= i (``masked_rows``); then the eval
+    forward card against CPU on 64 x 64 as phase 8 (float32, then the
+    policy end to end and layer by layer with its control). -> (results,
+    the device wire's launches by side)."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    zero16, read16 = launch_counts("bfloat16")
+    B = 2
+    x = torch.from_numpy(make_images(seed, B, size)).cuda()
+    N = f32["result"]["tokens"]
+    codec = masked_codec(name, model, wire="device")
+    set_activation_dtype(torch.bfloat16)
+    try:
+        if name == "stf2":  # capture the policy's graphs outside the held call
+            first = codec.compress(x)
+            codec.decompress(*codec_dec_args(codec, first))
+        denc, _, l, sh, syncs = codec_roundtrip(codec, x, zero16, read16,
+                                                f"{name} bf16 device wire",
+                                                masked_expect(model, N, "bfloat16"))
+        if denc["y_hat"].dtype != torch.bfloat16:
+            raise AssertionError(f"{name} bf16: the encoder's y_hat is {denc['y_hat'].dtype}")
+        timing = codec_timing(codec, x, denc, 1, MASKED_PROFILED.get(name, SIDES))
+        rows = (masked_rows(codec, x, (0, 1, N // 2, N - 1)) if name != "stf2" else None)
+    finally:
+        set_activation_dtype(None)
+    bpp = crc_bytes(denc, size, "yz")["bpp"]
+    f32_bpp = f32["result"]["device_wire"]["bpp"]
+    bpp_rel = sum(bpp) / sum(f32_bpp) - 1
+    x_hat_mean = float((denc["x_hat"].float() - f32["x_hat"].float()).abs().mean())
+    log(f"  {name} bf16 device wire: bpp {bpp} against f32 {f32_bpp} ({bpp_rel:+.3e}, bar "
+        f"{BF16_BPP_RTOL}); mean |x_hat - x_hat_f32| {x_hat_mean:.3e}; "
+        + " / ".join(timing_text(timing[s]) for s in SIDES) + f" ({card})"
+        + (f"; context rows under the policy: {rows}" if rows else ""))
+    if abs(bpp_rel) > BF16_BPP_RTOL:
+        raise AssertionError(f"{name} bf16: bpp strays from f32 ({bpp_rel:+.3e})")
+    result = {"device_wire": {**crc_bytes(denc, size, "yz"), "launches": l,
+                              "launches_by_shape": sh, "host_round_trips_in_decompress": syncs,
+                              "bpp_rel_f32": bpp_rel, "x_hat_mean_abs_f32": x_hat_mean,
+                              **timing},
+              **({"row_check": rows} if rows else {})}
+    del codec
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu_model = cpu_twin(name, model, **masked_overrides(model))
+    result["card_vs_cpu"] = eval_vs_cpu_phase(name, model, seed, cpu_model=cpu_model,
+                                              unheld=MASKED_BF16_UNHELD.get(name, ()))
+    del cpu_model
+    gc.collect()
+    return result, {"launches_device_wire_compress": l["compress"],
+                    "launches_device_wire_decompress": l["decompress"]}
+
+
+def masked_train_phase(model, name: str, seed: int, card: str, init_state=None,
+                       f32_train=None) -> dict:
+    """Phases 41, 44 and 47: ``run_training`` of a masked-family model
+    through the JAX package's training forward (the reference mask: stf4's
     ``causal`` off for it, and back after), RateDistortionLoss(0.01), 3
     steps of 8 x 256^2 at the registry's stochastic depth 0.2, each finite,
     each launching window attention once a Swin block (24) and no other
     kernel, every parameter moved but stf4's scale head, which no forward
     applies; then one step on the card against the plain CPU path at depth
-    0. -> results."""
-    causal = model.causal
-    model.causal = False
+    0. With ``init_state`` and ``f32_train`` (phases 41b, 44b, 47b): 2 steps
+    under the bfloat16 policy from those weights instead (``bf16_train_phase``:
+    every launch a bfloat16 build's, float32 gradients, the first step's bpp
+    within 5% of the float32 phase's first). -> results."""
+    causal = getattr(model, "causal", None)
+    if causal is not None:
+        model.causal = False
+    dtype = "float32" if init_state is None else "bfloat16"
     try:
         expect = {**masked_expect(model)["compress"][0], "rans_encode": 0, "rans_decode": 0}
         fixed = ("cc_scale_head.",) if name == "stf4" else ()
-        out = train_phase(model, seed, card, expect, steps=3, resumed_steps=0, fixed=fixed)
+        if init_state is None:
+            out = train_phase(model, seed, card, expect, steps=3, resumed_steps=0, fixed=fixed)
+        else:
+            out = bf16_train_phase(model, init_state, seed, card, expect, f32_train, steps=2,
+                                   fixed=fixed)
         if out["launches_by_shape_per_step"] != {
-                "window_attention": {"float32 D16": expect["window_attention"]}, "gdn": {}}:
+                "window_attention": {f"{dtype} D16": expect["window_attention"]}, "gdn": {}}:
             raise AssertionError(f"{name} step: launches by shape "
                                  f"{out['launches_by_shape_per_step']}")
-        out["card_vs_cpu"] = train_vs_cpu_phase(name, model, seed)
+        if init_state is None:
+            out["card_vs_cpu"] = train_vs_cpu_phase(name, model, seed)
     finally:
-        model.causal = causal
+        if causal is not None:
+            model.causal = causal
     return out
 
 
 def reference_masked_state_dict(seed: int, name: str) -> dict:
-    """A reference stf3 or stf4 state dict at full width: the reference's
-    module names (stf3.py, stf4.py: stf's ``patch_embed``, ``layers``,
-    ``syn_layers``, ``end_conv``, ``h_a``, ``h_mean_s``, ``h_scale_s`` and
-    bottleneck; stf3's ``maskedContextModel_{mu,sigma}.context{i}``,
-    ``.norm{i}``, ``.mlp{i}.fc1`` / ``fc2``; stf4's
-    ``maskedContextModel_{mu,sigma}.0.qkv`` and ``cc_{mean,scale}_transforms``;
-    the ``lrp_transforms``), DataParallel's ``module.`` prefix, values drawn
+    """A reference stf2, stf3 or stf4 state dict at full width: the
+    reference's module names (stf2.py, stf3.py, stf4.py: stf's
+    ``patch_embed``, ``layers``, ``syn_layers``, ``end_conv``, ``h_a``,
+    ``h_mean_s``, ``h_scale_s`` and bottleneck; stf2's
+    ``{mu,sigma}ContextModel.qkv``, ``cc_{mean,scale}_transforms`` and
+    ``lrp_transforms`` (its per-token heads) and the first layers of its
+    forward-dead conv ``g_a`` / ``g_s``; stf3's
+    ``maskedContextModel_{mu,sigma}.context{i}``, ``.norm{i}``,
+    ``.mlp{i}.fc1`` / ``fc2``; stf4's ``maskedContextModel_{mu,sigma}.0.qkv``
+    and ``cc_{mean,scale}_transforms``; stf3 and stf4's global
+    ``lrp_transforms``), DataParallel's ``module.`` prefix, values drawn
     from ``seed`` as ``reference_wacnn_state_dict`` draws them."""
     import torch
 
@@ -3211,6 +3501,18 @@ def reference_masked_state_dict(seed: int, name: str) -> dict:
     for tag in ("h_mean_s", "h_scale_s"):
         ref.hyper_dec(tag, enc[-1], dec)
     ref.bottleneck("entropy_bottleneck", enc[-1])
+    if name == "stf2":
+        Cp, s, D = 96, 6, 6144
+        for tag in ("muContextModel", "sigmaContextModel"):
+            lin(f"{tag}.qkv", 3 * D, D)
+        for tag, extra in (("cc_mean_transforms", 0), ("cc_scale_transforms", 0),
+                           ("lrp_transforms", Cp)):
+            for j, (o, i) in enumerate(zip((s * Cp, 15 * Cp, 8 * Cp, Cp),
+                                           (2 * s * Cp + extra, s * Cp, 15 * Cp, 8 * Cp))):
+                ref.conv(f"{tag}.{2 * j}", o, i, 3)
+        ref.conv("g_a.0", 192, 3, 5)  # the conv transforms, which no forward runs
+        ref.conv("g_s.0", 192, M, 5)
+        return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
     if name == "stf3":
         for tag in ("maskedContextModel_mu", "maskedContextModel_sigma"):
             for i in range(1, 6):
@@ -3233,20 +3535,20 @@ def reference_masked_state_dict(seed: int, name: str) -> dict:
 
 def masked_reference_phase(model, name: str, card: str, zero_counts, read_counts,
                            seed: int, size: int) -> dict:
-    """Phases 42 and 45: a reference stf3 (stf4) checkpoint at full width, as
-    phase 18: the seeded reference dict converted and loaded strictly into
-    ``model`` (the codec's mask); the converted model's own CDF tables (the
-    bottleneck's and the Gaussian's) written into it as the reference's
-    buffers and imported back equal; 2 images of ``size`` px on the host
-    wire at MASKED_LATENT_SCALE with the imported tables, held by
-    ``codec_roundtrip``, its nonzero y symbols above 0, the blobs equal to the
-    built tables'. -> results."""
+    """Phases 42, 45 and 48: a reference stf3 (stf4, stf2) checkpoint at
+    full width, as phase 18: the seeded reference dict converted and loaded
+    strictly into ``model`` (the codec's mask); the converted model's own
+    CDF tables (the bottleneck's and the Gaussian's) written into it as the
+    reference's buffers and imported back equal; 2 images of ``size`` px on
+    the host wire (``masked_codec``: MASKED_LATENT_SCALE, stf2's
+    STF2_NARROW) with the imported tables, held by ``codec_roundtrip``, its
+    nonzero y symbols above 0, the blobs equal to the built tables'. ->
+    results."""
     import torch
 
     from icm_tpu_torch import zoo
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import build_codec_tables
-    from icm_tpu_torch.models.masked_codec import Stf3Codec
 
     t = time.time()
     sd = reference_masked_state_dict(seed, name)
@@ -3268,15 +3570,14 @@ def masked_reference_phase(model, name: str, card: str, zero_counts, read_counts
     log(f"  {len(sd)} reference tensors converted, loaded strictly and tables imported in "
         f"{time.time() - t:.1f}s")
     x = torch.from_numpy(make_images(seed, 2, size)).cuda()
-    ls = MASKED_LATENT_SCALE[name]
-    codec = Stf3Codec(model, tables=imported, latent_scale=ls)
+    codec = masked_codec(name, model, tables=imported)
     sym = codec.symbols(x)
     nonzero = [int(sym.count_nonzero()), sym.numel()]
     if nonzero[0] < 1:
         raise AssertionError(f"{name} reference: every y symbol is 0")
     enc, _, l, shapes, _ = codec_roundtrip(codec, x, zero_counts, read_counts,
                                          f"{name} reference, host wire", masked_expect(model))
-    if Stf3Codec(model, latent_scale=ls).compress(x)["strings"] != enc["strings"]:
+    if masked_codec(name, model).compress(x)["strings"] != enc["strings"]:
         raise AssertionError("imported tables' blobs differ from the built tables' ones")
     sha = {k: hashlib.sha256(b"".join(enc["strings"][i])).hexdigest() for i, k in enumerate("yz")}
     log(f"  nonzero y symbols {nonzero} ({nonzero[0] / nonzero[1]:.3%}); blobs with imported "
@@ -3289,17 +3590,31 @@ def masked_reference_phase(model, name: str, card: str, zero_counts, read_counts
 def masked_model_phases(name: str, card: str, zero_counts, read_counts, seed: int,
                         size: int = 0) -> tuple:
     """Every phase of one masked-family model, in order: its wires and eval
-    forward (``masked_phase``), its training, its reference checkpoint. ->
-    (results, float32 launch counts by path)."""
+    forward (``masked_phase``, stf2's ``stf2_phase``), the same under the
+    bfloat16 policy (``masked_bf16_phase``), its training, 2 bfloat16 steps
+    from the same starting weights, its reference checkpoint. ->
+    (results, float32 launch counts by path, bfloat16 launch counts by
+    path)."""
     import torch
 
     size = size or MASKED_SIZE[name]
-    with Phase(f"full-width {name}: host and device wires at {size} px, card vs CPU"):
-        ph = masked_phase(name, card, zero_counts, read_counts, seed, size)
+    wires = "graphed token scan and launch by launch" if name == "stf2" else "device wire"
+    with Phase(f"full-width {name}: host wire and {wires} at {size} px, card vs CPU"):
+        ph = (stf2_phase if name == "stf2" else masked_phase)(name, card, zero_counts,
+                                                              read_counts, seed, size)
     result, counts, model = ph["result"], ph["counts"], ph["model"]
+    init_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with Phase(f"full-width {name} under the bf16 policy: device wire at {size} px, card vs "
+               "CPU layer by layer"):
+        result["bf16"], bf16_counts = masked_bf16_phase(name, model, card, seed, size, ph)
     with Phase(f"full-width {name} training, card vs CPU"):
         result["train"] = masked_train_phase(model, name, seed, card)
     counts["launches_train_step"] = result["train"]["launches_per_step"]
+    with Phase(f"full-width {name} training under the bf16 policy"):
+        result["bf16"]["train"] = masked_train_phase(model, name, seed, card, init_state,
+                                                     result["train"])
+    bf16_counts["launches_train_step"] = result["bf16"]["train"]["launches_per_step"]
+    del init_state
     with Phase(f"reference checkpoint: full-width {name}, imported tables"):
         result["reference"] = masked_reference_phase(model, name, card, zero_counts,
                                                      read_counts, seed, size)
@@ -3308,7 +3623,7 @@ def masked_model_phases(name: str, card: str, zero_counts, read_counts, seed: in
     del ph, model
     gc.collect()
     torch.cuda.empty_cache()
-    return result, counts
+    return result, counts, bf16_counts
 
 
 def main() -> int:
@@ -3515,9 +3830,12 @@ def main() -> int:
     paths["float32"]["cnn"].update(ref_counts)  # the reference path runs cnn's kernels
 
     family_transforms = {}  # each family model's g_a and g_s launches by side
+    # the family's launch-by-launch wires at FAMILY_WIRE_SIZE, its scan wire at 512
+    x_fam = torch.from_numpy(make_images(args.seed, B, FAMILY_WIRE_SIZE)).cuda()
     for name in FAMILY:
-        with Phase(f"full-width {name}: host wire, device wire, card vs CPU"):
-            fam = family_phase(name, x, card, zero_counts, read_counts, args.seed, rans_rows)
+        with Phase(f"full-width {name}: host wire, device wire at {FAMILY_WIRE_SIZE} px, "
+                   "card vs CPU"):
+            fam = family_phase(name, x_fam, card, zero_counts, read_counts, args.seed, rans_rows)
         result = slice_result[name] = fam["result"]
         counts = paths["float32"][name] = fam["counts"]
         family_transforms[name] = fam["transforms"]
@@ -3531,15 +3849,16 @@ def main() -> int:
                  "decompress": counts["launches_device_wire_decompress"]}, FAMILY_REPS)
             counts.update(launches_scan_wire_compress=scan_enc_l,
                           launches_scan_wire_decompress=scan_dec_l)
-        with Phase(f"full-width {name} under the bf16 policy, both wires"):
+        with Phase(f"full-width {name} under the bf16 policy, both wires at "
+                   f"{FAMILY_WIRE_SIZE} px"):
             result["bf16"], bf16_l = bf16_serving_phase(
-                fam["codec"], fam["dev"], x, card,
+                fam["codec"], fam["dev"], x_fam, card,
                 {"result": result, "enc": fam["enc"],
                  "counts": {"compress": counts["launches_compress"],
                             "decompress": counts["launches_decompress"],
                             "device_compress": counts["launches_device_wire_compress"],
                             "device_decompress": counts["launches_device_wire_decompress"]}},
-                FAMILY_REPS)
+                FAMILY_REPS, idle=False)
             # the scan wire runs in float32 only, as the JAX package's
             set_activation_dtype(torch.bfloat16)
             try:
@@ -3570,8 +3889,8 @@ def main() -> int:
             name, x, card, zero_counts, read_counts, args.seed)
 
     for name in MASKED:
-        slice_result[name], paths["float32"][name] = masked_model_phases(
-            name, card, zero_counts, read_counts, args.seed)
+        slice_result[name], paths["float32"][name], paths["bfloat16"][name] = (
+            masked_model_phases(name, card, zero_counts, read_counts, args.seed))
 
     def crc_launches(group: str, key: str) -> dict:
         """A kernel build's launches on every CRC path, by shape key."""
@@ -3624,9 +3943,8 @@ def main() -> int:
                 "bf16 on the tensor cores (989 TFLOP/s dense), softmax at 67")
         d16_launches = launch_keys("window_attention", ("stf",), dtype)
         fam = family_attention(FAMILY, "transforms", dtype)
-        # the masked family's transforms (f32 only: its bf16 policy is not ported)
-        masked = (launch_keys("window_attention", MASKED, dtype) if dtype == "float32"
-                  else {"launches": 0})
+        # the masked family's transforms
+        masked = launch_keys("window_attention", MASKED, dtype)
         d16_launches = {**d16_launches, **fam, **masked,
                         "launches": d16_launches["launches"] + fam["launches"]
                         + masked["launches"]}

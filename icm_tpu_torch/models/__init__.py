@@ -28,7 +28,7 @@ from .crc import (ConditionalResidualCoding, ConditionalResidualCoding2,
 from .crc_codec import CRCCodec
 from .device_codec import DeviceWireCodec, DeviceWireKit
 from .masked_codec import Stf3Codec, Stf4Codec
-from .masked_ctx import ClipEncoder3, ClipEncoder4
+from .masked_ctx import ClipEncoder, ClipEncoder3, ClipEncoder4
 from .stf import SymmetricalTransFormer
 from .stf_family import STF5_CONFIG, STF6_CONFIG, STF7_CONFIG, STF8_CONFIG, ZigzagSwinCodec
 
@@ -45,6 +45,7 @@ models = {
     "stf12": (ConditionalResidualCoding2, {}),
     "stf13": (ConditionalResidualCoding3, {}),
     "stf14": (ResidualCoding, {}),
+    "stf2": (ClipEncoder, {}),
     "stf3": (ClipEncoder3, {}),
     "stf4": (ClipEncoder4, {}),
 }
@@ -63,12 +64,17 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _trunc_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
-    """Normal(0, std) truncated at +-2 std (redrawn), on the CPU."""
+    """Normal(0, std) truncated at +-2 std (redrawn), on the CPU. Each round
+    redraws the values still out of range, in index order, from
+    ``generator``; only the positions redrawn last can be out of range, so
+    a round looks at those alone."""
     x = torch.randn(shape, generator=generator)
-    bad = x.abs() > 2
-    while bad.any():
-        x[bad] = torch.randn(int(bad.sum()), generator=generator)
-        bad = x.abs() > 2
+    flat = x.view(-1)
+    idx = (flat.abs() > 2).nonzero().squeeze(1)
+    while idx.numel():
+        redrawn = torch.randn(idx.numel(), generator=generator)
+        flat[idx] = redrawn
+        idx = idx[redrawn.abs() > 2]
     return x * std
 
 
@@ -124,6 +130,7 @@ __all__ = [
     "SymmetricalTransFormer",
     "ZigzagSwinCodec",
     "CharmCodec",
+    "ClipEncoder",
     "ClipEncoder3",
     "ClipEncoder4",
     "ConditionalResidualCoding",

@@ -4,7 +4,9 @@ Port of ``icm_tpu/models/scan_codec.py``'s ``CharmScanWire`` (``cnn``,
 ``stf``), ``ZigzagSwinScanWire`` (the zigzag family ``stf5``-``stf8``),
 ``ZigzagScanWire`` (a CRC model's zigzag coding layers: the machine
 layer of ``stf9``, ``stf11``, ``stf12`` and ``stf14``, the machine and
-segmentation layers of ``stf13``) and the static-signature helpers they share. The JAX package compiles the whole
+segmentation layers of ``stf13``), ``Stf2ScanWire`` (``stf2``'s token
+loop, the device wire of ``masked_codec.Stf2Codec``) and the
+static-signature helpers they share. The JAX package compiles the whole
 autoregressive chain of a prefix-support ChARM model (``cnn``, ``stf``)
 as one ``lax.scan``: per slice the context convolutions over stacked,
 zero-padded per-slice weights (``cnn.stack_charm_params``), the scale
@@ -445,3 +447,75 @@ class ZigzagScanWire(_StaticScanIO):
         """The coder's ``ctx_prepare`` state -> (means, scales) (B, N * sc,
         h, w): its zigzag blocks concatenated block-major."""
         return torch.cat(state["means"], 1), torch.cat(state["scales"], 1)
+
+
+class Stf2ScanWire:
+    """The device wire of ``stf2`` (``masked_codec.Stf2Codec``): its token
+    loop as one program a direction, run through the codec's
+    ``GraphCache``. Port of the JAX package's ``Stf2ScanWire``, with the
+    static signature of the other scan wires (``_wire_inputs``, the tier
+    ladder) but none of :class:`_StaticScanIO`'s slice chain. Both
+    directions run ``masked_codec.token_chain``, the encoder with the
+    rounded residuals, the decoder with one lane-rANS launch a token;
+    step 0's context order is the step's own (a Python branch of the
+    unrolled loop, so one program holds both orders). Lanes: (image,
+    token element), B * D of them, one step and one escape segment a
+    token."""
+
+    def __init__(self, model, kit, scale_table: torch.Tensor, graphs, narrow: float = 1.0):
+        self.model = model
+        self.kit = kit
+        self.scale_table = scale_table
+        self.graphs = graphs
+        self.narrow = narrow
+        self.D = int(model.token_dim)
+
+    def encode(self, m_win: torch.Tensor, s_win: torch.Tensor, y_tok: torch.Tensor):
+        """Hyper windows (B, N, s, D) and y's tokens (B, N, D) -> (tier-framed
+        wire blobs, one an image; y_hat tokens (B, N, D), which the next
+        encode overwrites)."""
+        from .masked_codec import encode_token_lanes
+
+        B, N, D = y_tok.shape
+        toks, syms, idxs = self.graphs.run(("scan", "encode", B, N), self._program(True),
+                                           [m_win, s_win, y_tok])
+        return encode_token_lanes(self.kit, syms, idxs), toks
+
+    def decode(self, blobs: List[bytes], m_win: torch.Tensor, s_win: torch.Tensor):
+        """-> y_hat tokens (B, N, D), which the next decode overwrites."""
+        B, N = m_win.shape[:2]
+        if len(blobs) != B:
+            raise ValueError(f"{len(blobs)} wires for windows of {B} images")
+        L = B * self.D
+        tier, words, off, esc_d, esc_r = _wire_inputs(blobs, N, L, L, N * L, m_win.device)
+        (toks,) = self.graphs.run(("scan", "decode", B, N, tier), self._program(False),
+                                  [m_win, s_win, words, off, esc_d, esc_r])
+        return toks
+
+    def _program(self, is_enc: bool):
+        """(m_win, s_win, y_tok) -> (tokens, symbols, indexes) on encode,
+        (m_win, s_win, words, off, esc_d, esc_r) -> (tokens,) on decode;
+        only the symbol source depends on ``is_enc``."""
+        from .masked_codec import encode_symbols, token_chain
+
+        mdl = self.model
+
+        def program(m_win, s_win, *rest):
+            if is_enc:
+                return token_chain(mdl, self.scale_table, m_win, s_win,
+                                   encode_symbols(mdl, rest[0], self.narrow))
+            words, off, esc_d, esc_r = rest
+            B, D = m_win.shape[0], m_win.shape[-1]
+            ws, Cp = mdl.mask_win_size, mdl.slice_ch
+            lanes = [None, None]  # the lanes' state and pointers, step to step
+
+            def symbols(i, _, index):
+                rows = index.permute(0, 2, 3, 1).reshape(1, B * D)
+                vals, lanes[0], lanes[1] = decode_lanes(words, off, rows, self.kit.gauss_dev,
+                                                        *lanes)
+                vals = fix_escapes(vals, esc_d[i], esc_r[i])
+                return vals.reshape(B, ws, ws, Cp).permute(0, 3, 1, 2)
+
+            return (token_chain(mdl, self.scale_table, m_win, s_win, symbols)[0],)
+
+        return program

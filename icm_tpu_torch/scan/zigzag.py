@@ -11,8 +11,11 @@ and W, so blocks are contiguous image quadrants (for nH = nW = 2). The
 port's tensors are NCHW, so that view is direct. Split gives
 (B, N, C', H', W') with N = nS * nH * nW in zigzag order.
 
-The windowed token variant (``zigzag_split_tokens``) is ``stf2``'s and is
-not ported yet.
+The windowed token variant (:func:`zigzag_split_tokens`, the masked
+family's) pads H and W to window multiples and flattens each block to a
+token. Its tokens are channel-major (C', H', W'), the reference's order
+and the one every converted dense weight of the family indexes; the JAX
+package's function flattens its NHWC blocks (H', W', C').
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _advance(c, h, w, i, nC, nH, nW, constrained):
@@ -112,3 +116,19 @@ def zigzag_merge(zz: torch.Tensor, num_slices: int, nH: int = 2, nW: int = 2,
     """Inverse of :func:`zigzag_split` (the reference's ``ZigzagReverse``)."""
     blocks = zz.index_select(1, _index(num_slices, nH, nW, constrained, True, zz.device))
     return _from_blocks(blocks, num_slices, nH, nW)
+
+
+def zigzag_split_tokens(x: torch.Tensor, num_slices: int, window_size: int = 8,
+                        constrained: bool = True):
+    """(B, C, H, W) -> ((B, N, C/nS * ws * ws) channel-major tokens in
+    zigzag order, nH, nW): H and W zero-padded at the bottom and right to
+    multiples of ``window_size`` ws, the lattice nH x nW windows of ws x
+    ws (the reference's windowed ``ZigzagSplits``, stf2.py:804-866)."""
+    ws = window_size
+    H, W = x.shape[2:]
+    pad_b, pad_r = (ws - H % ws) % ws, (ws - W % ws) % ws
+    if pad_b or pad_r:
+        x = F.pad(x, (0, pad_r, 0, pad_b))
+    nH, nW = (H + pad_b) // ws, (W + pad_r) // ws
+    zz = zigzag_split(x, num_slices, nH, nW, constrained)
+    return zz.reshape(zz.shape[0], zz.shape[1], -1), nH, nW

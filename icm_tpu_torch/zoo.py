@@ -455,18 +455,23 @@ def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
 
 CRC_ARCHS = ("stf9", "stf11", "stf12", "stf13", "stf14")
 
-# --- the masked-transformer codecs (stf3, stf4) --------------------------------------
-# The reference's layouts (stf3.py, stf4.py): stf's Swin transforms and conv
-# hyper-codec under their stf names; stf4's never-called
+# --- the masked-transformer codecs (stf2, stf3, stf4) -------------------------------
+# The reference's layouts (stf2.py, stf3.py, stf4.py): stf's Swin transforms
+# and conv hyper-codec under their stf names; stf4's never-called
 # maskedContextModel_sigma is dropped (its forward takes mu and scale from the
-# mu context).
+# mu context), and so are stf2's conv transforms g_a / g_s (its forward runs
+# the Swin ones; the pair feeds only the reference's stale compress path).
 
 
 def convert_masked_ctx_checkpoint(state_dict: dict, arch: str) -> Dict[str, torch.Tensor]:
-    """Reference stf3 / stf4 state dict -> the port's ``ClipEncoder3`` /
-    ``ClipEncoder4`` state dict (port of the JAX package's
-    ``convert_masked_ctx_checkpoint`` with ``_stf_transforms_tree``): the
-    transforms and hyper-codec as stf's; stf3's two context stacks
+    """Reference stf2 / stf3 / stf4 state dict -> the port's ``ClipEncoder``
+    / ``ClipEncoder3`` / ``ClipEncoder4`` state dict (port of the JAX
+    package's ``convert_masked_ctx_checkpoint`` with
+    ``_stf_transforms_tree``): the transforms and hyper-codec as stf's;
+    stf2's two attentions (``muContextModel.qkv``, ``sigmaContextModel.qkv``)
+    and three conv heads (``cc_mean_transforms``, ``cc_scale_transforms``,
+    ``lrp_transforms``, 4 convs each -> ``cc_mean_head``, ``cc_scale_head``,
+    ``lrp_head``); stf3's two context stacks
     (``maskedContextModel_{mu,sigma}.context{i}.qkv``, ``.norm{i}``,
     ``.mlp{i}.fc1`` / ``fc2`` for blocks 1-5 -> ``attn{i-1}.qkv``,
     ``LayerNorm_{i-1}``, ``Dense_{2i-2}`` / ``Dense_{2i-1}``); stf4's one
@@ -478,6 +483,14 @@ def convert_masked_ctx_checkpoint(state_dict: dict, arch: str) -> Dict[str, torc
     sd = load_pretrained(state_dict)
     tree = {**_swin_transforms(sd, (2, 2, 6, 2)), **_hyper(sd),
             "entropy_bottleneck": _entropy_bottleneck(sd, "entropy_bottleneck")}
+    if arch == "stf2":
+        for tag in ("muContextModel", "sigmaContextModel"):
+            tree[tag] = {"qkv": _leaves(sd, f"{tag}.qkv")}
+        for ref_tag, ours in (("cc_mean_transforms", "cc_mean_head"),
+                              ("cc_scale_transforms", "cc_scale_head"),
+                              ("lrp_transforms", "lrp_head")):
+            tree[ours] = _stack(sd, ref_tag, 4)
+        return _state_dict(tree)
     if arch == "stf3":
         for tag in ("maskedContextModel_mu", "maskedContextModel_sigma"):
             ctx = {}
@@ -495,12 +508,11 @@ def convert_masked_ctx_checkpoint(state_dict: dict, arch: str) -> Dict[str, torc
     return _state_dict(tree)
 
 
-MASKED_ARCHS = ("stf3", "stf4")
+MASKED_ARCHS = ("stf2", "stf3", "stf4")
 
 
 # the zoo's other architectures: the port does not build them yet
 _NOT_PORTED = {
-    "stf2": "Queue 1 item 2 (the masked family's stf2)",
     "czigzag": "Queue 1 item 3 (czigzag)",
     **{a: "Queue 1 item 4 (ICM)" for a in ("cnn2", "stf10", "oj_ICM", "seg_oj_ICM")},
 }

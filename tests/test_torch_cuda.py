@@ -1595,6 +1595,132 @@ def test_masked_twin_forward_card_vs_cpu(twin):
                                    atol=1e-3)
 
 
+@pytest.mark.parametrize("twin", ["stf3", "stf4"])
+def test_masked_context_rows_at_full_width_on_the_card_bf16(twin):
+    """The decoder's invariant under the bfloat16 policy at the published
+    width on the card (tokens of D = 768 in bfloat16, as the encoder forms
+    them; stf4's 27-token windows through its bfloat16 conv heads): the
+    context pass's rows <= i bit-identical after the buffer's rows >= i are
+    zeroed or set to 1; the rows after i do change."""
+    _needs_card()
+    from icm_tpu_torch.models import create_model, cuda_numerics
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    cuda_numerics()
+    name, kw = MASKED_TWINS[twin]
+    kw = {k: v for k, v in kw.items() if k != "sliding"}
+    model = create_model(name, device="cuda", seed=0, **kw).eval()
+    g = torch.Generator().manual_seed(2)
+    B, N, D = 2, 128, 768
+    m_tok, s_tok = ((0.5 * torch.randn(B, N, D, generator=g)).bfloat16().cuda() for _ in range(2))
+    y_tok = torch.randint(-2, 3, (B, N, D), generator=g).bfloat16().cuda()
+    set_activation_dtype(torch.bfloat16)
+    try:
+        with torch.no_grad():
+            base = model.causal_mu_scale(m_tok, s_tok, y_tok)
+            for i in (0, 1, 64, 127):
+                for fill in (0.0, 1.0):
+                    buf = y_tok.clone()
+                    buf[:, i:] = fill
+                    got = model.causal_mu_scale(m_tok, s_tok, buf)
+                    for a, b in zip(got, base):
+                        assert torch.equal(a[:, :i + 1], b[:, :i + 1]), (i, fill)
+                        if i + 1 < N:
+                            assert not torch.equal(a[:, i + 1:], b[:, i + 1:]), (i, fill)
+    finally:
+        set_activation_dtype(None)
+
+
+# stf2's narrow twins (tests/test_torch_masked_stf2like*.py): MASKED_TINY's
+# transforms, 2 slices, mask window 2 and 3 sliding tokens (32 tokens of D =
+# 32 on 32 px), and mask window 3 with 4 sliding (the latent padded, 18
+# tokens of D = 72)
+STF2_TWINS = {"stf2": {"mask_win_size": 2, "num_sliding": 3},
+              "stf2_padded": {"mask_win_size": 3, "num_sliding": 4}}
+# the twins' codec: their seeded y rounds to 0 everywhere at narrow 1; the
+# residuals scaled by 4 code 444 of 2,048 (410 of 2,592) symbols nonzero (on
+# the CPU), and the decoder still rebuilds y_hat from the coded symbols
+STF2_TWIN_NARROW = 4.0
+
+
+def _stf2_model(twin, device):
+    """A narrow stf2 twin from seed 0, its biases drawn at 0.01 (seed 0)."""
+    from icm_tpu_torch.models import create_model
+
+    model = create_model("stf2", device=device, seed=0,
+                         **{**MASKED_TINY, "num_slices": 2, **STF2_TWINS[twin]})
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".bias"):
+                p.copy_(0.01 * torch.randn(p.shape, generator=g))
+    return model.eval()
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("twin", sorted(STF2_TWINS))
+def test_stf2_twin_wires_on_the_card(twin, policy):
+    """A narrow stf2 twin on 2 x 32 px (under the bfloat16 policy too) on
+    the host wire and the device wire's token scan, graphed and launch by
+    launch: every round trip bit for bit, the device runs' blobs equal and
+    their y_hat and x_hat the host wire's, 2 encode and N + 1 decode launches
+    on each device run (graphed: the N token decodes inside the decode
+    graph, z's outside), none on the host wire, some symbols nonzero."""
+    _needs_card()
+    from icm_tpu_torch.models.masked_codec import Stf2Codec
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    model = _stf2_model(twin, "cuda")
+    x = _scan_images(32)
+    enc = {}
+    set_activation_dtype(getattr(torch, policy) if policy == "bfloat16" else None)
+    try:
+        for run, kw in (("host", {}), ("graphed", {"wire": "device"}),
+                        ("launched", {"wire": "device", "cuda_graphs": False})):
+            codec = Stf2Codec(model, narrow=STF2_TWIN_NARROW, **kw)
+            N = int(codec.symbols(x).shape[1])
+            if run == "graphed":  # capture, outside the counts
+                first = codec.compress(x)
+                codec.decompress(first["strings"], first["shape"], first["out_hw"],
+                                 first["lattice"])
+            counts = (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES)
+            e = enc[run] = codec.compress(x, return_debug=True)
+            d = codec.decompress(e["strings"], e["shape"], e["out_hw"], e["lattice"])
+            torch.cuda.synchronize()
+            launches = (tdr.ENCODE_LAUNCHES - counts[0], tdr.DECODE_LAUNCHES - counts[1])
+            assert launches == ((0, 0) if run == "host" else (2, N + 1)), run
+            assert torch.equal(d["y_hat"], e["y_hat"]) and torch.equal(d["x_hat"], e["x_hat"])
+            assert e["y_hat"].dtype == (torch.bfloat16 if policy == "bfloat16" else torch.float32)
+            assert int(codec.symbols(x).count_nonzero()) > 0
+            if run == "graphed":
+                decode = [g for k, g in codec.graphs.graphs().items() if k[:2] == ("scan", "decode")]
+                assert len(decode) == 1
+                assert sum(decode[0].launches["DECODE_LAUNCHES"].values()) == N
+    finally:
+        set_activation_dtype(None)
+    assert enc["graphed"]["strings"] == enc["launched"]["strings"]
+    for run in ("graphed", "launched"):
+        for k in ("y_hat", "x_hat"):
+            assert torch.equal(enc[run][k], enc["host"][k]), (run, k)
+
+
+@pytest.mark.parametrize("twin", sorted(STF2_TWINS))
+def test_stf2_twin_forward_card_vs_cpu(twin):
+    """A narrow stf2 twin's eval forward on the card against the plain CPU
+    path on the same weights: x_hat and both likelihoods within 1e-3."""
+    _needs_card()
+    model = _stf2_model(twin, "cuda")
+    cpu = _stf2_model(twin, "cpu")
+    cpu.load_state_dict(model.state_dict())
+    x = _scan_images(64)
+    with torch.no_grad():
+        got, ref = model(x), cpu(x.cpu())
+    torch.testing.assert_close(got["x_hat"].cpu(), ref["x_hat"], rtol=0, atol=1e-3)
+    for k in "yz":
+        torch.testing.assert_close(got["likelihoods"][k].cpu(), ref["likelihoods"][k], rtol=0,
+                                   atol=1e-3)
+
+
 # --- chip_smoke.py's profiler readings ---------------------------------------------------
 def _chip_smoke():
     """chip_smoke.py loaded as a module (its helpers; its main is not run)."""

@@ -23,6 +23,10 @@ with ``from_jax_params``. Each twin's tests run in a file of their own
   float64 training step (stochastic depth 0, the same noise replayed into
   both) within 1e-6 of each gradient's max.
 
+The bfloat16 policy's twins (:class:`MaskedBf16Twin`, stf3 and stf4's
+:class:`OneShotBf16Twin`) run in ``test_torch_masked_bf16_stf{2,3,4}.py``,
+against JAX's models under its policy at ``tests/test_bf16.py``'s bars.
+
 This file holds what the twins share and the tests without a twin: each
 module against its flax counterpart (``PlainAttention`` under both mask
 kinds, ``MaskedContextModel``, ``_causal_windows``, stf4's fused heads with
@@ -35,22 +39,26 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_bf16 import BF16, BPP_RTOL, SYMBOL_SHARE_TOL, XHAT_MEAN_TOL, _assert_bf16_close
 from test_torch_cnn_codec import CROSS_TOL
 from test_torch_stf import _params_from_numpy
 from test_torch_stf_family import port_tables
 from test_torch_stf_family_paths import _f64_port_params
 from test_torch_train import _close, _replay
 
+from icm_tpu import nn as jnn
 from icm_tpu.models import masked_ctx as jmc
 from icm_tpu.models import models as jax_models
+from icm_tpu.models.crc_codec import Stf2Codec as JaxStf2Codec
 from icm_tpu.models.masked_codec import Stf3Codec as JaxStf3Codec
 from icm_tpu.train import RateDistortionLoss as JaxRD
 from icm_tpu_torch import models as tmodels
+from icm_tpu_torch import nn as tnn
 from icm_tpu_torch import train as ttrain
 from icm_tpu_torch.coding.wire import WIRE_SCAN
 from icm_tpu_torch.convert import from_jax_params
 from icm_tpu_torch.models import masked_ctx as tmc
-from icm_tpu_torch.models.masked_codec import Stf3Codec, Stf4Codec
+from icm_tpu_torch.models.masked_codec import Stf2Codec, Stf3Codec, Stf4Codec
 
 torch.set_num_threads(2)
 
@@ -81,6 +89,24 @@ def make_twin(name: str, config: dict, seed: int = 1):
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.permute(0, 2, 3, 1).numpy()
+
+
+def stf2_noise(tm, B: int, size: int, scan: bool, seed: int = 5) -> tuple:
+    """-> (JAX's noise arrays, the port's) of one stf2 training forward, in
+    the order both draw them: z (the bottleneck's (C, 1, n)), then each
+    token's y block (NHWC (B, ws, ws, C')). JAX's ``scan_tokens=True``
+    forward draws token 0's outside its scan and traces the scan's step
+    twice (once to build it), so one array stands for every later token
+    there, and the port is handed that array for each."""
+    rng = np.random.default_rng(seed)
+    h = size // tm.latent_stride
+    N = tm.num_slices * (-(-h // tm.mask_win_size)) ** 2
+    z = rng.uniform(-0.5, 0.5, (tm.entropy_bottleneck.channels, 1, B * (-(-h // 4)) ** 2))
+    ws, Cp = tm.mask_win_size, tm.slice_ch
+    ys = [rng.uniform(-0.5, 0.5, (B, ws, ws, Cp)) for _ in range(N)]
+    if scan:
+        return [z, ys[0], ys[1], ys[1]], [z, ys[0]] + [ys[1]] * (N - 1)
+    return [z] + ys, [z] + ys
 
 
 def _noise(config: dict, B: int = 2, size: int = 32, seed: int = 5) -> list:
@@ -278,6 +304,228 @@ class MaskedTwin:
                  for n, p in tm.named_parameters() if n not in idle}
         print(f"{self.name}: largest gradient error relative to its max:",
               max(worst.items(), key=lambda kv: kv[1]))
+
+
+# tests/test_masked_czigzag.py's narrow transforms (embed 8, depths 1/1/1/1:
+# a 4 x 4 latent of 64 channels on 64 x 64 images), on which JAX's own
+# bfloat16 forward stays within tests/test_bf16.py's bars of its float32 one
+# at the JAX model's init
+TINY_SWIN = dict(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8), window_size=4,
+                 patch_size=2, drop_path_rate=0.0, hyper_enc_widths=(64, 56, 48, 40, 32),
+                 hyper_dec_widths=(40, 48, 56, 64, 64))
+
+
+class MaskedBf16Twin:
+    """The bfloat16 policy's tests of one masked-family twin against JAX's
+    model and codec under ``set_activation_dtype(jnp.bfloat16)``, at
+    ``tests/test_bf16.py``'s bars (``test_torch_bf16.py``); a file per
+    twin subclasses it as ``Test<Name>Bf16`` with ``name``, ``config``
+    (over ``TINY_SWIN``) and ``train_config`` set.
+
+    The twins take the JAX model's own init, on 2 x 64 x 64 images: with
+    the float32 twins' numpy draws every model's y runs to thousands of
+    bits a pixel and JAX's own bfloat16 x_hat strays 0.03-0.10 (mean) from
+    its float32 one. At the init both packages' bfloat16 forwards stay
+    about 0.004 from their float32 ones, and 0.0004 from each other (on
+    the CPU). The policy: the transforms, hyper-codec and conv heads
+    (stf2's three, stf3's LRP stack, stf4's fused heads and LRP) in
+    bfloat16, the attention and MLP dense layers in float32 (a bfloat16
+    input promoted, as flax's ``nn.Dense`` without a dtype does), the
+    likelihoods float32."""
+
+    name = ""
+    config: dict = {}
+    train_config: dict = {}
+
+    @pytest.fixture(autouse=True)
+    def _reset_policies(self):
+        yield
+        jnn.set_activation_dtype(None)
+        tnn.set_activation_dtype(None)
+
+    @pytest.fixture(scope="class")
+    def twin(self):
+        config = {**TINY_SWIN, **self.config}
+        x = _images(2, 64)
+        jcls, jkw = jax_models[self.name]
+        jm = jcls(**{**jkw, **config})
+        params = jax.device_get(jm.init(
+            {"params": jax.random.PRNGKey(1), "noise": jax.random.PRNGKey(2),
+             "dropout": jax.random.PRNGKey(3)}, jnp.asarray(x), training=False)["params"])
+        tm = tmodels.create_model(self.name, device="cpu", **config)
+        tm.load_state_dict(from_jax_params(params), strict=True)
+        return dict(jm=jm, params=params, tm=tm.eval(), x=x, config=config)
+
+    def _codecs(self):
+        if self.name == "stf2":
+            return JaxStf2Codec, Stf2Codec
+        return JaxStf3Codec, Stf3Codec
+
+    def test_eval_forward_bf16_matches_jax_bf16(self, twin):
+        """x_hat and every likelihood in JAX's dtypes; x_hat and bpp against
+        JAX's bfloat16 forward and the port's float32 one."""
+        jm, params, tm, x = twin["jm"], twin["params"], twin["tm"], twin["x"]
+        n_px = x.shape[0] * x.shape[1] * x.shape[2]
+        xs = torch.from_numpy(x)
+        with torch.no_grad():
+            f32 = tm(xs)
+            tnn.set_activation_dtype(BF16)
+            out = tm(xs)
+        jnn.set_activation_dtype(jnp.bfloat16)
+        ref = jax.jit(lambda p, a: jm.apply({"params": p}, a, training=False))(
+            params, jnp.asarray(x))
+        assert str(out["x_hat"].dtype).split(".")[-1] == np.asarray(ref["x_hat"]).dtype.name
+        for k in "yz":
+            got = str(out["likelihoods"][k].dtype).split(".")[-1]
+            assert got == np.asarray(ref["likelihoods"][k]).dtype.name == "float32", k
+
+        def bpp(o):
+            return sum(float(-np.log2(np.asarray(o["likelihoods"][k], np.float64)).sum())
+                       for k in "yz") / n_px
+
+        got_bpp = bpp({"likelihoods": {k: v.numpy() for k, v in out["likelihoods"].items()}})
+        _assert_bf16_close(f"{self.name}: port bf16 against JAX bf16", out["x_hat"].float(),
+                           got_bpp, ref["x_hat"], bpp(ref))
+        _assert_bf16_close(f"{self.name}: port bf16 against port f32", out["x_hat"].float(),
+                           got_bpp, f32["x_hat"],
+                           bpp({"likelihoods": {k: v.numpy()
+                                                for k, v in f32["likelihoods"].items()}}))
+
+    def test_train_step_bf16_matches_jax_bf16(self, twin, monkeypatch):
+        """One training step under the policy of the training forward's model
+        (stf4: the reference mask), the same noise in both: float32
+        gradients on float32 masters, all finite, every parameter's but
+        stf4's scale head, which no forward applies; loss, bpp and MSE within
+        5% of JAX's bfloat16 training forward (stf2's unrolled one), mean
+        |x_hat difference| under 0.01, the aux loss within 1e-5."""
+        self._train_step(twin, "unrolled", monkeypatch)
+
+    def _train_step(self, twin, forward: str, monkeypatch):
+        """:meth:`test_train_step_bf16_matches_jax_bf16` against JAX's
+        ``forward`` ("unrolled", or stf2's "scan_tokens")."""
+        config = {**twin["config"], **self.train_config}
+        jcls, jkw = jax_models[self.name]
+        jm = jcls(**{**jkw, **config}, **({"scan_tokens": True} if forward == "scan_tokens"
+                                            else {}))
+        tm = tmodels.create_model(self.name, device="cpu", **config)
+        tm.load_state_dict(twin["tm"].state_dict())
+        x = twin["x"]
+        if self.name == "stf2":
+            jax_noise, port_noise = stf2_noise(tm, x.shape[0], x.shape[1],
+                                               forward == "scan_tokens")
+        else:
+            jax_noise = port_noise = _noise(config, x.shape[0], x.shape[1])
+        tr, jr = _replay(monkeypatch, [a.astype(np.float32) for a in jax_noise])
+        tr.noise = [a.astype(np.float32) for a in port_noise]
+        key = jax.random.PRNGKey(0)
+        jnn.set_activation_dtype(jnp.bfloat16)
+
+        def terms(p):
+            out = jm.apply({"params": p}, jnp.asarray(x), training=True,
+                           rngs={"noise": key, "dropout": key})
+            rd = JaxRD(0.01)(out, jnp.asarray(x))
+            return {**rd, "aux_loss": jm.apply({"params": p}, method=jm.aux_loss)}, out["x_hat"]
+
+        ref_m, ref_x_hat = jax.jit(terms)(twin["params"])
+        assert jr.i == len(jax_noise)
+        tm.train()
+        tnn.set_activation_dtype(BF16)
+        state = ttrain.TrainState(tm, ttrain.make_optimizer(tm, 1e-4, 1e-3, 1.0))
+        seen = {}
+        handle = tm.register_forward_hook(
+            lambda m, a, out: seen.update(x_hat=out["x_hat"].detach()))
+        metrics = ttrain.make_train_step(tm, ttrain.RateDistortionLoss(0.01))(
+            state, torch.from_numpy(x), torch.Generator())
+        handle.remove()
+        assert tr.i == len(port_noise)
+        fixed = ("cc_scale_head.",) if self.name == "stf4" else ()
+        grads = {n: p.grad for n, p in tm.named_parameters() if p.grad is not None}
+        assert set(grads) == {n for n, _ in tm.named_parameters() if not n.startswith(fixed)}
+        assert {g.dtype for g in grads.values()} == {torch.float32}
+        assert all(torch.isfinite(g).all() for g in grads.values())
+        assert {p.dtype for p in tm.parameters()} == {torch.float32}
+        got = {k: float(v) for k, v in metrics.items()}
+        print(f"{self.name} {forward} bf16 step: port {got}, JAX "
+              f"{ {k: float(v) for k, v in ref_m.items()} }")
+        for k in ("loss", "bpp_loss", "mse_loss"):
+            assert got[k] == pytest.approx(float(ref_m[k]), rel=BPP_RTOL), k
+        assert got["aux_loss"] == pytest.approx(float(ref_m["aux_loss"]), rel=1e-5)
+        mean = float(np.abs(seen["x_hat"].float().numpy()
+                            - np.asarray(ref_x_hat, np.float32)).mean())
+        assert mean < XHAT_MEAN_TOL
+
+    def test_codec_bf16_round_trips_on_both_wires(self, twin):
+        """Compress and decompress under the policy on the host and the
+        device wire (stf2's also launch by launch): bit-exact, the device
+        wire's y_hat and x_hat the host wire's; the encoder's y_hat in the
+        JAX codec's dtype (bfloat16); mean |x_hat difference| under 0.01
+        against float32 and against JAX's bfloat16 codec; under 2% of the
+        y symbols off JAX's bfloat16 codec on each wire, some nonzero."""
+        jm, tm, x = twin["jm"], twin["tm"], twin["x"]
+        xs = torch.from_numpy(x)
+        jcls, tcls = self._codecs()
+        jnn.set_activation_dtype(jnp.bfloat16)  # before the JAX codecs trace
+        jc = {w: jcls(jm, {"params": twin["params"]}, wire=w) for w in ("host", "device")}
+        jenc = {w: c.compress(jnp.asarray(x), return_debug=True) for w, c in jc.items()}
+        jnn.set_activation_dtype(None)
+        tables = port_tables(jc["device"].tables)
+        f32 = tcls(tm, tables=tables).compress(xs, return_debug=True)
+        tnn.set_activation_dtype(BF16)
+        enc = {}
+        runs = [("host", {}), ("device", {})]
+        if self.name == "stf2":
+            runs.append(("device", {"cuda_graphs": False}))
+        for w, kw in runs:
+            codec = tcls(tm, tables=tables, wire=w, **kw)
+            e = codec.compress(xs, return_debug=True)
+            d = codec.decompress(e["strings"], *(e[k] for k in codec.DECOMPRESS_KEYS))
+            assert e["y_hat"].dtype == BF16
+            assert str(e["y_hat"].dtype).split(".")[-1] == np.asarray(jenc[w]["y_hat"]).dtype.name
+            assert torch.equal(d["y_hat"], e["y_hat"]) and torch.equal(d["x_hat"], e["x_hat"])
+            if w in enc:  # launch by launch: the graphed device wire's blobs and bits
+                assert e["strings"] == enc[w]["strings"]
+                assert all(torch.equal(e[k], enc[w][k]) for k in ("y_hat", "x_hat"))
+            enc[w] = e
+            assert int(codec.symbols(xs).count_nonzero()) > 0
+        for k in ("y_hat", "x_hat"):
+            assert torch.equal(enc["device"][k], enc["host"][k]), k
+        for against, ref in (("f32", f32["x_hat"]), ("JAX bf16", jenc["host"]["x_hat"])):
+            mean = float(np.abs(enc["host"]["x_hat"].float().numpy()
+                                - np.asarray(ref, np.float32)).mean())
+            print(f"{self.name} codec bf16 against {against}: mean |x_hat difference| {mean:.2e}")
+            assert mean < XHAT_MEAN_TOL, against
+        for w in ("host", "device"):
+            share = float((np.abs(nhwc(enc[w]["y_hat"].float())
+                                  - np.asarray(jenc[w]["y_hat"], np.float32)) > 0.5).mean())
+            print(f"{self.name} {w} wire: y symbols that differ from JAX's bfloat16 codec: "
+                  f"{share:.2e} (bar {SYMBOL_SHARE_TOL}); bytes "
+                  f"{[sum(map(len, s)) for s in enc[w]['strings']]}, JAX "
+                  f"{[sum(map(len, s)) for s in jenc[w]['strings']]}")
+            assert share <= SYMBOL_SHARE_TOL, w
+
+
+
+class OneShotBf16Twin(MaskedBf16Twin):
+    """:class:`MaskedBf16Twin` of stf3 and stf4, with their coder's
+    invariant under the policy."""
+
+    @pytest.mark.parametrize("i", [0, 1, 2, 3])
+    def test_context_rows_ignore_the_rows_after_them_bf16(self, twin, i):
+        """The context pass's rows <= i bit-identical after the buffer's rows
+        >= i are zeroed or set to 1, the tokens in bfloat16 as the encoder
+        forms them."""
+        tm = twin["tm"]
+        codec = Stf3Codec(tm)
+        tnn.set_activation_dtype(BF16)
+        with torch.no_grad():
+            y_tok, m_tok, s_tok = codec._encode(torch.from_numpy(twin["x"]))["tokens"]
+            assert y_tok.dtype == m_tok.dtype == BF16
+            base = tm.causal_mu_scale(m_tok, s_tok, y_tok)
+            for fill in (0.0, 1.0):
+                buf = y_tok.clone()
+                buf[:, i:] = fill
+                got = tm.causal_mu_scale(m_tok, s_tok, buf)
+                assert all(torch.equal(a[:, :i + 1], b[:, :i + 1]) for a, b in zip(got, base))
 
 
 # --- each module against its flax counterpart ------------------------------------------

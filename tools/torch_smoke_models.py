@@ -12,11 +12,14 @@ holding what it holds in the whole run:
 - a CRC model (``chip_smoke.crc_model_phases``) on phase 5's images: the
   three wires and the eval forward card against CPU, training, the bf16
   policy (``CRC_BF16``) and the reference checkpoint (``CRC_REFERENCE``);
-- a masked model (``chip_smoke.masked_model_phases``): the host and device
-  wires and the eval forward card against CPU, training and the reference
+- a masked model (``chip_smoke.masked_model_phases``: stf3, stf4, stf2):
+  the host and device wires (stf2's device wire graphed and launch by
+  launch) and the eval forward card against CPU, the same under the bf16
+  policy, training in float32 and under the policy, and the reference
   checkpoint, on 2 images of ``--size`` px (default: the model's
-  ``MASKED_SIZE``; the decoder's work grows with the square of the token
-  count, so stf4 at 512 px takes about 16 times its 256 px decompress).
+  ``MASKED_SIZE``; stf3 / stf4's decoder work grows with the square of the
+  token count, so stf4 at 512 px takes about 16 times its 256 px
+  decompress; stf2's with the count).
 
 Prints the card's name and power limit and, last, one JSON line of each
 model's results and launch counts; ``--out`` also writes it. Exits 1 if a
@@ -111,9 +114,9 @@ def main() -> int:
                 out[name] = probe_gains(smoke, name, x, args.seed,
                                         [float(g) for g in args.probe_gains.split(",")])
             elif name in smoke.MASKED:
-                result, counts = smoke.masked_model_phases(name, card, zero_counts, read_counts,
-                                                           args.seed, args.size)
-                out[name] = {"result": result, "launches": counts}
+                result, counts, bf16_counts = smoke.masked_model_phases(
+                    name, card, zero_counts, read_counts, args.seed, args.size)
+                out[name] = {"result": result, "launches": counts, "launches_bf16": bf16_counts}
             else:
                 result, counts, shapes = smoke.crc_model_phases(name, x, card, zero_counts,
                                                                 read_counts, args.seed)
