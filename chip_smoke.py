@@ -168,14 +168,15 @@ package beside it. Phases, each printed with its elapsed seconds:
     as phase 7b (the refiners' window attention in its bfloat16 builds: head width
     8 padded to 16, and 16), and its scan wire refusing the policy; phases
     19-24 time each wire once (``FAMILY_REPS``), not the median of 3;
-25. stf7 and stf8 training (``run_training``, 8 x 256 x 256): 3 steps of
-    the registry's unrolled forward, then 3 of the ``scan_charm=True``
+25. stf7 and stf8 training (``run_training``, 8 x 256 x 256): 2 steps
+    (``TRAIN_STEPS``) of the registry's unrolled forward, then 2 of the
+    ``scan_charm=True``
     forward at the presets' stochastic depth 0.2 (the refiners' too), each
     step finite, the parameters moved, one window-attention launch a Swin
     block (g_a, g_s and the refiners) and no other kernel's; img/s and
     peak memory of both; one ``scan_charm`` step against the CPU at depth
     0, as phase 16;
-26. 3 bfloat16 training steps of each, as phase 17;
+26. 2 bfloat16 training steps of each, as phase 17;
 27-28. the CRC family's stf9 (stf11 is its class and weights) and stf14
     at their published full width (N=192, M=384, mid=256, 6 x 2x2 zigzag
     = 24 slices, weights from ``--seed``, f32), each on the images of
@@ -198,7 +199,8 @@ package beside it. Phases, each printed with its elapsed seconds:
     the eval forward against the CPU's on one 256 x 256 image (x_hat,
     machine_x_hat, both y likelihoods within 1e-3);
 29. stf9 training (``run_training``, 8 x 256 x 256, RateDistortionLoss
-    over both layers' likelihoods): 3 steps, each finite, 6 window
+    over both layers' likelihoods): 2 steps (``TRAIN_STEPS``), each
+    finite, 6 window
     attention, 9 GDN forward and 6 GDN backward launches (the split
     decoder g_s1 / g_s2 gives machine_x_hat, which no loss term reads:
     its parameters must not move, all others must), by width and
@@ -223,7 +225,7 @@ package beside it. Phases, each printed with its elapsed seconds:
     catch a wrong bf16 path: the layer replay, bpp and likelihoods do),
     img/s and idle; the eval forward card against CPU as
     phase 8 (float32, then bfloat16 end to end and layer by layer with
-    its control); 3 bfloat16 training steps as phase 10b (both layers'
+    its control); 2 bfloat16 training steps as phase 10b (both layers'
     rates, the split decoder fixed);
 35. a reference stf12 checkpoint at full width, as phase 30;
 36. stf13 (N=192, M=384, mid=256; 801.8 M parameters: a machine layer, a
@@ -306,7 +308,34 @@ package beside it. Phases, each printed with its elapsed seconds:
     JAX package's ``Stf2Codec`` gives it; its graphs captured anew);
 47-48. stf2 training (3 steps at stochastic depth 0.2, one card against
     CPU, then 2 bfloat16 steps) and a reference stf2 checkpoint, as phases
-    41-42.
+    41-42;
+49. czigzag (242.7 M parameters: stf's transforms with cross window
+    attention to a second image up_x4, two Swin hyper stacks at 384 and
+    192 channels, 4 x 2x2 = 16 zigzag slices of 96 with a third
+    conditioning, the hyper context's blocks, and LRP) at full width from
+    its seeded weights on phase 5's images and their up_x4
+    (``conditioning_image``: x average-pooled by 4 and bilinearly
+    upsampled back, on the card) at ``CZIGZAG_NARROW`` (0.5): its nonzero
+    y symbols held at 1 or more; ``CzigzagCodec`` on the host wire, the
+    device wire and the scan wire (graphed, held as phase 7a, the 16 slice
+    decodes inside the decode graph; and launch by launch), each side held
+    by ``codec_roundtrip`` with window attention by head width
+    (``CZIGZAG_SIDE_LAUNCHES``: 16, 48, 96) and 2 encode / 17 decode
+    launches on the device and scan wires, no host round trip; the device
+    wire's y_hat and x_hat the host wire's, the scan wire's against them,
+    each stream's bytes within the host wire's x 1.02 plus its lanes'
+    flushes; img/s, idle and ATen calls of each; the bf16 policy refused
+    by the scan wire; the eval forward card against CPU at 256 px;
+50. czigzag training (3 steps of 8 x 256 x 256 at stochastic depth 0.2,
+    each launching CZIGZAG_STEP_LAUNCHES, every parameter moved; one step
+    card against CPU);
+51. czigzag under the bfloat16 policy from the weights training started
+    from: the device wire bit-exact with every attention launch a bfloat16
+    build's, y_hat bfloat16, bpp within 5% and x_hat within 0.01 of the
+    float32 device wire's, the eval forward card against CPU end to end
+    and layer by layer as phase 8, 2 bfloat16 training steps;
+52. a reference czigzag checkpoint at full width with imported tables on
+    the host wire, as phase 42.
 
 Each serving phase also logs its sides' device idle share: one profiled
 compress and decompress (the union of the card's kernel, copy and memset
@@ -318,6 +347,12 @@ The masked family's phases add their window-attention launches to
 ``window_attention_d16_bf16`` (its transforms are stf's), and their f32
 lane-rANS launches to ``rans_encode`` / ``rans_decode``, under their own
 path keys.
+
+czigzag's phases add its window-attention launches at head width 16 to
+``window_attention_d16`` (and its bfloat16 entry) and those at 48 and 96
+(its hyper stacks) to ``window_attention_d48`` / ``_d96`` beside the CRC
+paths' (with its shape's times under ``czigzag_shape``), and its lane-rANS
+launches to ``rans_encode`` / ``rans_decode``.
 
 The kernels line lists window attention's head widths 32, 48 and 96 and
 the GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
@@ -472,6 +507,11 @@ RANS_BENCH_IMAGES = 32
 # measured on the float32 device wire only (a profiled side of 40,000-93,000
 # ATen calls takes 2-4 s)
 FAMILY_WIRE_SIZE = 256
+# cut for time, every check kept (PERF.md section 4): the window-
+# attention rows timed as the median of 10 calls (20 before); the zigzag
+# family's and the CRC family's training phases at 2 steps each (3 before)
+ATTENTION_ITERS = 10
+TRAIN_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -717,6 +757,22 @@ MASKED_BF16_UNHELD = {"stf3": ("y_likelihood_share",)}
 # timed by the host clock alone
 SIDES = ("compress", "decompress")
 MASKED_PROFILED = {"stf3": ("compress",)}
+# czigzag (phases 49-52), the cross-attention conditional codec at its
+# published width (embed 48, depths 2/2/6/2, M 384, 16 zigzag steps of 96),
+# on phase 5's images and their up_x4 (conditioning_image). Window attention
+# by head width: 16 in every analysis and synthesis block (12 each), 96 in
+# the 384-channel hyper stacks (hyper_enc0 2 blocks, hyper_dec_mean1 and
+# _scale1 6 each), 48 in the 192-channel ones (hyper_enc1 6, hyper_dec_*0 2
+# each), all at window 4. A compress with its debug reconstruction runs the
+# analysis, both hyper stacks and the synthesis; a decompress the hyper
+# decoders and the synthesis; a training step's forward all of them (its
+# backward differentiates the plain attention). No GDN
+CZIGZAG_SIDE_LAUNCHES = {"compress": {16: 24, 48: 10, 96: 14},
+                         "decompress": {16: 12, 48: 4, 96: 12}}
+CZIGZAG_STEP_LAUNCHES = CZIGZAG_SIDE_LAUNCHES["compress"]
+# the codecs' narrowing, chosen on the CPU from the seeded weights on phase
+# 5's images and up_x4 (tools/probe_czigzag_narrow.py)
+CZIGZAG_NARROW = 0.5
 
 
 def crc_step_shapes(name: str, dtype: str = "float32") -> dict:
@@ -760,6 +816,10 @@ def check_kernel(twa):
     cases += [("crc", W, 8, N, D, n_cls) for D, (W, N) in CRC_ATTENTION_SHAPES.items()
               for n_cls in (4, 1)]
     cases += [("crc", 100, 8, 64, 32, 4), ("crc", 37, 8, 16, 48, 4), ("crc", 37, 8, 16, 96, 4)]
+    # czigzag's hyper stacks: 192 and 384 channels at 4 heads (head widths 48
+    # and 96), 2 x 32 x 32 at window 4: 128 windows, the shifted blocks' 4
+    # classes and the unshifted one's (its D 16 blocks are stf's shapes)
+    cases += [("czigzag", 128, 4, 16, D, n_cls) for D in (48, 96) for n_cls in (4, 1)]
     rows = []
     for dtype in ("float32", "bfloat16"):
         for model, W, heads, N, D, n_cls in cases:
@@ -776,10 +836,11 @@ def check_kernel(twa):
             row = dict(
                 model=model, W=W, heads=heads, N=N, D=D, n_cls=n_cls, dtype=dtype,
                 max_abs_err=err, tolerance=tol, same_bits_twice=same_bits,
-                ms=cuda_ms(lambda: twa.window_attention_cuda(*ins)),
-                plain_ms=cuda_ms(lambda: twa.window_attention_reference(*ins)),
+                ms=cuda_ms(lambda: twa.window_attention_cuda(*ins), ATTENTION_ITERS),
+                plain_ms=cuda_ms(lambda: twa.window_attention_reference(*ins), ATTENTION_ITERS),
                 library_ms=cuda_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                    ATTENTION_ITERS),
             )
             (row["bound_ms"], row["bound_by"],
              (row["f32_fma_bound_ms"], row["f32_fma_bound_by"])) = attention_bound_ms(
@@ -1063,7 +1124,9 @@ def check_rans(kit, tables, seed: int, B: int, size: int, model, model_name: str
                  lambda: chain(tdr.decode_lanes_cuda, o1, r1),
                  lambda: chain(tdr.decode_lanes_reference), True)):
             ms, by = rans_bounds(host, values_np, rows_np, int(words.numel()), decode)
-            row[part] = dict(ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=3), bound_ms=ms,
+            # the plain version (host-bound, 0.1-0.4 s a call) once: its
+            # measured call holds the card for four times its host time
+            row[part] = dict(ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=1), bound_ms=ms,
                              bound_by=by, one_lane_ms=cuda_ms(one_lane))
         out.append(row)
         e, d = row["encode"], row["decode"]
@@ -1673,8 +1736,12 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
     from icm_tpu_torch.train import RateDistortionLoss, make_train_step, run_training
 
     B, size = 8, 256
-    batches = [make_images(seed + 100 + i, B, size) for i in range(steps + resumed_steps)]
-    eval_batch = make_images(seed + 99, B, size)
+    def batch(seed_):  # the images, or a conditional model's (x, up_x4)
+        args = model_args(model, make_images(seed_, B, size))
+        return args if len(args) > 1 else args[0]
+
+    batches = [batch(seed + 100 + i) for i in range(steps + resumed_steps)]
+    eval_batch = batch(seed + 99)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     records = []
     torch.cuda.reset_peak_memory_stats()
@@ -1789,6 +1856,27 @@ def cpu_twin(name: str, model, **overrides):
     return cpu_model
 
 
+def conditioning_image(x):
+    """czigzag's up_x4 for the images x (B, H, W, 3), a tensor (on any
+    device) or an array, returned as the same: x average-pooled by 4, then
+    bilinearly upsampled back. A seeded, deterministic stand-in for the
+    reference's base-layer reconstruction (a GAN-upsampled low-rate image);
+    the same tensor goes to both coder sides."""
+    import torch
+    import torch.nn.functional as F
+
+    t = torch.as_tensor(x).permute(0, 3, 1, 2)
+    up = F.interpolate(F.avg_pool2d(t, 4), scale_factor=4, mode="bilinear", align_corners=False)
+    up = up.permute(0, 2, 3, 1).contiguous()
+    return up if isinstance(x, torch.Tensor) else up.numpy()
+
+
+def model_args(model, x) -> tuple:
+    """The positional inputs of ``model``'s forward for the images x: (x,),
+    or a conditional model's (x, up_x4) (``conditioning_image``)."""
+    return (x, conditioning_image(x)) if getattr(model, "conditioning_inputs", 0) else (x,)
+
+
 def train_vs_cpu_phase(name: str, model, seed: int, criterion=None, **overrides):
     """Phases 10, 16 and 25: one training step's loss terms and gradients,
     card vs CPU, same weights, same noise (one seeded CPU generator for
@@ -1814,7 +1902,7 @@ def train_vs_cpu_phase(name: str, model, seed: int, criterion=None, **overrides)
     def step_grads(m, x):
         m.train()
         m.zero_grad(set_to_none=True)
-        out = m(x, generator=torch.Generator().manual_seed(seed))
+        out = m(*model_args(m, x), generator=torch.Generator().manual_seed(seed))
         rd = criterion(out, x)
         aux = m.aux_loss()
         (rd["loss"] + aux).backward()
@@ -1875,7 +1963,7 @@ def bf16_layer_replay(model, cpu_model, x) -> dict:
     try:
         with torch.no_grad():
             set_activation_dtype(torch.bfloat16)
-            model(x.cuda())
+            model(*model_args(model, x.cuda()))
             for name, kind, args, got in calls:
                 ref = cpu_modules[name](*args)
                 d = (got.float() - ref.float()).abs()
@@ -1934,12 +2022,12 @@ def eval_vs_cpu_phase(name: str, model, seed: int, cpu_model=None, unheld: tuple
         cpu_model = create_model(name, device="cpu", seed=seed)
         cpu_model.load_state_dict(model.state_dict())
     with torch.no_grad():
-        ref = cpu_model(xs)
-        got = model(xs.cuda())
+        ref = cpu_model(*model_args(cpu_model, xs))
+        got = model(*model_args(model, xs.cuda()))
         set_activation_dtype(torch.bfloat16)
         try:
-            ref16 = cpu_model(xs)
-            got16 = model(xs.cuda())
+            ref16 = cpu_model(*model_args(cpu_model, xs))
+            got16 = model(*model_args(model, xs.cuda()))
         finally:
             set_activation_dtype(None)
     worst = {}
@@ -2240,11 +2328,13 @@ def family_phase(name: str, x, card: str, zero_counts, read_counts, seed: int,
 def family_train_phase(fam: dict, name: str, seed: int, card: str) -> dict:
     """Phases 24-26 for a training preset: ``run_training`` on the card,
     each step launching window attention once a Swin block (g_a, g_s and
-    the refiners) and no other kernel: 3 steps through the registry's
-    unrolled forward (``tools/train.py``'s default), then 3 through the
+    the refiners) and no other kernel: ``TRAIN_STEPS`` steps through the
+    registry's unrolled forward (``tools/train.py``'s default), then as many
+    through the
     ``scan_charm=True`` forward at the preset's stochastic depth (0.2, the
     refiners' too); one ``scan_charm`` step card against CPU at depth 0
-    (phase 16's rule); then 3 bfloat16 steps of the unrolled forward from
+    (phase 16's rule); then ``TRAIN_STEPS`` bfloat16 steps of the unrolled
+    forward from
     the weights the first f32 step started from (phase 17's checks).
     -> results; the per-step launches by forward and dtype under
     "launches"."""
@@ -2254,11 +2344,13 @@ def family_train_phase(fam: dict, name: str, seed: int, card: str) -> dict:
     init_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     out = {}
     with Phase(f"full-width {name} training, unrolled forward"):
-        out["unrolled"] = train_phase(model, seed, card, expect, steps=3, resumed_steps=0)
+        out["unrolled"] = train_phase(model, seed, card, expect, steps=TRAIN_STEPS,
+                                      resumed_steps=0)
     with Phase(f"full-width {name} training, scan_charm forward (stochastic depth 0.2)"):
         model.scan_charm = True
         try:
-            out["scan_charm"] = train_phase(model, seed, card, expect, steps=3, resumed_steps=0)
+            out["scan_charm"] = train_phase(model, seed, card, expect, steps=TRAIN_STEPS,
+                                            resumed_steps=0)
             out["scan_charm"]["drop_path_rate"] = max(
                 m.rate for m in model.modules() if hasattr(m, "rate"))
         finally:
@@ -2270,7 +2362,8 @@ def family_train_phase(fam: dict, name: str, seed: int, card: str) -> dict:
         finally:
             model.scan_charm = False
     with Phase(f"full-width {name} training under the bf16 policy"):
-        out["bf16"] = bf16_train_phase(model, init_state, seed, card, expect, out["unrolled"])
+        out["bf16"] = bf16_train_phase(model, init_state, seed, card, expect, out["unrolled"],
+                                       steps=TRAIN_STEPS)
     out["launches"] = {"float32": {"launches_train_step": out["unrolled"]["launches_per_step"],
                                    "launches_train_step_scan_charm":
                                        out["scan_charm"]["launches_per_step"]},
@@ -2643,7 +2736,7 @@ def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_tra
     mean |x_hat - x_hat_f32| under 0.01 of the float32 device wire's
     (``crc["device_enc"]``), its img/s and idle; the eval forward card
     against CPU end to end and layer by layer (phase 8's
-    ``eval_vs_cpu_phase``); 3 bfloat16 training steps (``bf16_train_phase``,
+    ``eval_vs_cpu_phase``); 2 bfloat16 training steps (``bf16_train_phase``,
     every layer's rates), each launching CRC_STEP in the bfloat16 builds.
     -> results, with the launches by shape of each path under "shapes"."""
     import torch
@@ -2687,7 +2780,7 @@ def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_tra
     gc.collect()
     criterion, fixed = crc_loss(model)
     out["train"] = bf16_train_phase(model, init_state, seed, card, CRC_STEP[name], f32_train,
-                                    criterion=criterion, fixed=fixed)
+                                    steps=TRAIN_STEPS, criterion=criterion, fixed=fixed)
     want = crc_step_shapes(name, "bfloat16")
     if out["train"]["launches_by_shape_per_step"] != want:
         raise AssertionError(f"{name} bf16 step: launches by shape "
@@ -2701,14 +2794,15 @@ def crc_bf16_phase(name: str, crc: dict, x, card: str, init_state: dict, f32_tra
 def crc_train_phase(model, name: str, seed: int, card: str) -> dict:
     """Phases 29, 31, 33 and 37: ``run_training`` of a CRC model on the
     card, its RateDistortionLoss over every layer's likelihoods (the JAX
-    model's docstring for training from scratch): 3 steps of 8 x 256^2,
+    model's docstring for training from scratch): ``TRAIN_STEPS`` steps of
+    8 x 256^2,
     each finite, each launching CRC_STEP, every
     parameter moved but those of the decoders no loss term reads (the
     split decoder of machine_x_hat; stf13's g_s and seg_g_s); then one
     step on the card against the plain CPU path on a small input. ->
     results."""
     criterion, fixed = crc_loss(model)
-    out = train_phase(model, seed, card, CRC_STEP[name], steps=3, resumed_steps=0,
+    out = train_phase(model, seed, card, CRC_STEP[name], steps=TRAIN_STEPS, resumed_steps=0,
                       criterion=criterion, fixed=fixed)
     want = crc_step_shapes(name)
     if out["launches_by_shape_per_step"] != want:
@@ -3113,8 +3207,8 @@ def masked_rows(codec, x, rows) -> dict:
 
 def masked_eval_vs_cpu(name: str, model, seed: int) -> dict:
     """The eval forward on the card against the plain CPU path, the same
-    weights and mask, one 256 x 256 image: x_hat and the y likelihoods
-    within 1e-3 (z's printed)."""
+    weights and mask, one 256 x 256 image (czigzag: and its up_x4): x_hat
+    and the y likelihoods within 1e-3 (z's printed)."""
     import torch
 
     from icm_tpu_torch.data import make_images
@@ -3123,9 +3217,9 @@ def masked_eval_vs_cpu(name: str, model, seed: int) -> dict:
     xs = torch.from_numpy(make_images(seed + 1, 1, 256))
     t = time.time()
     with torch.no_grad():
-        ref = cpu_model(xs)
+        ref = cpu_model(*model_args(cpu_model, xs))
         cpu_s = time.time() - t
-        got = model(xs.cuda())
+        got = model(*model_args(model, xs.cuda()))
     worst = {"x_hat": (got["x_hat"].cpu() - ref["x_hat"]).abs().max().item(),
              **{f"{k} likelihoods": (got["likelihoods"][k].cpu() - ref["likelihoods"][k]).abs()
                 .max().item() for k in "yz"}}
@@ -3626,6 +3720,424 @@ def masked_model_phases(name: str, card: str, zero_counts, read_counts, seed: in
     return result, counts, bf16_counts
 
 
+class Conditioned:
+    """A ``CzigzagCodec`` with its up_x4 bound, compressing ``x`` and
+    decompressing ``(strings, shape)`` as the other codecs do, for the
+    helpers that drive those (``codec_roundtrip``, ``codec_timing``,
+    ``graph_replays``); every other attribute is the codec's."""
+
+    def __init__(self, codec, up):
+        self.codec, self.up = codec, up
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def compress(self, x, return_debug: bool = False):
+        return self.codec.compress(x, self.up, return_debug)
+
+    def decompress(self, *args):
+        return self.codec.decompress(*args, self.up)
+
+
+def czigzag_expect(side: str, dtype: str = "float32", **rans) -> tuple:
+    """(one side's launch counts by kernel, by shape as ``shape_counts``
+    gives them) of czigzag in ``dtype``'s builds: CZIGZAG_SIDE_LAUNCHES,
+    and ``rans``."""
+    attn = {f"{dtype} D{d}": n for d, n in CZIGZAG_SIDE_LAUNCHES[side].items()}
+    counts = {"window_attention": sum(attn.values()), "gdn_forward": 0, "gdn_backward": 0,
+              "rans_encode": 0, "rans_decode": 0, **rans}
+    return counts, {"window_attention": attn, "gdn": {}}
+
+
+def czigzag_codec(model, up, **kw) -> Conditioned:
+    from icm_tpu_torch.models.crc_codec import CzigzagCodec
+
+    return Conditioned(CzigzagCodec(model, narrow=CZIGZAG_NARROW, **kw), up)
+
+
+def czigzag_stream_bytes(dev, enc, denc, size: int) -> dict:
+    """The y and z streams' bytes on the device wire (``denc``) against the
+    host wire's (``enc``), their lanes (y: a zigzag block's, 16 x 16 at
+    512 px; z: its grid times the bottleneck's channel groups), escapes
+    and limit: the host wire's x 1.02 plus each lane's flushed state and
+    length and the header."""
+    B, kit, model = len(enc["strings"][0]), dev.kit, dev.model
+    lanes = {"y": kit.n_lanes(size // 32, size // 32),
+             "z": (size // 32) ** 2 * kit.z_groups(model.entropy_bottleneck.channels)}
+    host_b, dev_b = crc_bytes(enc, size, "yz")["bytes"], crc_bytes(denc, size, "yz")["bytes"]
+    return {k: dict(device=dev_b[k], host=host_b[k], lanes=lanes[k],
+                    escapes=wire_escapes(denc["strings"]["yz".index(k)]),
+                    limit=host_b[k] * 1.02 + B * (lanes[k] * 8 + 16)) for k in lanes}
+
+
+def czigzag_phase(x, card: str, zero_counts, read_counts, seed: int) -> dict:
+    """Phase 49: czigzag at its published width, weights from ``seed``, on
+    phase 5's images and their up_x4 (``conditioning_image``, made on the
+    card, the same tensor on both sides) at CZIGZAG_NARROW: its nonzero y
+    symbols counted and held above 0; compress -> decompress on the host
+    wire, the device wire and the scan wire (graphed, then launch by
+    launch), each held by ``codec_roundtrip`` with CZIGZAG_SIDE_LAUNCHES
+    (the device and scan wires: 2 encode and 17 decode launches, 16
+    slices and z); the device wire's y_hat and x_hat equal to the host
+    wire's, each stream's bytes within the host wire's x 1.02 plus each
+    lane's flush and header; the scan wire's graphs held as phase 7a's
+    (``graph_replays``: the 16 slice decodes inside the decode graph), its
+    blobs and bits equal to launch by launch, its y_hat against the device
+    wire's (equal, or within JAX's bar), the bf16 policy refused; img/s,
+    device idle and ATen calls of each side; then the eval forward against
+    the CPU's at 256 px. -> {model, result, counts, shapes, device_enc}."""
+    import torch
+
+    from icm_tpu_torch.models import create_model
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    B, size = x.shape[0], x.shape[1]
+    t = time.time()
+    model = create_model("czigzag", seed=seed)
+    up = conditioning_image(x)
+    n_params = sum(p.numel() for p in model.parameters())
+    codec = czigzag_codec(model, up)
+    torch.cuda.synchronize()
+    log(f"  czigzag: {n_params / 1e6:.1f} M parameters and codec tables in {time.time() - t:.1f}s; "
+        f"{model.ctx_slices} zigzag slices of {model.slice_ch} channels, support "
+        f"{model.max_support}, windows {model.cond_blocks}; narrow {CZIGZAG_NARROW}")
+    syms = codec.symbols(x, up)["y_hat"]
+    nonzero = [sum(int(s.count_nonzero()) for s in syms), sum(s.numel() for s in syms)]
+    log(f"  czigzag: nonzero y symbols {nonzero} ({nonzero[0] / nonzero[1]:.3%})")
+    if nonzero[0] < 1:
+        raise AssertionError("czigzag: every y symbol is 0")
+    N = model.ctx_slices
+    host_expect = {side: czigzag_expect(side) for side in SIDES}
+    dev_expect = {"compress": czigzag_expect("compress", rans_encode=2),
+                  "decompress": czigzag_expect("decompress", rans_decode=N + 1)}
+    result = {"params": n_params, "ctx_slices": N, "slice_channels": model.slice_ch,
+              "narrow": CZIGZAG_NARROW, "nonzero_y_symbols": nonzero}
+    counts, shapes = {}, {}
+
+    def record(key: str, l: dict, sh: dict) -> None:
+        for side in SIDES:
+            counts[f"launches{key}_{side}"] = l[side]
+            shapes[f"launches{key}_{side}"] = sh[side]
+
+    enc, _, l, sh, _ = codec_roundtrip(codec, x, zero_counts, read_counts, "czigzag host wire",
+                                     host_expect)
+    record("", l, sh)
+    result["host_wire"] = {**crc_bytes(enc, size, "yz"), "launches": l, "launches_by_shape": sh,
+                           **codec_timing(codec, x, enc, CRC_REPS)}
+
+    dev = czigzag_codec(model, up, tables=codec.tables, wire="device")
+    denc, _, l, sh, syncs = codec_roundtrip(dev, x, zero_counts, read_counts,
+                                          "czigzag device wire", dev_expect)
+    record("_device_wire", l, sh)
+    for k in ("y_hat", "x_hat"):
+        if not torch.equal(denc[k], enc[k]):
+            raise AssertionError(f"czigzag: the device wire's {k} differs from the host's")
+    stream_bytes = czigzag_stream_bytes(dev, enc, denc, size)
+    log(f"  czigzag device wire bytes {stream_bytes}")
+    for k, v in stream_bytes.items():
+        if v["device"] > v["limit"]:
+            raise AssertionError(f"czigzag device wire {k}: {v['device']} bytes over {v['limit']}")
+    result["device_wire"] = {**crc_bytes(denc, size, "yz"), "stream_bytes": stream_bytes,
+                             "launches": l, "launches_by_shape": sh,
+                             "host_round_trips_in_decompress": syncs,
+                             **codec_timing(dev, x, denc, CRC_REPS)}
+
+    scan = czigzag_codec(model, up, tables=codec.tables, wire="device", scan_wire=True)
+    t = time.time()
+    first = scan.compress(x, return_debug=True)
+    scan.decompress(*codec_dec_args(scan, first))
+    torch.cuda.synchronize()
+    first_s = time.time() - t
+    stats = scan.graphs.stats()
+    graphs = {" ".join(str(p) for p in key): st for key, st in stats.items()}
+    capture_s = sum(st["capture_s"] for st in stats.values())
+    pool_bytes = sum(st["pool_bytes"] for st in stats.values())
+    log(f"  czigzag scan wire: first compress + decompress {first_s:.2f}s, captures "
+        f"{capture_s:.2f}s of it, pools {pool_bytes / 2**20:.1f} MiB, {len(graphs)} graphs")
+    senc, sdec, l, sh, syncs = codec_roundtrip(scan, x, zero_counts, read_counts,
+                                             "czigzag scan wire", dev_expect)
+    record("_scan_wire", l, sh)
+    chains = {k for k in scan.graphs.graphs() if k[0] == "scan"}
+    if len(chains) != 2:
+        raise AssertionError(f"czigzag scan wire: chain graphs {sorted(map(str, chains))}")
+    per_replay = graph_replays(scan, N)
+    plain = czigzag_codec(model, up, tables=codec.tables, wire="device", scan_wire=True,
+                          cuda_graphs=False)
+    penc = plain.compress(x, return_debug=True)
+    pdec = plain.decompress(*codec_dec_args(plain, senc))
+    if penc["strings"] != senc["strings"]:
+        raise AssertionError("czigzag scan wire: graphed blobs differ from launch by launch")
+    for got, want, what in ((penc, senc, "compress"), (pdec, sdec, "decompress")):
+        for k in ("y_hat", "x_hat"):
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"czigzag scan wire: graphed {what} {k} differs from "
+                                     "launch by launch")
+    d = (senc["y_hat"] - enc["y_hat"]).abs()
+    vs_device = {"equal": bool(torch.equal(senc["y_hat"], enc["y_hat"])
+                               and torch.equal(senc["x_hat"], enc["x_hat"])),
+                 "share_above_1e-2": float((d > 1e-2).float().mean()),
+                 "median": float(d.median()), "max": float(d.max())}
+    log(f"  czigzag scan wire y_hat against the host and device wires': {vs_device} (bars "
+        f"{SCAN_VS_DEVICE})")
+    if not (vs_device["share_above_1e-2"] < SCAN_VS_DEVICE["share_above_1e-2"]
+            and vs_device["median"] < SCAN_VS_DEVICE["median"]):
+        raise AssertionError(f"czigzag scan wire y_hat strays from the device wire's: {vs_device}")
+    set_activation_dtype(torch.bfloat16)
+    try:
+        czigzag_codec(model, up, wire="device", scan_wire=True)
+    except ValueError as e:
+        refused = str(e).split(";")[0]
+    else:
+        raise AssertionError("czigzag: the scan wire took the bf16 policy")
+    finally:
+        set_activation_dtype(None)
+    result["scan_wire"] = {
+        **crc_bytes(senc, size, "yz"), "launches": l, "launches_by_shape": sh,
+        "host_round_trips_in_decompress": syncs, "tier": sorted({b[4] for b in senc["strings"][0]}),
+        "first_call_s": first_s, "capture_s": capture_s, "pool_bytes": pool_bytes,
+        "graphs": graphs, "launches_per_replay": per_replay, "y_hat_vs_device_wire": vs_device,
+        "bf16_refused": refused, **codec_timing(scan, x, senc, CRC_REPS),
+        "launch_by_launch": codec_timing(plain, x, penc, CRC_REPS)}
+    sides = {w: {s: result[w][s] for s in SIDES} for w in ("host_wire", "device_wire", "scan_wire")}
+    sides["scan_launch_by_launch"] = result["scan_wire"]["launch_by_launch"]
+    log(f"  czigzag img/s, device idle, ATen calls (batch {B}, {card}): " + "; ".join(
+        f"{w} " + " / ".join(timing_text(v) for v in per.values()) for w, per in sides.items()))
+    del scan, plain, dev, codec
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["card_vs_cpu"] = masked_eval_vs_cpu("czigzag", model, seed)
+    return dict(model=model, up=up, result=result, counts=counts, shapes=shapes, device_enc=denc)
+
+
+def czigzag_bf16_phase(cz: dict, x, card: str, init_state: dict, f32_train: dict,
+                       seed: int) -> dict:
+    """Phase 51: czigzag under the bfloat16 policy from the weights its
+    float32 phases served and trained from: the device wire held by
+    ``codec_roundtrip`` with CZIGZAG_SIDE_LAUNCHES in the bfloat16 builds,
+    y_hat bfloat16, bpp within 5% and mean |x_hat - x_hat_f32| under 0.01
+    of the float32 device wire's; the eval forward card against CPU end to
+    end and layer by layer (phase 8's ``eval_vs_cpu_phase`` on 64 x 64 and
+    its up_x4); 2 bfloat16 training steps from ``init_state``
+    (``bf16_train_phase``), each launching the step's attention in the
+    bfloat16 builds. (The scan wire refuses the policy: phase 49.) ->
+    results, with the launches by shape of each path under "shapes"."""
+    import torch
+
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    model = cz["model"]
+    model.load_state_dict(init_state)
+    zero_counts, read_counts = launch_counts("bfloat16")
+    size = x.shape[1]
+    N = model.ctx_slices
+    expect = {"compress": czigzag_expect("compress", "bfloat16", rans_encode=2),
+              "decompress": czigzag_expect("decompress", "bfloat16", rans_decode=N + 1)}
+    set_activation_dtype(torch.bfloat16)
+    try:
+        dev = czigzag_codec(model, cz["up"], wire="device")
+        enc, _, l, sh, syncs = codec_roundtrip(dev, x, zero_counts, read_counts,
+                                             "czigzag bf16 device wire", expect)
+        timing = codec_timing(dev, x, enc, reps=CRC_REPS)
+    finally:
+        set_activation_dtype(None)
+    if enc["y_hat"].dtype != torch.bfloat16:
+        raise AssertionError(f"czigzag bf16 device wire: y_hat {enc['y_hat'].dtype}")
+    f32 = cz["device_enc"]
+    bpp_rel = [b16 / b32 - 1 for b16, b32 in zip(crc_bytes(enc, size, "yz")["bpp"],
+                                                  crc_bytes(f32, size, "yz")["bpp"])]
+    x_hat_mean = (enc["x_hat"].float() - f32["x_hat"].float()).abs().mean().item()
+    log(f"  czigzag bf16 device wire against f32: bpp {[f'{r:+.2e}' for r in bpp_rel]} (bar "
+        f"{BF16_BPP_RTOL}), mean |x_hat - x_hat_f32| {x_hat_mean:.3e} (bar {BF16_XHAT_MEAN_TOL}); "
+        "img/s " + " / ".join(timing_text(v) for v in timing.values()) + f" ({card})")
+    if max(abs(r) for r in bpp_rel) > BF16_BPP_RTOL or not x_hat_mean < BF16_XHAT_MEAN_TOL:
+        raise AssertionError(f"czigzag bf16 serving strays from f32: {bpp_rel}, {x_hat_mean}")
+    out = {"device_wire": {**crc_bytes(enc, size, "yz"), "launches": l, "launches_by_shape": sh,
+                           "host_round_trips_in_decompress": syncs, **timing,
+                           "against_f32": dict(bpp_rel=bpp_rel, x_hat_mean_abs=x_hat_mean,
+                                               bpp_rtol=BF16_BPP_RTOL,
+                                               x_hat_mean_tol=BF16_XHAT_MEAN_TOL)}}
+    out["card_vs_cpu"] = eval_vs_cpu_phase("czigzag", model, seed,
+                                           cpu_model=cpu_twin("czigzag", model))
+    gc.collect()
+    step = czigzag_expect("compress", "bfloat16")
+    out["train"] = bf16_train_phase(model, init_state, seed, card, step[0], f32_train, steps=2)
+    if out["train"]["launches_by_shape_per_step"] != step[1]:
+        raise AssertionError(f"czigzag bf16 step: launches by shape "
+                             f"{out['train']['launches_by_shape_per_step']}, expected {step[1]}")
+    out["shapes"] = {"launches_bf16_device_wire_compress": sh["compress"],
+                     "launches_bf16_device_wire_decompress": sh["decompress"],
+                     "launches_bf16_train_step": out["train"]["launches_by_shape_per_step"]}
+    return out
+
+
+def reference_czigzag_state_dict(seed: int) -> dict:
+    """A reference conditionalZigzag state dict at full width: the
+    reference's module names (czigzag.py: ``patch_embed``, the cross Swin
+    stages ``layers`` / ``syn_layers`` with ``attn.q`` and ``attn.kv``, the
+    pyramids ``encoder_context`` / ``hyper_context``, the hyper stacks
+    ``hyper_encoder_layers`` / ``hyper_decoder_{mean,scale}`` and their
+    convolutions, ``end_conv``, the 16 slices' ``*_transforms2`` stacks and
+    the bottleneck; and the modules its forward never runs, which the
+    converter drops: ``patch_embed_up``, ``decoder_context``, each
+    pyramid's fourth conv), DataParallel's ``module.`` prefix, values drawn
+    from ``seed`` as ``reference_wacnn_state_dict`` draws them."""
+    import torch
+
+    ref = _RefDraw(np.random.default_rng(seed), np.float32)
+    embed, depths, heads, ws, M = 48, (2, 2, 6, 2), (3, 6, 12, 24), 4, 384
+    sc, cond, cc = 96, 576, (224, 176, 128, 64)
+
+    def lin(n, o, i, bias=True):
+        ref.put(f"{n}.weight", (o, i), i ** -0.5)
+        if bias:
+            ref.put(f"{n}.bias", (o,), 0.01)
+
+    def ln(n, c):
+        ref.put(f"{n}.weight", (c,), 0.1, 1.0)
+        ref.put(f"{n}.bias", (c,), 0.05)
+
+    def blocks(prefix, dim, depth, h):
+        for j in range(depth):
+            b = f"{prefix}.blocks.{j}"
+            ln(f"{b}.norm1", dim)
+            lin(f"{b}.attn.q", dim, dim)
+            lin(f"{b}.attn.kv", 2 * dim, dim)
+            lin(f"{b}.attn.proj", dim, dim)
+            ref.put(f"{b}.attn.relative_position_bias_table", ((2 * ws - 1) ** 2, h), 0.02)
+            ln(f"{b}.norm2", dim)
+            lin(f"{b}.mlp.fc1", 4 * dim, dim)
+            lin(f"{b}.mlp.fc2", dim, 4 * dim)
+
+    for p in ("patch_embed", "patch_embed_up"):
+        ref.conv(f"{p}.proj", embed, 3, 2)
+        ln(f"{p}.norm", embed)
+    for i in range(4):
+        dim, rdim = embed * 2 ** i, embed * 2 ** (3 - i)
+        blocks(f"layers.{i}", dim, depths[i], heads[i])
+        blocks(f"syn_layers.{i}", rdim, depths[3 - i], heads[3 - i])
+        if i < 3:
+            lin(f"layers.{i}.downsample.reduction", 2 * dim, 4 * dim, bias=False)
+            ln(f"layers.{i}.downsample.norm", 4 * dim)
+            lin(f"syn_layers.{i}.downsample.reduction", 2 * rdim, rdim, bias=False)
+            ln(f"syn_layers.{i}.downsample.norm", rdim)
+        for tag in ("encoder_context", "hyper_context", "decoder_context"):
+            ref.conv(f"{tag}.{i}", 2 * dim, dim, 3)
+    blocks("hyper_encoder_layers.0", M, 2, 4)
+    blocks("hyper_encoder_layers.1", M // 2, 6, 4)
+    ref.conv("hyper_encoder_Conv1", M // 2, M, 3)
+    ref.conv("hyper_encoder_Conv1_2", M // 2, M, 3)
+    ref.conv("hyper_encoder_Conv2", M // 2, M // 2, 3)
+    for tag in ("mean", "scale"):
+        blocks(f"hyper_decoder_{tag}.0", M // 2, 2, 4)
+        blocks(f"hyper_decoder_{tag}.1", M, 6, 4)
+        ref.conv(f"hyper_decoder_conv_{tag}1.0", 2 * M, M // 2, 3)
+        ref.conv(f"hyper_decoder_conv_{tag}2", M, M // 2, 3)
+    ref.conv("end_conv.0", 4 * embed, embed, 5)
+    ref.conv("end_conv.2", 3, embed, 3)
+    for i in range(16):
+        for tag, extra in (("cc_mean_transforms2", 0), ("cc_scale_transforms2", 0),
+                           ("lrp_transforms2", sc)):
+            cin = (2 * cond + sc * min(i, 6) + extra,) + cc
+            for j in range(4):
+                ref.conv(f"{tag}.{i}.{2 * j}", cc[j], cin[j], 3)
+            ref.conv(f"{tag}.{i}.8", sc, cc[-1], 3)
+    ref.bottleneck("entropy_bottleneck", M // 2)
+    return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
+
+
+def czigzag_reference_phase(cz: dict, x, card: str, zero_counts, read_counts, seed: int) -> dict:
+    """Phase 52: a reference czigzag checkpoint at full width, as phase 18:
+    the seeded reference dict converted and loaded strictly; the converted
+    model's own CDF tables written into it as the reference's buffers and
+    imported back equal; phase 5's images and up_x4 on the host wire with
+    the imported tables, held by ``codec_roundtrip``, their nonzero y
+    symbols above 0, the blobs equal to the built tables'. -> results."""
+    import torch
+
+    from icm_tpu_torch import zoo
+    from icm_tpu_torch.models import build_codec_tables
+
+    model = cz["model"]
+    t = time.time()
+    sd = reference_czigzag_state_dict(seed)
+    model.load_state_dict(zoo.convert_reference_state_dict("czigzag", sd), strict=True)
+    built = build_codec_tables(model)
+    stored = {"gaussian_conditional": built.gaussian, **built.bottlenecks}
+    for prefix, tab in stored.items():
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            sd[f"module.{prefix}._{field}"] = torch.from_numpy(getattr(tab, field))
+    sd["module.gaussian_conditional.scale_table"] = torch.from_numpy(built.scale_table)
+    imported = zoo.import_reference_tables(sd)
+    got = {"gaussian_conditional": imported.gaussian, **imported.bottlenecks}
+    if set(got) != set(stored) or not np.array_equal(imported.scale_table, built.scale_table):
+        raise AssertionError(f"imported tables {sorted(got)}, stored {sorted(stored)}")
+    for prefix, tab in stored.items():
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            if not np.array_equal(getattr(got[prefix], field), getattr(tab, field)):
+                raise AssertionError(f"imported {prefix} {field} differs from the stored one")
+    log(f"  {len(sd)} reference tensors converted, loaded strictly and tables imported in "
+        f"{time.time() - t:.1f}s")
+    codec = czigzag_codec(model, cz["up"], tables=imported)
+    syms = codec.symbols(x, cz["up"])["y_hat"]
+    nonzero = [sum(int(s.count_nonzero()) for s in syms), sum(s.numel() for s in syms)]
+    if nonzero[0] < 1:
+        raise AssertionError("czigzag reference: every y symbol is 0")
+    enc, _, l, shapes, _ = codec_roundtrip(codec, x, zero_counts, read_counts,
+                                         "czigzag reference, host wire",
+                                         {side: czigzag_expect(side) for side in SIDES})
+    if czigzag_codec(model, cz["up"]).compress(x)["strings"] != enc["strings"]:
+        raise AssertionError("imported tables' blobs differ from the built tables' ones")
+    sha = {k: hashlib.sha256(b"".join(enc["strings"][i])).hexdigest() for i, k in enumerate("yz")}
+    log(f"  nonzero y symbols {nonzero} ({nonzero[0] / nonzero[1]:.3%}); blobs with imported "
+        f"tables = built tables; sha256 {sha}")
+    return {"tensors": len(sd), "nonzero_y_symbols": nonzero, **crc_bytes(enc, x.shape[1], "yz"),
+            "blob_sha256": sha, "launches_reference_compress": l["compress"],
+            "launches_reference_decompress": l["decompress"],
+            "shapes_reference_compress": shapes["compress"],
+            "shapes_reference_decompress": shapes["decompress"]}
+
+
+def czigzag_model_phases(x, card: str, zero_counts, read_counts, seed: int) -> tuple:
+    """Every phase of czigzag, in order: its wires and eval forward
+    (``czigzag_phase``), its training (3 steps of 8 x 256^2 at the
+    registry's stochastic depth 0.2, each launching CZIGZAG_STEP_LAUNCHES,
+    every parameter moved, the checkpoint written; one step on the card
+    against the plain CPU path), its bfloat16 policy from the weights
+    training started from (``czigzag_bf16_phase``) and its reference
+    checkpoint. -> (results, float32 launch counts by path, launches by
+    shape by path)."""
+    import torch
+
+    with Phase("full-width czigzag: host, device and scan wires, card vs CPU"):
+        cz = czigzag_phase(x, card, zero_counts, read_counts, seed)
+    result, counts, shapes, model = cz["result"], cz["counts"], cz["shapes"], cz["model"]
+    init_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with Phase("full-width czigzag training, card vs CPU"):
+        step = czigzag_expect("compress")
+        result["train"] = train_phase(model, seed, card, step[0], steps=3, resumed_steps=0)
+        if result["train"]["launches_by_shape_per_step"] != step[1]:
+            raise AssertionError(f"czigzag step: launches by shape "
+                                 f"{result['train']['launches_by_shape_per_step']}")
+        result["train"]["card_vs_cpu"] = train_vs_cpu_phase("czigzag", model, seed)
+    counts["launches_train_step"] = result["train"]["launches_per_step"]
+    shapes["launches_train_step"] = result["train"]["launches_by_shape_per_step"]
+    with Phase("full-width czigzag under the bf16 policy: device wire, card vs CPU layer by "
+               "layer, training"):
+        result["bf16"] = czigzag_bf16_phase(cz, x, card, init_state, result["train"], seed)
+    shapes.update(result["bf16"].pop("shapes"))
+    del init_state
+    with Phase("reference checkpoint: full-width czigzag, imported tables"):
+        result["reference"] = czigzag_reference_phase(cz, x, card, zero_counts, read_counts, seed)
+    for side in SIDES:
+        key = f"launches_reference_{side}"
+        counts[key] = result["reference"][key]
+        shapes[key] = result["reference"][f"shapes_reference_{side}"]
+    del cz, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, counts, shapes
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3892,6 +4404,11 @@ def main() -> int:
         slice_result[name], paths["float32"][name], paths["bfloat16"][name] = (
             masked_model_phases(name, card, zero_counts, read_counts, args.seed))
 
+    # czigzag: its window-attention launches by head width (16, 48, 96) on
+    # each path are kept beside the CRC family's (crc_shapes), in both builds
+    slice_result["czigzag"], paths["float32"]["czigzag"], crc_shapes["czigzag"] = (
+        czigzag_model_phases(x, card, zero_counts, read_counts, args.seed))
+
     def crc_launches(group: str, key: str) -> dict:
         """A kernel build's launches on every CRC path, by shape key."""
         per = {f"{path}_{m}": shapes[group].get(key, 0)
@@ -3943,11 +4460,14 @@ def main() -> int:
                 "bf16 on the tensor cores (989 TFLOP/s dense), softmax at 67")
         d16_launches = launch_keys("window_attention", ("stf",), dtype)
         fam = family_attention(FAMILY, "transforms", dtype)
-        # the masked family's transforms
+        # the masked family's transforms, and czigzag's (its paths' D 16
+        # launches: its analysis and synthesis blocks)
         masked = launch_keys("window_attention", MASKED, dtype)
-        d16_launches = {**d16_launches, **fam, **masked,
+        cz = {k: n for k, n in crc_launches("window_attention", f"{dtype} D16").items()
+              if k.endswith("_czigzag")}
+        d16_launches = {**d16_launches, **fam, **masked, **cz,
                         "launches": d16_launches["launches"] + fam["launches"]
-                        + masked["launches"]}
+                        + masked["launches"] + sum(cz.values())}
         return [{
             "name": "window_attention" + suffix,
             "route": "cuda",
@@ -4027,13 +4547,15 @@ def main() -> int:
                 refiner_entry("window_attention_d16_refiners", ("stf6", "stf8"))]
 
     # the CRC family's head widths 32, 48 and 96 in both builds (the
-    # bfloat16 ones on stf12's bfloat16 paths); one launch at the path's
-    # shape
+    # bfloat16 ones on stf12's bfloat16 paths) and czigzag's hyper stacks'
+    # 48 and 96 (crc_shapes["czigzag"]); one launch at the path's shape
     for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
         for D, (W, N) in CRC_ATTENTION_SHAPES.items():
-            crc_rows = [r for r in rows if r["model"] == "crc" and r["D"] == D
+            crc_rows = [r for r in rows if r["model"] in ("crc", "czigzag") and r["D"] == D
                         and r["dtype"] == dtype]
-            main = [r for r in crc_rows if r["W"] == W and r["n_cls"] == 4]
+            main = [r for r in crc_rows if r["model"] == "crc" and r["W"] == W
+                    and r["n_cls"] == 4]
+            cz = [r for r in crc_rows if r["model"] == "czigzag" and r["n_cls"] == 4]
             kernels.append({
                 "name": f"window_attention_d{D}{suffix}",
                 "route": "cuda",
@@ -4046,6 +4568,10 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in crc_rows),
                 **{key: main[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "f32_fma_bound_ms", "library_ms")},
+                # czigzag's hyper stacks (D 48, 96): one launch at W=128, H=4
+                **({"czigzag_shape": {key: cz[0][key] for key in (
+                    "W", "heads", "N", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "f32_fma_bound_ms", "library_ms")}} if cz else {}),
                 "bound_unit": ("3xTF32 on the tensor cores (495 TFLOP/s dense), softmax at 67"
                                if dtype == "float32" else
                                "bf16 on the tensor cores (989 TFLOP/s dense), softmax at 67"),
@@ -4144,7 +4670,7 @@ def main() -> int:
             "source": "icm_tpu_torch/csrc/rans_lanes.cu",
             "replaces": f"icm_tpu/coding/device_rans.py:{line}",
             "replaces_note": "not Pallas in JAX: integer jnp under lax.scan",
-            **launch_keys(name, ("cnn", "stf") + FAMILY + CRC + MASKED),
+            **launch_keys(name, ("cnn", "stf") + FAMILY + CRC + MASKED + ("czigzag",)),
             "max_abs_err": max(r["max_abs_err"] for r in rans_rows),
             "ms": sum(r[part]["ms"] for r in rans_main),
             "plain_ms": sum(r[part]["plain_ms"] for r in rans_main),

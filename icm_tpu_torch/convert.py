@@ -32,7 +32,10 @@ configuration and unstacks it (``models.stf_family.unstack_zigzag_params``).
 A CRC model's scanned coder (JAX's ``ZigzagCharmCoder(scan=True)``)
 carries its context stacks as a ``zz_scan`` subtree at the coder's path
 (``machine/coder/zz_scan``); given the model, each is unstacked by the
-port's coder there (``models.zigzag_coder.unstack_zigzag_params``).
+port's coder there (``models.zigzag_coder.unstack_zigzag_params``). A
+``czigzag`` tree of a ``scan_charm=True`` model carries its context stacks
+as a ``czigzag_scan`` subtree; given the model it is unstacked
+(``models.czigzag.unstack_czigzag_params``).
 
 Nothing here imports the JAX package.
 """
@@ -107,6 +110,19 @@ def _unstack_zigzag_scan(params: dict, model) -> dict:
     return {**{k: v for k, v in params.items() if k != "zigzag_scan"}, **slices}
 
 
+def _unstack_czigzag_scan(params: dict, model) -> dict:
+    """A tree with a ``czigzag_scan`` subtree -> the same tree with the
+    per-slice context stacks in its place."""
+    from .models.czigzag import unstack_czigzag_params
+
+    if model is None:
+        raise ValueError("a czigzag_scan tree unstacks only with the model it belongs to "
+                         "(from_jax_params(params, model=...)): its windows and support "
+                         "place the padding")
+    slices = unstack_czigzag_params({"czigzag_scan": params["czigzag_scan"]}, model)
+    return {**{k: v for k, v in params.items() if k != "czigzag_scan"}, **slices}
+
+
 def _unstack_zz_scan(params: dict, model, path=()) -> dict:
     """A tree with ``zz_scan`` subtrees (the CRC family's scanned coders,
     ``machine/coder/zz_scan``) -> the same tree with each coder's
@@ -134,6 +150,8 @@ def from_jax_params(params: dict, model=None) -> Dict[str, torch.Tensor]:
         params = _unstack_charm_scan(params)
     if "zigzag_scan" in params:
         params = _unstack_zigzag_scan(params, model)
+    if "czigzag_scan" in params:
+        params = _unstack_czigzag_scan(params, model)
     params = _unstack_zz_scan(params, model)
     out: Dict[str, torch.Tensor] = {}
     for path, value in _walk(params):

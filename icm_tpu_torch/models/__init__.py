@@ -25,7 +25,8 @@ from .cnn import WACNN
 from .codec import CharmCodec, build_codec_tables, cuda_numerics, enc_round
 from .crc import (ConditionalResidualCoding, ConditionalResidualCoding2,
                   ConditionalResidualCoding3, ResidualCoding)
-from .crc_codec import CRCCodec
+from .crc_codec import CRCCodec, CzigzagCodec
+from .czigzag import conditionalZigzag
 from .device_codec import DeviceWireCodec, DeviceWireKit
 from .masked_codec import Stf3Codec, Stf4Codec
 from .masked_ctx import ClipEncoder, ClipEncoder3, ClipEncoder4
@@ -48,6 +49,7 @@ models = {
     "stf2": (ClipEncoder, {}),
     "stf3": (ClipEncoder3, {}),
     "stf4": (ClipEncoder4, {}),
+    "czigzag": (conditionalZigzag, {}),
 }
 
 
@@ -137,6 +139,8 @@ __all__ = [
     "ConditionalResidualCoding2",
     "ConditionalResidualCoding3",
     "CRCCodec",
+    "CzigzagCodec",
+    "conditionalZigzag",
     "DeviceWireCodec",
     "DeviceWireKit",
     "build_codec_tables",

@@ -1,10 +1,11 @@
 """Real-bitstream compress/decompress for the CRC family (stf9, stf11,
-stf12, stf14; stf13's three layers: :class:`CRC3Codec`).
+stf12, stf14; stf13's three layers: :class:`CRC3Codec`) and for czigzag
+(:class:`CzigzagCodec`).
 
-Port of ``icm_tpu/models/crc_codec.py``'s ``CRCCodec``, ``CRC3Codec`` and
-their ``_CharmLayerDriver`` (the device and scan wires' layer functions
-too). The reference shipped no coder for these models; the JAX package's
-design, kept here:
+Port of ``icm_tpu/models/crc_codec.py``'s ``CRCCodec``, ``CRC3Codec``,
+``CzigzagCodec`` and their ``_CharmLayerDriver`` (the device and scan
+wires' layer functions too). The reference shipped no coder for these
+models; the JAX package's design, kept here:
 
     strings = [machine_y, machine_z, human_y, human_z]
     stf13:    [machine_y, machine_z, seg_y, seg_z, human_y, human_z]
@@ -121,11 +122,12 @@ class _CharmLayerDriver:
             return None
         return self.context(i + 1, state, decoded)
 
-    def encode(self, y: torch.Tensor, z_sym: torch.Tensor):
+    def encode(self, y: torch.Tensor, z_sym: torch.Tensor, *cond):
         """The encoder's chain: -> (per slice int32 symbols and scale
-        indexes, the y_hat slices)."""
+        indexes, the y_hat slices). ``cond``: what the coder's
+        ``ctx_prepare`` takes beside z_hat (czigzag's hyper contexts)."""
         c = self.coder
-        state = c.ctx_prepare(self.z_hat(z_sym))
+        state = c.ctx_prepare(self.z_hat(z_sym), *cond)
         y_slices = c.latent_slices(y)
         decoded: List[torch.Tensor] = []
         syms, idxs = [], []
@@ -137,11 +139,11 @@ class _CharmLayerDriver:
             ctx = self.step(i, state, decoded, sym, ctx)
         return syms, idxs, decoded
 
-    def decode(self, z_sym: torch.Tensor, ydec) -> List[torch.Tensor]:
+    def decode(self, z_sym: torch.Tensor, ydec, *cond) -> List[torch.Tensor]:
         """The decoder's chain; ``ydec.decode_slice(index)`` gives each
         slice's symbols. -> the y_hat slices."""
         c = self.coder
-        state = c.ctx_prepare(self.z_hat(z_sym))
+        state = c.ctx_prepare(self.z_hat(z_sym), *cond)
         decoded: List[torch.Tensor] = []
         ctx = self.context(0, state, decoded)
         for i in range(c.ctx_slices):
@@ -181,7 +183,104 @@ class _Layer:
         return (self.coder.ctx_assemble(list(y_hats)),)
 
 
-class CRCCodec:
+class _WireCodec:
+    """What the codecs of this module share: the wires' arguments, the
+    coder tables, the graph cache, and each wire's coding of a zigzag
+    layer's y (slice after slice) and of a bottleneck's z."""
+
+    def __init__(self, model, tables: Optional[CodecTables] = None, narrow: float = 1.0,
+                 wire: str = "host", scan_wire: bool = False, cuda_graphs: bool = True,
+                 ref_layout: bool = False):
+        if wire not in ("host", "device"):
+            raise ValueError(f"wire must be 'host' or 'device', got {wire!r}")
+        if scan_wire and wire != "device":
+            raise ValueError("scan_wire requires wire='device'")
+        if ref_layout and wire != "host":
+            raise ValueError("ref_layout applies to the host wire only")
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        if self.device.type == "cuda":
+            cuda_numerics()
+        self.narrow = narrow
+        self.wire = wire
+        self.scan_wire = scan_wire
+        self.ref_layout = ref_layout
+        if tables is None:
+            with torch.no_grad():
+                tables = build_codec_tables(model)
+        self.tables = tables
+        self._scale_table = torch.from_numpy(tables.scale_table).to(self.device)
+        self.graphs = GraphCache(enabled=cuda_graphs and scan_wire)
+        if wire == "device":
+            from .device_codec import DeviceWireKit
+
+            self.kit = DeviceWireKit(tables, device=self.device)
+        if scan_wire:
+            from .device_codec import DeviceWireCodec
+
+            DeviceWireCodec._check_f32()
+
+    def _sync(self) -> None:
+        """Before each scan-wire call: float32, and the stacked weights,
+        programs and medians of the current weights (:meth:`_reset`)."""
+        from .device_codec import DeviceWireCodec
+
+        DeviceWireCodec._check_f32()
+        if self.graphs.refresh(weights_version(self.model)):
+            self._reset()
+
+    def _run(self, name: str, fn, inputs):
+        """A program through the graph cache, keyed by its input shapes."""
+        return self.graphs.run((name,) + tuple(tuple(t.shape) for t in inputs), fn, inputs)
+
+    # --- the wires' coders -----------------------------------------------------------
+    def _encode_y(self, syms, idxs) -> List[bytes]:
+        """A zigzag layer's y, slice after slice along each image's stream."""
+        if self.wire == "device":
+            return self.kit.encode_y_slices(syms, idxs)
+        sym_h = torch.cat(syms, 1).cpu().numpy()
+        idx_h = torch.cat(idxs, 1).cpu().numpy()
+        bounds = np.cumsum([0] + [s.shape[1] for s in syms])
+        parts = list(zip(bounds[:-1], bounds[1:]))
+        gt = self.tables.gaussian
+        return coding.encode_batch(
+            np.concatenate([_flat(sym_h[:, a:b], self.ref_layout) for a, b in parts], 1),
+            np.concatenate([_flat(idx_h[:, a:b], self.ref_layout) for a, b in parts], 1),
+            gt.quantized_cdf, gt.cdf_length, gt.offset)
+
+    def _y_decoder(self, y_strings: List[bytes], n_slices: int):
+        if self.wire == "device":
+            return self.kit.y_stream_decoder(y_strings, n_slices)
+        return _HostYDecoder(y_strings, self.tables.gaussian, self.device, self.ref_layout)
+
+    def _encode_z(self, sym: torch.Tensor, key: str) -> List[bytes]:
+        if self.wire == "device":
+            return self.kit.encode_z(sym, key)
+        B, C, h, w = sym.shape
+        t = self.tables.bottlenecks[key]
+        idx = np.broadcast_to(_eb_indexes((h, w), C, self.ref_layout), (B, h * w * C))
+        return coding.encode_batch(_flat(sym.cpu().numpy(), self.ref_layout), idx,
+                                   t.quantized_cdf, t.cdf_length, t.offset)
+
+    def _decode_z(self, strings: List[bytes], shape_hw, key: str) -> torch.Tensor:
+        """-> int32 symbols (B, C, zh, zw) on the codec's device."""
+        h, w = shape_hw
+        if self.wire == "device":
+            return self.kit.decode_z(strings, h, w, key)
+        t = self.tables.bottlenecks[key]
+        C = t.num_distributions
+        idx = np.broadcast_to(_eb_indexes((h, w), C, self.ref_layout),
+                              (len(strings), h * w * C))
+        dec = coding.BatchRansDecoder(strings)
+        try:
+            sym = dec.decode_stream(idx, t.quantized_cdf, t.cdf_length, t.offset,
+                                    lut=t.symbol_lut())
+        finally:
+            dec.close()
+        return torch.from_numpy(_unflat(sym, C, h, w, self.ref_layout)).to(self.device)
+
+
+class CRCCodec(_WireCodec):
     """compress()/decompress() for ``crc.ConditionalResidualCoding`` (stf9,
     stf11), ``crc.ConditionalResidualCoding2`` (stf12) and
     ``crc.ResidualCoding`` (stf14).
@@ -207,40 +306,15 @@ class CRCCodec:
     def __init__(self, model, tables: Optional[CodecTables] = None, narrow: float = 1.0,
                  wire: str = "host", scan_wire: bool = False, cuda_graphs: bool = True,
                  ref_layout: bool = False):
-        if wire not in ("host", "device"):
-            raise ValueError(f"wire must be 'host' or 'device', got {wire!r}")
-        if scan_wire and wire != "device":
-            raise ValueError("scan_wire requires wire='device'")
-        if ref_layout and wire != "host":
-            raise ValueError("ref_layout applies to the host wire only")
-        self.model = model.eval()
-        self.device = next(model.parameters()).device
-        if self.device.type == "cuda":
-            cuda_numerics()
-        self.narrow = narrow
-        self.wire = wire
-        self.scan_wire = scan_wire
-        self.ref_layout = ref_layout
-        if tables is None:
-            with torch.no_grad():
-                tables = build_codec_tables(model)
-        self.tables = tables
-        self._scale_table = torch.from_numpy(tables.scale_table).to(self.device)
+        super().__init__(model, tables, narrow, wire, scan_wire, cuda_graphs, ref_layout)
         self._layers = [
             _Layer(name, _CharmLayerDriver(coder(model), self._scale_table, narrow), z_key,
                    analyze(model))
             for name, z_key, analyze, coder in self.LAYERS]
         self._human_medians = None
-        self.graphs = GraphCache(enabled=cuda_graphs and scan_wire)
-        if wire == "device":
-            from .device_codec import DeviceWireKit
-
-            self.kit = DeviceWireKit(tables, device=self.device)
         if scan_wire:
-            from .device_codec import DeviceWireCodec
             from .scan_codec import ZigzagScanWire
 
-            DeviceWireCodec._check_f32()
             for layer in self._layers:
                 layer.scan = ZigzagScanWire(layer.coder, self.kit, self._scale_table,
                                             self.graphs, layer.name, narrow=narrow)
@@ -269,21 +343,11 @@ class CRCCodec:
         x_hat = self.model.human_synthesize(hy_sym.to(torch.float32) + means, *latents)
         return (torch.clamp(x_hat, 0.0, 1.0).permute(0, 2, 3, 1).contiguous(),)
 
-    def _sync(self) -> None:
-        """Before each scan-wire call: float32, and the stacked weights,
-        programs and medians of the current weights."""
-        from .device_codec import DeviceWireCodec
-
-        DeviceWireCodec._check_f32()
-        if self.graphs.refresh(weights_version(self.model)):
-            for layer in self._layers:
-                layer.scan.restack()
-                layer.driver.reset()
-            self._human_medians = None
-
-    def _run(self, name: str, fn, inputs):
-        """A program through the graph cache, keyed by its input shapes."""
-        return self.graphs.run((name,) + tuple(tuple(t.shape) for t in inputs), fn, inputs)
+    def _reset(self) -> None:
+        for layer in self._layers:
+            layer.scan.restack()
+            layer.driver.reset()
+        self._human_medians = None
 
     # --- one zigzag layer, each side ---------------------------------------------
     def _encode_layer(self, layer: _Layer, x, latents):
@@ -390,26 +454,7 @@ class CRCCodec:
         (x_hat,) = self._run("h_decode", self._human_decode, [hy_sym, means, *latents])
         return {"x_hat": x_hat.clone(), **dict(zip(self.LATENT_KEYS, latents))}
 
-    # --- the wires' coders -----------------------------------------------------------
-    def _encode_y(self, syms, idxs) -> List[bytes]:
-        """A zigzag layer's y, slice after slice along each image's stream."""
-        if self.wire == "device":
-            return self.kit.encode_y_slices(syms, idxs)
-        sym_h = torch.cat(syms, 1).cpu().numpy()
-        idx_h = torch.cat(idxs, 1).cpu().numpy()
-        bounds = np.cumsum([0] + [s.shape[1] for s in syms])
-        parts = list(zip(bounds[:-1], bounds[1:]))
-        gt = self.tables.gaussian
-        return coding.encode_batch(
-            np.concatenate([_flat(sym_h[:, a:b], self.ref_layout) for a, b in parts], 1),
-            np.concatenate([_flat(idx_h[:, a:b], self.ref_layout) for a, b in parts], 1),
-            gt.quantized_cdf, gt.cdf_length, gt.offset)
-
-    def _y_decoder(self, y_strings: List[bytes], n_slices: int):
-        if self.wire == "device":
-            return self.kit.y_stream_decoder(y_strings, n_slices)
-        return _HostYDecoder(y_strings, self.tables.gaussian, self.device, self.ref_layout)
-
+    # --- the human layer's coders ------------------------------------------------------
     def _encode_human_y(self, sym, index) -> List[bytes]:
         if self.wire == "device":
             return self.kit.encode_gaussian(sym, index)
@@ -426,32 +471,6 @@ class CRCCodec:
             return dec.decode_slice(index)
         finally:
             dec.close()
-
-    def _encode_z(self, sym: torch.Tensor, key: str) -> List[bytes]:
-        if self.wire == "device":
-            return self.kit.encode_z(sym, key)
-        B, C, h, w = sym.shape
-        t = self.tables.bottlenecks[key]
-        idx = np.broadcast_to(_eb_indexes((h, w), C, self.ref_layout), (B, h * w * C))
-        return coding.encode_batch(_flat(sym.cpu().numpy(), self.ref_layout), idx,
-                                   t.quantized_cdf, t.cdf_length, t.offset)
-
-    def _decode_z(self, strings: List[bytes], shape_hw, key: str) -> torch.Tensor:
-        """-> int32 symbols (B, C, zh, zw) on the codec's device."""
-        h, w = shape_hw
-        if self.wire == "device":
-            return self.kit.decode_z(strings, h, w, key)
-        t = self.tables.bottlenecks[key]
-        C = t.num_distributions
-        idx = np.broadcast_to(_eb_indexes((h, w), C, self.ref_layout),
-                              (len(strings), h * w * C))
-        dec = coding.BatchRansDecoder(strings)
-        try:
-            sym = dec.decode_stream(idx, t.quantized_cdf, t.cdf_length, t.offset,
-                                    lut=t.symbol_lut())
-        finally:
-            dec.close()
-        return torch.from_numpy(_unflat(sym, C, h, w, self.ref_layout)).to(self.device)
 
 
 class CRC3Codec(CRCCodec):
@@ -480,3 +499,143 @@ class CRC3Codec(CRCCodec):
         """-> {"x_hat": (B, H, W, 3) in [0, 1], "y_hat" and "seg_y_hat": the
         machine and segmentation latents (B, M, h, w)}."""
         return self._decompress(strings, (shape, seg_shape), human_shape)
+
+
+class CzigzagCodec(_WireCodec):
+    """compress()/decompress() for ``czigzag.conditionalZigzag``, port of the
+    JAX package's ``CzigzagCodec``. ``up_x4`` conditions both sides: each
+    derives the context pyramids from it (``ctx_pyramids``), so it is an
+    argument of :meth:`compress` and of :meth:`decompress` and not a stream.
+    ``strings = [y, z]``; y's 16 zigzag slices are coded as a CRC zigzag
+    layer's (``_CharmLayerDriver``: slice i's context over its mean, scale
+    and hyper-context windows and sliding support, then one step that
+    reconstructs it, adds its LRP and computes slice i + 1's context, both
+    sides alike), z as the bottleneck's.
+
+    Arguments as :class:`CRCCodec`'s but ``ref_layout`` (the reference
+    ships no coder for this model). On the scan wire (``scan_codec.
+    CzigzagScanWire``) the programs, the pyramids, the encode front
+    (analysis, z's symbols, the latent slices), the conditioning, the chain
+    each way and the assembly with the synthesis, run through the codec's
+    ``GraphCache``; in float32 only (JAX's scan wire fails under its
+    bfloat16 policy)."""
+
+    STREAMS = ("y", "z")
+    LATENT_KEYS = ("y_hat",)
+    DECOMPRESS_KEYS = ("shape",)  # decompress's arguments after the strings, before up_x4
+    Z_KEY = "entropy_bottleneck"
+
+    def __init__(self, model, tables: Optional[CodecTables] = None, narrow: float = 1.0,
+                 wire: str = "host", scan_wire: bool = False, cuda_graphs: bool = True):
+        super().__init__(model, tables, narrow, wire, scan_wire, cuda_graphs)
+        self.driver = _CharmLayerDriver(model, self._scale_table, narrow)
+        if scan_wire:
+            from .scan_codec import CzigzagScanWire
+
+            self.scan = CzigzagScanWire(model, self.kit, self._scale_table, self.graphs,
+                                        narrow=narrow)
+
+    def _reset(self) -> None:
+        self.scan.restack()
+        self.driver.reset()
+
+    # --- the programs, shared by both sides ------------------------------------------
+    def _pyramids(self, up):
+        """-> the analysis contexts, hyper_ctx, hyper_ctx2 and the decoder's
+        contexts, flat (:meth:`_unflat`)."""
+        ctx_list, hctx, hctx2, dec = self.model.ctx_pyramids(up)
+        return (*ctx_list, hctx, hctx2, *dec)
+
+    def _unflat(self, pyr):
+        n = self.model.n_stages
+        return list(pyr[:n]), pyr[n], pyr[n + 1], list(pyr[n + 2:])
+
+    def _front(self, x, *ctx):
+        """Encode front: -> (z's int32 symbols, the latent slices stacked
+        (N, B, sc, h, w)); ``ctx``: the analysis contexts, hyper_ctx and
+        hyper_ctx2."""
+        m = self.model
+        y = m.analyze_cond(x, ctx[:-2])
+        return (self.driver.z_sym(m.hyper_encode(y, *ctx[-2:])),
+                torch.stack(m.latent_slices(y)))
+
+    def _state(self, z_sym, hctx, hctx2):
+        return self.scan.conditioning(self.model.ctx_prepare_cond(
+            self.driver.z_hat(z_sym), hctx, hctx2))
+
+    def _decode(self, y_hats, *dec):
+        """The y_hat slices (a list, or stacked) -> (y_hat, x_hat (B, H, W,
+        3) in [0, 1])."""
+        y_hat = self.model.ctx_assemble(list(y_hats))
+        x_hat = self.model.synthesize_cond(y_hat, list(dec))
+        return y_hat, torch.clamp(x_hat, 0.0, 1.0).permute(0, 2, 3, 1).contiguous()
+
+    def _inputs(self, *images):
+        return [nhwc_to_nchw(torch.as_tensor(a, dtype=torch.float32, device=self.device))
+                for a in images]
+
+    # --- public API --------------------------------------------------------------
+    @torch.no_grad()
+    def symbols(self, x, up_x4) -> Dict[str, List[torch.Tensor]]:
+        """-> {"y_hat": the y symbols as the host and device wires code
+        them, int32, slice by slice}."""
+        x, up = self._inputs(x, up_x4)
+        ctx_list, hctx, hctx2, _ = self._unflat(self._pyramids(up))
+        y = self.model.analyze_cond(x, ctx_list)
+        z_sym = self.driver.z_sym(self.model.hyper_encode(y, hctx, hctx2))
+        return {"y_hat": self.driver.encode(y, z_sym, hctx, hctx2)[0]}
+
+    @torch.no_grad()
+    def compress(self, x, up_x4, return_debug: bool = False) -> Dict[str, Any]:
+        """x, up_x4: (B, H, W, 3) in [0, 1] (tensors or numpy). -> {"strings":
+        [y, z], "shape": z's grid}; with ``return_debug`` also "y_hat" (NCHW)
+        and the decoder's "x_hat" (NHWC, in [0, 1])."""
+        x, up = self._inputs(x, up_x4)
+        if x.shape != up.shape:
+            raise ValueError(f"x {tuple(x.shape)} and up_x4 {tuple(up.shape)} differ")
+        if self.scan_wire:
+            self._sync()
+        pyr = self._run("pyramids", self._pyramids, [up])
+        ctx_list, hctx, hctx2, dec = self._unflat(pyr)
+        if self.scan_wire:
+            z_sym, y_stack = self._run("front", self._front, [x, *ctx_list, hctx, hctx2])
+            z_sym = _canonical(z_sym)
+            conds = self._run("state", self._state, [z_sym, hctx, hctx2])
+            y_strings, decoded = self.scan.encode(*conds, y_stack)
+        else:
+            y = self.model.analyze_cond(x, ctx_list)
+            z_sym = self.driver.z_sym(self.model.hyper_encode(y, hctx, hctx2))
+            syms, idxs, decoded = self.driver.encode(y, z_sym, hctx, hctx2)
+            y_strings = self._encode_y(syms, idxs)
+        out: Dict[str, Any] = {"strings": [y_strings, self._encode_z(z_sym, self.Z_KEY)],
+                               "shape": (z_sym.shape[2], z_sym.shape[3])}
+        if return_debug:
+            y_hat, x_hat = self._run("assemble", self._decode, [decoded, *dec]) \
+                if self.scan_wire else self._decode(decoded, *dec)
+            out.update(y_hat=y_hat.clone(), x_hat=x_hat.clone())
+        return out
+
+    @torch.no_grad()
+    def decompress(self, strings, shape, up_x4) -> Dict[str, Any]:
+        """-> {"x_hat": (B, H, W, 3) in [0, 1], "y_hat": (B, M, h, w)}."""
+        (up,) = self._inputs(up_x4)
+        y_strings, z_strings = strings
+        if not len(y_strings) == len(z_strings) == up.shape[0]:
+            raise ValueError(f"{len(y_strings)} and {len(z_strings)} wires for "
+                             f"{up.shape[0]} images of up_x4")
+        if self.scan_wire:
+            self._sync()
+        _, hctx, hctx2, dec = self._unflat(self._run("pyramids", self._pyramids, [up]))
+        z_sym = _canonical(self._decode_z(z_strings, shape, self.Z_KEY))
+        if self.scan_wire:
+            conds = self._run("state", self._state, [z_sym, hctx, hctx2])
+            y_hats = self.scan.decode(y_strings, *conds)
+            y_hat, x_hat = self._run("assemble", self._decode, [y_hats, *dec])
+        else:
+            ydec = self._y_decoder(y_strings, self.model.ctx_slices)
+            try:
+                decoded = self.driver.decode(z_sym, ydec, hctx, hctx2)
+            finally:
+                ydec.close()
+            y_hat, x_hat = self._decode(decoded, *dec)
+        return {"x_hat": x_hat.clone(), "y_hat": y_hat.clone()}

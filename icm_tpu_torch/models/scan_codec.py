@@ -4,9 +4,10 @@ Port of ``icm_tpu/models/scan_codec.py``'s ``CharmScanWire`` (``cnn``,
 ``stf``), ``ZigzagSwinScanWire`` (the zigzag family ``stf5``-``stf8``),
 ``ZigzagScanWire`` (a CRC model's zigzag coding layers: the machine
 layer of ``stf9``, ``stf11``, ``stf12`` and ``stf14``, the machine and
-segmentation layers of ``stf13``), ``Stf2ScanWire`` (``stf2``'s token
-loop, the device wire of ``masked_codec.Stf2Codec``) and the
-static-signature helpers they share. The JAX package compiles the whole
+segmentation layers of ``stf13``), ``CzigzagScanWire`` (``czigzag``'s
+chain, a third conditioning beside the means and scales),
+``Stf2ScanWire`` (``stf2``'s token loop, the device wire of
+``masked_codec.Stf2Codec``) and the static-signature helpers they share. The JAX package compiles the whole
 autoregressive chain of a prefix-support ChARM model (``cnn``, ``stf``)
 as one ``lax.scan``: per slice the context convolutions over stacked,
 zero-padded per-slice weights (``cnn.stack_charm_params``), the scale
@@ -224,35 +225,40 @@ class _StaticScanIO:
         Ts = ((h * w) // n_l) * sc
         return n_l, L, Ts, Ts * L
 
-    def encode(self, means: torch.Tensor, scales: torch.Tensor, y_stack: torch.Tensor):
-        """Conditioning (B, C, h, w) (:meth:`conditioning`) and latent
-        slices (N, B, sc, h, w) -> (tier-framed wire blobs, one an image;
+    def encode(self, *conds_and_y: torch.Tensor):
+        """The conditioning (B, C, h, w) each (:meth:`conditioning`: means and
+        scales, czigzag's hyper context after them) and the latent slices
+        (N, B, sc, h, w), last -> (tier-framed wire blobs, one an image;
         y_hat stack (N, B, sc, h, w), which the next encode overwrites)."""
+        y_stack = conds_and_y[-1]
         _, B, sc, h, w = y_stack.shape
         n_l, L, Ts, seg = self._layout(B, h, w, sc)
 
         def run_pack():
             y_hats, syms, idxs = self.graphs.run(
-                self._key("encode", B, h, w, None), self._program(True), [means, scales, y_stack])
+                self._key("encode", B, h, w, None), self._program(True), list(conds_and_y))
             return y_hats, self.kit.encode_y_stack(syms, idxs, fmt=WIRE_SCAN)
 
         return self._encode_tiered(run_pack, n_l, Ts, seg)
 
-    def decode(self, blobs: List[bytes], means: torch.Tensor, scales: torch.Tensor):
+    def decode(self, blobs: List[bytes], *conds: torch.Tensor):
         """-> y_hat stack (N, B, sc, h, w), which the next decode
         overwrites. The latent grid is the conditioning's."""
-        B, _, h, w = means.shape
+        B, _, h, w = conds[0].shape
         if len(blobs) != B:
             raise ValueError(f"{len(blobs)} wires for a conditioning of {B} images")
         _, L, _, seg = self._layout(B, h, w, self.sc)
         tier, words, off, esc_d, esc_r = _wire_inputs(
-            blobs, self.N, seg, L, self.N * seg, means.device)
+            blobs, self.N, seg, L, self.N * seg, conds[0].device)
         (y_hats,) = self.graphs.run(self._key("decode", B, h, w, tier), self._program(False),
-                                    [means, scales, words, off, esc_d, esc_r])
+                                    [*conds, words, off, esc_d, esc_r])
         return y_hats
 
     prefix = True  # prefix support (slot i, then frozen), else sliding
     Wc = 0  # conditioning window in zigzag blocks; 0: the whole of it
+    # conditioning tensors the programs take: means and scales (czigzag: and
+    # its hyper context, windowed as they are and placed after the support)
+    n_cond = 2
 
     def _key(self, *parts) -> tuple:
         """The graph cache's key of a chain program: "scan", its direction
@@ -264,28 +270,31 @@ class _StaticScanIO:
         return x
 
     def _program(self, is_enc: bool):
-        """The step loop of both directions: (means, scales, y_stack) ->
-        (y_hats, syms, idxs) on encode; (means, scales, words, off,
-        esc_d, esc_r) -> (y_hats,) on decode. The conditioning is (B, C,
-        h, w), the stacks (N, B, sc, h, w); only the symbol source depends
-        on ``is_enc``."""
+        """The step loop of both directions: (means, scales[, hctx],
+        y_stack) -> (y_hats, syms, idxs) on encode; (means, scales[,
+        hctx], words, off, esc_d, esc_r) -> (y_hats,) on decode. The
+        conditioning is (B, C, h, w), the stacks (N, B, sc, h, w); only the
+        symbol source depends on ``is_enc``."""
         W, N, sc, max_sup, Wc = self._stacked, self.N, self.sc, self.max_sup, self.Wc
+        n_cond = self.n_cond
 
-        def program(cond_m, cond_s, *rest):
-            B, _, h, w = cond_m.shape
+        def program(*args):
+            conds, rest = args[:n_cond], args[n_cond:]
+            B, _, h, w = conds[0].shape
             y_stack = rest[0] if is_enc else None
             dec = None if is_enc else [*rest, None, None]
-            buf = cond_m.new_zeros((B, max_sup * sc, h, w))
+            buf = conds[0].new_zeros((B, max_sup * sc, h, w))
             y_hats, syms, idxs = [], [], []
             for i in range(N):
-                cm, cs = cond_m, cond_s
+                win = conds
                 if Wc:  # blocks [s, s + Wc), clamped at the tail
                     s = min(i, N - Wc)
-                    cm, cs = cond_m[:, s * sc:(s + Wc) * sc], cond_s[:, s * sc:(s + Wc) * sc]
-                mean_support = torch.cat([cm, buf], 1)
+                    win = [c[:, s * sc:(s + Wc) * sc] for c in conds]
+                cm, cs, tail = win[0], win[1], list(win[2:])
+                mean_support = torch.cat([cm, buf, *tail], 1)
                 mu = self._refine("mu", i, _cc_apply(W["cc_mean"], i, mean_support))
                 scale = self._refine("sigma", i,
-                                     _cc_apply(W["cc_scale"], i, torch.cat([cs, buf], 1)))
+                                     _cc_apply(W["cc_scale"], i, torch.cat([cs, buf, *tail], 1)))
                 index = build_indexes(scale, self.scale_table)
                 sym = self._symbols(is_enc, i, index, mu, y_stack, dec, B)
                 y_hat = sym.to(mu.dtype) + mu
@@ -447,6 +456,35 @@ class ZigzagScanWire(_StaticScanIO):
         """The coder's ``ctx_prepare`` state -> (means, scales) (B, N * sc,
         h, w): its zigzag blocks concatenated block-major."""
         return torch.cat(state["means"], 1), torch.cat(state["scales"], 1)
+
+
+class CzigzagScanWire(ZigzagScanWire):
+    """The scan wire of ``czigzag.conditionalZigzag`` (port of the JAX
+    package's ``CzigzagScanWire``): :class:`ZigzagScanWire`'s chain (sliding
+    support, mean and scale windows of ``support_num`` blocks clamped at
+    the tail, LRP in the chain) with a third conditioning, the zigzag
+    blocks of the model's hyper context, windowed by the same clamp and
+    placed after the support in both supports: ``[cm, buf, hc]`` and
+    ``[cs, buf, hc]``, as :func:`czigzag.stack_czigzag_params` pads the
+    kernels. The model plays the coder's part."""
+
+    n_cond = 3
+
+    def __init__(self, model, kit, scale_table: torch.Tensor, graphs, narrow: float = 1.0):
+        super().__init__(model, kit, scale_table, graphs, "cz", narrow)
+
+    def restack(self) -> None:
+        from .czigzag import stack_czigzag_params
+
+        with torch.no_grad():
+            self._stacked = stack_czigzag_params(self.model, self.model)["czigzag_scan"]
+
+    @staticmethod
+    def conditioning(state: dict):
+        """The model's ``ctx_prepare_cond`` state -> (means, scales, hyper
+        context) (B, N * sc, h, w): the zigzag blocks concatenated
+        block-major."""
+        return tuple(torch.cat(state[k], 1) for k in ("means", "scales", "hctx"))
 
 
 class Stf2ScanWire:

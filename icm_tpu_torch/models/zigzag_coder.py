@@ -64,6 +64,9 @@ class ZigzagCharmCoder(nn.Module):
     # order: the JAX layer's settings in every port model
     spatial_number = 2
     zigzag_constrained = False
+    # input channels of a first conv after the support and before LRP's
+    # slice: none here (czigzag's hyper-context window is one)
+    tail_width = 0
 
     def __init__(
         self,
@@ -233,13 +236,13 @@ def _first_conv(k: torch.Tensor, ax: int, i: int, coder, pad: bool, tag: str) ->
     """Slice i's first-conv kernel (input channels on ``ax``) padded to the
     scan's fixed width: the conditioning, then ``max_support`` support
     slots with the decoded blocks in the last ``min(i, max_support)`` of
-    them (the oldest slots, not decoded yet, zero), then for ``lrp`` the
-    slice it corrects; or, with ``pad=False``, the padding cut away
-    again."""
+    them (the oldest slots, not decoded yet, zero), then the coder's
+    ``tail_width`` channels and for ``lrp`` the slice it corrects; or,
+    with ``pad=False``, the padding cut away again."""
     sc, cond = coder.slice_ch, coder.cond_width
     sup_w = coder.max_support * sc
     have = min(i, coder.max_support) * sc
-    tail = sc if tag == "lrp" else 0
+    tail = coder.tail_width + (sc if tag == "lrp" else 0)
     if not pad:
         return torch.cat([k.narrow(ax, 0, cond), k.narrow(ax, cond + sup_w - have, have),
                           k.narrow(ax, cond + sup_w, tail)], ax).contiguous()

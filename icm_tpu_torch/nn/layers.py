@@ -243,7 +243,7 @@ class WindowAttention(nn.Module):
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
         wh, ww = self.window_size
-        self.qkv = Linear(dim, dim * 3)
+        self._projections(dim)
         self.proj = Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * wh - 1) * (2 * ww - 1), num_heads)
@@ -261,12 +261,22 @@ class WindowAttention(nn.Module):
             idx = self._index_cache[str(device)] = idx.to(device)
         return idx
 
-    def forward(self, x, cls_masks: torch.Tensor, cls_idx: torch.Tensor):
-        """x: (B_, N, C); cls_masks: (n_cls, N, N) f32; cls_idx: (B_,) int32."""
+    def _projections(self, dim: int) -> None:
+        self.qkv = Linear(dim, dim * 3)
+
+    def _qkv(self, x, context):
+        """-> q, k, v (B_, heads, N, head width) of the windows ``x``."""
         B_, N, C = x.shape
         nh = self.num_heads
         qkv = self.qkv(x).reshape(B_, N, 3, nh, C // nh).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (B_, nh, N, hd)
+        return qkv[0], qkv[1], qkv[2]
+
+    def forward(self, x, cls_masks: torch.Tensor, cls_idx: torch.Tensor, context=None):
+        """x: (B_, N, C); cls_masks: (n_cls, N, N) f32; cls_idx: (B_,) int32;
+        ``context``: the windows k and v come from (:class:`CrossWindowAttention`)."""
+        B_, N, C = x.shape
+        nh = self.num_heads
+        q, k, v = self._qkv(x, context)  # (B_, nh, N, hd)
         bias = self.relative_position_bias_table[self._bias_index(x.device)]
         bias = bias.reshape(N, N, nh).permute(2, 0, 1)  # (nh, N, N)
         # (n_cls, nh, N, N), f32 (f64 for a float64 model)
@@ -275,6 +285,28 @@ class WindowAttention(nn.Module):
         out = window_attention(q, k, v, bias_cls, cls_idx)
         out = out.transpose(1, 2).reshape(B_, N, C)
         return self.proj(out)
+
+
+class CrossWindowAttention(WindowAttention):
+    """W-MSA with q from the windows of x and k, v from the same windows of
+    a context map (port of ``icm_tpu/nn/swin.py::CrossWindowAttention``,
+    the reference's ``WindowAttention_context``): projections ``q`` (C)
+    and ``kv`` (2C) in place of ``qkv``, the same relative-position bias
+    and masks, the same kernel (:func:`window_attention`). The JAX
+    package's jnp attention forms the scores in the activation dtype (under
+    the bfloat16 policy: q k^T and the bias rounded to bfloat16 before its
+    float32 softmax); the kernel keeps them float32."""
+
+    def _projections(self, dim: int) -> None:
+        self.q = Linear(dim, dim)
+        self.kv = Linear(dim, dim * 2)
+
+    def _qkv(self, x, context):
+        B_, N, C = x.shape
+        nh = self.num_heads
+        q = self.q(x).reshape(B_, N, nh, C // nh).transpose(1, 2)
+        kv = self.kv(context).reshape(B_, N, 2, nh, C // nh).permute(2, 0, 3, 1, 4)
+        return q, kv[0], kv[1]
 
 
 class ShiftedWindows(nn.Module):

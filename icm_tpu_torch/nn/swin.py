@@ -1,7 +1,8 @@
 """The Swin-transformer stack of the stf codecs, channel-last.
 
 Port of ``icm_tpu/nn/swin.py`` (``Mlp``, ``DropPath``, ``SwinBlock``,
-``PatchMerging``, ``PatchSplit``, ``BasicLayer``, ``PatchEmbed``). Features
+``PatchMerging``, ``PatchSplit``, ``BasicLayer``, ``PatchEmbed``, and
+czigzag's cross-attention ``SwinBlockCross`` and ``BasicLayerCross``). Features
 stay (B, H, W, C) through the stack, as in the JAX package; only
 ``PatchEmbed`` takes an NCHW image (its convolution is cuDNN's) and
 returns NHWC. The attention runs in ``layers.WindowAttention``: the
@@ -30,8 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (Conv2d, LayerNorm, Linear, ShiftedWindows, WindowAttention,
-                     window_partition, window_reverse)
+from .layers import (Conv2d, CrossWindowAttention, LayerNorm, Linear, ShiftedWindows,
+                     WindowAttention, window_partition, window_reverse)
 
 LN_EPS = 1e-5  # flax LayerNorm(epsilon=1e-5), as the JAX package builds it
 MLP_RATIO = 4  # hidden width of a block's MLP over its width
@@ -74,35 +75,57 @@ class SwinBlock(ShiftedWindows):
     residual; LN -> MLP, residual; stochastic depth on both branches (two
     independent draws)."""
 
+    attention = WindowAttention
+
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int = 0,
                  drop_path: float = 0.0):
         super().__init__(window_size, shift_size)
         self.LayerNorm_0 = LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, (window_size, window_size), num_heads)
+        self.attn = self.attention(dim, (window_size, window_size), num_heads)
         self.LayerNorm_1 = LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, MLP_RATIO * dim, dim)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        return self._block(x, None, generator)
+
+    def _block(self, x, context, generator):
+        """The block on x; ``context`` (cross attention's k and v) is padded,
+        shifted and partitioned with x, the mask that of x's padded grid."""
         B, H, W, C = x.shape
         ws, ss = self.window_size, self.shift_size
         shortcut = x
         x = self.LayerNorm_0(x)
+        # the context enters k and v without a norm, in the norm's dtype
+        maps = [x] if context is None else [x, context.to(x.dtype)]
         pad_b, pad_r = (ws - H % ws) % ws, (ws - W % ws) % ws
         if pad_b or pad_r:
-            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+            maps = [F.pad(m, (0, 0, 0, pad_r, 0, pad_b)) for m in maps]
         Hp, Wp = H + pad_b, W + pad_r
         if ss > 0:
-            x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
+            maps = [torch.roll(m, shifts=(-ss, -ss), dims=(1, 2)) for m in maps]
         masks, cls_idx = self._classes(Hp, Wp, B, x.device)
-        xw = window_partition(x, ws).reshape(-1, ws * ws, C)
-        x = window_reverse(self.attn(xw, masks, cls_idx).reshape(-1, ws, ws, C), ws, Hp, Wp)
+        wins = [window_partition(m, ws).reshape(-1, ws * ws, C) for m in maps]
+        x = window_reverse(self.attn(wins[0], masks, cls_idx, *wins[1:]).reshape(-1, ws, ws, C),
+                           ws, Hp, Wp)
         if ss > 0:
             x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
         if pad_b or pad_r:
             x = x[:, :H, :W, :]
         x = shortcut + self.drop_path(x, generator)
         return x + self.drop_path(self.mlp(self.LayerNorm_1(x)), generator)
+
+
+class SwinBlockCross(SwinBlock):
+    """:class:`SwinBlock` with cross window attention (port of the JAX
+    package's ``SwinBlockCross``): q from x, k and v from ``context``, a
+    map of x's grid and width that enters without a LayerNorm and is
+    padded, shifted and partitioned together with x."""
+
+    attention = CrossWindowAttention
+
+    def forward(self, x, context, generator: Optional[torch.Generator] = None):
+        return self._block(x, context, generator)
 
 
 class PatchMerging(nn.Module):
@@ -145,12 +168,14 @@ class BasicLayer(nn.Module):
     shifts alternating 0 and window // 2, then an optional ``"merge"`` or
     ``"split"``."""
 
+    block = SwinBlock
+
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  drop_path: Sequence[float], downsample: Optional[str] = None):
         super().__init__()
         self.depth = len(drop_path)
         for i, rate in enumerate(drop_path):
-            self.add_module(f"block{i}", SwinBlock(
+            self.add_module(f"block{i}", self.block(
                 dim, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2, rate))
         if downsample == "merge":
             self.downsample = PatchMerging(dim)
@@ -164,6 +189,19 @@ class BasicLayer(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         for i in range(self.depth):
             x = getattr(self, f"block{i}")(x, generator)
+        return x if self.downsample is None else self.downsample(x)
+
+
+class BasicLayerCross(BasicLayer):
+    """:class:`BasicLayer` of :class:`SwinBlockCross` blocks: every block
+    attends to the same ``context``, at the stack's input resolution; only
+    x is merged or split after them."""
+
+    block = SwinBlockCross
+
+    def forward(self, x, context, generator: Optional[torch.Generator] = None):
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x, context, generator)
         return x if self.downsample is None else self.downsample(x)
 
 

@@ -21,7 +21,7 @@ import torch
 from .checkpoint import load_checkpoint, save_checkpoint
 from .optim import TrainState, make_optimizer
 from .schedule import ReduceLROnPlateau
-from .steps import make_eval_step
+from .steps import make_eval_step, model_inputs
 
 
 class AverageMeter:
@@ -70,10 +70,12 @@ def run_training_with_recovery(max_retries: int = 2, **kwargs):
             )
 
 
-def _to_device(batch, device):
-    if isinstance(batch, tuple):
-        batch = batch[0]
-    return torch.as_tensor(batch).to(device, non_blocking=True)
+def _to_device(model, batch, device):
+    """The images of a batch the model reads (``steps.model_inputs``: x, or
+    a conditional model's ``(x, up_x4)``) on ``device``."""
+    inputs = tuple(torch.as_tensor(b).to(device, non_blocking=True)
+                   for b in model_inputs(model, batch))
+    return inputs if len(inputs) > 1 else inputs[0]
 
 
 def run_training(
@@ -98,7 +100,8 @@ def run_training(
     """Train ``model`` (built on its device) for ``epochs`` epochs.
     ``make_step(model, criterion)`` returns ``step(state, batch, generator)
     -> metrics``; ``train_batches(epoch)`` and ``eval_batches()`` yield
-    (B, H, W, 3) batches (numpy arrays or tensors). Returns (state,
+    (B, H, W, 3) batches (numpy arrays or tensors; a conditional model's
+    ``(x, up_x4)`` pairs, ``steps.model_inputs``). Returns (state,
     per-epoch test losses)."""
     device = next(model.parameters()).device
     optimizer = make_optimizer(model, learning_rate, aux_learning_rate,
@@ -123,7 +126,7 @@ def run_training(
         meter = AverageMeter()
         for i, batch in enumerate(train_batches(epoch)):
             noise.manual_seed(_step_seed(seed, state.step))
-            metrics = step(state, _to_device(batch, device), noise)
+            metrics = step(state, _to_device(model, batch, device), noise)
             if i % log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 meter.update(metrics["loss"])
@@ -132,7 +135,7 @@ def run_training(
 
         eval_meter = AverageMeter()
         for batch in eval_batches():
-            eval_meter.update(float(eval_fn(_to_device(batch, device))["loss"]))
+            eval_meter.update(float(eval_fn(_to_device(model, batch, device))["loss"]))
         test_loss = eval_meter.avg if eval_meter.count else meter.avg
         new_lr = sched.step(test_loss)
         if new_lr != learning_rate:

@@ -3,8 +3,8 @@ state dict, and the coder tables the checkpoint stores.
 
 Port of ``icm_tpu/zoo.py`` for the architectures the port builds (``cnn``,
 ``stf``, the zigzag family ``stf5``-``stf8``, the CRC family's
-``stf9``, ``stf11``, ``stf12``, ``stf13`` and ``stf14``, and the masked
-family's ``stf3`` and ``stf4``). ``load_pretrained`` does
+``stf9``, ``stf11``, ``stf12``, ``stf13`` and ``stf14``, the masked
+family's ``stf2``, ``stf3`` and ``stf4``, and ``czigzag``). ``load_pretrained`` does
 the reference's key cleanup (``zoo/pretrained.py``: strip DataParallel's
 ``module.``, drop ``h_s.*``, rename the legacy bottleneck ParameterList
 keys). The converters rename the reference's module paths into the flax
@@ -128,11 +128,15 @@ def _entropy_bottleneck(sd, prefix, n_filters=4):
     return p
 
 
-def _swin_block(sd, prefix):
+def _swin_block(sd, prefix, cross: bool = False):
+    """A Swin block; ``cross``: czigzag's (the reference's
+    ``WindowAttention_context``: projections ``q`` and ``kv`` in place of
+    ``qkv``)."""
+    projections = ("q", "kv") if cross else ("qkv",)
     return {
         "LayerNorm_0": _leaves(sd, f"{prefix}.norm1"),
         "attn": {
-            "qkv": _leaves(sd, f"{prefix}.attn.qkv"),
+            **{p: _leaves(sd, f"{prefix}.attn.{p}") for p in projections},
             "proj": _leaves(sd, f"{prefix}.attn.proj"),
             "relative_position_bias_table": sd[f"{prefix}.attn.relative_position_bias_table"],
         },
@@ -142,8 +146,8 @@ def _swin_block(sd, prefix):
     }
 
 
-def _basic_layer(sd, prefix, depth, has_downsample):
-    p = {f"block{j}": _swin_block(sd, f"{prefix}.blocks.{j}") for j in range(depth)}
+def _basic_layer(sd, prefix, depth, has_downsample, cross: bool = False):
+    p = {f"block{j}": _swin_block(sd, f"{prefix}.blocks.{j}", cross) for j in range(depth)}
     if has_downsample:
         p["downsample"] = {
             "LayerNorm_0": _leaves(sd, f"{prefix}.downsample.norm"),
@@ -511,11 +515,63 @@ def convert_masked_ctx_checkpoint(state_dict: dict, arch: str) -> Dict[str, torc
 MASKED_ARCHS = ("stf2", "stf3", "stf4")
 
 
+# --- czigzag, the cross-attention conditional codec ----------------------------------
+# The reference's layout (czigzag.py:472-1360). Dropped as the JAX converter
+# drops them, modules its forward never runs: ``patch_embed_up`` (up_x4 goes
+# through the shared ``patch_embed``), ``decoder_context`` (the forward
+# applies ``hyper_context`` to the decoder's pyramid too, so the port's
+# ``decoder_context_{i}`` take ``hyper_context.{i}``'s weights), each
+# pyramid's fourth conv (the loops run n - 1 stages), the commented-out
+# refiners ``mu_Swin2`` / ``sigma_Swin2`` / ``LRP_Swin2`` and the conv
+# hyper-codec ``h_a`` / ``h_mean_s`` / ``h_scale_s`` of the stale coder.
+
+
+def convert_czigzag_checkpoint(state_dict: dict, depths=(2, 2, 6, 2), hyper_depths=(2, 6),
+                               ctx_slices: int = 16) -> Dict[str, torch.Tensor]:
+    """Reference conditionalZigzag state dict -> the port's
+    ``conditionalZigzag`` state dict (port of the JAX package's
+    ``convert_czigzag_checkpoint``): the shared patch embedding, the cross
+    Swin stages (``layers``, ``syn_layers``; ``q``, ``kv``, ``proj``), the
+    analysis and hyper pyramids (``encoder_context``, ``hyper_context``,
+    whose weights serve ``decoder_context_{i}`` too), the hyper stacks
+    (``hyper_encoder_layers``, ``hyper_decoder_{mean,scale}``) and their
+    convolutions, ``end_conv``, the 16 slices' context stacks
+    (``cc_*_transforms2``, ``lrp_transforms2``, 5 convs each) and the
+    bottleneck."""
+    sd = load_pretrained(state_dict)
+    n = len(depths)
+    rdepths = tuple(reversed(depths))
+    tree = {"patch_embed": {"Conv_0": _leaves(sd, "patch_embed.proj"),
+                            "LayerNorm_0": _leaves(sd, "patch_embed.norm")}}
+    for i in range(n):
+        tree[f"layer{i}"] = _basic_layer(sd, f"layers.{i}", depths[i], i < n - 1, cross=True)
+        tree[f"syn_layer{i}"] = _basic_layer(sd, f"syn_layers.{i}", rdepths[i], i < n - 1,
+                                             cross=True)
+    for i in range(n - 1):
+        tree[f"encoder_context_{i}"] = _leaves(sd, f"encoder_context.{i}")
+        tree[f"hyper_context_{i}"] = _leaves(sd, f"hyper_context.{i}")
+        tree[f"decoder_context_{i}"] = _leaves(sd, f"hyper_context.{i}")
+    for k in range(2):
+        tree[f"hyper_enc{k}"] = _basic_layer(sd, f"hyper_encoder_layers.{k}", hyper_depths[k],
+                                             False, cross=True)
+    for ours, ref in (("conv1", "Conv1"), ("conv1_2", "Conv1_2"), ("conv2", "Conv2")):
+        tree[f"hyper_encoder_{ours}"] = _leaves(sd, f"hyper_encoder_{ref}")
+    for tag in ("mean", "scale"):
+        for k in range(2):
+            tree[f"hyper_dec_{tag}{k}"] = _basic_layer(sd, f"hyper_decoder_{tag}.{k}",
+                                                       hyper_depths[k], False, cross=True)
+        tree[f"hyper_decoder_conv_{tag}1"] = {
+            "Conv_0": _leaves(sd, f"hyper_decoder_conv_{tag}1.0")}
+        tree[f"hyper_decoder_conv_{tag}2"] = _leaves(sd, f"hyper_decoder_conv_{tag}2")
+    tree["end_up"] = {"Conv_0": _leaves(sd, "end_conv.0")}
+    tree["end_to_rgb"] = _leaves(sd, "end_conv.2")
+    tree.update(_context(sd, ctx_slices, "2"))
+    tree["entropy_bottleneck"] = _entropy_bottleneck(sd, "entropy_bottleneck")
+    return _state_dict(tree)
+
+
 # the zoo's other architectures: the port does not build them yet
-_NOT_PORTED = {
-    "czigzag": "Queue 1 item 3 (czigzag)",
-    **{a: "Queue 1 item 4 (ICM)" for a in ("cnn2", "stf10", "oj_ICM", "seg_oj_ICM")},
-}
+_NOT_PORTED = {a: "Queue 1 item 1 (ICM)" for a in ("cnn2", "stf10", "oj_ICM", "seg_oj_ICM")}
 
 
 def convert_reference_state_dict(arch: str, sd: dict) -> Dict[str, torch.Tensor]:
@@ -530,6 +586,8 @@ def convert_reference_state_dict(arch: str, sd: dict) -> Dict[str, torch.Tensor]
         return convert_crc_checkpoint(sd, arch)
     if arch in MASKED_ARCHS:
         return convert_masked_ctx_checkpoint(sd, arch)
+    if arch == "czigzag":
+        return convert_czigzag_checkpoint(sd)
     where = _NOT_PORTED.get(arch, "no item: not an architecture of the zoo")
     raise NotImplementedError(
         f"reference checkpoint conversion for {arch!r} is not ported yet (ROADMAP.md, {where})")

@@ -46,7 +46,7 @@ import torch
 from test_torch_bf16 import (BF16, BPP_RTOL, SYMBOL_SHARE_TOL, XHAT_MEAN_TOL,
                              _assert_bf16_close, _bpp)
 from test_torch_cnn_codec import CROSS_TOL
-from test_torch_stf_family import port_tables
+from test_torch_stf_family import on_wires, port_tables
 from test_torch_stf_family_paths import GRAD_TOL, TERMS_TOL, _f64_port_params
 from test_torch_train import _close, _replay
 
@@ -225,32 +225,6 @@ def test_attention_and_gdn_widths_on_the_path(name):
     assert {mod.channels for mod in m.modules() if isinstance(mod, GDN)} == {192, 256}
 
 
-def test_stf13_segmentation_latent_is_zero_at_init():
-    """At an untrained init stf13's segmentation latent rounds to 0
-    everywhere, and with zero biases its mu and LRP are 0 as well: JAX's
-    model at its own init and the port's seeded one (TINY, two 64 x 64
-    images, plain rounding) both give a seg_y_hat of exact zeros, coded as
-    zero symbols, while the machine layer codes nonzero ones. So the model
-    itself, not the port, leaves a card check on seeded weights comparing
-    zeros; ``chip_smoke.CRC_GAIN`` scales the segmentation analysis's last
-    convolution, after which the port codes nonzero segmentation symbols."""
-    x = np.random.default_rng(0).random((2, 64, 64, 3)).astype(np.float32)
-    jcls, jkw = jax_models["stf13"]
-    jm = jcls(**{**jkw, **TINY})
-    variables = jm.init({"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
-                        jnp.asarray(x), training=False)
-    jenc = JaxCRC3Codec(jm, variables).compress(jnp.asarray(x), return_debug=True)
-    assert not np.asarray(jenc["seg_y_hat"]).any()
-    tm = tmodels.create_model("stf13", device="cpu", seed=0, **TINY).eval()
-    codec = CRC3Codec(tm)
-    assert not codec.compress(x, return_debug=True)["seg_y_hat"].any()
-    nonzero = {k: sum(int(s.count_nonzero()) for s in v) for k, v in codec.symbols(x).items()}
-    assert nonzero["seg_y_hat"] == 0 and nonzero["y_hat"] > 0, nonzero
-    with torch.no_grad():
-        tm.seg_g_a2.Conv_1.weight.mul_(16.0)
-    assert sum(int(s.count_nonzero()) for s in codec.symbols(x)["seg_y_hat"]) > 0
-
-
 def test_create_model_is_on_the_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -314,14 +288,13 @@ class CRCTwin(_Layout):
         jm, variables, tm, x = make_twin(self.name)
         xj, xt = jnp.asarray(x), torch.from_numpy(x)
         ref = jax.jit(lambda v, a: jm.apply(v, a, training=False))(variables, xj)
-        jc = self.jax_codec(jm, variables)
-        jdev = self.jax_codec(jm, variables, wire="device")
-        host = self.codec(tm, tables=jax_tables(jc))
-        dev = self.codec(tm, tables=jax_tables(jdev), wire="device")
+        # one JAX codec serves both wires, which share its compiled functions
+        jc = on_wires(self.jax_codec(jm, variables, wire="device"))
+        host = self.codec(tm, tables=jax_tables(jc["host"]))
+        dev = self.codec(tm, tables=jax_tables(jc["device"]), wire="device")
         return dict(jm=jm, variables=variables, tm=tm, x=x, ref=ref,
-                    jc={"host": jc, "device": jdev}, port={"host": host, "device": dev},
-                    jenc={"host": jc.compress(xj, return_debug=True),
-                          "device": jdev.compress(xj, return_debug=True)},
+                    jc=jc, port={"host": host, "device": dev},
+                    jenc={w: c.compress(xj, return_debug=True) for w, c in jc.items()},
                     enc={"host": host.compress(xt, return_debug=True),
                          "device": dev.compress(xt, return_debug=True)})
 
@@ -641,7 +614,9 @@ class CRCScanTwin(_Layout):
         x = twin["x"]
         keys = self.keys
         params = jax.device_get(twin["variables"]["params"])
-        jm, tm = twin["jm"], make_twin(self.name)[2]
+        jm = twin["jm"]
+        tm = tmodels.create_model(self.name, device="cpu", **TINY)  # the twin's weights
+        tm.load_state_dict(twin["tm"].state_dict())
         if scan:
             jcls, jkw = jax_models[self.name]
             jm = jcls(**{**jkw, **TINY}, scan_charm=True)
@@ -728,10 +703,14 @@ class CRCBf16Twin(_Layout):
 
     @pytest.fixture(scope="class")
     def twin(self):
-        jm, _, tm, x = make_twin(self.name)
-        params = jax.device_get(jm.init(
+        x = np.random.default_rng(0).random((2, 64, 64, 3)).astype(np.float32)  # make_twin's
+        jcls, jkw = jax_models[self.name]
+        jm = jcls(**{**jkw, **TINY})
+        tm = tmodels.create_model(self.name, device="cpu", **TINY)
+        # JAX's init without its forward's compute (the same values as init)
+        params = jax.device_get(jm.lazy_init(
             {"params": jax.random.PRNGKey(1), "noise": jax.random.PRNGKey(2)},
-            jnp.asarray(x), training=False)["params"])
+            jax.ShapeDtypeStruct(x.shape, jnp.float32), training=False)["params"])
         tm.load_state_dict(from_jax_params(params), strict=True)
         return dict(jm=jm, params=params, tm=tm.eval(), x=x)
 
@@ -839,7 +818,7 @@ class CRCBf16Twin(_Layout):
         xs = torch.from_numpy(x)
         jm, variables = twin["jm"], {"params": twin["params"]}
         jnn.set_activation_dtype(jnp.bfloat16)  # before the JAX codecs trace
-        jc = {w: self.jax_codec(jm, variables, wire=w) for w in ("host", "device")}
+        jc = on_wires(self.jax_codec(jm, variables, wire="device"))
         jenc = {w: c.compress(jnp.asarray(x), return_debug=True) for w, c in jc.items()}
         jnn.set_activation_dtype(None)
         tables = jax_tables(jc["device"])
@@ -875,3 +854,27 @@ class CRCBf16Twin(_Layout):
 class CRC3Bf16Twin(CRC3Layout, CRCBf16Twin):
     """stf13's :class:`CRCBf16Twin`: x_hat, machine_x_hat and seg_x_hat, the
     three layers' rates, both zigzag layers' symbols."""
+
+    def test_stf13_segmentation_latent_is_zero_at_init(self, twin):
+        """At an untrained init stf13's segmentation latent rounds to 0
+        everywhere, and with zero biases its mu and LRP are 0 as well: JAX's
+        model at its own init (this twin's) and the port's seeded one (TINY,
+        two 64 x 64 images, plain rounding) both give a seg_y_hat of exact
+        zeros, coded as zero symbols, while the machine layer codes nonzero
+        ones. So the model itself, not the port, leaves a card check on
+        seeded weights comparing zeros; ``chip_smoke.CRC_GAIN`` scales the
+        segmentation analysis's last convolution, after which the port codes
+        nonzero segmentation symbols."""
+        x = twin["x"]
+        jenc = self.jax_codec(twin["jm"], {"params": twin["params"]}).compress(
+            jnp.asarray(x), return_debug=True)
+        assert not np.asarray(jenc["seg_y_hat"]).any()
+        assert np.asarray(jenc["y_hat"]).any()
+        tm = tmodels.create_model("stf13", device="cpu", seed=0, **TINY).eval()
+        codec = CRC3Codec(tm)
+        assert not codec.compress(x, return_debug=True)["seg_y_hat"].any()
+        nonzero = {k: sum(int(s.count_nonzero()) for s in v) for k, v in codec.symbols(x).items()}
+        assert nonzero["seg_y_hat"] == 0 and nonzero["y_hat"] > 0, nonzero
+        with torch.no_grad():
+            tm.seg_g_a2.Conv_1.weight.mul_(16.0)
+        assert sum(int(s.count_nonzero()) for s in codec.symbols(x)["seg_y_hat"]) > 0

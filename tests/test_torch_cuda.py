@@ -1721,6 +1721,192 @@ def test_stf2_twin_forward_card_vs_cpu(twin):
                                    atol=1e-3)
 
 
+# czigzag's narrow twin (tests/test_torch_czigzag.py's CZ_TINY: 8 zigzag steps
+# of 32 channels, support 3, windows of 3) on 2 x 64 px and a seeded up_x4
+CZ_TINY = dict(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8), window_size=4,
+               patch_size=2, drop_path_rate=0.0, num_slices=2, max_support=3, support_num=3,
+               hyper_depths=(1, 1), cc_widths=(24, 16))
+CZ_TWIN_NARROW = 4.0
+
+
+def _czigzag_model(device):
+    """The narrow czigzag twin from seed 0, its biases drawn at 0.01 (seed 0)."""
+    from icm_tpu_torch.models import create_model
+
+    model = create_model("czigzag", device=device, seed=0, **CZ_TINY)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".bias"):
+                p.copy_(0.01 * torch.randn(p.shape, generator=g))
+    return model.eval()
+
+
+def _czigzag_attention(model, side: str) -> Counter:
+    """Window-attention launches of a czigzag side by head width: one a
+    block of the analysis (compress), both hyper-encoder stacks (compress),
+    both hyper-decoders' and the synthesis (both sides)."""
+    from icm_tpu_torch.nn import CrossWindowAttention
+
+    parts = ["syn_layer", "hyper_dec_"] + (["layer", "hyper_enc"] if side == "compress" else [])
+    out = Counter()
+    for name, mod in model.named_modules():
+        if isinstance(mod, CrossWindowAttention) and name.startswith(tuple(parts)):
+            out[mod.dim // mod.num_heads] += 1
+    return out
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_czigzag_twin_wires_on_the_card(policy):
+    """The narrow czigzag twin on the host wire, the device wire and (in
+    float32) the scan wire, graphed and launch by launch: every round trip
+    bit for bit; the device runs' y_hat and x_hat the host wire's (the scan
+    wire's within JAX's bar of them), its graphed blobs equal to launched;
+    window attention launched once a block by head width and in the
+    policy's build; 2 encode and 9 decode launches on each device run
+    (graphed: the 8 slice decodes inside the decode graph), none on the
+    host wire; some symbols nonzero; y_hat in the policy's dtype. Under
+    bfloat16 the scan wire refuses."""
+    _needs_card()
+    from icm_tpu_torch.models.crc_codec import CzigzagCodec
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    dt = torch.bfloat16 if policy == "bfloat16" else torch.float32
+    model = _czigzag_model("cuda")
+    x, up = _scan_images(64), _scan_images(64, seed=1)
+    N = model.ctx_slices
+    runs = {"host": {}, "device": {"wire": "device"},
+            "graphed": {"wire": "device", "scan_wire": True},
+            "launched": {"wire": "device", "scan_wire": True, "cuda_graphs": False}}
+    if policy == "bfloat16":
+        runs = {k: runs[k] for k in ("host", "device")}
+    enc = {}
+    set_activation_dtype(dt if policy == "bfloat16" else None)
+    try:
+        for run, kw in runs.items():
+            codec = CzigzagCodec(model, narrow=CZ_TWIN_NARROW, **kw)
+            if run == "graphed":  # capture, outside the counts
+                first = codec.compress(x, up)
+                codec.decompress(first["strings"], first["shape"], up)
+            for side in ("compress", "decompress"):
+                before = (twa.LAUNCHES.copy(), tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES)
+                if side == "compress":
+                    e = enc[run] = codec.compress(x, up, return_debug=True)
+                else:
+                    d = codec.decompress(e["strings"], e["shape"], up)
+                torch.cuda.synchronize()
+                attn = Counter({D: n for (dtype, D), n in (twa.LAUNCHES - before[0]).items()
+                                if dtype == dt})
+                assert attn == _czigzag_attention(model, side), (run, side)
+                assert sum((twa.LAUNCHES - before[0]).values()) == sum(attn.values())
+                rans = (tdr.ENCODE_LAUNCHES - before[1], tdr.DECODE_LAUNCHES - before[2])
+                want = (0, 0) if run == "host" else ((2, 0) if side == "compress" else (0, N + 1))
+                assert rans == want, (run, side)
+            assert torch.equal(d["y_hat"], e["y_hat"]) and torch.equal(d["x_hat"], e["x_hat"])
+            assert e["y_hat"].dtype == dt
+            assert sum(int(s.count_nonzero()) for s in codec.symbols(x, up)["y_hat"]) > 0
+            if run == "graphed":
+                decode = [g for k, g in codec.graphs.graphs().items() if k[:2] == ("scan", "decode")]
+                assert len(decode) == 1
+                assert sum(decode[0].launches["DECODE_LAUNCHES"].values()) == N
+        if policy == "bfloat16":
+            with pytest.raises(ValueError, match="float32"):
+                CzigzagCodec(model, wire="device", scan_wire=True)
+    finally:
+        set_activation_dtype(None)
+    for k in ("y_hat", "x_hat"):
+        assert torch.equal(enc["device"][k], enc["host"][k]), k
+    if policy == "float32":
+        assert enc["graphed"]["strings"] == enc["launched"]["strings"]
+        for k in ("y_hat", "x_hat"):
+            assert torch.equal(enc["graphed"][k], enc["launched"][k]), k
+        diff = (enc["graphed"]["y_hat"] - enc["host"]["y_hat"]).abs()
+        assert float((diff > 1e-2).float().mean()) < 0.005 and float(diff.median()) < 1e-4
+
+
+def test_czigzag_twin_forward_and_step_card_vs_cpu():
+    """The narrow czigzag twin on the card against the plain CPU path on the
+    same weights: the eval forward's x_hat and likelihoods within 1e-3; one
+    training step (``make_train_step`` on an (x, up_x4) batch, the same
+    noise from one seeded CPU generator each, no optimizer step: learning
+    rates 0): its loss terms and every gradient within 1e-3 of its max."""
+    _needs_card()
+    from icm_tpu_torch.models import cuda_numerics
+    from icm_tpu_torch.train import (RateDistortionLoss, TrainState, make_optimizer,
+                                     make_train_step)
+
+    cuda_numerics()
+    model = _czigzag_model("cuda")
+    cpu = _czigzag_model("cpu")
+    cpu.load_state_dict(model.state_dict())
+    x, up = _scan_images(64), _scan_images(64, seed=1)
+    with torch.no_grad():
+        got, ref = model(x, up), cpu(x.cpu(), up.cpu())
+    torch.testing.assert_close(got["x_hat"].cpu(), ref["x_hat"], rtol=0, atol=1e-3)
+    for k in "yz":
+        torch.testing.assert_close(got["likelihoods"][k].cpu(), ref["likelihoods"][k], rtol=0,
+                                   atol=1e-3)
+
+    def step(m, batch):
+        state = TrainState(m, make_optimizer(m, 0.0, 0.0, 0.0))
+        terms = make_train_step(m, RateDistortionLoss(0.01))(
+            state, batch, torch.Generator().manual_seed(0))
+        return ({k: float(v) for k, v in terms.items()},
+                {n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+
+    got_terms, got = step(model, (x, up))
+    ref_terms, ref = step(cpu, (x.cpu(), up.cpu()))
+    for k, v in ref_terms.items():
+        assert abs(got_terms[k] - v) <= 1e-3 * max(abs(v), 1e-30), k
+    for n in ref:
+        err = (got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)
+        assert err <= 1e-3, (n, float(err))
+
+
+# (dim, heads): czigzag's head widths 16 (its transforms' 48 channels at 3
+# heads), 48 and 96 (its hyper stacks' 192 and 384 channels at 4 heads)
+CROSS_WIDTHS = [(48, 3), (192, 4), (384, 4)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dim,heads", CROSS_WIDTHS)
+def test_cross_window_attention_on_the_card(dim, heads, dtype):
+    """czigzag's cross window attention (``CrossWindowAttention``: q from
+    x's windows, k and v from the context's) on the card against the plain
+    CPU path on the same weights, at window 4 with the shifted blocks'
+    four classes on 2 x 16 x 16: one launch of the kernel's build of the
+    policy's dtype and head width, the output within 1e-4 (f32: cuBLAS's
+    projections sum in another order) or 2e-2 (bf16)."""
+    _needs_card()
+    from icm_tpu_torch.models import init_parameters
+    from icm_tpu_torch.nn import CrossWindowAttention, set_activation_dtype
+    from icm_tpu_torch.nn.layers import ShiftedWindows, window_partition
+
+    cpu = CrossWindowAttention(dim, (4, 4), heads)
+    init_parameters(cpu, torch.Generator().manual_seed(dim))
+    card = CrossWindowAttention(dim, (4, 4), heads).cuda()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(dim)
+    maps = [torch.from_numpy(rng.standard_normal((2, 16, 16, dim)).astype(np.float32))
+            for _ in range(2)]
+    xw, cw = (window_partition(m, 4).reshape(-1, 16, dim) for m in maps)
+    geometry = ShiftedWindows(4, 2)
+    dt = getattr(torch, dtype)
+    set_activation_dtype(dt if dtype == "bfloat16" else None)
+    try:
+        with torch.no_grad():
+            before = twa.LAUNCHES.copy()
+            got = card(xw.cuda(), *geometry._classes(16, 16, 2, "cuda"), cw.cuda())
+            torch.cuda.synchronize()
+            assert twa.LAUNCHES - before == Counter({(dt, dim // heads): 1})
+            ref = cpu(xw, *geometry._classes(16, 16, 2, "cpu"), cw)
+    finally:
+        set_activation_dtype(None)
+    assert got.dtype == ref.dtype == dt
+    torch.testing.assert_close(got.float().cpu(), ref.float(), rtol=0,
+                               atol=1e-4 if dtype == "float32" else 2e-2)
+
+
 # --- chip_smoke.py's profiler readings ---------------------------------------------------
 def _chip_smoke():
     """chip_smoke.py loaded as a module (its helpers; its main is not run)."""

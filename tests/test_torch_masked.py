@@ -42,7 +42,7 @@ import torch
 from test_torch_bf16 import BF16, BPP_RTOL, SYMBOL_SHARE_TOL, XHAT_MEAN_TOL, _assert_bf16_close
 from test_torch_cnn_codec import CROSS_TOL
 from test_torch_stf import _params_from_numpy
-from test_torch_stf_family import port_tables
+from test_torch_stf_family import on_wires, port_tables
 from test_torch_stf_family_paths import _f64_port_params
 from test_torch_train import _close, _replay
 
@@ -134,7 +134,7 @@ class MaskedTwin:
         jm, variables, tm, x = make_twin(self.name, config)
         xj, xt = jnp.asarray(x), torch.from_numpy(x)
         ref = jax.jit(lambda v, a: jm.apply(v, a, training=False))(variables, xj)
-        jc = {w: JaxStf3Codec(jm, variables, wire=w) for w in ("host", "device")}
+        jc = on_wires(JaxStf3Codec(jm, variables, wire="device"))
         port = {w: Stf3Codec(tm, tables=port_tables(jc[w].tables), wire=w)
                 for w in ("host", "device")}
         return dict(jm=jm, variables=variables, tm=tm, x=x, ref=ref, config=config, jc=jc,
@@ -349,9 +349,11 @@ class MaskedBf16Twin:
         x = _images(2, 64)
         jcls, jkw = jax_models[self.name]
         jm = jcls(**{**jkw, **config})
-        params = jax.device_get(jm.init(
+        # JAX's init without its forward's compute (the same values as init)
+        params = jax.device_get(jm.lazy_init(
             {"params": jax.random.PRNGKey(1), "noise": jax.random.PRNGKey(2),
-             "dropout": jax.random.PRNGKey(3)}, jnp.asarray(x), training=False)["params"])
+             "dropout": jax.random.PRNGKey(3)}, jax.ShapeDtypeStruct(x.shape, jnp.float32),
+            training=False)["params"])
         tm = tmodels.create_model(self.name, device="cpu", **config)
         tm.load_state_dict(from_jax_params(params), strict=True)
         return dict(jm=jm, params=params, tm=tm.eval(), x=x, config=config)
@@ -465,7 +467,7 @@ class MaskedBf16Twin:
         xs = torch.from_numpy(x)
         jcls, tcls = self._codecs()
         jnn.set_activation_dtype(jnp.bfloat16)  # before the JAX codecs trace
-        jc = {w: jcls(jm, {"params": twin["params"]}, wire=w) for w in ("host", "device")}
+        jc = on_wires(jcls(jm, {"params": twin["params"]}, wire="device"))
         jenc = {w: c.compress(jnp.asarray(x), return_debug=True) for w, c in jc.items()}
         jnn.set_activation_dtype(None)
         tables = port_tables(jc["device"].tables)

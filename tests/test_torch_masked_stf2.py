@@ -43,7 +43,7 @@ from test_torch_cnn_codec import CROSS_TOL
 from test_torch_masked import (FORWARD_TOL, GRAD_TOL, TINY, _images, make_twin, nhwc,
                                stf2_noise)
 from test_torch_stf import _params_from_numpy
-from test_torch_stf_family import port_tables
+from test_torch_stf_family import on_wires, port_tables
 from test_torch_stf_family_paths import _f64_port_params
 from test_torch_train import _close, _replay
 
@@ -104,7 +104,7 @@ class Stf2Twin:
         jm, variables, tm, x = make_twin("stf2", config)
         xj, xt = jnp.asarray(x), torch.from_numpy(x)
         ref = jax.jit(lambda v, a: jm.apply(v, a, training=False))(variables, xj)
-        jc = {w: JaxStf2Codec(jm, variables, wire=w) for w in ("host", "device")}
+        jc = on_wires(JaxStf2Codec(jm, variables, wire="device"))
         port = {w: Stf2Codec(tm, tables=port_tables(jc[w].tables), wire=w)
                 for w in ("host", "device")}
         return dict(jm=jm, variables=variables, tm=tm, x=x, ref=ref, config=config, jc=jc,

@@ -42,16 +42,18 @@ NARROW = dict(
 )
 
 
-def _params_from_numpy(jm, x, seed):
-    """Parameters for the JAX twin at the shapes of its init: every kernel,
-    dense ones too, fan-in scaled (the attention sees O(1) logits, so the
-    comparison sees the bias tables and the softmax); LayerNorm scales near
-    one and small shifts; small biases; relative-position tables at 0.02;
-    the bottleneck from its own init, perturbed."""
+def _params_from_numpy(jm, x, seed, *more_inputs):
+    """Parameters for the JAX twin at the shapes of its init (on x and
+    ``more_inputs``: czigzag's up_x4): every kernel, dense ones too,
+    fan-in scaled (the attention sees O(1) logits, so the comparison sees
+    the bias tables and the softmax); LayerNorm scales near one and small
+    shifts; small biases; relative-position tables at 0.02; the bottleneck
+    from its own init, perturbed."""
     rng = np.random.default_rng(seed)
     shapes = jax.eval_shape(
         lambda: jm.init({"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
-                        jnp.asarray(x), training=False))["params"]
+                        jnp.asarray(x), *map(jnp.asarray, more_inputs),
+                        training=False))["params"]
 
     def draw(path, leaf):
         parent, name = (getattr(p, "key", "") for p in path[-2:])

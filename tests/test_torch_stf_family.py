@@ -95,6 +95,37 @@ def port_tables(jt) -> tmodels.CodecTables:
                                bottlenecks={k: one(t) for k, t in jt.bottlenecks.items()})
 
 
+class OnWire:
+    """A JAX codec on one wire: the JAX codecs read their ``wire`` (and
+    ``scan_wire``) at each call, so one instance, built for the device wire
+    (and the scan wire), serves every wire, and they share its compiled
+    functions."""
+
+    def __init__(self, codec, wire: str, scan_wire: bool = False):
+        self.codec, self.wire, self.scan_wire = codec, wire, scan_wire
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def _set(self):
+        self.codec.wire = self.wire
+        if hasattr(self.codec, "scan_wire"):
+            self.codec.scan_wire = self.scan_wire
+
+    def compress(self, *args, **kwargs):
+        self._set()
+        return self.codec.compress(*args, **kwargs)
+
+    def decompress(self, *args, **kwargs):
+        self._set()
+        return self.codec.decompress(*args, **kwargs)
+
+
+def on_wires(codec, wires=("host", "device")) -> dict:
+    """``codec`` (built with ``wire="device"``) as an :class:`OnWire` each."""
+    return {w: OnWire(codec, w) for w in wires}
+
+
 class FamilyTwin:
     """The tests of one twin; a file per twin subclasses it as
     ``Test<Twin>`` with ``name`` set."""

@@ -1,13 +1,14 @@
-"""chip_smoke.py's phases of some CRC-family or masked-family models alone,
-on the card: the quick check of one model's paths without the whole run.
+"""chip_smoke.py's phases of some CRC-family, masked-family or czigzag
+models alone, on the card: the quick check of one model's paths without the
+whole run.
 
     python3 tools/torch_smoke_models.py [--models stf13] [--size 512] [--seed 0]
         [--out models.json] [--probe-gains 8,16,32]
 
 Builds every kernel (``chip_smoke.build_kernels``), then runs, for each
-model of ``--models`` (comma-separated, of ``chip_smoke.CRC`` and
-``chip_smoke.MASKED``), its phases as ``chip_smoke.main`` does, each phase
-holding what it holds in the whole run:
+model of ``--models`` (comma-separated, of ``chip_smoke.CRC``,
+``chip_smoke.MASKED`` and ``czigzag``), its phases as ``chip_smoke.main``
+does, each phase holding what it holds in the whole run:
 
 - a CRC model (``chip_smoke.crc_model_phases``) on phase 5's images: the
   three wires and the eval forward card against CPU, training, the bf16
@@ -19,7 +20,11 @@ holding what it holds in the whole run:
   checkpoint, on 2 images of ``--size`` px (default: the model's
   ``MASKED_SIZE``; stf3 / stf4's decoder work grows with the square of the
   token count, so stf4 at 512 px takes about 16 times its 256 px
-  decompress; stf2's with the count).
+  decompress; stf2's with the count);
+- czigzag (``chip_smoke.czigzag_model_phases``) on phase 5's images and
+  their up_x4: the three wires (the scan wire graphed and launch by
+  launch) and the eval forward card against CPU, training, the bf16
+  policy and the reference checkpoint.
 
 Prints the card's name and power limit and, last, one JSON line of each
 model's results and launch counts; ``--out`` also writes it. Exits 1 if a
@@ -92,12 +97,12 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     names = args.models.split(",")
-    unknown = sorted(set(names) - set(smoke.CRC) - set(smoke.MASKED))
+    unknown = sorted(set(names) - set(smoke.CRC) - set(smoke.MASKED) - {"czigzag"})
     if args.probe_gains:
-        unknown += sorted(set(names) & set(smoke.MASKED))
+        unknown += sorted(set(names) & (set(smoke.MASKED) | {"czigzag"}))
     if unknown:
-        print(f"torch_smoke_models: not {'CRC' if args.probe_gains else 'CRC or masked'} "
-              f"models of chip_smoke.py: {unknown}", file=sys.stderr)
+        print(f"torch_smoke_models: not {'CRC' if args.probe_gains else 'CRC, masked or czigzag'}"
+              f" models of chip_smoke.py: {unknown}", file=sys.stderr)
         return 2
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import cuda_numerics
@@ -113,6 +118,10 @@ def main() -> int:
             if args.probe_gains:
                 out[name] = probe_gains(smoke, name, x, args.seed,
                                         [float(g) for g in args.probe_gains.split(",")])
+            elif name == "czigzag":
+                result, counts, shapes = smoke.czigzag_model_phases(x, card, zero_counts,
+                                                                    read_counts, args.seed)
+                out[name] = {"result": result, "launches": counts, "launches_by_shape": shapes}
             elif name in smoke.MASKED:
                 result, counts, bf16_counts = smoke.masked_model_phases(
                     name, card, zero_counts, read_counts, args.seed, args.size)
