@@ -358,8 +358,9 @@ The kernels line lists window attention's head widths 32, 48 and 96 and
 the GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
 ``_d96``, ``gdn_forward_c256``, ``gdn_backward_c256`` and their ``_bf16``
 builds, the GDN entries naming their CUDA function,
-``gdn_fwd_kernel_cluster`` or ``gdn_bwd_kernel_dx_cluster``; the
-backward's with its split) with their launches on the CRC paths (the
+``gdn_fwd_kernel_cluster`` or ``gdn_bwd_kernel_dx_cluster``, in bfloat16
+``gdn_fwd_kernel_bf16`` or ``gdn_bwd_kernel_dx_bf16``; the backward's with
+its split) with their launches on the CRC paths (the
 bfloat16 builds' on stf12's bfloat16 paths), read from the wrappers'
 counts by width and channels; WACNN's attention and 192-channel GDN
 entries keep their own paths' sum as ``launches`` and list the CRC paths'
@@ -422,8 +423,9 @@ TF32_PASSES = 3
 # dn is float32 (three pieces). The forward's gamma . x^2: 1 x 2 = 2. The
 # backward: gamma . x^2 again (2), Gamma^T dn (1 x 3 = 3) and dn (x^2)^T
 # (3 x 2 pieces less the one below 2^-24 of the sum, as 3xTF32 drops
-# lo*lo: 5). The kernels run these products in TF32 (gamma exact, so two
-# passes where gamma is an operand, and three for dn (x^2)^T)
+# lo*lo: 5). Up to 256 channels the kernels run these passes
+# (csrc/gdn.cu's bfloat16 design: gdn_fwd_kernel_bf16,
+# gdn_bwd_kernel_dx_bf16, gdn_bwd_kernel_dgamma_bf16); above, in TF32
 GDN_BF16_PASSES = {"forward": 2, "backward": 2 + 3 + 5}
 
 # stated tolerances of the kernel against its plain version on the card:
@@ -926,10 +928,10 @@ def gdn_kernel_split(fn, reps: int = 10) -> dict:
     return split
 
 
-def check_gdn(tgdn, cases=GDN_CASES):
+def check_gdn(tgdn, cases=GDN_CASES, split_all: bool = False):
     """Phase 4: the GDN kernels vs their plain versions at ``cases``,
-    float32 and then bfloat16; the backward above 192 channels also split
-    into its kernels. -> rows."""
+    float32 and then bfloat16; the backward above 192 channels (with
+    ``split_all`` at every case) also split into its kernels. -> rows."""
     import torch
 
     rows = []
@@ -970,7 +972,7 @@ def check_gdn(tgdn, cases=GDN_CASES):
                 row[name] = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                                  bound_ms=bound_ms, bound_by=by,
                                  f32_fma_bound_ms=fma_ms, f32_fma_bound_by=fma_by)
-            if C > 192:
+            if C > 192 or split_all:
                 row["backward"]["split_ms"] = gdn_kernel_split(
                     lambda: tgdn.gdn_backward_cuda(g, x, gamma, beta, inverse))
                 log(f"  gdn {dtype} backward split {B}x{C}x{H}x{W} inverse={inverse}: "
@@ -4617,17 +4619,19 @@ def main() -> int:
                 "cases": [{k: v for k, v in r.items()
                            if k not in ("forward", "backward")} | r[part] for r in gdn_rows_d],
             })
-    # the GDN kernels at 256 channels on the CRC path (gamma resident over a
-    # two-block cluster: gdn_fwd_kernel_cluster, gdn_bwd_kernel_dx_cluster
-    # beside the backward's dgamma and reduce kernels): the forward at the
-    # serving shape, the backward at the training step's, split into its
-    # kernels; the bfloat16 builds (stf12's bfloat16 paths) at the same
-    # shapes
-    for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+    # the GDN kernels at 256 channels on the CRC path (in float32 gamma
+    # resident over a two-block cluster: gdn_fwd_kernel_cluster,
+    # gdn_bwd_kernel_dx_cluster; in bfloat16 in one block:
+    # gdn_fwd_kernel_bf16, gdn_bwd_kernel_dx_bf16; beside the backward's
+    # dgamma and reduce kernels): the forward at the serving shape, the
+    # backward at the training step's, split into its kernels; the bfloat16
+    # builds (stf12's and stf13's bfloat16 paths) at the same shapes
+    for dtype, suffix, design in (("float32", "", "cluster"), ("bfloat16", "_bf16", "bf16")):
         rows_256 = [r for r in gdn_rows if r["C"] == 256 and r["dtype"] == dtype]
         for name, part, err_key, line, path, kernel in (
-                ("gdn_forward", "forward", "y", 50, "crc_serve", "gdn_fwd_kernel_cluster"),
-                ("gdn_backward", "backward", "dx", 64, "crc_train", "gdn_bwd_kernel_dx_cluster")):
+                ("gdn_forward", "forward", "y", 50, "crc_serve", f"gdn_fwd_kernel_{design}"),
+                ("gdn_backward", "backward", "dx", 64, "crc_train",
+                 f"gdn_bwd_kernel_dx_{design}")):
             main = [r for r in rows_256 if r["path"] == path and r["inverse"]][0]
             kernels.append({
                 "name": f"{name}_c256{suffix}",

@@ -15,21 +15,35 @@
 // (the port's orientation), and dGamma comes out in the same orientation.
 //
 // Element types, as the Pallas kernels take them (gdn_pallas.py:50-99): x,
-// g, y and dx are float32 or bfloat16 (the template parameter T of every
-// kernel that touches them, one build of each for each type, chosen by the
-// C entries' dtype code); gamma, beta, dn, dGamma and dbeta are float32
-// (the wrapper hands the kernels gamma's bfloat16 values as float32, and
-// rounds dGamma to gamma's dtype). In bfloat16 x and g are converted to
-// float32 on their way into shared memory (8-byte loads of 4 values where
-// the row allows), so the tiles, their strides, their bank padding and
-// every product are the float32 build's; y and dx are rounded to bfloat16
-// once, at the store. The float32 build stages x with cp.async; the
-// bfloat16 build loads synchronously (a conversion needs registers), so
-// its next tile's load no longer overlaps the product. gamma's bfloat16
-// values are TF32 values, so in the products with gamma (n's, and
-// Gamma^T dn in dx) gamma's low part is zero and that pass is left out:
-// two TF32 passes instead of three, the same sums. A simple build: a
-// bfloat16 `mma` on x^2 is for later.
+// g, y and dx are float32 or bfloat16 (chosen by the C entries' dtype
+// code); beta, dn, dGamma and dbeta are float32; gamma comes in x's dtype
+// and the wrapper rounds dGamma to it. Two sets of kernels:
+// - float32, and bfloat16 above 256 channels (the template parameter T of
+//   gdn_fwd_kernel_fma, gdn_bwd_kernel_dx_streamed and
+//   gdn_bwd_kernel_dgamma; gamma handed over in float32): 3xTF32 products
+//   on f32 tiles; in bfloat16 x and g are converted to f32 on their way
+//   into shared memory, and gamma's bfloat16 values are TF32 values, so
+//   its low pass is left out (two TF32 passes, the same sums).
+// - The bfloat16 design, 1 <= C <= 256 (gdn_fwd_kernel_bf16,
+//   gdn_bwd_kernel_dx_bf16, gdn_bwd_kernel_dgamma_bf16): the products run
+//   in bfloat16 on the tensor cores (mma.sync m16n8k16, f32 accumulators),
+//   each operand cut into the fewest bfloat16 pieces that hold it exactly,
+//   so that every product sums the float32 version's terms and only the
+//   order of the f32 sums differs. gamma is bfloat16: one piece. x^2 of a
+//   bfloat16 x has at most 16 significant bits: two (hi, its top 8, and
+//   lo, the rest). dn is float32: three. Passes: n = Gamma x^2 2, Gamma^T
+//   dn 3, dGamma = dn (x^2)^T 5 (3 x 2 less lo*lo, under 2^-24 of the
+//   product, as 3xTF32 drops it). Pieces are truncations of the bit
+//   pattern (byte permutes, not conversions); a piece under 2^-133,
+//   bfloat16's least subnormal, is lost, under 2^-126 Gamma against n >=
+//   beta. gamma (128 KB at C = 256) and the tiles stay bfloat16 in shared
+//   memory, so one block holds gamma up to 256 channels, with no cluster;
+//   x and g are staged by 16-byte cp.async in rings (the next tile lands
+//   while the current one computes); A and B fragments come by ldmatrix
+//   (.trans where the tile is channel-major and the mma wants a pixel's two
+//   neighbouring channels in a register), x^2 is squared and split in
+//   registers as its fragments are built, dn split once into three
+//   bfloat16 tiles. y and dx are rounded to bfloat16 once, at the store.
 //
 // What bounds it on an H100: on the f32 FMA units, operations. Per pixel
 // the forward does one C x C product (2 C^2 operations) on 2 C values moved
@@ -44,10 +58,14 @@
 // each at 8 x 192 x 128^2). In practice mma.sync reaches about two thirds
 // of the dense TF32 rate, and a tile's product and its memory traffic
 // each take a large share of the time, so what the forward's design does
-// is keep both going at once.
+// is keep both going at once. In bfloat16 the activations' bytes halve and
+// the products take 2 (forward) and 2 + 3 + 5 (backward) bfloat16 passes
+// at 989 TFLOP/s: at C = 192 the forward is bound by its bytes, the
+// backward by its operations.
 //
-// Three designs by channels, the same for the forward and dx, set by how
-// much of gamma (C^2 floats) a block's 227 KB of shared memory holds:
+// The float32 kernels, three designs by channels, the same for the forward
+// and dx, set by how much of gamma (C^2 floats) a block's 227 KB of shared
+// memory holds:
 // - C <= 192, every GDN of every model but the one below: one block per SM
 //   holds gamma (150 KB at C = 192) resident.
 // - 192 < C <= 256, MainCNNDecoder's IGDN at 256 channels
@@ -59,7 +77,7 @@
 // - 256 < C <= 512, which no model uses: gamma staged or streamed through
 //   shared memory per tile, on the FMA units in the forward.
 //
-// The forward:
+// The float32 forward (and the bfloat16 one above 256 channels):
 // - gdn_fwd_kernel_resident (C <= 192): one persistent block per SM loads
 //   gamma and beta into shared memory once, so per tile no gamma moves
 //   (read per tile, gamma would be three times the launch's own bytes at
@@ -78,7 +96,7 @@
 //   chunks of BK input channels by TO = 192 output channels, and each
 //   thread keeps a 6 x 4 register tile.
 //
-// The backward:
+// The float32 backward (and the bfloat16 one above 256 channels):
 // - All three products run on the tensor cores with mma.sync m16n8k8 in
 //   3xTF32, as the forward's: each operand x is split into hi = tf32(x)
 //   and lo = tf32(x - hi) (integer rounding of the bit pattern) and the
@@ -109,6 +127,9 @@
 //   three-chunk ring, and writes its partial slot once. The blocks of the
 //   first tile column also sum dn for dbeta (the slot's column C).
 //
+// The bfloat16 design's kernels are described where they are defined
+// (gdn_fwd_kernel_bf16, gdn_bwd_kernel_dx_bf16, gdn_bwd_kernel_dgamma_bf16).
+//
 // The sum of dGamma and dbeta over all pixels (the Pallas kernel revisits one
 // VMEM block across sequential grid steps) is a deterministic two-stage
 // reduce: a fixed number of partial slots (at most MAX_PARTIALS, a function
@@ -130,6 +151,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -453,10 +476,10 @@ __device__ __forceinline__ void load_gamma_rows(const float* __restrict__ gamma,
 // Warpgroup g of block (or cluster) q of n takes tiles q + (2 i + g) n, i =
 // 0, 1, ...; every tile is computed alone, in one fixed order, and each y
 // has one writer: neither the grid nor the card changes a bit of y.
-template <typename T, int MI, int CLUSTER>
-__device__ __forceinline__ void gdn_fwd_tiles(const T* __restrict__ x,
+template <int MI, int CLUSTER>
+__device__ __forceinline__ void gdn_fwd_tiles(const float* __restrict__ x,
                                               const float* __restrict__ gamma,
-                                              const float* __restrict__ beta, T* __restrict__ y,
+                                              const float* __restrict__ beta, float* __restrict__ y,
                                               int C, int P, int tiles_per_image, int n_tiles,
                                               int inverse, int x_aligned, int gamma_aligned,
                                               int y_aligned) {
@@ -496,7 +519,7 @@ __device__ __forceinline__ void gdn_fwd_tiles(const T* __restrict__ x,
   // the image
   auto load_tile = [&](int tile) {
     const int p0 = (tile % tiles_per_image) * RP;
-    const T* s0 = x + (size_t)(tile / tiles_per_image) * C * P + p0;
+    const float* s0 = x + (size_t)(tile / tiles_per_image) * C * P + p0;
     for (int e = gt; e < CK * (RP / 4); e += GROUP) {
       const int c = e / (RP / 4);
       const int p = (e % (RP / 4)) * 4;
@@ -545,7 +568,7 @@ __device__ __forceinline__ void gdn_fwd_tiles(const T* __restrict__ x,
           split_tf32(r0.y, ah[mi][2], al[mi][2]);
           split_tf32(r8.y, ah[mi][3], al[mi][3]);
         }
-        mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
+        mma_3xtf32_grid<false>(part, ah, al, bh, bl);
       }
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi)
@@ -575,7 +598,7 @@ __device__ __forceinline__ void gdn_fwd_tiles(const T* __restrict__ x,
     cp_async_commit();
 
     const int p0 = (tile % tiles_per_image) * RP;
-    T* yt = y + (size_t)(tile / tiles_per_image) * C * P + p0;
+    float* yt = y + (size_t)(tile / tiles_per_image) * C * P + p0;
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -590,7 +613,7 @@ __device__ __forceinline__ void gdn_fwd_tiles(const T* __restrict__ x,
           const float n0 = acc[mi][j][2 * h] + bc, n1 = acc[mi][j][2 * h + 1] + bc;
           const float2 v = make_float2(xr[mi][h][j].x * (inverse ? sqrtf(n0) : rsqrtf(n0)),
                                        xr[mi][h][j].y * (inverse ? sqrtf(n1) : rsqrtf(n1)));
-          T* dst = yt + (size_t)c * P + pl;
+          float* dst = yt + (size_t)c * P + pl;
           if (y_aligned && p0 + pl + 1 < P) {
             store2(dst, v.x, v.y);
           } else {
@@ -605,28 +628,26 @@ __device__ __forceinline__ void gdn_fwd_tiles(const T* __restrict__ x,
 }
 
 // C <= fwd::MAX_C: one block per SM holds all of gamma
-template <typename T>
 __global__ void __launch_bounds__(fwd::THREADS, 1)
-gdn_fwd_kernel_resident(const T* __restrict__ x, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, T* __restrict__ y, int C, int P,
+gdn_fwd_kernel_resident(const float* __restrict__ x, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, float* __restrict__ y, int C, int P,
                         int tiles_per_image, int n_tiles, int inverse, int x_aligned,
                         int gamma_aligned, int y_aligned) {
   static_assert(3 * 64 == fwd::MAX_C, "the block's rows are all of gamma's");
-  gdn_fwd_tiles<T, 3, 1>(x, gamma, beta, y, C, P, tiles_per_image, n_tiles, inverse, x_aligned,
+  gdn_fwd_tiles<3, 1>(x, gamma, beta, y, C, P, tiles_per_image, n_tiles, inverse, x_aligned,
                          gamma_aligned, y_aligned);
 }
 
 // 192 < C <= clu::MAX_C: a cluster of two blocks, each with half of gamma's rows
-template <typename T>
 __global__ void __launch_bounds__(fwd::THREADS, 1)
-gdn_fwd_kernel_cluster(const T* __restrict__ x, const float* __restrict__ gamma,
-                       const float* __restrict__ beta, T* __restrict__ y, int C, int P,
+gdn_fwd_kernel_cluster(const float* __restrict__ x, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, float* __restrict__ y, int C, int P,
                        int tiles_per_image, int n_tiles, int inverse, int x_aligned,
                        int gamma_aligned, int y_aligned) {
   static_assert(2 * 64 == clu::HALF && clu::LDG == clu::MAX_C + fwd::PAD_G &&
                     clu::LDX == fwd::LDT && clu::RP == fwd::RP,
                 "the cluster's halves and tiles are the dx kernel's");
-  gdn_fwd_tiles<T, 2, 2>(x, gamma, beta, y, C, P, tiles_per_image, n_tiles, inverse, x_aligned,
+  gdn_fwd_tiles<2, 2>(x, gamma, beta, y, C, P, tiles_per_image, n_tiles, inverse, x_aligned,
                          gamma_aligned, y_aligned);
 }
 
@@ -893,11 +914,10 @@ gdn_bwd_kernel_dx_streamed(const T* __restrict__ g, const T* __restrict__ x,
 // dx and x in registers (the second product's accumulators sit at the same
 // channels and pixels), and while Gamma^T dn runs the next tile's x is
 // already loading into the x tile.
-template <typename T>
 __global__ void __launch_bounds__(bwd::THREADS)
-gdn_bwd_kernel_dx_resident(const T* __restrict__ g, const T* __restrict__ x,
+gdn_bwd_kernel_dx_resident(const float* __restrict__ g, const float* __restrict__ x,
                            const float* __restrict__ gamma, const float* __restrict__ beta,
-                           T* __restrict__ dx, float* __restrict__ dn_out, int C, int P,
+                           float* __restrict__ dx, float* __restrict__ dn_out, int C, int P,
                            int tiles_per_image, int n_tiles, int inverse, int x_aligned,
                            int gamma_aligned) {
   constexpr int THREADS = bwd::THREADS, RP = bwd::RP;
@@ -926,10 +946,10 @@ gdn_bwd_kernel_dx_resident(const T* __restrict__ g, const T* __restrict__ x,
   }
   for (int c = tid; c < CP; c += THREADS) betas[c] = c < C ? beta[c] : 0.f;
   // tile t's x or g into dst, zero past C channels and past the image
-  auto load_tile = [&](const T* src, int tile, float* dst) {
+  auto load_tile = [&](const float* src, int tile, float* dst) {
     const int b = tile / tiles_per_image;
     const int p0 = (tile % tiles_per_image) * RP;
-    const T* s0 = src + (size_t)b * C * P + p0;
+    const float* s0 = src + (size_t)b * C * P + p0;
     for (int e = tid; e < CP * (RP / 4); e += THREADS) {
       const int c = e / (RP / 4);
       const int p = (e % (RP / 4)) * 4;
@@ -984,7 +1004,7 @@ gdn_bwd_kernel_dx_resident(const T* __restrict__ g, const T* __restrict__ x,
           split_tf32(ar[d2], ah[mi][2], al[mi][2]);
           split_tf32(ar[d1 + d2], ah[mi][3], al[mi][3]);
         }
-        mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
+        mma_3xtf32_grid<false>(part, ah, al, bh, bl);
       }
 #pragma unroll
       for (int mi = 0; mi < 3; ++mi)
@@ -1063,11 +1083,10 @@ gdn_bwd_kernel_dx_resident(const T* __restrict__ g, const T* __restrict__ x,
 // 1) of the first product and 4 m-tiles (both halves) by the same n-tiles
 // of the second. The first product's k is permuted as the forward's (gamma
 // pairs read 8 bytes at a time), the second's is not.
-template <typename T>
 __global__ void __launch_bounds__(clu::THREADS, 1)
-gdn_bwd_kernel_dx_cluster(const T* __restrict__ g, const T* __restrict__ x,
+gdn_bwd_kernel_dx_cluster(const float* __restrict__ g, const float* __restrict__ x,
                           const float* __restrict__ gamma, const float* __restrict__ beta,
-                          T* __restrict__ dx, float* __restrict__ dn_out, int C, int P,
+                          float* __restrict__ dx, float* __restrict__ dn_out, int C, int P,
                           int tiles_per_image, int n_tiles, int inverse, int x_aligned,
                           int gamma_aligned) {
   constexpr int RP = clu::RP, LDX = clu::LDX, LDD = clu::LDD, LDG = clu::LDG;
@@ -1102,7 +1121,7 @@ gdn_bwd_kernel_dx_cluster(const T* __restrict__ g, const T* __restrict__ x,
   load_gamma_rows<HALF>(gamma, beta, C, c0, clu::MAX_C, LDG, gamma_aligned, gs, betas);
   auto load_x = [&](int tile) {  // all CK channels, zero past C and the image
     const int p0 = (tile % tiles_per_image) * RP;
-    const T* s0 = x + (size_t)(tile / tiles_per_image) * C * P + p0;
+    const float* s0 = x + (size_t)(tile / tiles_per_image) * C * P + p0;
     for (int e = tid; e < CK * (RP / 4); e += THREADS) {
       const int c = e / (RP / 4);
       const int p = (e % (RP / 4)) * 4;
@@ -1111,7 +1130,7 @@ gdn_bwd_kernel_dx_cluster(const T* __restrict__ g, const T* __restrict__ x,
   };
   auto load_g = [&](int tile) {  // the block's HALF channels, zero past C and the image
     const int p0 = (tile % tiles_per_image) * RP;
-    const T* s0 = g + (size_t)(tile / tiles_per_image) * C * P + p0;
+    const float* s0 = g + (size_t)(tile / tiles_per_image) * C * P + p0;
     for (int e = tid; e < HALF * (RP / 4); e += THREADS) {
       const int r = e / (RP / 4);
       const int p = (e % (RP / 4)) * 4;
@@ -1162,7 +1181,7 @@ gdn_bwd_kernel_dx_cluster(const T* __restrict__ g, const T* __restrict__ x,
           split_tf32(r0.y, ah[mi][2], al[mi][2]);
           split_tf32(r8.y, ah[mi][3], al[mi][3]);
         }
-        mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
+        mma_3xtf32_grid<false>(part, ah, al, bh, bl);
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -1219,7 +1238,7 @@ gdn_bwd_kernel_dx_cluster(const T* __restrict__ g, const T* __restrict__ x,
           split_tf32(ar[4 * LDG], ah[mi][2], al[mi][2]);
           split_tf32(ar[4 * LDG + 8], ah[mi][3], al[mi][3]);
         }
-        mma_3xtf32_grid<sizeof(T) == 2>(part, ah, al, bh, bl);
+        mma_3xtf32_grid<false>(part, ah, al, bh, bl);
       }
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
@@ -1415,6 +1434,697 @@ __global__ void gdn_reduce_kernel(const float* __restrict__ partials,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bfloat16 design, 1 <= C <= 256 (the head note): bfloat16 operands on
+// the tensor cores (mma.sync m16n8k16, f32 accumulators), each product cut
+// into the fewest exact bfloat16 pieces; gamma and the x tiles held in
+// bfloat16; tiles staged by 16-byte cp.async.
+namespace bfd {
+constexpr int MAX_C = 256;      // gamma is 128 KB in bfloat16: one block holds it
+constexpr int THREADS = 256;    // dx's and dGamma's blocks (the forward's: its warpgroups)
+constexpr int RP = 32;          // pixels per tile
+constexpr int KC = 32;          // channels per sum added in f32
+constexpr int LDX = RP + 8;     // tile rows of 80 bytes: an ldmatrix's 8 rows hit 8 bank groups
+constexpr int PAD_G = 8;        // gamma rows of 2 K + 16 bytes, K a multiple of 32: likewise
+constexpr int NS = 2;           // tiles in a forward warpgroup's ring
+// dGamma: an output tile of GT x GT, pixels staged KB at a time in a ring of GNS
+constexpr int GT = 96;
+constexpr int KB = 32;
+constexpr int LDN = KB + 8;     // f32 dn rows, 16-byte aligned for cp.async
+constexpr int GNS = 3;
+constexpr size_t STAGE = sizeof(float) * GT * LDN + sizeof(bf16) * GT * LDX;  // bytes a stage
+}  // namespace bfd
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// A or B fragments of four (x4) or two (x2) 8 x 8 matrices of 16-bit values,
+// each row 16 bytes of shared memory at the address lane 8 q + r gives for
+// row r of matrix q; .trans hands each thread a column's pair instead of a
+// row's
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The pieces are truncations: a bfloat16 is the upper half of a float32's
+// bit pattern, so cutting off the lower half gives a's top 8 significant
+// bits exactly, and a - that is exact in f32. Byte permutes and f32
+// subtractions, full-rate instructions, where rounding would take the
+// conversion unit.
+__device__ __forceinline__ float trunc_bf16(float a) {
+  return __uint_as_float(__float_as_uint(a) & 0xffff0000u);
+}
+// a and b truncated to bfloat16, packed as a pair with a in the low half
+// (the lower k of an mma fragment's register)
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+// The squares of the two bfloat16 values of v (the low half first) as hi +
+// lo, both bfloat16 pairs, exactly: a bfloat16 has 8 significant bits, so
+// its square at most 16, hi the top 8 and lo the rest (down to 2^-133,
+// bfloat16's least subnormal: what lies below, in squares under 2^-118,
+// is under 2^-126 Gamma against n >= beta)
+__device__ __forceinline__ void square_split(uint32_t v, uint32_t& hi, uint32_t& lo) {
+  const float x0 = __uint_as_float(v << 16), x1 = __uint_as_float(v & 0xffff0000u);
+  const float s0 = x0 * x0, s1 = x1 * x1;
+  hi = bf16_pair(s0, s1);
+  lo = bf16_pair(s0 - trunc_bf16(s0), s1 - trunc_bf16(s1));
+}
+// f32 a and b as hi + mid + lo, bfloat16 pairs, exactly: 24 significant
+// bits, 8 a piece (each remainder starts at or below the bit under the
+// last piece's; pieces under 2^-133 are lost, as above)
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const float ra = a - trunc_bf16(a), rb = b - trunc_bf16(b);
+  hi = bf16_pair(a, b);
+  mid = bf16_pair(ra, rb);
+  lo = bf16_pair(ra - trunc_bf16(ra), rb - trunc_bf16(rb));
+}
+
+// dst[0..8) = src[0..8) of bfloat16, the values at or past `valid` as 0: one
+// 16-byte cp.async where the source is aligned and whole, else a
+// synchronous store of what was loaded one value at a time
+__device__ __forceinline__ void copy8(bf16* dst, const bf16* src, int valid, bool aligned) {
+  if (aligned && valid >= 8) {
+    cp_async16(dst, src);
+    return;
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const uint32_t lo = 2 * u < valid ? __bfloat16_as_ushort(src[2 * u]) : 0u;
+    const uint32_t hi = 2 * u + 1 < valid ? __bfloat16_as_ushort(src[2 * u + 1]) : 0u;
+    w[u] = lo | hi << 16;
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// gamma (C x C, bfloat16) into rows x cols of shared memory (row stride
+// ldg; cols a multiple of 8) and beta into rows floats, zero past C; all
+// the block's threads
+__device__ __forceinline__ void load_gamma_bf16(const bf16* __restrict__ gamma,
+                                                const float* __restrict__ beta, int C, int rows,
+                                                int cols, int ldg, int aligned, bf16* gs,
+                                                float* betas) {
+  for (int e = threadIdx.x; e < rows * (cols / 8); e += blockDim.x) {
+    const int o = e / (cols / 8);
+    const int i = (e % (cols / 8)) * 8;
+    copy8(gs + o * ldg + i, gamma + (size_t)o * C + i, o < C ? C - i : 0, aligned);
+  }
+  for (int c = threadIdx.x; c < rows; c += blockDim.x) betas[c] = c < C ? beta[c] : 0.f;
+}
+
+// Tile `tile` (RP pixels of one image) of src (B x C x P, bfloat16), rows
+// 0 .. CK - 1, into dst (row stride LDX), zero past C and past the image;
+// thread t of nt
+__device__ __forceinline__ void load_tile_bf16(const bf16* __restrict__ src, int C, int P,
+                                               int tiles_per_image, int tile, int CK,
+                                               int aligned, int t, int nt, bf16* dst) {
+  constexpr int RP = bfd::RP, LDX = bfd::LDX;
+  const int p0 = (tile % tiles_per_image) * RP;
+  const bf16* s0 = src + (size_t)(tile / tiles_per_image) * C * P + p0;
+  for (int e = t; e < CK * (RP / 8); e += nt) {
+    const int c = e / (RP / 8);
+    const int p = (e % (RP / 8)) * 8;
+    copy8(dst + c * LDX + p, s0 + (size_t)c * P + p, c < C ? P - p0 - p : 0, aligned);
+  }
+}
+
+// acc[mi][j] = Gamma x^2 over the CK input channels for the warp's MI
+// m-tiles wm + 4 mi (gamma's rows zero past C up to the last:
+// every m-tile runs, so the product is straight-line code) by the n-tiles
+// n0 + 8 j, j < NJ, of the x tile xs (CK x LDX). gamma's A fragments come
+// from its rows with ldmatrix, x's B fragments with ldmatrix.trans (each
+// register a pixel's two neighbouring channels), squared and split in
+// registers; two passes (lo, then hi). Each step's B fragments are asked
+// for before the last step's mma run. Sums of KC channels start from zero
+// and are added in f32 (the tensor cores' own additions do not round to
+// nearest).
+template <int MI, int NJ>
+__device__ __forceinline__ void gamma_x2_product(float (&acc)[MI][NJ][4], const bf16* gs,
+                                                 int ldg, const bf16* xs, int CK, int wm,
+                                                 int n0) {
+  constexpr int KC = bfd::KC, LDX = bfd::LDX;
+  static_assert(NJ % 2 == 0, "one ldmatrix.x4 takes two n-tiles");
+  const int lane = threadIdx.x % 32;
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1);  // the lane's row of a 16-row fragment
+  const int lcol = 8 * (lane >> 4);                     // and its column offset
+  const bf16* xl = xs + lrow * LDX + n0 + lcol;
+  const bf16* gl = gs + (wm * 16 + lrow) * ldg + lcol;
+  // B[k][n] = x[channel][pixel] of step k, n-tiles j, j + 1 in raw[j / 2]
+  uint32_t raw[NJ / 2][4];
+#pragma unroll
+  for (int j = 0; j < NJ; j += 2) ldmatrix_x4_trans(raw[j / 2], xl + 8 * j);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  for (int k0 = 0; k0 < CK; k0 += KC) {
+    float part[MI][NJ][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      const int k = k0 + ks * 16;
+      uint32_t bh[NJ][2], bl[NJ][2];
+#pragma unroll
+      for (int j = 0; j < NJ; j += 2) {
+        square_split(raw[j / 2][0], bh[j][0], bl[j][0]);
+        square_split(raw[j / 2][1], bh[j][1], bl[j][1]);
+        square_split(raw[j / 2][2], bh[j + 1][0], bl[j + 1][0]);
+        square_split(raw[j / 2][3], bh[j + 1][1], bl[j + 1][1]);
+      }
+      const int kn = min(k + 16, CK - 16);  // the next step (the last reads its own again)
+#pragma unroll
+      for (int j = 0; j < NJ; j += 2) ldmatrix_x4_trans(raw[j / 2], xl + kn * LDX + 8 * j);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {  // A[m][k] = gamma[out][in]
+        uint32_t a[4];
+        ldmatrix_x4(a, gl + mi * 64 * ldg + k);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_bf16(part[mi][j], a, bl[j]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_bf16(part[mi][j], a, bh[j]);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[mi][j][e];
+  }
+}
+
+// acc[mi][j] = Gamma^T dn over the CK output channels (the k index) for the
+// warp's MI m-tiles (wm + 4 mi) 16 (input channels, gamma's columns zero
+// past C) by its n-tiles 16 wn + 8 j, j < 2: A = gamma transposed, by
+// ldmatrix.trans from its rows; B = the three bfloat16 piece tiles of dn
+// (lo, mid, hi; CK x LDX, by ldmatrix.trans): 3 passes, the smallest
+// first. Each step's B fragments are asked for before the last step's
+// mma run; sums of KC channels start from zero and are added in f32.
+template <int MI>
+__device__ __forceinline__ void gammaT_dn_product(float (&acc)[MI][2][4], const bf16* gs, int ldg,
+                                                  const bf16* const (&dn3)[3], int CK, int wm,
+                                                  int wn) {
+  constexpr int KC = bfd::KC, LDX = bfd::LDX;
+  const int lane = threadIdx.x % 32;
+  // the lane's ldmatrix rows (.trans, the k index) in a tile and in gamma
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int lcol = 8 * (lane >> 4);
+  const int trow = (lane & 7) + 8 * (lane >> 4);
+  const int tcol = 8 * ((lane >> 3) & 1);
+  const int boff = lrow * LDX + 16 * wn + lcol;
+  const bf16* al = gs + trow * ldg + wm * 16 + tcol;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  uint32_t b[3][4];  // registers 0, 1 n-tile 0; 2, 3 n-tile 1
+#pragma unroll
+  for (int q = 0; q < 3; ++q) ldmatrix_x4_trans(b[q], dn3[q] + boff);
+  for (int k0 = 0; k0 < CK; k0 += KC) {
+    float part[MI][2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      const int k = k0 + ks * 16;
+      uint32_t bk[3][2][2];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          bk[q][j][0] = b[q][2 * j];
+          bk[q][j][1] = b[q][2 * j + 1];
+        }
+      const int kn = min(k + 16, CK - 16) * LDX;  // the next step (the last reads its own)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) ldmatrix_x4_trans(b[q], dn3[q] + kn + boff);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {  // A[m = input channel][k = output channel]
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, al + k * ldg + mi * 64);
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) mma_bf16(part[mi][j], a, bk[q][j]);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[mi][j][e];
+  }
+}
+
+// sqrt(n) on the MUFU unit, as rsqrtf's (the float32 kernels' sqrtf is
+// IEEE: a dozen instructions and a branch, a sixth of the IGDN forward's time)
+__device__ __forceinline__ float sqrt_approx(float n) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(n));
+  return r;
+}
+
+// bfloat16 pairs of y or dx from f32: 4 bytes where the row allows
+__device__ __forceinline__ void store_pair(bf16* dst, float a, float b, int at, int P,
+                                           int aligned) {
+  if (aligned && at + 1 < P) {
+    store2(dst, a, b);
+  } else {
+    if (at < P) store1(dst, a);
+    if (at + 1 < P) store1(dst + 1, b);
+  }
+}
+
+// The forward, 1 <= C <= 256: one persistent block per SM holds gamma (64 MI
+// x CK bfloat16, rows zero past C) and beta, loaded once. Its GROUPS
+// warpgroups walk their own tiles of RP pixels (warpgroup g of block q of
+// n: tiles q + (GROUPS i + g) n), each through a ring of NS x tiles: tile
+// i + 1 lands while tile i's product runs, and tile i + 2 is asked for as
+// soon as tile i's epilogue is done with its buffer. Each warp holds MI
+// m-tiles (wq, wq + 4, ...: 16 MI output channels) by all 4 n-tiles of its
+// tile's product, so a split x^2 fragment feeds 2 MI mma (each of the
+// four warps splits it; on the H100 a tile split two by two ran slower,
+// and so did two warpgroups in place of three at 192 channels). The
+// epilogue reads x from the same bfloat16 tile: y = x n^(-1/2)
+// (IGDN x n^(+1/2)), rounded to bfloat16 once. Every tile is computed
+// alone, in one fixed order, and each y has one writer: neither the grid
+// nor the card changes a bit.
+template <int MI, int GROUPS>
+__global__ void __launch_bounds__(GROUPS * 128, 1)
+gdn_fwd_kernel_bf16(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
+                    const float* __restrict__ beta, bf16* __restrict__ y, int C, int P,
+                    int tiles_per_image, int n_tiles, int inverse, int x_aligned,
+                    int gamma_aligned, int y_aligned) {
+  constexpr int RP = bfd::RP, NT = RP / 8, KC = bfd::KC, LDX = bfd::LDX;
+  constexpr int NS = bfd::NS, GROUP = 128;
+  constexpr int ROWS = 64 * MI;  // output channels, zero past C
+  extern __shared__ float4 smem4[];
+  const int CK = (C + KC - 1) / KC * KC;  // input channels padded to the f32 sum
+  const int LDG = CK + bfd::PAD_G;
+  bf16* gs = reinterpret_cast<bf16*>(smem4);                 // gamma (ROWS x LDG)
+  float* betas = reinterpret_cast<float*>(gs + ROWS * LDG);  // beta (ROWS)
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  const int group = warp / 4;
+  const int wq = warp % 4;  // m-tiles wq, wq + 4, ...
+  const int gt = tid % GROUP;
+  bf16* ring = reinterpret_cast<bf16*>(betas + ROWS) + group * NS * CK * LDX;  // NS x (CK x LDX)
+  // named barriers: 1 + g the warpgroup's own, GROUPS + g the start of g
+  auto group_sync = [&]() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(GROUP) : "memory");
+  };
+  auto let_next_start = [&]() {
+    if (group + 1 < GROUPS) {
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(GROUPS + group + 1), "n"(2 * GROUP) : "memory");
+    }
+  };
+
+  load_gamma_bf16(gamma, beta, C, ROWS, CK, LDG, gamma_aligned, gs, betas);
+  const int step = GROUPS * gridDim.x;
+  const int first = blockIdx.x + group * gridDim.x;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {  // group 0 also holds gamma
+    if (first + s * step < n_tiles) {
+      load_tile_bf16(x, C, P, tiles_per_image, first + s * step, CK, x_aligned, gt, GROUP,
+                     ring + s * CK * LDX);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<NS - 1>();
+  __syncthreads();  // gamma, beta and each warpgroup's first tile are in
+  // warpgroup g starts when warpgroup g - 1 has run its first product, so
+  // that they do not keep one phase (as the float32 forward's warpgroups)
+  if (group > 0) asm volatile("bar.sync %0, %1;\n" ::"r"(GROUPS + group), "n"(2 * GROUP) : "memory");
+  if (first >= n_tiles) let_next_start();
+
+  int i = 0;
+  for (int tile = first; tile < n_tiles; tile += step, ++i) {
+    bf16* xs = ring + (i % NS) * CK * LDX;
+    if (i > 0) {
+      cp_async_wait<NS - 1>();  // this tile has landed (the next may not have)
+      group_sync();             // for every thread of the warpgroup
+    }
+    float acc[MI][NT][4];
+    gamma_x2_product<MI, NT>(acc, gs, LDG, xs, CK, wq, 0);
+    if (i == 0) let_next_start();
+
+    // accumulator e of tile (mi, j): channel (wq + 4 mi) 16 + gq (+8 for e
+    // >= 2), pixels 8 j + 2 tq and + 1 (e even and odd)
+    const int p0 = (tile % tiles_per_image) * RP;
+    bf16* yt = y + (size_t)(tile / tiles_per_image) * C * P + p0;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = (wq + 4 * mi) * 16 + gq + 8 * h;
+        if (c >= C) continue;
+        const float bc = betas[c];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int pl = 8 * j + 2 * tq;
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xs + c * LDX + pl));
+          const float n0 = acc[mi][j][2 * h] + bc, n1 = acc[mi][j][2 * h + 1] + bc;
+          store_pair(yt + (size_t)c * P + pl,
+                     xv.x * (inverse ? sqrt_approx(n0) : rsqrtf(n0)),
+                     xv.y * (inverse ? sqrt_approx(n1) : rsqrtf(n1)), p0 + pl, P, y_aligned);
+        }
+      }
+    }
+    group_sync();  // the warpgroup is done with this buffer
+    if (tile + NS * step < n_tiles) {
+      load_tile_bf16(x, C, P, tiles_per_image, tile + NS * step, CK, x_aligned, gt, GROUP, xs);
+    }
+    cp_async_commit();
+  }
+}
+
+// dx and dn, 1 <= C <= 256: one persistent block per SM holds gamma (64 MI
+// x 64 MI bfloat16, zero past C) and beta, loaded once, and walks tiles of
+// RP pixels, blockIdx.x, blockIdx.x + gridDim.x, ... Four bfloat16 tiles:
+// x of the tile and of the next (asked for as the tile starts, so it lands
+// while the tile's two products run), M and L. g is read by one thread
+// each, at its own accumulators' places, so it goes from device memory to
+// registers, asked for as the tile starts. Each warp holds MI m-tiles (wm
+// = warp % 4 takes wm, wm + 4, ...) by 2 n-tiles (wn = warp / 4 takes
+// pixels 16 wn ..) of both products. Per tile:
+// 1. n = beta + Gamma x^2 (gamma_x2_product, 2 passes; x^2 split in
+//    registers: splitting it once into M and L measured slower);
+// 2. dn, the direct term of dx and x of the thread's own accumulators in
+//    registers; after a barrier (every warp has read x for its product) dn
+//    split into hi + mid + lo (split3), written over x (each place the one
+//    thread's that read it) and into M and L, and dn in f32 to dn_out;
+// 3. Gamma^T dn (gammaT_dn_product, 3 passes);
+// 4. dx = direct + 2 x (Gamma^T dn), rounded to bfloat16 once.
+// Channels past C have dn = 0 (their gamma rows and columns load as zero),
+// pixels past the image x = g = 0, so dn = 0 there too.
+template <int MI>
+__global__ void __launch_bounds__(bfd::THREADS, 1)
+gdn_bwd_kernel_dx_bf16(const bf16* __restrict__ g, const bf16* __restrict__ x,
+                       const bf16* __restrict__ gamma, const float* __restrict__ beta,
+                       bf16* __restrict__ dx, float* __restrict__ dn_out, int C, int P,
+                       int tiles_per_image, int n_tiles, int inverse, int x_aligned,
+                       int gamma_aligned, int pairs_aligned) {
+  constexpr int RP = bfd::RP, KC = bfd::KC, LDX = bfd::LDX, NW = 2;
+  // gamma's rows and columns zero past C up to ROWS: the first product's
+  // m-tiles are its rows, the second's its columns
+  constexpr int ROWS = 64 * MI, LDG = ROWS + bfd::PAD_G;
+  extern __shared__ float4 smem4[];
+  const int CK = (C + KC - 1) / KC * KC;
+  const int T = CK * LDX;                                     // elements of a tile
+  bf16* gs = reinterpret_cast<bf16*>(smem4);                  // gamma (ROWS x LDG)
+  float* betas = reinterpret_cast<float*>(gs + ROWS * LDG);   // beta (ROWS)
+  bf16* tiles = reinterpret_cast<bf16*>(betas + ROWS);        // x[2], M, L
+  bf16* ms = tiles + 2 * T;
+  bf16* ls = tiles + 3 * T;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  const int wm = warp % 4;  // m-tiles wm, wm + 4, ...
+  const int wn = warp / 4;  // pixels 16 wn .. 16 wn + 15
+  auto chan = [&](int mi, int e) { return (wm + 4 * mi) * 16 + gq + (e >= 2 ? 8 : 0); };
+  auto pix = [&](int j) { return 16 * wn + 8 * j + 2 * tq; };  // even e; odd e + 1
+
+  load_gamma_bf16(gamma, beta, C, ROWS, ROWS, LDG, gamma_aligned, gs, betas);
+  auto load_x = [&](int tile, int parity) {
+    load_tile_bf16(x, C, P, tiles_per_image, tile, CK, x_aligned, tid, bfd::THREADS,
+                   tiles + parity * T);
+  };
+  if (blockIdx.x < n_tiles) load_x(blockIdx.x, 0);
+  cp_async_commit();
+
+  float acc[MI][NW][4], direct[MI][NW][4], xr[MI][NW][4];
+  int parity = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, parity ^= 1) {
+    bf16* xs = tiles + parity * T;
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's x is in; the other x buffer, M and L are free
+    if (tile + gridDim.x < n_tiles) load_x(tile + gridDim.x, parity ^ 1);
+    cp_async_commit();
+    const int p0 = (tile % tiles_per_image) * RP;
+    const size_t base = (size_t)(tile / tiles_per_image) * C * P + p0;
+    // g at the thread's accumulators' places, zero past C and the image
+    __nv_bfloat162 gv[MI][NW][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = chan(mi, 2 * h), at = p0 + pix(j);
+          const bf16* src = g + base + (size_t)c * P + pix(j);
+          const bf16 zero = __float2bfloat16_rn(0.f);
+          if (c < C && pairs_aligned && at + 1 < P) {
+            gv[mi][j][h] = *reinterpret_cast<const __nv_bfloat162*>(src);
+          } else {
+            gv[mi][j][h].x = c < C && at < P ? src[0] : zero;
+            gv[mi][j][h].y = c < C && at + 1 < P ? src[1] : zero;
+          }
+        }
+    // 1-2. n -> dn (in acc), the direct term and x
+    gamma_x2_product<MI, NW>(acc, gs, LDG, xs, CK, wm, 16 * wn);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = chan(mi, 2 * h);
+          const bool live = c < C;
+          const float2 xv = live ? __bfloat1622float2(
+                                       *reinterpret_cast<const __nv_bfloat162*>(xs + c * LDX + pix(j)))
+                                 : make_float2(0.f, 0.f);
+          const float2 gf = __bfloat1622float2(gv[mi][j][h]);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int e = 2 * h + u;
+            xr[mi][j][e] = u ? xv.y : xv.x;
+            float dnv = 0.f;
+            direct[mi][j][e] = 0.f;
+            if (live) {
+              gdn_terms(acc[mi][j][e] + betas[c], xr[mi][j][e], u ? gf.y : gf.x, inverse,
+                        direct[mi][j][e], dnv);
+            }
+            acc[mi][j][e] = dnv;
+          }
+        }
+    __syncthreads();  // every warp has read x for its product
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      if ((wm + 4 * mi) * 16 >= CK) continue;  // rows past the tiles' (dn = 0)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = chan(mi, 2 * h), pl = pix(j), at = c * LDX + pl;
+          uint32_t hi, mid, lo;
+          split3(acc[mi][j][2 * h], acc[mi][j][2 * h + 1], hi, mid, lo);
+          *reinterpret_cast<uint32_t*>(xs + at) = hi;
+          *reinterpret_cast<uint32_t*>(ms + at) = mid;
+          *reinterpret_cast<uint32_t*>(ls + at) = lo;
+          if (c < C) {
+            float* dst = dn_out + base + (size_t)c * P + pl;
+            if (pairs_aligned && p0 + pl + 1 < P) {
+              *reinterpret_cast<float2*>(dst) = make_float2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+            } else {
+              if (p0 + pl < P) dst[0] = acc[mi][j][2 * h];
+              if (p0 + pl + 1 < P) dst[1] = acc[mi][j][2 * h + 1];
+            }
+          }
+        }
+    }
+    __syncthreads();  // dn's pieces are whole
+
+    // 3. Gamma^T dn over the CK output channels (the k index)
+    const bf16* const dn3[3] = {ls, ms, xs};
+    gammaT_dn_product<MI>(acc, gs, LDG, dn3, CK, wm, wn);
+
+    // 4. dx = direct term + 2 x (Gamma^T dn)
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = chan(mi, 2 * h), pl = pix(j);
+          if (c >= C) continue;
+          const int e = 2 * h;
+          store_pair(dx + base + (size_t)c * P + pl,
+                     direct[mi][j][e] + 2.f * xr[mi][j][e] * acc[mi][j][e],
+                     direct[mi][j][e + 1] + 2.f * xr[mi][j][e + 1] * acc[mi][j][e + 1],
+                     p0 + pl, P, pairs_aligned);
+        }
+  }
+}
+
+// Partial sums of dGamma[o][i] = sum_p dn[o][p] x[i][p]^2 and dbeta[o] =
+// sum_p dn[o][p], bfloat16 x, as gdn_bwd_kernel_dgamma's: one GT x GT
+// output tile (blockIdx.x) over one fixed range of pixel chunks
+// (blockIdx.y of gridDim.y slots), dn (f32) and x (bfloat16) of KB pixels
+// staged by cp.async in a ring of GNS, 8 warps of 3 x 3 tiles of 16 x 8
+// holding the tile's sums across the range, each slot written once. The
+// pixels are the k index, contiguous in both: dn's A fragments are read as
+// 8-byte pairs and split into hi + mid + lo in registers, x's B fragments
+// come by ldmatrix, squared and split into hi + lo (splitting each chunk
+// once into shared memory for all warps measured slower). Five passes, the
+// six piece products less lo x lo (under 2^-24 of the product, as 3xTF32
+// drops lo*lo), smallest first.
+__global__ void __launch_bounds__(bfd::THREADS)
+gdn_bwd_kernel_dgamma_bf16(const float* __restrict__ dn, const bf16* __restrict__ x,
+                           float* __restrict__ partials, int C, int P, int chunks_per_image,
+                           int n_chunks, int dn_aligned, int x_aligned) {
+  constexpr int GT = bfd::GT, KB = bfd::KB, LDN = bfd::LDN, LDX = bfd::LDX, GNS = bfd::GNS;
+  extern __shared__ float4 smem4[];
+  char* ring = reinterpret_cast<char*>(smem4);  // [GNS] x (dn GT x LDN f32, x GT x LDX bf16)
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  const int wm = warp % 2;  // 48 output channels each
+  const int wn = warp / 2;  // 24 input channels each
+  const int tiles_i = (C + GT - 1) / GT;
+  const int o0 = (blockIdx.x / tiles_i) * GT;
+  const int i0 = (blockIdx.x % tiles_i) * GT;
+  const int slot_id = blockIdx.y;
+  const int c_begin = (int)((long long)n_chunks * slot_id / gridDim.y);
+  const int c_end = (int)((long long)n_chunks * (slot_id + 1) / gridDim.y);
+  const int n = c_end - c_begin;
+  const bool sums_dbeta = i0 == 0;
+
+  auto stage = [&](int ci, char* st) {
+    const int pp = (ci % chunks_per_image) * KB;
+    const size_t base = (size_t)(ci / chunks_per_image) * C * P + pp;
+    float* dns = reinterpret_cast<float*>(st);
+    bf16* xs = reinterpret_cast<bf16*>(dns + GT * LDN);
+    for (int e = tid; e < GT * (KB / 4); e += bfd::THREADS) {  // dn rows o0 ..
+      const int r = e / (KB / 4);
+      const int p = (e % (KB / 4)) * 4;
+      const int c = o0 + r;
+      copy4(dns + r * LDN + p, dn + base + (size_t)c * P + p, c < C ? P - pp - p : 0,
+            dn_aligned);
+    }
+    for (int e = tid; e < GT * (KB / 8); e += bfd::THREADS) {  // x rows i0 ..
+      const int r = e / (KB / 8);
+      const int p = (e % (KB / 8)) * 8;
+      const int c = i0 + r;
+      copy8(xs + r * LDX + p, x + base + (size_t)c * P + p, c < C ? P - pp - p : 0, x_aligned);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < GNS - 1; ++s) {
+    if (s < n) stage(c_begin + s, ring + s * bfd::STAGE);
+    cp_async_commit();
+  }
+
+  float acc[3][3][4] = {};
+  float dbeta_acc = 0.f;
+  for (int q = 0; q < n; ++q) {
+    cp_async_wait<GNS - 2>();
+    __syncthreads();
+    if (q + GNS - 1 < n) stage(c_begin + q + GNS - 1, ring + ((q + GNS - 1) % GNS) * bfd::STAGE);
+    cp_async_commit();
+    const float* As = reinterpret_cast<const float*>(ring + (q % GNS) * bfd::STAGE);  // dn [o][p]
+    const bf16* Bs = reinterpret_cast<const bf16*>(As + GT * LDN);                    // x [i][p]
+
+    float part[3][3][4] = {};  // the chunk's sums, added to acc in f32
+#pragma unroll
+    for (int ks = 0; ks < KB / 16; ++ks) {
+      uint32_t bh[3][2], bl[3][2];
+#pragma unroll
+      for (int nj = 0; nj < 3; ++nj) {  // B[k = p][n = i] = x[i][p]^2
+        uint32_t r[2];
+        ldmatrix_x2(r, Bs + (wn * 24 + nj * 8 + (lane & 7)) * LDX + ks * 16 + 8 * ((lane >> 3) & 1));
+        square_split(r[0], bh[nj][0], bl[nj][0]);
+        square_split(r[1], bh[nj][1], bl[nj][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 3; ++mi) {  // A[m = o][k = p] = dn[o][p]
+        const float* ar = As + (wm * 48 + mi * 16 + gq) * LDN + ks * 16 + 2 * tq;
+        uint32_t ah[4], am[4], al[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // rows gq, gq + 8; k 2 tq, 2 tq + 8
+          const float2 v = *reinterpret_cast<const float2*>(ar + (r & 1) * 8 * LDN + (r >> 1) * 8);
+          split3(v.x, v.y, ah[r], am[r], al[r]);
+        }
+#pragma unroll
+        for (int nj = 0; nj < 3; ++nj) mma_bf16(part[mi][nj], al, bh[nj]);
+#pragma unroll
+        for (int nj = 0; nj < 3; ++nj) mma_bf16(part[mi][nj], am, bl[nj]);
+#pragma unroll
+        for (int nj = 0; nj < 3; ++nj) mma_bf16(part[mi][nj], am, bh[nj]);
+#pragma unroll
+        for (int nj = 0; nj < 3; ++nj) mma_bf16(part[mi][nj], ah, bl[nj]);
+#pragma unroll
+        for (int nj = 0; nj < 3; ++nj) mma_bf16(part[mi][nj], ah, bh[nj]);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 3; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] += part[mi][nj][e];
+    if (sums_dbeta && tid < 2 * GT) {  // row tid / 2, half tid % 2 of the chunk
+      const float* row = As + (tid / 2) * LDN + (tid % 2) * (KB / 2);
+      float v = 0.f;
+#pragma unroll
+      for (int u = 0; u < KB / 2; ++u) v += row[u];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      dbeta_acc += v;
+    }
+  }
+
+  const int CP = C + 1;
+  float* part = partials + (size_t)slot_id * C * CP;
+#pragma unroll
+  for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 3; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = o0 + wm * 48 + mi * 16 + gq + (e >= 2 ? 8 : 0);
+        const int i = i0 + wn * 24 + nj * 8 + 2 * tq + (e & 1);
+        if (o < C && i < C) part[(size_t)o * CP + i] = acc[mi][nj][e];
+      }
+  if (sums_dbeta && tid < 2 * GT && tid % 2 == 0 && o0 + tid / 2 < C) {
+    part[(size_t)(o0 + tid / 2) * CP + C] = dbeta_acc;
+  }
+}
+
 int tiles_per_image(int P) { return (P + TP - 1) / TP; }
 
 int set_smem(const void* kernel, size_t bytes) {
@@ -1450,23 +2160,22 @@ int launch_dx_streamed(const T* g, const T* x, const float* gamma, const float* 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dx_resident(const T* g, const T* x, const float* gamma, const float* beta, T* dx,
-                       float* dn, int B, int C, int P, int inverse, cudaStream_t s) {
+int launch_dx_resident(const float* g, const float* x, const float* gamma, const float* beta,
+                       float* dx, float* dn, int B, int C, int P, int inverse, cudaStream_t s) {
   const int CP = (C + 15) / 16 * 16;
   const size_t smem = sizeof(float) * ((size_t)CP * (CP + 4) + 2 * (size_t)CP * (bwd::RP + 8) + CP);
-  int rc = set_smem((const void*)gdn_bwd_kernel_dx_resident<T>, smem);
+  int rc = set_smem((const void*)gdn_bwd_kernel_dx_resident, smem);
   if (rc != 0) return rc;
   int dev = 0, sms = 0;
   if ((rc = (int)cudaGetDevice(&dev)) != 0) return rc;
   if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0) return rc;
   const int tpi = (P + bwd::RP - 1) / bwd::RP;
   const int n_tiles = B * tpi;
-  const int x_aligned = rows_aligned4<T>(P, x, g);
+  const int x_aligned = rows_aligned4<float>(P, x, g);
   const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
   // one block per SM (gamma fills most of its shared memory); every tile is
   // computed alone, so the grid size changes no result
-  gdn_bwd_kernel_dx_resident<T><<<n_tiles < sms ? n_tiles : sms, bwd::THREADS, smem, s>>>(
+  gdn_bwd_kernel_dx_resident<<<n_tiles < sms ? n_tiles : sms, bwd::THREADS, smem, s>>>(
       g, x, gamma, beta, dx, dn, C, P, tpi, n_tiles, inverse, x_aligned, gamma_aligned);
   return (int)cudaGetLastError();
 }
@@ -1511,30 +2220,28 @@ int launch_cluster(size_t smem, int n_tiles, cudaStream_t s, Args... args) {
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_fwd_cluster(const T* x, const float* gamma, const float* beta, T* y, int B, int C,
-                       int P, int inverse, cudaStream_t s) {
+int launch_fwd_cluster(const float* x, const float* gamma, const float* beta, float* y, int B,
+                       int C, int P, int inverse, cudaStream_t s) {
   const size_t smem = sizeof(float) * ((size_t)clu::HALF * clu::LDG + clu::HALF +
                                        2 * (size_t)clu::MAX_C * clu::LDX);
   const int tpi = (P + clu::RP - 1) / clu::RP;
-  const int x_aligned = rows_aligned4<T>(P, x);
+  const int x_aligned = rows_aligned4<float>(P, x);
   const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
-  const int y_aligned = P % 2 == 0 && (uintptr_t)y % (2 * sizeof(T)) == 0;
-  return launch_cluster<gdn_fwd_kernel_cluster<T>>(smem, B * tpi, s, x, gamma, beta, y, C, P,
+  const int y_aligned = P % 2 == 0 && (uintptr_t)y % (2 * sizeof(float)) == 0;
+  return launch_cluster<gdn_fwd_kernel_cluster>(smem, B * tpi, s, x, gamma, beta, y, C, P,
                                                    tpi, B * tpi, inverse, x_aligned,
                                                    gamma_aligned, y_aligned);
 }
 
-template <typename T>
-int launch_dx_cluster(const T* g, const T* x, const float* gamma, const float* beta, T* dx,
-                      float* dn, int B, int C, int P, int inverse, cudaStream_t s) {
+int launch_dx_cluster(const float* g, const float* x, const float* gamma, const float* beta,
+                      float* dx, float* dn, int B, int C, int P, int inverse, cudaStream_t s) {
   const size_t smem = sizeof(float) * ((size_t)clu::HALF * clu::LDG + clu::HALF +
                                        (size_t)clu::MAX_C * clu::LDX + clu::HALF * clu::LDD +
                                        2 * clu::HALF * clu::RP);
   const int tpi = (P + clu::RP - 1) / clu::RP;
-  const int x_aligned = rows_aligned4<T>(P, x, g);
+  const int x_aligned = rows_aligned4<float>(P, x, g);
   const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
-  return launch_cluster<gdn_bwd_kernel_dx_cluster<T>>(smem, B * tpi, s, g, x, gamma, beta, dx,
+  return launch_cluster<gdn_bwd_kernel_dx_cluster>(smem, B * tpi, s, g, x, gamma, beta, dx,
                                                       dn, C, P, tpi, B * tpi, inverse, x_aligned,
                                                       gamma_aligned);
 }
@@ -1550,25 +2257,86 @@ int launch_fwd_fma(const T* x, const float* gamma, const float* beta, T* y, int 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_fwd_resident(const T* x, const float* gamma, const float* beta, T* y, int B, int C,
-                        int P, int inverse, cudaStream_t s) {
+int launch_fwd_resident(const float* x, const float* gamma, const float* beta, float* y, int B,
+                        int C, int P, int inverse, cudaStream_t s) {
   const int CK = (C + fwd::KC - 1) / fwd::KC * fwd::KC;
   const size_t smem = sizeof(float) * ((size_t)fwd::MAX_C * (CK + fwd::PAD_G) + fwd::MAX_C +
                                        2 * (size_t)CK * fwd::LDT);
-  int rc = set_smem((const void*)gdn_fwd_kernel_resident<T>, smem);
+  int rc = set_smem((const void*)gdn_fwd_kernel_resident, smem);
   if (rc != 0) return rc;
   int dev = 0, sms = 0;
   if ((rc = (int)cudaGetDevice(&dev)) != 0) return rc;
   if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0) return rc;
   const int tpi = (P + fwd::RP - 1) / fwd::RP;
   const int n_tiles = B * tpi;
-  const int x_aligned = rows_aligned4<T>(P, x);
+  const int x_aligned = rows_aligned4<float>(P, x);
   const int gamma_aligned = C % 4 == 0 && (uintptr_t)gamma % 16 == 0;
-  const int y_aligned = P % 2 == 0 && (uintptr_t)y % (2 * sizeof(T)) == 0;
+  const int y_aligned = P % 2 == 0 && (uintptr_t)y % (2 * sizeof(float)) == 0;
   // one block per SM (gamma fills most of its shared memory)
-  gdn_fwd_kernel_resident<T><<<n_tiles < sms ? n_tiles : sms, fwd::THREADS, smem, s>>>(
+  gdn_fwd_kernel_resident<<<n_tiles < sms ? n_tiles : sms, fwd::THREADS, smem, s>>>(
       x, gamma, beta, y, C, P, tpi, n_tiles, inverse, x_aligned, gamma_aligned, y_aligned);
+  return (int)cudaGetLastError();
+}
+
+// bfloat16 rows of P pixels aligned for 16-byte copies of 8 values
+bool rows_aligned8(int P, const void* a, const void* b = nullptr) {
+  return P % 8 == 0 && ((uintptr_t)a | (uintptr_t)b) % 16 == 0;
+}
+
+// the forward at MI m-tiles a warp and GROUPS warpgroups a block
+template <int MI, int GROUPS>
+int launch_fwd_bf16(const bf16* x, const bf16* gamma, const float* beta, bf16* y, int B, int C,
+                    int P, int inverse, cudaStream_t s) {
+  const int CK = (C + bfd::KC - 1) / bfd::KC * bfd::KC;
+  const size_t smem = sizeof(bf16) * 64 * MI * (size_t)(CK + bfd::PAD_G) + sizeof(float) * 64 * MI +
+                      sizeof(bf16) * GROUPS * bfd::NS * (size_t)CK * bfd::LDX;
+  int rc = set_smem((const void*)gdn_fwd_kernel_bf16<MI, GROUPS>, smem);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  if ((rc = (int)cudaGetDevice(&dev)) != 0) return rc;
+  if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0) return rc;
+  const int tpi = (P + bfd::RP - 1) / bfd::RP;
+  const int n_tiles = B * tpi;
+  const int y_aligned = P % 2 == 0 && (uintptr_t)y % 4 == 0;
+  // one block per SM (gamma and the rings fill most of its shared memory)
+  gdn_fwd_kernel_bf16<MI, GROUPS><<<n_tiles < sms ? n_tiles : sms, GROUPS * 128, smem, s>>>(
+      x, gamma, beta, y, C, P, tpi, n_tiles, inverse, rows_aligned8(P, x),
+      rows_aligned8(C, gamma), y_aligned);
+  return (int)cudaGetLastError();
+}
+
+// dx and dn at MI m-tiles a warp (4 warps over the channels: 64 MI >= C)
+template <int MI>
+int launch_dx_bf16(const bf16* g, const bf16* x, const bf16* gamma, const float* beta, bf16* dx,
+                   float* dn, int B, int C, int P, int inverse, cudaStream_t s) {
+  const int CK = (C + bfd::KC - 1) / bfd::KC * bfd::KC;
+  const size_t smem = sizeof(bf16) * 64 * MI * (size_t)(64 * MI + bfd::PAD_G) +
+                      sizeof(float) * 64 * MI + sizeof(bf16) * 4 * (size_t)CK * bfd::LDX;
+  int rc = set_smem((const void*)gdn_bwd_kernel_dx_bf16<MI>, smem);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  if ((rc = (int)cudaGetDevice(&dev)) != 0) return rc;
+  if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0) return rc;
+  const int tpi = (P + bfd::RP - 1) / bfd::RP;
+  const int n_tiles = B * tpi;
+  // dn's float pairs (8 bytes), g's and dx's bfloat16 pairs (4)
+  const int pairs_aligned = P % 2 == 0 && ((uintptr_t)g | (uintptr_t)dx) % 4 == 0 &&
+                            (uintptr_t)dn % 8 == 0;
+  gdn_bwd_kernel_dx_bf16<MI><<<n_tiles < sms ? n_tiles : sms, bfd::THREADS, smem, s>>>(
+      g, x, gamma, beta, dx, dn, C, P, tpi, n_tiles, inverse, rows_aligned8(P, x),
+      rows_aligned8(C, gamma), pairs_aligned);
+  return (int)cudaGetLastError();
+}
+
+int launch_dgamma_bf16(const float* dn, const bf16* x, float* partials, int n_partials, int B,
+                       int C, int P, cudaStream_t s) {
+  const size_t smem = bfd::GNS * bfd::STAGE;
+  int rc = set_smem((const void*)gdn_bwd_kernel_dgamma_bf16, smem);
+  if (rc != 0) return rc;
+  const int cpi = (P + bfd::KB - 1) / bfd::KB;
+  const int tiles = (C + bfd::GT - 1) / bfd::GT;
+  gdn_bwd_kernel_dgamma_bf16<<<dim3(tiles * tiles, n_partials), bfd::THREADS, smem, s>>>(
+      dn, x, partials, C, P, cpi, B * cpi, rows_aligned4<float>(P, dn), rows_aligned8(P, x));
   return (int)cudaGetLastError();
 }
 
@@ -1576,15 +2344,22 @@ template <typename T>
 int forward(const void* x, const void* gamma, const void* beta, void* y, int B, int C, int P,
             int inverse, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
-  const float* gammaf = static_cast<const float*>(gamma);
   const float* betaf = static_cast<const float*>(beta);
   T* yt = static_cast<T*>(y);
-  // gamma resident in shared memory on the tensor cores: one block up to
-  // 192 channels, a cluster of two up to 256; above, gamma staged in chunks
-  // on the FMA units
-  if (C <= fwd::MAX_C) return launch_fwd_resident<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s);
-  if (C <= clu::MAX_C) return launch_fwd_cluster<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s);
-  return launch_fwd_fma<T>(xt, gammaf, betaf, yt, B, C, P, inverse, s);
+  if constexpr (std::is_same<T, bf16>::value) {
+    // bfloat16 up to 256 channels: the bfloat16 design, gamma in bfloat16
+    const bf16* gammab = static_cast<const bf16*>(gamma);
+    if (C <= 192) return launch_fwd_bf16<3, 3>(xt, gammab, betaf, yt, B, C, P, inverse, s);
+    if (C <= bfd::MAX_C) return launch_fwd_bf16<4, 2>(xt, gammab, betaf, yt, B, C, P, inverse, s);
+  } else {
+    // float32: gamma resident in shared memory on the tensor cores, one
+    // block up to 192 channels, a cluster of two up to 256
+    const float* gammaf = static_cast<const float*>(gamma);
+    if (C <= fwd::MAX_C) return launch_fwd_resident(xt, gammaf, betaf, yt, B, C, P, inverse, s);
+    if (C <= clu::MAX_C) return launch_fwd_cluster(xt, gammaf, betaf, yt, B, C, P, inverse, s);
+  }
+  // above 256 channels gamma (float32) staged in chunks on the FMA units
+  return launch_fwd_fma<T>(xt, static_cast<const float*>(gamma), betaf, yt, B, C, P, inverse, s);
 }
 
 // Partial slots of the backward's dGamma/dbeta sums for B images of P
@@ -1599,30 +2374,48 @@ int backward_partials(int B, int P) {
 // resident and cluster kernels keep it in registers
 bool direct_in_workspace(int C, int dtype) { return dtype != 0 && C > clu::MAX_C; }
 
+// dgamma[o][i] and dbeta[o] from the partial slots, in a fixed order
+int launch_reduce(const float* partials, int n_partials, int C, void* dgamma, void* dbeta,
+                  cudaStream_t s) {
+  const int n = C * (C + 1);
+  gdn_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+      partials, n_partials, C, static_cast<float*>(dgamma), static_cast<float*>(dbeta));
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int backward(const void* g, const void* x, const void* gamma, const void* beta, void* dx,
              void* dgamma, void* dbeta, void* workspace, int B, int C, int P, int inverse,
              int n_partials, cudaStream_t s) {
   const T* gt = static_cast<const T*>(g);
   const T* xt = static_cast<const T*>(x);
-  const float* gammaf = static_cast<const float*>(gamma);
   const float* betaf = static_cast<const float*>(beta);
   T* dxt = static_cast<T*>(dx);
   float* dn = static_cast<float*>(workspace);
   float* partials = dn + (size_t)B * C * P;
-  // gamma resident in shared memory: one block up to MO channels, a
-  // cluster of two up to 256; above, gamma streams through the ring beside
-  // tiles of 16 pixels
-  int rc;
-  if (C <= bwd::MO) {
-    rc = launch_dx_resident<T>(gt, xt, gammaf, betaf, dxt, dn, B, C, P, inverse, s);
-  } else if (C <= clu::MAX_C) {
-    rc = launch_dx_cluster<T>(gt, xt, gammaf, betaf, dxt, dn, B, C, P, inverse, s);
-  } else {
+  int rc = 0;
+  if constexpr (std::is_same<T, bf16>::value) {
+    // bfloat16 up to 256 channels: the bfloat16 design, gamma in bfloat16
+    if (C <= bfd::MAX_C) {
+      const bf16* gammab = static_cast<const bf16*>(gamma);
+      rc = C <= 192 ? launch_dx_bf16<3>(gt, xt, gammab, betaf, dxt, dn, B, C, P, inverse, s)
+                    : launch_dx_bf16<4>(gt, xt, gammab, betaf, dxt, dn, B, C, P, inverse, s);
+      if (rc == 0) rc = launch_dgamma_bf16(dn, xt, partials, n_partials, B, C, P, s);
+      return rc != 0 ? rc : launch_reduce(partials, n_partials, C, dgamma, dbeta, s);
+    }
+  }
+  // gamma in float32: resident in shared memory, one block up to MO
+  // channels and a cluster of two up to 256 (float32); above, streamed
+  // through the ring beside tiles of 16 pixels
+  const float* gammaf = static_cast<const float*>(gamma);
+  if (C > clu::MAX_C) {
     float* direct = sizeof(T) == sizeof(float)
                         ? reinterpret_cast<float*>(dxt)
                         : partials + (size_t)n_partials * C * (C + 1);
     rc = launch_dx_streamed<T>(gt, xt, gammaf, betaf, dxt, direct, dn, B, C, P, inverse, s);
+  } else if constexpr (std::is_same<T, float>::value) {
+    rc = C <= bwd::MO ? launch_dx_resident(gt, xt, gammaf, betaf, dxt, dn, B, C, P, inverse, s)
+                      : launch_dx_cluster(gt, xt, gammaf, betaf, dxt, dn, B, C, P, inverse, s);
   }
   if (rc != 0) return rc;
 
@@ -1635,11 +2428,7 @@ int backward(const void* g, const void* x, const void* gamma, const void* beta, 
   gdn_bwd_kernel_dgamma<T><<<dim3(tiles * tiles, n_partials), bwd::THREADS, smem, s>>>(
       dn, xt, partials, C, P, cpi, B * cpi, aligned);
   rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const int n = C * (C + 1);
-  gdn_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(
-      partials, n_partials, C, static_cast<float*>(dgamma), static_cast<float*>(dbeta));
-  return (int)cudaGetLastError();
+  return rc != 0 ? rc : launch_reduce(partials, n_partials, C, dgamma, dbeta, s);
 }
 
 }  // namespace
@@ -1656,8 +2445,14 @@ long long gdn_backward_workspace(int B, int C, int P, int dtype) {
          (direct_in_workspace(C, dtype) ? elems : 0);
 }
 
+// The dtype code of the gamma the kernels take for x of dtype code `dtype`
+// and C channels: bfloat16 (1) in the bfloat16 design (bfloat16 x, C <=
+// 256), else float32 (0).
+int gdn_gamma_dtype(int C, int dtype) { return dtype == 1 && C <= bfd::MAX_C ? 1 : 0; }
+
 // x, y: (B, C, P) contiguous, float32 (dtype 0) or bfloat16 (dtype 1);
-// gamma (C, C) and beta (C,) float32. Returns 0, -3 when C needs more
+// gamma (C, C) in gdn_gamma_dtype(C, dtype) and beta (C,) float32.
+// Returns 0, -3 when C needs more
 // shared memory than a block has, -4 for an unknown dtype, -5 when no
 // cluster of two of the kernel's blocks fits on the card, or the
 // cudaError_t of the launch.
@@ -1671,7 +2466,8 @@ int gdn_forward(const void* x, const void* gamma, const void* beta, void* y,
 }
 
 // g, x, dx: (B, C, P) contiguous, float32 (dtype 0) or bfloat16 (dtype 1);
-// gamma, dgamma (C, C) and beta, dbeta (C,) float32; workspace:
+// gamma (C, C) in gdn_gamma_dtype(C, dtype); dgamma (C, C) and beta, dbeta
+// (C,) float32; workspace:
 // gdn_backward_workspace(B, C, P, dtype) floats, 16-byte aligned. Returns
 // as gdn_forward does.
 int gdn_backward(const void* g, const void* x, const void* gamma,

@@ -12,10 +12,13 @@ gamma's (C_out, C_in) orientation) and dbeta, recomputing n from x, gamma
 and beta as the Pallas backward does (``gdn_pallas.py:150-153``).
 
 Types, as the Pallas kernels take them (``gdn_pallas.py:50-99,176-183``):
-x and g float32 or bfloat16, gamma in x's dtype, beta float32. Everything
-inside is float32 (gamma's bfloat16 values exactly); y and dx come out in
-x's dtype, rounded once, dgamma in gamma's dtype and dbeta in float32.
-In float32 every cast is the identity.
+x and g float32 or bfloat16, gamma in x's dtype, beta float32. Every sum
+is float32 (gamma's bfloat16 values exactly); y and dx come out in x's
+dtype, rounded once, dgamma in gamma's dtype and dbeta in float32. In
+float32 every cast is the identity. The bfloat16 kernels up to 256
+channels hold gamma in bfloat16 (``csrc/gdn.cu``'s bfloat16 design: the
+products in exact bfloat16 pieces), so they take it as it is; the rest
+take it in float32.
 
 - :func:`gdn_forward_reference` and :func:`gdn_backward_reference` are the
   plain versions: the CPU path, and what the kernels are held against on
@@ -56,11 +59,12 @@ from .. import _native
 FWD_LAUNCHES: Counter = Counter()
 BWD_LAUNCHES: Counter = Counter()
 
-# channels the kernels take, in three designs (csrc/gdn.cu's head note).
+# channels the kernels take, in four designs (csrc/gdn.cu's head note).
 # Every model's GDN has 192 channels or, MainCNNDecoder's IGDN in the CRC
 # family, 256; both keep gamma resident in shared memory and run their
-# products on the tensor cores: up to 192 channels one block holds gamma,
-# from 193 to 256 a cluster of two blocks, each half of its rows. Above
+# products on the tensor cores. In bfloat16 one block holds gamma (in
+# bfloat16) up to 256 channels; in float32 one block up to 192 and from 193
+# to 256 a cluster of two blocks, each half of its rows. Above
 # 256, which no model uses, the backward streams gamma, its two (C x 24)
 # float tiles and two gamma chunks fitting a block's 227 KB of shared
 # memory up to C = 896, and the forward stages gamma in chunks on the f32
@@ -88,8 +92,19 @@ def _kernel_fns():
             workspace = lib.gdn_backward_workspace
             workspace.restype = ctypes.c_longlong
             workspace.argtypes = [ctypes.c_int] * 4
-            _fns = (fwd, bwd, workspace)
+            gamma_dtype = lib.gdn_gamma_dtype
+            gamma_dtype.restype = ctypes.c_int
+            gamma_dtype.argtypes = [ctypes.c_int] * 2
+            _fns = (fwd, bwd, workspace, gamma_dtype)
         return _fns
+
+
+def _kernel_gamma(x, gamma):
+    """gamma as the kernels for x take it: bfloat16 in the bfloat16 design
+    (bfloat16 x up to 256 channels), else float32."""
+    want = _DTYPE_CODE[x.dtype]
+    code = _kernel_fns()[3](x.shape[1], want)
+    return gamma if code == want else gamma.float()
 
 
 def _normalizer(s, gamma, beta):
@@ -172,8 +187,8 @@ def gdn_forward_cuda(x, gamma, beta, inverse: bool):
     _check(x, gamma, beta)
     B, C, H, W = x.shape
     y = torch.empty_like(x)
-    gamma = gamma.float()  # the kernels hold gamma in float32
-    fwd, _, _ = _kernel_fns()
+    gamma = _kernel_gamma(x, gamma)
+    fwd = _kernel_fns()[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = fwd(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
@@ -194,10 +209,10 @@ def gdn_backward_cuda(g, x, gamma, beta, inverse: bool):
     _check(x, gamma, beta, g)
     B, C, H, W = x.shape
     code = _DTYPE_CODE[x.dtype]
-    _, bwd, workspace_floats = _kernel_fns()
+    _, bwd, workspace_floats, _ = _kernel_fns()
     dx = torch.empty_like(x)
-    gamma32 = gamma.float()  # the kernels hold gamma and its sums in float32
-    dgamma = torch.empty_like(gamma32)
+    kernel_gamma = _kernel_gamma(x, gamma)
+    dgamma = torch.empty(gamma.shape, dtype=torch.float32, device=x.device)  # f32 sums
     dbeta = torch.empty_like(beta)
     # dn (B x C x H x W), the partial sums of dgamma and dbeta, and in
     # bfloat16 above 256 channels dx's float32 direct term
@@ -205,7 +220,7 @@ def gdn_backward_cuda(g, x, gamma, beta, inverse: bool):
                             device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = bwd(g.data_ptr(), x.data_ptr(), gamma32.data_ptr(), beta.data_ptr(),
+        rc = bwd(g.data_ptr(), x.data_ptr(), kernel_gamma.data_ptr(), beta.data_ptr(),
                  dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
                  workspace.data_ptr(), B, C, H * W, int(inverse), code, stream)
     if rc != 0:

@@ -327,28 +327,44 @@ def test_gdn_kernels_edges_match_plain_and_repeat(B, C, H, W, inverse, f32_refer
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("C,designs", [
-    (256, ("gdn_fwd_kernel_cluster", "gdn_bwd_kernel_dx_cluster")),
-    (512, ("gdn_fwd_kernel_fma", "gdn_bwd_kernel_dx_streamed")),
+@pytest.mark.parametrize("dtype,C,designs", [
+    (torch.float32, 192, ("gdn_fwd_kernel_resident", "gdn_bwd_kernel_dx_resident",
+                          "gdn_bwd_kernel_dgamma")),
+    (torch.float32, 256, ("gdn_fwd_kernel_cluster", "gdn_bwd_kernel_dx_cluster",
+                          "gdn_bwd_kernel_dgamma")),
+    (torch.float32, 512, ("gdn_fwd_kernel_fma", "gdn_bwd_kernel_dx_streamed",
+                          "gdn_bwd_kernel_dgamma")),
+    (torch.bfloat16, 192, ("gdn_fwd_kernel_bf16", "gdn_bwd_kernel_dx_bf16",
+                           "gdn_bwd_kernel_dgamma_bf16")),
+    (torch.bfloat16, 256, ("gdn_fwd_kernel_bf16", "gdn_bwd_kernel_dx_bf16",
+                           "gdn_bwd_kernel_dgamma_bf16")),
 ])
-def test_gdn_launches_the_design_of_its_width(C, designs):
+def test_gdn_launches_the_design_of_its_width(dtype, C, designs):
     """The kernels a launch at C channels runs, by their names in a
-    profiler trace: at 256 the two-block cluster's forward and dx, at 512
-    the FMA forward and the streamed dx; the backward's dgamma and reduce
-    at both."""
+    profiler trace: in float32 at 192 the resident block's forward and dx,
+    at 256 the two-block cluster's, at 512 the FMA forward and the streamed
+    dx; in bfloat16 at 192 and 256 the bfloat16 design's forward, dx and
+    dgamma; the fixed-order reduce at every width."""
     _needs_card()
     from torch.profiler import ProfilerActivity, profile
 
     x, g, gamma, beta = _gdn_inputs(2, C, 9, 11, seed=C)
+    x, g, gamma = x.to(dtype), g.to(dtype), gamma.to(dtype)
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the profiler has lost a session's first records (chip_smoke.py's
+        # profile_session): tiny kernels first
+        for _ in range(64):
+            pad.add_(1)
+        torch.cuda.synchronize()
         for _ in range(3):  # a trace has dropped a kernel record now and then
             tgdn.gdn_forward_cuda(x, gamma, beta, True)
             tgdn.gdn_backward_cuda(g, x, gamma, beta, True)
         torch.cuda.synchronize()
     names = {re.search(r"gdn_\w+", e.name).group(0) for e in prof.events()
              if e.device_type.name == "CUDA" and "gdn_" in e.name}
-    assert names == {*designs, "gdn_bwd_kernel_dgamma", "gdn_reduce_kernel"}
+    assert names == {*designs, "gdn_reduce_kernel"}
 
 
 def test_gdn_module_launches_both_kernels_in_training():
@@ -383,16 +399,23 @@ def gdn_bf16_err(got, ref):
 @pytest.mark.parametrize("inverse", [False, True])
 # the training step's 192 channels and its smallest map; C = 12 and 13
 # (not multiples of the 16-row tile; 13 leaves gamma's rows unaligned), 200
-# (the two-block cluster, its last m-tiles padded), 512 (gamma streamed,
-# the forward on the FMA units), 256 (the CRC decoder's IGDN, at its
-# training and serving shapes); ragged pixel counts (273 = 13 x 21, 35, 63
-# and 99: not multiples of 4, so the loads take one value at a time)
-@pytest.mark.parametrize("B,C,H,W", [(8, 192, 32, 32), (3, 192, 13, 21), (2, 12, 33, 35),
-                                     (5, 13, 7, 9), (4, 200, 16, 16), (2, 256, 64, 64),
-                                     (3, 256, 13, 21), (1, 512, 9, 11), (2, 256, 128, 128)])
-def test_gdn_bf16_kernels_match_plain_and_repeat(B, C, H, W, inverse, f32_reference):
+# (its last m-tiles padded), 512 (gamma streamed, the forward on the FMA
+# units), 256 (the CRC decoder's IGDN, at its training and serving shapes);
+# ragged pixel counts (273 = 13 x 21, 35, 63 and 99: not multiples of 8,
+# so the loads take one value at a time). `spread`: x from 2^-64 to 2^8
+# in magnitude, so that the squares' lo pieces reach bfloat16's subnormals
+# and below, next to squares up to 2^16
+@pytest.mark.parametrize("B,C,H,W,spread", [
+    (8, 192, 32, 32, False), (3, 192, 13, 21, False), (2, 12, 33, 35, False),
+    (5, 13, 7, 9, False), (4, 200, 16, 16, False), (2, 256, 64, 64, False),
+    (3, 256, 13, 21, False), (1, 512, 9, 11, False), (2, 256, 128, 128, False),
+    (2, 192, 32, 32, True), (2, 256, 16, 16, True)])
+def test_gdn_bf16_kernels_match_plain_and_repeat(B, C, H, W, spread, inverse, f32_reference):
     _needs_card()
     x, g, gamma, beta = _gdn_inputs(B, C, H, W, seed=B + C + W)
+    if spread:
+        rng = np.random.default_rng(C + W)
+        x = x * torch.from_numpy(np.exp2(rng.uniform(-64, 8, x.shape)).astype(np.float32)).cuda()
     x, g, gamma = x.bfloat16(), g.bfloat16(), gamma.bfloat16()
     before = (tgdn.FWD_LAUNCHES.copy(), tgdn.BWD_LAUNCHES.copy())
     y = tgdn.gdn_forward_cuda(x, gamma, beta, inverse)

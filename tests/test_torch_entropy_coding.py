@@ -195,14 +195,15 @@ SCANNED = sorted(
     [p.relative_to(REPO).as_posix() for p in (REPO / "icm_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "tools/torch_profile_codec.py", "tools/torch_ab_rans.py",
        "tools/torch_sweep_rans.py", "tools/torch_ab_gdn.py", "tools/torch_smoke_models.py",
-       "tools/probe_stf2_narrow.py", "tools/probe_czigzag_narrow.py"])
+       "tools/probe_stf2_narrow.py", "tools/probe_czigzag_narrow.py",
+       "tools/torch_mma_peak.py"])
 
 
 def test_import_scan_covers_the_port_modules():
     """Every module of the package is scanned, the reference-checkpoint,
     zigzag-family, CRC-family, masked-family and czigzag ones among them
     (the scan wires and stacked weights too, stf2's token scan, czigzag's
-    codec and the two probes)."""
+    codec, the two probes and the tensor-core rate probe)."""
     for path in ("icm_tpu_torch/zoo.py", "icm_tpu_torch/scan/zigzag.py",
                  "icm_tpu_torch/models/stf_family.py", "icm_tpu_torch/models/codec.py",
                  "icm_tpu_torch/models/scan_codec.py", "icm_tpu_torch/convert.py",
@@ -211,7 +212,7 @@ def test_import_scan_covers_the_port_modules():
                  "icm_tpu_torch/models/crc_codec.py", "icm_tpu_torch/models/masked_ctx.py",
                  "icm_tpu_torch/models/masked_codec.py", "icm_tpu_torch/models/czigzag.py",
                  "tools/torch_smoke_models.py", "tools/probe_stf2_narrow.py",
-                 "tools/probe_czigzag_narrow.py"):
+                 "tools/probe_czigzag_narrow.py", "tools/torch_mma_peak.py"):
         assert path in SCANNED
 
 
