@@ -135,6 +135,36 @@ package beside it. Phases, each printed with its elapsed seconds:
     wire with the imported tables in the reference symbol order
     (``ref_layout=True``), held as in phase 5, the blobs equal to the
     built tables' in that order;
+18a. cnn2 (113.2 M parameters: cnn's codec and a RetinaNet-ResNet-50
+    student, P3-P7, 9 anchors x 80 classes, on the decoded image) at full
+    width from ``--seed`` (its codec weights are cnn's; its student's stem
+    and classification kernels scaled by CNN2_GAIN) on phase 5's images:
+    the device wire held as phase 7 with phase 7's launch counts and blobs
+    (sha256) and y_hat phase 5's; the serving call ``decompress_detect``
+    (decompress, the student on x_hat, NMS on the host) with the counts
+    zeroed right before and read right after: the decompress's launches
+    and no more, y_hat and x_hat the encoder's, the maps finite, every
+    detection above 0.05 and inside the image, some in each image; the
+    scan wire held as phase 7a with phase 7a's blobs, the serving call on
+    its graphs; the student's device time (CUDA events and profiled busy)
+    against the decompress's, the host's decode seconds; the student on
+    the card against its CPU twin on the card's x_hat (classification and
+    regression within CNN2_STUDENT_TOL of their max, anchors equal); under
+    the bfloat16 policy the device wire's compress and serving call with
+    phase 7b's launch counts, x_hat bfloat16 and the student's maps
+    float32;
+18b. cnn2 training (8 x 256 x 256, RateDistortionLoss, 2 steps in float32
+    and 2 under the bfloat16 policy from the same weights, as phases 9 and
+    10b): the student runs in each forward and no loss term reads it, so
+    its parameters and BatchNorm statistics must not move (every codec
+    parameter must); the student's forward time in a step logged, and
+    CNN2_AB_TURNS float32 steps with it and without it, in turns;
+18c. a reference cnn2 checkpoint at full width (phase 18's WACNN dict with
+    a seeded RetinaNet student in the reference's torchvision names and
+    BatchNorm statistics, and a teacher's stem) converted and loaded
+    strictly, its codec's tensors phase 18's cnn conversion bit for bit,
+    the tables stored and imported; on the host wire in the reference
+    order its blobs and launches phase 18's, and the serving call on them;
 19-22. the zigzag family stf5, stf6, stf7 and stf8 at their published
     full width (weights from ``--seed``, f32), each on 2 images of 256 x
     256 (``FAMILY_WIRE_SIZE``, a quarter of phase 5's pixels, to keep the
@@ -161,9 +191,9 @@ package beside it. Phases, each printed with its elapsed seconds:
     replay's, the device wire's launch counts (one decode launch a slice
     inside the decode graph, none of the encode kernel inside the encode
     graph), no host round trip in decompress, y_hat and bytes against the
-    device wire's, img/s and idle graphed, launch by launch and on the
-    device wire; its graphs and stacked weights are freed before the next
-    model;
+    device wire's, img/s graphed, launch by launch and on the device wire,
+    the idle share graphed (``FAMILY_SCAN_IDLE``); its graphs and stacked
+    weights are freed before the next model;
 24. each family model under the bfloat16 policy on both wires at 256 px,
     as phase 7b (the refiners' window attention in its bfloat16 builds: head width
     8 padded to 16, and 16), and its scan wire refusing the policy; phases
@@ -354,6 +384,12 @@ czigzag's phases add its window-attention launches at head width 16 to
 paths' (with its shape's times under ``czigzag_shape``), and its lane-rANS
 launches to ``rans_encode`` / ``rans_decode``.
 
+cnn2's phases add their launches (its device, scan and reference wires,
+each detecting decompress, its training steps; under the bfloat16 policy
+its device wire and steps) to WACNN's entries: window attention at head
+widths 24 and 40, the GDN kernels at 192 channels and the lane-rANS
+kernels, each under its own path keys ending in ``_cnn2``.
+
 The kernels line lists window attention's head widths 32, 48 and 96 and
 the GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
 ``_d96``, ``gdn_forward_c256``, ``gdn_backward_c256`` and their ``_bf16``
@@ -509,6 +545,10 @@ RANS_BENCH_IMAGES = 32
 # measured on the float32 device wire only (a profiled side of 40,000-93,000
 # ATen calls takes 2-4 s)
 FAMILY_WIRE_SIZE = 256
+# and on its scan wire (phase 23) the idle share of the graphed wire only:
+# profiling its launch-by-launch and device wires' 38,000-93,000 ATen calls
+# a side took 8-14 s a model (cut for time; their img/s stay)
+FAMILY_SCAN_IDLE = ("graphed",)
 # cut for time, every check kept (PERF.md section 4): the window-
 # attention rows timed as the median of 10 calls (20 before); the zigzag
 # family's and the CRC family's training phases at 2 steps each (3 before)
@@ -775,6 +815,29 @@ CZIGZAG_STEP_LAUNCHES = CZIGZAG_SIDE_LAUNCHES["compress"]
 # the codecs' narrowing, chosen on the CPU from the seeded weights on phase
 # 5's images and up_x4 (tools/probe_czigzag_narrow.py)
 CZIGZAG_NARROW = 0.5
+# cnn2 (phases 18a-18c): WACNN2, cnn's codec with a RetinaNet-ResNet-50
+# student (P3-P7, 9 anchors x 80 classes) detecting on the decoded image.
+# Its codec weights from one seed are cnn's (the student is drawn after
+# them), and its wires are cnn's code, so its blobs and launch counts are
+# held equal to cnn's (phases 7, 7a, 7b and 18); the student's convolutions
+# are cuDNN's and launch no kernel of the port. Seeded, the codec decodes a
+# faint x_hat (phase 5's images at narrow 0.2: mean 3e-4, max 0.016), on
+# which the student's logits stay at the focal-loss prior and no score
+# passes the 0.05 detection threshold. Without biases (BatchNorm at its
+# init) the seeded student is positively homogeneous, so its stem kernel
+# x64 shows it x_hat at an image's scale, and its classification kernel x16
+# spreads the logits: on the CPU from the device wire's x_hat of phase 5's
+# images, 1.1% of the scores pass and NMS keeps 11,000-17,000 detections an
+# image
+CNN2_GAIN = {"studentNet.backbone.Conv_0.weight": 64.0,
+             "studentNet.classification.output.weight": 16.0}
+# the student on the card against its CPU twin on the same x_hat: its
+# classification and regression maps, max |card - cpu| relative to the
+# CPU map's max (float32 on both, ~70 convolutions summed in other orders)
+CNN2_STUDENT_TOL = 1e-4
+# steps of each side timed, in turns, for the unread student's cost in a
+# training step (step_with_without_student)
+CNN2_AB_TURNS = 4
 
 
 def crc_step_shapes(name: str, dtype: str = "float32") -> dict:
@@ -1335,6 +1398,13 @@ def y_slice_hw(model, size: int):
     return h, h
 
 
+def blob_sha256(enc) -> dict:
+    """The sha256 of an encoder output's y and z blobs, each stream's
+    blobs joined."""
+    return {name: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
+            for k, name in enumerate("yz")}
+
+
 def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
                       expect: dict, reps: int = 3, idle: bool = True):
     """Phases 7 and 13: compress -> decompress on the device wire, the
@@ -1361,10 +1431,9 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
              if "synchroniz" in str(c.message)]
     torch.cuda.synchronize()
     dec_launches = read_counts()
-    blob_sha256 = {name: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
-                   for k, name in enumerate("yz")}
+    sha = blob_sha256(enc)
     log(f"  launches: compress {enc_launches}, decompress {dec_launches}; host round "
-        f"trips in decompress: {len(syncs)}; blobs' sha256 {blob_sha256}")
+        f"trips in decompress: {len(syncs)}; blobs' sha256 {sha}")
     if syncs:
         raise AssertionError(f"decompress waited for the card: {syncs[:3]}")
     if not torch.equal(dec["y_hat"], enc["y_hat"]) or not torch.equal(dec["x_hat"], enc["x_hat"]):
@@ -1410,7 +1479,7 @@ def device_wire_phase(codec, host_enc, x, card: str, zero_counts, read_counts,
         stream_bytes=stream_bytes, encode_img_per_s=B / float(np.median(enc_s)),
         decode_img_per_s=B / float(np.median(dec_s)), host_round_trips_in_decompress=0,
         launches_compress=enc_launches, launches_decompress=dec_launches,
-        blob_sha256=blob_sha256,
+        blob_sha256=sha,
         device=idle_shares(codec, x, enc_s, dec_s) if idle else "not measured")
     log(f"  bytes {stream_bytes}; bpp {[round(b, 4) for b in bpp]}, PSNR "
         f"{[round(p, 2) for p in psnr]} dB, encode {result['encode_img_per_s']:.2f} img/s, "
@@ -1516,7 +1585,8 @@ def graph_replays(codec, n_slices: int) -> dict:
 
 
 def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, expect: dict,
-                    dev_counts: dict, reps: int = 3):
+                    dev_counts: dict, reps: int = 3, serve=None,
+                    idle_wires=("graphed", "launches", "device_wire")):
     """Phases 7a and 13a: compress -> decompress on the scan wire, its four
     programs replayed as CUDA graphs (captured by a first compress and
     decompress, whose time, capture seconds and pool bytes are logged).
@@ -1528,8 +1598,10 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
     as the same functions launch by launch (``cuda_graphs=False``); y_hat
     and the y bytes against the device wire's (``SCAN_VS_DEVICE``); encode
     and decode img/s graphed, launch by launch and on the device wire, and
-    each side's device idle share. -> (results, compress and decompress
-    counts)."""
+    each side's device idle share on ``idle_wires``. ``serve``: called with
+    the graphed codec
+    and its encoder output after these checks, its result kept under
+    "serve". -> (results, compress and decompress counts)."""
     import warnings
 
     import torch
@@ -1596,6 +1668,8 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
         if not torch.equal(pdec[k], dec[k]):
             raise AssertionError(f"scan wire: graphed decompress {k} differs from launch by launch")
 
+    serving = {"serve": serve(codec, enc)} if serve else {}
+
     # against the device wire: y_hat's distribution and the bytes
     denc = dev_codec.compress(x, return_debug=True)
     d = (enc["y_hat"] - denc["y_hat"]).abs()
@@ -1621,12 +1695,14 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
         enc_s, dec_s = wire_times(c, x, reps)
         times[wire] = dict(encode_img_per_s=B / float(np.median(enc_s)),
                            decode_img_per_s=B / float(np.median(dec_s)),
-                           device=idle_shares(c, x, enc_s, dec_s))
+                           device=(idle_shares(c, x, enc_s, dec_s) if wire in idle_wires
+                                   else "not measured"))
     log("  encode / decode img/s (median of {}, batch {}, {}): {}; device idle {}".format(
         reps, B, card, {w: f"{t['encode_img_per_s']:.2f} / {t['decode_img_per_s']:.2f}"
                   for w, t in times.items()},
         {w: f"{t['device']['compress']['device_idle_share']:.3f} / "
-            f"{t['device']['decompress']['device_idle_share']:.3f}" for w, t in times.items()}))
+            f"{t['device']['decompress']['device_idle_share']:.3f}"
+         for w, t in times.items() if w in idle_wires}))
     bpp = [8 * (len(y) + len(z)) / (size * size) for y, z in zip(*enc["strings"])]
     result = dict(
         images=B, size=size, lanes_per_image=1024, bpp=bpp, tier=tiers,
@@ -1634,8 +1710,7 @@ def scan_wire_phase(model, dev_codec, x, card: str, zero_counts, read_counts, ex
         first_call_s=first_s, capture_s=capture_s, pool_bytes=pool_bytes, graphs=graphs,
         launches_per_replay=per_replay, host_round_trips_in_decompress=0,
         launches_compress=enc_launches, launches_decompress=dec_launches,
-        blob_sha256={name: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
-                     for k, name in enumerate("yz")},
+        blob_sha256=blob_sha256(enc), **serving,
         **times["graphed"], launch_by_launch=times["launches"], device_wire=times["device_wire"])
     del codec, plain
     torch.cuda.empty_cache()
@@ -2168,24 +2243,16 @@ def reference_wacnn_state_dict(seed: int) -> dict:
     return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
 
 
-def reference_phase(x, card: str, zero_counts, read_counts, seed: int):
-    """Phase 18: a reference checkpoint at full width. The seeded reference
-    WACNN state dict is converted (``zoo.convert_reference_state_dict``)
-    and loaded strictly; the converted model's own tables are written into
-    the dict as the reference's CDF buffers and read back
-    (``zoo.import_reference_tables``), equal; then 2 x 512^2 on the host
-    wire with the imported tables in the reference symbol order, held as in
-    phase 5 (launch counts zeroed and read around each side), its blobs
-    equal to those of the built tables in that order. -> results."""
+def stored_wacnn_tables(sd: dict, model):
+    """``model``'s own tables (WACNN's bottleneck and Gaussian) written into
+    the reference dict ``sd`` as the reference's CDF buffers
+    (``module.entropy_bottleneck._quantized_cdf`` ...) and read back by
+    ``zoo.import_reference_tables``, held equal. -> the imported tables."""
     import torch
 
     from icm_tpu_torch import zoo
-    from icm_tpu_torch.models import CharmCodec, build_codec_tables, create_model
+    from icm_tpu_torch.models import build_codec_tables
 
-    t = time.time()
-    sd = reference_wacnn_state_dict(seed)
-    model = create_model("cnn", seed=seed)
-    model.load_state_dict(zoo.convert_reference_state_dict("cnn", sd), strict=True)
     built = build_codec_tables(model)
     for prefix, tab in (("entropy_bottleneck", built.bottlenecks["entropy_bottleneck"]),
                         ("gaussian_conditional", built.gaussian)):
@@ -2201,6 +2268,28 @@ def reference_phase(x, card: str, zero_counts, read_counts, seed: int):
                 raise AssertionError(f"imported {name} {field} differs from the stored one")
     if not np.array_equal(imported.scale_table, built.scale_table):
         raise AssertionError("imported scale table differs from the stored one")
+    return imported
+
+
+def reference_phase(x, card: str, zero_counts, read_counts, seed: int):
+    """Phase 18: a reference checkpoint at full width. The seeded reference
+    WACNN state dict is converted (``zoo.convert_reference_state_dict``)
+    and loaded strictly; the converted model's own tables are written into
+    the dict as the reference's CDF buffers and read back
+    (``zoo.import_reference_tables``), equal; then 2 x 512^2 on the host
+    wire with the imported tables in the reference symbol order, held as in
+    phase 5 (launch counts zeroed and read around each side), its blobs
+    equal to those of the built tables in that order. -> results."""
+    import torch
+
+    from icm_tpu_torch import zoo
+    from icm_tpu_torch.models import CharmCodec, create_model
+
+    t = time.time()
+    sd = reference_wacnn_state_dict(seed)
+    model = create_model("cnn", seed=seed)
+    model.load_state_dict(zoo.convert_reference_state_dict("cnn", sd), strict=True)
+    imported = stored_wacnn_tables(sd, model)
     log(f"  {len(sd)} reference tensors converted, loaded strictly and tables imported in "
         f"{time.time() - t:.1f}s")
     codec = CharmCodec(model, tables=imported, ref_layout=True, narrow=0.2)
@@ -2212,9 +2301,7 @@ def reference_phase(x, card: str, zero_counts, read_counts, seed: int):
     built_enc = CharmCodec(model, ref_layout=True, narrow=0.2).compress(x)
     if built_enc["strings"] != enc["strings"]:
         raise AssertionError("imported tables' blobs differ from the built tables' ones")
-    result.update(tensors=len(sd), blob_sha256={
-        name: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
-        for k, name in enumerate("yz")})
+    result.update(tensors=len(sd), blob_sha256=blob_sha256(enc))
     log(f"  blobs with imported tables = built tables (reference order); sha256 "
         f"{result['blob_sha256']}")
     del model, codec
@@ -4140,6 +4227,389 @@ def czigzag_model_phases(x, card: str, zero_counts, read_counts, seed: int) -> t
     return result, counts, shapes
 
 
+def cnn2_detect(codec, enc, zero_counts, read_counts, expect: dict, what: str) -> tuple:
+    """cnn2's serving call (``models.decompress_detect``: the codec's
+    decompress, the student on x_hat, the host-side NMS of each image) on
+    ``enc``'s blobs, the counts zeroed right before and read right after:
+    its launches exactly ``expect``, the wire's own decompress counts (the
+    student adds none); y_hat and x_hat the encoder's; the maps finite and
+    laid over the anchors; every detection above the score threshold and
+    inside the image. -> (results, the call's output)."""
+    import torch
+
+    from icm_tpu_torch.models import decompress_detect
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.time()
+    out = decompress_detect(codec, enc["strings"], enc["shape"])
+    torch.cuda.synchronize()
+    seconds = time.time() - t
+    launches = read_counts()
+    check_launches(f"{what}: decompress_detect", launches, expect)
+    if not torch.equal(out["y_hat"], enc["y_hat"]) or not torch.equal(out["x_hat"], enc["x_hat"]):
+        raise AssertionError(f"{what}: decompress_detect's y_hat or x_hat differs from the "
+                             "encoder's")
+    cls, reg, anchors = out["classification"], out["regression"], out["anchors"]
+    B, A, K = cls.shape
+    H, W = out["x_hat"].shape[1:3]
+    if (reg.shape != (B, A, 4) or anchors.shape != (1, A, 4) or len(out["detections"]) != B
+            or not all(bool(torch.isfinite(t).all()) for t in (cls, reg))):
+        raise AssertionError(f"{what}: maps {tuple(cls.shape)} / {tuple(reg.shape)} / "
+                             f"{tuple(anchors.shape)} or not finite")
+    for scores, labels, boxes in out["detections"]:
+        if len(scores) and (scores.min() <= 0.05 or labels.max() >= K or boxes.min() < 0
+                            or boxes[:, 2].max() > W or boxes[:, 3].max() > H):
+            raise AssertionError(f"{what}: a detection out of bounds")
+    result = dict(seconds=seconds, launches=launches, anchors=A, classes=K,
+                  detections=[len(d[0]) for d in out["detections"]],
+                  scores_above_threshold=float((cls > 0.05).float().mean()))
+    log(f"  {what}: decompress_detect {seconds:.3f}s, launches {launches}; detections "
+        f"{result['detections']} ({result['scores_above_threshold']:.3%} of {B} x {A} x {K} "
+        "scores above 0.05)")
+    return result, out
+
+
+def cnn_refs(x, zero_counts, read_counts, seed: int) -> dict:
+    """What cnn2's phases are held to, for a run of them without cnn's
+    phases (tools/torch_smoke_models.py): cnn from the same seed, phase 5's
+    host-wire encoder output, and the blobs' sha256 and launch counts of its
+    device wire (phase 7), scan wire (7a), device wire under the bfloat16
+    policy (7b) and reference checkpoint on the host wire (18)."""
+    import torch
+
+    from icm_tpu_torch import zoo
+    from icm_tpu_torch.models import CharmCodec, DeviceWireCodec, create_model
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    def sides(codec, zero, read):
+        zero()
+        enc = codec.compress(x, return_debug=True)
+        torch.cuda.synchronize()
+        enc_l = read()
+        zero()
+        codec.decompress(enc["strings"], enc["shape"])
+        torch.cuda.synchronize()
+        return enc, enc_l, read()
+
+    model = create_model("cnn", seed=seed)
+    out = {"enc": CharmCodec(model, narrow=0.2).compress(x, return_debug=True)}
+    dev = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
+    enc, out["device_compress"], out["device_decompress"] = sides(dev, zero_counts, read_counts)
+    out["device_sha256"] = blob_sha256(enc)
+    scan = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2, scan_wire=True)
+    out["scan_sha256"] = blob_sha256(scan.compress(x))
+    zero16, read16 = launch_counts("bfloat16")
+    set_activation_dtype(torch.bfloat16)
+    try:
+        _, out["bf16_device_compress"], out["bf16_device_decompress"] = sides(dev, zero16, read16)
+    finally:
+        set_activation_dtype(None)
+    sd = reference_wacnn_state_dict(seed)
+    model.load_state_dict(zoo.convert_reference_state_dict("cnn", sd), strict=True)
+    ref = CharmCodec(model, tables=stored_wacnn_tables(sd, model), ref_layout=True, narrow=0.2)
+    enc, out["reference_compress"], out["reference_decompress"] = sides(ref, zero_counts,
+                                                                        read_counts)
+    out["reference_sha256"] = blob_sha256(enc)
+    del model, dev, scan, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def reference_cnn2_state_dict(seed: int) -> dict:
+    """A reference cnn2 state dict at full width: phase 18's reference WACNN
+    dict (``module.`` prefix and all) with the RetinaNet student under
+    ``studentNet.`` (torchvision ResNet-50 names ``conv1``, ``bn1``,
+    ``layer{L}.{i}.conv{k}`` / ``bn{k}`` / ``downsample.0`` / ``.1``; the
+    pyramid ``fpn.P3_1`` ... ``P7_2``; ``regressionModel`` and
+    ``classificationModel`` with ``conv1``-``conv4`` and ``output``, the
+    classification bias at the focal-loss prior), each BatchNorm with its
+    running statistics and ``num_batches_tracked``, and the stem of the
+    frozen ``teacherNet``, which the conversion drops; the student drawn from
+    ``seed`` + 1 (``_RefDraw``)."""
+    import torch
+
+    sd = reference_wacnn_state_dict(seed)
+    ref = _RefDraw(np.random.default_rng(seed + 1))
+
+    def conv(name, o, i, k):  # the ResNet's convolutions have no bias
+        ref.put(f"{name}.weight", (o, i, k, k), (i * k * k) ** -0.5)
+
+    def bn(name, c):
+        ref.put(f"{name}.weight", (c,), 0.1, 1.0)
+        ref.put(f"{name}.bias", (c,), 0.1)
+        ref.put(f"{name}.running_mean", (c,), 0.1)
+        ref.sd[f"{name}.running_var"] = (1.0 + 0.1 * np.abs(ref.normal(c))).astype(np.float32)
+        ref.sd[f"{name}.num_batches_tracked"] = np.array(1000, np.int64)
+
+    for net in ("studentNet", "teacherNet"):
+        conv(f"{net}.conv1", 64, 3, 7)
+        bn(f"{net}.bn1", 64)
+    c_in = 64
+    for L, (w, n) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3)), start=1):
+        for i in range(n):
+            block = f"studentNet.layer{L}.{i}"
+            for k, (o, c, size) in enumerate(((w, c_in, 1), (w, w, 3), (4 * w, w, 1)), start=1):
+                conv(f"{block}.conv{k}", o, c, size)
+                bn(f"{block}.bn{k}", o)
+            if i == 0:
+                conv(f"{block}.downsample.0", 4 * w, c_in, 1)
+                bn(f"{block}.downsample.1", 4 * w)
+            c_in = 4 * w
+    for name, c, k in (("P5_1", 2048, 1), ("P5_2", 256, 3), ("P4_1", 1024, 1), ("P4_2", 256, 3),
+                       ("P3_1", 512, 1), ("P3_2", 256, 3), ("P6", 2048, 3), ("P7_2", 256, 3)):
+        ref.conv(f"studentNet.fpn.{name}", 256, c, k)
+    for head, outputs in (("regressionModel", 9 * 4), ("classificationModel", 9 * 80)):
+        for j in range(1, 5):
+            ref.conv(f"studentNet.{head}.conv{j}", 256, 256, 3)
+        ref.conv(f"studentNet.{head}.output", outputs, 256, 3)
+    ref.sd["studentNet.classificationModel.output.bias"] = np.full(9 * 80, -np.log(99.0),
+                                                                  np.float32)
+    sd.update({"module." + k: torch.from_numpy(np.asarray(v)) for k, v in ref.sd.items()})
+    return sd
+
+
+def cnn2_reference_phase(model, x, zero_counts, read_counts, seed: int, cnn: dict) -> dict:
+    """Phase 18c: the seeded reference cnn2 dict (``reference_cnn2_state_dict``)
+    converted (``zoo.convert_reference_state_dict``) and loaded strictly
+    into ``model``, its codec's tensors bit for bit those of phase 18's cnn
+    conversion of the same codec keys, the teacher and
+    ``num_batches_tracked`` dropped; the tables stored and imported as
+    phase 18's; then on the host wire in the reference symbol order: the
+    blobs and launch counts phase 18's, and the serving call
+    (``cnn2_detect``) on them. -> results."""
+    import torch
+
+    from icm_tpu_torch import zoo
+    from icm_tpu_torch.models import CharmCodec
+
+    t = time.time()
+    sd = reference_cnn2_state_dict(seed)
+    converted = zoo.convert_reference_state_dict("cnn2", sd)
+    model.load_state_dict(converted, strict=True)
+    as_cnn = zoo.convert_reference_state_dict("cnn", {
+        k: v for k, v in sd.items()
+        if not k.startswith(("module.studentNet.", "module.teacherNet."))})
+    student = {k for k in converted if k.startswith("studentNet.")}
+    if set(converted) != set(as_cnn) | student or not all(
+            torch.equal(converted[k], v) for k, v in as_cnn.items()):
+        raise AssertionError("reference cnn2: its codec's conversion differs from cnn's")
+    stats = sum(k.endswith((".mean", ".var")) for k in student)
+    imported = stored_wacnn_tables(sd, model)
+    log(f"  {len(sd)} reference tensors ({sum(k.startswith('module.teacherNet.') for k in sd)} "
+        f"of the teacher) converted to {len(converted)}, {stats} of them BatchNorm statistics, "
+        f"loaded strictly and tables imported in {time.time() - t:.1f}s")
+    codec = CharmCodec(model, tables=imported, ref_layout=True, narrow=0.2)
+    zero_counts()
+    enc = codec.compress(x, return_debug=True)
+    torch.cuda.synchronize()
+    enc_l = read_counts()
+    check_launches("reference cnn2, compress", enc_l, cnn["reference_compress"])
+    sha = blob_sha256(enc)
+    if sha != cnn["reference_sha256"]:
+        raise AssertionError("reference cnn2: its blobs differ from the reference cnn's")
+    result, _ = cnn2_detect(codec, enc, zero_counts, read_counts, cnn["reference_decompress"],
+                            "reference cnn2, host wire")
+    result.update(tensors=len(sd), converted=len(converted), batchnorm_statistics=stats,
+                  blob_sha256=sha, launches_compress=enc_l)
+    return result
+
+
+def step_with_without_student(model, seed: int) -> list:
+    """The unread student's cost in a float32 training step of cnn2 (8 x
+    256^2): after a step of each, CNN2_AB_TURNS steps with it and as many
+    without it (``with_task_net`` off for the step), in turns (with,
+    without, without, with), host clock to a synchronize. -> [median ms
+    with, without]."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.train import (RateDistortionLoss, TrainState, make_optimizer,
+                                     make_train_step)
+
+    xb = torch.from_numpy(make_images(seed + 100, 8, 256)).cuda()
+    state = TrainState(model, make_optimizer(model))
+    step = make_train_step(model, RateDistortionLoss(0.01))
+    times = {True: [], False: []}
+    for i in range(-2, 2 * CNN2_AB_TURNS):  # two warm-up steps
+        student = i % 4 in (0, 3)
+        model.with_task_net = student
+        try:
+            torch.cuda.synchronize()
+            t = time.time()
+            step(state, xb, torch.Generator().manual_seed(seed))
+            torch.cuda.synchronize()
+        finally:
+            model.with_task_net = True
+        if i >= 0:
+            times[student].append(1e3 * (time.time() - t))
+    model.zero_grad(set_to_none=True)
+    return [float(np.median(times[True])), float(np.median(times[False]))]
+
+
+def cnn2_model_phases(x, card: str, zero_counts, read_counts, seed: int, cnn: dict) -> tuple:
+    """Phases 18a-18c, cnn2 at full width on phase 5's images, held to cnn's
+    results ``cnn`` (``cnn_refs`` gives them): 18a its device and scan
+    wires, detection on the decoded images, the student card against CPU
+    and the bfloat16 policy's serving; 18b training; 18c a reference
+    checkpoint. -> (results, float32 launch counts by path, bfloat16
+    launch counts by path)."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+    from icm_tpu_torch.models import DeviceWireCodec, create_model
+    from icm_tpu_torch.nn import set_activation_dtype
+    from icm_tpu_torch.tasks import RetinaNet, decode_batch
+
+    size = x.shape[1]
+    dev_expect = {"compress": cnn["device_compress"], "decompress": cnn["device_decompress"]}
+    with Phase("full-width cnn2: device and scan wires, detection on the decoded images, "
+               "student card vs CPU, bf16 policy"):
+        t = time.time()
+        model = create_model("cnn2", seed=seed)
+        with torch.no_grad():
+            for name, gain in CNN2_GAIN.items():
+                model.get_parameter(name).mul_(gain)
+        student = model.studentNet
+        n_params = sum(p.numel() for p in model.parameters())
+        n_student = sum(p.numel() for p in student.parameters())
+        dev = DeviceWireCodec(model, lanes_per_image=1024, narrow=0.2)
+        torch.cuda.synchronize()
+        log(f"  cnn2: {n_params / 1e6:.1f} M parameters (student {n_student / 1e6:.1f} M, "
+            f"scaled {CNN2_GAIN}) and the device wire in {time.time() - t:.1f}s")
+        # (18a) the device wire: cnn's blobs, y_hat (phase 5's host wire)
+        # and launches; then the serving call on it
+        result, dev_enc_l, dev_dec_l = device_wire_phase(dev, cnn["enc"], x, card, zero_counts,
+                                                         read_counts, dev_expect)
+        if result["blob_sha256"] != cnn["device_sha256"]:
+            raise AssertionError("cnn2's device-wire blobs differ from cnn's")
+        enc = dev.compress(x, return_debug=True)
+        result["detect"], det = cnn2_detect(dev, enc, zero_counts, read_counts, dev_dec_l,
+                                            "device wire")
+        if not all(result["detect"]["detections"]):
+            raise AssertionError("cnn2: an image without detections; CNN2_GAIN is to make "
+                                 "the seeded student detect")
+        # the graphed scan wire, and the serving call on its graphs
+        result["scan_wire"], scan_enc_l, scan_dec_l = scan_wire_phase(
+            model, dev, x, card, zero_counts, read_counts, dev_expect,
+            {"compress": dev_enc_l, "decompress": dev_dec_l},
+            serve=lambda codec, e: cnn2_detect(codec, e, zero_counts, read_counts, dev_dec_l,
+                                               "scan wire")[0])
+        if result["scan_wire"]["blob_sha256"] != cnn["scan_sha256"]:
+            raise AssertionError("cnn2's scan-wire blobs differ from cnn's")
+
+        # the student alone on the decoded images: its device time against
+        # the decompress's, and the host's NMS decode
+        x_hat = det["x_hat"]
+        with torch.no_grad():
+            student_ms = cuda_ms(lambda: student(x_hat), iters=5)
+            _, student_busy = profiled_call(lambda: student(x_hat))
+        dec_busy = result["device"]["decompress"]["device_busy_ms"]
+        t = time.time()
+        decode_batch(det["classification"], det["regression"], det["anchors"], (size, size))
+        host_s = time.time() - t
+        result["student"] = dict(
+            ms=student_ms, device_busy_ms=student_busy, decompress_busy_ms=dec_busy,
+            share_of_detecting_decompress=student_busy / (student_busy + dec_busy),
+            host_decode_s=host_s, map_bytes=4 * (det["classification"].numel()
+                                                 + det["regression"].numel()))
+        log(f"  student on 2 x {size}^2: {student_ms:.2f} ms (CUDA events, median of 5), busy "
+            f"{student_busy:.2f} ms against the device-wire decompress's {dec_busy:.2f} ms "
+            f"({result['student']['share_of_detecting_decompress']:.1%} of a detecting "
+            f"decompress); host decode (maps to the host, NMS) {host_s:.3f}s for "
+            f"{result['student']['map_bytes'] / 1e6:.1f} MB of maps ({card})")
+
+        # the student on the card against its CPU twin on the same x_hat
+        with torch.device("meta"):
+            cpu_student = RetinaNet(num_classes=student.num_classes)
+        cpu_student = cpu_student.to_empty(device="cpu").eval()
+        cpu_student.load_state_dict(student.state_dict())
+        t = time.time()
+        with torch.no_grad():
+            _, _, cls_cpu, reg_cpu, anchors_cpu = cpu_student(x_hat.cpu())
+        errs = {name: ((det[name].cpu() - ref).abs().max() / ref.abs().max()).item()
+                for name, ref in (("classification", cls_cpu), ("regression", reg_cpu))}
+        log(f"  student card vs CPU on the card's x_hat: max |card - cpu| / max |cpu| {errs} "
+            f"(bar {CNN2_STUDENT_TOL}; CPU {time.time() - t:.1f}s)")
+        if not torch.equal(det["anchors"].cpu(), anchors_cpu) or max(errs.values()) > \
+                CNN2_STUDENT_TOL:
+            raise AssertionError(f"cnn2's student: card and CPU disagree: {errs}")
+        result["student"]["card_vs_cpu"] = dict(relative=errs, tolerance=CNN2_STUDENT_TOL)
+        del cpu_student, det
+
+        # the bfloat16 policy: the codec in bfloat16 with cnn's bfloat16
+        # launches, the student in float32 on the bfloat16 x_hat (the JAX
+        # package's tasks take no activation dtype)
+        zero16, read16 = launch_counts("bfloat16")
+        set_activation_dtype(torch.bfloat16)
+        try:
+            zero16()
+            enc16 = dev.compress(x, return_debug=True)
+            torch.cuda.synchronize()
+            bf16_enc_l = read16()
+            check_launches("bf16 device wire, compress", bf16_enc_l, cnn["bf16_device_compress"])
+            result["bf16"], det16 = cnn2_detect(dev, enc16, zero16, read16,
+                                                cnn["bf16_device_decompress"],
+                                                "device wire under the bf16 policy")
+            with torch.no_grad():
+                result["bf16"]["student_ms"] = cuda_ms(lambda: student(det16["x_hat"]), iters=5)
+        finally:
+            set_activation_dtype(None)
+        dtypes = {k: det16[k].dtype for k in ("x_hat", "classification", "regression")}
+        log(f"  bf16 policy: dtypes {dtypes}; student {result['bf16']['student_ms']:.2f} ms")
+        if dtypes != {"x_hat": torch.bfloat16, "classification": torch.float32,
+                      "regression": torch.float32}:
+            raise AssertionError(f"cnn2 under the bf16 policy: dtypes {dtypes}")
+        result["bf16"]["launches_compress"] = bf16_enc_l
+        del det16, enc16, enc
+
+    # (18b) training: the student runs in each step's forward, no loss
+    # reads it, so its parameters and BatchNorm statistics stay
+    init_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    stats = {k: v for k, v in init_state.items()
+             if k.startswith("studentNet.") and k.endswith((".mean", ".var"))}
+    with Phase("full-width cnn2 training, f32 and under the bf16 policy"):
+        xb = torch.from_numpy(make_images(seed + 100, 8, 256)).cuda()
+        with torch.enable_grad():  # as in a training step's forward
+            step_student_ms = cuda_ms(lambda: student(xb), iters=5)
+        del xb
+        train = train_phase(model, seed, card, TRAIN_STEP_LAUNCHES, steps=TRAIN_STEPS,
+                            resumed_steps=0, fixed=("studentNet.",))
+        train["student_forward_ms"] = step_student_ms
+        train["bf16"] = bf16_train_phase(model, init_state, seed, card, TRAIN_STEP_LAUNCHES,
+                                         train, steps=TRAIN_STEPS, fixed=("studentNet.",))
+        train["step_ms_with_without_student"] = step_with_without_student(model, seed)
+        moved = [k for k, v in stats.items() if not torch.equal(model.get_buffer(k), v)]
+        log(f"  student forward in a step (8 x 256^2, autograd on): {step_student_ms:.2f} ms; "
+            f"step ms with / without the student (median of {CNN2_AB_TURNS} each, in turns): "
+            f"{train['step_ms_with_without_student']}; {len(stats)} BatchNorm statistics, "
+            f"{len(moved)} moved ({card})")
+        if moved:
+            raise AssertionError(f"cnn2 training moved BatchNorm statistics: {moved[:4]}")
+        result["train"] = train
+    del init_state, stats
+
+    with Phase("reference checkpoint: full-width cnn2, imported tables, reference order"):
+        result["reference"] = cnn2_reference_phase(model, x, zero_counts, read_counts, seed, cnn)
+    counts = {"launches_device_wire_compress": dev_enc_l,
+              "launches_device_wire_decompress": dev_dec_l,
+              "launches_detect_device_wire": result["detect"]["launches"],
+              "launches_scan_wire_compress": scan_enc_l,
+              "launches_scan_wire_decompress": scan_dec_l,
+              "launches_detect_scan_wire": result["scan_wire"]["serve"]["launches"],
+              "launches_train_step": train["launches_per_step"],
+              "launches_reference_compress": result["reference"]["launches_compress"],
+              "launches_detect_reference": result["reference"]["launches"]}
+    bf16_counts = {"launches_device_wire_compress": bf16_enc_l,
+                   "launches_detect_device_wire": result["bf16"]["launches"],
+                   "launches_train_step": train["bf16"]["launches_per_step"]}
+    result.update(parameters=n_params, student_parameters=n_student, gain=CNN2_GAIN)
+    del model, dev, student
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, counts, bf16_counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4343,6 +4813,19 @@ def main() -> int:
                                                                 read_counts, args.seed)
     paths["float32"]["cnn"].update(ref_counts)  # the reference path runs cnn's kernels
 
+    # cnn2: cnn's codec with a detector on x_hat, held to cnn's phases
+    cnn = {"enc": enc, "device_compress": dev_enc_launches, "device_decompress": dev_dec_launches,
+           "device_sha256": slice_result["device_wire"]["blob_sha256"],
+           "scan_sha256": slice_result["scan_wire"]["blob_sha256"],
+           "bf16_device_compress": bf16_counts["device_compress"],
+           "bf16_device_decompress": bf16_counts["device_decompress"],
+           "reference_compress": ref_counts["launches_reference_compress"],
+           "reference_decompress": ref_counts["launches_reference_decompress"],
+           "reference_sha256": slice_result["reference"]["blob_sha256"]}
+    slice_result["cnn2"], paths["float32"]["cnn2"], paths["bfloat16"]["cnn2"] = (
+        cnn2_model_phases(x, card, zero_counts, read_counts, args.seed, cnn))
+    del cnn, enc
+
     family_transforms = {}  # each family model's g_a and g_s launches by side
     # the family's launch-by-launch wires at FAMILY_WIRE_SIZE, its scan wire at 512
     x_fam = torch.from_numpy(make_images(args.seed, B, FAMILY_WIRE_SIZE)).cuda()
@@ -4360,7 +4843,8 @@ def main() -> int:
                  "decompress": {**fam["expect"]["decompress"],
                                 "rans_decode": fam["model"].ctx_slices + 1}},
                 {"compress": counts["launches_device_wire_compress"],
-                 "decompress": counts["launches_device_wire_decompress"]}, FAMILY_REPS)
+                 "decompress": counts["launches_device_wire_decompress"]}, FAMILY_REPS,
+                idle_wires=FAMILY_SCAN_IDLE)
             counts.update(launches_scan_wire_compress=scan_enc_l,
                           launches_scan_wire_decompress=scan_dec_l)
         with Phase(f"full-width {name} under the bf16 policy, both wires at "
@@ -4476,9 +4960,10 @@ def main() -> int:
             "source": "icm_tpu_torch/csrc/window_attention.cu",
             "replaces": "icm_tpu/nn/pallas_kernels.py:33",
             "dtype": dtype,
-            # WACNN's path, and the CRC family's g_a (head width 24)
-            **with_crc(launch_keys("window_attention", ("cnn",), dtype), "window_attention",
-                       f"{dtype} D24"),
+            # WACNN's paths (cnn's and cnn2's), and the CRC family's g_a
+            # (head width 24)
+            **with_crc(launch_keys("window_attention", ("cnn", "cnn2"), dtype),
+                       "window_attention", f"{dtype} D24"),
             "max_abs_err": max(r["max_abs_err"] for r in main),
             "ms": sum(r["ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
@@ -4596,8 +5081,9 @@ def main() -> int:
                 "source": "icm_tpu_torch/csrc/gdn.cu",
                 "replaces": f"icm_tpu/nn/gdn_pallas.py:{line}",
                 "dtype": dtype,
-                # cnn's path, and the CRC family's 192-channel layers
-                **with_crc(launch_keys(name, dtype=dtype), "gdn", f"{part} {dtype} C192"),
+                # cnn's and cnn2's paths, and the CRC family's 192-channel layers
+                **with_crc(launch_keys(name, ("cnn", "stf", "cnn2"), dtype), "gdn",
+                           f"{part} {dtype} C192"),
                 "max_abs_err": max(r["max_abs_err"][err_key] for r in gdn_rows_d
                                    if r["path"] in ("train", "serve")),
                 "max_err": max(r["err"][err_key] for r in gdn_rows_d
@@ -4674,7 +5160,7 @@ def main() -> int:
             "source": "icm_tpu_torch/csrc/rans_lanes.cu",
             "replaces": f"icm_tpu/coding/device_rans.py:{line}",
             "replaces_note": "not Pallas in JAX: integer jnp under lax.scan",
-            **launch_keys(name, ("cnn", "stf") + FAMILY + CRC + MASKED + ("czigzag",)),
+            **launch_keys(name, ("cnn", "stf", "cnn2") + FAMILY + CRC + MASKED + ("czigzag",)),
             "max_abs_err": max(r["max_abs_err"] for r in rans_rows),
             "ms": sum(r[part]["ms"] for r in rans_main),
             "plain_ms": sum(r[part]["plain_ms"] for r in rans_main),

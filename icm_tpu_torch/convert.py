@@ -2,8 +2,10 @@
 
 ``from_jax_params(params)`` takes a flax parameter tree as nested dicts of
 numpy arrays (``jax.device_get(variables["params"])``; the outer
-``{"params": ...}`` wrapper is accepted too) and returns the state dict of
-the port's model of the same configuration. The port's module tree
+``{"params": ...}`` wrapper is accepted too, and the variables
+``{"params": ..., "batch_stats": ...}`` of a model with BatchNorm, whose
+statistics become the buffers of the same paths) and returns the state
+dict of the port's model of the same configuration. The port's module tree
 carries the flax names, so a path ``a/b/kernel`` becomes the key
 ``a.b.weight``; the values are re-laid:
 
@@ -14,7 +16,8 @@ carries the flax names, so a path ``a/b/kernel`` becomes the key
 - dense ``(I, O)`` -> ``(O, I)``;
 - GDN ``gamma`` (C_in, C_out) -> (C_out, C_in), still in the
   reparametrized form, and ``beta`` as it is;
-- LayerNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
+- LayerNorm and BatchNorm ``scale`` -> ``weight`` (``bias`` keeps its
+  name); BatchNorm's ``mean`` and ``var`` statistics keep theirs;
 - everything else (bottleneck, relative-position tables) as it is.
 
 A tree of a JAX ``scan_charm=True`` model carries its context stacks as
@@ -68,7 +71,7 @@ def _convert(path, value: np.ndarray):
         raise ValueError(f"kernel of rank {value.ndim} at {'/'.join(path)}")
     if leaf == "gamma" and parent.startswith("GDN"):
         return leaf, np.transpose(value, (1, 0))
-    if leaf == "scale" and parent.startswith("LayerNorm"):
+    if leaf == "scale" and parent.startswith(("LayerNorm", "BatchNorm")):
         return "weight", value
     return leaf, value
 
@@ -144,7 +147,9 @@ def _unstack_zz_scan(params: dict, model, path=()) -> dict:
 def from_jax_params(params: dict, model=None) -> Dict[str, torch.Tensor]:
     """``model``: the port's model of the tree's configuration, needed only
     for a ``zigzag_scan`` or ``zz_scan`` tree (see the module docstring)."""
-    if set(params) == {"params"}:
+    stats = {}
+    if "params" in params and set(params) <= {"params", "batch_stats"}:
+        stats = params.get("batch_stats", {})
         params = params["params"]
     if "charm_scan" in params:
         params = _unstack_charm_scan(params)
@@ -158,4 +163,6 @@ def from_jax_params(params: dict, model=None) -> Dict[str, torch.Tensor]:
         leaf, arr = _convert(path, np.asarray(value))
         key = ".".join(path[:-1] + (leaf,))
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+    for path, value in _walk(stats):
+        out[".".join(path)] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
     return out

@@ -1,3 +1,3 @@
-from .metrics import psnr
+from .metrics import compute_map, csv_eval_ap, psnr
 
-__all__ = ["psnr"]
+__all__ = ["compute_map", "csv_eval_ap", "psnr"]

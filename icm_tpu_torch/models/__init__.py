@@ -28,6 +28,7 @@ from .crc import (ConditionalResidualCoding, ConditionalResidualCoding2,
 from .crc_codec import CRCCodec, CzigzagCodec
 from .czigzag import conditionalZigzag
 from .device_codec import DeviceWireCodec, DeviceWireKit
+from .icm import WACNN2, decompress_detect
 from .masked_codec import Stf3Codec, Stf4Codec
 from .masked_ctx import ClipEncoder, ClipEncoder3, ClipEncoder4
 from .stf import SymmetricalTransFormer
@@ -50,6 +51,7 @@ models = {
     "stf3": (ClipEncoder3, {}),
     "stf4": (ClipEncoder4, {}),
     "czigzag": (conditionalZigzag, {}),
+    "cnn2": (WACNN2, {}),
 }
 
 
@@ -94,7 +96,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             fan_in = k * (w.shape[1] if isinstance(mod, nn.Conv2d) else w.shape[0])
             std = math.sqrt(1.0 / fan_in) / trunc_std
             w.copy_(_trunc_normal(w.shape, std, generator))
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.fill_(getattr(mod, "bias_init", 0.0))
         elif isinstance(mod, nn.Linear):
             # flax's default (lecun_normal) where the JAX model keeps it, else
             # the Swin layers' 0.02
@@ -129,6 +132,7 @@ __all__ = [
     "CompressionModel",
     "CodecTables",
     "WACNN",
+    "WACNN2",
     "SymmetricalTransFormer",
     "ZigzagSwinCodec",
     "CharmCodec",
@@ -146,6 +150,7 @@ __all__ = [
     "build_codec_tables",
     "create_model",
     "cuda_numerics",
+    "decompress_detect",
     "enc_round",
     "init_parameters",
     "models",

@@ -4,7 +4,9 @@ state dict, and the coder tables the checkpoint stores.
 Port of ``icm_tpu/zoo.py`` for the architectures the port builds (``cnn``,
 ``stf``, the zigzag family ``stf5``-``stf8``, the CRC family's
 ``stf9``, ``stf11``, ``stf12``, ``stf13`` and ``stf14``, the masked
-family's ``stf2``, ``stf3`` and ``stf4``, and ``czigzag``). ``load_pretrained`` does
+family's ``stf2``, ``stf3`` and ``stf4``, ``czigzag``, and ``cnn2`` with its
+RetinaNet student, whose torchvision ResNet and RetinaNet converters are
+here too). ``load_pretrained`` does
 the reference's key cleanup (``zoo/pretrained.py``: strip DataParallel's
 ``module.``, drop ``h_s.*``, rename the legacy bottleneck ParameterList
 keys). The converters rename the reference's module paths into the flax
@@ -186,8 +188,12 @@ def _state_dict(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def convert_wacnn_checkpoint(state_dict: dict, num_slices: int = 10) -> Dict[str, torch.Tensor]:
     """Reference WACNN state dict -> the port's ``WACNN`` state dict."""
-    sd = load_pretrained(state_dict)
-    tree = {
+    return _state_dict(_wacnn_tree(load_pretrained(state_dict), num_slices))
+
+
+def _wacnn_tree(sd: dict, num_slices: int = 10) -> dict:
+    """WACNN's modules of a cleaned reference state dict, in port names."""
+    return {
         # conv, GDN, conv, GDN, Win, conv, GDN, conv, Win
         "g_a": {
             "Conv_0": _leaves(sd, "g_a.0"), "GDN_0": _gdn(sd, "g_a.1"),
@@ -210,6 +216,87 @@ def convert_wacnn_checkpoint(state_dict: dict, num_slices: int = 10) -> Dict[str
         **_context(sd, num_slices),
         "entropy_bottleneck": _entropy_bottleneck(sd, "entropy_bottleneck"),
     }
+
+
+# --- task networks (the reference's torchvision ResNet and RetinaNet) ---------
+
+
+def _batchnorm(sd, name: str) -> dict:
+    """torch BatchNorm2d -> the port's ``FrozenBatchNorm2d``: weight and
+    bias, the running statistics as ``mean`` and ``var``
+    (``num_batches_tracked`` is not read)."""
+    return {"weight": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"],
+            "mean": sd[f"{name}.running_mean"], "var": sd[f"{name}.running_var"]}
+
+
+def _resnet_tree(sd, block: str = "bottleneck", layers=(3, 4, 6, 3)) -> dict:
+    """torchvision ResNet names -> the port's ``ResNetBackbone``: stem
+    ``conv1`` / ``bn1`` -> ``Conv_0`` / ``BatchNorm_0``; ``layer{L}.{i}.conv{k}``
+    / ``bn{k}`` -> ``layer{L}_{i}.Conv_{k-1}`` / ``BatchNorm_{k-1}``;
+    ``downsample.0`` / ``.1`` -> the block's last slot (``Conv_2`` for a
+    basic block, ``Conv_3`` for a bottleneck)."""
+    n_convs = 2 if block == "basic" else 3
+    tree = {"Conv_0": {"weight": sd["conv1.weight"]}, "BatchNorm_0": _batchnorm(sd, "bn1")}
+    for L, reps in enumerate(layers, start=1):
+        for i in range(reps):
+            ref = f"layer{L}.{i}"
+            node = {}
+            for k in range(n_convs):
+                node[f"Conv_{k}"] = {"weight": sd[f"{ref}.conv{k + 1}.weight"]}
+                node[f"BatchNorm_{k}"] = _batchnorm(sd, f"{ref}.bn{k + 1}")
+            if f"{ref}.downsample.0.weight" in sd:
+                node[f"Conv_{n_convs}"] = {"weight": sd[f"{ref}.downsample.0.weight"]}
+                node[f"BatchNorm_{n_convs}"] = _batchnorm(sd, f"{ref}.downsample.1")
+            tree[f"layer{L}_{i}"] = node
+    return tree
+
+
+def convert_torchvision_resnet(state_dict: dict, block: str = "bottleneck",
+                               layers=(3, 4, 6, 3)) -> Dict[str, torch.Tensor]:
+    """A torchvision ResNet state dict -> the port's ``ResNetBackbone``
+    state dict (port of ``icm_tpu/utils/torch_weights.py::
+    convert_torchvision_resnet``; ``fc`` is not read)."""
+    return _state_dict(_resnet_tree(state_dict, block, layers))
+
+
+def _retinanet_tree(sd, prefix: str = "") -> dict:
+    """The reference RetinaNet (``retinanet/model.py``: a torchvision
+    backbone, ``fpn.P3_1`` ... ``fpn.P7_2``, ``regressionModel`` and
+    ``classificationModel`` with ``conv1``-``conv4`` and ``output``) ->
+    the port's ``RetinaNet`` names."""
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    def head(ref):
+        return {name: _leaves(sd, f"{ref}.{name}")
+                for name in ("conv1", "conv2", "conv3", "conv4", "output")}
+
+    return {
+        "backbone": _resnet_tree(sd),
+        "fpn": {name: _leaves(sd, f"fpn.{name}")
+                for name in ("P5_1", "P5_2", "P4_1", "P4_2", "P3_1", "P3_2", "P6", "P7_2")},
+        "regression": head("regressionModel"),
+        "classification": head("classificationModel"),
+    }
+
+
+def convert_retinanet_state(state_dict: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The reference RetinaNet's state dict (its keys under ``prefix``) ->
+    the port's ``RetinaNet`` state dict (port of ``icm_tpu/utils/
+    torch_weights.py::convert_retinanet_state``: ResNet-50 backbone)."""
+    return _state_dict(_retinanet_tree(state_dict, prefix))
+
+
+def convert_cnn2_checkpoint(state_dict: dict) -> Dict[str, torch.Tensor]:
+    """Reference WACNN2 (``cnn2``) state dict -> the port's ``WACNN2``
+    state dict (port of the JAX package's ``convert_cnn2_checkpoint``): the
+    codec's keys as WACNN's, the trained RetinaNet student
+    (``studentNet.*``) as :func:`convert_retinanet_state`'s. The frozen
+    ``teacherNet.*`` (the reference's external pretrained detector) and
+    BatchNorm's ``num_batches_tracked`` are dropped."""
+    sd = load_pretrained(state_dict)
+    tree = _wacnn_tree(sd)
+    tree["studentNet"] = _retinanet_tree(sd, prefix="studentNet.")
     return _state_dict(tree)
 
 
@@ -571,7 +658,7 @@ def convert_czigzag_checkpoint(state_dict: dict, depths=(2, 2, 6, 2), hyper_dept
 
 
 # the zoo's other architectures: the port does not build them yet
-_NOT_PORTED = {a: "Queue 1 item 1 (ICM)" for a in ("cnn2", "stf10", "oj_ICM", "seg_oj_ICM")}
+_NOT_PORTED = {a: "Queue 1 item 1 (ICM)" for a in ("stf10", "oj_ICM", "seg_oj_ICM")}
 
 
 def convert_reference_state_dict(arch: str, sd: dict) -> Dict[str, torch.Tensor]:
@@ -588,6 +675,8 @@ def convert_reference_state_dict(arch: str, sd: dict) -> Dict[str, torch.Tensor]
         return convert_masked_ctx_checkpoint(sd, arch)
     if arch == "czigzag":
         return convert_czigzag_checkpoint(sd)
+    if arch == "cnn2":
+        return convert_cnn2_checkpoint(sd)
     where = _NOT_PORTED.get(arch, "no item: not an architecture of the zoo")
     raise NotImplementedError(
         f"reference checkpoint conversion for {arch!r} is not ported yet (ROADMAP.md, {where})")

@@ -1886,6 +1886,69 @@ def test_czigzag_twin_forward_and_step_card_vs_cpu():
         assert err <= 1e-3, (n, float(err))
 
 
+# a narrow cnn2: the scan twins' cnn codec (head width 16) with the JAX
+# package's test student (4 classes, a basic-block ResNet of one block a
+# stage); its classification kernel x128, so that some 3% of its scores pass
+# the detection threshold (read on the CPU)
+CNN2_TWIN = dict(SCAN_TWINS["cnn"], num_classes=4, task_block="basic", task_layers=(1, 1, 1, 1))
+
+
+def _kernel_launches() -> tuple:
+    return (twa.LAUNCHES.copy(), tgdn.FWD_LAUNCHES.copy(), tdr.ENCODE_LAUNCHES,
+            tdr.DECODE_LAUNCHES)
+
+
+def _launched_since(before: tuple) -> tuple:
+    now = _kernel_launches()
+    return (now[0] - before[0], now[1] - before[1], now[2] - before[2], now[3] - before[3])
+
+
+@pytest.mark.parametrize("wire", ["device", "scan"])
+def test_cnn2_twin_detects_on_the_card(wire):
+    """The narrow cnn2 twin's serving call (``decompress_detect``) on the
+    device wire and on the graphed scan wire: the kernels it launches are
+    those of the wire's decompress alone (the student launches none), its
+    y_hat and x_hat the encoder's; the student's classification and
+    regression on the card within 1e-4 of their max of the CPU twin's on
+    the same x_hat, the anchors equal; the detections ``decode_batch``'s of
+    the card's maps, some of them found."""
+    _needs_card()
+    from icm_tpu_torch.models import DeviceWireCodec, create_model, cuda_numerics
+    from icm_tpu_torch.models import decompress_detect
+    from icm_tpu_torch.tasks import decode_batch
+
+    cuda_numerics()
+    model = create_model("cnn2", device="cuda", seed=0, **CNN2_TWIN)
+    with torch.no_grad():
+        model.studentNet.classification.output.weight.mul_(128.0)
+    cpu = create_model("cnn2", device="cpu", seed=0, **CNN2_TWIN)
+    cpu.load_state_dict(model.state_dict())
+    codec = DeviceWireCodec(model, lanes_per_image=4, scan_wire=wire == "scan")
+    x = _scan_images(64)
+    enc = codec.compress(x, return_debug=True)
+    codec.decompress(enc["strings"], enc["shape"])  # the scan wire captures its graphs
+    before = _kernel_launches()
+    codec.decompress(enc["strings"], enc["shape"])
+    torch.cuda.synchronize()
+    plain = _launched_since(before)
+    before = _kernel_launches()
+    out = decompress_detect(codec, enc["strings"], enc["shape"])
+    torch.cuda.synchronize()
+    assert _launched_since(before) == plain and plain[3] == model.ctx_slices + 1
+    assert torch.equal(out["y_hat"], enc["y_hat"]) and torch.equal(out["x_hat"], enc["x_hat"])
+    with torch.no_grad():
+        _, _, cls, reg, anchors = cpu.studentNet(out["x_hat"].cpu())
+    for got, ref in ((out["classification"], cls), (out["regression"], reg)):
+        err = (got.cpu() - ref).abs().max() / ref.abs().max()
+        assert err <= 1e-4, float(err)
+    assert torch.equal(out["anchors"].cpu(), anchors)
+    want = decode_batch(out["classification"], out["regression"], out["anchors"], (64, 64))
+    for got, ref in zip(out["detections"], want):
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+    assert sum(len(d[0]) for d in out["detections"]) > 0
+
+
 # (dim, heads): czigzag's head widths 16 (its transforms' 48 channels at 3
 # heads), 48 and 96 (its hyper stacks' 192 and 384 channels at 4 heads)
 CROSS_WIDTHS = [(48, 3), (192, 4), (384, 4)]

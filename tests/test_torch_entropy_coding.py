@@ -201,9 +201,10 @@ SCANNED = sorted(
 
 def test_import_scan_covers_the_port_modules():
     """Every module of the package is scanned, the reference-checkpoint,
-    zigzag-family, CRC-family, masked-family and czigzag ones among them
-    (the scan wires and stacked weights too, stf2's token scan, czigzag's
-    codec, the two probes and the tensor-core rate probe)."""
+    zigzag-family, CRC-family, masked-family, czigzag and cnn2 ones among
+    them (the scan wires and stacked weights too, stf2's token scan,
+    czigzag's codec, cnn2's task networks and detection evaluators, the two
+    probes and the tensor-core rate probe)."""
     for path in ("icm_tpu_torch/zoo.py", "icm_tpu_torch/scan/zigzag.py",
                  "icm_tpu_torch/models/stf_family.py", "icm_tpu_torch/models/codec.py",
                  "icm_tpu_torch/models/scan_codec.py", "icm_tpu_torch/convert.py",
@@ -211,6 +212,10 @@ def test_import_scan_covers_the_port_modules():
                  "icm_tpu_torch/models/zigzag_coder.py", "icm_tpu_torch/models/crc.py",
                  "icm_tpu_torch/models/crc_codec.py", "icm_tpu_torch/models/masked_ctx.py",
                  "icm_tpu_torch/models/masked_codec.py", "icm_tpu_torch/models/czigzag.py",
+                 "icm_tpu_torch/models/icm.py", "icm_tpu_torch/tasks/anchors.py",
+                 "icm_tpu_torch/tasks/resnet.py", "icm_tpu_torch/tasks/fpn.py",
+                 "icm_tpu_torch/tasks/retinanet.py", "icm_tpu_torch/tasks/losses.py",
+                 "icm_tpu_torch/eval/metrics.py",
                  "tools/torch_smoke_models.py", "tools/probe_stf2_narrow.py",
                  "tools/probe_czigzag_narrow.py", "tools/torch_mma_peak.py"):
         assert path in SCANNED

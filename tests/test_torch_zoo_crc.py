@@ -304,7 +304,7 @@ def test_dead_reference_groups_are_dropped():
     assert any(k.startswith("human_context_decoder.") for k in converted("stf9")[2])
 
 
-@pytest.mark.parametrize("arch,item", [("stf10", "1"), ("cnn2", "1")])
+@pytest.mark.parametrize("arch,item", [("stf10", "1"), ("oj_ICM", "1")])
 def test_rest_of_the_family_is_refused_by_its_queue_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         tzoo.convert_reference_state_dict(arch, {})

@@ -1,14 +1,15 @@
-"""chip_smoke.py's phases of some CRC-family, masked-family or czigzag
-models alone, on the card: the quick check of one model's paths without the
-whole run.
+"""chip_smoke.py's phases of some CRC-family, masked-family, czigzag or
+cnn2 models alone, on the card: the quick check of one model's paths
+without the whole run.
 
     python3 tools/torch_smoke_models.py [--models stf13] [--size 512] [--seed 0]
         [--out models.json] [--probe-gains 8,16,32]
 
 Builds every kernel (``chip_smoke.build_kernels``), then runs, for each
 model of ``--models`` (comma-separated, of ``chip_smoke.CRC``,
-``chip_smoke.MASKED`` and ``czigzag``), its phases as ``chip_smoke.main``
-does, each phase holding what it holds in the whole run:
+``chip_smoke.MASKED``, ``czigzag`` and ``cnn2``), its phases as
+``chip_smoke.main`` does, each phase holding what it holds in the whole
+run:
 
 - a CRC model (``chip_smoke.crc_model_phases``) on phase 5's images: the
   three wires and the eval forward card against CPU, training, the bf16
@@ -24,7 +25,13 @@ does, each phase holding what it holds in the whole run:
 - czigzag (``chip_smoke.czigzag_model_phases``) on phase 5's images and
   their up_x4: the three wires (the scan wire graphed and launch by
   launch) and the eval forward card against CPU, training, the bf16
-  policy and the reference checkpoint.
+  policy and the reference checkpoint;
+- cnn2 (``chip_smoke.cnn2_model_phases``) on phase 5's images, held to
+  what cnn from the same seed gives (``chip_smoke.cnn_refs``: its blobs
+  and launch counts on the device, scan and bf16 device wires and of its
+  reference checkpoint): the device and scan wires with detection on the
+  decoded images, the student card against CPU, the bf16 policy's serving,
+  training and the reference checkpoint.
 
 Prints the card's name and power limit and, last, one JSON line of each
 model's results and launch counts; ``--out`` also writes it. Exits 1 if a
@@ -97,12 +104,13 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     names = args.models.split(",")
-    unknown = sorted(set(names) - set(smoke.CRC) - set(smoke.MASKED) - {"czigzag"})
+    unknown = sorted(set(names) - set(smoke.CRC) - set(smoke.MASKED) - {"czigzag", "cnn2"})
     if args.probe_gains:
-        unknown += sorted(set(names) & (set(smoke.MASKED) | {"czigzag"}))
+        unknown += sorted(set(names) & (set(smoke.MASKED) | {"czigzag", "cnn2"}))
     if unknown:
-        print(f"torch_smoke_models: not {'CRC' if args.probe_gains else 'CRC, masked or czigzag'}"
-              f" models of chip_smoke.py: {unknown}", file=sys.stderr)
+        what = "CRC" if args.probe_gains else "CRC, masked, czigzag or cnn2"
+        print(f"torch_smoke_models: not {what} models of chip_smoke.py: {unknown}",
+              file=sys.stderr)
         return 2
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.models import cuda_numerics
@@ -122,6 +130,11 @@ def main() -> int:
                 result, counts, shapes = smoke.czigzag_model_phases(x, card, zero_counts,
                                                                     read_counts, args.seed)
                 out[name] = {"result": result, "launches": counts, "launches_by_shape": shapes}
+            elif name == "cnn2":
+                cnn = smoke.cnn_refs(x, zero_counts, read_counts, args.seed)
+                result, counts, bf16_counts = smoke.cnn2_model_phases(
+                    x, card, zero_counts, read_counts, args.seed, cnn)
+                out[name] = {"result": result, "launches": counts, "launches_bf16": bf16_counts}
             elif name in smoke.MASKED:
                 result, counts, bf16_counts = smoke.masked_model_phases(
                     name, card, zero_counts, read_counts, args.seed, args.size)
