@@ -365,7 +365,43 @@ package beside it. Phases, each printed with its elapsed seconds:
     float32 device wire's, the eval forward card against CPU end to end
     and layer by layer as phase 8, 2 bfloat16 training steps;
 52. a reference czigzag checkpoint at full width with imported tables on
-    the host wire, as phase 42.
+    the host wire, as phase 42;
+53. oj_ICM (177.5 M parameters, 26.9 M of them the frozen R50-FPN's: the
+    zigzag ChARM coder with LRP, 8 slices of 192, support 4, a window of 8
+    blocks, 3-conv stacks, on MainCNNEncoder / MainCNNDecoder) at full width
+    from its seeded weights on phase 5's images at narrow 0.2: its nonzero
+    y symbols held above 0; ``CharmCodec`` (host wire) and
+    ``DeviceWireCodec`` (2 encode and 9 decode launches) held by
+    ``codec_roundtrip`` with window attention by head width and GDN by
+    channels (CRC_SIDE_LAUNCHES), the device wire's y_hat and x_hat the
+    host wire's and its bytes within the host wire's x 1.02 plus each
+    lane's flush and header; ``DeviceWireCodec(scan_wire=True)`` refused;
+    img/s, idle and ATen calls; the eval forward card against CPU at 64
+    px; the task net on the device wire's decoded images card against its
+    CPU twin (each of P2-P6 within OJ_FPN_TOL of its max) and its device
+    time beside a decompress's;
+54. seg_oj_ICM (328.2 M parameters: a segmentation layer of the same
+    kind on cat(x_hat, x), added back to x_hat) as phase 53 with
+    ``SegOjCodec`` on the host, device and scan wires (four streams; 4
+    encode and 18 decode launches; a chain graph each way for each layer,
+    held as phase 7a, its blobs and bits equal to launch by launch, its
+    latents within JAX's bar of the device wire's, the bf16 policy
+    refused), each layer's nonzero symbols held above 0;
+55. both trained as tools/train_oj.py and train_seg_oj.py train them
+    (``DetectionICMLoss(1.0)``, the task net frozen, seg_oj_ICM's
+    segmentation layer alone trained): 2 steps of 8 x 256^2 each, finite,
+    the feature term above 0, the launches of CRC_STEP, every trainable
+    parameter moved and no other, the task net's BatchNorm statistics
+    unmoved, peak memory; one step each card against CPU at 64 x 64; then
+    each under the bfloat16 policy from the weights training started
+    from: the device wire (bpp within 5%, x_hat within 0.01 of the float32
+    device wire's), the eval forward end to end and layer by layer as
+    phase 8, and 2 bfloat16 steps of oj_ICM;
+56. a reference checkpoint of each at full width with the R50-FPN's keys
+    (Detectron2's ``task_net.bottom_up.*`` and ``fpn_*``), converted and
+    loaded strictly, the stored tables imported equal (seg_oj_ICM's under
+    ``seg_entropy_bottleneck``), the host wire in the reference order with
+    the blobs of the built tables.
 
 Each serving phase also logs its sides' device idle share: one profiled
 compress and decompress (the union of the card's kernel, copy and memset
@@ -389,6 +425,11 @@ each detecting decompress, its training steps; under the bfloat16 policy
 its device wire and steps) to WACNN's entries: window attention at head
 widths 24 and 40, the GDN kernels at 192 channels and the lane-rANS
 kernels, each under its own path keys ending in ``_cnn2``.
+
+oj_ICM's and seg_oj_ICM's phases add their launches by head width (24, 32,
+48) and GDN channels (192, 256) beside the CRC paths', the bfloat16 ones
+among them, and their lane-rANS launches, under path keys ending in
+``_oj`` and ``_segoj``.
 
 The kernels line lists window attention's head widths 32, 48 and 96 and
 the GDN kernels at 256 channels (``window_attention_d32``, ``_d48``,
@@ -838,6 +879,63 @@ CNN2_STUDENT_TOL = 1e-4
 # steps of each side timed, in turns, for the unread student's cost in a
 # training step (step_with_without_student)
 CNN2_AB_TURNS = 4
+
+# oj_ICM and seg_oj_ICM (phases 53-56): the zigzag ChARM coder with LRP and
+# 3-conv context stacks (2 x 2x2 zigzag = 8 slices of 192, support 4, a
+# window of 8 blocks) on MainCNNEncoder / MainCNNDecoder, trained by feature
+# distillation through a frozen Detectron2-style R50-FPN (cuDNN
+# convolutions: no kernel of the port). Window attention by head width (g_a
+# 24 and 48, a decoder 48 and 32) and GDN by channels (g_a 3 at 192, a
+# decoder's IGDN 2 at 192 and 1 at 256), as the CRC family's. A compress
+# with its debug reconstruction runs g_a and g_s (seg_oj_ICM: g_a, g_s,
+# seg_g_a, seg_g_s), a decompress the decoders. A training step runs the
+# forward's transforms, and the GDN backward of the layers its trainable
+# parameters reach: oj_ICM's whole codec, seg_oj_ICM's seg_g_a and seg_g_s
+# (train_patterns=("seg",): its machine layer and task net are frozen)
+OJ = ("oj_ICM", "seg_oj_ICM")
+OJ_PATH = {"oj_ICM": "oj", "seg_oj_ICM": "segoj"}  # their path keys' suffixes
+CRC_SIDE_LAUNCHES["oj_ICM"] = {"compress": {24: 1, 48: 2, 32: 1, "gdn192": 5, "gdn256": 1},
+                               "decompress": {48: 1, 32: 1, "gdn192": 2, "gdn256": 1}}
+CRC_SIDE_LAUNCHES["seg_oj_ICM"] = {
+    "compress": {24: 2, 48: 4, 32: 2, "gdn192": 10, "gdn256": 2},
+    "decompress": {48: 2, 32: 2, "gdn192": 4, "gdn256": 2}}
+CRC_STEP["oj_ICM"] = {"window_attention": 4, "gdn_forward": 6, "gdn_backward": 6,
+                      "rans_encode": 0, "rans_decode": 0}
+CRC_STEP["seg_oj_ICM"] = {"window_attention": 8, "gdn_forward": 12, "gdn_backward": 6,
+                          "rans_encode": 0, "rans_decode": 0}
+CRC_STEP_SHAPES["oj_ICM"] = {"window_attention": {"D24": 1, "D32": 1, "D48": 2},
+                             "gdn": {"backward C192": 5, "backward C256": 1, "forward C192": 5,
+                                     "forward C256": 1}}
+CRC_STEP_SHAPES["seg_oj_ICM"] = {"window_attention": {"D24": 2, "D32": 2, "D48": 4},
+                                 "gdn": {"backward C192": 5, "backward C256": 1,
+                                         "forward C192": 10, "forward C256": 2}}
+# their training, as tools/train_oj.py and train_seg_oj.py run it:
+# DetectionICMLoss(1.0), the task net frozen, seg_oj_ICM's segmentation
+# layer alone trained; and the prefixes of the parameters that leaves fixed
+OJ_LMBDA = 1.0
+OJ_TRAIN = {"oj_ICM": dict(freeze_patterns=("task_net",)),
+            "seg_oj_ICM": dict(freeze_patterns=("task_net",), train_patterns=("seg",))}
+OJ_FIXED = {"oj_ICM": ("task_net.",), "seg_oj_ICM": ("task_net.", "g_a.", "g_s.", "coder.")}
+# the codecs' narrowing (codec.enc_round), the CRC family's
+OJ_NARROW = 0.2
+# weights scaled after the seeded draw: parameter -> factor. At the seeded
+# draw the machine layer's y (oj_ICM's, and seg_oj_ICM's, the same draw)
+# codes 202 of its 786,432 symbols nonzero (0.03%) at OJ_NARROW and the
+# segmentation layer's none, so the wires would compare near-zero streams
+# (as stf13's segmentation layer, CRC_GAIN); each analysis's last
+# convolution is scaled. Read on the CPU from the seeded full-width models on
+# phase 5's images (2 x 512^2), the device wire's escapes counted: g_a x2
+# codes 3.94% of y nonzero, none above 1, none escaped (x3 15.99% with 1,410
+# escapes, x4 27.83% with 9,184); with it, seg_g_a x3 codes 6.52% of seg_y,
+# none above 1, none escaped (x2 0.91%, x4 14.92% with 510 escapes)
+OJ_GAIN = {"oj_ICM": {"g_a.Conv_3.weight": 2.0},
+           "seg_oj_ICM": {"g_a.Conv_3.weight": 2.0, "seg_g_a.Conv_3.weight": 3.0}}
+# the task net on the card against its CPU twin on the card's decoded x_hat
+# (2 x 512^2): each level's max |card - cpu| relative to the CPU level's max
+# (f32 on both, ~60 convolutions summed in other orders)
+OJ_FPN_TOL = 1e-4
+# the task net's device time: the median of this many calls (CUDA events)
+OJ_FPN_ITERS = 5
 
 
 def crc_step_shapes(name: str, dtype: str = "float32") -> dict:
@@ -1801,12 +1899,15 @@ TRAIN_STEP_LAUNCHES = {"window_attention": 4, "gdn_forward": 6, "gdn_backward": 
 
 def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
                 resumed_steps: int = 2, dtype: str = "float32", criterion=None,
-                fixed: tuple = ()):
+                fixed: tuple = (), run_kw=None):
     """Phases 9 and 15: ``run_training`` on the card, each step's launches
     exactly ``expect`` (in ``dtype``'s builds), then (``resumed_steps`` > 0)
     a resume from the checkpoint. ``criterion``: RateDistortionLoss(0.01)
-    by default; ``fixed``: prefixes of the parameters no loss term reaches,
-    which must not move (every other one must). -> results."""
+    by default; ``fixed``: prefixes of the parameters no loss term reaches
+    or ``run_kw``'s patterns freeze (``run_training``'s
+    ``freeze_patterns`` / ``train_patterns``), which must not move (every
+    other one must). -> results (with a feature term's values where the
+    criterion has one)."""
     import torch
 
     from icm_tpu_torch.data import make_images
@@ -1829,7 +1930,7 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
             make_step=instrumented(make_train_step, records, dtype),
             eval_batches=lambda: iter([eval_batch]), learning_rate=1e-4,
             aux_learning_rate=1e-3, clip_max_norm=1.0, seed=seed, save_path=ckpt,
-            log_every=steps)
+            log_every=steps, **(run_kw or {}))
         state, history = run_training(
             train_batches=lambda epoch: iter(batches[:steps]), epochs=1, **common)
         torch.cuda.synchronize()
@@ -1852,8 +1953,10 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
         raise AssertionError(f"{len(before) - len(moved)} of {len(before)} parameters did not "
                              f"move, {len([n for n in moved if n.startswith(fixed)])} fixed moved; "
                              f"unfixed that did not: {still[:8]}")
+    terms = ("loss", "bpp_loss", "mse_loss", "aux_loss") + (
+        ("feature_loss",) if "feature_loss" in records[0] else ())
     for r in records:
-        if not all(np.isfinite(r[k]) for k in ("loss", "bpp_loss", "mse_loss", "aux_loss")):
+        if not all(np.isfinite(r[k]) for k in terms):
             raise AssertionError(f"non-finite training metrics: {r}")
         if r["launches"] != expect:
             raise AssertionError(f"step {r['step']}: launches {r['launches']}, "
@@ -1868,7 +1971,9 @@ def train_phase(model, seed: int, card: str, expect: dict, steps: int = 6,
         loss=[r["loss"] for r in records], bpp=[r["bpp_loss"] for r in records],
         aux_loss=[r["aux_loss"] for r in records], eval_loss=history + history2,
         peak_mem_gb=peak_gb, launches_per_step=records[-1]["launches"],
-        launches_by_shape_per_step=records[-1]["shapes"])
+        launches_by_shape_per_step=records[-1]["shapes"],
+        **({"feature_loss": [r["feature_loss"] for r in records]}
+           if "feature_loss" in terms else {}))
     for r in records:
         log(f"  step {r['step']}: {r['seconds'] * 1e3:.1f} ms loss {r['loss']:.4f} "
             f"bpp {r['bpp_loss']:.4f} aux {r['aux_loss']:.2f} launches {r['launches']}")
@@ -1954,24 +2059,29 @@ def model_args(model, x) -> tuple:
     return (x, conditioning_image(x)) if getattr(model, "conditioning_inputs", 0) else (x,)
 
 
-def train_vs_cpu_phase(name: str, model, seed: int, criterion=None, **overrides):
+def train_vs_cpu_phase(name: str, model, seed: int, criterion=None, run_kw=None, **overrides):
     """Phases 10, 16 and 25: one training step's loss terms and gradients,
     card vs CPU, same weights, same noise (one seeded CPU generator for
     each side: the noise is drawn on the generator's device), float32, no
     stochastic depth (its rates set to 0 on the card for the step);
     ``overrides``: the CPU model's config beyond the registry's (the
     forward the card model runs); ``criterion``: RateDistortionLoss(0.01)
-    by default. A parameter no loss term reaches (the CRC family's split
-    decoder) has no gradient on either side."""
+    by default; ``run_kw``: the training's ``freeze_patterns`` /
+    ``train_patterns``, set on both models (``set_trainable``). A parameter
+    no loss term reaches (the CRC family's split decoder), or that the
+    patterns freeze (the oj models' task net), has no gradient on either
+    side."""
     import torch
 
     from icm_tpu_torch.data import make_images
     from icm_tpu_torch.nn.swin import DropPath
-    from icm_tpu_torch.train import RateDistortionLoss
+    from icm_tpu_torch.train import RateDistortionLoss, set_trainable
 
     criterion = criterion or RateDistortionLoss(0.01)
-    swin = name not in ("cnn",) + CRC
+    swin = name not in ("cnn",) + CRC + OJ
     cpu_model = cpu_twin(name, model, **({"drop_path_rate": 0.0} if swin else {}), **overrides)
+    for m in (model, cpu_model):
+        set_trainable(m, **(run_kw or {}))
     xs = torch.from_numpy(make_images(seed + 2, 1, 64))
     drop_paths = [m for m in model.modules() if isinstance(m, DropPath)]
     rates = [m.rate for m in drop_paths]
@@ -4610,6 +4720,590 @@ def cnn2_model_phases(x, card: str, zero_counts, read_counts, seed: int, cnn: di
     return result, counts, bf16_counts
 
 
+class ServedCharm:
+    """A ChARM codec (``CharmCodec``, ``DeviceWireCodec``) with what
+    ``codec_roundtrip``, ``codec_timing``, ``crc_bytes`` and ``oj_wires``
+    read of the CRC codecs: its wire, latent and decompress keys, stream
+    names and ``symbols``; every other attribute is the codec's."""
+
+    LATENT_KEYS = ("y_hat",)
+    DECOMPRESS_KEYS = ("shape",)
+    STREAMS = ("y", "z")
+
+    def __init__(self, codec, wire: str):
+        self.codec, self.wire = codec, wire
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def symbols(self, x) -> dict:
+        """y's coded symbols, keyed as the CRC codecs' ``symbols``."""
+        return {"y_hat": self.codec._encode_symbols(x)["syms"]}
+
+
+def oj_codec(model, wire: str = "host", **kw):
+    """An oj model's codec on ``wire`` at OJ_NARROW: seg_oj_ICM's
+    ``SegOjCodec``, oj_ICM's ``CharmCodec`` or ``DeviceWireCodec`` (as
+    :class:`ServedCharm`)."""
+    from icm_tpu_torch.models import (CharmCodec, DeviceWireCodec, MaskedRCNN_FasterRCNN_Coding,
+                                      SegOjCodec)
+
+    if isinstance(model, MaskedRCNN_FasterRCNN_Coding):
+        return SegOjCodec(model, narrow=OJ_NARROW, wire=wire, **kw)
+    cls = DeviceWireCodec if wire == "device" else CharmCodec
+    return ServedCharm(cls(model, narrow=OJ_NARROW, **kw), wire)
+
+
+def oj_stream_bytes(dev, enc, denc, size: int) -> dict:
+    """Each stream's bytes on the device wire (``dev``'s compress ``denc``)
+    against the host wire's (``enc``), its lanes (a layer's y: a zigzag
+    block's, 16 x 16 at 512 px; its z: the grid times the bottleneck's
+    channel groups), its escapes and its limit, as ``crc_stream_bytes``."""
+    B, kit, streams = len(enc["strings"][0]), dev.kit, dev.STREAMS
+    lanes = {}
+    for eb, y_name, z_name in zip(dev.model.eb_dict().values(), streams[::2], streams[1::2]):
+        lanes[y_name] = kit.n_lanes(size // 32, size // 32)
+        lanes[z_name] = (size // 64) ** 2 * kit.z_groups(eb.channels)
+    host_b = crc_bytes(enc, size, streams)["bytes"]
+    dev_b = crc_bytes(denc, size, streams)["bytes"]
+    return {k: dict(device=dev_b[k], host=host_b[k], lanes=lanes[k],
+                    escapes=wire_escapes(denc["strings"][streams.index(k)]),
+                    limit=host_b[k] * 1.02 + B * (lanes[k] * 8 + 16)) for k in lanes}
+
+
+def oj_eval_vs_cpu(name: str, model, seed: int) -> dict:
+    """The eval forward on the card against the plain CPU path, the same
+    weights, one 64 x 64 image (phase 8's size): x_hat (seg_oj_ICM:
+    machine_x_hat too) and each layer's y likelihoods within 1e-3; the
+    teacher's and the student's P2-P6, each relative to its max, logged.
+    The forward rounds y itself (no narrowing), so with OJ_GAIN's weights a
+    256 x 256 image's y meets rounding boundaries that float32 sums in
+    another order cross: one y element rounded the other way there (x_hat
+    0.045 and that likelihood 0.99999 apart)."""
+    import torch
+
+    from icm_tpu_torch.data import make_images
+
+    cpu_model = cpu_twin(name, model)
+    xs = torch.from_numpy(make_images(seed + 1, 1, 64))
+    t = time.time()
+    with torch.no_grad():
+        ref = cpu_model(xs)
+        cpu_s = time.time() - t
+        got = model(xs.cuda())
+    held = {k: (got[k], ref[k]) for k in ("x_hat", "machine_x_hat") if k in ref}
+    held.update({f"{g} y": (got[g]["y"], ref[g]["y"])
+                 for g in ("likelihoods", "machine_likelihoods") if g in ref})
+    worst = {k: (a.cpu() - b).abs().max().item() for k, (a, b) in held.items()}
+    features = {f"{g.split('_')[0]} {k}": ((got[g][k].cpu() - v).abs().max()
+                                           / v.abs().max().clamp_min(1e-30)).item()
+                for g in ("Teacher_output_features", "Student_output_features")
+                for k, v in ref[g].items()}
+    log(f"  max |card - cpu| ({name}, 64 x 64; the CPU side {cpu_s:.1f}s): {worst}; "
+        f"features relative to their max: {features}")
+    if not all(v <= 1e-3 for v in worst.values()):
+        raise AssertionError(f"card and CPU disagree: {worst}")
+    del cpu_model
+    gc.collect()
+    return {"size": 64, "f32_max_abs": worst, "tolerance": 1e-3,
+            "features_rel_err": features, "cpu_s": cpu_s}
+
+
+def oj_task_net_phase(model, x_hat, decompress, card: str) -> dict:
+    """The frozen R50-FPN of a decoded batch (``x_hat``, 2 x 512^2) on the
+    card against its CPU twin on the same x_hat: each of P2-P6 within
+    OJ_FPN_TOL of the CPU level's max; its device time (CUDA events, the
+    median of OJ_FPN_ITERS calls) beside ``decompress``'s."""
+    import torch
+
+    from icm_tpu_torch.models.icm import _FrozenFPN
+
+    task = model.task_net
+    xin = x_hat.permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        got = task(xin)
+        with torch.device("meta"):
+            cpu = _FrozenFPN()
+        cpu = cpu.to_empty(device="cpu").eval()
+        cpu.load_state_dict(task.state_dict())
+        t = time.time()
+        ref = cpu(xin.cpu())
+        cpu_s = time.time() - t
+        rel = {k: ((got[k].cpu() - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+               for k, v in ref.items()}
+        fpn_ms = cuda_ms(lambda: task(xin), iters=OJ_FPN_ITERS)
+    dec_ms = cuda_ms(decompress, iters=OJ_FPN_ITERS)
+    shapes = {k: tuple(v.shape) for k, v in got.items()}
+    log(f"  task net on the decoded {tuple(x_hat.shape)}: {shapes}; max |card - cpu| relative "
+        f"to the level's max {rel} (bar {OJ_FPN_TOL}; the CPU side {cpu_s:.1f}s); device "
+        f"{fpn_ms:.3f} ms beside a decompress's {dec_ms:.3f} ms ({card})")
+    if not all(v <= OJ_FPN_TOL for v in rel.values()):
+        raise AssertionError(f"the task net on the card and the CPU disagree: {rel}")
+    return {"levels": shapes, "rel_err": rel, "tolerance": OJ_FPN_TOL, "device_ms": fpn_ms,
+            "decompress_device_ms": dec_ms, "iters": OJ_FPN_ITERS, "cpu_s": cpu_s}
+
+
+def oj_build(name: str, seed: int) -> tuple:
+    """``name`` at its published width on the card, weights from ``seed``
+    (scaled as OJ_GAIN says). -> (model, its description for the results)."""
+    import torch
+
+    from icm_tpu_torch.models import create_model
+
+    t = time.time()
+    model = create_model(name, seed=seed)
+    with torch.no_grad():
+        for pname, gain in OJ_GAIN.get(name, {}).items():
+            model.get_parameter(pname).mul_(gain)
+    torch.cuda.synchronize()
+    c = model.coder
+    info = {"params": sum(p.numel() for p in model.parameters()), "gain": OJ_GAIN.get(name, {}),
+            "task_net_params": sum(p.numel() for p in model.task_net.parameters()),
+            "ctx_slices": c.ctx_slices, "slice_channels": c.slice_ch,
+            "support": c.max_support, "window": c.cond_blocks, "lrp": c.apply_lrp}
+    log(f"  {name}: {info['params'] / 1e6:.1f} M parameters ({info['task_net_params'] / 1e6:.1f} "
+        f"M of them the task net's) in {time.time() - t:.1f}s; {c.ctx_slices} zigzag slices of "
+        f"{c.slice_ch} channels, support {c.max_support}, window {c.cond_blocks}, "
+        f"LRP {c.apply_lrp}; scaled {info['gain']}")
+    return model, info
+
+
+def oj_wires(name: str, model, x, zero_counts, read_counts, scan: bool) -> tuple:
+    """Phases 53-54's wires of an oj model on phase 5's images at
+    OJ_NARROW: each layer's nonzero y symbols held above 0; compress ->
+    decompress on the host wire and the device wire (and, with ``scan``, the
+    scan wire, graphed and launch by launch), each held by
+    ``codec_roundtrip`` with CRC_SIDE_LAUNCHES (the device and scan wires: 2
+    encode and ctx_slices + 1 decode launches a layer), the device wire's
+    latents and x_hat the host wire's and its streams' bytes within the
+    host wire's x 1.02 plus each lane's flush and header; the scan wire's
+    graphs held as phase 7a's, its blobs and bits equal to launch by launch,
+    its latents within JAX's bar of the device wire's and the bf16 policy
+    refused; each side's img/s, device idle share and ATen calls. ->
+    (results, launch counts by path, launches by shape by path, the device
+    wire's compress and decompress)."""
+    import torch
+
+    from icm_tpu_torch.nn import set_activation_dtype
+
+    size = x.shape[1]
+    host = oj_codec(model)
+    n_layers = len(host.LATENT_KEYS)
+    c = model.coder
+    syms = host.symbols(x)
+    symbols = {k: [sum(int(s.count_nonzero()) for s in v), sum(s.numel() for s in v)]
+               for k, v in syms.items()}
+    log(f"  {name}: nonzero y symbols of each layer, of all: {symbols} ("
+        + ", ".join(f"{n / m:.2%}" for n, m in symbols.values()) + ")")
+    if not all(n for n, _ in symbols.values()):
+        raise AssertionError(f"{name}: a layer codes only zero symbols: {symbols}")
+    result = {"nonzero_y_symbols": symbols}
+    counts, shapes = {}, {}
+
+    def keep(path, l, sh):
+        for side in SIDES:
+            key = f"launches{path}_{side}"
+            counts[key], shapes[key] = l[side], sh[side]
+
+    host_expect = {side: crc_expect(name, side) for side in SIDES}
+    dev_expect = {"compress": crc_expect(name, "compress", rans_encode=2 * n_layers),
+                  "decompress": crc_expect(name, "decompress",
+                                           rans_decode=n_layers * (c.ctx_slices + 1))}
+    enc, _, l, sh, _ = codec_roundtrip(host, x, zero_counts, read_counts, f"{name} host wire",
+                                       host_expect)
+    keep("", l, sh)
+    result["host_wire"] = {**crc_bytes(enc, size, host.STREAMS), "launches": l,
+                           "launches_by_shape": sh, **codec_timing(host, x, enc, CRC_REPS)}
+    dev = oj_codec(model, "device")
+    denc, ddec, l, sh, syncs = codec_roundtrip(dev, x, zero_counts, read_counts,
+                                               f"{name} device wire", dev_expect)
+    keep("_device_wire", l, sh)
+    for k in dev.LATENT_KEYS + ("x_hat",):
+        if not torch.equal(denc[k], enc[k]):
+            raise AssertionError(f"{name}: the device wire's {k} differs from the host's")
+    stream_bytes = oj_stream_bytes(dev, enc, denc, size)
+    log(f"  {name} device wire bytes {stream_bytes}")
+    for k, v in stream_bytes.items():
+        if v["device"] > v["limit"]:
+            raise AssertionError(f"{name} device wire {k}: {v['device']} bytes over {v['limit']}")
+    result["device_wire"] = {**crc_bytes(denc, size, dev.STREAMS), "stream_bytes": stream_bytes,
+                             "launches": l, "launches_by_shape": sh,
+                             "host_round_trips_in_decompress": syncs,
+                             **codec_timing(dev, x, denc, CRC_REPS)}
+    wires = ("host_wire", "device_wire")
+    if scan:
+        sc = oj_codec(model, "device", scan_wire=True)
+        t = time.time()
+        first = sc.compress(x, return_debug=True)
+        sc.decompress(*codec_dec_args(sc, first))
+        torch.cuda.synchronize()
+        first_s = time.time() - t
+        stats = sc.graphs.stats()
+        capture_s = sum(st["capture_s"] for st in stats.values())
+        pool_bytes = sum(st["pool_bytes"] for st in stats.values())
+        log(f"  {name} scan wire: first compress + decompress {first_s:.2f}s, captures "
+            f"{capture_s:.2f}s of it, pools {pool_bytes / 2**20:.1f} MiB, {len(stats)} graphs")
+        senc, sdec, l, sh, syncs = codec_roundtrip(sc, x, zero_counts, read_counts,
+                                                   f"{name} scan wire", dev_expect)
+        keep("_scan_wire", l, sh)
+        chains = {k for k in sc.graphs.graphs() if k[0] == "scan"}
+        if len(chains) != 2 * n_layers:
+            raise AssertionError(f"{name} scan wire: chain graphs {sorted(map(str, chains))}")
+        per_replay = graph_replays(sc, c.ctx_slices)
+        plain = oj_codec(model, "device", scan_wire=True, cuda_graphs=False)
+        penc = plain.compress(x, return_debug=True)
+        pdec = plain.decompress(*codec_dec_args(plain, senc))
+        if penc["strings"] != senc["strings"]:
+            raise AssertionError(f"{name} scan wire: graphed blobs differ from launch by launch")
+        for got, want, what in ((penc, senc, "compress"), (pdec, sdec, "decompress")):
+            for k in sc.LATENT_KEYS + ("x_hat",):
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"{name} scan wire: graphed {what} {k} differs from "
+                                         "launch by launch")
+        vs_device = {}
+        for k in sc.LATENT_KEYS:
+            d = (senc[k] - enc[k]).abs()
+            vs_device[k] = v = {"share_above_1e-2": float((d > 1e-2).float().mean()),
+                                "median": float(d.median()), "max": float(d.max())}
+            log(f"  {name} scan wire {k} against the device wire's: {v} (bars {SCAN_VS_DEVICE})")
+            if not (v["share_above_1e-2"] < SCAN_VS_DEVICE["share_above_1e-2"]
+                    and v["median"] < SCAN_VS_DEVICE["median"]):
+                raise AssertionError(f"{name} scan wire {k} strays from the device wire's: {v}")
+        set_activation_dtype(torch.bfloat16)
+        try:
+            oj_codec(model, "device", scan_wire=True)
+        except ValueError as e:
+            refused = str(e).split(";")[0]
+        else:
+            raise AssertionError(f"{name}: the scan wire took the bf16 policy")
+        finally:
+            set_activation_dtype(None)
+        result["scan_wire"] = {
+            **crc_bytes(senc, size, sc.STREAMS), "launches": l, "launches_by_shape": sh,
+            "host_round_trips_in_decompress": syncs,
+            "tier": sorted({b[4] for b in senc["strings"][0]}), "first_call_s": first_s,
+            "capture_s": capture_s, "pool_bytes": pool_bytes,
+            "launches_per_replay": per_replay, "latents_vs_device_wire": vs_device,
+            "bf16_refused": refused, **codec_timing(sc, x, senc, CRC_REPS),
+            "launch_by_launch": codec_timing(plain, x, penc, CRC_REPS)}
+        wires += ("scan_wire",)
+        del sc, plain
+    sides = {w: {s: result[w][s] for s in SIDES} for w in wires}
+    if scan:
+        sides["scan_launch_by_launch"] = result["scan_wire"]["launch_by_launch"]
+    log(f"  {name} img/s, device idle, ATen calls (batch {x.shape[0]}): " + "; ".join(
+        f"{w} " + " / ".join(timing_text(v) for v in per.values()) for w, per in sides.items()))
+    return result, counts, shapes, dev, denc, ddec
+
+
+def oj_phase(x, card: str, zero_counts, read_counts, seed: int) -> dict:
+    """Phase 53: oj_ICM at its published width, weights from ``seed``, on
+    phase 5's images: the host wire (``CharmCodec``) and the device wire
+    (``DeviceWireCodec``: 2 encode and 9 decode launches, 8 slices and z)
+    held by ``oj_wires``; ``DeviceWireCodec(scan_wire=True)`` refused; the
+    eval forward card against CPU; the task net on the device wire's decoded
+    images card against CPU and its device time beside a decompress's. ->
+    {model, result, counts, shapes, device_enc}."""
+    from icm_tpu_torch.models import DeviceWireCodec
+
+    name = "oj_ICM"
+    model, info = oj_build(name, seed)
+    result, counts, shapes, dev, denc, ddec = oj_wires(name, model, x, zero_counts, read_counts,
+                                                       scan=False)
+    try:
+        DeviceWireCodec(model, scan_wire=True)
+    except NotImplementedError as e:
+        result["scan_wire_refused"] = str(e).split(";")[0]
+    else:
+        raise AssertionError(f"{name}: a scan wire took the model")
+    log(f"  {name} scan wire: refused ({result['scan_wire_refused']})")
+    result.update(info)
+    result["card_vs_cpu"] = oj_eval_vs_cpu(name, model, seed)
+    result["task_net"] = oj_task_net_phase(
+        model, ddec["x_hat"], lambda: dev.decompress(denc["strings"], denc["shape"]), card)
+    return dict(model=model, result=result, counts=counts, shapes=shapes, device_enc=denc)
+
+
+def seg_oj_phase(x, card: str, zero_counts, read_counts, seed: int) -> dict:
+    """Phase 54: seg_oj_ICM at its published width, weights from ``seed``,
+    on phase 5's images: ``SegOjCodec`` on the host, device and scan wires
+    (four streams; 4 encode and 18 decode launches, two layers' 8 slices and
+    z; a chain graph each way for each layer), held by ``oj_wires``; the
+    eval forward card against CPU. -> {model, result, counts, shapes,
+    device_enc}."""
+    name = "seg_oj_ICM"
+    model, info = oj_build(name, seed)
+    result, counts, shapes, _, denc, _ = oj_wires(name, model, x, zero_counts, read_counts,
+                                                  scan=True)
+    result.update(info)
+    result["card_vs_cpu"] = oj_eval_vs_cpu(name, model, seed)
+    return dict(model=model, result=result, counts=counts, shapes=shapes, device_enc=denc)
+
+
+def oj_train_phase(model, name: str, seed: int, card: str) -> dict:
+    """Phase 55's float32 training of an oj model, as tools/train_oj.py and
+    train_seg_oj.py run it (``run_training`` with DetectionICMLoss(1.0) and
+    OJ_TRAIN's patterns): TRAIN_STEPS steps of 8 x 256^2, each finite with a
+    feature term above 0 and launching CRC_STEP (by shape CRC_STEP_SHAPES),
+    every trainable parameter moved and none of OJ_FIXED's, the task net's
+    BatchNorm statistics unmoved, peak memory; then one step on the card
+    against the plain CPU path at 64 x 64. -> results."""
+    import torch
+
+    from icm_tpu_torch.train import DetectionICMLoss
+
+    stats = {k: v.clone() for k, v in model.task_net.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    criterion = DetectionICMLoss(OJ_LMBDA)
+    out = train_phase(model, seed, card, CRC_STEP[name], steps=TRAIN_STEPS, resumed_steps=0,
+                      criterion=criterion, fixed=OJ_FIXED[name], run_kw=OJ_TRAIN[name])
+    want = crc_step_shapes(name)
+    if out["launches_by_shape_per_step"] != want:
+        raise AssertionError(f"{name} step: launches by shape {out['launches_by_shape_per_step']}"
+                             f", expected {want}")
+    after = model.task_net.state_dict()
+    if not all(v > 0 for v in out["feature_loss"]) or any(
+            not torch.equal(v, after[k]) for k, v in stats.items()):
+        raise AssertionError(f"{name}: feature losses {out['feature_loss']}, or the task net's "
+                             "BatchNorm statistics moved")
+    log(f"  {name}: feature losses {out['feature_loss']}; {len(stats)} BatchNorm statistics of "
+        "the task net unmoved")
+    out["card_vs_cpu"] = train_vs_cpu_phase(name, model, seed, criterion=criterion,
+                                            run_kw=OJ_TRAIN[name])
+    return out
+
+
+def oj_bf16_phase(name: str, run: dict, x, card: str, init_state: dict, f32_train: dict,
+                  seed: int) -> dict:
+    """Phase 55's bfloat16 policy for an oj model, from the weights
+    ``init_state`` its float32 phases served and trained from: the device
+    wire held by ``codec_roundtrip`` with CRC_SIDE_LAUNCHES in the bfloat16
+    builds, its bpp within 5% and mean |x_hat - x_hat_f32| under 0.01 of the
+    float32 device wire's, its img/s and idle; the eval forward card
+    against CPU end to end and layer by layer (phase 8's
+    ``eval_vs_cpu_phase``); oj_ICM: 2 bfloat16 training steps. -> results,
+    with the launches by shape of each path under "shapes"."""
+    import torch
+
+    from icm_tpu_torch.nn import set_activation_dtype
+    from icm_tpu_torch.train import DetectionICMLoss
+
+    model = run["model"]
+    model.load_state_dict(init_state)
+    zero_counts, read_counts = launch_counts("bfloat16")
+    size = x.shape[1]
+    f32_dev = run["result"]["device_wire"]["launches"]
+    expect = {side: crc_expect(name, side, "bfloat16",
+                               rans_encode=f32_dev[side]["rans_encode"],
+                               rans_decode=f32_dev[side]["rans_decode"]) for side in SIDES}
+    set_activation_dtype(torch.bfloat16)
+    try:
+        dev = oj_codec(model, "device")
+        enc, _, l, sh, syncs = codec_roundtrip(dev, x, zero_counts, read_counts,
+                                               f"{name} bf16 device wire", expect)
+        timing = codec_timing(dev, x, enc, reps=CRC_REPS)
+    finally:
+        set_activation_dtype(None)
+    f32 = run["device_enc"]
+    bpp_rel = [b16 / b32 - 1 for b16, b32 in zip(crc_bytes(enc, size, dev.STREAMS)["bpp"],
+                                                  crc_bytes(f32, size, dev.STREAMS)["bpp"])]
+    x_hat_mean = (enc["x_hat"].float() - f32["x_hat"].float()).abs().mean().item()
+    log(f"  {name} bf16 device wire against f32: bpp {[f'{r:+.2e}' for r in bpp_rel]} (bar "
+        f"{BF16_BPP_RTOL}), mean |x_hat - x_hat_f32| {x_hat_mean:.3e} (bar {BF16_XHAT_MEAN_TOL}); "
+        f"img/s " + " / ".join(timing_text(v) for v in timing.values()) + f" ({card})")
+    if max(abs(r) for r in bpp_rel) > BF16_BPP_RTOL or not x_hat_mean < BF16_XHAT_MEAN_TOL:
+        raise AssertionError(f"{name} bf16 serving strays from f32: {bpp_rel}, {x_hat_mean}")
+    out = {"device_wire": {**crc_bytes(enc, size, dev.STREAMS), "launches": l,
+                           "launches_by_shape": sh, "host_round_trips_in_decompress": syncs,
+                           **timing, "against_f32": dict(bpp_rel=bpp_rel,
+                                                         x_hat_mean_abs=x_hat_mean,
+                                                         bpp_rtol=BF16_BPP_RTOL,
+                                                         x_hat_mean_tol=BF16_XHAT_MEAN_TOL)}}
+    out["card_vs_cpu"] = eval_vs_cpu_phase(name, model, seed, cpu_model=cpu_twin(name, model))
+    gc.collect()
+    out["shapes"] = {f"launches_bf16_device_wire_{side}": sh[side] for side in SIDES}
+    if name == "oj_ICM":
+        out["train"] = bf16_train_phase(model, init_state, seed, card, CRC_STEP[name], f32_train,
+                                        steps=TRAIN_STEPS, criterion=DetectionICMLoss(OJ_LMBDA),
+                                        fixed=OJ_FIXED[name], run_kw=OJ_TRAIN[name])
+        want = crc_step_shapes(name, "bfloat16")
+        if out["train"]["launches_by_shape_per_step"] != want:
+            raise AssertionError(f"{name} bf16 step: launches by shape "
+                                 f"{out['train']['launches_by_shape_per_step']}, expected {want}")
+        out["shapes"]["launches_bf16_train_step"] = out["train"]["launches_by_shape_per_step"]
+    return out
+
+
+def reference_oj_state_dict(seed: int, name: str = "seg_oj_ICM", N: int = 192, M: int = 384,
+                            mid: int = 256, enc=(384, 336, 288, 240, 192),
+                            dec=(240, 288, 336, 384, 384), cc=(224, 64), K: int = 4) -> dict:
+    """A reference oj_ICM or seg_oj_ICM state dict at full width
+    (fasterRCNN_ICM.py, MaskedRCNN_OBJ_ICM.py: ``g_a``, ``g_s``, the inline
+    coder's ``h_a``, ``h_mean_s``, ``h_scale_s``, 3-conv
+    ``cc_*_transforms2`` and the ``lrp_transforms2`` it applies,
+    ``entropy_bottleneck``; seg_oj_ICM the same under ``seg_``, its encoder
+    of 6 channels), with the frozen task net under ``task_net.``:
+    Detectron2's ResNet-50 under ``bottom_up.`` (``stem.conv1``,
+    ``res{2-5}.{i}.conv{1-3}`` and each first block's ``shortcut``, each
+    with its FrozenBatchNorm ``.norm`` statistics) and its
+    ``fpn_lateral{2-5}`` / ``fpn_output{2-5}``; DataParallel's ``module.``
+    prefix; values drawn from ``seed`` as ``reference_wacnn_state_dict``
+    draws them. oj_ICM's is seg_oj_ICM's without its ``seg_`` keys."""
+    import torch
+
+    S = Wc = 8  # 2 x 2x2 zigzag slices, all of them in the conditioning window
+    sc = M // 2
+    ref = _RefDraw(np.random.default_rng(seed), np.float32)
+    for prefix, in_ch in (("", 3),) + ((("seg_", 6),) if name == "seg_oj_ICM" else ()):
+        ref.conv(f"{prefix}g_a.0", N, in_ch, 5)
+        ref.gdn(f"{prefix}g_a.1", N)
+        ref.conv(f"{prefix}g_a.2", N, N, 5)
+        ref.gdn(f"{prefix}g_a.3", N)
+        ref.win(f"{prefix}g_a.4", N, 8)
+        ref.conv(f"{prefix}g_a.5", N, N, 5)
+        ref.gdn(f"{prefix}g_a.6", N)
+        ref.conv(f"{prefix}g_a.7", M, N, 5)
+        ref.win(f"{prefix}g_a.8", M, 4)
+        _ref_decoder(ref, f"{prefix}g_s", N, M, mid)
+        for i, (o, c) in enumerate(zip(enc, (M,) + enc[:-1])):
+            ref.conv(f"{prefix}h_a.{2 * i}", o, c, 3)
+        for tag in ("h_mean_s", "h_scale_s"):
+            ref.hyper_dec(f"{prefix}{tag}", enc[-1], dec)
+        for i in range(S):
+            for tag, lrp in (("cc_mean_transforms2", 0), ("cc_scale_transforms2", 0),
+                             ("lrp_transforms2", sc)):
+                cin = [Wc * sc + sc * min(i, K) + lrp] + list(cc)
+                for j in range(len(cc)):
+                    ref.conv(f"{prefix}{tag}.{i}.{2 * j}", cc[j], cin[j], 3)
+                ref.conv(f"{prefix}{tag}.{i}.{2 * len(cc)}", sc, cc[-1], 3)
+        ref.bottleneck(f"{prefix}entropy_bottleneck", enc[-1])
+
+    def conv_bn(name_, o, i, k):  # a Detectron2 conv: no bias, its FrozenBatchNorm
+        ref.put(f"{name_}.weight", (o, i, k, k), (i * k * k) ** -0.5)
+        ref.put(f"{name_}.norm.weight", (o,), 0.1, 1.0)
+        ref.put(f"{name_}.norm.bias", (o,), 0.1)
+        ref.put(f"{name_}.norm.running_mean", (o,), 0.1)
+        ref.sd[f"{name_}.norm.running_var"] = (1.0 + 0.1 * np.abs(ref.normal(o))).astype(
+            np.float32)
+
+    bu = "task_net.bottom_up."
+    conv_bn(f"{bu}stem.conv1", 64, 3, 7)
+    c_in = 64
+    for res, n in ((2, 3), (3, 4), (4, 6), (5, 3)):
+        w = 64 * 2 ** (res - 2)
+        for i in range(n):
+            block = f"{bu}res{res}.{i}"
+            for k, (o, c, size) in enumerate(((w, c_in, 1), (w, w, 3), (4 * w, w, 1)), start=1):
+                conv_bn(f"{block}.conv{k}", o, c, size)
+            if i == 0:
+                conv_bn(f"{block}.shortcut", 4 * w, c_in, 1)
+            c_in = 4 * w
+    for level in range(2, 6):
+        ref.conv(f"task_net.fpn_lateral{level}", 256, 64 * 2 ** level, 1)
+        ref.conv(f"task_net.fpn_output{level}", 256, 256, 3)
+    return {"module." + k: torch.from_numpy(v) for k, v in ref.sd.items()}
+
+
+def oj_reference_phase(name: str, model, sd: dict, x, zero_counts, read_counts) -> dict:
+    """Phase 56 for one oj model: the reference dict ``sd`` (the task net's
+    keys among them) converted (``zoo.convert_reference_state_dict``) and
+    loaded strictly; the model's own CDF tables (each bottleneck and the
+    Gaussian) written into it as the reference's buffers and imported back
+    equal, under the model's own keys; phase 5's images on the host wire
+    with the imported tables in the reference symbol order, held by
+    ``codec_roundtrip``, the blobs equal to the built tables' in that
+    order. -> results."""
+    import torch
+
+    from icm_tpu_torch import zoo
+    from icm_tpu_torch.models import build_codec_tables
+
+    t = time.time()
+    sd = dict(sd)
+    port = zoo.convert_reference_state_dict(name, sd)
+    model.load_state_dict(port, strict=True)
+    n_task = sum(k.startswith("task_net.") for k in port)
+    built = build_codec_tables(model)
+    stored = {"gaussian_conditional": built.gaussian, **built.bottlenecks}
+    for prefix, tab in stored.items():
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            sd[f"module.{prefix}._{field}"] = torch.from_numpy(getattr(tab, field))
+    sd["module.gaussian_conditional.scale_table"] = torch.from_numpy(built.scale_table)
+    imported = zoo.import_reference_tables(sd)
+    got = {"gaussian_conditional": imported.gaussian, **imported.bottlenecks}
+    if set(got) != set(stored) or set(imported.bottlenecks) != set(model.eb_dict()):
+        raise AssertionError(f"imported tables {sorted(got)}, stored {sorted(stored)}")
+    for prefix, tab in stored.items():
+        for field in ("quantized_cdf", "offset", "cdf_length"):
+            if not np.array_equal(getattr(got[prefix], field), getattr(tab, field)):
+                raise AssertionError(f"imported {prefix} {field} differs from the stored one")
+    log(f"  {name}: {len(sd)} reference tensors converted ({n_task} of the port's the task "
+        f"net's), loaded strictly and tables {sorted(got)} imported in {time.time() - t:.1f}s")
+    codec = oj_codec(model, tables=imported, ref_layout=True)
+    expect = {side: crc_expect(name, side) for side in SIDES}
+    enc, _, l, shapes, _ = codec_roundtrip(codec, x, zero_counts, read_counts,
+                                           f"{name} reference, host wire", expect)
+    if oj_codec(model, ref_layout=True).compress(x)["strings"] != enc["strings"]:
+        raise AssertionError("imported tables' blobs differ from the built tables' ones")
+    sha = {stream: hashlib.sha256(b"".join(enc["strings"][k])).hexdigest()
+           for k, stream in enumerate(codec.STREAMS)}
+    log(f"  {name}: blobs with imported tables = built tables (reference order); sha256 {sha}")
+    return {"tensors": len(sd), "task_net_tensors": n_task,
+            **crc_bytes(enc, x.shape[1], codec.STREAMS), "blob_sha256": sha,
+            "launches_reference_compress": l["compress"],
+            "launches_reference_decompress": l["decompress"],
+            "shapes_reference_compress": shapes["compress"],
+            "shapes_reference_decompress": shapes["decompress"]}
+
+
+def oj_model_phases(x, card: str, zero_counts, read_counts, seed: int) -> dict:
+    """Phases 53-56 in order: oj_ICM's wires, eval forward and task net
+    (``oj_phase``), seg_oj_ICM's wires and eval forward (``seg_oj_phase``),
+    both trained in float32 (``oj_train_phase``), both under the bfloat16
+    policy from the weights training started from (``oj_bf16_phase``:
+    oj_ICM's with 2 bfloat16 steps), and a reference checkpoint of each.
+    -> name -> (results, float32 launch counts by path, launches by shape
+    by path, the bfloat16 paths' among them)."""
+    import torch
+
+    runs = {}
+    with Phase("full-width oj_ICM: host and device wires, the scan wire refused, card vs "
+               "CPU, the task net"):
+        runs["oj_ICM"] = oj_phase(x, card, zero_counts, read_counts, seed)
+    with Phase("full-width seg_oj_ICM: host, device and scan wires, card vs CPU"):
+        runs["seg_oj_ICM"] = seg_oj_phase(x, card, zero_counts, read_counts, seed)
+    init = {name: {k: v.detach().clone() for k, v in run["model"].state_dict().items()}
+            for name, run in runs.items()}
+    with Phase("oj_ICM and seg_oj_ICM training, card vs CPU; the bf16 policy"):
+        torch.cuda.reset_peak_memory_stats()
+        for name, run in runs.items():
+            train = run["result"]["train"] = oj_train_phase(run["model"], name, seed, card)
+            run["counts"]["launches_train_step"] = train["launches_per_step"]
+            run["shapes"]["launches_train_step"] = train["launches_by_shape_per_step"]
+        for name, run in runs.items():
+            bf16 = run["result"]["bf16"] = oj_bf16_phase(name, run, x, card, init[name],
+                                                         run["result"]["train"], seed)
+            run["shapes"].update(bf16.pop("shapes"))
+    del init
+    with Phase("reference checkpoints: full-width oj_ICM and seg_oj_ICM, imported tables, "
+               "reference order"):
+        sd = reference_oj_state_dict(seed)
+        for name, run in runs.items():
+            ref = {k: v for k, v in sd.items()
+                   if name == "seg_oj_ICM" or not k.startswith("module.seg_")}
+            result = run["result"]["reference"] = oj_reference_phase(
+                name, run["model"], ref, x, zero_counts, read_counts)
+            for side in SIDES:
+                key = f"launches_reference_{side}"
+                run["counts"][key] = result[key]
+                run["shapes"][key] = result[f"shapes_reference_{side}"]
+    out = {name: (run["result"], run["counts"], run["shapes"]) for name, run in runs.items()}
+    del runs, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4895,6 +5589,15 @@ def main() -> int:
     slice_result["czigzag"], paths["float32"]["czigzag"], crc_shapes["czigzag"] = (
         czigzag_model_phases(x, card, zero_counts, read_counts, args.seed))
 
+    # oj_ICM and seg_oj_ICM: their launches by head width and GDN channels
+    # on each path (the bfloat16 ones among them) beside the CRC family's,
+    # under the path keys "oj" and "segoj"
+    for name, (result, counts, shapes) in oj_model_phases(x, card, zero_counts, read_counts,
+                                                           args.seed).items():
+        slice_result[name] = result
+        paths["float32"][OJ_PATH[name]] = counts
+        crc_shapes[OJ_PATH[name]] = shapes
+
     def crc_launches(group: str, key: str) -> dict:
         """A kernel build's launches on every CRC path, by shape key."""
         per = {f"{path}_{m}": shapes[group].get(key, 0)
@@ -5160,7 +5863,8 @@ def main() -> int:
             "source": "icm_tpu_torch/csrc/rans_lanes.cu",
             "replaces": f"icm_tpu/coding/device_rans.py:{line}",
             "replaces_note": "not Pallas in JAX: integer jnp under lax.scan",
-            **launch_keys(name, ("cnn", "stf", "cnn2") + FAMILY + CRC + MASKED + ("czigzag",)),
+            **launch_keys(name, ("cnn", "stf", "cnn2") + FAMILY + CRC + MASKED + ("czigzag",)
+                          + tuple(OJ_PATH.values())),
             "max_abs_err": max(r["max_abs_err"] for r in rans_rows),
             "ms": sum(r[part]["ms"] for r in rans_main),
             "plain_ms": sum(r[part]["plain_ms"] for r in rans_main),

@@ -25,10 +25,10 @@ from .cnn import WACNN
 from .codec import CharmCodec, build_codec_tables, cuda_numerics, enc_round
 from .crc import (ConditionalResidualCoding, ConditionalResidualCoding2,
                   ConditionalResidualCoding3, ResidualCoding)
-from .crc_codec import CRCCodec, CzigzagCodec
+from .crc_codec import CRCCodec, CzigzagCodec, SegOjCodec
 from .czigzag import conditionalZigzag
 from .device_codec import DeviceWireCodec, DeviceWireKit
-from .icm import WACNN2, decompress_detect
+from .icm import FasterRCNN_Coding, MaskedRCNN_FasterRCNN_Coding, WACNN2, decompress_detect
 from .masked_codec import Stf3Codec, Stf4Codec
 from .masked_ctx import ClipEncoder, ClipEncoder3, ClipEncoder4
 from .stf import SymmetricalTransFormer
@@ -52,6 +52,8 @@ models = {
     "stf4": (ClipEncoder4, {}),
     "czigzag": (conditionalZigzag, {}),
     "cnn2": (WACNN2, {}),
+    "oj_ICM": (FasterRCNN_Coding, {}),
+    "seg_oj_ICM": (MaskedRCNN_FasterRCNN_Coding, {}),
 }
 
 
@@ -147,6 +149,8 @@ __all__ = [
     "conditionalZigzag",
     "DeviceWireCodec",
     "DeviceWireKit",
+    "FasterRCNN_Coding",
+    "MaskedRCNN_FasterRCNN_Coding",
     "build_codec_tables",
     "create_model",
     "cuda_numerics",
@@ -156,6 +160,7 @@ __all__ = [
     "models",
     "resolve_device",
     "ResidualCoding",
+    "SegOjCodec",
     "Stf3Codec",
     "Stf4Codec",
 ]

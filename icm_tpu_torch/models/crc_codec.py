@@ -1,14 +1,15 @@
 """Real-bitstream compress/decompress for the CRC family (stf9, stf11,
-stf12, stf14; stf13's three layers: :class:`CRC3Codec`) and for czigzag
-(:class:`CzigzagCodec`).
+stf12, stf14; stf13's three layers: :class:`CRC3Codec`), for seg_oj_ICM
+(:class:`SegOjCodec`) and for czigzag (:class:`CzigzagCodec`).
 
 Port of ``icm_tpu/models/crc_codec.py``'s ``CRCCodec``, ``CRC3Codec``,
-``CzigzagCodec`` and their ``_CharmLayerDriver`` (the device and scan
-wires' layer functions too). The reference shipped no coder for these
-models; the JAX package's design, kept here:
+``SegOjCodec``, ``CzigzagCodec`` and their ``_CharmLayerDriver`` (the
+device and scan wires' layer functions too). The reference shipped no
+coder for these models; the JAX package's design, kept here:
 
     strings = [machine_y, machine_z, human_y, human_z]
     stf13:    [machine_y, machine_z, seg_y, seg_z, human_y, human_z]
+    seg_oj:   [y, z, seg_y, seg_z] (two zigzag layers, no human layer)
 
 - each zigzag layer (the machine layer; stf13's segmentation layer after
   it, analysed from the images and the machine y_hat) is the zigzag ChARM
@@ -74,6 +75,7 @@ from .codec import (
 
 MACHINE_Z, SEG_Z, HUMAN_Z = ("entropy_bottleneck", "entropy_bottleneck_seg",
                              "entropy_bottleneck_human")
+SEG_OJ_Z = "seg_entropy_bottleneck"  # seg_oj_ICM's: JAX's eb_dict key, not stf13's
 
 
 class _CharmLayerDriver:
@@ -280,28 +282,13 @@ class _WireCodec:
         return torch.from_numpy(_unflat(sym, C, h, w, self.ref_layout)).to(self.device)
 
 
-class CRCCodec(_WireCodec):
-    """compress()/decompress() for ``crc.ConditionalResidualCoding`` (stf9,
-    stf11), ``crc.ConditionalResidualCoding2`` (stf12) and
-    ``crc.ResidualCoding`` (stf14).
+class _LayersCodec(_WireCodec):
+    """A codec of zigzag layers (``LAYERS``: per layer its name in the graph
+    cache, its bottleneck's table key, the model's analysis of its latent
+    and its coder), each coded slice by slice on the host and device wires
+    (a ``_CharmLayerDriver`` each) or by a ``ZigzagScanWire`` of its own."""
 
-    ``tables``: coder tables in place of the model's own
-    (``build_codec_tables`` over its bottlenecks); ``narrow``: see
-    ``codec.enc_round``; ``wire``, ``scan_wire``, ``cuda_graphs``: the
-    module docstring (the device wire codes a Gaussian-coded tensor on up
-    to 1024 lanes an image, the JAX codec's default); ``ref_layout``: the
-    host wire's channel-major symbol order (``CharmCodec``'s)."""
-
-    # per zigzag layer: (its name in the graph cache, its bottleneck's table
-    # key, the model's analysis of its latent, its coder); the shape keys of
-    # compress and the latent keys of the debug output and decompress, in
-    # its order; the keys of compress's output that decompress takes after
-    # the strings, in its order
-    LAYERS = (("m", MACHINE_Z, lambda m: m.machine.g_a, lambda m: m.coder),)
-    SHAPE_KEYS = ("shape",)
-    LATENT_KEYS = ("y_hat",)
-    DECOMPRESS_KEYS = SHAPE_KEYS + ("human_shape",)
-    STREAMS = ("machine_y", "machine_z", "human_y", "human_z")  # compress's "strings"
+    LAYERS: tuple = ()
 
     def __init__(self, model, tables: Optional[CodecTables] = None, narrow: float = 1.0,
                  wire: str = "host", scan_wire: bool = False, cuda_graphs: bool = True,
@@ -311,7 +298,6 @@ class CRCCodec(_WireCodec):
             _Layer(name, _CharmLayerDriver(coder(model), self._scale_table, narrow), z_key,
                    analyze(model))
             for name, z_key, analyze, coder in self.LAYERS]
-        self._human_medians = None
         if scan_wire:
             from .scan_codec import ZigzagScanWire
 
@@ -319,35 +305,10 @@ class CRCCodec(_WireCodec):
                 layer.scan = ZigzagScanWire(layer.coder, self.kit, self._scale_table,
                                             self.graphs, layer.name, narrow=narrow)
 
-    # --- the human layer's stages, shared by both sides ------------------------
-    def _human_offset(self) -> torch.Tensor:
-        if self._human_medians is None:
-            self._human_medians = self.model.human_eb_medians().detach().reshape(1, -1, 1, 1)
-        return self._human_medians
-
-    def _human_front(self, x, *latents):
-        """-> (human_y, its hyper-latent's int32 symbols)."""
-        human_y, hz = self.model.human_encode(x, *latents)
-        return human_y, enc_round(hz - self._human_offset(), self.narrow).to(torch.int32)
-
-    def _human_hyper(self, hz_sym):
-        """The hyper-latent's symbols -> (means, scale indexes) of the human
-        latent."""
-        z_hat = hz_sym.to(torch.float32) + self._human_offset()
-        hyper = self.model.human_hyper
-        scales = hyper.h_scale_s(z_hat)
-        return hyper.h_mean_s(z_hat), build_indexes(scales, self._scale_table)
-
-    def _human_decode(self, hy_sym, means, *latents):
-        """-> x_hat (B, H, W, 3) in [0, 1]."""
-        x_hat = self.model.human_synthesize(hy_sym.to(torch.float32) + means, *latents)
-        return (torch.clamp(x_hat, 0.0, 1.0).permute(0, 2, 3, 1).contiguous(),)
-
     def _reset(self) -> None:
         for layer in self._layers:
             layer.scan.restack()
             layer.driver.reset()
-        self._human_medians = None
 
     # --- one zigzag layer, each side ---------------------------------------------
     def _encode_layer(self, layer: _Layer, x, latents):
@@ -389,6 +350,64 @@ class CRCCodec(_WireCodec):
             return layer.coder.ctx_assemble(layer.driver.decode(z_sym, ydec))
         finally:
             ydec.close()
+
+
+class CRCCodec(_LayersCodec):
+    """compress()/decompress() for ``crc.ConditionalResidualCoding`` (stf9,
+    stf11), ``crc.ConditionalResidualCoding2`` (stf12) and
+    ``crc.ResidualCoding`` (stf14).
+
+    ``tables``: coder tables in place of the model's own
+    (``build_codec_tables`` over its bottlenecks); ``narrow``: see
+    ``codec.enc_round``; ``wire``, ``scan_wire``, ``cuda_graphs``: the
+    module docstring (the device wire codes a Gaussian-coded tensor on up
+    to 1024 lanes an image, the JAX codec's default); ``ref_layout``: the
+    host wire's channel-major symbol order (``CharmCodec``'s)."""
+
+    # per zigzag layer: (its name in the graph cache, its bottleneck's table
+    # key, the model's analysis of its latent, its coder); the shape keys of
+    # compress and the latent keys of the debug output and decompress, in
+    # its order; the keys of compress's output that decompress takes after
+    # the strings, in its order
+    LAYERS = (("m", MACHINE_Z, lambda m: m.machine.g_a, lambda m: m.coder),)
+    SHAPE_KEYS = ("shape",)
+    LATENT_KEYS = ("y_hat",)
+    DECOMPRESS_KEYS = SHAPE_KEYS + ("human_shape",)
+    STREAMS = ("machine_y", "machine_z", "human_y", "human_z")  # compress's "strings"
+
+    def __init__(self, model, tables: Optional[CodecTables] = None, narrow: float = 1.0,
+                 wire: str = "host", scan_wire: bool = False, cuda_graphs: bool = True,
+                 ref_layout: bool = False):
+        super().__init__(model, tables, narrow, wire, scan_wire, cuda_graphs, ref_layout)
+        self._human_medians = None
+
+    # --- the human layer's stages, shared by both sides ------------------------
+    def _human_offset(self) -> torch.Tensor:
+        if self._human_medians is None:
+            self._human_medians = self.model.human_eb_medians().detach().reshape(1, -1, 1, 1)
+        return self._human_medians
+
+    def _human_front(self, x, *latents):
+        """-> (human_y, its hyper-latent's int32 symbols)."""
+        human_y, hz = self.model.human_encode(x, *latents)
+        return human_y, enc_round(hz - self._human_offset(), self.narrow).to(torch.int32)
+
+    def _human_hyper(self, hz_sym):
+        """The hyper-latent's symbols -> (means, scale indexes) of the human
+        latent."""
+        z_hat = hz_sym.to(torch.float32) + self._human_offset()
+        hyper = self.model.human_hyper
+        scales = hyper.h_scale_s(z_hat)
+        return hyper.h_mean_s(z_hat), build_indexes(scales, self._scale_table)
+
+    def _human_decode(self, hy_sym, means, *latents):
+        """-> x_hat (B, H, W, 3) in [0, 1]."""
+        x_hat = self.model.human_synthesize(hy_sym.to(torch.float32) + means, *latents)
+        return (torch.clamp(x_hat, 0.0, 1.0).permute(0, 2, 3, 1).contiguous(),)
+
+    def _reset(self) -> None:
+        super()._reset()
+        self._human_medians = None
 
     # --- public API ------------------------------------------------------------
     @torch.no_grad()
@@ -499,6 +518,86 @@ class CRC3Codec(CRCCodec):
         """-> {"x_hat": (B, H, W, 3) in [0, 1], "y_hat" and "seg_y_hat": the
         machine and segmentation latents (B, M, h, w)}."""
         return self._decompress(strings, (shape, seg_shape), human_shape)
+
+
+class SegOjCodec(_LayersCodec):
+    """compress()/decompress() for ``icm.MaskedRCNN_FasterRCNN_Coding``
+    (seg_oj_ICM), port of the JAX package's ``SegOjCodec``: four streams,
+    ``[y, z, seg_y, seg_z]``. The machine layer (``g_a``, ``coder``) and the
+    segmentation layer (``seg_g_a`` of ``cat(x_hat, x)``, ``seg_coder``) are
+    zigzag layers, each coded as :class:`CRCCodec` codes its machine layer
+    (with LRP; on the scan wire a ``ZigzagScanWire`` each, their programs
+    keyed by layer in the one graph cache). Between them the machine layer's
+    reconstruction ``x_hat = g_s(y_hat)``: the encoder analyses the
+    segmentation latent from it, and the decoder decodes both layers and adds
+    it to ``seg_g_s(seg_y_hat)``; the images reach the encoder only. Arguments
+    as :class:`CRCCodec`'s. compress gives "shape" and "seg_shape" (and with
+    ``return_debug`` "y_hat", "seg_y_hat" and the decoder's "x_hat");
+    :meth:`decompress` takes them.
+
+    Both sides give x_hat in [0, 1]; JAX's debug compress leaves its x_hat
+    unclipped where its decompress clips it."""
+
+    LAYERS = (("m", MACHINE_Z, lambda m: m.g_a, lambda m: m.coder),
+              ("s", SEG_OJ_Z, lambda m: m.seg_analyze, lambda m: m.seg_coder))
+    SHAPE_KEYS = ("shape", "seg_shape")
+    LATENT_KEYS = ("y_hat", "seg_y_hat")
+    DECOMPRESS_KEYS = SHAPE_KEYS
+    STREAMS = ("y", "z", "seg_y", "seg_z")
+
+    def _machine_x_hat(self, y_hat):
+        return (self.model.machine_synthesize(y_hat),)
+
+    def _seg_decode(self, seg_y_hat, x_hat):
+        """-> x_hat (B, H, W, 3) in [0, 1] from the segmentation latent and
+        the machine layer's reconstruction."""
+        x_hat = self.model.seg_synthesize(seg_y_hat, x_hat)
+        return (torch.clamp(x_hat, 0.0, 1.0).permute(0, 2, 3, 1).contiguous(),)
+
+    @torch.no_grad()
+    def symbols(self, x) -> Dict[str, List[torch.Tensor]]:
+        """x as :meth:`compress` takes it. -> each zigzag layer's y symbols
+        as the host and device wires code them (int32, slice by slice),
+        under "y_hat" and "seg_y_hat"."""
+        x = nhwc_to_nchw(torch.as_tensor(x, dtype=torch.float32, device=self.device))
+        machine, seg = self._layers
+        syms, _, decoded, _ = self._chain(machine, x, [])
+        (x_hat,) = self._machine_x_hat(machine.coder.ctx_assemble(decoded))
+        return {"y_hat": syms, "seg_y_hat": self._chain(seg, x, [x_hat])[0]}
+
+    @torch.no_grad()
+    def compress(self, x, return_debug: bool = False) -> Dict[str, Any]:
+        """x: (B, H, W, 3) in [0, 1] (tensor or numpy). -> {"strings": [y, z,
+        seg_y, seg_z], "shape", "seg_shape": the z grids}; with
+        ``return_debug`` also "y_hat", "seg_y_hat" (NCHW) and the decoder's
+        "x_hat" (NHWC, in [0, 1])."""
+        x = nhwc_to_nchw(torch.as_tensor(x, dtype=torch.float32, device=self.device))
+        if self.scan_wire:
+            self._sync()
+        machine, seg = self._layers
+        y_strings, z_strings, y_hat, z_sym = self._encode_layer(machine, x, [])
+        (x_hat,) = self._run("m_synth", self._machine_x_hat, [y_hat])
+        sy_strings, sz_strings, seg_y_hat, sz_sym = self._encode_layer(seg, x, [x_hat])
+        out: Dict[str, Any] = {"strings": [y_strings, z_strings, sy_strings, sz_strings],
+                               "shape": (z_sym.shape[2], z_sym.shape[3]),
+                               "seg_shape": (sz_sym.shape[2], sz_sym.shape[3])}
+        if return_debug:
+            (dec,) = self._run("s_decode", self._seg_decode, [seg_y_hat, x_hat])
+            out.update(y_hat=y_hat, seg_y_hat=seg_y_hat, x_hat=dec.clone())
+        return out
+
+    @torch.no_grad()
+    def decompress(self, strings, shape, seg_shape) -> Dict[str, Any]:
+        """-> {"x_hat": (B, H, W, 3) in [0, 1], "y_hat" and "seg_y_hat": the
+        machine and segmentation latents (B, M, h, w)}."""
+        if self.scan_wire:
+            self._sync()
+        machine, seg = self._layers
+        y_hat = self._decode_layer(machine, strings[0], strings[1], shape)
+        (x_hat,) = self._run("m_synth", self._machine_x_hat, [y_hat])
+        seg_y_hat = self._decode_layer(seg, strings[2], strings[3], seg_shape)
+        (dec,) = self._run("s_decode", self._seg_decode, [seg_y_hat, x_hat])
+        return {"x_hat": dec.clone(), "y_hat": y_hat, "seg_y_hat": seg_y_hat}
 
 
 class CzigzagCodec(_WireCodec):

@@ -1,10 +1,11 @@
 """Task networks of the ICM codecs: the ResNet backbones, RetinaNet's
-pyramid and heads, its anchors and box utilities, and the focal loss.
-Port of ``icm_tpu/tasks`` (the MobileNetV2, DeepLab and Detectron2-style
-FPN parts come with later slices)."""
+pyramid and heads, its anchors and box utilities, the focal loss, and the
+Detectron2-style P2-P6 pyramid of the R50-FPN task net. Port of
+``icm_tpu/tasks`` (the MobileNetV2 and DeepLab parts come with a later
+slice)."""
 
 from .anchors import Anchors, bbox_transform, clip_boxes, nms_numpy
-from .fpn import PyramidFeatures, upsample_nearest
+from .fpn import FPN, PyramidFeatures, upsample_nearest
 from .losses import focal_loss
 from .resnet import (BasicBlock, Bottleneck, FrozenBatchNorm2d, ResNetBackbone, resnet18,
                      resnet34, resnet50, resnet101, resnet152)
@@ -16,6 +17,7 @@ __all__ = [
     "BasicBlock",
     "Bottleneck",
     "ClassificationHead",
+    "FPN",
     "FrozenBatchNorm2d",
     "PyramidFeatures",
     "RegressionHead",

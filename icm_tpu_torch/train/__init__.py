@@ -3,13 +3,14 @@ optimizer, steps, schedules, checkpoints and the epoch engine)."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
 from .engine import AverageMeter, run_training, run_training_with_recovery
-from .losses import RateDistortionLoss, compute_bpp
-from .optim import DualOptimizer, TrainState, label_params, make_optimizer
+from .losses import DetectionICMLoss, RateDistortionLoss, compute_bpp
+from .optim import DualOptimizer, TrainState, label_params, make_optimizer, set_trainable
 from .schedule import PolyLR, ReduceLROnPlateau
 from .steps import make_eval_step, make_train_step
 
 __all__ = [
     "AverageMeter",
+    "DetectionICMLoss",
     "DualOptimizer",
     "PolyLR",
     "RateDistortionLoss",
@@ -24,4 +25,5 @@ __all__ = [
     "run_training",
     "run_training_with_recovery",
     "save_checkpoint",
+    "set_trainable",
 ]

@@ -5,7 +5,11 @@ Port of ``icm_tpu/train/optim.py``. Parameters are labelled "main", "aux"
 or "frozen" by their names (``label_params``); the main group's gradients
 are clipped to a global norm computed over the main group only, then
 Adam; the aux group takes Adam at its own rate; frozen parameters are in
-neither optimizer and never move. ``torch.optim.Adam``'s defaults
+neither optimizer and never move. Building the optimizer sets every
+parameter's ``requires_grad`` to whether it trains (``set_trainable``), so
+that a backward spends nothing on frozen ones (the ICM codecs' frozen task
+net: the student's backward then forms the input's gradient only) and a
+later optimizer of other patterns trains what they name. ``torch.optim.Adam``'s defaults
 (betas 0.9/0.999, eps 1e-8 added to the bias-corrected ``sqrt(v)``) are
 ``optax.adam``'s.
 
@@ -44,6 +48,17 @@ def label_params(model: nn.Module, freeze_patterns=(), train_patterns=None
     return labels
 
 
+def set_trainable(model: nn.Module, freeze_patterns=(), train_patterns=None
+                  ) -> Dict[str, str]:
+    """Label ``model``'s parameters (``label_params``) and set each one's
+    ``requires_grad`` to whether it trains: off for "frozen", on for the
+    others. -> the labels."""
+    labels = label_params(model, tuple(freeze_patterns), train_patterns)
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] != "frozen")
+    return labels
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
     """Scale ``grads`` in place by ``min(1, max_norm / norm)``, the norm
@@ -67,7 +82,7 @@ class DualOptimizer:
     def __init__(self, model: nn.Module, learning_rate: float = 1e-4,
                  aux_learning_rate: float = 1e-3, clip_max_norm: float = 1.0,
                  freeze_patterns=(), train_patterns=None):
-        self.labels = label_params(model, tuple(freeze_patterns), train_patterns)
+        self.labels = set_trainable(model, freeze_patterns, train_patterns)
         params = dict(model.named_parameters())
         self.main_params = [p for n, p in params.items() if self.labels[n] == "main"]
         aux_params = [p for n, p in params.items() if self.labels[n] == "aux"]

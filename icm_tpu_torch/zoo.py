@@ -4,9 +4,10 @@ state dict, and the coder tables the checkpoint stores.
 Port of ``icm_tpu/zoo.py`` for the architectures the port builds (``cnn``,
 ``stf``, the zigzag family ``stf5``-``stf8``, the CRC family's
 ``stf9``, ``stf11``, ``stf12``, ``stf13`` and ``stf14``, the masked
-family's ``stf2``, ``stf3`` and ``stf4``, ``czigzag``, and ``cnn2`` with its
+family's ``stf2``, ``stf3`` and ``stf4``, ``czigzag``, ``cnn2`` with its
 RetinaNet student, whose torchvision ResNet and RetinaNet converters are
-here too). ``load_pretrained`` does
+here too, and ``oj_ICM`` / ``seg_oj_ICM`` with their Detectron2 R50-FPN,
+whose converter is here too). ``load_pretrained`` does
 the reference's key cleanup (``zoo/pretrained.py``: strip DataParallel's
 ``module.``, drop ``h_s.*``, rename the legacy bottleneck ParameterList
 keys). The converters rename the reference's module paths into the flax
@@ -546,6 +547,86 @@ def convert_crc_checkpoint(state_dict: dict, arch: str = "stf9",
 
 CRC_ARCHS = ("stf9", "stf11", "stf12", "stf13", "stf14")
 
+# --- the detection ICM codecs (oj_ICM, seg_oj_ICM) and their R50-FPN ---------------
+
+# Detectron2's ResNet-50 stages: res2 ... res5 and their blocks
+DETECTRON2_R50 = {2: 3, 3: 4, 4: 6, 5: 3}
+
+
+def _detectron2_fpn_tree(sd) -> dict:
+    """A Detectron2 R-FPN backbone (keys as in the module docstring of
+    :func:`convert_detectron2_fpn`) -> the port's ``_FrozenFPN`` tree."""
+    bu = "bottom_up." if any(k.startswith("bottom_up.") for k in sd) else ""
+
+    def put(node, idx, conv_key):
+        node[f"Conv_{idx}"] = {"weight": sd[f"{conv_key}.weight"]}
+        node[f"BatchNorm_{idx}"] = _batchnorm(sd, f"{conv_key}.norm")
+
+    backbone: dict = {}
+    put(backbone, 0, f"{bu}stem.conv1")
+    for res, n in DETECTRON2_R50.items():
+        for i in range(n):
+            ref, block = f"{bu}res{res}.{i}", {}
+            for k in range(3):
+                put(block, k, f"{ref}.conv{k + 1}")
+            if f"{ref}.shortcut.weight" in sd:
+                put(block, 3, f"{ref}.shortcut")
+            backbone[f"layer{res - 1}_{i}"] = block
+    fpn = {}
+    for level in range(2, 6):
+        fpn[f"lateral{level}"] = _leaves(sd, f"fpn_lateral{level}")
+        fpn[f"output{level}"] = _leaves(sd, f"fpn_output{level}")
+    return {"ResNetBackbone_0": backbone, "FPN_0": fpn}
+
+
+def convert_detectron2_fpn(state_dict: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A Detectron2 R50-FPN backbone state dict (its keys under ``prefix``)
+    -> the port's ``models.icm._FrozenFPN`` state dict (port of the JAX
+    package's ``utils/torch_weights.py::convert_detectron2_fpn``): the
+    ResNet under ``bottom_up.`` (Detectron2's FPN wraps it so) or at the top
+    level (a bare ResNet checkpoint); ``stem.conv1`` and
+    ``res{L+1}.{i}.conv{1-3}``, each with its FrozenBatchNorm ``.norm``, ->
+    ``Conv_0`` / ``BatchNorm_0`` and ``layer{L}_{i}.Conv_{k}`` /
+    ``BatchNorm_{k}``; a block's ``shortcut`` -> its last slot (``Conv_3``);
+    ``fpn_lateral{2-5}`` / ``fpn_output{2-5}`` -> ``FPN_0.lateral*`` /
+    ``output*``."""
+    sd = state_dict
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return _state_dict(_detectron2_fpn_tree(sd))
+
+
+def convert_oj_icm_checkpoint(state_dict: dict, arch: str = "oj_ICM") -> Dict[str, torch.Tensor]:
+    """Reference FasterRCNN_Coding (``oj_ICM``) or MaskedRCNN_FasterRCNN_Coding
+    (``seg_oj_ICM``) state dict -> the port's ``FasterRCNN_Coding`` /
+    ``MaskedRCNN_FasterRCNN_Coding`` state dict (port of the JAX package's
+    ``convert_oj_icm_checkpoint``): the mainCNN encoder and decoder and the
+    inline zigzag coder (8 slices, 3-conv ``cc_*_transforms2`` and the
+    ``lrp_transforms2`` it applies); ``seg_oj_ICM`` the same again under
+    ``seg_`` (the bottleneck ``seg_entropy_bottleneck``, its encoder of 6
+    channels). The frozen R50-FPN (``task_net.*``, :func:`convert_detectron2_fpn`)
+    only where the checkpoint holds it: the reference loads it from a
+    pickle of its own, so a codec-only dict converts to the codec's keys
+    (load it with ``strict=False``, or into a model built with
+    ``with_task_net=False``)."""
+    if arch not in OJ_ARCHS:
+        raise ValueError(f"{arch!r} is not one of {OJ_ARCHS}")
+    sd = load_pretrained(state_dict)
+    tree = {"g_a": _main_cnn_encoder(sd, "g_a"), "g_s": _main_cnn_decoder(sd, "g_s"),
+            "coder": _zigzag_coder(sd, ctx_slices=8, n_convs=3, lrp=True)}
+    if arch == "seg_oj_ICM":
+        tree["seg_g_a"] = _main_cnn_encoder(sd, "seg_g_a")
+        tree["seg_g_s"] = _main_cnn_decoder(sd, "seg_g_s")
+        tree["seg_coder"] = _zigzag_coder(sd, "seg_", "seg_entropy_bottleneck", ctx_slices=8,
+                                          n_convs=3, lrp=True)
+    if any(k.startswith("task_net.") for k in sd):
+        tree["task_net"] = _detectron2_fpn_tree(
+            {k[len("task_net."):]: v for k, v in sd.items() if k.startswith("task_net.")})
+    return _state_dict(tree)
+
+
+OJ_ARCHS = ("oj_ICM", "seg_oj_ICM")
+
 # --- the masked-transformer codecs (stf2, stf3, stf4) -------------------------------
 # The reference's layouts (stf2.py, stf3.py, stf4.py): stf's Swin transforms
 # and conv hyper-codec under their stf names; stf4's never-called
@@ -658,7 +739,7 @@ def convert_czigzag_checkpoint(state_dict: dict, depths=(2, 2, 6, 2), hyper_dept
 
 
 # the zoo's other architectures: the port does not build them yet
-_NOT_PORTED = {a: "Queue 1 item 1 (ICM)" for a in ("stf10", "oj_ICM", "seg_oj_ICM")}
+_NOT_PORTED = {"stf10": "Queue 1 item 1 (ICM)"}
 
 
 def convert_reference_state_dict(arch: str, sd: dict) -> Dict[str, torch.Tensor]:
@@ -677,6 +758,8 @@ def convert_reference_state_dict(arch: str, sd: dict) -> Dict[str, torch.Tensor]
         return convert_czigzag_checkpoint(sd)
     if arch == "cnn2":
         return convert_cnn2_checkpoint(sd)
+    if arch in OJ_ARCHS:
+        return convert_oj_icm_checkpoint(sd, arch)
     where = _NOT_PORTED.get(arch, "no item: not an architecture of the zoo")
     raise NotImplementedError(
         f"reference checkpoint conversion for {arch!r} is not ported yet (ROADMAP.md, {where})")

@@ -20,8 +20,9 @@ codecs' tables) and decoding across the two frameworks both ways; the
 detections of ``decompress_detect`` against JAX's student and
 ``decode_detections`` on JAX's decoded image; the registry's full-width
 model (113 M parameters). One JAX ``DeviceWireCodec`` serves the device
-and the scan wire (its ``scan_wire`` read at each call), so that they
-share its compiled functions. The float64 training step is in
+and the scan wire (its ``scan_wire`` read at each call) and the host wire
+(``test_torch_cnn_codec.JaxHostWire``: ``CharmCodec``'s own code), so
+that they share its compiled functions. The float64 training step is in
 ``test_torch_cnn2_train.py``, the bfloat16 policy in
 ``test_torch_cnn2_bf16.py``; the full-width eval forward on 64 x 64 is
 ``slow`` (``-m slow -k cnn2``).
@@ -32,12 +33,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_cnn_codec import CROSS_TOL
+from test_torch_cnn_codec import CROSS_TOL, JaxHostWire
 from test_torch_cnn_codec import _params_from_numpy as cnn_params
 from test_torch_stf_family import port_tables
 from test_torch_tasks import draw_variables
 
-from icm_tpu.models import CharmCodec as JaxCharmCodec
 from icm_tpu.models import WACNN as JaxWACNN
 from icm_tpu.models import models as jax_models
 from icm_tpu.models.device_codec import DeviceWireCodec as JaxDeviceWireCodec
@@ -148,8 +148,8 @@ class TestCnn2:
     def twin(self):
         jm, variables, tm, x = make_twin()
         xj, xt = jnp.asarray(x), torch.from_numpy(x)
-        host = JaxCharmCodec(jm, variables)
         dev = JaxDeviceWireCodec(jm, variables, lanes_per_image=LANES, scan_wire=True)
+        host = JaxHostWire(dev)  # the host wire shares the device codec's compiled functions
         jc = {"host": JaxWire(host), "device": JaxWire(dev, False), "scan": JaxWire(dev, True)}
         tables = {"host": port_tables(host.tables), "device": port_tables(dev.tables)}
         port = {w: port_codec(tm, w, tables["host" if w == "host" else "device"])

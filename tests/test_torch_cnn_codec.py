@@ -144,6 +144,30 @@ def test_symbols_against_jax_codec(port_codec, jax_codec):
     assert enc["strings"][1] == jenc["strings"][1]  # z: symbols before any context
 
 
+class JaxHostWire:
+    """JAX's host wire (``CharmCodec``'s own group compress and decompress)
+    run on a JAX ``DeviceWireCodec``, which overrides only those two (and
+    turns off the host wire's packed symbol fetch, turned on here for the
+    call), so that the two wires share its compiled functions; every other
+    attribute is the codec's."""
+
+    def __init__(self, codec):
+        self.codec = codec
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def compress(self, x, return_debug: bool = False):
+        self.codec._wants_packed = True
+        try:
+            return JaxCharmCodec._compress_group(self.codec, x, return_debug)
+        finally:
+            self.codec._wants_packed = False
+
+    def decompress(self, strings, shape):
+        return JaxCharmCodec._decompress_group(self.codec, *strings, shape)
+
+
 # Cross decoding: a decoder recomputes each slice's mean and scale index
 # in its own framework, so its y_hat = symbol + mean is the encoder's to
 # float order (f32 sums in another order, a few ulps of O(1) values),

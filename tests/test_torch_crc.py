@@ -113,22 +113,70 @@ def _draw_params(jm, x, seed: int) -> dict:
         return 0.02 * n  # relative-position tables
 
     params = jax.tree_util.tree_map_with_path(draw, shapes)
-
-    def bottlenecks(tree, shape_tree):
-        for k, v in shape_tree.items():
-            if k.startswith("entropy_bottleneck"):
-                C = v["quantiles"].shape[0]
-                eb = EntropyBottleneck(C).init(
-                    {"params": jax.random.PRNGKey(seed), "noise": jax.random.PRNGKey(seed)},
-                    jnp.zeros((1, 2, 2, C)), training=False)["params"]
-                tree[k] = jax.tree_util.tree_map(
-                    lambda a: np.asarray(a) + 0.1 * rng.standard_normal(a.shape).astype(
-                        np.float32), jax.device_get(eb))
-            elif isinstance(v, dict):
-                bottlenecks(tree[k], v)
-
-    bottlenecks(params, shapes)
+    _put_bottlenecks(params, shapes, seed, lambda a: np.asarray(a) + 0.1 * rng.standard_normal(
+        a.shape).astype(np.float32))
     return {"params": jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), params)}
+
+
+def _put_bottlenecks(tree: dict, shapes: dict, seed: int, perturb=np.asarray) -> None:
+    """Put each entropy bottleneck of ``shapes`` into ``tree``: its own JAX
+    init, each array passed through ``perturb``."""
+    for k, v in shapes.items():
+        if k.startswith("entropy_bottleneck"):
+            C = v["quantiles"].shape[0]
+            eb = EntropyBottleneck(C).init(
+                {"params": jax.random.PRNGKey(seed), "noise": jax.random.PRNGKey(seed)},
+                jnp.zeros((1, 2, 2, C)), training=False)["params"]
+            tree[k] = jax.tree_util.tree_map(perturb, jax.device_get(eb))
+        elif isinstance(v, dict):
+            _put_bottlenecks(tree[k], v, seed, perturb)
+
+
+def _truncated_normal(rng, shape) -> np.ndarray:
+    """Standard normal draws truncated to [-2, 2], as flax's truncated
+    normal initializers draw them before scaling."""
+    n = rng.standard_normal(shape, dtype=np.float32)
+    while (out := np.abs(n) > 2).any():
+        n[out] = rng.standard_normal(int(out.sum()), dtype=np.float32)
+    return n
+
+
+def init_like(tree: dict, seed: int = 3) -> dict:
+    """Variables of the structure and shapes of ``tree`` (arrays, or a
+    ``jax.eval_shape`` tree) drawn with numpy from the JAX init's
+    distributions, where tracing and compiling the JAX init itself costs up
+    to a minute a twin: convolution kernels and the masked context models'
+    dense kernels (flax's ``nn.Dense``) LeCun-normal (truncated, variance
+    1/fan-in, flax's default), the other dense kernels (the transforms'
+    attention and MLPs, ``icm_tpu.nn.layers._trunc_dense``) and the
+    relative-position tables truncated normal at 0.02, biases 0, LayerNorm,
+    GDN and BatchNorm at their inits, each bottleneck its own JAX init."""
+    rng = np.random.default_rng(seed)
+    pedestal = 2.0 ** -36
+
+    def draw(path, leaf):
+        keys = [getattr(p, "key", "") for p in path]
+        parent, name = keys[-2], keys[-1]
+        if any(k.startswith("entropy_bottleneck") for k in keys):
+            return None  # below
+        if parent.startswith("GDN"):
+            if name == "beta":
+                return np.full(leaf.shape, np.sqrt(1.0 + pedestal), np.float32)
+            return np.sqrt(0.1 * np.eye(leaf.shape[0], dtype=np.float32) + pedestal)
+        if name == "kernel" and (len(leaf.shape) > 2
+                                 or any(k.endswith("ContextModel") for k in keys)):
+            # flax's variance_scaling: the truncated draw's std corrected to 1
+            return _truncated_normal(rng, leaf.shape) / np.float32(
+                0.87962566 * np.sqrt(np.prod(leaf.shape[:-1])))
+        if name in ("scale", "var"):
+            return np.ones(leaf.shape, np.float32)
+        if name in ("bias", "mean"):
+            return np.zeros(leaf.shape, np.float32)
+        return 0.02 * _truncated_normal(rng, leaf.shape)  # dense kernels, tables
+
+    out = jax.tree_util.tree_map_with_path(draw, tree)
+    _put_bottlenecks(out, tree, seed)
+    return out
 
 
 def make_twin(name: str, seed: int = 1):
@@ -683,15 +731,17 @@ class CRCBf16Twin(_Layout):
     ``tests/test_bf16.py``'s bars (``test_torch_bf16.py``); a file per twin
     subclasses it as ``Test<Name>Bf16`` with ``name`` set.
 
-    The twins take the JAX model's own init (``init``), on which
-    ``tests/test_bf16.py``'s bars were set. With the float32 twins' draws
-    (``_draw_params``: GDN perturbed, transposed convs at twice the
-    fan-in scale) JAX's own bfloat16 forward strays from its float32 one
-    by 0.036 of mean |x_hat| (stf12; stf14 0.014, machine_x_hat 0.053),
-    past the bar; at the init the two packages' bfloat16 forwards stray
-    from their float32 ones by 0.002-0.003 (on the CPU). stf9's human
-    x_hat is near zero at the init, so the machine layer's machine_x_hat
-    is held beside it."""
+    The twins take weights of the JAX init's distributions
+    (:func:`init_like`; ``tests/test_bf16.py``'s bars were set at the
+    init), drawn with numpy where JAX's own init takes 45-70 s a twin to
+    trace and compile. With the float32 twins' draws (``_draw_params``:
+    GDN perturbed, transposed convs at twice the fan-in scale) JAX's own
+    bfloat16 forward strays from its float32 one by 0.036 of mean |x_hat|
+    (stf12; stf14 0.014, machine_x_hat 0.053), past the bar; at the init's
+    distributions the port's bfloat16 forward strays from its float32 one
+    by 3e-4 (stf13's x_hat) to 3e-3 (its machine_x_hat) on the CPU. stf9's
+    human x_hat is near zero at the init, so the machine layer's
+    machine_x_hat is held beside it."""
 
     name = ""
 
@@ -707,10 +757,9 @@ class CRCBf16Twin(_Layout):
         jcls, jkw = jax_models[self.name]
         jm = jcls(**{**jkw, **TINY})
         tm = tmodels.create_model(self.name, device="cpu", **TINY)
-        # JAX's init without its forward's compute (the same values as init)
-        params = jax.device_get(jm.lazy_init(
+        params = init_like(jax.eval_shape(lambda: jm.init(
             {"params": jax.random.PRNGKey(1), "noise": jax.random.PRNGKey(2)},
-            jax.ShapeDtypeStruct(x.shape, jnp.float32), training=False)["params"])
+            jnp.asarray(x), training=False))["params"], seed=1)
         tm.load_state_dict(from_jax_params(params), strict=True)
         return dict(jm=jm, params=params, tm=tm.eval(), x=x)
 
@@ -858,7 +907,8 @@ class CRC3Bf16Twin(CRC3Layout, CRCBf16Twin):
     def test_stf13_segmentation_latent_is_zero_at_init(self, twin):
         """At an untrained init stf13's segmentation latent rounds to 0
         everywhere, and with zero biases its mu and LRP are 0 as well: JAX's
-        model at its own init (this twin's) and the port's seeded one (TINY,
+        model at weights of its init's distributions (this twin's) and the
+        port's seeded one (TINY,
         two 64 x 64 images, plain rounding) both give a seg_y_hat of exact
         zeros, coded as zero symbols, while the machine layer codes nonzero
         ones. So the model itself, not the port, leaves a card check on

@@ -1949,6 +1949,186 @@ def test_cnn2_twin_detects_on_the_card(wire):
     assert sum(len(d[0]) for d in out["detections"]) > 0
 
 
+# a narrow oj_ICM / seg_oj_ICM: the CRC card twins' codec widths (window
+# attention at D 8 and 16) with the task net at one block a stage
+OJ_WIDTHS = dict(CRC_WIDTHS, task_layers=(1, 1, 1, 1))
+
+
+def _oj_model(name, device):
+    """A narrow oj model from seed 0 whose layers code nonzero symbols: its
+    codec's biases drawn at 0.01 (seed 0), as ``_crc_model``'s, and
+    seg_oj_ICM's segmentation analysis's last convolution scaled by 3 (as
+    ``chip_smoke.OJ_GAIN``: unscaled, its latent rounds to 0 everywhere at
+    narrow 0.2; x3 codes 797 of its 6,144 symbols nonzero, read on the
+    CPU)."""
+    from icm_tpu_torch.models import create_model
+
+    model = create_model(name, device=device, seed=0, **OJ_WIDTHS)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".bias") and not n.startswith("task_net."):
+                p.copy_(0.01 * torch.randn(p.shape, generator=g))
+        if name == "seg_oj_ICM":
+            model.seg_g_a.Conv_3.weight.mul_(3.0)
+    return model
+
+
+def _oj_eval_card_vs_cpu(name, model, x):
+    """The eval forward on the card against the CPU's, the same weights:
+    the reconstructions and each layer's y likelihoods within 1e-3, the
+    teacher's and the student's P2-P6 within 1e-3 of their max."""
+    cpu = _oj_model(name, "cpu")
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got, ref = model(x), cpu(x.cpu())
+    for key in ("x_hat", "machine_x_hat"):
+        if key in ref:
+            torch.testing.assert_close(got[key].cpu(), ref[key], rtol=0, atol=1e-3)
+    for group in ("likelihoods", "machine_likelihoods"):
+        if group in ref:
+            torch.testing.assert_close(got[group]["y"].cpu(), ref[group]["y"], rtol=0, atol=1e-3)
+    for group in ("Teacher_output_features", "Student_output_features"):
+        for k, v in ref[group].items():
+            err = (got[group][k].cpu() - v).abs().max() / v.abs().max()
+            assert err <= 1e-3, (group, k, float(err))
+
+
+def test_oj_wires_on_the_card():
+    """A narrow oj_ICM on 2 x 128 px: the host wire (``CharmCodec``) and the
+    device wire (``DeviceWireCodec``: 2 encode and slices + 1 decode
+    launches) bit-exact, the device wire's y_hat and x_hat the host wire's;
+    the scan wire refused; the eval forward against the CPU's."""
+    _needs_card()
+    from icm_tpu_torch.models import CharmCodec, DeviceWireCodec
+
+    model = _oj_model("oj_ICM", "cuda")
+    x = _scan_images(128)
+    host = CharmCodec(model, narrow=0.2)
+    enc = host.compress(x, return_debug=True)
+    dec = host.decompress(enc["strings"], enc["shape"])
+    assert torch.equal(dec["y_hat"], enc["y_hat"]) and torch.equal(dec["x_hat"], enc["x_hat"])
+    assert sum(int(s.count_nonzero()) for s in host._encode_symbols(x)["syms"]) > 0
+    dev = DeviceWireCodec(model, narrow=0.2)
+    counts = (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES)
+    e = dev.compress(x, return_debug=True)
+    d = dev.decompress(e["strings"], e["shape"])
+    torch.cuda.synchronize()
+    assert (tdr.ENCODE_LAUNCHES - counts[0], tdr.DECODE_LAUNCHES - counts[1]) == (
+        2, model.ctx_slices + 1)
+    for k in ("y_hat", "x_hat"):
+        assert torch.equal(d[k], e[k]) and torch.equal(e[k], enc[k]), k
+    with pytest.raises(NotImplementedError, match="FasterRCNN_Coding"):
+        DeviceWireCodec(model, scan_wire=True)
+    _oj_eval_card_vs_cpu("oj_ICM", model, x)
+
+
+def test_seg_oj_wires_on_the_card():
+    """A narrow seg_oj_ICM on 2 x 128 px: ``SegOjCodec`` on the host, device
+    and scan wires (graphed and launch by launch), every round trip
+    bit-exact in y_hat, seg_y_hat and x_hat, both layers coding nonzero
+    symbols; the device wire's the host wire's, 4 encode and 2 x (slices +
+    1) decode launches, the same on the scan wire with each layer's chain a
+    graph each way, one decode launch a slice inside its decode graph; the
+    graphed scan wire's blobs and bits those of its launches, its latents
+    within the scan wire's bar of the device wire's; the eval forward
+    against the CPU's."""
+    _needs_card()
+    from icm_tpu_torch.models.crc_codec import SegOjCodec
+
+    model = _oj_model("seg_oj_ICM", "cuda")
+    x = _scan_images(128)
+    keys = ("y_hat", "seg_y_hat", "x_hat")
+
+    def dec(codec, e):
+        return codec.decompress(e["strings"], e["shape"], e["seg_shape"])
+
+    host = SegOjCodec(model, narrow=0.2)
+    for k, syms in host.symbols(x).items():
+        assert sum(int(s.count_nonzero()) for s in syms) > 0, k
+    enc = host.compress(x, return_debug=True)
+    assert len(enc["strings"]) == 4
+    d = dec(host, enc)
+    assert all(torch.equal(d[k], enc[k]) for k in keys)
+    n = model.coder.ctx_slices
+    outs = {}
+    for wire, kw in (("device", {}), ("scan", dict(scan_wire=True)),
+                     ("scan_launches", dict(scan_wire=True, cuda_graphs=False))):
+        codec = SegOjCodec(model, narrow=0.2, wire="device", **kw)
+        dec(codec, codec.compress(x))  # the scan wire's graphs are captured by a first call
+        counts = (tdr.ENCODE_LAUNCHES, tdr.DECODE_LAUNCHES)
+        e = codec.compress(x, return_debug=True)
+        d = dec(codec, e)
+        torch.cuda.synchronize()
+        assert (tdr.ENCODE_LAUNCHES - counts[0], tdr.DECODE_LAUNCHES - counts[1]) == (
+            4, 2 * (n + 1))
+        assert all(torch.equal(d[k], e[k]) for k in keys)
+        outs[wire] = (e, d)
+        if wire == "scan":
+            chains = {key: g for key, g in codec.graphs.graphs().items() if key[0] == "scan"}
+            assert {(k[1], k[-1]) for k in chains} == {(w, layer) for w in ("encode", "decode")
+                                                       for layer in ("m", "s")}
+            for key, g in chains.items():
+                want = n if key[1] == "decode" else 0
+                assert sum(g.launches["DECODE_LAUNCHES"].values()) == want, key
+    assert all(torch.equal(outs["device"][0][k], enc[k]) for k in keys)
+    (se, sd), (pe, pd) = outs["scan"], outs["scan_launches"]
+    assert se["strings"] == pe["strings"]
+    for got, want in ((se, pe), (sd, pd)):
+        assert all(torch.equal(got[k], want[k]) for k in keys)
+    for k in ("y_hat", "seg_y_hat"):
+        diff = (se[k] - enc[k]).abs()
+        assert float((diff > 1e-2).float().mean()) < 0.005 and float(diff.median()) < 1e-4, k
+    _oj_eval_card_vs_cpu("seg_oj_ICM", model, x)
+
+
+# the oj models' training patterns (tools/train_oj.py, train_seg_oj.py)
+OJ_PATTERNS = {"oj_ICM": dict(freeze_patterns=("task_net",)),
+               "seg_oj_ICM": dict(freeze_patterns=("task_net",), train_patterns=("seg",))}
+
+
+@pytest.mark.parametrize("name", sorted(OJ_PATTERNS))
+def test_oj_train_step_card_vs_cpu(name):
+    """One step of ``DetectionICMLoss(1.0)`` on the card and on the CPU, the
+    same weights and noise, the optimizer's patterns freezing what the
+    training tools freeze: the same parameters take gradients on both
+    (oj_ICM's codec; seg_oj_ICM's ``seg*`` alone), the loss terms (the
+    feature term above 0) and every gradient within 1e-3 of its max."""
+    _needs_card()
+    from icm_tpu_torch.models import cuda_numerics
+    from icm_tpu_torch.train import DetectionICMLoss, make_optimizer
+
+    cuda_numerics()
+    model = _oj_model(name, "cuda").train()
+    cpu = _oj_model(name, "cpu").train()
+    cpu.load_state_dict(model.state_dict())
+    for m in (model, cpu):
+        make_optimizer(m, **OJ_PATTERNS[name])
+    x = _scan_images(64)
+    criterion = DetectionICMLoss(1.0)
+
+    def step(m, xs):
+        m.zero_grad(set_to_none=True)
+        out = m(xs, generator=torch.Generator().manual_seed(0))
+        terms = criterion(out, xs)
+        aux = m.aux_loss()
+        (terms["loss"] + aux).backward()
+        return ({k: float(v) for k, v in {**terms, "aux_loss": aux}.items()},
+                {n: p.grad.detach().cpu() for n, p in m.named_parameters() if p.grad is not None})
+
+    got_terms, got = step(model, x)
+    ref_terms, ref = step(cpu, x.cpu())
+    trained = {n for n, _ in model.named_parameters() if not n.startswith("task_net.")
+               and (name == "oj_ICM" or n.startswith("seg_"))}
+    assert set(got) == set(ref) == trained
+    assert ref_terms["feature_loss"] > 0
+    for k, v in ref_terms.items():
+        assert abs(got_terms[k] - v) <= 1e-3 * max(abs(v), 1e-30), k
+    for n in ref:
+        err = (got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)
+        assert err <= 1e-3, (n, float(err))
+
+
 # (dim, heads): czigzag's head widths 16 (its transforms' 48 channels at 3
 # heads), 48 and 96 (its hyper stacks' 192 and 384 channels at 4 heads)
 CROSS_WIDTHS = [(48, 3), (192, 4), (384, 4)]

@@ -1,8 +1,9 @@
 """czigzag under the bfloat16 activation policy against the JAX package's
 (``set_activation_dtype(jnp.bfloat16)``), at ``tests/test_bf16.py``'s bars
-(``test_torch_bf16.py``), on the narrow twin's images at the JAX model's
-own init (``tests/test_masked_czigzag.py``'s ``CZ_TINY``: its init codes
-nonzero y symbols at ``narrow`` 4): the eval forward, one training step
+(``test_torch_bf16.py``), on the narrow twin's images at weights of the
+JAX model's init's distributions (``test_torch_crc.init_like``, at
+``tests/test_masked_czigzag.py``'s ``CZ_TINY``: they code nonzero y
+symbols at ``narrow`` 4): the eval forward, one training step
 and the host and device wires, and the scan wire refusing the policy, as
 JAX's fails under it. x_hat is float32 in both packages (``end_to_rgb``
 has no dtype) and the wires' y_hat bfloat16. JAX's cross attention rounds
@@ -16,6 +17,7 @@ import pytest
 import torch
 from test_torch_bf16 import (BF16, BPP_RTOL, SYMBOL_SHARE_TOL, XHAT_MEAN_TOL,
                              _assert_bf16_close, _bpp)
+from test_torch_crc import init_like
 from test_torch_czigzag import CZ_TINY, NARROW, images, nhwc, port_codec, train_noise
 from test_torch_stf_family import on_wires, port_tables
 from test_torch_train import _replay
@@ -42,10 +44,9 @@ class TestCzigzagBf16:
         x, up = images((64, 64))
         jcls, jkw = jax_models["czigzag"]
         jm = jcls(**{**jkw, **CZ_TINY})
-        # jitted: the init traced op by op takes a minute
-        params = jax.device_get(jax.jit(lambda a, b: jm.init(
+        params = init_like(jax.eval_shape(lambda: jm.init(
             {"params": jax.random.PRNGKey(1), "noise": jax.random.PRNGKey(2)},
-            a, b, training=False))(jnp.asarray(x), jnp.asarray(up))["params"])
+            jnp.asarray(x), jnp.asarray(up), training=False))["params"], seed=1)
         tm = tmodels.create_model("czigzag", device="cpu", **CZ_TINY)
         tm.load_state_dict(from_jax_params(params), strict=True)
         return dict(jm=jm, params=params, tm=tm.eval(), x=x, up=up)

@@ -201,10 +201,12 @@ SCANNED = sorted(
 
 def test_import_scan_covers_the_port_modules():
     """Every module of the package is scanned, the reference-checkpoint,
-    zigzag-family, CRC-family, masked-family, czigzag and cnn2 ones among
-    them (the scan wires and stacked weights too, stf2's token scan,
-    czigzag's codec, cnn2's task networks and detection evaluators, the two
-    probes and the tensor-core rate probe)."""
+    zigzag-family, CRC-family, masked-family, czigzag, cnn2 and oj ones
+    among them (the scan wires and stacked weights too, stf2's token scan,
+    czigzag's codec, cnn2's task networks and detection evaluators, the oj
+    models' FPN, SegOjCodec, DetectionICMLoss and the optimizer that
+    freezes their task net, the two probes and the tensor-core rate
+    probe)."""
     for path in ("icm_tpu_torch/zoo.py", "icm_tpu_torch/scan/zigzag.py",
                  "icm_tpu_torch/models/stf_family.py", "icm_tpu_torch/models/codec.py",
                  "icm_tpu_torch/models/scan_codec.py", "icm_tpu_torch/convert.py",
@@ -215,7 +217,8 @@ def test_import_scan_covers_the_port_modules():
                  "icm_tpu_torch/models/icm.py", "icm_tpu_torch/tasks/anchors.py",
                  "icm_tpu_torch/tasks/resnet.py", "icm_tpu_torch/tasks/fpn.py",
                  "icm_tpu_torch/tasks/retinanet.py", "icm_tpu_torch/tasks/losses.py",
-                 "icm_tpu_torch/eval/metrics.py",
+                 "icm_tpu_torch/eval/metrics.py", "icm_tpu_torch/train/losses.py",
+                 "icm_tpu_torch/train/optim.py",
                  "tools/torch_smoke_models.py", "tools/probe_stf2_narrow.py",
                  "tools/probe_czigzag_narrow.py", "tools/torch_mma_peak.py"):
         assert path in SCANNED

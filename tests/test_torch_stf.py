@@ -18,11 +18,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_cnn_codec import CROSS_TOL
+from test_torch_cnn_codec import CROSS_TOL, JaxHostWire
 from test_torch_train import _close, _replay
 
 from icm_tpu.entropy import EntropyBottleneck
-from icm_tpu.models import CharmCodec as JaxCharmCodec
 from icm_tpu.models import SymmetricalTransFormer as JaxSTF
 from icm_tpu.models.device_codec import DeviceWireCodec as JaxDeviceWireCodec
 from icm_tpu.train import RateDistortionLoss as JaxRD
@@ -147,10 +146,16 @@ def port_codec(twins):
 
 
 @pytest.fixture(scope="module")
-def jax_codec(twins):
-    jm, variables, _, x = twins
-    jc = JaxCharmCodec(jm, variables)
-    return jc, jc.compress(jnp.asarray(x), return_debug=True)
+def jax_device_codec(twins):
+    """One JAX codec for both wires, which share its compiled functions."""
+    jm, variables, _, _ = twins
+    return JaxDeviceWireCodec(jm, variables, lanes_per_image=4)
+
+
+@pytest.fixture(scope="module")
+def jax_codec(twins, jax_device_codec):
+    jc = JaxHostWire(jax_device_codec)
+    return jc, jc.compress(jnp.asarray(twins[3]), return_debug=True)
 
 
 def test_port_roundtrip_bitexact(twins, port_codec):
@@ -213,10 +218,8 @@ def port_wire(twins):
 
 
 @pytest.fixture(scope="module")
-def jax_wire(twins):
-    jm, variables, _, x = twins
-    jc = JaxDeviceWireCodec(jm, variables, lanes_per_image=4)
-    return jc, jc.compress(jnp.asarray(x), return_debug=True)
+def jax_wire(twins, jax_device_codec):
+    return jax_device_codec, jax_device_codec.compress(jnp.asarray(twins[3]), return_debug=True)
 
 
 def test_device_wire_roundtrip_bitexact(twins, port_wire, port_codec):

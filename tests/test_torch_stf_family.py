@@ -34,10 +34,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_cnn_codec import CROSS_TOL
+from test_torch_cnn_codec import CROSS_TOL, JaxHostWire
 from test_torch_stf import _assert_forward_close, _params_from_numpy
 
-from icm_tpu.models import CharmCodec as JaxCharmCodec
 from icm_tpu.models import ZigzagSwinCodec as JaxZigzag
 from icm_tpu.models import models as jax_models
 from icm_tpu.models.device_codec import DeviceWireCodec as JaxDeviceWireCodec
@@ -137,8 +136,9 @@ class FamilyTwin:
         jm, variables, tm, x = make_twin(self.name)
         xj = jnp.asarray(x)
         ref = jax.jit(lambda v, x: jm.apply(v, x, training=False))(variables, xj)
-        jc = JaxCharmCodec(jm, variables)
+        # one JAX codec serves both wires, which share its compiled functions
         jdev = JaxDeviceWireCodec(jm, variables, lanes_per_image=4)
+        jc = JaxHostWire(jdev)
         host = tmodels.CharmCodec(tm, tables=port_tables(jc.tables))
         dev = tmodels.DeviceWireCodec(tm, lanes_per_image=4, tables=port_tables(jdev.tables))
         return dict(jm=jm, variables=variables, tm=tm, x=x, ref=ref, jc=jc,

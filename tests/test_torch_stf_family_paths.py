@@ -45,11 +45,11 @@ import pytest
 import torch
 from test_torch_bf16 import (BF16, BPP_RTOL, SYMBOL_SHARE_TOL, XHAT_MEAN_TOL,
                              _assert_bf16_close, _bpp, _dense_kernels_as_initialized)
+from test_torch_cnn_codec import JaxHostWire
 from test_torch_stf_family import TINY_SWIN, TWINS, make_twin, port_tables
 from test_torch_train import _close, _replay
 
 from icm_tpu import nn as jnn
-from icm_tpu.models import CharmCodec as JaxCharmCodec
 from icm_tpu.models import ZigzagSwinCodec as JaxZigzag
 from icm_tpu.models.device_codec import DeviceWireCodec as JaxDeviceWireCodec
 from icm_tpu.models.stf_family import stack_zigzag_params as jax_stack
@@ -506,10 +506,11 @@ class FamilyBf16Twin:
         xs = torch.from_numpy(x)
         jm, variables = twin["jm"], {"params": twin["params"]}
         jnn.set_activation_dtype(jnp.bfloat16)  # before the JAX codecs trace
-        jc = JaxCharmCodec(jm, variables)
+        # one JAX codec serves both wires, which share its compiled functions
+        jdev = JaxDeviceWireCodec(jm, variables, lanes_per_image=LANES)
+        jc = JaxHostWire(jdev)
         jenc = jc.compress(jnp.asarray(x), return_debug=True)
         jx_hat = jc.decompress(jenc["strings"], jenc["shape"])["x_hat"]
-        jdev = JaxDeviceWireCodec(jm, variables, lanes_per_image=LANES)
         jdenc = jdev.compress(jnp.asarray(x), return_debug=True)
         jnn.set_activation_dtype(None)
         tables = port_tables(jdev.tables)

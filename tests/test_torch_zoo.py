@@ -407,7 +407,7 @@ def test_load_reference_checkpoint_reads_a_saved_file(tmp_path, monkeypatch):
     assert_same_state_dict(tzoo.load_reference_checkpoint("stf", str(path)), want)
 
 
-@pytest.mark.parametrize("arch", ["czigzag2", "stf10", "stf1", "seg_oj_ICM", "cnn3", "oj_ICM",
+@pytest.mark.parametrize("arch", ["czigzag2", "stf10", "stf1", "seg_oj_ICM2", "cnn3", "oj_ICM2",
                                   "nope"])
 def test_architectures_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

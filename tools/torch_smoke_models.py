@@ -1,15 +1,15 @@
-"""chip_smoke.py's phases of some CRC-family, masked-family, czigzag or
-cnn2 models alone, on the card: the quick check of one model's paths
+"""chip_smoke.py's phases of some CRC-family, masked-family, czigzag, cnn2
+or oj models alone, on the card: the quick check of one model's paths
 without the whole run.
 
     python3 tools/torch_smoke_models.py [--models stf13] [--size 512] [--seed 0]
         [--out models.json] [--probe-gains 8,16,32]
 
 Builds every kernel (``chip_smoke.build_kernels``), then runs, for each
-model of ``--models`` (comma-separated, of ``chip_smoke.CRC``,
-``chip_smoke.MASKED``, ``czigzag`` and ``cnn2``), its phases as
-``chip_smoke.main`` does, each phase holding what it holds in the whole
-run:
+model of ``--models`` (comma- or space-separated, of ``chip_smoke.CRC``,
+``chip_smoke.MASKED``, ``czigzag``, ``cnn2``, ``oj_ICM`` and
+``seg_oj_ICM``), its phases as ``chip_smoke.main`` does, each phase
+holding what it holds in the whole run:
 
 - a CRC model (``chip_smoke.crc_model_phases``) on phase 5's images: the
   three wires and the eval forward card against CPU, training, the bf16
@@ -31,7 +31,11 @@ run:
   and launch counts on the device, scan and bf16 device wires and of its
   reference checkpoint): the device and scan wires with detection on the
   decoded images, the student card against CPU, the bf16 policy's serving,
-  training and the reference checkpoint.
+  training and the reference checkpoint;
+- oj_ICM and seg_oj_ICM together (``chip_smoke.oj_model_phases``, phases
+  53-56; either name runs both) on phase 5's images: their wires, the eval
+  forward and the task net card against CPU, training, the bf16 policy and
+  the reference checkpoints.
 
 Prints the card's name and power limit and, last, one JSON line of each
 model's results and launch counts; ``--out`` also writes it. Exits 1 if a
@@ -85,7 +89,7 @@ def probe_gains(smoke, name: str, x, seed: int, gains) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--models", default="stf13")
+    ap.add_argument("--models", nargs="+", default=["stf13"])
     ap.add_argument("--size", type=int, default=0,
                     help="px a side of a masked model's images; 0: MASKED_SIZE")
     ap.add_argument("--seed", type=int, default=0)
@@ -103,12 +107,13 @@ def main() -> int:
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    names = args.models.split(",")
-    unknown = sorted(set(names) - set(smoke.CRC) - set(smoke.MASKED) - {"czigzag", "cnn2"})
+    names = [n for arg in args.models for n in arg.split(",") if n]
+    unknown = sorted(set(names) - set(smoke.CRC) - set(smoke.MASKED) - {"czigzag", "cnn2"}
+                     - set(smoke.OJ))
     if args.probe_gains:
-        unknown += sorted(set(names) & (set(smoke.MASKED) | {"czigzag", "cnn2"}))
+        unknown += sorted(set(names) & (set(smoke.MASKED) | {"czigzag", "cnn2"} | set(smoke.OJ)))
     if unknown:
-        what = "CRC" if args.probe_gains else "CRC, masked, czigzag or cnn2"
+        what = "CRC" if args.probe_gains else "CRC, masked, czigzag, cnn2 or oj"
         print(f"torch_smoke_models: not {what} models of chip_smoke.py: {unknown}",
               file=sys.stderr)
         return 2
@@ -130,6 +135,12 @@ def main() -> int:
                 result, counts, shapes = smoke.czigzag_model_phases(x, card, zero_counts,
                                                                     read_counts, args.seed)
                 out[name] = {"result": result, "launches": counts, "launches_by_shape": shapes}
+            elif name in smoke.OJ:
+                if "oj" in out:  # one run serves both names
+                    continue
+                out["oj"] = {n: {"result": r, "launches": c, "launches_by_shape": sh}
+                             for n, (r, c, sh) in smoke.oj_model_phases(
+                                 x, card, zero_counts, read_counts, args.seed).items()}
             elif name == "cnn2":
                 cnn = smoke.cnn_refs(x, zero_counts, read_counts, args.seed)
                 result, counts, bf16_counts = smoke.cnn2_model_phases(
